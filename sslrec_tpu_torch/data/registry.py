@@ -1,0 +1,18 @@
+"""Data-handler registry: scenario type → loader (port of
+``sslrec_tpu/data/registry.py``; the ``general_cf`` scenario only so far)."""
+
+from __future__ import annotations
+
+import importlib
+
+_HANDLERS = {
+    "general_cf": "sslrec_tpu_torch.data.general_cf",
+}
+
+
+def load_data(cfg, device="cpu"):
+    dtype = cfg.data.type
+    if dtype not in _HANDLERS:
+        raise KeyError(f"unknown data type {dtype!r}; available: {sorted(_HANDLERS)}")
+    module = importlib.import_module(_HANDLERS[dtype])
+    return module.load(cfg, device)

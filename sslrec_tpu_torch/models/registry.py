@@ -1,0 +1,26 @@
+"""Model registry: name → class (port of ``sslrec_tpu/models/registry.py``;
+LightGCN only so far).  Lookup is case-insensitive."""
+
+from __future__ import annotations
+
+import importlib
+
+# name -> (module path, class name). Populated as model families land.
+_REGISTRY: dict[str, tuple[str, str]] = {
+    "lightgcn": ("sslrec_tpu_torch.models.general_cf.lightgcn", "LightGCN"),
+}
+
+
+def available_models() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def build_model(cfg, data):
+    """The model named by ``cfg.model.name``, with its parameters on the data's
+    device, not yet initialised: call ``init_params``."""
+    name = cfg.model.name.lower()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model {name!r}; available: {available_models()}")
+    module_path, cls_name = _REGISTRY[name]
+    cls = getattr(importlib.import_module(module_path), cls_name)
+    return cls(cfg, data)

@@ -1,0 +1,63 @@
+"""Sparse × dense products for graph propagation (port of ``sslrec_tpu/ops/spmm.py``).
+
+Every product goes through the CSR kernel of
+:mod:`sslrec_tpu_torch.ops.spmm_kernel`; ``spmm_dense_ref`` is the dense
+reference for tests.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sslrec_tpu_torch.ops.spmm_kernel import CsrGraph, EdgeMask, SpmmFn, SpmmPvFn
+
+
+def spmm(g: CsrGraph, x: torch.Tensor,
+         edge_weight: torch.Tensor | EdgeMask | None = None) -> torch.Tensor:
+    """``A @ x``; ``x`` is ``[n_cols, d]``.
+
+    ``edge_weight``: ``None``; a ``[nnz]`` multiplier on ``g.vals`` in the
+    original edge order, differentiable (learned edge gates); or an
+    :class:`EdgeMask`, a constant multiplier such as a dropout mask.
+    """
+    if isinstance(edge_weight, EdgeMask):
+        return SpmmPvFn.apply(g, x, edge_weight.w)
+    return SpmmFn.apply(g, x, edge_weight)
+
+
+def spmm_layers(g: CsrGraph, x0: torch.Tensor, n_layers: int,
+                edge_weight: torch.Tensor | EdgeMask | None = None) -> torch.Tensor:
+    """``n_layers`` repeated hops ``x ← A @ x``; returns ``[n_layers, n_rows, d]``.
+
+    ``edge_weight``: as for :func:`spmm`, the same every hop, or with a leading
+    ``[n_layers]`` dimension for one multiplier per hop.
+    """
+    per_layer = edge_weight is not None and edge_weight.ndim == 2
+    ys, x = [], x0
+    for layer in range(n_layers):
+        ew = edge_weight
+        if per_layer:
+            ew = (EdgeMask(edge_weight.w[layer]) if isinstance(edge_weight, EdgeMask)
+                  else edge_weight[layer])
+        x = spmm(g, x, edge_weight=ew)
+        ys.append(x)
+    return torch.stack(ys)
+
+
+def spmm_t(g: CsrGraph, x: torch.Tensor,
+           edge_weight: torch.Tensor | EdgeMask | None = None) -> torch.Tensor:
+    """``Aᵀ @ x`` through the transposed layout; ``x`` is ``[n_rows, d]``."""
+    return spmm(g.t(), x, edge_weight)
+
+
+def sddmm(g, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sampled dense-dense product: per-edge ``⟨a[row], b[col]⟩`` → ``[nnz]``."""
+    return (a[g.rows] * b[g.cols]).sum(-1)
+
+
+def spmm_dense_ref(g, x: torch.Tensor) -> torch.Tensor:
+    """Dense reference (tests only)."""
+    dense = torch.zeros(g.n_rows, g.n_cols, dtype=x.dtype, device=x.device)
+    dense.index_put_((g.rows.long(), g.cols.long()), g.vals.to(x.dtype),
+                     accumulate=True)
+    return dense @ x

@@ -1,0 +1,98 @@
+"""Where a training epoch and an evaluation spend their time on the card.
+
+    python -m sslrec_tpu_torch.profile_epoch --model lightgcn --data_dir datasets \
+        --dataset alibaba-fashion [--out chiprun_out/profile]
+
+Takes the CLI's flags (``--device`` must be ``cuda``).  Loads the data,
+trains epoch 0 as a warm-up, then times epochs 1-3 and three evaluations of
+the valid split with the host clock, and traces epoch 4 and a fourth
+evaluation with ``torch.profiler``.  Prints the untraced wall times, the
+device's busy share of their median, and device time by kernel; writes a
+Chrome trace per window under ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from sslrec_tpu_torch.config import parse_cli
+from sslrec_tpu_torch.data.registry import load_data
+from sslrec_tpu_torch.main import resolve_device
+from sslrec_tpu_torch.models.registry import build_model
+from sslrec_tpu_torch.trainer.metrics import Evaluator
+from sslrec_tpu_torch.trainer.trainer import INIT_STREAM, Trainer, generator
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def report(name: str, prof, wall_s: float, top: int = 15) -> None:
+    """Busy share = traced device kernel time over the untraced wall time of
+    the same window (one stream, so kernels do not overlap).  Only kernels and
+    copies count: an operator's row, or a ``record_function`` range such as
+    ``Optimizer.step``, repeats the time of the kernels inside it."""
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(_device_us(e) for e in rows)
+    print(f"-- {name}: median wall {wall_s * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
+          f"({100 * busy_us / (wall_s * 1e6):.1f}%), idle "
+          f"{100 - 100 * busy_us / (wall_s * 1e6):.1f}%")
+    for e in sorted(rows, key=_device_us, reverse=True)[:top]:
+        print(f"   {_device_us(e) / 1e3:9.3f} ms {100 * _device_us(e) / busy_us:5.1f}% "
+              f"x{e.count:<6d} {e.key[:90]}")
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--out", default=os.path.join("chiprun_out", "profile"))
+    args, rest = p.parse_known_args(argv)
+    cfg = parse_cli(rest)
+    device = resolve_device(cfg.train.device)
+    if device.type != "cuda":
+        raise SystemExit("profile_epoch: needs --device cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0])
+    os.makedirs(args.out, exist_ok=True)
+    data = load_data(cfg, device)
+    model = build_model(cfg, data)
+    model.init_params(generator(int(cfg.train.seed), INIT_STREAM))
+    trainer = Trainer(cfg, model, data)
+    split = data.valid if data.valid is not None else data.test
+    evaluator = Evaluator(split, cfg)
+    trainer.train_epoch(0)          # warm-up: allocator, library load, kernel build
+    evaluator(model)
+    torch.cuda.synchronize()
+    windows = (("train epoch", f"{trainer.n_batches} steps", trainer.train_epoch),
+               ("evaluation", f"{split.n_test_users} users", lambda _: evaluator(model)))
+    for name, what, fn in windows:
+        walls = []
+        for rep in range(1, 4):     # untraced: the profiler's own cost left out
+            t0 = time.perf_counter()
+            fn(rep)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"-- {name}: untraced wall " + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+              + " ms")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(4)
+            torch.cuda.synchronize()
+        report(f"{name} ({what}), traced once", prof, sorted(walls)[1])
+        prof.export_chrome_trace(os.path.join(args.out, name.replace(" ", "_") + ".json"))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

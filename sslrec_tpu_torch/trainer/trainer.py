@@ -1,0 +1,195 @@
+"""Training loop with early stopping (port of ``sslrec_tpu/trainer/trainer.py``).
+
+Each epoch: shuffle, wrap-pad the permutation to full batches, draw one
+negative per interaction, then one Adam step per batch.  Evaluate every
+``test_step`` epochs on valid (else test), stop early after ``patience``
+evaluations without a gain in ``metrics[0]@k[0]``, keep the best parameters,
+and finish with the best-valid and test evaluations.
+
+The JAX package compiles a whole epoch into one ``lax.scan``; here the steps
+are an eager Python loop.  Randomness comes from explicit generators: epoch
+``e`` draws its permutation, negatives and per-step dropout keys from a CPU
+generator seeded by ``(seed, e)`` (the counterpart of
+``fold_in(root, epoch)``), so an epoch's draws do not depend on the device or
+on the epochs before it.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from sslrec_tpu_torch.data.base import DataBundle
+from sslrec_tpu_torch.data.sampling import sample_negatives
+from sslrec_tpu_torch.trainer.logger import Logger, log_exceptions
+from sslrec_tpu_torch.trainer.metrics import Evaluator
+from sslrec_tpu_torch.utils.results import RunRecorder
+
+
+def build_optimizer(cfg, params) -> torch.optim.Optimizer:
+    """Adam; ``weight_decay > 0`` adds L2 to the gradient before Adam, as
+    optax's ``add_decayed_weights`` before ``adam`` does (not AdamW)."""
+    name = cfg.optimizer.get("name", "adam").lower()
+    if name != "adam":
+        raise NotImplementedError(f"optimizer {name}")
+    lr = float(cfg.optimizer.lr)
+    wd = float(cfg.optimizer.get("weight_decay", 0.0) or 0.0)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=wd)
+
+
+INIT_STREAM = 2**32    # generator path of the parameter draw, apart from epochs
+
+
+def generator(seed: int, *path: int) -> torch.Generator:
+    """A CPU generator seeded from ``(seed, *path)`` through numpy's
+    SeedSequence, so distinct paths give independent streams."""
+    state = np.random.SeedSequence([int(seed), *map(int, path)]).generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(state[0]) & (2**63 - 1))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Trainer:
+    """Default pairwise trainer for a :class:`~sslrec_tpu_torch.models.base.RecModel`."""
+
+    def __init__(self, cfg, model, data: DataBundle, logger: Logger | None = None):
+        self.cfg = cfg
+        self.model = model
+        self.data = data
+        self.logger = logger    # made by train() when None
+        self.device = data.device
+        self.optimizer = build_optimizer(cfg, model.parameters())
+        self.batch_size = int(cfg.train.batch_size)
+        self.n_batches = -(-data.n_train // self.batch_size)
+
+    # ------------------------------------------------------------------
+    def train_step(self, batch: dict, key: torch.Tensor) -> dict:
+        """One Adam step on ``batch`` (user/pos/neg index tensors) with the
+        dropout PRF ``key``; returns the loss terms as detached tensors."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, aux = self.model.loss(batch, key)
+        loss.backward()
+        self.optimizer.step()
+        return {**{k: v.detach() for k, v in aux.items()}, "loss": loss.detach()}
+
+    def epoch_draws(self, epoch: int):
+        """Epoch ``epoch``'s batches ``[n_batches, B]`` (indices into the train
+        interactions), one negative per interaction, and per-step PRF keys
+        ``[n_batches, 2]`` (uint32 values in int64), all on the data's device."""
+        data, bsz, n_batches = self.data, self.batch_size, self.n_batches
+        gen = generator(int(self.cfg.train.seed), epoch)
+        perm = torch.randperm(data.n_train, generator=gen)
+        pad = n_batches * bsz - data.n_train
+        if pad:
+            perm = torch.cat([perm, perm[:pad]])
+        idx = perm.view(n_batches, bsz).to(self.device)
+        negs = sample_negatives(gen, data.train_users, data.train_edge_set,
+                                data.item_num)
+        keys = torch.randint(0, 2**32, (n_batches, 2), generator=gen,
+                             dtype=torch.int64).to(self.device)
+        return idx, negs, keys
+
+    def train_epoch(self, epoch: int) -> dict[str, float]:
+        idx, negs, keys = self.epoch_draws(epoch)
+        users, items = self.data.train_users, self.data.train_items
+        sums = None
+        for bidx, key in zip(idx, keys):
+            batch = {"user": users[bidx], "pos": items[bidx], "neg": negs[bidx]}
+            aux = self.train_step(batch, key)
+            sums = aux if sums is None else {k: sums[k] + v for k, v in aux.items()}
+        return {k: float(v) / self.n_batches for k, v in sums.items()}
+
+    # ------------------------------------------------------------------
+    @log_exceptions
+    def train(self) -> dict[str, torch.Tensor]:
+        """Initialise, train, evaluate; returns the best parameters (a state
+        dict), also left loaded in the model."""
+        cfg, model = self.cfg, self.model
+        if self.logger is None:
+            self.logger = Logger(cfg)
+        model.init_params(generator(int(cfg.train.seed), INIT_STREAM))
+        best_metric = -1.0
+        best_state = _snapshot(model)
+        wait = 0
+
+        eval_split = self.data.valid if self.data.valid is not None else self.data.test
+        evaluator = Evaluator(eval_split, cfg)
+        test_evaluator = Evaluator(self.data.test, cfg)
+
+        metric0 = cfg.test.metrics[0]
+        patience = int(cfg.train.get("patience", 0) or 0)
+        early_stop = bool(cfg.train.get("early_stop", False))
+        test_step = int(cfg.train.get("test_step", 1))
+        n_epochs = int(cfg.train.epoch)
+
+        recorder = RunRecorder(cfg)
+        recorder.note(device=_device_name(self.device))
+        self.recorder = recorder
+
+        for epoch in range(n_epochs):
+            _sync(self.device)
+            t0 = time.perf_counter()
+            losses = self.train_epoch(epoch)        # reading the losses syncs
+            timing = {"train_s": time.perf_counter() - t0,
+                      "train_examples": self.n_batches * self.batch_size}
+            if cfg.train.get("log_loss", True):
+                self.logger.log_loss(epoch, losses)
+            epoch_valid = None
+            if epoch % test_step == 0:
+                t0 = time.perf_counter()
+                results = evaluator(model)          # reading the metrics syncs
+                timing.update(eval_s=time.perf_counter() - t0,
+                              eval_users=eval_split.n_test_users)
+                epoch_valid = results
+                self.logger.log_eval(results, cfg.test.k, epoch=epoch,
+                                     name=f"(valid, {timing['eval_s']:.1f}s)")
+                cur = float(results[metric0][0])
+                if cur > best_metric:
+                    best_metric = cur
+                    best_state = _snapshot(model)
+                    wait = 0
+                else:
+                    wait += 1
+                if early_stop and wait >= patience:
+                    self.logger.log(f"Early stop at epoch {epoch} "
+                                    f"(best {metric0}@{cfg.test.k[0]}={best_metric:.5f})")
+                    recorder.record_epoch(epoch, losses, epoch_valid, **timing)
+                    break
+            recorder.record_epoch(epoch, losses, epoch_valid, **timing)
+        else:
+            # fixed-epoch run without early stop: when the final epoch is off
+            # the test_step grid it was never scored; score it so the run does
+            # not report a stale earlier snapshot as "best"
+            if n_epochs > 0 and (n_epochs - 1) % test_step != 0:
+                cur = float(evaluator(model)[metric0][0])
+                if cur > best_metric:
+                    best_metric = cur
+                    best_state = _snapshot(model)
+
+        model.load_state_dict(best_state)
+        final_valid = evaluator(model)
+        self.logger.log_eval(final_valid, cfg.test.k, name="(best valid)")
+        test_results = test_evaluator(model)
+        self.logger.log_eval(test_results, cfg.test.k, name="(test)")
+        rpath = recorder.finalize(best_valid=final_valid, test=test_results)
+        if rpath:
+            self.logger.log(f"wrote results artifact {rpath}")
+        self.best_state = best_state
+        self.test_results = test_results
+        return best_state
+
+
+def _snapshot(model) -> dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _device_name(device: torch.device) -> str:
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return str(device)

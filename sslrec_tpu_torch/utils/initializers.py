@@ -1,0 +1,16 @@
+"""Parameter initialisers (port of ``sslrec_tpu/utils/initializers.py``)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def xavier_uniform(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+    """U(±√(6 / (fan_in + fan_out))) over the last two dims, drawn on ``gen``'s
+    device (``nn.init.xavier_uniform_``'s bound)."""
+    fan_in, fan_out = shape[-2], shape[-1]
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)
+    return u * (2 * limit) - limit

@@ -18,6 +18,7 @@ import scipy.sparse as sp
 import torch
 
 from sslrec_tpu_torch.data.base import DataBundle, EvalData
+from sslrec_tpu_torch.data.kg import read_cf
 from sslrec_tpu_torch.ops import sparse as sparse_ops
 from sslrec_tpu_torch.ops.spmm_kernel import build_csr_graph
 
@@ -80,19 +81,6 @@ def bundle_from_matrices(trn_mat: sp.spmatrix, val_mat: sp.spmatrix | None,
             "train_mat_scipy": trn_mat.tocoo(),
         },
     )
-
-
-def read_cf(path: str) -> np.ndarray:
-    """``u i1 i2 ...`` lines → unique [n, 2] (u, i) pairs (copy of
-    ``sslrec_tpu/data/kg.py::read_cf``)."""
-    pairs = []
-    with open(path) as f:
-        for line in f:
-            toks = [int(x) for x in line.strip().split(" ")]
-            u, items = toks[0], sorted(set(toks[1:]))
-            for i in items:
-                pairs.append((u, i))
-    return np.asarray(pairs, dtype=np.int64)
 
 
 def _mats_from_txt(d: str):

@@ -1,5 +1,5 @@
 """Data-handler registry: scenario type → loader (port of
-``sslrec_tpu/data/registry.py``; the ``general_cf`` scenario only so far)."""
+``sslrec_tpu/data/registry.py``; the ``general_cf`` and ``kg`` scenarios so far)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ import importlib
 
 _HANDLERS = {
     "general_cf": "sslrec_tpu_torch.data.general_cf",
+    "kg": "sslrec_tpu_torch.data.kg",
 }
 
 

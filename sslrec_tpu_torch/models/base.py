@@ -13,6 +13,8 @@ Required methods
 Optional
 --------
 ``rating(user_emb, item_emb) -> scores``  (default: dot product)
+``step_generator = True``            ``loss`` gets the epoch's device generator, not a PRF key
+``epoch_state(gen) -> aux``          once per epoch under ``no_grad``; reaches ``loss`` as ``batch["aux"]``
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from torch import nn
 
 
 class RecModel(nn.Module):
+    step_generator = False
+
     def __init__(self, cfg, data):
         super().__init__()
         self.cfg = cfg

@@ -1,5 +1,5 @@
 """Model registry: name → class (port of ``sslrec_tpu/models/registry.py``;
-LightGCN only so far).  Lookup is case-insensitive."""
+LightGCN and KGCL so far).  Lookup is case-insensitive."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import importlib
 # name -> (module path, class name). Populated as model families land.
 _REGISTRY: dict[str, tuple[str, str]] = {
     "lightgcn": ("sslrec_tpu_torch.models.general_cf.lightgcn", "LightGCN"),
+    "kgcl": ("sslrec_tpu_torch.models.kg.kgcl", "KGCL"),
 }
 
 

@@ -1,0 +1,224 @@
+"""Segment ops over a constant id array: the B2 segment-max kernel's wrapper,
+and the sum / gather / softmax / attention composites on B1 (port of
+``sslrec_tpu/ops/pallas_segment.py``).
+
+The JAX package padded the stable argsort of the ids into the TPU's blocked
+chunks; here it is one CSR layout (:class:`SegmentLayout`), whose rows are
+the sorted ids, whose columns are the original positions and whose values
+are 1.  On it
+
+    segment sum   = ``csr_spmm`` (B1, ``csrc/csr_spmm.cu``)     backward: gather ``g[ids]``
+    gather x[ids] = a plain index                               backward: segment sum (B1)
+    segment max   = ``csrc/segment_max.cu`` (B2)                no gradient (a softmax shift)
+
+so a message-passing hop has no scatter in either direction.  Dispatch as for
+B1: a CPU tensor takes the plain version (:mod:`sslrec_tpu_torch.ops.segment`,
+``csr_spmm_plain``), a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from sslrec_tpu_torch.ops import segment as plain
+from sslrec_tpu_torch.ops.cuda_build import load_kernel
+from sslrec_tpu_torch.ops.spmm_kernel import CsrLayout, csr_layout, csr_spmm
+
+
+class SegmentLayout(NamedTuple):
+    """Reductions over one constant id array (counterpart of
+    ``BlockedSegments``): ``csr`` sums ``data[perm[j]]`` over the slots of each
+    segment, ``perm`` (``csr.cols``) being the stable argsort of the ids;
+    ``ids`` int32 [n] in the original order drives the gathers."""
+
+    csr: CsrLayout
+    ids: torch.Tensor
+    num_segments: int
+    n: int
+
+
+def build_segment_layout(segment_ids, num_segments: int, device="cpu") -> SegmentLayout:
+    """Host-side build, once per constant id array (any order; sorted stably)."""
+    ids = np.asarray(segment_ids.cpu() if torch.is_tensor(segment_ids) else segment_ids,
+                     np.int64)
+    n = ids.shape[0]
+    if n and (ids.min() < 0 or ids.max() >= num_segments):
+        raise ValueError(f"segment ids must lie in [0, {num_segments})")
+    order = np.argsort(ids, kind="stable")
+    csr = csr_layout(ids[order], order, np.ones(n, np.float32), np.arange(n),
+                     num_segments, n, device)
+    return SegmentLayout(csr=csr, ids=torch.from_numpy(ids.astype(np.int32)).to(device),
+                         num_segments=int(num_segments), n=int(n))
+
+
+# ---------------------------------------------------------------------------
+# B2: segment max
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _kernel():
+    p = ctypes.c_void_p
+    return load_kernel("segment_max", "segment_max_f32", [p, p, p, p, ctypes.c_int, p])
+
+
+def segment_max_plain(lay: SegmentLayout, data: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: ``scatter_reduce_`` amax."""
+    return plain.segment_max(data, lay.ids, lay.num_segments)
+
+
+def segment_max(lay: SegmentLayout, data: torch.Tensor) -> torch.Tensor:
+    """``out[s] = max_{i: ids[i]=s} data[i]``, −inf for an empty segment;
+    ``data`` float32 [n].  Its input is detached: the op has no gradient, as
+    ``segment_max_blocked`` (a softmax shift, where a constant is exact).
+
+    A CPU ``data`` takes :func:`segment_max_plain`; a CUDA ``data`` launches
+    the kernel on the current stream (``segment_max.launches`` counts those
+    launches) or raises.
+    """
+    data = data.detach()
+    if data.device.type == "cpu":
+        return segment_max_plain(lay, data)
+    if data.device.type != "cuda":
+        raise ValueError(f"segment_max: no kernel for device {data.device}")
+    csr = lay.csr
+    if data.shape != (lay.n,) or data.dtype != torch.float32 or not data.is_contiguous():
+        raise ValueError(f"segment_max: data must be contiguous float32 [{lay.n}], "
+                         f"got {data.dtype} {tuple(data.shape)}")
+    for name, t in (("indptr", csr.indptr), ("perm", csr.cols)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != data.device:
+            raise ValueError(f"segment_max: {name} must be contiguous int32 on {data.device}")
+    out = torch.empty(lay.num_segments, dtype=torch.float32, device=data.device)
+    if lay.num_segments == 0:
+        return out
+    err = _kernel()(csr.indptr.data_ptr(), csr.cols.data_ptr(), data.data_ptr(),
+                    out.data_ptr(), lay.num_segments,
+                    torch.cuda.current_stream(data.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"segment_max: launch of libsegment_max.so's kernel failed: "
+                           f"cudaError {err}")
+    segment_max.launches += 1
+    return out
+
+
+segment_max.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Composites on B1
+# ---------------------------------------------------------------------------
+
+def _segment_sum(lay: SegmentLayout, data: torch.Tensor) -> torch.Tensor:
+    d2 = data[:, None] if data.dim() == 1 else data
+    out = csr_spmm(lay.csr, d2.contiguous())
+    return out[:, 0] if data.dim() == 1 else out
+
+
+class SegmentSumFn(torch.autograd.Function):
+    """``out[s] = Σ_{i: ids[i]=s} data[i]`` through B1; ``data`` [n] or [n, d].
+    Backward: the gather ``g[ids]``, the transpose of a segment sum."""
+
+    @staticmethod
+    def forward(ctx, lay: SegmentLayout, data: torch.Tensor):
+        ctx.ids = lay.ids
+        return _segment_sum(lay, data)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g[ctx.ids]
+
+
+class TakeFn(torch.autograd.Function):
+    """``x[ids]`` whose backward is the B1 segment sum rather than the
+    scatter-add autograd derives for an index; ``x`` [num_segments, d]."""
+
+    @staticmethod
+    def forward(ctx, lay: SegmentLayout, x: torch.Tensor):
+        ctx.lay = lay
+        return x[lay.ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _segment_sum(ctx.lay, g)
+
+
+class SegmentSoftmaxFn(torch.autograd.Function):
+    """Softmax within segments, shifted by B2's max; closed-form backward
+    ``s ⊙ (g − Σ_seg(g ⊙ s))``, whose only reduction is another B1 sum."""
+
+    @staticmethod
+    def forward(ctx, lay: SegmentLayout, logits: torch.Tensor):
+        mx = segment_max(lay, logits)
+        mx = torch.where(torch.isfinite(mx), mx, 0.0)     # empty segments
+        shifted = torch.exp(logits - mx[lay.ids])
+        s = shifted / (_segment_sum(lay, shifted)[lay.ids] + 1e-16)
+        ctx.lay = lay
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        dot = _segment_sum(ctx.lay, s * g)
+        return None, s * (g - dot[ctx.lay.ids])
+
+
+def attn_aggregate(lay: SegmentLayout, logits: torch.Tensor, values: torch.Tensor,
+                   edge_mask: torch.Tensor | None = None):
+    """Softmax(logits within segments) · values in ONE B1 reduction: the
+    numerator and the denominator ride the same ``[n, d+1]`` sum.  Returns
+    ``(aggregated [S, d], e [n])``, ``e`` the masked, unnormalised exp weights.
+    Gradients reach ``logits`` and ``values``; the B2 shift is a constant."""
+    mx = segment_max(lay, logits)
+    mx = torch.where(torch.isfinite(mx), mx, 0.0)
+    e = torch.exp(logits - mx[lay.ids])
+    if edge_mask is not None:
+        e = e * edge_mask
+    stacked = torch.cat([values * e[:, None], e[:, None]], dim=-1)
+    num_den = SegmentSumFn.apply(lay, stacked)
+    return num_den[:, :-1] / (num_den[:, -1:] + 1e-16), e
+
+
+class OneHotTake:
+    """``table[ids]`` for a small vocabulary.  The JAX package made it a
+    one-hot matmul because a TPU gather is latency-bound; here it is a plain
+    index, whose backward is autograd's sort-based scatter (the place to
+    change how a small table's gradient is summed)."""
+
+    def __init__(self, ids: torch.Tensor):
+        self.ids = ids
+
+    def take(self, table: torch.Tensor) -> torch.Tensor:
+        return table[self.ids]
+
+
+class SegmentOps:
+    """take / sum / softmax / mean / attention bound to ONE constant id array,
+    for the endpoint gathers and reductions of message passing."""
+
+    def __init__(self, segment_ids, num_segments: int, device="cpu"):
+        self.layout = build_segment_layout(segment_ids, num_segments, device)
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """``x[ids]`` with a B1 segment-sum backward."""
+        return TakeFn.apply(self.layout, x)
+
+    def sum(self, data: torch.Tensor) -> torch.Tensor:
+        return SegmentSumFn.apply(self.layout, data)
+
+    def softmax(self, logits: torch.Tensor) -> torch.Tensor:
+        return SegmentSoftmaxFn.apply(self.layout, logits)
+
+    def mean(self, data: torch.Tensor) -> torch.Tensor:
+        s = self.sum(data)
+        cnt = self.sum(data.new_ones(data.shape[:1]))
+        return s / cnt.clamp(min=1.0)[(...,) + (None,) * (data.dim() - 1)]
+
+    def attn(self, logits: torch.Tensor, values: torch.Tensor,
+             edge_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """Segment-softmax-weighted aggregation of ``values`` (fused)."""
+        return attn_aggregate(self.layout, logits, values, edge_mask)[0]

@@ -15,13 +15,13 @@ symmetric.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
+from sslrec_tpu_torch.ops.cuda_build import load_kernel
 from sslrec_tpu_torch.ops.sparse import CooGraph
 
 
@@ -68,7 +68,7 @@ class CsrGraph(NamedTuple):
                         n_rows=self.n_cols, n_cols=self.n_rows)
 
 
-def _layout(rows, cols, vals, edge_ids, n_rows, n_cols, device) -> CsrLayout:
+def csr_layout(rows, cols, vals, edge_ids, n_rows, n_cols, device) -> CsrLayout:
     """Layout from host arrays already sorted by destination row."""
     indptr = np.zeros(n_rows + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=n_rows), out=indptr[1:])
@@ -94,58 +94,23 @@ def build_csr_graph(g: CooGraph, device="cpu") -> CsrGraph:
     vals = g.vals.cpu().numpy()
     if g.nnz and (np.diff(rows) < 0).any():
         raise ValueError("edges must be sorted by destination row")
-    fwd = _layout(rows, cols, vals, np.arange(g.nnz), g.n_rows, g.n_cols, device)
+    fwd = csr_layout(rows, cols, vals, np.arange(g.nnz), g.n_rows, g.n_cols, device)
     order = np.lexsort((rows, cols))
-    bwd = _layout(cols[order], rows[order], vals[order], order, g.n_cols,
-                  g.n_rows, device)
+    bwd = csr_layout(cols[order], rows[order], vals[order], order, g.n_cols,
+                     g.n_rows, device)
     return CsrGraph(fwd=fwd, bwd=bwd, rows=fwd.rows, cols=fwd.cols,
                     vals=fwd.vals, n_rows=g.n_rows, n_cols=g.n_cols)
 
 
 # ---------------------------------------------------------------------------
-# Kernel build and wrapper
+# Kernel wrapper
 # ---------------------------------------------------------------------------
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "csr_spmm.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "sslrec_tpu_torch")
-_LIB: ctypes.CDLL | None = None
-
-
-def build_library(force: bool = False) -> tuple[str, str]:
-    """Compile ``csrc/csr_spmm.cu`` into a C-ABI shared library for sm_90a.
-
-    Rebuilds when forced or when the source is newer than the library.
-    Returns the library's path and nvcc's output (ptxas register and spill
-    counts).  Needs ``nvcc`` (``$CUDA_HOME/bin``, default ``/usr/local/cuda``).
-    """
-    so = os.path.join(BUILD_DIR, "libcsr_spmm.so")
-    if (not force and os.path.exists(so)
-            and os.path.getmtime(so) >= os.path.getmtime(SOURCE)):
-        return so, ""
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"  # concurrent builders each rename whole
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-    os.replace(tmp, so)
-    return so, res.stdout + res.stderr
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(build_library()[0])
-        p = ctypes.c_void_p
-        lib.csr_spmm_f32.argtypes = [p, p, p, p, p, p, p, ctypes.c_int,
-                                     ctypes.c_int, p]
-        lib.csr_spmm_f32.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+@functools.cache
+def _kernel():
+    p = ctypes.c_void_p
+    return load_kernel("csr_spmm", "csr_spmm_f32",
+                       [p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, p])
 
 
 def csr_spmm_plain(layout: CsrLayout, x: torch.Tensor,
@@ -198,12 +163,13 @@ def csr_spmm(layout: CsrLayout, x: torch.Tensor,
     if layout.n_rows == 0 or d == 0:
         return out
     eids = None if ew is None else layout.edge_ids.data_ptr()
-    err = _lib().csr_spmm_f32(
+    err = _kernel()(
         layout.indptr.data_ptr(), layout.cols.data_ptr(), layout.vals.data_ptr(),
         eids, None if ew is None else ew.data_ptr(), x.data_ptr(), out.data_ptr(),
         layout.n_rows, d, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"csr_spmm kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"csr_spmm: launch of libcsr_spmm.so's kernel failed: "
+                           f"cudaError {err}")
     csr_spmm.launches += 1
     return out
 

@@ -31,7 +31,8 @@ from sslrec_tpu_torch.trainer.metrics import Evaluator
 from sslrec_tpu_torch.trainer.trainer import INIT_STREAM, Trainer, generator
 
 
-def _device_us(evt) -> float:
+def device_us(evt) -> float:
+    """Device time of a profiler event (the attribute's name varies by torch version)."""
     return float(getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
@@ -42,14 +43,14 @@ def report(name: str, prof, wall_s: float, top: int = 15) -> None:
     copies count: an operator's row, or a ``record_function`` range such as
     ``Optimizer.step``, repeats the time of the kernels inside it."""
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0
             and not getattr(e, "is_user_annotation", False)]
-    busy_us = sum(_device_us(e) for e in rows)
+    busy_us = sum(device_us(e) for e in rows)
     print(f"-- {name}: median wall {wall_s * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"({100 * busy_us / (wall_s * 1e6):.1f}%), idle "
           f"{100 - 100 * busy_us / (wall_s * 1e6):.1f}%")
-    for e in sorted(rows, key=_device_us, reverse=True)[:top]:
-        print(f"   {_device_us(e) / 1e3:9.3f} ms {100 * _device_us(e) / busy_us:5.1f}% "
+    for e in sorted(rows, key=device_us, reverse=True)[:top]:
+        print(f"   {device_us(e) / 1e3:9.3f} ms {100 * device_us(e) / busy_us:5.1f}% "
               f"x{e.count:<6d} {e.key[:90]}")
 
 

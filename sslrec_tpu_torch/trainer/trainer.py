@@ -12,6 +12,12 @@ are an eager Python loop.  Randomness comes from explicit generators: epoch
 generator seeded by ``(seed, e)`` (the counterpart of
 ``fold_in(root, epoch)``), so an epoch's draws do not depend on the device or
 on the epochs before it.
+
+A model with ``step_generator`` set draws its own per-step masks: the
+trainer seeds one generator on the run's device from ``(seed, epoch)`` and
+hands it to the model's ``epoch_state`` (if any), whose result reaches every
+step's ``loss`` as ``batch["aux"]``, and then to ``loss`` in place of the PRF
+key.  Such masks are made on the device, never copied from the host.
 """
 
 from __future__ import annotations
@@ -41,13 +47,14 @@ def build_optimizer(cfg, params) -> torch.optim.Optimizer:
 
 
 INIT_STREAM = 2**32    # generator path of the parameter draw, apart from epochs
+DEVICE_STREAM = 1      # generator path of a model's own per-epoch device draws
 
 
-def generator(seed: int, *path: int) -> torch.Generator:
-    """A CPU generator seeded from ``(seed, *path)`` through numpy's
+def generator(seed: int, *path: int, device="cpu") -> torch.Generator:
+    """A generator on ``device`` seeded from ``(seed, *path)`` through numpy's
     SeedSequence, so distinct paths give independent streams."""
     state = np.random.SeedSequence([int(seed), *map(int, path)]).generate_state(1, np.uint64)
-    return torch.Generator().manual_seed(int(state[0]) & (2**63 - 1))
+    return torch.Generator(device=device).manual_seed(int(state[0]) & (2**63 - 1))
 
 
 def _sync(device: torch.device) -> None:
@@ -69,9 +76,10 @@ class Trainer:
         self.n_batches = -(-data.n_train // self.batch_size)
 
     # ------------------------------------------------------------------
-    def train_step(self, batch: dict, key: torch.Tensor) -> dict:
+    def train_step(self, batch: dict, key) -> dict:
         """One Adam step on ``batch`` (user/pos/neg index tensors) with the
-        dropout PRF ``key``; returns the loss terms as detached tensors."""
+        dropout PRF ``key``, or the epoch's device generator for a model with
+        ``step_generator``; returns the loss terms as detached tensors."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.model.loss(batch, key)
         loss.backward()
@@ -98,9 +106,19 @@ class Trainer:
     def train_epoch(self, epoch: int) -> dict[str, float]:
         idx, negs, keys = self.epoch_draws(epoch)
         users, items = self.data.train_users, self.data.train_items
+        model = self.model
+        gen = aux_state = None
+        if model.step_generator:
+            gen = generator(int(self.cfg.train.seed), epoch, DEVICE_STREAM,
+                            device=self.device)
+            keys = [gen] * self.n_batches
+        if hasattr(model, "epoch_state"):
+            aux_state = model.epoch_state(gen)
         sums = None
         for bidx, key in zip(idx, keys):
             batch = {"user": users[bidx], "pos": items[bidx], "neg": negs[bidx]}
+            if aux_state is not None:
+                batch["aux"] = aux_state
             aux = self.train_step(batch, key)
             sums = aux if sums is None else {k: sums[k] + v for k, v in aux.items()}
         return {k: float(v) / self.n_batches for k, v in sums.items()}

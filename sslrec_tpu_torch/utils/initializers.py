@@ -14,3 +14,8 @@ def xavier_uniform(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Te
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     u = torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)
     return u * (2 * limit) - limit
+
+
+def normal_init(gen: torch.Generator, shape, std=0.02, dtype=torch.float32) -> torch.Tensor:
+    """N(0, std²), drawn on ``gen``'s device."""
+    return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype) * std

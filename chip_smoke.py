@@ -11,9 +11,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    (one nvcc each, started together), and log ptxas's lines for both;
 3. hold B1 against its plain PyTorch version at the LightGCN path's shape
    (the alibaba-fashion bipartite adjacency, both layouts, no weight /
-   dropout mask / learned weight with dx and dew) and on edge cases (widths
-   1..64, empty rows, a rectangular graph): max |k - p| / max |p| <= 1e-5;
-4. time B1, its plain version and ``torch.sparse.mm`` with CUDA events;
+   materialised dropout mask / in-kernel dropout PRF / learned weight with
+   dx and dew) and on edge cases (widths 1..65, empty rows, a rectangular
+   graph, a stress graph with one row of 100,000 edges and rows around the
+   split threshold, held against the plain version in float64):
+   max |k - p| / max |p| <= 1e-5; every kernel call repeated bit for bit,
+   and the PRF mode equal (``torch.equal``) to the kernel fed the mask;
+4. time B1 at the LightGCN hop (no multiplier, mask, PRF; both layouts), its
+   plain version and ``torch.sparse.mm``, device time (torch.profiler) and
+   CUDA events, and B1 at other split thresholds and lane-group widths;
 5. drive the LightGCN path, ``sslrec_tpu_torch.main --model lightgcn`` (2
    epochs), with the launch counts reset just before and read just after;
    check losses, metrics and the trained embeddings against the plain
@@ -21,10 +27,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. write the synthetic-at-scale KG dataset (a copy of the JAX benchmark's
    generator) and hold B2 against its plain version at the KGCL shape
    (297,404 logits into 30,000 segments) and on edge cases, exactly
-   (``torch.equal``, −inf included); hold B1 as segment sum, gather and
-   fused attention (values and gradients, d = 64 and 65) within 1e-5;
-7. time B2, its plain version and ``scatter_reduce_``, and B1 as the
-   [297,404 × 65] segment sum, with CUDA events;
+   (``torch.equal``, −inf included), at every group width; hold B1 as
+   segment sum (d = 1, 64, 65), gather, fused attention (values and
+   gradients), UI hop (d = 64, both layouts) and relation take (297,404 rows
+   into 41, value and table gradient, bit for bit twice) within 1e-5;
+7. time B2 (and its other group widths), its plain version and
+   ``scatter_reduce_``; B1 as the KG segment sum at d = 65 (and 68) and
+   d = 1, the UI hop at d = 64 and the relation take's backward with two
+   yardsticks (``index_put_(…, accumulate=True)``, autograd's call for an
+   index, and the one-hot GEMM ``onehotᵀ @ g``);
 8. drive the KGCL path, ``sslrec_tpu_torch.main --model kgcl`` (2 epochs) on
    that dataset, with the launch counts reset around it; check losses, the
    launch counts per step, the trained embeddings against the same forward
@@ -45,6 +56,7 @@ import time
 import numpy as np
 import scipy.sparse as sp
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -58,24 +70,26 @@ from sslrec_tpu_torch.ops import cuda_build
 from sslrec_tpu_torch.ops import segment as plain_seg
 from sslrec_tpu_torch.ops import segment_kernel as skn
 from sslrec_tpu_torch.ops import spmm_kernel as sk
-from sslrec_tpu_torch.ops.sparse import from_scipy
+from sslrec_tpu_torch.ops.sparse import CooGraph, from_scipy
 from sslrec_tpu_torch.profile_epoch import device_us
 from sslrec_tpu_torch.trainer.trainer import Trainer, generator
 
 TOL = 1e-5                  # max |kernel - plain| / max |plain|
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+PRF_OPS_PER_EDGE = 80       # Threefry-2x32's 20 rounds and key steps, and the keep
 SMOKE_RESULTS = "smoke_results"
 DATA_DIR, DATASET = "datasets", "alibaba-fashion"
 KG_DATASET = "synthetic"    # written under SMOKE_RESULTS/kg/synthetic_kg/
 # B1 / B2 launches per KGCL training step, counted from the code: the forward
 # runs 3 RGATs of 2 hops (one B2 max and one B1 [n, d+1] sum each), 3 UI
 # propagations of 2 B1 hops and one B1 degree sum for the node-dropout view
-# (13 B1, 6 B2); the backward runs the 6 UI hops on the transposed layout and
-# a B1 segment sum for each endpoint gather, 2 shared by hop 0 and 6 of hop 1
-# (14 B1).  Each epoch adds epoch_state (6 B1, 4 B2) and each evaluation's
-# generate() 5 B1 and 2 B2.
-KGCL_B1_PER_STEP, KGCL_B2_PER_STEP = 27, 6
+# (13 B1, 6 B2); the backward runs the 6 UI hops on the transposed layout, a
+# B1 segment sum for each endpoint gather, 2 shared by hop 0 and 6 of hop 1,
+# and one for each relation take, 1 shared by hop 0 and 3 of hop 1 (18 B1).
+# Each epoch adds epoch_state (6 B1, 4 B2) and each evaluation's generate()
+# 5 B1 and 2 B2.
+KGCL_B1_PER_STEP, KGCL_B2_PER_STEP = 31, 6
 
 
 def log(msg: str) -> None:
@@ -109,42 +123,92 @@ class ErrTrack:
             raise AssertionError(f"{what}: rel err {rel:.3g} > {TOL}")
 
 
-def check_graph(errs: ErrTrack, name: str, g: sk.CsrGraph, widths, gen, with_grads):
-    """Kernel against plain on both directions of ``g``: no weight, a PRF
-    dropout mask and (``with_grads``) a learned weight with dx and dew."""
+def check_graph(errs: ErrTrack, name: str, g: sk.CsrGraph, widths, gen, with_grads,
+                ref64: bool = False):
+    """Kernel against plain on both directions of ``g``: no weight, two
+    materialised PRF dropout masks (keep 0.5; keep 0.6 rescaled), the same
+    two as in-kernel :class:`PrfMask`s, which must equal the kernel fed the
+    materialised mask bit for bit, and (``with_grads``) a learned weight with
+    dx and dew and both constant multipliers' dx.  Every plain kernel call is
+    made twice and must repeat bit for bit.  ``ref64``: the plain version
+    runs in float64, for rows so long that float32 rounding in another sum
+    order alone would reach the tolerance; inputs are then small integers
+    and the learned weight takes values in {0, 0.5, 1, 2}."""
     dev = g.vals.device
-    mask = sk.dropout_mask(torch.tensor([12345, 678], device=dev), g, 0.5).w
+    key = torch.tensor([12345, 678], device=dev)
+    masks = [(f"{kr}{'r' if rs else ''}", sk.dropout_mask(key, g, kr, resize_val=rs).w,
+              sk.prf_mask(key, g, kr, resize_val=rs)) for kr, rs in ((0.5, False), (0.6, True))]
+
+    def rand(*shape):
+        if ref64:
+            return torch.randint(-8, 9, shape, generator=gen, device=dev).float()
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def plain(lay, x, ew=None):
+        if not ref64:
+            return sk.csr_spmm_plain(lay, x, ew)
+        return sk.csr_spmm_plain(lay, x.double(), ew).float()
+
     for direction, gd in (("fwd", g), ("bwd", g.t())):
         lay = gd.fwd
         for d in widths:
-            x = torch.randn(gd.n_cols, d, generator=gen, device=dev)
+            x = rand(gd.n_cols, d)
             tag = f"{name}.{direction}.d{d}"
-            errs.check(f"{tag}.plain", sk.csr_spmm(lay, x), sk.csr_spmm_plain(lay, x))
-            errs.check(f"{tag}.mask", sk.csr_spmm(lay, x, mask),
-                       sk.csr_spmm_plain(lay, x, mask))
+            got = sk.csr_spmm(lay, x)
+            check_exact(f"{tag}.repeat", sk.csr_spmm(lay, x), got)
+            errs.check(f"{tag}.plain", got, plain(lay, x))
+            for mtag, mask, prf in masks:
+                km = sk.csr_spmm(lay, x, mask)
+                errs.check(f"{tag}.mask{mtag}", km, plain(lay, x, mask))
+                kp = sk.csr_spmm(lay, x, prf)
+                check_exact(f"{tag}.prf{mtag}=mask", kp, km)
+                errs.check(f"{tag}.prf{mtag}", kp, plain(lay, x, prf))
             if not with_grads:
                 continue
-            ew = torch.rand(gd.nnz, generator=gen, device=dev)
-            w_out = torch.randn(gd.n_rows, d, generator=gen, device=dev)
+            if ref64:
+                ew = torch.tensor([0.0, 0.5, 1.0, 2.0], device=dev)[
+                    torch.randint(0, 4, (gd.nnz,), generator=gen, device=dev)]
+            else:
+                ew = torch.rand(gd.nnz, generator=gen, device=dev)
+            w_out = rand(gd.n_rows, d)
             xk, ewk = x.clone().requires_grad_(), ew.clone().requires_grad_()
             yk = sk.SpmmFn.apply(gd, xk, ewk)
             (yk * w_out).sum().backward()
-            xp, ewp = x.clone().requires_grad_(), ew.clone().requires_grad_()
+            dt = torch.float64 if ref64 else torch.float32
+            xp = x.to(dt, copy=True).requires_grad_()
+            ewp = ew.to(dt, copy=True).requires_grad_()
             yp = sk.csr_spmm_plain(lay, xp, ewp)
             (yp * w_out).sum().backward()
-            errs.check(f"{tag}.weight", yk.detach(), yp.detach())
-            errs.check(f"{tag}.weight.dx", xk.grad, xp.grad)
-            errs.check(f"{tag}.weight.dew", ewk.grad, ewp.grad)
-            xm = x.clone().requires_grad_()
-            (sk.SpmmPvFn.apply(gd, xm, mask) * w_out).sum().backward()
-            xq = x.clone().requires_grad_()
-            (sk.csr_spmm_plain(lay, xq, mask) * w_out).sum().backward()
-            errs.check(f"{tag}.mask.dx", xm.grad, xq.grad)
+            errs.check(f"{tag}.weight", yk.detach(), yp.detach().float())
+            errs.check(f"{tag}.weight.dx", xk.grad, xp.grad.float())
+            errs.check(f"{tag}.weight.dew", ewk.grad, ewp.grad.float())
+            for mtag, m in (("mask", masks[1][1]), ("prf", masks[1][2])):
+                xm = x.clone().requires_grad_()
+                (sk.SpmmPvFn.apply(gd, xm, m) * w_out).sum().backward()
+                xq = x.to(dt, copy=True).requires_grad_()
+                (sk.csr_spmm_plain(lay, xq, m) * w_out).sum().backward()
+                errs.check(f"{tag}.{mtag}.dx", xm.grad, xq.grad.float())
     torch.cuda.synchronize()
     log(f"  {name}: {g.n_rows}x{g.n_cols}, nnz {g.nnz}, widths {list(widths)}: ok")
 
 
-def device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def stress_graph(dev) -> sk.CsrGraph:
+    """One row of 100,000 edges, rows of T-1, T, T+1 and 2T+1 edges around
+    every split threshold B1 picks here (32 and 64), single-edge rows and
+    empty rows, over 60,000 columns, edge values in {0.5, 1, 2}."""
+    rng = np.random.default_rng(21)
+    deg = np.concatenate([[100_000], np.tile([31, 32, 33, 65, 0, 63, 64, 1, 0, 129], 300),
+                          np.zeros(500, np.int64)])
+    rows = np.repeat(np.arange(deg.size), deg)
+    cols = rng.integers(0, 60_000, rows.size)
+    order = np.lexsort((cols, rows))
+    vals = rng.choice(np.float32([0.5, 1.0, 2.0]), rows.size)
+    rows, cols = (torch.from_numpy(a[order].astype(np.int32)) for a in (rows, cols))
+    return sk.build_csr_graph(CooGraph(rows=rows, cols=cols, vals=torch.from_numpy(vals),
+                                       n_rows=deg.size, n_cols=60_000), dev)
+
+
+def device_ms(fn, iters: int = 50, warmup: int = 5, retries: int = 2) -> float:
     """Mean device time of one call, after a warm-up: the summed durations of
     the kernels, copies and memsets that ``iters`` calls put on the card
     (torch.profiler), over ``iters``.  Host time between launches is not in
@@ -156,9 +220,16 @@ def device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(device_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False))
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    us = sum(device_us(e) for e in events)
+    if us <= 0:
+        # a profiler window that recorded no device activity: measure again,
+        # then give up naming what it saw
+        if retries:
+            return device_ms(fn, iters, warmup, retries - 1)
+        raise AssertionError(f"device_ms: no device time recorded in {iters} calls; "
+                             f"events {[e.key for e in prof.key_averages()][:8]}")
     return us / iters / 1e3
 
 
@@ -179,17 +250,67 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def bound_ms(lay: sk.CsrLayout, d: int, masked: bool) -> tuple[float, str]:
-    """Least time for one hop: each input read once, the output written once,
-    over HBM bandwidth; 2·nnz·d flops over the float32 peak; the larger."""
+def bound_ms(lay: sk.CsrLayout, d: int, mode: str = "none") -> tuple[float, str]:
+    """Least time for one B1 call: each input read once, the output written
+    once, over HBM bandwidth; 2·nnz·d flops over the float32 peak; the
+    larger.  ``mode``: "none"; "mask" (a [nnz] multiplier read, through the
+    edge ids on a permuted layout; one multiply per edge); "prf" (no mask:
+    the edge ids on a permuted layout only, and the PRF's operations)."""
     nnz = lay.cols.shape[0]
     n_bytes = 4 * (lay.n_cols * d + lay.n_rows * d + 2 * nnz + lay.n_rows + 1)
     flops = 2 * nnz * d
-    if masked:  # edge_ids + mask read, one more multiply per edge
-        n_bytes += 4 * 2 * nnz
+    ids_bytes = 0 if lay.ids_identity else 4 * nnz
+    if mode == "mask":
+        n_bytes += 4 * nnz + ids_bytes
         flops += nnz
+    elif mode == "prf":
+        n_bytes += ids_bytes
+        flops += (PRF_OPS_PER_EDGE + 1) * nnz
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def timing(kernel, plain, library=None, **extra) -> dict:
+    """Device times (torch.profiler) of a kernel call, its plain version and a
+    library call, then their CUDA-event times, in that order; ``extra``
+    callables are timed on the device too, under their own names."""
+    r = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+         "library_ms": None if library is None else device_ms(library)}
+    r.update({f"{k}_ms": device_ms(fn) for k, fn in extra.items()})
+    r.update({"event_ms": time_ms(kernel), "plain_event_ms": time_ms(plain),
+              "library_event_ms": None if library is None else time_ms(library)})
+    return r
+
+
+def group_sweep(errs: ErrTrack, lay: sk.CsrLayout, x: torch.Tensor, ew=None) -> dict:
+    """B1 at each lane-group width with the split threshold B1 would pick
+    for it, after a check against the plain version: callables for
+    :func:`timing`'s ``extra``, named ``g<width>``."""
+    ref = sk.csr_spmm_plain(lay, x, ew)
+    out = {}
+    for gw in (2, 4, 8, 16, 32):
+        t = sk.split_threshold(lay.cols.shape[0], gw)
+        errs.check(f"sweep.{lay.n_rows}.d{x.shape[1]}.g{gw}",
+                         sk.csr_spmm_at(lay, x, ew, t, gw), ref)
+        out[f"g{gw}"] = lambda gw=gw, t=t: sk.csr_spmm_at(lay, x, ew, t, gw)
+    return out
+
+
+def log_timing(name: str, r: dict, bound: tuple[float, str]) -> None:
+    lib = "n/a" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f}"
+    log(f"  {name}: kernel {r['ms'] * 1e3:.2f} us device ({r['event_ms'] * 1e3:.2f} events), "
+        f"plain {r['plain_ms'] * 1e3:.2f}, library {lib}; bound {bound[0] * 1e3:.2f} us "
+        f"({bound[1]}), kernel at {100 * bound[0] / r['ms']:.1f}% of it")
+    more = {k[:-3]: v for k, v in r.items() if k.endswith("_ms") and k not in
+            ("plain_ms", "library_ms", "event_ms", "plain_event_ms", "library_event_ms")}
+    if more:
+        log("    device us: " + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in more.items()))
+
+
+def csr_tensor(lay: sk.CsrLayout, vals: torch.Tensor | None = None) -> torch.Tensor:
+    """``lay`` as a torch CSR tensor, for ``torch.sparse.mm`` (the yardstick)."""
+    return torch.sparse_csr_tensor(lay.indptr, lay.cols, lay.vals if vals is None else vals,
+                                   size=(lay.n_rows, lay.n_cols))
 
 
 def small_step_check(errs: ErrTrack) -> None:
@@ -222,10 +343,10 @@ def small_step_check(errs: ErrTrack) -> None:
 
 
 def check_exact(what: str, got: torch.Tensor, ref: torch.Tensor) -> None:
-    """Kernel equal to plain, element for element, −inf included."""
+    """``got`` equal to ``ref``, element for element, −inf included."""
     if got.shape != ref.shape or not torch.equal(got, ref):
         n_bad = int((got != ref).sum()) if got.shape == ref.shape else -1
-        raise AssertionError(f"{what}: kernel != plain ({n_bad} entries differ)")
+        raise AssertionError(f"{what}: not equal ({n_bad} entries differ)")
 
 
 def synthetic_kg(n_users=20000, n_items=15000, n_ents=30000, n_rels=20,
@@ -287,15 +408,26 @@ def check_segment_ops(errs: ErrTrack, lay: skn.SegmentLayout, gen) -> None:
     cases = {"empty_segments": (ids[(ids < 1000) | (ids >= 2000)], S),
              "one_element": (rng.permutation(5000), 6000),
              "long_segments": (rng.permutation(long), 60),
+             "short_and_long": (rng.permutation(np.concatenate(
+                 [rng.integers(0, 3000, 30000), np.full(5000, 3001)])), 3010),
              "n0": (np.zeros(0, np.int64), 100)}
     for tag, (ids_c, s_c) in cases.items():
         lay_c = skn.build_segment_layout(ids_c, s_c, dev)
         data = torch.randn(ids_c.size, generator=gen, device=dev)
         got = skn.segment_max(lay_c, data)
-        check_exact(f"segmax.{tag}", got, skn.segment_max_plain(lay_c, data))
-        log(f"  B2 {tag}: n {ids_c.size}, {s_c} segments, "
-            f"{int(torch.isinf(got).sum())} empty (-inf): exact")
-    for d in (64, 65):
+        ref = skn.segment_max_plain(lay_c, data)
+        check_exact(f"segmax.{tag}", got, ref)
+        for width in (4, 8, 16, 32):
+            check_exact(f"segmax.{tag}.w{width}",
+                        skn.segment_max(skn.with_group_width(lay_c, width), data), ref)
+        log(f"  B2 {tag}: n {ids_c.size}, {s_c} segments, group width {lay_c.group_width}, "
+            f"{lay_c.long_segments.numel()} in the whole-warp bin, "
+            f"{int(torch.isinf(got).sum())} empty (-inf): exact at widths 4-32")
+    for width in (4, 8, 16, 32):
+        check_exact(f"segmax.kgcl.w{width}",
+                    skn.segment_max(skn.with_group_width(lay, width), logits),
+                    skn.segment_max_plain(lay, logits))
+    for d in (1, 64, 65):
         x = torch.randn(n, d, generator=gen, device=dev)
         w_out = torch.randn(S, d, generator=gen, device=dev)
         xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
@@ -332,39 +464,89 @@ def check_segment_ops(errs: ErrTrack, lay: skn.SegmentLayout, gen) -> None:
     torch.cuda.synchronize()
 
 
-def time_segment_ops(lay: skn.SegmentLayout, gen) -> dict[str, float]:
-    """B2, its plain version and ``scatter_reduce_``; B1 as the [n × 65]
-    segment sum, its plain version and ``torch.sparse.mm``; in turns."""
-    dev = lay.ids.device
-    logits = torch.randn(lay.n, generator=gen, device=dev)
-    ids64 = lay.ids.long()
-    out = torch.full((lay.num_segments,), float("-inf"), device=dev)
-    x65 = torch.randn(lay.n, 65, generator=gen, device=dev)
-    csr_t = torch.sparse_csr_tensor(lay.csr.indptr, lay.csr.cols, lay.csr.vals,
-                                    size=(lay.num_segments, lay.n))
-    launches_before = skn.segment_max.launches
-    t = {
-        "b2_plain": time_ms(lambda: skn.segment_max_plain(lay, logits)),
-        "b2_kernel": time_ms(lambda: skn.segment_max(lay, logits)),
-        "b2_library": time_ms(lambda: out.scatter_reduce_(0, ids64, logits, "amax",
-                                                          include_self=False)),
-        "b1_plain": time_ms(lambda: sk.csr_spmm_plain(lay.csr, x65)),
-        "b1_kernel": time_ms(lambda: sk.csr_spmm(lay.csr, x65)),
-        "b1_library": time_ms(lambda: torch.sparse.mm(csr_t, x65)),
-    }
-    t["b2_kernel_2"] = time_ms(lambda: skn.segment_max(lay, logits))
-    t["b2_plain_2"] = time_ms(lambda: skn.segment_max_plain(lay, logits))
-    dt = {
-        "b2_kernel": device_ms(lambda: skn.segment_max(lay, logits)),
-        "b2_plain": device_ms(lambda: skn.segment_max_plain(lay, logits)),
-        "b2_library": device_ms(lambda: out.scatter_reduce_(0, ids64, logits, "amax",
-                                                            include_self=False)),
-        "b1_kernel": device_ms(lambda: sk.csr_spmm(lay.csr, x65)),
-        "b1_plain": device_ms(lambda: sk.csr_spmm_plain(lay.csr, x65)),
-        "b1_library": device_ms(lambda: torch.sparse.mm(csr_t, x65)),
-    }
-    assert skn.segment_max.launches > launches_before
-    return t, dt
+def check_relation_take(errs: ErrTrack, rel: skn.OneHotTake, d: int, gen) -> None:
+    """KGCL's relation take at its shape: the value a plain index gives, the
+    table gradient (B1's segment sum, rows split into chunks) against the
+    plain index's autograd, and that gradient bit for bit twice."""
+    dev = rel.layout.ids.device
+    V, n = rel.layout.num_segments, rel.layout.n
+    table = torch.randn(V, d, generator=gen, device=dev)
+    w = torch.randn(n, d, generator=gen, device=dev)
+    tk, tp = table.clone().requires_grad_(), table.clone().requires_grad_()
+    yk = rel.take(tk)
+    (yk * w).sum().backward()
+    (tp[rel.layout.ids.long()] * w).sum().backward()
+    check_exact("relation_take.value", yk.detach(), table[rel.layout.ids.long()])
+    errs.check("relation_take.grad", tk.grad, tp.grad)
+    again = table.clone().requires_grad_()
+    (rel.take(again) * w).sum().backward()
+    check_exact("relation_take.grad.repeat", again.grad, tk.grad)
+    plan = sk.layout_plan(rel.layout.csr, sk.split_threshold(n, sk.lane_group(d)))
+    torch.cuda.synchronize()
+    log(f"  relation take: {n} rows into {V}, d {d}: {plan.n_chunks} chunks of <= {plan.t} "
+        f"edges, {plan.split_rows.numel()} split rows; value exact, gradient within "
+        f"tolerance and bit for bit twice")
+
+
+def time_kgcl_shapes(errs: ErrTrack, seg_lay: skn.SegmentLayout,
+                     deg_lay: skn.SegmentLayout, ui: sk.CsrGraph, ui_w: torch.Tensor,
+                     rel_lay: skn.SegmentLayout, gen) -> dict[str, dict]:
+    """Device and event times at the KGCL path's shapes: B2 (and its other
+    group widths); B1 as the RGAT's [n × 65] segment sum (and at d = 68, and
+    the attention stack built at 65 and at 68 columns before the sum), as the
+    [n_bi × 1] degree sum, as the UI hop at d = 64 under a view's values,
+    and as the relation take's backward with both yardsticks; B1 also at
+    every lane-group width, each checked against plain into ``errs``."""
+    dev = seg_lay.ids.device
+    n, S = seg_lay.n, seg_lay.num_segments
+    t = {}
+    logits = torch.randn(n, generator=gen, device=dev)
+    ids64 = seg_lay.ids.long()
+    amax = torch.full((S,), float("-inf"), device=dev)
+    regrouped = {w: skn.with_group_width(seg_lay, w) for w in (4, 8, 16, 32)}
+    t["b2"] = timing(lambda: skn.segment_max(seg_lay, logits),
+                     lambda: skn.segment_max_plain(seg_lay, logits),
+                     lambda: amax.scatter_reduce_(0, ids64, logits, "amax", include_self=False),
+                     **{f"width{w}": (lambda lw=lw: skn.segment_max(lw, logits))
+                        for w, lw in regrouped.items()})
+    x65 = torch.randn(n, 65, generator=gen, device=dev)
+    x68 = F.pad(x65, (0, 3))
+    values = torch.randn(n, 64, generator=gen, device=dev)
+    e = torch.rand(n, generator=gen, device=dev)
+    csr_seg = csr_tensor(seg_lay.csr)
+    t["kg_sum_d65"] = timing(
+        lambda: sk.csr_spmm(seg_lay.csr, x65), lambda: sk.csr_spmm_plain(seg_lay.csr, x65),
+        lambda: torch.sparse.mm(csr_seg, x65), **group_sweep(errs, seg_lay.csr, x65),
+        d68=lambda: sk.csr_spmm(seg_lay.csr, x68),
+        stack_sum_d65=lambda: sk.csr_spmm(seg_lay.csr, torch.cat(
+            [values * e[:, None], e[:, None]], dim=-1)),
+        stack_sum_d68=lambda: sk.csr_spmm(seg_lay.csr, torch.cat(
+            [values * e[:, None], e[:, None], e.new_zeros(n, 3)], dim=-1)))
+    x1 = torch.rand(deg_lay.n, 1, generator=gen, device=dev)
+    csr_deg = csr_tensor(deg_lay.csr)
+    t["kg_sum_d1"] = timing(lambda: sk.csr_spmm(deg_lay.csr, x1),
+                            lambda: sk.csr_spmm_plain(deg_lay.csr, x1),
+                            lambda: torch.sparse.mm(csr_deg, x1),
+                            **group_sweep(errs, deg_lay.csr, x1))
+    x64 = torch.randn(ui.n_cols, 64, generator=gen, device=dev)
+    csr_ui = csr_tensor(ui.fwd, ui.fwd.vals * ui_w)          # forward ids: the identity
+    csr_ui_b = csr_tensor(ui.bwd, ui.bwd.vals * ui_w[ui.bwd.edge_ids.long()])
+    t["ui_hop_d64"] = timing(lambda: sk.csr_spmm(ui.fwd, x64, ui_w),
+                             lambda: sk.csr_spmm_plain(ui.fwd, x64, ui_w),
+                             lambda: torch.sparse.mm(csr_ui, x64),
+                             bwd=lambda: sk.csr_spmm(ui.bwd, x64, ui_w),
+                             library_bwd=lambda: torch.sparse.mm(csr_ui_b, x64),
+                             **group_sweep(errs, ui.fwd, x64, ui_w))
+    g = torch.randn(rel_lay.n, 64, generator=gen, device=dev)
+    rel_ids = rel_lay.ids.long()
+    onehot = F.one_hot(rel_ids, rel_lay.num_segments).float()
+    t["relation_take"] = timing(
+        lambda: sk.csr_spmm(rel_lay.csr, g), lambda: sk.csr_spmm_plain(rel_lay.csr, g),
+        lambda: g.new_zeros(rel_lay.num_segments, 64).index_put_((rel_ids,), g,
+                                                                   accumulate=True),
+        onehot=lambda: onehot.T @ g, **group_sweep(errs, rel_lay.csr, g))
+    t["relation_take"]["onehot_mb"] = onehot.numel() * 4 / 1e6
+    return t
 
 
 def segmax_bound_ms(lay: skn.SegmentLayout) -> tuple[float, str]:
@@ -441,9 +623,12 @@ def main() -> int:
     log(f"built {', '.join(os.path.relpath(so) for so, _ in built.values())} in "
         f"{time.perf_counter() - t0:.1f} s (one nvcc per source, in parallel)")
     for name, (_, out) in built.items():
+        entry = ""
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {entry}: {line.split(':', 1)[-1].strip()}")
 
     log("== 3. B1 against plain")
     t0 = time.perf_counter()
@@ -457,7 +642,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     check_graph(errs, "bi_adj", g, (32,), gen, with_grads=True)
     main_abs, main_rel = errs.abs, errs.rel
-    check_graph(errs, "bi_adj", g, (1, 8, 33, 64), gen, with_grads=False)
+    check_graph(errs, "bi_adj", g, (1, 8, 33, 64, 65), gen, with_grads=False)
     rect = sk.build_csr_graph(from_scipy(data.extras["train_mat_scipy"]), dev)
     check_graph(errs, "train_mat", rect, (1, 8, 32, 33, 64), gen, with_grads=True)
     rng = np.random.default_rng(3)
@@ -468,37 +653,65 @@ def main() -> int:
                 (1, 32, 33), gen, with_grads=True)
     log(f"max abs err {errs.abs:.3g}, max rel err {errs.rel:.3g} (tolerance {TOL}); "
         f"main-path shape: abs {main_abs:.3g}, rel {main_rel:.3g}")
+    stress = stress_graph(dev)
+    stress_errs = ErrTrack()
+    check_graph(stress_errs, "stress", stress, (1, 32, 64, 65), gen, with_grads=True,
+                ref64=True)
+    splan = sk.layout_plan(stress.fwd, sk.split_threshold(stress.nnz, sk.lane_group(32)))
+    log(f"stress graph (float64 plain): max abs err {stress_errs.abs:.3g}, max rel err "
+        f"{stress_errs.rel:.3g}; at d 32 {splan.n_chunks} chunks of <= {splan.t} edges, "
+        f"{splan.split_rows.numel()} split rows, {splan.empty_rows.numel()} empty")
 
-    log("== 4. B1 timing")
+    log("== 4. B1 timing, LightGCN hop")
     d = int(cfg.model.embedding_size)
     lay = g.fwd
+    nnz = g.nnz
     x = torch.randn(g.n_cols, d, generator=gen, device=dev)
-    mask = sk.dropout_mask(torch.tensor([1, 2], device=dev), g, 0.5).w
-    csr_t = torch.sparse_csr_tensor(lay.indptr, lay.cols, lay.vals,
-                                    size=(lay.n_rows, lay.n_cols))
+    key = torch.tensor([1, 2], device=dev)
+    mask = sk.dropout_mask(key, g, 0.5).w
+    prf = sk.prf_mask(key, g, 0.5)
+    csr_t, csr_m = csr_tensor(lay), csr_tensor(lay, lay.vals * mask)
+    csr_mb = csr_tensor(g.bwd, g.bwd.vals * mask[g.bwd.edge_ids.long()])
     launches_before = sk.csr_spmm.launches
-    t = {
-        "plain": time_ms(lambda: sk.csr_spmm_plain(lay, x)),
-        "kernel": time_ms(lambda: sk.csr_spmm(lay, x)),
-        "library": time_ms(lambda: torch.sparse.mm(csr_t, x)),
-        "kernel_masked": time_ms(lambda: sk.csr_spmm(lay, x, mask)),
-        "plain_masked": time_ms(lambda: sk.csr_spmm_plain(lay, x, mask)),
-        "kernel_bwd_masked": time_ms(lambda: sk.csr_spmm(g.bwd, x, mask)),
+    calls = {"none": lambda: sk.csr_spmm(lay, x), "mask": lambda: sk.csr_spmm(lay, x, mask),
+             "prf": lambda: sk.csr_spmm(lay, x, prf),
+             "mask_bwd": lambda: sk.csr_spmm(g.bwd, x, mask),
+             "prf_bwd": lambda: sk.csr_spmm(g.bwd, x, prf)}
+    order = list(calls) + list(calls)[::-1]      # in turns, to show the spread
+    repeat = {k: [] for k in calls}
+    for k in order:
+        repeat[k].append(device_ms(calls[k]))
+    hop = {
+        "none": timing(lambda: sk.csr_spmm(lay, x), lambda: sk.csr_spmm_plain(lay, x),
+                       lambda: torch.sparse.mm(csr_t, x)),
+        "mask": timing(lambda: sk.csr_spmm(lay, x, mask),
+                       lambda: sk.csr_spmm_plain(lay, x, mask),
+                       lambda: torch.sparse.mm(csr_m, x)),
+        "prf": timing(lambda: sk.csr_spmm(lay, x, prf), lambda: sk.csr_spmm_plain(lay, x, prf),
+                      lambda: torch.sparse.mm(csr_m, x)),
+        "mask_bwd": timing(lambda: sk.csr_spmm(g.bwd, x, mask),
+                           lambda: sk.csr_spmm_plain(g.bwd, x, mask),
+                           lambda: torch.sparse.mm(csr_mb, x)),
+        "prf_bwd": timing(lambda: sk.csr_spmm(g.bwd, x, prf),
+                          lambda: sk.csr_spmm_plain(g.bwd, x, prf),
+                          lambda: torch.sparse.mm(csr_mb, x)),
     }
-    t["kernel_2"] = time_ms(lambda: sk.csr_spmm(lay, x))
-    t["plain_2"] = time_ms(lambda: sk.csr_spmm_plain(lay, x))
-    dt = {"kernel": device_ms(lambda: sk.csr_spmm(lay, x)),
-          "plain": device_ms(lambda: sk.csr_spmm_plain(lay, x)),
-          "library": device_ms(lambda: torch.sparse.mm(csr_t, x))}
-    b_ms, b_by = bound_ms(lay, d, masked=False)
-    bm_ms, _ = bound_ms(lay, d, masked=True)
-    for k, v in t.items():
-        log(f"  {k:18s} {v * 1e3:9.2f} us (events)")
-    for k, v in dt.items():
-        log(f"  {k:18s} {v * 1e3:9.2f} us (device)")
-    log(f"  bound {b_ms * 1e3:.2f} us ({b_by}); masked {bm_ms * 1e3:.2f} us; "
-        f"kernel at {100 * b_ms / dt['kernel']:.1f}% of the bound")
+    hop_bound = {k: bound_ms(g.bwd if k.endswith("bwd") else lay, d, k.split("_")[0])
+                 for k in hop}
+    for k, r in hop.items():
+        log_timing(f"LightGCN hop, {k}", r, hop_bound[k])
+        log("    again, in turns: " + ", ".join(f"{v * 1e3:.2f}" for v in repeat[k]))
+        r["repeat_ms"] = repeat[k]
     assert sk.csr_spmm.launches > launches_before
+    group, t_pick = sk.lane_group(d), sk.split_threshold(nnz, sk.lane_group(d))
+    ref = sk.csr_spmm_plain(lay, x)
+    sweep = {}
+    for gw in (2, 4, 8, 16, 32):
+        for t in (16, 32, 64, 256):
+            errs.check(f"sweep.g{gw}.t{t}", sk.csr_spmm_at(lay, x, None, t, gw), ref)
+            sweep[f"g{gw}_t{t}"] = device_ms(lambda gw=gw, t=t: sk.csr_spmm_at(lay, x, None, t, gw))
+    log(f"  picked: lane group {group}, split threshold {t_pick}; device us by (group, T): "
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in sweep.items()))
 
     log("== 5. LightGCN path")
     argv = ["--model", "lightgcn", "--data_dir", DATA_DIR, "--dataset", DATASET,
@@ -546,28 +759,51 @@ def main() -> int:
     kg_cfg = load_config("kgcl", dataset=KG_DATASET, overrides={"data.dir": SMOKE_RESULTS})
     kg_cpu = kg_data.load(kg_cfg, "cpu")
     ex = kg_cpu.extras
+    bi = ex["bi_adj_maskable"]
     log(f"wrote and loaded {KG_DATASET} in {time.perf_counter() - t0:.1f} s: "
         f"{kg_cpu.user_num} users, {kg_cpu.item_num} items, {kg_cpu.n_train} train pairs, "
         f"{kg_cpu.test.n_test_users} test users; {ex['kg_triplets_full'].shape[0]} triplets "
         f"over {ex['entity_num']} entities and {ex['relation_num']} relations, "
         f"{ex['kg_heads'].shape[0]} kept by the per-head cap; UI bi-adjacency "
-        f"{ex['bi_adj_maskable'].n_nodes} nodes, {ex['bi_adj_maskable'].graph.nnz} edges")
+        f"{bi.n_nodes} nodes, {bi.graph.nnz} edges")
     seg_lay = skn.build_segment_layout(ex["kg_heads"], ex["entity_num"], dev)
     seg_errs = ErrTrack()
     check_segment_ops(seg_errs, seg_lay, gen)
-    log(f"B2 exact in every case; B1 segment ops max abs err {seg_errs.abs:.3g}, "
-        f"max rel err {seg_errs.rel:.3g} (tolerance {TOL})")
+    log(f"B2 exact in every case (group width {seg_lay.group_width} at the KGCL shape); B1 "
+        f"segment ops max abs err {seg_errs.abs:.3g}, max rel err {seg_errs.rel:.3g} "
+        f"(tolerance {TOL})")
+    rel = skn.OneHotTake(ex["kg_rels"], ex["relation_num"], dev)
+    rel_errs = ErrTrack()
+    check_relation_take(rel_errs, rel, int(kg_cfg.model.embedding_size), gen)
+    ui = sk.build_csr_graph(CooGraph(rows=bi.graph.rows, cols=bi.graph.cols,
+                                     vals=bi.graph.vals, n_rows=bi.n_nodes,
+                                     n_cols=bi.n_nodes), dev)
+    ui_w = bi.view_vals((torch.rand(bi.nnz_rect) < 0.5).float()).to(dev)
+    ui_errs = ErrTrack()
+    check_graph(ui_errs, "kgcl_ui", ui, (64,), gen, with_grads=True)
+    deg_lay = skn.build_segment_layout(bi.graph.rows, bi.n_nodes, dev)
 
-    log("== 7. segment timing")
-    ts, dts = time_segment_ops(seg_lay, gen)
-    b2_bound, b2_by = segmax_bound_ms(seg_lay)
-    b1s_bound, b1s_by = bound_ms(seg_lay.csr, 65, masked=False)
-    for k, v in ts.items():
-        log(f"  {k:18s} {v * 1e3:9.2f} us (events)")
-    for k, v in dts.items():
-        log(f"  {k:18s} {v * 1e3:9.2f} us (device)")
-    log(f"  B2 bound {b2_bound * 1e3:.2f} us ({b2_by}); B1 [n x 65] bound "
-        f"{b1s_bound * 1e3:.2f} us ({b1s_by})")
+    log("== 7. KGCL shapes timing")
+    sweep_errs = ErrTrack()
+    kg = time_kgcl_shapes(sweep_errs, seg_lay, deg_lay, ui, ui_w, rel.layout, gen)
+    kg_bound = {"b2": segmax_bound_ms(seg_lay),
+                "kg_sum_d65": bound_ms(seg_lay.csr, 65),
+                "kg_sum_d1": bound_ms(deg_lay.csr, 1),
+                "ui_hop_d64": bound_ms(ui.fwd, 64, "mask"),
+                "relation_take": bound_ms(rel.layout.csr, 64)}
+    for k, r in kg.items():
+        log_timing(k, r, kg_bound[k])
+    b2 = kg["b2"]
+    log("  B2 device us by group width: " + ", ".join(
+        f"{w} {b2[f'width{w}_ms'] * 1e3:.2f}" for w in (4, 8, 16, 32)))
+    s65 = kg["kg_sum_d65"]
+    log(f"  segment sum d 65 {s65['ms'] * 1e3:.2f} us, d 68 {s65['d68_ms'] * 1e3:.2f} us; "
+        f"stack + sum at 65 columns {s65['stack_sum_d65_ms'] * 1e3:.2f} us, at 68 "
+        f"{s65['stack_sum_d68_ms'] * 1e3:.2f} us")
+    rt = kg["relation_take"]
+    log(f"  relation take backward: B1 {rt['ms'] * 1e3:.2f} us, index_put_ "
+        f"{rt['library_ms'] * 1e3:.2f} us, one-hot GEMM {rt['onehot_ms'] * 1e3:.2f} us "
+        f"({rt['onehot_mb']:.1f} MB one-hot)")
 
     log("== 8. KGCL path")
     argv = ["--model", "kgcl", "--data_dir", SMOKE_RESULTS, "--dataset", KG_DATASET,
@@ -584,9 +820,9 @@ def main() -> int:
     log(f"launches over {kg_steps} steps: B1 {kg_b1} ({kg_b1 / kg_steps:.2f} per step; "
         f"{want_b1} counted from the code), B2 {kg_b2} ({kg_b2 / kg_steps:.2f} per step; "
         f"{want_b2} counted from the code)")
-    if kg_b2 < KGCL_B2_PER_STEP * kg_steps or kg_b1 < KGCL_B1_PER_STEP * kg_steps:
-        raise AssertionError(f"KGCL launched B1 {kg_b1}, B2 {kg_b2} times; want >= "
-                             f"{KGCL_B1_PER_STEP} and {KGCL_B2_PER_STEP} per step")
+    if (kg_b1, kg_b2) != (want_b1, want_b2):
+        raise AssertionError(f"KGCL launched B1 {kg_b1}, B2 {kg_b2} times; the code "
+                             f"counts {want_b1} and {want_b2}")
     kg_losses = [r["loss"]["loss"] for r in kg_rows]
     if not all(math.isfinite(v) for v in kg_losses) or not kg_losses[1] < kg_losses[0]:
         raise AssertionError(f"KGCL losses {kg_losses}: want finite and decreasing")
@@ -609,33 +845,57 @@ def main() -> int:
     kgcl_small_step_check(errs)
 
     log("== 9. result")
-    b1 = {
-        "name": "csr_spmm", "route": "cuda",
-        "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
-        "replaces": "sslrec_tpu/ops/pallas_spmm.py:123",
-        "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel",
-        "launches": launches + kg_b1,
-        "launches_by_path": {"lightgcn": launches, "kgcl": kg_b1},
-        "launches_per_step": {"lightgcn": launches / steps, "kgcl": kg_b1 / kg_steps},
-        "max_abs_err": main_abs, "max_rel_err": main_rel,
-        "max_rel_err_all_checks": max(errs.rel, seg_errs.rel),
-        "shape": {"n_rows": lay.n_rows, "n_cols": lay.n_cols,
-                  "nnz": int(lay.cols.shape[0]), "d": d},
-        "ms": dt["kernel"], "plain_ms": dt["plain"], "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": dt["library"],
-        "event_ms": t["kernel"], "plain_event_ms": t["plain"],
-        "library_event_ms": t["library"],
-        "event_ms_masked": t["kernel_masked"], "plain_event_ms_masked": t["plain_masked"],
-        "bound_ms_masked": bm_ms, "event_ms_bwd_masked": t["kernel_bwd_masked"],
-        "segment_sum": {
-            "shape": {"n": seg_lay.n, "num_segments": seg_lay.num_segments, "d": 65},
-            "max_abs_err": seg_errs.abs, "max_rel_err": seg_errs.rel,
-            "ms": dts["b1_kernel"], "plain_ms": dts["b1_plain"], "bound_ms": b1s_bound,
-            "bound_by": b1s_by, "library_ms": dts["b1_library"],
-            "event_ms": ts["b1_kernel"], "plain_event_ms": ts["b1_plain"],
-            "library_event_ms": ts["b1_library"]},
-    }
-    b2 = {
+    common = {"route": "cuda", "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
+              "replaces": "sslrec_tpu/ops/pallas_spmm.py:123",
+              "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel"}
+
+    def b1_row(name, r, bound, path_launches, err, shape, **more):
+        return {"name": name, **common, "launches": path_launches,
+                "launches_scope": "every B1 call of the path's 2-epoch run",
+                "max_abs_err": err.abs, "max_rel_err": err.rel, "shape": shape,
+                **r, "bound_ms": bound[0], "bound_by": bound[1], **more}
+
+    hop_shape = {"n_rows": lay.n_rows, "n_cols": lay.n_cols, "nnz": nnz, "d": d,
+                 "lane_group": group, "split_threshold": t_pick}
+    lgcn_err = ErrTrack()
+    lgcn_err.abs, lgcn_err.rel = main_abs, main_rel
+    b1 = b1_row("csr_spmm", hop["none"], hop_bound["none"], launches + kg_b1, lgcn_err,
+                hop_shape, launches_by_path={"lightgcn": launches, "kgcl": kg_b1},
+                launches_per_step={"lightgcn": launches / steps, "kgcl": kg_b1 / kg_steps},
+                max_rel_err_all_checks=max(errs.rel, seg_errs.rel, rel_errs.rel,
+                                           ui_errs.rel, sweep_errs.rel),
+                stress={"max_abs_err": stress_errs.abs, "max_rel_err": stress_errs.rel,
+                        "reference": "plain version in float64"},
+                sweep_ms=sweep,
+                library_call="torch.sparse.mm on a CSR tensor of the layout")
+    rows_b1 = [b1]
+    for k in ("mask", "prf", "mask_bwd", "prf_bwd"):
+        rows_b1.append(b1_row(
+            f"csr_spmm.lightgcn_hop_{k}", hop[k], hop_bound[k], launches, lgcn_err,
+            {**hop_shape, "layout": "transposed" if k.endswith("bwd") else "forward"},
+            library_call="torch.sparse.mm on a CSR tensor whose values already carry "
+                         "the mask (the mask's product and the PRF are not timed)"))
+    seg_shape = {"n": seg_lay.n, "num_segments": seg_lay.num_segments}
+    rows_b1.append(b1_row("csr_spmm.kg_sum_d65", kg["kg_sum_d65"], kg_bound["kg_sum_d65"],
+                          kg_b1, seg_errs, {**seg_shape, "d": 65},
+                          library_call="torch.sparse.mm on the segment layout"))
+    rows_b1.append(b1_row("csr_spmm.kg_sum_d1", kg["kg_sum_d1"], kg_bound["kg_sum_d1"],
+                          kg_b1, seg_errs, {"n": deg_lay.n, "num_segments": deg_lay.num_segments,
+                                            "d": 1},
+                          library_call="torch.sparse.mm on the degree layout"))
+    rows_b1.append(b1_row("csr_spmm.kgcl_ui_hop_d64", kg["ui_hop_d64"],
+                          kg_bound["ui_hop_d64"], kg_b1, ui_errs,
+                          {"n_rows": ui.n_rows, "nnz": ui.nnz, "d": 64},
+                          library_call="torch.sparse.mm on a CSR tensor whose values "
+                                       "already carry the view's values"))
+    rows_b1.append(b1_row("csr_spmm.relation_take_bwd", kg["relation_take"],
+                          kg_bound["relation_take"], kg_b1, rel_errs,
+                          {"n": rel.layout.n, "num_segments": rel.layout.num_segments,
+                           "d": 64},
+                          library_call="zeros.index_put_((ids,), g, accumulate=True), the "
+                                       "call autograd makes for an index's backward; "
+                                       "onehot_ms: the one-hot GEMM onehot.T @ g"))
+    b2_row = {
         "name": "segment_max", "route": "cuda",
         "source": "sslrec_tpu_torch/csrc/segment_max.cu",
         "replaces": "sslrec_tpu/ops/pallas_segment.py:137",
@@ -644,15 +904,13 @@ def main() -> int:
         "launches_by_path": {"lightgcn": lgcn_b2, "kgcl": kg_b2},
         "launches_per_step": {"kgcl": kg_b2 / kg_steps},
         "max_abs_err": 0.0,
-        "shape": {"n": seg_lay.n, "num_segments": seg_lay.num_segments},
-        "ms": dts["b2_kernel"], "plain_ms": dts["b2_plain"], "bound_ms": b2_bound,
-        "bound_by": b2_by, "library_ms": dts["b2_library"],
-        "event_ms": ts["b2_kernel"], "plain_event_ms": ts["b2_plain"],
-        "library_event_ms": ts["b2_library"],
+        "shape": {**seg_shape, "group_width": seg_lay.group_width,
+                  "long_segments": seg_lay.long_segments.numel()},
+        **b2, "bound_ms": kg_bound["b2"][0], "bound_by": kg_bound["b2"][1],
         "library_call": "Tensor.scatter_reduce_(0, ids, data, 'amax', include_self=False) "
                         "into a -inf-filled tensor (the plain version's own call)",
     }
-    log(json.dumps({"kernels": [b1, b2]}))
+    log(json.dumps({"kernels": rows_b1 + [b2_row]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,7 @@ from typing import Sequence
 
 import torch
 
-from sslrec_tpu_torch.ops.spmm_kernel import CsrGraph, EdgeMask, dropout_mask
+from sslrec_tpu_torch.ops.spmm_kernel import CsrGraph, PrfMask, prf_mask
 
 
 def edge_drop_mask(gen: torch.Generator, nnz: int, keep_rate: float,
@@ -26,12 +26,14 @@ def edge_drop_mask(gen: torch.Generator, nnz: int, keep_rate: float,
 
 def edge_drop(key: torch.Tensor, g: CsrGraph, keep_rate: float,
               resize_val: bool = False,
-              salts: int | Sequence[int] = 0) -> EdgeMask | None:
+              salts: int | Sequence[int] = 0) -> PrfMask | None:
     """Edge-dropout multiplier for :func:`ops.spmm.spmm`: the counter-mode PRF
     mask of the original edge id under ``key`` (two uint32 values), the one the
-    JAX package's accelerator path uses.  ``salts``: an int, or a sequence for
-    a leading per-view/per-layer dimension.  ``None`` when ``keep_rate >= 1``.
+    JAX package's accelerator path uses, as a :class:`PrfMask` that B1
+    evaluates inside the kernel (``.w`` materialises it).  ``salts``: an int,
+    or a sequence for a leading per-view/per-layer dimension.  ``None`` when
+    ``keep_rate >= 1``.
     """
     if keep_rate >= 1.0:
         return None
-    return dropout_mask(key, g, keep_rate, salts=salts, resize_val=resize_val)
+    return prf_mask(key, g, keep_rate, salts=salts, resize_val=resize_val)

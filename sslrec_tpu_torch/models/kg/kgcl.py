@@ -68,7 +68,7 @@ class KGCL(RecModel):
         device = data.device
         self.seg_h = SegmentOps(self.heads, self.n_entities, device)
         self.seg_t = SegmentOps(data.extras["kg_tails"], self.n_entities, device)
-        self.rel_take = OneHotTake(data.extras["kg_rels"])
+        self.rel_take = OneHotTake(data.extras["kg_rels"], self.n_relations, device)
 
         d = self.embedding_size
 

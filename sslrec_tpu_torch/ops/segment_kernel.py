@@ -11,7 +11,11 @@ are 1.  On it
     gather x[ids] = a plain index                               backward: segment sum (B1)
     segment max   = ``csrc/segment_max.cu`` (B2)                no gradient (a softmax shift)
 
-so a message-passing hop has no scatter in either direction.  Dispatch as for
+so a message-passing hop has no scatter in either direction.  B1's uses:
+the RGAT's fused attention sum (d + 1 columns), degree counts (d = 1), the
+backward of every endpoint gather, and the backward of KGCL's relation take
+(:class:`OneHotTake`: ~300,000 rows into 41 segments, whose rows B1 splits
+into chunks).  Dispatch as for
 B1: a CPU tensor takes the plain version (:mod:`sslrec_tpu_torch.ops.segment`,
 ``csr_spmm_plain``), a CUDA tensor launches the kernel or raises.
 """
@@ -34,12 +38,48 @@ class SegmentLayout(NamedTuple):
     """Reductions over one constant id array (counterpart of
     ``BlockedSegments``): ``csr`` sums ``data[perm[j]]`` over the slots of each
     segment, ``perm`` (``csr.cols``) being the stable argsort of the ids;
-    ``ids`` int32 [n] in the original order drives the gathers."""
+    ``ids`` int32 [n] in the original order drives the gathers.  B2 gives
+    each segment ``group_width`` lanes, and a whole warp to each of
+    ``long_segments`` (int32), those of more than ``LONG_STRIDES ·
+    group_width`` slots."""
 
     csr: CsrLayout
     ids: torch.Tensor
     num_segments: int
     n: int
+    group_width: int
+    long_segments: torch.Tensor
+
+
+LONG_STRIDES = 4    # a B2 group takes a segment of at most this many strides
+
+
+def segmax_group_width(lengths: np.ndarray) -> int:
+    """B2's lanes per segment: a quarter of the mean segment length rounded
+    up to a power of two, from 4 to 32, so a group strides a typical segment
+    a few times and many segments share a warp (PERF.md has the sweep over
+    widths that chose this)."""
+    mean = float(np.mean(lengths)) if lengths.size else 0.0
+    return min(32, max(4, 1 << max(0, int(np.ceil(mean / 4)) - 1).bit_length()))
+
+
+def long_segments(lengths: np.ndarray, group_width: int, device="cpu") -> torch.Tensor:
+    """The segments B2 gives a whole warp, int32: more than ``LONG_STRIDES``
+    strides of their group."""
+    longs = np.flatnonzero(lengths > LONG_STRIDES * group_width)
+    return torch.from_numpy(longs.astype(np.int32)).to(device)
+
+
+def with_group_width(lay: SegmentLayout, width: int) -> SegmentLayout:
+    """``lay`` with another B2 group width (a power of two up to 32) and the
+    whole-warp bin that goes with it, for measurements and tests that
+    compare widths."""
+    if width not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"segment_max: group width must be a power of two up to 32, "
+                         f"got {width}")
+    lengths = np.diff(lay.csr.indptr.cpu().numpy())
+    return lay._replace(group_width=width,
+                        long_segments=long_segments(lengths, width, lay.ids.device))
 
 
 def build_segment_layout(segment_ids, num_segments: int, device="cpu") -> SegmentLayout:
@@ -52,8 +92,11 @@ def build_segment_layout(segment_ids, num_segments: int, device="cpu") -> Segmen
     order = np.argsort(ids, kind="stable")
     csr = csr_layout(ids[order], order, np.ones(n, np.float32), np.arange(n),
                      num_segments, n, device)
+    lengths = np.bincount(ids, minlength=num_segments)
+    width = segmax_group_width(lengths)
     return SegmentLayout(csr=csr, ids=torch.from_numpy(ids.astype(np.int32)).to(device),
-                         num_segments=int(num_segments), n=int(n))
+                         num_segments=int(num_segments), n=int(n), group_width=width,
+                         long_segments=long_segments(lengths, width, device))
 
 
 # ---------------------------------------------------------------------------
@@ -63,7 +106,8 @@ def build_segment_layout(segment_ids, num_segments: int, device="cpu") -> Segmen
 @functools.cache
 def _kernel():
     p = ctypes.c_void_p
-    return load_kernel("segment_max", "segment_max_f32", [p, p, p, p, ctypes.c_int, p])
+    i = ctypes.c_int
+    return load_kernel("segment_max", "segment_max_f32", [p, p, p, p, i, p, i, i, i, p])
 
 
 def segment_max_plain(lay: SegmentLayout, data: torch.Tensor) -> torch.Tensor:
@@ -77,26 +121,28 @@ def segment_max(lay: SegmentLayout, data: torch.Tensor) -> torch.Tensor:
     ``segment_max_blocked`` (a softmax shift, where a constant is exact).
 
     A CPU ``data`` takes :func:`segment_max_plain`; a CUDA ``data`` launches
-    the kernel on the current stream (``segment_max.launches`` counts those
-    launches) or raises.
+    the kernel on the current stream with the layout's group width
+    (``segment_max.launches`` counts those launches) or raises.
     """
     data = data.detach()
     if data.device.type == "cpu":
         return segment_max_plain(lay, data)
     if data.device.type != "cuda":
         raise ValueError(f"segment_max: no kernel for device {data.device}")
-    csr = lay.csr
+    csr, longs = lay.csr, lay.long_segments
     if data.shape != (lay.n,) or data.dtype != torch.float32 or not data.is_contiguous():
         raise ValueError(f"segment_max: data must be contiguous float32 [{lay.n}], "
                          f"got {data.dtype} {tuple(data.shape)}")
-    for name, t in (("indptr", csr.indptr), ("perm", csr.cols)):
+    for name, t in (("indptr", csr.indptr), ("perm", csr.cols), ("long_segments", longs)):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != data.device:
             raise ValueError(f"segment_max: {name} must be contiguous int32 on {data.device}")
     out = torch.empty(lay.num_segments, dtype=torch.float32, device=data.device)
     if lay.num_segments == 0:
         return out
+    width = lay.group_width
     err = _kernel()(csr.indptr.data_ptr(), csr.cols.data_ptr(), data.data_ptr(),
-                    out.data_ptr(), lay.num_segments,
+                    out.data_ptr(), lay.num_segments, longs.data_ptr(), longs.shape[0],
+                    width.bit_length() - 1, LONG_STRIDES * width,
                     torch.cuda.current_stream(data.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_max: launch of libsegment_max.so's kernel failed: "
@@ -184,16 +230,18 @@ def attn_aggregate(lay: SegmentLayout, logits: torch.Tensor, values: torch.Tenso
 
 
 class OneHotTake:
-    """``table[ids]`` for a small vocabulary.  The JAX package made it a
-    one-hot matmul because a TPU gather is latency-bound; here it is a plain
-    index, whose backward is autograd's sort-based scatter (the place to
-    change how a small table's gradient is summed)."""
+    """``table[ids]`` for a small vocabulary (port of the JAX package's
+    ``OneHotTake``).  There it is a one-hot matmul, whose transpose
+    ``onehotᵀ @ g`` is a scatter-free backward; here the forward is a plain
+    index and the backward is :class:`TakeFn`'s: one B1 segment sum of ``g``
+    over the ids' :class:`SegmentLayout`, each vocabulary row of thousands of
+    ids split by B1 into chunks.  No one-hot and no scatter exist."""
 
-    def __init__(self, ids: torch.Tensor):
-        self.ids = ids
+    def __init__(self, ids, vocab: int, device="cpu"):
+        self.layout = build_segment_layout(ids, vocab, device)
 
     def take(self, table: torch.Tensor) -> torch.Tensor:
-        return table[self.ids]
+        return TakeFn.apply(self.layout, table)
 
 
 class SegmentOps:

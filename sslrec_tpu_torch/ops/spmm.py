@@ -9,24 +9,28 @@ from __future__ import annotations
 
 import torch
 
-from sslrec_tpu_torch.ops.spmm_kernel import CsrGraph, EdgeMask, SpmmFn, SpmmPvFn
+from sslrec_tpu_torch.ops.spmm_kernel import CsrGraph, EdgeMask, PrfMask, SpmmFn, SpmmPvFn
+
+EdgeWeight = torch.Tensor | EdgeMask | PrfMask | None
 
 
-def spmm(g: CsrGraph, x: torch.Tensor,
-         edge_weight: torch.Tensor | EdgeMask | None = None) -> torch.Tensor:
+def spmm(g: CsrGraph, x: torch.Tensor, edge_weight: EdgeWeight = None) -> torch.Tensor:
     """``A @ x``; ``x`` is ``[n_cols, d]``.
 
     ``edge_weight``: ``None``; a ``[nnz]`` multiplier on ``g.vals`` in the
-    original edge order, differentiable (learned edge gates); or an
-    :class:`EdgeMask`, a constant multiplier such as a dropout mask.
+    original edge order, differentiable (learned edge gates); or a constant
+    multiplier: an :class:`EdgeMask` (a materialised tensor) or a
+    :class:`PrfMask` (edge dropout, evaluated inside the kernel).
     """
     if isinstance(edge_weight, EdgeMask):
         return SpmmPvFn.apply(g, x, edge_weight.w)
+    if isinstance(edge_weight, PrfMask):
+        return SpmmPvFn.apply(g, x, edge_weight)
     return SpmmFn.apply(g, x, edge_weight)
 
 
 def spmm_layers(g: CsrGraph, x0: torch.Tensor, n_layers: int,
-                edge_weight: torch.Tensor | EdgeMask | None = None) -> torch.Tensor:
+                edge_weight: EdgeWeight = None) -> torch.Tensor:
     """``n_layers`` repeated hops ``x ← A @ x``; returns ``[n_layers, n_rows, d]``.
 
     ``edge_weight``: as for :func:`spmm`, the same every hop, or with a leading
@@ -37,15 +41,14 @@ def spmm_layers(g: CsrGraph, x0: torch.Tensor, n_layers: int,
     for layer in range(n_layers):
         ew = edge_weight
         if per_layer:
-            ew = (EdgeMask(edge_weight.w[layer]) if isinstance(edge_weight, EdgeMask)
+            ew = (edge_weight.layer(layer) if isinstance(edge_weight, (EdgeMask, PrfMask))
                   else edge_weight[layer])
         x = spmm(g, x, edge_weight=ew)
         ys.append(x)
     return torch.stack(ys)
 
 
-def spmm_t(g: CsrGraph, x: torch.Tensor,
-           edge_weight: torch.Tensor | EdgeMask | None = None) -> torch.Tensor:
+def spmm_t(g: CsrGraph, x: torch.Tensor, edge_weight: EdgeWeight = None) -> torch.Tensor:
     """``Aᵀ @ x`` through the transposed layout; ``x`` is ``[n_rows, d]``."""
     return spmm(g.t(), x, edge_weight)
 

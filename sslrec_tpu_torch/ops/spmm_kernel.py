@@ -1,15 +1,20 @@
-"""CSR SpMM: host layout, the CUDA kernel's wrapper, autograd, edge-dropout PRF.
+"""CSR SpMM: host layout and split plan, the CUDA kernel's wrapper, autograd,
+edge-dropout PRF.
 
 Port of ``sslrec_tpu/ops/pallas_spmm.py``.  The TPU kernel there reduced
 padded edge chunks (R-row blocks, M-edge chunks) with one-hot matmuls; that
 tiling is the TPU's and is dropped.  Here each propagation direction is a
 plain CSR layout (:class:`CsrLayout`), and ``csrc/csr_spmm.cu`` computes the
-whole operator ``out[r] = Σ_e vals[e]·w(e)·x[cols[e]]`` in one launch.
+whole operator ``out[r] = Σ_e vals[e]·w(e)·x[cols[e]]`` in one call: rows cut
+into chunks of at most T edges by :func:`split_plan`, a row of more than T
+edges summed as several chunks and combined in chunk order.
 
 Dispatch: a tensor on the CPU goes to :func:`csr_spmm_plain`; a CUDA tensor
 launches the kernel or raises.  The backward pass of every hop is the same
 kernel on the transposed layout, which is always built: A need not be
-symmetric.
+symmetric.  Edge dropout (:class:`PrfMask`) is evaluated inside the kernel
+from each layout's edge ids; :class:`EdgeMask` carries a materialised
+multiplier.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ class CsrLayout(NamedTuple):
     of each slot, read only by the plain version); ``cols`` int32 [nnz];
     ``vals`` float32 [nnz]; ``edge_ids`` int32 [nnz], the original edge index
     of each slot, through which a per-edge multiplier held in the original
-    edge order is read.
+    edge order is read; ``ids_identity`` marks ``edge_ids == arange(nnz)``, so
+    the kernel reads none; ``plans`` caches :func:`split_plan` by threshold.
     """
 
     indptr: torch.Tensor
@@ -42,6 +48,8 @@ class CsrLayout(NamedTuple):
     edge_ids: torch.Tensor
     n_rows: int
     n_cols: int
+    ids_identity: bool
+    plans: dict
 
 
 class CsrGraph(NamedTuple):
@@ -76,10 +84,13 @@ def csr_layout(rows, cols, vals, edge_ids, n_rows, n_cols, device) -> CsrLayout:
     def t(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
+    edge_ids = np.asarray(edge_ids)
     return CsrLayout(indptr=t(indptr, np.int32), rows=t(rows, np.int32),
                      cols=t(cols, np.int32), vals=t(vals, np.float32),
                      edge_ids=t(edge_ids, np.int32),
-                     n_rows=int(n_rows), n_cols=int(n_cols))
+                     n_rows=int(n_rows), n_cols=int(n_cols),
+                     ids_identity=bool(np.array_equal(edge_ids, np.arange(edge_ids.size))),
+                     plans={})
 
 
 def build_csr_graph(g: CooGraph, device="cpu") -> CsrGraph:
@@ -103,25 +114,148 @@ def build_csr_graph(g: CooGraph, device="cpu") -> CsrGraph:
 
 
 # ---------------------------------------------------------------------------
+# Split plan: rows cut into chunks of at most T edges
+# ---------------------------------------------------------------------------
+
+RESIDENT_THREADS = 132 * 2048   # an H100 SXM's SMs × resident threads per SM
+
+
+class SplitPlan(NamedTuple):
+    """The kernel's work list for one layout and threshold ``t``.
+
+    Chunk ``c`` sums the edges ``[chunk_ptr[c], chunk_ptr[c+1])``, all of row
+    ``chunk_row[c]``; a row of ``n > t`` edges has ``⌈n/t⌉`` chunks, in edge
+    order, the others one, an empty row none.  ``chunk_dst[c]`` is the row
+    for a whole row's chunk, else ``-1 - slot`` with ``slot`` its row in the
+    partials buffer; ``split_rows`` [n_split] are the rows with several chunks,
+    whose slots are ``[split_ptr[i], split_ptr[i+1])`` in chunk order;
+    ``empty_rows`` are written 0.  All int32; ``n_slots`` is the number of
+    partials.
+    """
+
+    t: int
+    chunk_ptr: torch.Tensor
+    chunk_row: torch.Tensor
+    chunk_dst: torch.Tensor
+    empty_rows: torch.Tensor
+    split_rows: torch.Tensor
+    split_ptr: torch.Tensor
+    n_slots: int
+
+    @property
+    def n_chunks(self) -> int:
+        return self.chunk_row.shape[0]
+
+
+def split_plan(indptr_t: torch.Tensor, t: int) -> SplitPlan:
+    """The chunks of the rows of ``indptr_t`` under threshold ``t``, built on
+    the host and placed on ``indptr_t``'s device; see :class:`SplitPlan`."""
+    if t < 1:
+        raise ValueError(f"split threshold must be >= 1, got {t}")
+    device = indptr_t.device
+    indptr = indptr_t.cpu().numpy().astype(np.int64)
+    deg = np.diff(indptr)
+    live = np.flatnonzero(deg)
+    per_row = -(-deg[live] // t)                         # chunks of each live row
+    chunk_row = np.repeat(live, per_row)
+    first = np.cumsum(per_row) - per_row                 # each live row's first chunk
+    k = np.arange(chunk_row.size) - np.repeat(first, per_row)
+    chunk_ptr = np.append(indptr[chunk_row] + k * t, indptr[-1])
+    split = per_row > 1
+    in_split = np.repeat(split, per_row)
+    slot = np.cumsum(in_split) - 1
+    chunk_dst = np.where(in_split, -1 - slot, chunk_row)
+    split_ptr = np.concatenate([[0], np.cumsum(per_row[split])])
+
+    def t32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return SplitPlan(t=int(t), chunk_ptr=t32(chunk_ptr), chunk_row=t32(chunk_row),
+                     chunk_dst=t32(chunk_dst), empty_rows=t32(np.flatnonzero(deg == 0)),
+                     split_rows=t32(live[split]), split_ptr=t32(split_ptr),
+                     n_slots=int(split_ptr[-1]))
+
+
+def lane_group(d: int) -> int:
+    """Lanes per chunk at width ``d``: one per two 16-byte vectors of a row,
+    a power of two from 4 to 32; where ``d % 4`` (4-byte loads), one per two
+    floats and at least 8.  Two vectors a lane keep more gathers in flight
+    than one, and more chunks share a warp; PERF.md has the sweep over
+    widths that chose this."""
+    if d % 4 == 0:
+        return min(32, max(4, 1 << (-(-d // 8) - 1).bit_length()))
+    return min(32, max(8, 1 << (-(-d // 2) - 1).bit_length()))
+
+
+def split_threshold(nnz: int, group: int) -> int:
+    """T: about twice the edges each lane group gets when the card's resident
+    groups share ``nnz`` evenly, as a power of two from 32 to 1024, so that
+    no chunk outlasts the rest of the grid by much and short rows stay
+    whole."""
+    per_group = 2 * nnz * group / RESIDENT_THREADS
+    return min(1024, max(32, 1 << max(0, int(np.ceil(per_group)) - 1).bit_length()))
+
+
+def layout_plan(layout: CsrLayout, t: int) -> SplitPlan:
+    """``split_plan`` of ``layout`` at ``t``, built once on the host and
+    cached on the layout."""
+    if t not in layout.plans:
+        layout.plans[t] = split_plan(layout.indptr, t)
+    return layout.plans[t]
+
+
+def csr_spmm_split_plain(layout: CsrLayout, plan: SplitPlan, x: torch.Tensor,
+                         ew=None) -> torch.Tensor:
+    """Plain PyTorch emulation of the kernel's schedule, for tests: each
+    chunk's sum, then every split row's partials added in chunk order."""
+    contrib = _edge_values(layout, ew)[:, None] * x[layout.cols]
+    sizes = torch.diff(plan.chunk_ptr.long())
+    chunk_of_edge = torch.repeat_interleave(torch.arange(plan.n_chunks, device=x.device),
+                                            sizes)
+    part = torch.zeros(plan.n_chunks, x.shape[1], dtype=x.dtype, device=x.device)
+    part.index_add_(0, chunk_of_edge, contrib)
+    out = torch.zeros(layout.n_rows, x.shape[1], dtype=x.dtype, device=x.device)
+    whole = plan.chunk_dst >= 0
+    out[plan.chunk_dst[whole].long()] = part[whole]
+    slots = part[~whole]                      # slot order is chunk order
+    n_per = torch.diff(plan.split_ptr.long())
+    if n_per.numel():
+        acc = torch.zeros(n_per.numel(), x.shape[1], dtype=x.dtype, device=x.device)
+        for k in range(int(n_per.max())):
+            live = n_per > k
+            acc[live] += slots[plan.split_ptr[:-1].long()[live] + k]
+        out[plan.split_rows.long()] = acc
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrapper
 # ---------------------------------------------------------------------------
 
 @functools.cache
 def _kernel():
-    p = ctypes.c_void_p
+    p, i = ctypes.c_void_p, ctypes.c_int
     return load_kernel("csr_spmm", "csr_spmm_f32",
-                       [p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, p])
+                       [p, p, i, p, i, p, p, i, p, p, p, p, p, ctypes.c_uint, ctypes.c_float,
+                        i, p, p, p, i, i, p])
 
 
-def csr_spmm_plain(layout: CsrLayout, x: torch.Tensor,
-                   ew: torch.Tensor | None = None) -> torch.Tensor:
+def _edge_values(layout: CsrLayout, ew) -> torch.Tensor:
+    """``vals[e]·w(e)`` per slot of ``layout``."""
+    if ew is None:
+        return layout.vals
+    if isinstance(ew, PrfMask):
+        return layout.vals * ew.at(layout.edge_ids)
+    return layout.vals * ew[layout.edge_ids]
+
+
+def csr_spmm_plain(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same sum through ``index_add_``."""
-    v = layout.vals if ew is None else layout.vals * ew[layout.edge_ids]
     out = torch.zeros(layout.n_rows, x.shape[1], dtype=x.dtype, device=x.device)
-    return out.index_add_(0, layout.rows, v[:, None] * x[layout.cols])
+    return out.index_add_(0, layout.rows, _edge_values(layout, ew)[:, None] * x[layout.cols])
 
 
-def _check(layout: CsrLayout, x: torch.Tensor, ew: torch.Tensor | None):
+def _check(layout: CsrLayout, x: torch.Tensor, ew):
     def need(cond, what):
         if not cond:
             raise ValueError(f"csr_spmm: {what}")
@@ -138,35 +272,73 @@ def _check(layout: CsrLayout, x: torch.Tensor, ew: torch.Tensor | None):
     need(layout.vals.dtype == torch.float32 and layout.vals.is_contiguous()
          and layout.vals.shape == (nnz,), "vals must be contiguous float32 [nnz]")
     need(layout.vals.device == x.device, "vals must be on x's device")
-    if ew is not None:
+    if isinstance(ew, PrfMask):
+        need(ew.ndim == 1, "a PrfMask with several salts must be indexed by layer first")
+        need(ew.nnz == nnz, f"PrfMask over {ew.nnz} edges, layout has {nnz}")
+        k = ew.key
+        need(k.shape == (2,) and k.dtype == torch.int64 and k.is_contiguous(),
+             "PrfMask key must be contiguous int64 [2]")
+        need(k.device == x.device, f"PrfMask key is on {k.device}, x on {x.device}")
+    elif ew is not None:
         need(ew.shape == (nnz,) and ew.dtype == torch.float32 and ew.is_contiguous(),
              f"edge weight must be contiguous float32 [{nnz}]")
         need(ew.device == x.device, "edge weight must be on x's device")
 
 
-def csr_spmm(layout: CsrLayout, x: torch.Tensor,
-             ew: torch.Tensor | None = None) -> torch.Tensor:
-    """``out[r] = Σ_e vals[e]·w(e)·x[cols[e]]`` over ``layout``'s row ``r``,
-    with ``w(e) = ew[edge_ids[e]]`` when ``ew`` is given, else 1.
+def csr_spmm(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
+    """``out[r] = Σ_e vals[e]·w(e)·x[cols[e]]`` over ``layout``'s row ``r``.
+    ``ew``: ``None`` (w = 1); a float32 [nnz] tensor in the original edge
+    order (``w(e) = ew[edge_ids[e]]``); or a single-salt :class:`PrfMask`,
+    evaluated inside the kernel.
 
     A CPU ``x`` takes :func:`csr_spmm_plain`; a CUDA ``x`` launches the kernel
-    on the current stream (``csr_spmm.launches`` counts those launches) or
-    raises.
+    on the current stream with the lane group and split threshold that
+    :func:`lane_group` and :func:`split_threshold` pick for ``d`` and the
+    layout (``csr_spmm.launches`` counts those calls), or raises.
     """
     if x.device.type == "cpu":
         return csr_spmm_plain(layout, x, ew)
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmm: no kernel for device {x.device}")
     _check(layout, x, ew)
+    group = lane_group(x.shape[1])
+    return _launch(layout, x, ew, split_threshold(layout.cols.shape[0], group), group)
+
+
+def csr_spmm_at(layout: CsrLayout, x: torch.Tensor, ew, t: int, group: int) -> torch.Tensor:
+    """The kernel at an explicit split threshold ``t`` and lane-group width
+    ``group`` (a power of two up to 32), on a CUDA ``x``: :func:`csr_spmm`'s
+    launch, open to measurements that compare schedules."""
+    if x.device.type != "cuda":
+        raise ValueError(f"csr_spmm_at: needs a CUDA tensor, got one on {x.device}")
+    _check(layout, x, ew)
+    if group not in (1, 2, 4, 8, 16, 32):
+        raise ValueError(f"csr_spmm: lane group must be a power of two up to 32, got {group}")
+    return _launch(layout, x, ew, t, group)
+
+
+def _launch(layout: CsrLayout, x: torch.Tensor, ew, t: int, group: int) -> torch.Tensor:
     d = x.shape[1]
     out = torch.empty(layout.n_rows, d, dtype=torch.float32, device=x.device)
     if layout.n_rows == 0 or d == 0:
         return out
-    eids = None if ew is None else layout.edge_ids.data_ptr()
+    plan = layout_plan(layout, t)
+    partials = torch.empty(plan.n_slots, d, dtype=torch.float32, device=x.device)
+    prf = ew if isinstance(ew, PrfMask) else None
+    tensor_ew = None if prf is not None else ew
     err = _kernel()(
-        layout.indptr.data_ptr(), layout.cols.data_ptr(), layout.vals.data_ptr(),
-        eids, None if ew is None else ew.data_ptr(), x.data_ptr(), out.data_ptr(),
-        layout.n_rows, d, torch.cuda.current_stream(x.device).cuda_stream)
+        plan.chunk_ptr.data_ptr(), plan.chunk_dst.data_ptr(), plan.n_chunks,
+        plan.empty_rows.data_ptr(), plan.empty_rows.shape[0],
+        plan.split_ptr.data_ptr(), plan.split_rows.data_ptr(), plan.split_rows.shape[0],
+        layout.cols.data_ptr(), layout.vals.data_ptr(),
+        None if layout.ids_identity or ew is None else layout.edge_ids.data_ptr(),
+        None if tensor_ew is None else tensor_ew.data_ptr(),
+        None if prf is None else prf.key.data_ptr(),
+        0 if prf is None else prf.salts & _U32,
+        1.0 if prf is None else prf.keep_rate,
+        int(prf is not None and prf.resize_val),
+        x.data_ptr(), out.data_ptr(), partials.data_ptr(), d, group.bit_length() - 1,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"csr_spmm: launch of libcsr_spmm.so's kernel failed: "
                            f"cudaError {err}")
@@ -205,14 +377,23 @@ class SpmmFn(torch.autograd.Function):
         return None, dx, dew
 
 
-class SpmmPvFn(SpmmFn):
-    """``(W∘A) @ x`` with a constant multiplier ``W`` such as a dropout mask
-    (port of ``pallas_spmm_pv``): the multiplier gets no cotangent."""
+class SpmmPvFn(torch.autograd.Function):
+    """``(W∘A) @ x`` with a constant multiplier ``W`` (port of
+    ``pallas_spmm_pv``): a materialised [nnz] tensor, or a :class:`PrfMask`
+    whose key and salt are all that is kept for the backward.  The
+    multiplier gets no cotangent; dx is the kernel on the transposed layout."""
+
+    @staticmethod
+    def forward(ctx, g: CsrGraph, x: torch.Tensor, w):
+        ctx.graph, ctx.prf = g, w if isinstance(w, PrfMask) else None
+        if ctx.prf is None:
+            ctx.save_for_backward(w)
+        return csr_spmm(g.fwd, x.contiguous(), w)
 
     @staticmethod
     def backward(ctx, grad):
-        _, dx, _ = SpmmFn.backward(ctx, grad)
-        return None, dx, None
+        w = ctx.prf if ctx.prf is not None else ctx.saved_tensors[0]
+        return None, csr_spmm(ctx.graph.bwd, grad.contiguous(), w), None
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +401,8 @@ class SpmmPvFn(SpmmFn):
 # ---------------------------------------------------------------------------
 #
 # uint32 arithmetic is held in int64 tensors, masked to 32 bits after every
-# add and shift (torch's uint32 support is incomplete).
+# add and shift (torch's uint32 support is incomplete).  The kernel evaluates
+# the same function in uint32 registers (csrc/csr_spmm.cu, dropout_keep).
 
 _U32 = 0xFFFFFFFF
 
@@ -255,6 +437,13 @@ def _prf_uniform(key: torch.Tensor, counts: torch.Tensor, salt: int) -> torch.Te
     return (bits >> 8).to(torch.float32) * 2.0 ** -24
 
 
+def _prf_keep(key, counts, salt: int, keep_rate: float, resize_val: bool) -> torch.Tensor:
+    """``floor(U + keep_rate)`` (÷ keep_rate with ``resize_val``) at ``counts``."""
+    kr = torch.tensor(keep_rate, dtype=torch.float32, device=counts.device)
+    keep = torch.floor(_prf_uniform(key, counts, salt) + kr)
+    return keep / kr if resize_val else keep
+
+
 class EdgeMask(NamedTuple):
     """A constant per-edge multiplier in the original edge order (port of
     ``PaddedEdgeWeight``).  :func:`~sslrec_tpu_torch.ops.spmm.spmm` routes it
@@ -266,22 +455,63 @@ class EdgeMask(NamedTuple):
     def ndim(self) -> int:
         return self.w.dim()
 
+    def layer(self, i: int) -> "EdgeMask":
+        return EdgeMask(self.w[i])
+
+
+class PrfMask(NamedTuple):
+    """Bernoulli(keep_rate) edge dropout ``floor(U(e) + keep_rate)`` (÷
+    keep_rate with ``resize_val``), ``U(e)`` the PRF of original edge id
+    ``e`` under ``key`` (int64 [2] holding uint32 values, on the graph's
+    device) and a salt: the JAX package's ``dropout_padded``, which each
+    layout evaluates from its own edge ids.  B1 evaluates it inside the
+    kernel, so no mask tensor exists on the card's path; ``w`` materialises
+    it through the plain path.  ``salts``: an int, or a tuple for a leading
+    per-view/per-layer dimension (``layer(i)`` picks one)."""
+
+    key: torch.Tensor
+    salts: int | tuple
+    keep_rate: float
+    resize_val: bool
+    nnz: int
+
+    @property
+    def ndim(self) -> int:
+        return 1 if isinstance(self.salts, int) else 2
+
+    def layer(self, i: int) -> "PrfMask":
+        return self._replace(salts=self.salts[i])
+
+    def at(self, edge_ids: torch.Tensor) -> torch.Tensor:
+        """The multipliers of original edge ids ``edge_ids`` (one salt)."""
+        return _prf_keep(self.key, edge_ids, self.salts, self.keep_rate, self.resize_val)
+
+    @property
+    def w(self) -> torch.Tensor:
+        """The multiplier in the original edge order, ``[nnz]`` or
+        ``[len(salts), nnz]``."""
+        eids = torch.arange(self.nnz, device=self.key.device)
+        if self.ndim == 1:
+            return self.at(eids)
+        return torch.stack([self.layer(i).at(eids) for i in range(len(self.salts))])
+
+
+def prf_mask(key: torch.Tensor, g: CsrGraph, keep_rate: float,
+             salts: int | Sequence[int] = 0, resize_val: bool = False) -> PrfMask:
+    """The :class:`PrfMask` of ``g`` under ``key`` (moved to ``g``'s device)."""
+    salts = int(salts) if isinstance(salts, (int, np.integer)) else tuple(map(int, salts))
+    return PrfMask(key=key.to(device=g.vals.device, dtype=torch.int64).contiguous(),
+                   salts=salts, keep_rate=float(keep_rate), resize_val=bool(resize_val),
+                   nnz=g.nnz)
+
 
 def dropout_mask(key: torch.Tensor, g: CsrGraph, keep_rate: float,
                  salts: int | Sequence[int] = 0,
                  resize_val: bool = False) -> EdgeMask:
-    """Bernoulli(keep_rate) edge mask ``floor(U + keep_rate)`` with ``U`` the PRF
-    of the original edge id (port of ``dropout_padded``).  Both layouts read
-    the one mask through their edge ids, so an edge is kept or dropped alike in
-    the forward and the transposed hop.  A sequence of ``salts`` stacks one
-    mask per salt along a leading dimension."""
-    eids = torch.arange(g.nnz, device=g.vals.device)
-    kr = torch.tensor(keep_rate, dtype=torch.float32, device=eids.device)
-
-    def one(salt):
-        keep = torch.floor(_prf_uniform(key, eids, salt) + kr)
-        return keep / kr if resize_val else keep
-
-    if isinstance(salts, int):
-        return EdgeMask(one(salts))
-    return EdgeMask(torch.stack([one(int(s)) for s in salts]))
+    """The materialised :class:`EdgeMask` of :func:`prf_mask`: Bernoulli
+    (keep_rate) ``floor(U + keep_rate)`` with ``U`` the PRF of the original
+    edge id (port of ``dropout_padded``).  Both layouts read the one mask
+    through their edge ids, so an edge is kept or dropped alike in the
+    forward and the transposed hop.  A sequence of ``salts`` stacks one mask
+    per salt along a leading dimension."""
+    return EdgeMask(prf_mask(key, g, keep_rate, salts, resize_val).w)

@@ -37,7 +37,7 @@ def device_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
-def report(name: str, prof, wall_s: float, top: int = 15) -> None:
+def report(name: str, prof, wall_s: float, top: int = 25) -> None:
     """Busy share = traced device kernel time over the untraced wall time of
     the same window (one stream, so kernels do not overlap).  Only kernels and
     copies count: an operator's row, or a ``record_function`` range such as
@@ -48,7 +48,8 @@ def report(name: str, prof, wall_s: float, top: int = 15) -> None:
     busy_us = sum(device_us(e) for e in rows)
     print(f"-- {name}: median wall {wall_s * 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"({100 * busy_us / (wall_s * 1e6):.1f}%), idle "
-          f"{100 - 100 * busy_us / (wall_s * 1e6):.1f}%")
+          f"{100 - 100 * busy_us / (wall_s * 1e6):.1f}%, "
+          f"{sum(e.count for e in rows)} kernels and copies")
     for e in sorted(rows, key=device_us, reverse=True)[:top]:
         print(f"   {device_us(e) / 1e3:9.3f} ms {100 * device_us(e) / busy_us:5.1f}% "
               f"x{e.count:<6d} {e.key[:90]}")

@@ -9,6 +9,10 @@ the plain paths and the autograd around the kernels to JAX; the kernels are
 held to the plain paths on the card by the last test here and by
 ``chip_smoke.py``.
 
+Also KGCL's relation take (``OneHotTake``, whose backward is a B1 segment
+sum) against a plain index and JAX's ``OneHotTake``, and B2's group-width
+choice.
+
 Tolerances: segment max is exact (a max has no rounding), −inf empties
 included.  Sums, softmax, attention and their gradients: rtol 1e-5, atol 1e-6,
 for float sums taken in another order.
@@ -21,6 +25,7 @@ import pytest
 import torch
 
 from sslrec_tpu.ops import segment as jseg
+from sslrec_tpu.ops.pallas_segment import OneHotTake as JOneHotTake
 from sslrec_tpu.ops.pallas_segment import (attn_aggregate as j_attn_aggregate,
                                            build_blocked_segments, segment_max_blocked,
                                            segment_softmax_blocked, segment_sum_blocked,
@@ -222,6 +227,57 @@ def test_cpu_tensors_do_not_launch(case):
     assert (sk.csr_spmm.launches, skn.segment_max.launches) == before
 
 
+def test_relation_take_values_and_grad():
+    """KGCL's relation take: 600 ids into 7 relations (one unused), table
+    gradients as a plain index gives them and as JAX's one-hot matmul."""
+    rng = np.random.default_rng(6)
+    V, d = 7, 8
+    ids = rng.integers(0, V - 1, 600)
+    table = rng.normal(size=(V, d)).astype(np.float32)
+    w = rng.normal(size=(ids.size, d)).astype(np.float32)
+    take = skn.OneHotTake(torch.from_numpy(ids.astype(np.int32)), V)
+    assert take.layout.num_segments == V and take.layout.n == ids.size
+    tt, tp = _t(table, grad=True), _t(table, grad=True)
+    got = take.take(tt)
+    np.testing.assert_array_equal(got.detach().numpy(), table[ids])
+    (torch.sin(got) * _t(w)).sum().backward()
+    (torch.sin(tp[torch.from_numpy(ids)]) * _t(w)).sum().backward()
+    _close(tt.grad, tp.grad.numpy())
+    assert (tt.grad[V - 1] == 0).all()
+    jtake = JOneHotTake(jnp.asarray(ids, jnp.int32), V)
+    jonehot = JOneHotTake(jnp.asarray(ids, jnp.int32), V)
+    jonehot.onehot = jax.nn.one_hot(jonehot.ids, V, dtype=jnp.float32)   # the TPU design
+    for jt in (jtake, jonehot):
+        np.testing.assert_array_equal(np.asarray(jt.take(jnp.asarray(table))), table[ids])
+        jgrad = jax.grad(lambda x: jnp.sum(jnp.sin(jt.take(x)) * w))(jnp.asarray(table))
+        _close(tt.grad, jgrad)
+
+
+@pytest.mark.parametrize("length", [0, 1, 9, 17, 5000])
+def test_segmax_group_width_and_long_bin(length):
+    """The host's group width follows the mean segment length; segments longer
+    than LONG_STRIDES strides of a group go to the whole-warp bin; the plain
+    max is exact for a segment of ``length`` slots among 9-slot ones."""
+    assert skn.segmax_group_width(np.array([], np.int64)) == 4
+    for mean, want in ((1, 4), (9.9, 4), (16, 4), (17, 8), (33, 16), (65, 32), (5000, 32)):
+        assert skn.segmax_group_width(np.array([mean])) == want
+    rng = np.random.default_rng(length)
+    lengths = np.array([9] * 40 + [length, 0, 9])
+    ids = rng.permutation(np.repeat(np.arange(lengths.size), lengths))
+    lay = skn.build_segment_layout(ids, lengths.size)
+    width = skn.segmax_group_width(lengths)
+    assert lay.group_width == width
+    np.testing.assert_array_equal(lay.long_segments.numpy(),
+                                  np.flatnonzero(lengths > skn.LONG_STRIDES * width))
+    assert (40 in lay.long_segments.tolist()) == (length > skn.LONG_STRIDES * width)
+    data = rng.normal(size=ids.size).astype(np.float32)
+    got = skn.segment_max(lay, _t(data)).numpy()
+    want = np.asarray(jseg.segment_max(jnp.asarray(data), jnp.asarray(ids, jnp.int32),
+                                       lengths.size))
+    np.testing.assert_array_equal(got, want)
+    assert got[41] == -np.inf and (got[40] == -np.inf) == (length == 0)
+
+
 def test_kernels_match_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the segment-max kernel has no CPU mode")
@@ -229,13 +285,32 @@ def test_kernels_match_plain_on_cuda():
     ids = np.concatenate([rng.integers(0, 300, 5000), np.zeros(2000, np.int64)])
     ids = rng.permutation(ids)
     lay = skn.build_segment_layout(ids, 310, "cuda")
-    for data in (torch.randn(ids.size, device="cuda"),
-                 torch.full((ids.size,), -1e9, device="cuda")):
-        before = skn.segment_max.launches
-        got = skn.segment_max(lay, data)
-        assert skn.segment_max.launches == before + 1
-        torch.cuda.synchronize()
-        assert torch.equal(got, skn.segment_max_plain(lay, data))
+    assert lay.group_width == 8 and lay.long_segments.tolist() == [0]
+    short = rng.permutation(np.concatenate([rng.integers(0, 3000, 30000),
+                                            np.full(5000, 3001)]))   # packed + long bin
+    lay_short = skn.build_segment_layout(short, 3010, "cuda")
+    lengths = np.bincount(short, minlength=3010)
+    assert lay_short.group_width == 4 and 3001 in lay_short.long_segments.tolist()
+    np.testing.assert_array_equal(lay_short.long_segments.cpu().numpy(),
+                                  np.flatnonzero(lengths > skn.LONG_STRIDES * 4))
+    for lay_c, n in ((lay, ids.size), (lay_short, short.size)):
+        for data in (torch.randn(n, device="cuda"), torch.full((n,), -1e9, device="cuda")):
+            before = skn.segment_max.launches
+            got = skn.segment_max(lay_c, data)
+            assert skn.segment_max.launches == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, skn.segment_max_plain(lay_c, data))
+            for width in (4, 8, 32):
+                assert torch.equal(skn.segment_max(skn.with_group_width(lay_c, width), data),
+                                   got)
+    rel = skn.OneHotTake(rng.integers(0, 41, 30000), 41, "cuda")
+    g_rel = torch.randn(30000, 64, device="cuda")
+    table = torch.randn(41, 64, device="cuda", requires_grad=True)
+    (rel.take(table) * g_rel).sum().backward()
+    ref = torch.zeros(41, 64, device="cuda").index_add_(0, rel.layout.ids.long(), g_rel)
+    torch.cuda.synchronize()
+    assert float((table.grad - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(skn._segment_sum(rel.layout, g_rel), table.grad)   # deterministic
     for d in (1, 64, 65):
         x = torch.randn(ids.size, d, device="cuda")
         got = skn.SegmentSumFn.apply(lay, x)

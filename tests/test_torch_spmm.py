@@ -1,6 +1,7 @@
 """The port's CSR SpMM (``sslrec_tpu_torch/ops/spmm_kernel.py``, ``ops/spmm.py``)
 against the JAX package: layouts, values, gradients, the masked path, the
-transposed direction and the dropout PRF.
+transposed direction, the dropout PRF (materialised, and as the in-kernel
+``PrfMask``), and the kernel's split plan with its plain emulation.
 
 On the CPU the kernel's wrapper takes its plain version, so these tests hold
 the plain path (and the autograd structure around the kernel) to JAX; the
@@ -9,8 +10,10 @@ and by ``chip_smoke.py``.  Pallas runs in interpret mode with r=16, m=32, as
 ``tests/test_pallas_spmm.py`` runs it.
 
 Tolerances: rtol 1e-5, atol 1e-6 for float sums taken in another order
-(index_add_ against segment_sum / one-hot matmuls); exact for layouts and the
-PRF, which are integer computations.
+(index_add_ against segment_sum / one-hot matmuls); exact for layouts, plans
+and the PRF, which are integer computations.  The split emulation is held to
+1e-6 on inputs whose sums are exact in float32 (small integers, values in
+{0.5, 1, 2}), so a lost or repeated edge shows however long the row.
 """
 
 import jax
@@ -47,6 +50,25 @@ def _t(a):
 
 def _key(k0, k1):
     return jnp.asarray([k0, k1], jnp.uint32), torch.tensor([k0, k1], dtype=torch.int64)
+
+
+SPLIT_T = 32
+
+
+def _split_graph(t=SPLIT_T, seed=0, n_cols=300):
+    """A 5,000-edge row, rows of t-1, t, t+1, 2t and 2t+1 edges, short rows
+    and empty rows (first, inner and last), with edge values in {0.5, 1, 2}."""
+    rng = np.random.default_rng(seed)
+    deg = np.array([0, 5000, t - 1, t, t + 1, 0, 0, 1, 3, 2 * t, 2 * t + 1, 2, 0])
+    rows = np.repeat(np.arange(deg.size), deg)
+    cols = rng.integers(0, n_cols, rows.size)
+    order = np.lexsort((cols, rows))
+    vals = rng.choice(np.float32([0.5, 1.0, 2.0]), rows.size)
+    g = sk.build_csr_graph(tsparse.CooGraph(
+        rows=torch.from_numpy(rows[order].astype(np.int32)),
+        cols=torch.from_numpy(cols[order].astype(np.int32)),
+        vals=torch.from_numpy(vals), n_rows=deg.size, n_cols=n_cols))
+    return g, deg
 
 
 @pytest.mark.parametrize("bi", [True, False], ids=["bi_adj", "rectangular"])
@@ -211,15 +233,136 @@ def test_kernel_matches_plain_on_cuda(tiny_ui):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the CSR SpMM kernel has no CPU mode")
     mat = jsparse.make_bi_adj(tiny_ui, *tiny_ui.shape)
-    g = sk.build_csr_graph(tsparse.from_scipy(mat), "cuda")
-    mask = sk.dropout_mask(torch.tensor([5, 6], device="cuda"), g, 0.5).w
-    for lay in (g.fwd, g.bwd):
-        for d in (1, 8, 32, 33, 64):
-            x = torch.randn(lay.n_cols, d, device="cuda")
-            for ew in (None, mask):
-                before = sk.csr_spmm.launches
-                got = sk.csr_spmm(lay, x, ew)
-                assert sk.csr_spmm.launches == before + 1
-                ref = sk.csr_spmm_plain(lay, x, ew)
-                torch.cuda.synchronize()
-                assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    g_bi = sk.build_csr_graph(tsparse.from_scipy(mat), "cuda")
+    g_split, _ = _split_graph()
+    g_split = sk.build_csr_graph(tsparse.CooGraph(
+        rows=g_split.rows, cols=g_split.cols, vals=g_split.vals,
+        n_rows=g_split.n_rows, n_cols=g_split.n_cols), "cuda")
+    for g in (g_bi, g_split):
+        key = torch.tensor([5, 6], device="cuda")
+        for keep_rate, resize in ((0.5, False), (0.6, True)):
+            mask = sk.dropout_mask(key, g, keep_rate, resize_val=resize).w
+            prf = sk.prf_mask(key, g, keep_rate, resize_val=resize)
+            for lay in (g.fwd, g.bwd):
+                for d in (1, 8, 32, 33, 64, 65):
+                    x = torch.randn(lay.n_cols, d, device="cuda")
+                    for ew in (None, mask, prf):
+                        before = sk.csr_spmm.launches
+                        got = sk.csr_spmm(lay, x, ew)
+                        assert sk.csr_spmm.launches == before + 1
+                        ref = sk.csr_spmm_plain(lay, x, ew)
+                        torch.cuda.synchronize()
+                        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+                        assert torch.equal(got, sk.csr_spmm(lay, x, ew))   # deterministic
+                    assert torch.equal(sk.csr_spmm(lay, x, prf), sk.csr_spmm(lay, x, mask))
+
+
+@pytest.mark.parametrize("t", [SPLIT_T, 7, 1])
+def test_split_plan_covers_every_edge_once_in_order(t):
+    g, deg = _split_graph()
+    plan = sk.split_plan(g.fwd.indptr, t)
+    indptr = g.fwd.indptr.numpy()
+    ptr, row, dst = (a.numpy() for a in (plan.chunk_ptr, plan.chunk_row, plan.chunk_dst))
+    sizes = np.diff(ptr)
+    # chunks tile [0, nnz) in order, none empty, none longer than t
+    assert ptr[0] == 0 and ptr[-1] == g.nnz and (sizes >= 1).all() and (sizes <= t).all()
+    # each chunk lies in its row, and a row's chunks are consecutive and cover it
+    assert (ptr[:-1] >= indptr[row]).all() and (ptr[1:] <= indptr[row + 1]).all()
+    np.testing.assert_array_equal(np.bincount(row, minlength=deg.size), -(-deg // t))
+    np.testing.assert_array_equal(plan.empty_rows.numpy(), np.flatnonzero(deg == 0))
+    split = np.flatnonzero(deg > t)
+    np.testing.assert_array_equal(plan.split_rows.numpy(), split)
+    np.testing.assert_array_equal(np.diff(plan.split_ptr.numpy()), -(-deg[split] // t))
+    # a whole row's chunk writes its row; a split row's chunks take slots in order
+    whole = dst >= 0
+    np.testing.assert_array_equal(dst[whole], row[whole])
+    assert np.array_equal(np.unique(row[whole]), np.flatnonzero((deg > 0) & (deg <= t)))
+    np.testing.assert_array_equal(-1 - dst[~whole], np.arange(plan.n_slots))
+    np.testing.assert_array_equal(row[~whole], np.repeat(split, -(-deg[split] // t)))
+    assert plan.n_slots == int(plan.split_ptr[-1])
+
+
+def test_split_threshold_and_lane_group():
+    for d, g in ((1, 8), (8, 4), (32, 4), (33, 32), (64, 8), (65, 32), (68, 16)):
+        assert sk.lane_group(d) == g
+    for nnz in (0, 10, 502_048, 297_404, 10**8):
+        for group in (4, 8, 16, 32):
+            t = sk.split_threshold(nnz, group)
+            assert 32 <= t <= 1024 and t & (t - 1) == 0
+    # LightGCN's hop on alibaba-fashion (d 32) and KGCL's relation take (d 64)
+    assert sk.split_threshold(502_048, sk.lane_group(32)) == 32
+    assert sk.split_threshold(297_404, sk.lane_group(64)) == 32
+    g, _ = _split_graph()
+    assert sk.layout_plan(g.fwd, 16) is sk.layout_plan(g.fwd, 16)
+    assert g.fwd.ids_identity and not g.bwd.ids_identity
+
+
+@pytest.mark.parametrize("d", [1, 8, 32, 33, 65])
+def test_split_emulation_matches_plain(d):
+    g, _ = _split_graph()
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.integers(-8, 9, (g.n_cols, d)).astype(np.float32))
+    ew = torch.from_numpy(rng.choice(np.float32([0.0, 0.5, 1.0]), g.nnz))
+    prf = sk.prf_mask(torch.tensor([3, 4]), g, 0.5)
+    for t in (SPLIT_T, 7):
+        for lay in (g.fwd, g.bwd):
+            xl = x if lay is g.fwd else torch.from_numpy(
+                rng.integers(-8, 9, (g.n_rows, d)).astype(np.float32))
+            plan = sk.split_plan(lay.indptr, t)
+            for w in (None, ew, prf):
+                got = sk.csr_spmm_split_plain(lay, plan, xl, w)
+                ref = sk.csr_spmm_plain(lay, xl, w)
+                np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-6, atol=1e-6)
+    # random floats: the same sum in another order
+    xr = torch.from_numpy(_x(g.n_cols, d, 5))
+    plan = sk.split_plan(g.fwd.indptr, SPLIT_T)
+    got = sk.csr_spmm_split_plain(g.fwd, plan, xr)
+    ref = sk.csr_spmm_plain(g.fwd, xr)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("keep_rate,resize_val", [(0.5, False), (0.6, True)])
+def test_prf_mask_matches_materialised_and_jax(tiny_ui, keep_rate, resize_val):
+    jg, tg = _graphs(tiny_ui)
+    pg = build_pallas_graph(jg, r=16, m=32)
+    jkey, tkey = _key(2**32 - 7, 99)
+    prf = sk.prf_mask(tkey, tg, keep_rate, resize_val=resize_val)
+    mask = sk.dropout_mask(tkey, tg, keep_rate, resize_val=resize_val)
+    np.testing.assert_array_equal(prf.w.numpy(), mask.w.numpy())
+    for lay in (tg.fwd, tg.bwd):
+        np.testing.assert_array_equal(prf.at(lay.edge_ids).numpy(),
+                                      mask.w[lay.edge_ids].numpy())
+        x = torch.from_numpy(_x(lay.n_cols, 8, 12))
+        np.testing.assert_array_equal(sk.csr_spmm_plain(lay, x, prf).numpy(),
+                                      sk.csr_spmm_plain(lay, x, mask.w).numpy())
+    pw = dropout_padded(jkey, pg, keep_rate=keep_rate, resize_val=resize_val)
+    x = _x(jg.n_cols, 8, 13)
+
+    def f_jax(x):
+        return jnp.sum(jnp.sin(pallas_spmm_pv(pg, x, pw.fwd, pw.bwd, True)))
+
+    jval, jdx = jax.value_and_grad(f_jax)(jnp.asarray(x))
+    tx = _t(x).requires_grad_()
+    val = torch.sin(tspmm.spmm(tg, tx, prf)).sum()
+    val.backward()
+    np.testing.assert_allclose(val.item(), float(jval), rtol=RTOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jdx), rtol=RTOL, atol=ATOL)
+
+
+def test_prf_mask_per_layer_and_transposed(tiny_ui):
+    jg, tg = _graphs(tiny_ui)
+    tkey = torch.tensor([17, 23])
+    prf = sk.prf_mask(tkey, tg, 0.5, salts=[0, 1, 2])
+    mask = sk.dropout_mask(tkey, tg, 0.5, salts=[0, 1, 2])
+    assert prf.ndim == 2 and prf.w.shape == (3, jg.nnz)
+    np.testing.assert_array_equal(prf.w.numpy(), mask.w.numpy())
+    np.testing.assert_array_equal(prf.layer(1).w.numpy(), mask.w[1].numpy())
+    x = _t(_x(jg.n_cols, 8, 14))
+    np.testing.assert_array_equal(tspmm.spmm_layers(tg, x, 3, prf).numpy(),
+                                  tspmm.spmm_layers(tg, x, 3, mask).numpy())
+    xt = _t(_x(jg.n_rows, 8, 15))
+    one = sk.prf_mask(tkey, tg, 0.5)
+    np.testing.assert_array_equal(tspmm.spmm_t(tg, xt, one).numpy(),
+                                  tspmm.spmm_t(tg, xt, one.w).numpy())
+    with pytest.raises(ValueError, match="indexed by layer"):
+        sk._check(tg.fwd, x, prf)

@@ -7,25 +7,25 @@ compared within one run.
 
 Needs one CUDA card and ``nvcc``.  Each checkout runs in its own process, in
 the order given, and builds its own kernels into its own ``build/``.  The
-data are this checkout's: alibaba-fashion from ``datasets/`` and the
-synthetic-at-scale KG that ``chip_smoke.py``'s generator writes under
-``smoke_results/``.  Shapes (device time per call, ``chip_smoke.device_ms``):
+operands are this checkout's ``chip_smoke.lightgcn_data`` and
+``chip_smoke.kgcl_shapes``; each is timed (``chip_smoke.device_ms``) through
+the call the models make, so every checkout runs its own version of it:
 
-- the LightGCN hop (d 32): no multiplier; the dropout mask, forward and
-  transposed layout; and the training hop's dropout, forward and transposed:
-  the mask's build plus the kernel where the checkout has no in-kernel PRF
-  (``spmm_kernel.prf_mask``), the PRF mode where it has;
-- KGCL: B1 as the segment sum at d 65 and d 1, the UI hop at d 64 under a
-  view's values (forward and transposed), the relation take's forward and
-  backward as the model runs it (``OneHotTake``), and B2.
+- the LightGCN hop (d 32) through ``ops.spmm.spmm`` / ``spmm_t``: no
+  multiplier; a materialised dropout mask (``dropout_mask``); and the
+  training hop's dropout, ``augment.edge_drop``'s multiplier built in the
+  call, as each training step builds it;
+- KGCL: B1 as the segment sum at d 65 and d 1 and as the UI hop at d 64 under
+  a view's values (both layouts), through ``csr_spmm``; the relation take's
+  forward and backward as the model runs them (``KGCL.rel_take``); and B2.
 
-Prints one JSON line per run, then the card line.
+A checkout needs those entry points and the ones the two builders call.
+Prints one JSON line per checkout, then the card line.
 """
 
 from __future__ import annotations
 
 import importlib.util
-import inspect
 import json
 import os
 import subprocess
@@ -35,7 +35,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def _chip_smoke():
-    """This checkout's ``chip_smoke`` module (its generator and timer),
+    """This checkout's ``chip_smoke`` module (its builders and timer),
     loaded by path, importing whichever ``sslrec_tpu_torch`` comes first on
     ``sys.path``."""
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -44,19 +44,19 @@ def _chip_smoke():
     return mod
 
 
-def run_one(root: str, smoke_dir: str) -> dict:
+def run_one(root: str) -> dict:
     """Times in the package under ``root``; this function runs in a process
     of its own with ``root`` first on ``sys.path``."""
     import torch
 
     cs = _chip_smoke()
-    from sslrec_tpu_torch.config import load_config
-    from sslrec_tpu_torch.data import general_cf
     from sslrec_tpu_torch.data import kg as kg_data
+    from sslrec_tpu_torch.models import augment
+    from sslrec_tpu_torch.models.registry import build_model
     from sslrec_tpu_torch.ops import cuda_build
     from sslrec_tpu_torch.ops import segment_kernel as skn
+    from sslrec_tpu_torch.ops import spmm as tspmm
     from sslrec_tpu_torch.ops import spmm_kernel as sk
-    from sslrec_tpu_torch.ops.sparse import CooGraph
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -64,64 +64,42 @@ def run_one(root: str, smoke_dir: str) -> dict:
         raise AssertionError(f"imported {sk.__file__}, not the package under {root}")
     cuda_build.build_libraries(force=True)
     gen = torch.Generator(device=dev).manual_seed(0)
-    ms = {}
 
-    cfg = load_config("lightgcn", dataset="alibaba-fashion",
-                      overrides={"data.dir": os.path.join(HERE, "datasets")})
-    g = general_cf.load(cfg, dev).extras["bi_adj"]
+    _, data = cs.lightgcn_data(dev)
+    g = data.extras["bi_adj"]
     x = torch.randn(g.n_cols, 32, generator=gen, device=dev)
     key = torch.tensor([1, 2], device=dev)
-    mask = sk.dropout_mask(key, g, 0.5).w
-    in_kernel = hasattr(sk, "prf_mask")
-    prf = sk.prf_mask(key, g, 0.5) if in_kernel else None
+    mask = sk.dropout_mask(key, g, 0.5)
 
-    def drop(lay):
-        if in_kernel:
-            return lambda: sk.csr_spmm(lay, x, prf)
-        return lambda: sk.csr_spmm(lay, x, sk.dropout_mask(key, g, 0.5).w)
-
-    calls = {"hop": lambda: sk.csr_spmm(g.fwd, x),
-             "hop_mask": lambda: sk.csr_spmm(g.fwd, x, mask),
-             "hop_mask_bwd": lambda: sk.csr_spmm(g.bwd, x, mask),
-             "hop_dropout": drop(g.fwd), "hop_dropout_bwd": drop(g.bwd)}
-
-    kg_cfg = load_config("kgcl", dataset=cs.KG_DATASET, overrides={"data.dir": smoke_dir})
-    ex = kg_data.load(kg_cfg, "cpu").extras
-    seg = skn.build_segment_layout(ex["kg_heads"], ex["entity_num"], dev)
-    bi = ex["bi_adj_maskable"]
-    deg = skn.build_segment_layout(bi.graph.rows, bi.n_nodes, dev)
-    ui = sk.build_csr_graph(CooGraph(rows=bi.graph.rows, cols=bi.graph.cols,
-                                     vals=bi.graph.vals, n_rows=bi.n_nodes,
-                                     n_cols=bi.n_nodes), dev)
-    ui_w = bi.view_vals((torch.rand(bi.nnz_rect) < 0.5).float()).to(dev)
+    kg = cs.kgcl_shapes(dev)
+    seg, deg, ui, ui_w = (kg[k] for k in ("seg", "deg", "ui", "ui_w"))
+    model = build_model(kg["cfg"], kg_data.load(kg["cfg"], dev))
     x65 = torch.randn(seg.n, 65, generator=gen, device=dev)
     x1 = torch.rand(deg.n, 1, generator=gen, device=dev)
     x64 = torch.randn(ui.n_cols, 64, generator=gen, device=dev)
     logits = torch.randn(seg.n, generator=gen, device=dev)
-    rel_ids = ex["kg_rels"].to(dev)
-    n_rel = int(ex["relation_num"])
-    if "vocab" in inspect.signature(skn.OneHotTake).parameters:
-        rel = skn.OneHotTake(ex["kg_rels"], n_rel, dev)
-    else:                                   # a plain index, as the model built it then
-        rel = skn.OneHotTake(rel_ids)
-    table = torch.randn(n_rel, 64, generator=gen, device=dev, requires_grad=True)
-    g_rel = torch.randn(rel_ids.shape[0], 64, generator=gen, device=dev)
-    calls.update({
+    table = torch.randn(model.n_relations, 64, generator=gen, device=dev, requires_grad=True)
+    g_rel = torch.randn(seg.n, 64, generator=gen, device=dev)
+
+    calls = {
+        "hop": lambda: tspmm.spmm(g, x),
+        "hop_mask": lambda: tspmm.spmm(g, x, mask),
+        "hop_mask_bwd": lambda: tspmm.spmm_t(g, x, mask),
+        "hop_dropout": lambda: tspmm.spmm(g, x, augment.edge_drop(key, g, 0.5)),
+        "hop_dropout_bwd": lambda: tspmm.spmm_t(g, x, augment.edge_drop(key, g, 0.5)),
         "kg_sum_d65": lambda: sk.csr_spmm(seg.csr, x65),
         "kg_sum_d1": lambda: sk.csr_spmm(deg.csr, x1),
         "ui_hop_d64": lambda: sk.csr_spmm(ui.fwd, x64, ui_w),
         "ui_hop_d64_bwd": lambda: sk.csr_spmm(ui.bwd, x64, ui_w),
-        "relation_take_fwd_bwd": lambda: torch.autograd.grad(rel.take(table), table, g_rel),
-        "b2": lambda: skn.segment_max(seg, logits)})
-    for name, fn in calls.items():
-        ms[name] = cs.device_ms(fn)
-    return {"root": root, "in_kernel_prf": in_kernel, "ms": ms}
+        "relation_take_fwd_bwd": lambda: torch.autograd.grad(
+            model.rel_take.take(table), table, g_rel),
+        "b2": lambda: skn.segment_max(seg, logits)}
+    return {"root": root, "ms": {name: cs.device_ms(fn) for name, fn in calls.items()}}
 
 
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--one"]:
-        root, smoke_dir = argv[1], argv[2]
-        print(json.dumps(run_one(root, smoke_dir)), flush=True)
+        print(json.dumps(run_one(argv[1])), flush=True)
         return 0
     if not argv:
         raise SystemExit(__doc__)
@@ -129,22 +107,19 @@ def main(argv: list[str]) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_compare: torch.cuda.is_available() is False; needs a CUDA card")
-    cs = _chip_smoke()
-    cs.write_kg_dataset(cs.KG_DATASET, *cs.synthetic_kg())
-    smoke_dir = os.path.abspath(cs.SMOKE_RESULTS)
     for root in argv:
         root = os.path.abspath(root)
         out = subprocess.run([sys.executable, "-c",
                               "import sys; sys.path.insert(0, sys.argv[1]); "
                               f"sys.path.insert(1, {HERE!r}); import chip_compare; "
                               "sys.exit(chip_compare.main(['--one'] + sys.argv[1:]))",
-                              root, smoke_dir],
-                             cwd=root, capture_output=True, text=True, timeout=900)
+                              root],
+                             cwd=HERE, capture_output=True, text=True, timeout=900)
         sys.stderr.write(out.stderr[-4000:])
         if out.returncode != 0:
             raise SystemExit(f"chip_compare: the run of {root} failed ({out.returncode})")
         print(out.stdout.strip().splitlines()[-1], flush=True)
-    print(cs.card_line(), flush=True)
+    print(_chip_smoke().card_line(), flush=True)
     return 0
 
 

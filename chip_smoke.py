@@ -12,36 +12,40 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. hold B1 against its plain PyTorch version at the LightGCN path's shape
    (the alibaba-fashion bipartite adjacency, both layouts, no weight /
    materialised dropout mask / in-kernel dropout PRF / learned weight with
-   dx and dew) and on edge cases (widths 1..65, empty rows, a rectangular
-   graph, a stress graph with one row of 100,000 edges and rows around the
-   split threshold, held against the plain version in float64):
-   max |k - p| / max |p| <= 1e-5; every kernel call repeated bit for bit,
-   and the PRF mode equal (``torch.equal``) to the kernel fed the mask;
+   dx and dew) and on edge cases (widths 1..128, so every lane group the
+   host picks; empty rows, a rectangular graph, a stress graph with one row
+   of 100,000 edges and rows around the split threshold, held against the
+   plain version in float64): max |k - p| / max |p| <= 1e-5; every kernel
+   call repeated bit for bit, and the PRF mode equal (``torch.equal``) to
+   the kernel fed the mask;
 4. time B1 at the LightGCN hop (no multiplier, mask, PRF; both layouts), its
    plain version and ``torch.sparse.mm``, device time (torch.profiler) and
-   CUDA events, and B1 at other split thresholds and lane-group widths;
+   CUDA events;
 5. drive the LightGCN path, ``sslrec_tpu_torch.main --model lightgcn`` (2
    epochs), with the launch counts reset just before and read just after;
    check losses, metrics and the trained embeddings against the plain
    propagation, and one training step on a small graph against the CPU;
 6. write the synthetic-at-scale KG dataset (a copy of the JAX benchmark's
    generator) and hold B2 against its plain version at the KGCL shape
-   (297,404 logits into 30,000 segments) and on edge cases, exactly
-   (``torch.equal``, −inf included), at every group width; hold B1 as
+   (297,404 logits into 30,000 segments) and on edge cases whose segment
+   lengths make the host pick each group width, exactly (``torch.equal``,
+   −inf included); hold B1 as
    segment sum (d = 1, 64, 65), gather, fused attention (values and
    gradients), UI hop (d = 64, both layouts) and relation take (297,404 rows
    into 41, value and table gradient, bit for bit twice) within 1e-5;
-7. time B2 (and its other group widths), its plain version and
-   ``scatter_reduce_``; B1 as the KG segment sum at d = 65 (and 68) and
-   d = 1, the UI hop at d = 64 and the relation take's backward with two
-   yardsticks (``index_put_(…, accumulate=True)``, autograd's call for an
-   index, and the one-hot GEMM ``onehotᵀ @ g``);
+7. time B2, its plain version and ``scatter_reduce_``; B1 as the KG segment
+   sum at d = 65 and d = 1, the UI hop at d = 64 and the relation take's
+   backward with two yardsticks (``index_put_(…, accumulate=True)``,
+   autograd's call for an index, and the one-hot GEMM ``onehotᵀ @ g``);
 8. drive the KGCL path, ``sslrec_tpu_torch.main --model kgcl`` (2 epochs) on
    that dataset, with the launch counts reset around it; check losses, the
    launch counts per step, the trained embeddings against the same forward
    on the CPU's plain versions, and one step on a small KG against the CPU;
 9. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
+
+``lightgcn_data`` and ``kgcl_shapes`` build the two paths' operands; the
+comparison of checkouts (``chip_compare.py``) times its kernels on them.
 """
 
 from __future__ import annotations
@@ -251,13 +255,16 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 
 def bound_ms(lay: sk.CsrLayout, d: int, mode: str = "none") -> tuple[float, str]:
-    """Least time for one B1 call: each input read once, the output written
-    once, over HBM bandwidth; 2·nnz·d flops over the float32 peak; the
-    larger.  ``mode``: "none"; "mask" (a [nnz] multiplier read, through the
-    edge ids on a permuted layout; one multiply per edge); "prf" (no mask:
-    the edge ids on a permuted layout only, and the PRF's operations)."""
+    """Least time for one B1 call: each input the function needs read once
+    (x, cols, indptr, and vals unless the layout's are all ones), the output
+    written once, over HBM bandwidth; 2·nnz·d flops over the float32 peak;
+    the larger.  ``mode``: "none"; "mask" (a [nnz] multiplier read, through
+    the edge ids on a permuted layout; one multiply per edge); "prf" (no
+    mask: the edge ids on a permuted layout only, and the PRF's
+    operations)."""
     nnz = lay.cols.shape[0]
-    n_bytes = 4 * (lay.n_cols * d + lay.n_rows * d + 2 * nnz + lay.n_rows + 1)
+    vals = 0 if lay.vals_ones else nnz
+    n_bytes = 4 * (lay.n_cols * d + lay.n_rows * d + nnz + vals + lay.n_rows + 1)
     flops = 2 * nnz * d
     ids_bytes = 0 if lay.ids_identity else 4 * nnz
     if mode == "mask":
@@ -282,18 +289,11 @@ def timing(kernel, plain, library=None, **extra) -> dict:
     return r
 
 
-def group_sweep(errs: ErrTrack, lay: sk.CsrLayout, x: torch.Tensor, ew=None) -> dict:
-    """B1 at each lane-group width with the split threshold B1 would pick
-    for it, after a check against the plain version: callables for
-    :func:`timing`'s ``extra``, named ``g<width>``."""
-    ref = sk.csr_spmm_plain(lay, x, ew)
-    out = {}
-    for gw in (2, 4, 8, 16, 32):
-        t = sk.split_threshold(lay.cols.shape[0], gw)
-        errs.check(f"sweep.{lay.n_rows}.d{x.shape[1]}.g{gw}",
-                         sk.csr_spmm_at(lay, x, ew, t, gw), ref)
-        out[f"g{gw}"] = lambda gw=gw, t=t: sk.csr_spmm_at(lay, x, ew, t, gw)
-    return out
+def schedule(lay: sk.CsrLayout, d: int) -> tuple[int, int]:
+    """The lane group and split threshold B1 picks for ``lay`` at width ``d``
+    on card 0."""
+    group = sk.lane_group(d)
+    return group, sk.split_threshold(lay.cols.shape[0], group, sk.resident_threads(0))
 
 
 def log_timing(name: str, r: dict, bound: tuple[float, str]) -> None:
@@ -388,10 +388,19 @@ def attn_plain(ids, num_segments, logits, values, mask):
     return plain_seg.segment_sum(values * e[:, None], ids, num_segments)
 
 
+def segments_of_mean(rng, mean: int, n_segments: int = 2000) -> np.ndarray:
+    """Ids of ``n_segments`` segments of about ``mean`` slots, one of them
+    empty and one ten times as long, in random order."""
+    lengths = rng.integers(mean // 2, 3 * mean // 2 + 1, n_segments)
+    lengths[7], lengths[9] = 0, 10 * mean
+    return rng.permutation(np.repeat(np.arange(n_segments), lengths))
+
+
 def check_segment_ops(errs: ErrTrack, lay: skn.SegmentLayout, gen) -> None:
     """B2 exactly equal to its plain version at the KGCL shape and on edge
-    cases; B1 as segment sum, gather and fused attention (values and
-    gradients) against their plain versions at the KGCL shape."""
+    cases, which between them make the host pick every group width; B1 as
+    segment sum, gather and fused attention (values and gradients) against
+    their plain versions at the KGCL shape."""
     dev = lay.ids.device
     n, S = lay.n, lay.num_segments
     logits = torch.randn(n, generator=gen, device=dev) * 5
@@ -410,23 +419,21 @@ def check_segment_ops(errs: ErrTrack, lay: skn.SegmentLayout, gen) -> None:
              "long_segments": (rng.permutation(long), 60),
              "short_and_long": (rng.permutation(np.concatenate(
                  [rng.integers(0, 3000, 30000), np.full(5000, 3001)])), 3010),
+             "mean30": (segments_of_mean(rng, 30), 2000),
+             "mean60": (segments_of_mean(rng, 60), 2000),
              "n0": (np.zeros(0, np.int64), 100)}
+    widths = {lay.group_width}
     for tag, (ids_c, s_c) in cases.items():
         lay_c = skn.build_segment_layout(ids_c, s_c, dev)
+        widths.add(lay_c.group_width)
         data = torch.randn(ids_c.size, generator=gen, device=dev)
         got = skn.segment_max(lay_c, data)
-        ref = skn.segment_max_plain(lay_c, data)
-        check_exact(f"segmax.{tag}", got, ref)
-        for width in (4, 8, 16, 32):
-            check_exact(f"segmax.{tag}.w{width}",
-                        skn.segment_max(skn.with_group_width(lay_c, width), data), ref)
+        check_exact(f"segmax.{tag}", got, skn.segment_max_plain(lay_c, data))
         log(f"  B2 {tag}: n {ids_c.size}, {s_c} segments, group width {lay_c.group_width}, "
             f"{lay_c.long_segments.numel()} in the whole-warp bin, "
-            f"{int(torch.isinf(got).sum())} empty (-inf): exact at widths 4-32")
-    for width in (4, 8, 16, 32):
-        check_exact(f"segmax.kgcl.w{width}",
-                    skn.segment_max(skn.with_group_width(lay, width), logits),
-                    skn.segment_max_plain(lay, logits))
+            f"{int(torch.isinf(got).sum())} empty (-inf): exact")
+    if widths != {4, 8, 16, 32}:
+        raise AssertionError(f"B2 checked at group widths {sorted(widths)}, want 4, 8, 16, 32")
     for d in (1, 64, 65):
         x = torch.randn(n, d, generator=gen, device=dev)
         w_out = torch.randn(S, d, generator=gen, device=dev)
@@ -481,53 +488,39 @@ def check_relation_take(errs: ErrTrack, rel: skn.OneHotTake, d: int, gen) -> Non
     again = table.clone().requires_grad_()
     (rel.take(again) * w).sum().backward()
     check_exact("relation_take.grad.repeat", again.grad, tk.grad)
-    plan = sk.layout_plan(rel.layout.csr, sk.split_threshold(n, sk.lane_group(d)))
+    plan = sk.layout_plan(rel.layout.csr, schedule(rel.layout.csr, d)[1])
     torch.cuda.synchronize()
     log(f"  relation take: {n} rows into {V}, d {d}: {plan.n_chunks} chunks of <= {plan.t} "
         f"edges, {plan.split_rows.numel()} split rows; value exact, gradient within "
         f"tolerance and bit for bit twice")
 
 
-def time_kgcl_shapes(errs: ErrTrack, seg_lay: skn.SegmentLayout,
-                     deg_lay: skn.SegmentLayout, ui: sk.CsrGraph, ui_w: torch.Tensor,
-                     rel_lay: skn.SegmentLayout, gen) -> dict[str, dict]:
-    """Device and event times at the KGCL path's shapes: B2 (and its other
-    group widths); B1 as the RGAT's [n × 65] segment sum (and at d = 68, and
-    the attention stack built at 65 and at 68 columns before the sum), as the
-    [n_bi × 1] degree sum, as the UI hop at d = 64 under a view's values,
-    and as the relation take's backward with both yardsticks; B1 also at
-    every lane-group width, each checked against plain into ``errs``."""
+def time_kgcl_shapes(seg_lay: skn.SegmentLayout, deg_lay: skn.SegmentLayout,
+                     ui: sk.CsrGraph, ui_w: torch.Tensor, rel_lay: skn.SegmentLayout,
+                     gen) -> dict[str, dict]:
+    """Device and event times at the KGCL path's shapes: B2; B1 as the RGAT's
+    [n × 65] segment sum, as the [n_bi × 1] degree sum, as the UI hop at
+    d = 64 under a view's values (both layouts), and as the relation take's
+    backward with both yardsticks."""
     dev = seg_lay.ids.device
     n, S = seg_lay.n, seg_lay.num_segments
     t = {}
     logits = torch.randn(n, generator=gen, device=dev)
     ids64 = seg_lay.ids.long()
     amax = torch.full((S,), float("-inf"), device=dev)
-    regrouped = {w: skn.with_group_width(seg_lay, w) for w in (4, 8, 16, 32)}
     t["b2"] = timing(lambda: skn.segment_max(seg_lay, logits),
                      lambda: skn.segment_max_plain(seg_lay, logits),
-                     lambda: amax.scatter_reduce_(0, ids64, logits, "amax", include_self=False),
-                     **{f"width{w}": (lambda lw=lw: skn.segment_max(lw, logits))
-                        for w, lw in regrouped.items()})
+                     lambda: amax.scatter_reduce_(0, ids64, logits, "amax", include_self=False))
     x65 = torch.randn(n, 65, generator=gen, device=dev)
-    x68 = F.pad(x65, (0, 3))
-    values = torch.randn(n, 64, generator=gen, device=dev)
-    e = torch.rand(n, generator=gen, device=dev)
     csr_seg = csr_tensor(seg_lay.csr)
     t["kg_sum_d65"] = timing(
         lambda: sk.csr_spmm(seg_lay.csr, x65), lambda: sk.csr_spmm_plain(seg_lay.csr, x65),
-        lambda: torch.sparse.mm(csr_seg, x65), **group_sweep(errs, seg_lay.csr, x65),
-        d68=lambda: sk.csr_spmm(seg_lay.csr, x68),
-        stack_sum_d65=lambda: sk.csr_spmm(seg_lay.csr, torch.cat(
-            [values * e[:, None], e[:, None]], dim=-1)),
-        stack_sum_d68=lambda: sk.csr_spmm(seg_lay.csr, torch.cat(
-            [values * e[:, None], e[:, None], e.new_zeros(n, 3)], dim=-1)))
+        lambda: torch.sparse.mm(csr_seg, x65))
     x1 = torch.rand(deg_lay.n, 1, generator=gen, device=dev)
     csr_deg = csr_tensor(deg_lay.csr)
     t["kg_sum_d1"] = timing(lambda: sk.csr_spmm(deg_lay.csr, x1),
                             lambda: sk.csr_spmm_plain(deg_lay.csr, x1),
-                            lambda: torch.sparse.mm(csr_deg, x1),
-                            **group_sweep(errs, deg_lay.csr, x1))
+                            lambda: torch.sparse.mm(csr_deg, x1))
     x64 = torch.randn(ui.n_cols, 64, generator=gen, device=dev)
     csr_ui = csr_tensor(ui.fwd, ui.fwd.vals * ui_w)          # forward ids: the identity
     csr_ui_b = csr_tensor(ui.bwd, ui.bwd.vals * ui_w[ui.bwd.edge_ids.long()])
@@ -535,8 +528,7 @@ def time_kgcl_shapes(errs: ErrTrack, seg_lay: skn.SegmentLayout,
                              lambda: sk.csr_spmm_plain(ui.fwd, x64, ui_w),
                              lambda: torch.sparse.mm(csr_ui, x64),
                              bwd=lambda: sk.csr_spmm(ui.bwd, x64, ui_w),
-                             library_bwd=lambda: torch.sparse.mm(csr_ui_b, x64),
-                             **group_sweep(errs, ui.fwd, x64, ui_w))
+                             library_bwd=lambda: torch.sparse.mm(csr_ui_b, x64))
     g = torch.randn(rel_lay.n, 64, generator=gen, device=dev)
     rel_ids = rel_lay.ids.long()
     onehot = F.one_hot(rel_ids, rel_lay.num_segments).float()
@@ -544,7 +536,7 @@ def time_kgcl_shapes(errs: ErrTrack, seg_lay: skn.SegmentLayout,
         lambda: sk.csr_spmm(rel_lay.csr, g), lambda: sk.csr_spmm_plain(rel_lay.csr, g),
         lambda: g.new_zeros(rel_lay.num_segments, 64).index_put_((rel_ids,), g,
                                                                    accumulate=True),
-        onehot=lambda: onehot.T @ g, **group_sweep(errs, rel_lay.csr, g))
+        onehot=lambda: onehot.T @ g)
     t["relation_take"]["onehot_mb"] = onehot.numel() * 4 / 1e6
     return t
 
@@ -603,6 +595,36 @@ def kgcl_small_step_check(errs: ErrTrack, devices=("cpu", "cuda")) -> None:
     log(f"  small KG epoch_state + step, card vs CPU: loss {float(got[0][0]):.6f}: ok")
 
 
+def lightgcn_data(dev):
+    """The LightGCN path's config and its alibaba-fashion data on ``dev``,
+    as ``sslrec_tpu_torch.main`` loads them (the bi-adjacency is
+    ``data.extras["bi_adj"]``)."""
+    cfg = load_config("lightgcn", dataset=DATASET, overrides={"data.dir": DATA_DIR})
+    return cfg, general_cf.load(cfg, dev)
+
+
+def kgcl_shapes(dev) -> dict:
+    """The KGCL path's kernel operands at the synthetic-at-scale shape: the
+    dataset written under ``SMOKE_RESULTS`` and loaded on the CPU (``cfg``,
+    ``data``), the RGAT's segment layout over the KG heads (``seg``), the
+    view degrees' layout over the UI bi-adjacency's rows (``deg``), that
+    bi-adjacency in both layouts (``ui``) and one view's values (``ui_w``,
+    from a seeded draw), on ``dev``."""
+    write_kg_dataset(KG_DATASET, *synthetic_kg())
+    cfg = load_config("kgcl", dataset=KG_DATASET, overrides={"data.dir": SMOKE_RESULTS})
+    data = kg_data.load(cfg, "cpu")
+    ex = data.extras
+    bi = ex["bi_adj_maskable"]
+    keep = torch.rand(bi.nnz_rect, generator=torch.Generator().manual_seed(0)) < 0.5
+    return {"cfg": cfg, "data": data,
+            "seg": skn.build_segment_layout(ex["kg_heads"], ex["entity_num"], dev),
+            "deg": skn.build_segment_layout(bi.graph.rows, bi.n_nodes, dev),
+            "ui": sk.build_csr_graph(CooGraph(rows=bi.graph.rows, cols=bi.graph.cols,
+                                              vals=bi.graph.vals, n_rows=bi.n_nodes,
+                                              n_cols=bi.n_nodes), dev),
+            "ui_w": bi.view_vals(keep.float()).to(dev)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -632,8 +654,7 @@ def main() -> int:
 
     log("== 3. B1 against plain")
     t0 = time.perf_counter()
-    cfg = load_config("lightgcn", dataset=DATASET, overrides={"data.dir": DATA_DIR})
-    data = general_cf.load(cfg, dev)
+    cfg, data = lightgcn_data(dev)
     g = data.extras["bi_adj"]
     log(f"loaded {DATASET} in {time.perf_counter() - t0:.1f} s: {data.user_num} users, "
         f"{data.item_num} items, {data.n_train} train pairs; bi-adjacency "
@@ -642,7 +663,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     check_graph(errs, "bi_adj", g, (32,), gen, with_grads=True)
     main_abs, main_rel = errs.abs, errs.rel
-    check_graph(errs, "bi_adj", g, (1, 8, 33, 64, 65), gen, with_grads=False)
+    check_graph(errs, "bi_adj", g, (1, 8, 17, 33, 64, 65, 128), gen, with_grads=False)
     rect = sk.build_csr_graph(from_scipy(data.extras["train_mat_scipy"]), dev)
     check_graph(errs, "train_mat", rect, (1, 8, 32, 33, 64), gen, with_grads=True)
     rng = np.random.default_rng(3)
@@ -657,7 +678,7 @@ def main() -> int:
     stress_errs = ErrTrack()
     check_graph(stress_errs, "stress", stress, (1, 32, 64, 65), gen, with_grads=True,
                 ref64=True)
-    splan = sk.layout_plan(stress.fwd, sk.split_threshold(stress.nnz, sk.lane_group(32)))
+    splan = sk.layout_plan(stress.fwd, schedule(stress.fwd, 32)[1])
     log(f"stress graph (float64 plain): max abs err {stress_errs.abs:.3g}, max rel err "
         f"{stress_errs.rel:.3g}; at d 32 {splan.n_chunks} chunks of <= {splan.t} edges, "
         f"{splan.split_rows.numel()} split rows, {splan.empty_rows.numel()} empty")
@@ -703,27 +724,23 @@ def main() -> int:
         log("    again, in turns: " + ", ".join(f"{v * 1e3:.2f}" for v in repeat[k]))
         r["repeat_ms"] = repeat[k]
     assert sk.csr_spmm.launches > launches_before
-    group, t_pick = sk.lane_group(d), sk.split_threshold(nnz, sk.lane_group(d))
-    ref = sk.csr_spmm_plain(lay, x)
-    sweep = {}
-    for gw in (2, 4, 8, 16, 32):
-        for t in (16, 32, 64, 256):
-            errs.check(f"sweep.g{gw}.t{t}", sk.csr_spmm_at(lay, x, None, t, gw), ref)
-            sweep[f"g{gw}_t{t}"] = device_ms(lambda gw=gw, t=t: sk.csr_spmm_at(lay, x, None, t, gw))
-    log(f"  picked: lane group {group}, split threshold {t_pick}; device us by (group, T): "
-        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in sweep.items()))
+    group, t_pick = schedule(lay, d)
+    log(f"  picked: lane group {group}, split threshold {t_pick} "
+        f"({sk.resident_threads(0)} resident threads on the card)")
 
     log("== 5. LightGCN path")
     argv = ["--model", "lightgcn", "--data_dir", DATA_DIR, "--dataset", DATASET,
             "--epoch", "2", "--device", "cuda", "--set", "train.test_step=1",
             "--set", f"train.results_dir={SMOKE_RESULTS}"]
-    sk.csr_spmm.launches = skn.segment_max.launches = 0
+    sk.csr_spmm.launches = sk.csr_spmm.combine_launches = skn.segment_max.launches = 0
     trainer = port_main.main(argv)
     launches, lgcn_b2 = sk.csr_spmm.launches, skn.segment_max.launches
+    lgcn_combine = sk.csr_spmm.combine_launches
     rows = trainer.recorder.epochs
     steps = len(rows) * trainer.n_batches
     log(f"kernel launches {launches} over {steps} steps "
-        f"({launches / steps:.2f} per step, incl. evaluation)")
+        f"({launches / steps:.2f} per step, incl. evaluation), "
+        f"{lgcn_combine} of them with the split rows' combine")
     if launches < 4 * steps:
         raise AssertionError(f"csr_spmm launched {launches} times, want >= {4 * steps}")
     losses = [r["loss"]["loss"] for r in rows]
@@ -754,10 +771,8 @@ def main() -> int:
 
     log("== 6. B2 and the segment ops against plain, KGCL shape")
     t0 = time.perf_counter()
-    synth = synthetic_kg()
-    write_kg_dataset(KG_DATASET, *synth)
-    kg_cfg = load_config("kgcl", dataset=KG_DATASET, overrides={"data.dir": SMOKE_RESULTS})
-    kg_cpu = kg_data.load(kg_cfg, "cpu")
+    kg_ops = kgcl_shapes(dev)
+    kg_cfg, kg_cpu = kg_ops["cfg"], kg_ops["data"]
     ex = kg_cpu.extras
     bi = ex["bi_adj_maskable"]
     log(f"wrote and loaded {KG_DATASET} in {time.perf_counter() - t0:.1f} s: "
@@ -766,7 +781,7 @@ def main() -> int:
         f"over {ex['entity_num']} entities and {ex['relation_num']} relations, "
         f"{ex['kg_heads'].shape[0]} kept by the per-head cap; UI bi-adjacency "
         f"{bi.n_nodes} nodes, {bi.graph.nnz} edges")
-    seg_lay = skn.build_segment_layout(ex["kg_heads"], ex["entity_num"], dev)
+    seg_lay, deg_lay, ui, ui_w = (kg_ops[k] for k in ("seg", "deg", "ui", "ui_w"))
     seg_errs = ErrTrack()
     check_segment_ops(seg_errs, seg_lay, gen)
     log(f"B2 exact in every case (group width {seg_lay.group_width} at the KGCL shape); B1 "
@@ -775,17 +790,11 @@ def main() -> int:
     rel = skn.OneHotTake(ex["kg_rels"], ex["relation_num"], dev)
     rel_errs = ErrTrack()
     check_relation_take(rel_errs, rel, int(kg_cfg.model.embedding_size), gen)
-    ui = sk.build_csr_graph(CooGraph(rows=bi.graph.rows, cols=bi.graph.cols,
-                                     vals=bi.graph.vals, n_rows=bi.n_nodes,
-                                     n_cols=bi.n_nodes), dev)
-    ui_w = bi.view_vals((torch.rand(bi.nnz_rect) < 0.5).float()).to(dev)
     ui_errs = ErrTrack()
     check_graph(ui_errs, "kgcl_ui", ui, (64,), gen, with_grads=True)
-    deg_lay = skn.build_segment_layout(bi.graph.rows, bi.n_nodes, dev)
 
     log("== 7. KGCL shapes timing")
-    sweep_errs = ErrTrack()
-    kg = time_kgcl_shapes(sweep_errs, seg_lay, deg_lay, ui, ui_w, rel.layout, gen)
+    kg = time_kgcl_shapes(seg_lay, deg_lay, ui, ui_w, rel.layout, gen)
     kg_bound = {"b2": segmax_bound_ms(seg_lay),
                 "kg_sum_d65": bound_ms(seg_lay.csr, 65),
                 "kg_sum_d1": bound_ms(deg_lay.csr, 1),
@@ -793,13 +802,6 @@ def main() -> int:
                 "relation_take": bound_ms(rel.layout.csr, 64)}
     for k, r in kg.items():
         log_timing(k, r, kg_bound[k])
-    b2 = kg["b2"]
-    log("  B2 device us by group width: " + ", ".join(
-        f"{w} {b2[f'width{w}_ms'] * 1e3:.2f}" for w in (4, 8, 16, 32)))
-    s65 = kg["kg_sum_d65"]
-    log(f"  segment sum d 65 {s65['ms'] * 1e3:.2f} us, d 68 {s65['d68_ms'] * 1e3:.2f} us; "
-        f"stack + sum at 65 columns {s65['stack_sum_d65_ms'] * 1e3:.2f} us, at 68 "
-        f"{s65['stack_sum_d68_ms'] * 1e3:.2f} us")
     rt = kg["relation_take"]
     log(f"  relation take backward: B1 {rt['ms'] * 1e3:.2f} us, index_put_ "
         f"{rt['library_ms'] * 1e3:.2f} us, one-hot GEMM {rt['onehot_ms'] * 1e3:.2f} us "
@@ -809,17 +811,18 @@ def main() -> int:
     argv = ["--model", "kgcl", "--data_dir", SMOKE_RESULTS, "--dataset", KG_DATASET,
             "--epoch", "2", "--device", "cuda", "--set", "train.test_step=1",
             "--set", f"train.results_dir={SMOKE_RESULTS}"]
-    sk.csr_spmm.launches = skn.segment_max.launches = 0
+    sk.csr_spmm.launches = sk.csr_spmm.combine_launches = skn.segment_max.launches = 0
     kg_trainer = port_main.main(argv)
     kg_b1, kg_b2 = sk.csr_spmm.launches, skn.segment_max.launches
+    kg_combine = sk.csr_spmm.combine_launches
     kg_rows = kg_trainer.recorder.epochs
     kg_steps = len(kg_rows) * kg_trainer.n_batches
     n_evals = len(kg_rows) + 2      # every epoch, best valid, test
     want_b1 = KGCL_B1_PER_STEP * kg_steps + 6 * len(kg_rows) + 5 * n_evals
     want_b2 = KGCL_B2_PER_STEP * kg_steps + 4 * len(kg_rows) + 2 * n_evals
     log(f"launches over {kg_steps} steps: B1 {kg_b1} ({kg_b1 / kg_steps:.2f} per step; "
-        f"{want_b1} counted from the code), B2 {kg_b2} ({kg_b2 / kg_steps:.2f} per step; "
-        f"{want_b2} counted from the code)")
+        f"{want_b1} counted from the code; {kg_combine} with the split rows' combine), "
+        f"B2 {kg_b2} ({kg_b2 / kg_steps:.2f} per step; {want_b2} counted from the code)")
     if (kg_b1, kg_b2) != (want_b1, want_b2):
         raise AssertionError(f"KGCL launched B1 {kg_b1}, B2 {kg_b2} times; the code "
                              f"counts {want_b1} and {want_b2}")
@@ -850,8 +853,11 @@ def main() -> int:
               "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel"}
 
     def b1_row(name, r, bound, path_launches, err, shape, **more):
-        return {"name": name, **common, "launches": path_launches,
-                "launches_scope": "every B1 call of the path's 2-epoch run",
+        return {"name": name, **common, "launches": path_launches[0],
+                "combine_launches": path_launches[1],
+                "launches_scope": "launches of spmm_chunks (one per B1 call) and of "
+                                  "combine_chunks (combine_launches: one per call over a "
+                                  "layout with split rows) in the path's 2-epoch run",
                 "max_abs_err": err.abs, "max_rel_err": err.rel, "shape": shape,
                 **r, "bound_ms": bound[0], "bound_by": bound[1], **more}
 
@@ -859,37 +865,39 @@ def main() -> int:
                  "lane_group": group, "split_threshold": t_pick}
     lgcn_err = ErrTrack()
     lgcn_err.abs, lgcn_err.rel = main_abs, main_rel
-    b1 = b1_row("csr_spmm", hop["none"], hop_bound["none"], launches + kg_b1, lgcn_err,
-                hop_shape, launches_by_path={"lightgcn": launches, "kgcl": kg_b1},
+    lgcn_counts, kg_counts = (launches, lgcn_combine), (kg_b1, kg_combine)
+    b1 = b1_row("csr_spmm", hop["none"], hop_bound["none"],
+                (launches + kg_b1, lgcn_combine + kg_combine), lgcn_err, hop_shape,
+                launches_by_path={"lightgcn": launches, "kgcl": kg_b1},
+                combine_launches_by_path={"lightgcn": lgcn_combine, "kgcl": kg_combine},
                 launches_per_step={"lightgcn": launches / steps, "kgcl": kg_b1 / kg_steps},
                 max_rel_err_all_checks=max(errs.rel, seg_errs.rel, rel_errs.rel,
-                                           ui_errs.rel, sweep_errs.rel),
+                                           ui_errs.rel),
                 stress={"max_abs_err": stress_errs.abs, "max_rel_err": stress_errs.rel,
                         "reference": "plain version in float64"},
-                sweep_ms=sweep,
                 library_call="torch.sparse.mm on a CSR tensor of the layout")
     rows_b1 = [b1]
     for k in ("mask", "prf", "mask_bwd", "prf_bwd"):
         rows_b1.append(b1_row(
-            f"csr_spmm.lightgcn_hop_{k}", hop[k], hop_bound[k], launches, lgcn_err,
+            f"csr_spmm.lightgcn_hop_{k}", hop[k], hop_bound[k], lgcn_counts, lgcn_err,
             {**hop_shape, "layout": "transposed" if k.endswith("bwd") else "forward"},
             library_call="torch.sparse.mm on a CSR tensor whose values already carry "
                          "the mask (the mask's product and the PRF are not timed)"))
     seg_shape = {"n": seg_lay.n, "num_segments": seg_lay.num_segments}
     rows_b1.append(b1_row("csr_spmm.kg_sum_d65", kg["kg_sum_d65"], kg_bound["kg_sum_d65"],
-                          kg_b1, seg_errs, {**seg_shape, "d": 65},
+                          kg_counts, seg_errs, {**seg_shape, "d": 65},
                           library_call="torch.sparse.mm on the segment layout"))
     rows_b1.append(b1_row("csr_spmm.kg_sum_d1", kg["kg_sum_d1"], kg_bound["kg_sum_d1"],
-                          kg_b1, seg_errs, {"n": deg_lay.n, "num_segments": deg_lay.num_segments,
-                                            "d": 1},
+                          kg_counts, seg_errs,
+                          {"n": deg_lay.n, "num_segments": deg_lay.num_segments, "d": 1},
                           library_call="torch.sparse.mm on the degree layout"))
     rows_b1.append(b1_row("csr_spmm.kgcl_ui_hop_d64", kg["ui_hop_d64"],
-                          kg_bound["ui_hop_d64"], kg_b1, ui_errs,
+                          kg_bound["ui_hop_d64"], kg_counts, ui_errs,
                           {"n_rows": ui.n_rows, "nnz": ui.nnz, "d": 64},
                           library_call="torch.sparse.mm on a CSR tensor whose values "
                                        "already carry the view's values"))
     rows_b1.append(b1_row("csr_spmm.relation_take_bwd", kg["relation_take"],
-                          kg_bound["relation_take"], kg_b1, rel_errs,
+                          kg_bound["relation_take"], kg_counts, rel_errs,
                           {"n": rel.layout.n, "num_segments": rel.layout.num_segments,
                            "d": 64},
                           library_call="zeros.index_put_((ids,), g, accumulate=True), the "
@@ -906,7 +914,7 @@ def main() -> int:
         "max_abs_err": 0.0,
         "shape": {**seg_shape, "group_width": seg_lay.group_width,
                   "long_segments": seg_lay.long_segments.numel()},
-        **b2, "bound_ms": kg_bound["b2"][0], "bound_by": kg_bound["b2"][1],
+        **kg["b2"], "bound_ms": kg_bound["b2"][0], "bound_by": kg_bound["b2"][1],
         "library_call": "Tensor.scatter_reduce_(0, ids, data, 'amax', include_self=False) "
                         "into a -inf-filled tensor (the plain version's own call)",
     }

@@ -7,6 +7,8 @@
 // serial; on a GPU the same operator is a gather plus a per-row reduction:
 //
 //   out[r, :] = sum_{e in [indptr[r], indptr[r+1])} vals[e] * w(e) * x[cols[e], :]
+//   vals[e] = 1 where the host marked the layout's values as all ones
+//           (vals == nullptr: segment layouts, KGCL's bi-adjacency)
 //   w(e) = 1                                   no multiplier
 //        = ew[id(e)]                           a learned weight or a materialised mask
 //        = floor(U(id(e)) + keep_rate)         edge dropout, evaluated here
@@ -16,8 +18,8 @@
 //   U(i)  = Threefry-2x32 (20 rounds) of (i, salt) under (key0, key1), top 24
 //           bits over 2^24: jax.random's bit generator, bit for bit.
 //
-// Bound: bytes.  A hop reads x, cols, vals, indptr (edge ids on a permuted
-// layout, a mask when one is given) and writes out; 2*nnz*d flops and the
+// Bound: bytes.  A hop reads x, cols, indptr (vals unless they are all ones,
+// edge ids on a permuted layout, a mask when one is given) and writes out; 2*nnz*d flops and the
 // PRF's ~80 integer operations per edge are far below that.  At LightGCN's
 // d = 32, x is 18.5 MB and stays in the 50 MB L2, so the hop is bound by the
 // latency of the dependent loads (chunk -> cols -> x) and by how many loads
@@ -70,7 +72,7 @@ struct Params {
   const int* empty_rows;   // [n_empty] rows with no edge: written 0
   int n_empty;
   const int* cols;
-  const float* vals;
+  const float* vals;       // nullptr: all ones
   const int* edge_ids;     // nullptr: the identity
   const float* ew;         // kTensor
   const long long* key;    // kPrf: int64 [2] holding uint32 values
@@ -168,7 +170,7 @@ __global__ void __launch_bounds__(kThreads) spmm_chunks(const Params p) {
       float v = 0.0f;
       if (live) {
         c = __ldg(p.cols + e);
-        v = __ldg(p.vals + e);
+        v = p.vals != nullptr ? __ldg(p.vals + e) : 1.0f;
         if (MODE != kNone) id = p.edge_ids != nullptr ? __ldg(p.edge_ids + e) : e;
         if (MODE == kTensor) v = __fmul_rn(v, __ldg(p.ew + id));
       }
@@ -268,11 +270,11 @@ void launch_nv(int nv, int mode, int blocks, cudaStream_t s, const Params& p) {
 
 // C interface, loaded with ctypes.  Pointers are device pointers.  The plan
 // arrays come from spmm_kernel.split_plan; edge_ids is null on a layout whose
-// ids are the identity; at most one of ew (a [nnz] multiplier in the original
-// edge order) and key (the dropout PRF's int64 [2] key) is set; partials holds
-// one d-row per chunk of a split row.  Launches on `stream` and returns the
-// first cudaGetLastError() that is not 0 (0 on success); it does not
-// synchronise.
+// ids are the identity, vals on one whose values are all ones; at most one of
+// ew (a [nnz] multiplier in the original edge order) and key (the dropout
+// PRF's int64 [2] key) is set; partials holds one d-row per chunk of a split
+// row.  Launches on `stream` and returns the first cudaGetLastError() that is
+// not 0 (0 on success); it does not synchronise.
 extern "C" int csr_spmm_f32(const void* chunk_ptr, const void* chunk_dst, int n_chunks,
                             const void* empty_rows, int n_empty, const void* split_ptr,
                             const void* split_rows, int n_split, const void* cols,

@@ -70,18 +70,6 @@ def long_segments(lengths: np.ndarray, group_width: int, device="cpu") -> torch.
     return torch.from_numpy(longs.astype(np.int32)).to(device)
 
 
-def with_group_width(lay: SegmentLayout, width: int) -> SegmentLayout:
-    """``lay`` with another B2 group width (a power of two up to 32) and the
-    whole-warp bin that goes with it, for measurements and tests that
-    compare widths."""
-    if width not in (1, 2, 4, 8, 16, 32):
-        raise ValueError(f"segment_max: group width must be a power of two up to 32, "
-                         f"got {width}")
-    lengths = np.diff(lay.csr.indptr.cpu().numpy())
-    return lay._replace(group_width=width,
-                        long_segments=long_segments(lengths, width, lay.ids.device))
-
-
 def build_segment_layout(segment_ids, num_segments: int, device="cpu") -> SegmentLayout:
     """Host-side build, once per constant id array (any order; sorted stably)."""
     ids = np.asarray(segment_ids.cpu() if torch.is_tensor(segment_ids) else segment_ids,

@@ -37,8 +37,10 @@ class CsrLayout(NamedTuple):
     of each slot, read only by the plain version); ``cols`` int32 [nnz];
     ``vals`` float32 [nnz]; ``edge_ids`` int32 [nnz], the original edge index
     of each slot, through which a per-edge multiplier held in the original
-    edge order is read; ``ids_identity`` marks ``edge_ids == arange(nnz)``, so
-    the kernel reads none; ``plans`` caches :func:`split_plan` by threshold.
+    edge order is read; ``ids_identity`` marks ``edge_ids == arange(nnz)`` and
+    ``vals_ones`` marks ``vals`` all 1 (segment layouts, KGCL's bi-adjacency),
+    so the kernel reads neither there; ``plans`` caches :func:`split_plan` by
+    threshold.
     """
 
     indptr: torch.Tensor
@@ -49,6 +51,7 @@ class CsrLayout(NamedTuple):
     n_rows: int
     n_cols: int
     ids_identity: bool
+    vals_ones: bool
     plans: dict
 
 
@@ -84,13 +87,13 @@ def csr_layout(rows, cols, vals, edge_ids, n_rows, n_cols, device) -> CsrLayout:
     def t(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    edge_ids = np.asarray(edge_ids)
+    edge_ids, vals = np.asarray(edge_ids), np.asarray(vals, np.float32)
     return CsrLayout(indptr=t(indptr, np.int32), rows=t(rows, np.int32),
                      cols=t(cols, np.int32), vals=t(vals, np.float32),
                      edge_ids=t(edge_ids, np.int32),
                      n_rows=int(n_rows), n_cols=int(n_cols),
                      ids_identity=bool(np.array_equal(edge_ids, np.arange(edge_ids.size))),
-                     plans={})
+                     vals_ones=bool((vals == 1).all()), plans={})
 
 
 def build_csr_graph(g: CooGraph, device="cpu") -> CsrGraph:
@@ -116,9 +119,6 @@ def build_csr_graph(g: CooGraph, device="cpu") -> CsrGraph:
 # ---------------------------------------------------------------------------
 # Split plan: rows cut into chunks of at most T edges
 # ---------------------------------------------------------------------------
-
-RESIDENT_THREADS = 132 * 2048   # an H100 SXM's SMs × resident threads per SM
-
 
 class SplitPlan(NamedTuple):
     """The kernel's work list for one layout and threshold ``t``.
@@ -187,12 +187,19 @@ def lane_group(d: int) -> int:
     return min(32, max(8, 1 << (-(-d // 2) - 1).bit_length()))
 
 
-def split_threshold(nnz: int, group: int) -> int:
-    """T: about twice the edges each lane group gets when the card's resident
-    groups share ``nnz`` evenly, as a power of two from 32 to 1024, so that
-    no chunk outlasts the rest of the grid by much and short rows stay
-    whole."""
-    per_group = 2 * nnz * group / RESIDENT_THREADS
+@functools.cache
+def resident_threads(device_index: int) -> int:
+    """Threads the card holds resident at once: its SMs × threads per SM."""
+    p = torch.cuda.get_device_properties(device_index)
+    return p.multi_processor_count * p.max_threads_per_multi_processor
+
+
+def split_threshold(nnz: int, group: int, resident: int) -> int:
+    """T: about twice the edges each lane group gets when the card's
+    ``resident`` threads, in groups of ``group``, share ``nnz`` evenly, as a
+    power of two from 32 to 1024, so that no chunk outlasts the rest of the
+    grid by much and short rows stay whole."""
+    per_group = 2 * nnz * group / resident
     return min(1024, max(32, 1 << max(0, int(np.ceil(per_group)) - 1).bit_length()))
 
 
@@ -293,32 +300,20 @@ def csr_spmm(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
 
     A CPU ``x`` takes :func:`csr_spmm_plain`; a CUDA ``x`` launches the kernel
     on the current stream with the lane group and split threshold that
-    :func:`lane_group` and :func:`split_threshold` pick for ``d`` and the
-    layout (``csr_spmm.launches`` counts those calls), or raises.
+    :func:`lane_group` and :func:`split_threshold` pick for ``d``, the layout
+    and the card, or raises.  ``csr_spmm.launches`` counts the launches of the
+    chunk kernel, one a call; ``csr_spmm.combine_launches`` those of the
+    second kernel that adds split rows' partials, one a call over a layout
+    with split rows.
     """
     if x.device.type == "cpu":
         return csr_spmm_plain(layout, x, ew)
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmm: no kernel for device {x.device}")
     _check(layout, x, ew)
-    group = lane_group(x.shape[1])
-    return _launch(layout, x, ew, split_threshold(layout.cols.shape[0], group), group)
-
-
-def csr_spmm_at(layout: CsrLayout, x: torch.Tensor, ew, t: int, group: int) -> torch.Tensor:
-    """The kernel at an explicit split threshold ``t`` and lane-group width
-    ``group`` (a power of two up to 32), on a CUDA ``x``: :func:`csr_spmm`'s
-    launch, open to measurements that compare schedules."""
-    if x.device.type != "cuda":
-        raise ValueError(f"csr_spmm_at: needs a CUDA tensor, got one on {x.device}")
-    _check(layout, x, ew)
-    if group not in (1, 2, 4, 8, 16, 32):
-        raise ValueError(f"csr_spmm: lane group must be a power of two up to 32, got {group}")
-    return _launch(layout, x, ew, t, group)
-
-
-def _launch(layout: CsrLayout, x: torch.Tensor, ew, t: int, group: int) -> torch.Tensor:
     d = x.shape[1]
+    group = lane_group(d)
+    t = split_threshold(layout.cols.shape[0], group, resident_threads(x.device.index))
     out = torch.empty(layout.n_rows, d, dtype=torch.float32, device=x.device)
     if layout.n_rows == 0 or d == 0:
         return out
@@ -330,7 +325,7 @@ def _launch(layout: CsrLayout, x: torch.Tensor, ew, t: int, group: int) -> torch
         plan.chunk_ptr.data_ptr(), plan.chunk_dst.data_ptr(), plan.n_chunks,
         plan.empty_rows.data_ptr(), plan.empty_rows.shape[0],
         plan.split_ptr.data_ptr(), plan.split_rows.data_ptr(), plan.split_rows.shape[0],
-        layout.cols.data_ptr(), layout.vals.data_ptr(),
+        layout.cols.data_ptr(), None if layout.vals_ones else layout.vals.data_ptr(),
         None if layout.ids_identity or ew is None else layout.edge_ids.data_ptr(),
         None if tensor_ew is None else tensor_ew.data_ptr(),
         None if prf is None else prf.key.data_ptr(),
@@ -343,10 +338,12 @@ def _launch(layout: CsrLayout, x: torch.Tensor, ew, t: int, group: int) -> torch
         raise RuntimeError(f"csr_spmm: launch of libcsr_spmm.so's kernel failed: "
                            f"cudaError {err}")
     csr_spmm.launches += 1
+    if plan.split_rows.shape[0]:
+        csr_spmm.combine_launches += 1
     return out
 
 
-csr_spmm.launches = 0
+csr_spmm.launches = csr_spmm.combine_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -293,16 +293,21 @@ def test_kernels_match_plain_on_cuda():
     assert lay_short.group_width == 4 and 3001 in lay_short.long_segments.tolist()
     np.testing.assert_array_equal(lay_short.long_segments.cpu().numpy(),
                                   np.flatnonzero(lengths > skn.LONG_STRIDES * 4))
-    for lay_c, n in ((lay, ids.size), (lay_short, short.size)):
+    cases = [(lay, ids.size), (lay_short, short.size)]
+    for width, mean in ((16, 60), (32, 200)):     # the host's other two group widths
+        lengths = rng.integers(mean // 2, 3 * mean // 2 + 1, 200)
+        lengths[7], lengths[9] = 0, 10 * mean       # empty, and for the whole-warp bin
+        ids_w = rng.permutation(np.repeat(np.arange(lengths.size), lengths))
+        lay_w = skn.build_segment_layout(ids_w, lengths.size, "cuda")
+        assert lay_w.group_width == width and 9 in lay_w.long_segments.tolist()
+        cases.append((lay_w, ids_w.size))
+    for lay_c, n in cases:
         for data in (torch.randn(n, device="cuda"), torch.full((n,), -1e9, device="cuda")):
             before = skn.segment_max.launches
             got = skn.segment_max(lay_c, data)
             assert skn.segment_max.launches == before + 1
             torch.cuda.synchronize()
             assert torch.equal(got, skn.segment_max_plain(lay_c, data))
-            for width in (4, 8, 32):
-                assert torch.equal(skn.segment_max(skn.with_group_width(lay_c, width), data),
-                                   got)
     rel = skn.OneHotTake(rng.integers(0, 41, 30000), 41, "cuda")
     g_rel = torch.randn(30000, 64, device="cuda")
     table = torch.randn(41, 64, device="cuda", requires_grad=True)

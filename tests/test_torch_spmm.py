@@ -53,17 +53,22 @@ def _key(k0, k1):
 
 
 SPLIT_T = 32
+# resident threads (SMs x threads per SM) of an H100 SXM and an H100 PCIe
+H100_SXM_THREADS, H100_PCIE_THREADS = 132 * 2048, 114 * 2048
 
 
-def _split_graph(t=SPLIT_T, seed=0, n_cols=300):
+def _split_graph(t=SPLIT_T, seed=0, n_cols=300, ones=False):
     """A 5,000-edge row, rows of t-1, t, t+1, 2t and 2t+1 edges, short rows
-    and empty rows (first, inner and last), with edge values in {0.5, 1, 2}."""
+    and empty rows (first, inner and last), with edge values in {0.5, 1, 2},
+    or all 1 (``ones``)."""
     rng = np.random.default_rng(seed)
     deg = np.array([0, 5000, t - 1, t, t + 1, 0, 0, 1, 3, 2 * t, 2 * t + 1, 2, 0])
     rows = np.repeat(np.arange(deg.size), deg)
     cols = rng.integers(0, n_cols, rows.size)
     order = np.lexsort((cols, rows))
     vals = rng.choice(np.float32([0.5, 1.0, 2.0]), rows.size)
+    if ones:
+        vals = np.ones_like(vals)
     g = sk.build_csr_graph(tsparse.CooGraph(
         rows=torch.from_numpy(rows[order].astype(np.int32)),
         cols=torch.from_numpy(cols[order].astype(np.int32)),
@@ -234,17 +239,20 @@ def test_kernel_matches_plain_on_cuda(tiny_ui):
         pytest.skip("needs a CUDA card: the CSR SpMM kernel has no CPU mode")
     mat = jsparse.make_bi_adj(tiny_ui, *tiny_ui.shape)
     g_bi = sk.build_csr_graph(tsparse.from_scipy(mat), "cuda")
-    g_split, _ = _split_graph()
-    g_split = sk.build_csr_graph(tsparse.CooGraph(
-        rows=g_split.rows, cols=g_split.cols, vals=g_split.vals,
-        n_rows=g_split.n_rows, n_cols=g_split.n_cols), "cuda")
-    for g in (g_bi, g_split):
+    on_card = []
+    for ones in (False, True):      # the second reads no vals
+        g_split, _ = _split_graph(ones=ones)
+        on_card.append(sk.build_csr_graph(tsparse.CooGraph(
+            rows=g_split.rows, cols=g_split.cols, vals=g_split.vals,
+            n_rows=g_split.n_rows, n_cols=g_split.n_cols), "cuda"))
+    assert on_card[1].fwd.vals_ones and not g_bi.fwd.vals_ones
+    for g in (g_bi, *on_card):
         key = torch.tensor([5, 6], device="cuda")
         for keep_rate, resize in ((0.5, False), (0.6, True)):
             mask = sk.dropout_mask(key, g, keep_rate, resize_val=resize).w
             prf = sk.prf_mask(key, g, keep_rate, resize_val=resize)
             for lay in (g.fwd, g.bwd):
-                for d in (1, 8, 32, 33, 64, 65):
+                for d in (1, 8, 17, 32, 33, 64, 65, 128):
                     x = torch.randn(lay.n_cols, d, device="cuda")
                     for ew in (None, mask, prf):
                         before = sk.csr_spmm.launches
@@ -283,18 +291,26 @@ def test_split_plan_covers_every_edge_once_in_order(t):
 
 
 def test_split_threshold_and_lane_group():
-    for d, g in ((1, 8), (8, 4), (32, 4), (33, 32), (64, 8), (65, 32), (68, 16)):
+    for d, g in ((1, 8), (8, 4), (17, 16), (32, 4), (33, 32), (64, 8), (65, 32), (68, 16),
+                 (128, 16), (256, 32)):
         assert sk.lane_group(d) == g
-    for nnz in (0, 10, 502_048, 297_404, 10**8):
-        for group in (4, 8, 16, 32):
-            t = sk.split_threshold(nnz, group)
-            assert 32 <= t <= 1024 and t & (t - 1) == 0
+    for resident in (H100_SXM_THREADS, H100_PCIE_THREADS):
+        for nnz in (0, 10, 502_048, 297_404, 10**8):
+            for group in (4, 8, 16, 32):
+                t = sk.split_threshold(nnz, group, resident)
+                assert 32 <= t <= 1024 and t & (t - 1) == 0
     # LightGCN's hop on alibaba-fashion (d 32) and KGCL's relation take (d 64)
-    assert sk.split_threshold(502_048, sk.lane_group(32)) == 32
-    assert sk.split_threshold(297_404, sk.lane_group(64)) == 32
+    assert sk.split_threshold(502_048, sk.lane_group(32), H100_SXM_THREADS) == 32
+    assert sk.split_threshold(297_404, sk.lane_group(64), H100_SXM_THREADS) == 32
+    # fewer resident threads, longer chunks
+    assert sk.split_threshold(10**6, 8, H100_PCIE_THREADS) > sk.split_threshold(
+        10**6, 8, H100_SXM_THREADS)
     g, _ = _split_graph()
     assert sk.layout_plan(g.fwd, 16) is sk.layout_plan(g.fwd, 16)
     assert g.fwd.ids_identity and not g.bwd.ids_identity
+    assert not g.fwd.vals_ones and not g.bwd.vals_ones
+    ones, _ = _split_graph(ones=True)
+    assert ones.fwd.vals_ones and ones.bwd.vals_ones
 
 
 @pytest.mark.parametrize("d", [1, 8, 32, 33, 65])

@@ -41,11 +41,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    that dataset, with the launch counts reset around it; check losses, the
    launch counts per step, the trained embeddings against the same forward
    on the CPU's plain versions, and one step on a small KG against the CPU;
-9. print the ``{"kernels": [...]}`` line, then the card line, then
+9. hold B1 against its plain version at the self-supervised models' new
+   shapes: DCCF's all-ones bi-adjacency (no vals read) with a learned weight
+   (value, dx, dew) and LightGCL's rectangular 1/√(rowD·colD) train matrix at
+   d 32 and 13 (its SVD's width), both layouts, within 1e-5;
+10. time them: DCCF's weighted hop both ways and its weight's gradient
+   (``sampled_addmm`` as the yardstick), LightGCL's hop at d 32 and 13 both
+   ways, each beside its bound, its plain version and ``torch.sparse.mm``;
+11. drive each of SGL, SimGCL, DirectAU, NCL, LightGCL, HCCF and DCCF
+   through ``sslrec_tpu_torch.main`` (2 epochs at its published config on
+   alibaba-fashion), the counts reset around each run: finite losses, B1's
+   launches equal to ``SSL_B1``'s count from the code, no B2, and
+   ``generate()`` equal to the same forward on the CPU's plain versions;
+12. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
-``lightgcn_data`` and ``kgcl_shapes`` build the two paths' operands; the
-comparison of checkouts (``chip_compare.py``) times its kernels on them.
+``lightgcn_data``, ``kgcl_shapes`` and ``ssl_graphs`` build the paths'
+operands; the comparison of checkouts (``chip_compare.py``) times its
+kernels on the first two.
 """
 
 from __future__ import annotations
@@ -69,6 +82,8 @@ from sslrec_tpu_torch.config import load_config
 from sslrec_tpu_torch.data import general_cf
 from sslrec_tpu_torch.data import kg as kg_data
 from sslrec_tpu_torch.data.general_cf import bundle_from_matrices
+from sslrec_tpu_torch.models.general_cf.dccf import plain_and_norm_adj
+from sslrec_tpu_torch.models.general_cf.lightgcl import rect_norm_adj
 from sslrec_tpu_torch.models.registry import build_model
 from sslrec_tpu_torch.ops import cuda_build
 from sslrec_tpu_torch.ops import segment as plain_seg
@@ -94,6 +109,24 @@ KG_DATASET = "synthetic"    # written under SMOKE_RESULTS/kg/synthetic_kg/
 # Each epoch adds epoch_state (6 B1, 4 B2) and each evaluation's generate()
 # 5 B1 and 2 B2.
 KGCL_B1_PER_STEP, KGCL_B2_PER_STEP = 31, 6
+SSL_MODELS = ("sgl", "simgcl", "directau", "ncl", "lightgcl", "hccf", "dccf")
+# B1 launches of the self-supervised general_cf models at their published
+# configs, counted from the code: (per training step, per generate(), at
+# construction).  A step runs each forward hop once and, since every hop's
+# input needs a gradient, once more on the transposed layout for dx; a learned
+# edge weight's gradient (dew) is a gather-dot, not a launch.  None runs B2.
+# - SGL: two dropout views and the clean view, 2 hops each: 6 + 6.
+# - SimGCL: two noise views and the clean view, 2 hops each: 6 + 6.
+# - DirectAU: 2 hops: 2 + 2.
+# - NCL: max(layer_num 3, 2 * high_order 2) = 4 hops: 4 + 4; generate 3.
+# - LightGCL: per layer A·E_i and Aᵀ·E_u, 2 layers: 4 + 4; generate 4; its SVD
+#   at construction: omega's product, 4 iterations of Aᵀ then A, a last Aᵀ: 10.
+# - HCCF: one rescaled-dropout hop a layer, 2 layers: 2 + 2; generate 2.
+# - DCCF: per layer the GNN hop, two adaptive-mask hops and the two masks'
+#   degree sums (d 1): 5 forward; backward the GNN and masked hops' dx (the
+#   degree sums' input is constant): 3; 2 layers: 10 + 6; generate 10.
+SSL_B1 = {"sgl": (12, 2, 0), "simgcl": (12, 2, 0), "directau": (4, 2, 0), "ncl": (8, 3, 0),
+          "lightgcl": (8, 4, 10), "hccf": (4, 2, 0), "dccf": (16, 10, 0)}
 
 
 def log(msg: str) -> None:
@@ -235,6 +268,19 @@ def device_ms(fn, iters: int = 50, warmup: int = 5, retries: int = 2) -> float:
         raise AssertionError(f"device_ms: no device time recorded in {iters} calls; "
                              f"events {[e.key for e in prof.key_averages()][:8]}")
     return us / iters / 1e3
+
+
+def cold_ms(fn, flush_bytes: int = 64 * 2**20) -> float:
+    """Device time of ``fn`` with the 50 MB L2 cache flushed before each
+    call: that of a ``flush_bytes`` fill followed by the call, less that of
+    the fill alone.  Repeated calls on one input otherwise find it in L2
+    wherever it fits there."""
+    buf = torch.empty(flush_bytes // 4, device="cuda")
+
+    def flush():
+        buf.fill_(0.0)
+
+    return device_ms(lambda: (flush(), fn())) - device_ms(flush)
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -579,7 +625,7 @@ def kgcl_small_step_check(errs: ErrTrack, devices=("cpu", "cuda")) -> None:
         def on(d):
             return {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
 
-        aux = model.epoch_state(None, on(draws[0]))
+        aux = model.epoch_state(None, 0, draws=on(draws[0]))
         batch = {**on(draws[2]), "aux": aux}
         loss, _ = model.loss(batch, None, draws=on(draws[1]))
         loss.backward()
@@ -623,6 +669,127 @@ def kgcl_shapes(dev) -> dict:
                                               vals=bi.graph.vals, n_rows=bi.n_nodes,
                                               n_cols=bi.n_nodes), dev),
             "ui_w": bi.view_vals(keep.float()).to(dev)}
+
+
+def ssl_graphs(data, dev) -> tuple[sk.CsrGraph, sk.CsrGraph]:
+    """The self-supervised models' new B1 operands from ``data``'s train
+    matrix: DCCF's plain (all-ones) bi-adjacency and LightGCL's
+    1/√(rowD·colD) user × item matrix, both layouts on ``dev``."""
+    trn = data.extras["train_mat_scipy"]
+    plain, _ = plain_and_norm_adj(trn, data.user_num, data.item_num, dev)
+    return plain, rect_norm_adj(trn, dev)
+
+
+def dew_bound_ms(g: sk.CsrGraph, d: int) -> tuple[float, str]:
+    """Least time for the learned weight's gradient vals[e]·⟨g[row_e], x[col_e]⟩:
+    both [n, d] tables, rows and cols read once (vals are all ones on DCCF's
+    graph), [nnz] written; 2·nnz·d flops."""
+    vals = 0 if g.fwd.vals_ones else g.nnz
+    n_bytes = 4 * ((g.n_rows + g.n_cols) * d + 3 * g.nnz + vals)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, 2 * g.nnz * d / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ssl_shapes(plain: sk.CsrGraph, rect: sk.CsrGraph, gen) -> dict[str, dict]:
+    """Device and event times at the new shapes: B1 as DCCF's hop with a
+    learned weight over its all-ones layouts (forward and transposed) and the
+    weight's gradient (dew, plain torch, with ``sampled_addmm`` as its
+    yardstick); LightGCL's rectangular hop at d 32 and its SVD's width 13,
+    both directions.  Each kernel is also timed with L2 flushed (``cold_ms``)."""
+    dev = plain.vals.device
+    t = {}
+    x = torch.randn(plain.n_cols, 32, generator=gen, device=dev)
+    g_out = torch.randn(plain.n_rows, 32, generator=gen, device=dev)
+    ew = torch.rand(plain.nnz, generator=gen, device=dev)
+    ew_b = ew[plain.bwd.edge_ids.long()]
+    csr_f, csr_b = csr_tensor(plain.fwd, ew), csr_tensor(plain.bwd, ew_b)
+    pattern = csr_tensor(plain.fwd)
+    t["dccf_hop"] = timing(lambda: sk.csr_spmm(plain.fwd, x, ew),
+                           lambda: sk.csr_spmm_plain(plain.fwd, x, ew),
+                           lambda: torch.sparse.mm(csr_f, x))
+    t["dccf_hop_t"] = timing(lambda: sk.csr_spmm(plain.bwd, x, ew),
+                             lambda: sk.csr_spmm_plain(plain.bwd, x, ew),
+                             lambda: torch.sparse.mm(csr_b, x))
+    t["dccf_dew"] = timing(
+        lambda: plain.vals * (g_out[plain.rows] * x[plain.cols]).sum(-1),
+        lambda: plain.vals * (g_out[plain.rows] * x[plain.cols]).sum(-1),
+        lambda: torch.sparse.sampled_addmm(pattern, g_out, x.T, beta=0.0))
+    for d in (32, 13):
+        xi = torch.randn(rect.n_cols, d, generator=gen, device=dev)
+        xu = torch.randn(rect.n_rows, d, generator=gen, device=dev)
+        csr_r, csr_rt = csr_tensor(rect.fwd), csr_tensor(rect.bwd)
+        t[f"lightgcl_d{d}"] = timing(lambda: sk.csr_spmm(rect.fwd, xi),
+                                     lambda: sk.csr_spmm_plain(rect.fwd, xi),
+                                     lambda: torch.sparse.mm(csr_r, xi))
+        t[f"lightgcl_d{d}_t"] = timing(lambda: sk.csr_spmm(rect.bwd, xu),
+                                       lambda: sk.csr_spmm_plain(rect.bwd, xu),
+                                       lambda: torch.sparse.mm(csr_rt, xu))
+        t[f"lightgcl_d{d}"]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(rect.fwd, xi))
+        t[f"lightgcl_d{d}_t"]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(rect.bwd, xu))
+    t["dccf_hop"]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(plain.fwd, x, ew))
+    t["dccf_hop_t"]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(plain.bwd, x, ew))
+    t["dccf_dew"]["cold_ms"] = cold_ms(
+        lambda: plain.vals * (g_out[plain.rows] * x[plain.cols]).sum(-1))
+    return t
+
+
+def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
+              dataset: str = DATASET, epochs: int = 2) -> dict[str, dict]:
+    """Each self-supervised general_cf model trained ``epochs`` epochs at its
+    published config through ``sslrec_tpu_torch.main``, with the launch
+    counts reset just before and read just after the run; checks the losses,
+    B1's launches against :data:`SSL_B1` and no B2 launch, and ``generate()``
+    against the same forward on the CPU's plain versions (LightGCL with the
+    card's SVD factors)."""
+    cpu_data, out = None, {}
+    for name in SSL_MODELS:
+        argv = ["--model", name, "--data_dir", data_dir, "--dataset", dataset,
+                "--epoch", str(epochs), "--device", device, "--set", "train.test_step=1",
+                "--set", f"train.results_dir={SMOKE_RESULTS}"]
+        sk.csr_spmm.launches = sk.csr_spmm.combine_launches = skn.segment_max.launches = 0
+        t0 = time.perf_counter()
+        trainer = port_main.main(argv)
+        wall = time.perf_counter() - t0
+        b1, combine, b2 = (sk.csr_spmm.launches, sk.csr_spmm.combine_launches,
+                           skn.segment_max.launches)
+        rows = trainer.recorder.epochs
+        steps = len(rows) * trainer.n_batches
+        per_step, per_gen, per_build = SSL_B1[name]
+        want = per_step * steps + per_gen * (len(rows) + 2) + per_build
+        log(f"  {name}: {len(rows)} epochs of {trainer.n_batches} steps in {wall:.1f} s; B1 "
+            f"{b1} launches ({want} counted from the code: {per_step} per step, {per_gen} "
+            f"per evaluation, {per_build} at construction; {combine} with the split rows' "
+            f"combine), B2 {b2}")
+        if (b1, b2) != (want, 0):
+            raise AssertionError(f"{name} launched B1 {b1}, B2 {b2} times; the code counts "
+                                 f"{want} and 0")
+        for r in rows:
+            if not all(math.isfinite(v) for v in r["loss"].values()):
+                raise AssertionError(f"{name} epoch {r['epoch']}: losses {r['loss']}")
+            log(f"    epoch {r['epoch']}: loss {r['loss']['loss']:.5f}, train "
+                f"{r['train_s']:.3f} s, valid recall@20 {r['valid']['recall'][1]:.5f}, eval "
+                f"{r['eval_s']:.3f} s")
+        model = trainer.model
+        if cpu_data is None:
+            cpu_data = general_cf.load(trainer.cfg, "cpu")
+        cpu_model = build_model(trainer.cfg, cpu_data)
+        cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        if name == "lightgcl":
+            for k in ("ut", "vt", "u_mul_s", "v_mul_s"):
+                setattr(cpu_model, k, getattr(model, k).cpu())
+        with torch.no_grad():
+            gu, gi = model.generate()
+            cu, ci = cpu_model.generate()
+        errs.check(f"{name}.generate", torch.cat([gu, gi]).cpu(), torch.cat([cu, ci]))
+        test = trainer.test_results
+        log(f"    test recall@20 {test['recall'][1]:.5f}, ndcg@20 {test['ndcg'][1]:.5f}; "
+            f"generate() {tuple(gu.shape)} + {tuple(gi.shape)} = the CPU's plain forward")
+        out[name] = {"launches": b1, "combine_launches": combine, "steps": steps,
+                     "per_step": b1 / steps, "wall_s": wall,
+                     "test_recall20": float(test["recall"][1]),
+                     "test_ndcg20": float(test["ndcg"][1])}
+        del trainer, model, cpu_model
+    return out
 
 
 def main() -> int:
@@ -847,7 +1014,28 @@ def main() -> int:
         f"forward on the CPU's plain versions: ok")
     kgcl_small_step_check(errs)
 
-    log("== 9. result")
+    log("== 9. B1 against plain, the self-supervised models' shapes")
+    plain, lgcl = ssl_graphs(data, dev)
+    ssl_errs = ErrTrack()
+    check_graph(ssl_errs, "dccf_plain", plain, (32,), gen, with_grads=True)
+    check_graph(ssl_errs, "lightgcl_rect", lgcl, (32, 13), gen, with_grads=True)
+    log(f"max abs err {ssl_errs.abs:.3g}, max rel err {ssl_errs.rel:.3g} (tolerance {TOL}); "
+        f"DCCF's plain layouts read no vals: {plain.fwd.vals_ones and plain.bwd.vals_ones}")
+
+    log("== 10. the self-supervised models' shapes timing")
+    ssl_t = time_ssl_shapes(plain, lgcl, gen)
+    ssl_bound = {"dccf_hop": bound_ms(plain.fwd, 32, "mask"),
+                 "dccf_hop_t": bound_ms(plain.bwd, 32, "mask"),
+                 "dccf_dew": dew_bound_ms(plain, 32),
+                 "lightgcl_d32": bound_ms(lgcl.fwd, 32), "lightgcl_d32_t": bound_ms(lgcl.bwd, 32),
+                 "lightgcl_d13": bound_ms(lgcl.fwd, 13), "lightgcl_d13_t": bound_ms(lgcl.bwd, 13)}
+    for k, r in ssl_t.items():
+        log_timing(k, r, ssl_bound[k])
+
+    log("== 11. the self-supervised general_cf paths")
+    ssl_runs = ssl_paths(errs)
+
+    log("== 12. result")
     common = {"route": "cuda", "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
               "replaces": "sslrec_tpu/ops/pallas_spmm.py:123",
               "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel"}
@@ -866,13 +1054,20 @@ def main() -> int:
     lgcn_err = ErrTrack()
     lgcn_err.abs, lgcn_err.rel = main_abs, main_rel
     lgcn_counts, kg_counts = (launches, lgcn_combine), (kg_b1, kg_combine)
+    ssl_b1 = sum(r["launches"] for r in ssl_runs.values())
+    ssl_combine = sum(r["combine_launches"] for r in ssl_runs.values())
     b1 = b1_row("csr_spmm", hop["none"], hop_bound["none"],
-                (launches + kg_b1, lgcn_combine + kg_combine), lgcn_err, hop_shape,
-                launches_by_path={"lightgcn": launches, "kgcl": kg_b1},
-                combine_launches_by_path={"lightgcn": lgcn_combine, "kgcl": kg_combine},
-                launches_per_step={"lightgcn": launches / steps, "kgcl": kg_b1 / kg_steps},
+                (launches + kg_b1 + ssl_b1, lgcn_combine + kg_combine + ssl_combine),
+                lgcn_err, hop_shape,
+                launches_by_path={"lightgcn": launches, "kgcl": kg_b1,
+                                  **{k: r["launches"] for k, r in ssl_runs.items()}},
+                combine_launches_by_path={"lightgcn": lgcn_combine, "kgcl": kg_combine,
+                                          **{k: r["combine_launches"]
+                                             for k, r in ssl_runs.items()}},
+                launches_per_step={"lightgcn": launches / steps, "kgcl": kg_b1 / kg_steps,
+                                   **{k: r["per_step"] for k, r in ssl_runs.items()}},
                 max_rel_err_all_checks=max(errs.rel, seg_errs.rel, rel_errs.rel,
-                                           ui_errs.rel),
+                                           ui_errs.rel, ssl_errs.rel),
                 stress={"max_abs_err": stress_errs.abs, "max_rel_err": stress_errs.rel,
                         "reference": "plain version in float64"},
                 library_call="torch.sparse.mm on a CSR tensor of the layout")
@@ -903,13 +1098,40 @@ def main() -> int:
                           library_call="zeros.index_put_((ids,), g, accumulate=True), the "
                                        "call autograd makes for an index's backward; "
                                        "onehot_ms: the one-hot GEMM onehot.T @ g"))
+    dccf_counts = tuple(ssl_runs["dccf"][k] for k in ("launches", "combine_launches"))
+    lgcl_counts = tuple(ssl_runs["lightgcl"][k] for k in ("launches", "combine_launches"))
+    sparse_mm = "torch.sparse.mm on a CSR tensor of the layout"
+    for k, counts, shape, more in (
+            ("dccf_hop", dccf_counts, plain.fwd, {
+                "library_call": "torch.sparse.mm on a CSR tensor whose values already "
+                                "carry the learned weight"}),
+            ("dccf_hop_t", dccf_counts, plain.bwd, {
+                "library_call": "torch.sparse.mm on a CSR tensor whose values already "
+                                "carry the learned weight"}),
+            ("lightgcl_d32", lgcl_counts, lgcl.fwd, {"library_call": sparse_mm}),
+            ("lightgcl_d32_t", lgcl_counts, lgcl.bwd, {"library_call": sparse_mm}),
+            ("lightgcl_d13", lgcl_counts, lgcl.fwd, {"library_call": sparse_mm}),
+            ("lightgcl_d13_t", lgcl_counts, lgcl.bwd, {"library_call": sparse_mm})):
+        d_k = 13 if "d13" in k else 32
+        rows_b1.append(b1_row(
+            f"csr_spmm.{k}", ssl_t[k], ssl_bound[k], counts, ssl_errs,
+            {"n_rows": shape.n_rows, "n_cols": shape.n_cols, "nnz": shape.cols.shape[0],
+             "d": d_k, "layout": "transposed" if k.endswith("_t") else "forward",
+             "vals_ones": shape.vals_ones}, **more))
+    rows_b1[-6]["dew"] = {
+        "what": "the learned weight's gradient vals[e]*<g[row_e], x[col_e]>, plain torch "
+                "in SpmmFn.backward (not a kernel), at DCCF's plain graph, d 32",
+        **{k: v for k, v in ssl_t["dccf_dew"].items()},
+        "bound_ms": ssl_bound["dccf_dew"][0], "bound_by": ssl_bound["dccf_dew"][1],
+        "library_call": "torch.sparse.sampled_addmm(pattern, g, x.T, beta=0)"}
     b2_row = {
         "name": "segment_max", "route": "cuda",
         "source": "sslrec_tpu_torch/csrc/segment_max.cu",
         "replaces": "sslrec_tpu/ops/pallas_segment.py:137",
         "replaces_fn": "sslrec_tpu/ops/pallas_segment.py::_segmax_kernel",
         "launches": kg_b2,
-        "launches_by_path": {"lightgcn": lgcn_b2, "kgcl": kg_b2},
+        "launches_by_path": {"lightgcn": lgcn_b2, "kgcl": kg_b2,
+                             **{k: 0 for k in ssl_runs}},
         "launches_per_step": {"kgcl": kg_b2 / kg_steps},
         "max_abs_err": 0.0,
         "shape": {**seg_shape, "group_width": seg_lay.group_width,

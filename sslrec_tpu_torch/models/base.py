@@ -14,7 +14,8 @@ Optional
 --------
 ``rating(user_emb, item_emb) -> scores``  (default: dot product)
 ``step_generator = True``            ``loss`` gets the epoch's device generator, not a PRF key
-``epoch_state(gen) -> aux``          once per epoch under ``no_grad``; reaches ``loss`` as ``batch["aux"]``
+``epoch_state(gen, epoch) -> aux``   once per epoch under ``no_grad``, with the epoch's device
+                                     generator; reaches ``loss`` as ``batch["aux"]``
 """
 
 from __future__ import annotations

@@ -1,0 +1,120 @@
+"""DCCF — disentangled contrastive CF: intent prototypes and adaptive edge
+re-weighting, with a six-way layer-wise InfoNCE (port of
+``sslrec_tpu/models/general_cf/dccf.py``).
+
+- Two graphs over the same edges in the same order (:func:`plain_and_norm_adj`):
+  the plain bidirectional adjacency, all ones (so B1 reads no values there),
+  and its D^-1/2 A D^-1/2 twin, which drives the GNN hop.
+- Per layer: the GNN hop; intent attention softmax(E·P)·Pᵀ; two hops over
+  the plain graph whose edge weights :func:`augment.adaptive_mask` learns
+  from the GNN and the intent view, back-propagated through B1's learned
+  weight (``SpmmFn``'s ``dew``); the layer adds the four to its input, and
+  the prediction sums every layer's state.
+- CL between the GNN view and each other view, per layer, over the batch's
+  raw (not de-duplicated) users and items, with denominators over the picked
+  rows; every term divided by the batch size.
+
+No random draws.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+from torch import nn
+
+from sslrec_tpu_torch.models import augment, losses
+from sslrec_tpu_torch.models.base import RecModel
+from sslrec_tpu_torch.ops.sparse import from_scipy, normalize_adj_sym
+from sslrec_tpu_torch.ops.spmm import spmm
+from sslrec_tpu_torch.ops.spmm_kernel import CsrGraph, build_csr_graph
+from sslrec_tpu_torch.utils.initializers import xavier_uniform
+
+
+def plain_and_norm_adj(train_mat: sp.spmatrix, n_users: int, n_items: int,
+                       device) -> tuple[CsrGraph, CsrGraph]:
+    """The [U+I] bidirectional adjacency with values 1, and with values
+    D^-1/2 A D^-1/2 (no degree epsilon), both in the same row-sorted edge
+    order, both layouts on ``device``."""
+    trn = train_mat.tocoo()
+    rows = np.concatenate([trn.row, trn.col + n_users])
+    cols = np.concatenate([trn.col + n_users, trn.row])
+    n = n_users + n_items
+    plain = sp.coo_matrix((np.ones(rows.size, np.float32), (rows, cols)),
+                          shape=(n, n)).tocsr().tocoo()
+    norm = normalize_adj_sym(plain, eps=0.0)
+    return (build_csr_graph(from_scipy(plain), device),
+            build_csr_graph(from_scipy(norm), device))
+
+
+class DCCF(RecModel):
+    def __init__(self, cfg, data):
+        super().__init__(cfg, data)
+        m = cfg.model
+        self.layer_num = int(m.layer_num)
+        self.intent_num = int(m.intent_num)
+        self.reg_weight = float(m.reg_weight)
+        self.cl_weight = float(m.cl_weight)
+        self.temperature = float(m.temperature)
+        device = data.device
+        self.plain_adj, self.norm_adj = plain_and_norm_adj(
+            data.extras["train_mat_scipy"], self.user_num, self.item_num, device)
+        d = self.embedding_size
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(*shape, device=device))
+
+        self.user_embeds = param(self.user_num, d)
+        self.item_embeds = param(self.item_num, d)
+        self.user_intent = param(d, self.intent_num)
+        self.item_intent = param(d, self.intent_num)
+
+    @torch.no_grad()
+    def init_params(self, gen: torch.Generator) -> None:
+        """Xavier-uniform tables and intents, drawn in the JAX model's order
+        from ``gen``."""
+        for p in (self.user_embeds, self.item_embeds, self.user_intent, self.item_intent):
+            p.copy_(xavier_uniform(gen, tuple(p.shape)))
+
+    def forward(self):
+        """(user and item sums of every layer's state, then per layer the
+        GNN, intent, GNN-masked and intent-masked views ``[U+I, d]``)."""
+        u = self.user_num
+        prev = torch.cat([self.user_embeds, self.item_embeds], dim=0)
+        final, views = prev, ([], [], [], [])
+        for _ in range(self.layer_num):
+            gnn = spmm(self.norm_adj, prev)
+            u_int = torch.softmax(prev[:u] @ self.user_intent, dim=1) @ self.user_intent.T
+            i_int = torch.softmax(prev[u:] @ self.item_intent, dim=1) @ self.item_intent.T
+            intent = torch.cat([u_int, i_int], dim=0)
+            gaa = spmm(self.plain_adj, prev, augment.adaptive_mask(self.plain_adj, gnn, gnn))
+            iaa = spmm(self.plain_adj, prev,
+                       augment.adaptive_mask(self.plain_adj, intent, intent))
+            prev = gnn + intent + gaa + iaa + prev
+            final = final + prev
+            for acc, v in zip(views, (gnn, intent, gaa, iaa)):
+                acc.append(v)
+        return final[:u], final[u:], views
+
+    def _cl_loss(self, users, items, views):
+        u, t, n = self.user_num, self.temperature, users.shape[0]
+        cl = 0.0
+        for gnn, inte, gaa, iaa in zip(*views):
+            ug, ui, ua, uia = (v[:u][users] for v in (gnn, inte, gaa, iaa))
+            ig, ii, ia, iia = (v[u:][items] for v in (gnn, inte, gaa, iaa))
+            for a, b in ((ug, ui), (ug, ua), (ug, uia), (ig, ii), (ig, ia), (ig, iia)):
+                cl = cl + losses.infonce_loss(a, b, b, t) / n
+        return cl
+
+    def loss(self, batch: dict, key=None):
+        ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
+        u_emb, i_emb, views = self.forward()
+        bpr = losses.bpr_loss(u_emb[ancs], i_emb[poss], i_emb[negs]) / ancs.shape[0]
+        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        cl = self.cl_weight * self._cl_loss(ancs, torch.cat([poss, negs]), views)
+        return bpr + reg + cl, {"bpr_loss": bpr, "reg_loss": reg, "cl_loss": cl}
+
+    def generate(self):
+        u_emb, i_emb, _ = self.forward()
+        return u_emb, i_emb

@@ -1,0 +1,82 @@
+"""NCL — neighbourhood-enriched contrastive learning: structural InfoNCE
+between layer 0 and layer 2·high_order, prototype InfoNCE against k-means
+centroids (port of ``sslrec_tpu/models/general_cf/ncl.py``).
+
+No edge dropout.  Training propagates ``max(layer_num, 2·high_order)`` hops
+but the prediction sums only the first ``layer_num + 1`` layers (so
+:meth:`generate` runs ``layer_num`` hops).  :meth:`epoch_state` re-clusters
+the current tables every ``epoch_period`` epochs (the JAX trainer's hook);
+the prototype loss holds the centroids constant.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sslrec_tpu_torch.models import augment, losses
+from sslrec_tpu_torch.models.general_cf.lightgcn import LightGCN
+from sslrec_tpu_torch.ops.spmm import spmm_layers
+
+
+class NCL(LightGCN):
+    def __init__(self, cfg, data):
+        super().__init__(cfg, data)
+        m = cfg.model
+        self.proto_weight = float(m.proto_weight)
+        self.struct_weight = float(m.struct_weight)
+        self.temperature = float(m.temperature)
+        self.high_order = int(m.high_order)
+        self.cluster_num = int(m.cluster_num)
+        self.epoch_period = int(m.epoch_period)
+        self.n_hops = max(self.layer_num, 2 * self.high_order)
+        self._clusters = None
+
+    @torch.no_grad()
+    def epoch_state(self, gen: torch.Generator | None, epoch: int = 0,
+                    draws: dict | None = None) -> dict:
+        """Centroids and assignments of both tables, new at the first call
+        and every ``epoch_period`` epochs, else the last ones; ``draws``
+        (``{"user", "item"}``: each table's initial k-means rows) else drawn
+        from ``gen``."""
+        if self._clusters is None or epoch % self.epoch_period == 0:
+            draws = draws or {}
+            ucent, u2c, _ = augment.kmeans(self.user_embeds, self.cluster_num, gen=gen,
+                                           pick=draws.get("user"))
+            icent, i2c, _ = augment.kmeans(self.item_embeds, self.cluster_num, gen=gen,
+                                           pick=draws.get("item"))
+            self._clusters = {"user_centroids": ucent, "user2cluster": u2c,
+                              "item_centroids": icent, "item2cluster": i2c}
+        return self._clusters
+
+    def _propagate_list(self, n_hops: int):
+        embeds = torch.cat([self.user_embeds, self.item_embeds], dim=0)
+        return [embeds, *spmm_layers(self.adj, embeds, n_hops).unbind(0)]
+
+    def loss(self, batch: dict, key=None):
+        aux, t = batch["aux"], self.temperature
+        ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
+        embeds_list = self._propagate_list(self.n_hops)
+        final = sum(embeds_list[: self.layer_num + 1])
+        ego, context = embeds_list[0], embeds_list[2 * self.high_order]
+        u = self.user_num
+        u_fin, i_fin = final[:u], final[u:]
+        bpr = losses.bpr_loss(u_fin[ancs], i_fin[poss], i_fin[negs]) / ancs.shape[0]
+
+        u_ego, i_ego, u_ctx, i_ctx = ego[:u], ego[u:], context[:u], context[u:]
+        struct = (losses.infonce_loss(u_ctx[ancs], u_ego[ancs], u_ego, t)
+                  + losses.infonce_loss(i_ctx[poss], i_ego[poss], i_ego, t)
+                  ) / ancs.shape[0] * self.struct_weight
+
+        ucent, icent = aux["user_centroids"].detach(), aux["item_centroids"].detach()
+        proto = (losses.infonce_loss(u_ego[ancs], ucent[aux["user2cluster"][ancs]], ucent, t)
+                 + losses.infonce_loss(i_ego[poss], icent[aux["item2cluster"][poss]], icent, t)
+                 ) / ancs.shape[0] * self.proto_weight
+
+        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        loss = bpr + struct + proto + reg
+        return loss, {"bpr_loss": bpr, "reg_loss": reg,
+                      "struct_loss": struct, "proto_loss": proto}
+
+    def generate(self):
+        final = sum(self._propagate_list(self.layer_num))
+        return final[: self.user_num], final[self.user_num:]

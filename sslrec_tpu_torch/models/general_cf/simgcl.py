@@ -1,0 +1,54 @@
+"""SimGCL — noise-perturbed propagation views and InfoNCE (port of
+``sslrec_tpu/models/general_cf/simgcl.py``).
+
+Both views add sign-aligned, L2-normalised uniform noise after every hop;
+BPR runs on the clean view; CL on anchors and positives only (no negatives'
+term, unlike SGL).  The noise is drawn from the epoch's device generator
+(``step_generator``, :meth:`step_draws`), so tests can inject it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sslrec_tpu_torch.models import augment, losses
+from sslrec_tpu_torch.models.general_cf.lightgcn import LightGCN
+from sslrec_tpu_torch.ops.spmm import spmm_views
+
+
+class SimGCL(LightGCN):
+    step_generator = True       # the trainer hands loss() a device generator
+
+    def __init__(self, cfg, data):
+        super().__init__(cfg, data)
+        self.cl_weight = float(cfg.model.cl_weight)
+        self.temperature = float(cfg.model.temperature)
+        self.eps = float(cfg.model.eps)
+
+    def step_draws(self, gen: torch.Generator) -> dict:
+        """Each view's and hop's uniform noise ``[2, L, N, d]``."""
+        shape = (2, self.layer_num, self.user_num + self.item_num, self.embedding_size)
+        return {"noise": torch.rand(shape, generator=gen, device=gen.device)}
+
+    def _two_perturbed(self, noise):
+        x0 = torch.cat([self.user_embeds, self.item_embeds], dim=0)
+        out = spmm_views(self.adj, [x0, x0], self.layer_num,
+                         post=lambda u, x: augment.embed_perturb(u, x, self.eps),
+                         keys=noise)
+        return x0 + out[0].sum(dim=0), x0 + out[1].sum(dim=0)
+
+    def loss(self, batch: dict, gen: torch.Generator | None, draws: dict | None = None):
+        """``draws`` (else drawn from ``gen``) as :meth:`step_draws` returns them."""
+        draws = self.step_draws(gen) if draws is None else draws
+        v1, v2 = self._two_perturbed(draws["noise"])
+        u = self.user_num
+        u1, i1, u2, i2 = v1[:u], v1[u:], v2[:u], v2[u:]
+        u3, i3 = self.propagate()
+        ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
+        bpr = losses.bpr_loss(u3[ancs], i3[poss], i3[negs]) / ancs.shape[0]
+        t = self.temperature
+        cl = (losses.infonce_loss(u1[ancs], u2[ancs], u2, t)
+              + losses.infonce_loss(i1[poss], i2[poss], i2, t))
+        cl = cl / ancs.shape[0] * self.cl_weight
+        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        return bpr + cl + reg, {"bpr_loss": bpr, "reg_loss": reg, "cl_loss": cl}

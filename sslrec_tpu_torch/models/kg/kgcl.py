@@ -175,10 +175,11 @@ class KGCL(RecModel):
         return w[self.bi.rect_item_ids]
 
     @torch.no_grad()
-    def epoch_state(self, gen: torch.Generator | None, draws: dict | None = None) -> dict:
+    def epoch_state(self, gen: torch.Generator | None, epoch: int = 0,
+                    draws: dict | None = None) -> dict:
         """The epoch's two augmented views, passed to :meth:`loss` as
-        ``batch["aux"]``; ``draws`` (else drawn from ``gen``) as
-        :meth:`epoch_draws` returns them."""
+        ``batch["aux"]``, new every epoch; ``draws`` (else drawn from ``gen``)
+        as :meth:`epoch_draws` returns them."""
         draws = self.epoch_draws(gen) if draws is None else draws
         p = self.keep_probs(draws["kg_mask1"], draws["kg_mask2"])
         return {"kg_mask1": draws["kg_mask1"], "kg_mask2": draws["kg_mask2"],

@@ -1,4 +1,5 @@
-"""Losses (port of ``sslrec_tpu/models/losses.py``: the pairwise pieces)."""
+"""Losses (port of ``sslrec_tpu/models/losses.py``: the pairwise and
+contrastive pieces, with the JAX package's reductions and epsilons)."""
 
 from __future__ import annotations
 
@@ -17,3 +18,51 @@ def reg_params(params: dict[str, torch.Tensor]):
     """L2² over every parameter, summed in name order (the JAX package's
     pytree-leaf order)."""
     return sum((params[k] ** 2).sum() for k in sorted(params))
+
+
+def _l2norm_eps(x, eps=1e-8):
+    return x / torch.sqrt(eps + (x * x).sum(dim=-1, keepdim=True))
+
+
+def _l2norm_safe(x, eps=1e-12):
+    """Row L2-normalise with a finite gradient at zero rows (not
+    ``F.normalize``, which clamps the norm)."""
+    return x / torch.sqrt((x * x).sum(dim=-1, keepdim=True) + eps)
+
+
+def infonce_loss(embeds1, embeds2, all_embeds2, temp=1.0):
+    """InfoNCE, sum-reduced, every operand L2-normalised with 1e-8 inside the
+    square root; the negatives through ``logsumexp`` over ``all_embeds2``."""
+    n1, n2, na2 = _l2norm_eps(embeds1), _l2norm_eps(embeds2), _l2norm_eps(all_embeds2)
+    nume_term = -(n1 * n2 / temp).sum(dim=-1)
+    deno_term = torch.logsumexp(n1 @ na2.T / temp, dim=-1)
+    return (nume_term + deno_term).sum()
+
+
+def infonce_loss_spec_nodes(embeds1, embeds2, nodes, temp):
+    """InfoNCE over the rows ``nodes``, mean-reduced; each table normalised as
+    ``F.normalize(x + 1e-8)`` (an additive epsilon), then :func:`_l2norm_safe`."""
+    e1, e2 = _l2norm_safe(embeds1 + 1e-8), _l2norm_safe(embeds2 + 1e-8)
+    p1, p2 = e1[nodes], e2[nodes]
+    nume = torch.exp((p1 * p2).sum(dim=-1) / temp)
+    deno = torch.exp(p1 @ e2.T / temp).sum(dim=-1) + 1e-8
+    return -torch.log(nume / deno).mean()
+
+
+def alignment_loss(x, y, alpha=2.0):
+    """DirectAU alignment: mean of ‖x̂ - ŷ‖^alpha."""
+    xn, yn = _l2norm_safe(x), _l2norm_safe(y)
+    return (((xn - yn) ** 2).sum(dim=-1) ** (alpha / 2.0)).mean()
+
+
+def uniformity_loss(x):
+    """DirectAU uniformity: log of the mean of exp(-2‖x̂_a - x̂_b‖²) over
+    ordered pairs a ≠ b, from the Gram matrix as the JAX package writes it
+    (not ``torch.pdist``, whose pair mean rounds differently): the diagonal's
+    n ones are subtracted from the full sum."""
+    xn = _l2norm_safe(x)
+    gram = xn @ xn.T
+    sq = torch.maximum(2.0 - 2.0 * gram, gram.new_zeros(()))   # ‖a-b‖² of unit rows
+    n = x.shape[0]
+    total = torch.exp(-2.0 * sq).sum() - n
+    return torch.log(total / (n * (n - 1)))

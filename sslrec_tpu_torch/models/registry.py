@@ -1,13 +1,23 @@
 """Model registry: name → class (port of ``sslrec_tpu/models/registry.py``;
-LightGCN and KGCL so far).  Lookup is case-insensitive."""
+LightGCN, the self-supervised general_cf family and KGCL so far).  Lookup is
+case-insensitive."""
 
 from __future__ import annotations
 
 import importlib
 
+_GENERAL_CF = "sslrec_tpu_torch.models.general_cf."
+
 # name -> (module path, class name). Populated as model families land.
 _REGISTRY: dict[str, tuple[str, str]] = {
-    "lightgcn": ("sslrec_tpu_torch.models.general_cf.lightgcn", "LightGCN"),
+    "lightgcn": (_GENERAL_CF + "lightgcn", "LightGCN"),
+    "sgl": (_GENERAL_CF + "sgl", "SGL"),
+    "simgcl": (_GENERAL_CF + "simgcl", "SimGCL"),
+    "directau": (_GENERAL_CF + "directau", "DirectAU"),
+    "ncl": (_GENERAL_CF + "ncl", "NCL"),
+    "lightgcl": (_GENERAL_CF + "lightgcl", "LightGCL"),
+    "hccf": (_GENERAL_CF + "hccf", "HCCF"),
+    "dccf": (_GENERAL_CF + "dccf", "DCCF"),
     "kgcl": ("sslrec_tpu_torch.models.kg.kgcl", "KGCL"),
 }
 

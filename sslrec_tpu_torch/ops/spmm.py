@@ -29,23 +29,50 @@ def spmm(g: CsrGraph, x: torch.Tensor, edge_weight: EdgeWeight = None) -> torch.
     return SpmmFn.apply(g, x, edge_weight)
 
 
+def _pick(edge_weight: EdgeWeight, i: int) -> EdgeWeight:
+    """Index ``i`` of a multiplier's leading (view or layer) dimension."""
+    if isinstance(edge_weight, (EdgeMask, PrfMask)):
+        return edge_weight.layer(i)
+    return edge_weight[i]
+
+
 def spmm_layers(g: CsrGraph, x0: torch.Tensor, n_layers: int,
-                edge_weight: EdgeWeight = None) -> torch.Tensor:
+                edge_weight: EdgeWeight = None, post=None, keys=None) -> torch.Tensor:
     """``n_layers`` repeated hops ``x ← A @ x``; returns ``[n_layers, n_rows, d]``.
 
     ``edge_weight``: as for :func:`spmm`, the same every hop, or with a leading
-    ``[n_layers]`` dimension for one multiplier per hop.
+    ``[n_layers]`` dimension for one multiplier per hop.  ``post``: an optional
+    ``fn(keys[layer], x) -> x`` applied after each hop (SimGCL's per-layer
+    noise, where ``keys`` holds each layer's draws).  The JAX package scans
+    the hops so that they share one Mosaic kernel instance; here the loop is
+    eager.
     """
     per_layer = edge_weight is not None and edge_weight.ndim == 2
     ys, x = [], x0
     for layer in range(n_layers):
-        ew = edge_weight
-        if per_layer:
-            ew = (edge_weight.layer(layer) if isinstance(edge_weight, (EdgeMask, PrfMask))
-                  else edge_weight[layer])
+        ew = _pick(edge_weight, layer) if per_layer else edge_weight
         x = spmm(g, x, edge_weight=ew)
+        if post is not None:
+            x = post(keys[layer], x)
         ys.append(x)
     return torch.stack(ys)
+
+
+def spmm_views(g: CsrGraph, x0s, n_layers: int, edge_weights: EdgeWeight = None,
+               post=None, keys=None) -> torch.Tensor:
+    """``V`` independent :func:`spmm_layers` stacks; returns ``[V, n_layers, N, d]``.
+
+    ``x0s``: ``[V, N, d]`` or a sequence of ``V`` ``[N, d]`` inputs;
+    ``edge_weights``: ``None`` or stacked per view (``[V, nnz]``,
+    ``[V, n_layers, nnz]``, an :class:`EdgeMask`, or a :class:`PrfMask` with
+    one key per view), each view's picked in turn; ``keys``: ``[V, n_layers,
+    ...]`` when ``post`` is set.
+    """
+    return torch.stack([
+        spmm_layers(g, x0, n_layers,
+                    None if edge_weights is None else _pick(edge_weights, v),
+                    post, None if keys is None else keys[v])
+        for v, x0 in enumerate(x0s)])
 
 
 def spmm_t(g: CsrGraph, x: torch.Tensor, edge_weight: EdgeWeight = None) -> torch.Tensor:

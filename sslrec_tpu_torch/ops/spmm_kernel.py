@@ -424,6 +424,17 @@ def _threefry2x32(k0, k1, c0, c1):
     return x0, x1
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` of a raw key (two uint32 values in an int64 tensor
+    [2]) into ``num`` keys ``[num, 2]``, bit for bit, in the threefry mode
+    where ``jax_threefry_partitionable`` is set (JAX's default since 0.5): key
+    ``i`` is Threefry-2x32 of the 64-bit counter ``i`` as (hi, lo) words."""
+    key = key.to(torch.int64)
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    x0, x1 = _threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return torch.stack([x0, x1], dim=-1)
+
+
 def _prf_uniform(key: torch.Tensor, counts: torch.Tensor, salt: int) -> torch.Tensor:
     """Uniform [0, 1) float32 at ``counts`` from a ``key`` of two uint32 values
     (an int64 tensor [2]); equal to the JAX package's ``_prf_uniform``."""
@@ -463,8 +474,10 @@ class PrfMask(NamedTuple):
     device) and a salt: the JAX package's ``dropout_padded``, which each
     layout evaluates from its own edge ids.  B1 evaluates it inside the
     kernel, so no mask tensor exists on the card's path; ``w`` materialises
-    it through the plain path.  ``salts``: an int, or a tuple for a leading
-    per-view/per-layer dimension (``layer(i)`` picks one)."""
+    it through the plain path.  Leading dimensions, outermost first: keys
+    ``[V, 2]`` for one mask per view (SGL's two views), then ``salts`` as a
+    tuple for one mask per layer; ``layer(i)`` picks index ``i`` of the
+    outermost, as a stacked ``[V, L, nnz]`` mask would be indexed."""
 
     key: torch.Tensor
     salts: int | tuple
@@ -474,28 +487,31 @@ class PrfMask(NamedTuple):
 
     @property
     def ndim(self) -> int:
-        return 1 if isinstance(self.salts, int) else 2
+        return self.key.dim() + (0 if isinstance(self.salts, int) else 1)
 
     def layer(self, i: int) -> "PrfMask":
+        if self.key.dim() == 2:
+            return self._replace(key=self.key[i])
         return self._replace(salts=self.salts[i])
 
     def at(self, edge_ids: torch.Tensor) -> torch.Tensor:
-        """The multipliers of original edge ids ``edge_ids`` (one salt)."""
+        """The multipliers of original edge ids ``edge_ids`` (one key, one salt)."""
         return _prf_keep(self.key, edge_ids, self.salts, self.keep_rate, self.resize_val)
 
     @property
     def w(self) -> torch.Tensor:
-        """The multiplier in the original edge order, ``[nnz]`` or
-        ``[len(salts), nnz]``."""
-        eids = torch.arange(self.nnz, device=self.key.device)
+        """The multiplier in the original edge order, ``[..., nnz]`` with the
+        leading dimensions above."""
         if self.ndim == 1:
-            return self.at(eids)
-        return torch.stack([self.layer(i).at(eids) for i in range(len(self.salts))])
+            return self.at(torch.arange(self.nnz, device=self.key.device))
+        n = self.key.shape[0] if self.key.dim() == 2 else len(self.salts)
+        return torch.stack([self.layer(i).w for i in range(n)])
 
 
 def prf_mask(key: torch.Tensor, g: CsrGraph, keep_rate: float,
              salts: int | Sequence[int] = 0, resize_val: bool = False) -> PrfMask:
-    """The :class:`PrfMask` of ``g`` under ``key`` (moved to ``g``'s device)."""
+    """The :class:`PrfMask` of ``g`` under ``key`` (``[2]``, or ``[V, 2]`` for
+    one mask per view; moved to ``g``'s device)."""
     salts = int(salts) if isinstance(salts, (int, np.integer)) else tuple(map(int, salts))
     return PrfMask(key=key.to(device=g.vals.device, dtype=torch.int64).contiguous(),
                    salts=salts, keep_rate=float(keep_rate), resize_val=bool(resize_val),

@@ -1,9 +1,11 @@
 """Where a training epoch and an evaluation spend their time on the card.
 
-    python -m sslrec_tpu_torch.profile_epoch --model lightgcn --data_dir datasets \
+    python -m sslrec_tpu_torch.profile_epoch --model sgl --data_dir datasets \
         --dataset alibaba-fashion [--out chiprun_out/profile]
 
-Takes the CLI's flags (``--device`` must be ``cuda``).  Loads the data,
+Takes the CLI's flags (``--device`` must be ``cuda``); ``--model`` is any
+registered model, each epoch driven by the trainer the CLI uses (a model's
+per-epoch hook and device generator included).  Loads the data,
 trains epoch 0 as a warm-up, then times epochs 1-3 and three evaluations of
 the valid split with the host clock, and traces epoch 4 and a fourth
 evaluation with ``torch.profiler``.  Prints the untraced wall times, the

@@ -13,11 +13,13 @@ generator seeded by ``(seed, e)`` (the counterpart of
 ``fold_in(root, epoch)``), so an epoch's draws do not depend on the device or
 on the epochs before it.
 
-A model with ``step_generator`` set draws its own per-step masks: the
-trainer seeds one generator on the run's device from ``(seed, epoch)`` and
-hands it to the model's ``epoch_state`` (if any), whose result reaches every
-step's ``loss`` as ``batch["aux"]``, and then to ``loss`` in place of the PRF
-key.  Such masks are made on the device, never copied from the host.
+A model with ``step_generator`` set draws its own per-step masks, and a
+model with an ``epoch_state`` hook its per-epoch state: the trainer seeds one
+generator on the run's device from ``(seed, epoch)`` and hands it, with the
+epoch, to ``epoch_state(gen, epoch)``, whose result reaches every step's
+``loss`` as ``batch["aux"]``; a ``step_generator`` model then gets it in
+``loss`` in place of the PRF key.  Such draws are made on the device, never
+copied from the host.
 """
 
 from __future__ import annotations
@@ -108,12 +110,13 @@ class Trainer:
         users, items = self.data.train_users, self.data.train_items
         model = self.model
         gen = aux_state = None
-        if model.step_generator:
+        if model.step_generator or hasattr(model, "epoch_state"):
             gen = generator(int(self.cfg.train.seed), epoch, DEVICE_STREAM,
                             device=self.device)
+        if model.step_generator:
             keys = [gen] * self.n_batches
         if hasattr(model, "epoch_state"):
-            aux_state = model.epoch_state(gen)
+            aux_state = model.epoch_state(gen, epoch)
         sums = None
         for bidx, key in zip(idx, keys):
             batch = {"user": users[bidx], "pos": items[bidx], "neg": negs[bidx]}

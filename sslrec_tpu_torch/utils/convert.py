@@ -6,19 +6,67 @@ import numpy as np
 import torch
 
 
+def _state(flat: dict) -> dict[str, torch.Tensor]:
+    """Float32 numpy arrays → tensors under the same names."""
+    out = {}
+    for name, a in flat.items():
+        a = np.asarray(a)
+        if a.dtype != np.float32:
+            raise ValueError(f"{name}: want float32, got {a.dtype}")
+        out[name] = torch.from_numpy(a.copy())
+    return out
+
+
 def lightgcn_params_from_jax(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     """JAX ``LightGCN.init_params`` output (numpy arrays) → a state dict for the
     port's :class:`~sslrec_tpu_torch.models.general_cf.lightgcn.LightGCN`.
 
     Both tables are ``[n, embedding_size]`` float32 under the same names.
     """
-    out = {}
     for name in ("user_embeds", "item_embeds"):
-        a = np.asarray(params[name])
-        if a.ndim != 2 or a.dtype != np.float32:
-            raise ValueError(f"{name}: want a 2-D float32 table, got {a.dtype} {a.shape}")
-        out[name] = torch.from_numpy(a.copy())
-    return out
+        if np.ndim(params[name]) != 2:
+            raise ValueError(f"{name}: want a 2-D table, got shape {np.shape(params[name])}")
+    return _state({k: params[k] for k in ("user_embeds", "item_embeds")})
+
+
+def sgl_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """SGL holds LightGCN's two tables and nothing else."""
+    return lightgcn_params_from_jax(params)
+
+
+def simgcl_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """SimGCL holds LightGCN's two tables and nothing else."""
+    return lightgcn_params_from_jax(params)
+
+
+def ncl_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """NCL holds LightGCN's two tables; its centroids are per-epoch state."""
+    return lightgcn_params_from_jax(params)
+
+
+def directau_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """DirectAU holds the two embedding tables and nothing else."""
+    return lightgcn_params_from_jax(params)
+
+
+def lightgcl_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The two tables, and the JAX list ``ws`` as ``ws.0`` … ``ws.{L-1}``
+    (an ``nn.ParameterList``)."""
+    flat = {k: params[k] for k in ("user_embeds", "item_embeds")}
+    flat.update({f"ws.{i}": w for i, w in enumerate(params["ws"])})
+    return _state(flat)
+
+
+def hccf_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The two tables and the two ``[d, hyper_num]`` hyperedge tables."""
+    return _state({k: params[k] for k in
+                   ("user_embeds", "item_embeds", "user_hyper", "item_hyper")})
+
+
+def dccf_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The two tables and the two ``[d, intent_num]`` intent tables."""
+    return _state({k: params[k] for k in
+                   ("user_embeds", "item_embeds", "user_intent", "item_intent")})
 
 
 def kgcl_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
@@ -31,10 +79,4 @@ def kgcl_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """
     flat = {k: params[k] for k in ("all_embed", "relation_embed", "rgat_w", "rgat_a")}
     flat.update({f"rgat_fc.{k}": params["rgat_fc"][k] for k in ("w", "b")})
-    out = {}
-    for name, a in flat.items():
-        a = np.asarray(a)
-        if a.dtype != np.float32:
-            raise ValueError(f"{name}: want float32, got {a.dtype}")
-        out[name] = torch.from_numpy(a.copy())
-    return out
+    return _state(flat)

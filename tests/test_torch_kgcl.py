@@ -220,7 +220,7 @@ def test_epoch_state_keep_probs_and_views(kg_root, monkeypatch):
     _close(p, seen_p[0])
     np.testing.assert_array_equal(seen_p[0], seen_p[1])
     assert 0.3 * 0.7 / 0.95 - 1e-6 <= float(p.min()) and float(p.max()) <= 0.95 + 1e-7
-    got = tmodel.epoch_state(None, tdraws)
+    got = tmodel.epoch_state(None, 0, draws=tdraws)
     for k in ("kg_mask1", "kg_mask2", "ui_vals1", "ui_vals2"):
         _close(got[k], want[k])
 

@@ -53,12 +53,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    alibaba-fashion), the counts reset around each run: finite losses, B1's
    launches equal to ``SSL_B1``'s count from the code, no B2, and
    ``generate()`` equal to the same forward on the CPU's plain versions;
-12. print the ``{"kernels": [...]}`` line, then the card line, then
+12. build one AutoCF view and one GFormer view at full width on the card
+   (seeded random weights and draws) and hold every layout built there
+   against the host build of the same edges (``torch.equal`` on every
+   field, split plans included), then B1 on them against its plain version
+   within 1e-5: AutoCF's decoder (1,650,921 edges into 144,777 rows) as
+   segment sum at d 32 and 4 and gather backward, GFormer's augmented graph
+   (656,865 edges) as a hop both ways and as segment layouts, its decoder
+   (948,053 edges) as segment layouts;
+13. time them, each beside its bound, its plain version and
+   ``torch.sparse.mm`` (the gathers' backward also beside
+   ``index_put_(…, accumulate=True)``), and one view's layout build on the
+   card beside the host build of the same layouts;
+14. drive AutoCF, GFormer and AdaGCL the same way as phase 11 (2 epochs at
+   their published configs), B1's launches asserted equal to ``VIEW_B1``'s
+   count from the code;
+15. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
-``lightgcn_data``, ``kgcl_shapes`` and ``ssl_graphs`` build the paths'
-operands; the comparison of checkouts (``chip_compare.py``) times its
-kernels on the first two.
+``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs`` and ``view_operands``
+build the paths' operands; the comparison of checkouts
+(``chip_compare.py``) times its kernels on the first two.
 """
 
 from __future__ import annotations
@@ -127,6 +142,46 @@ SSL_MODELS = ("sgl", "simgcl", "directau", "ncl", "lightgcl", "hccf", "dccf")
 #   degree sums' input is constant): 3; 2 layers: 10 + 6; generate 10.
 SSL_B1 = {"sgl": (12, 2, 0), "simgcl": (12, 2, 0), "directau": (4, 2, 0), "ncl": (8, 3, 0),
           "lightgcl": (8, 4, 10), "hccf": (4, 2, 0), "dccf": (16, 10, 0)}
+VIEW_MODELS = ("autocf", "gformer", "adagcl")
+# B1 launches of AutoCF, GFormer and AdaGCL at their published configs,
+# counted from the code: (per training step, per view-regenerating step, per
+# view of the epoch's bank, per generate()).  A graph-transformer layer with
+# a gradient is 5: its two segment sums forward, and backward the gathers of
+# its query rows, its key/value cols and its row normaliser (a segment sum's
+# own backward is a gather, no launch); its forward alone is 2.
+# - AutoCF: 2 encoder hops (2 + 2 dx) and one GT layer over the decoder: 9 a
+#   step; where the views regenerate (step % 10 == 0, one step per view) the
+#   infomax term's 2 seed-score hops and their dx: 4; a view: 2 seed-score
+#   hops, 1 closure hop and 1 degree sum (d 1): 4; generate: 2 hops + a GT
+#   forward: 4.  Layouts are built on the card (sorts, no launch).
+# - GFormer: GT layers over the augmented edges on the cmp and sub supports
+#   and one over the decoder: 15; 2 layers of three hops (enc, sub, cmp)
+#   with dx: 12; a step 27; a view: 3 degree sums (d 1) for the three value
+#   vectors (the anchor distances are scatter_reduce amin, the attention
+#   scores plain products); generate 2.
+# - AdaGCL: the VGAE view's 2 hops; phase 1: 2 hops + dx (4) and the
+#   denoised forward, per gate layer a degree sum and a hop + dx (6): 10;
+#   phase 2 the same: 10; phase 3: 4; the VGAE loss's 2 hops without
+#   gradient; the denoise loss: layer 0 a degree sum, a weighted hop and the
+#   normaliser's two gathers' backward (4), layer 1 as layer 0 with the
+#   logits' two gathers' backward and the hop's dx (7): 39 a step; generate 2.
+VIEW_B1 = {"autocf": (9, 4, 4, 4), "gformer": (27, 0, 3, 2), "adagcl": (39, 0, 0, 2)}
+
+
+def b1_count(name: str, epochs: int, n_batches: int, fix_steps: int) -> tuple[int, str]:
+    """B1 launches of ``epochs`` epochs of ``n_batches`` steps of model
+    ``name`` through the CLI (an evaluation each epoch, the best valid and
+    the test), counted from the code, and how they were counted."""
+    steps, evals = epochs * n_batches, epochs + 2
+    if name in SSL_B1:
+        per_step, per_gen, per_build = SSL_B1[name]
+        return (per_step * steps + per_gen * evals + per_build,
+                f"{per_step} per step, {per_gen} per evaluation, {per_build} at construction")
+    per_step, per_regen, per_view, per_gen = VIEW_B1[name]
+    views = epochs * -(-n_batches // fix_steps) if per_regen or per_view else 0
+    return (per_step * steps + (per_regen + per_view) * views + per_gen * evals,
+            f"{per_step} per step, {per_regen} per regenerating step and {per_view} per view "
+            f"({views} of each), {per_gen} per evaluation")
 
 
 def log(msg: str) -> None:
@@ -480,25 +535,7 @@ def check_segment_ops(errs: ErrTrack, lay: skn.SegmentLayout, gen) -> None:
             f"{int(torch.isinf(got).sum())} empty (-inf): exact")
     if widths != {4, 8, 16, 32}:
         raise AssertionError(f"B2 checked at group widths {sorted(widths)}, want 4, 8, 16, 32")
-    for d in (1, 64, 65):
-        x = torch.randn(n, d, generator=gen, device=dev)
-        w_out = torch.randn(S, d, generator=gen, device=dev)
-        xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
-        yk = skn.SegmentSumFn.apply(lay, xk)
-        (yk * w_out).sum().backward()
-        yp = plain_seg.segment_sum(xp, lay.ids, S)
-        (yp * w_out).sum().backward()
-        errs.check(f"segsum.d{d}", yk.detach(), yp.detach())
-        errs.check(f"segsum.d{d}.grad", xk.grad, xp.grad)
-        table = torch.randn(S, d, generator=gen, device=dev)
-        w_e = torch.randn(n, d, generator=gen, device=dev)
-        tk, tp = table.clone().requires_grad_(), table.clone().requires_grad_()
-        yk = skn.TakeFn.apply(lay, tk)
-        (yk * w_e).sum().backward()
-        yp = tp[lay.ids]
-        (yp * w_e).sum().backward()
-        errs.check(f"take.d{d}", yk.detach(), yp.detach())
-        errs.check(f"take.d{d}.grad", tk.grad, tp.grad)
+    check_segment_b1(errs, "kgcl_heads", lay, (1, 64, 65), gen)
     mask = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
     mask[lay.ids == 0] = 0.0                           # a fully masked head
     values = torch.randn(n, 64, generator=gen, device=dev)
@@ -734,15 +771,17 @@ def time_ssl_shapes(plain: sk.CsrGraph, rect: sk.CsrGraph, gen) -> dict[str, dic
 
 
 def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
-              dataset: str = DATASET, epochs: int = 2) -> dict[str, dict]:
-    """Each self-supervised general_cf model trained ``epochs`` epochs at its
-    published config through ``sslrec_tpu_torch.main``, with the launch
-    counts reset just before and read just after the run; checks the losses,
-    B1's launches against :data:`SSL_B1` and no B2 launch, and ``generate()``
-    against the same forward on the CPU's plain versions (LightGCL with the
-    card's SVD factors)."""
+              dataset: str = DATASET, epochs: int = 2,
+              models=SSL_MODELS) -> dict[str, dict]:
+    """Each of ``models`` (self-supervised general_cf models) trained
+    ``epochs`` epochs at its published config through
+    ``sslrec_tpu_torch.main``, with the launch counts reset just before and
+    read just after the run; checks the losses, B1's launches against
+    :func:`b1_count` and no B2 launch, and ``generate()`` against the same
+    forward on the CPU's plain versions (LightGCL with the card's SVD
+    factors)."""
     cpu_data, out = None, {}
-    for name in SSL_MODELS:
+    for name in models:
         argv = ["--model", name, "--data_dir", data_dir, "--dataset", dataset,
                 "--epoch", str(epochs), "--device", device, "--set", "train.test_step=1",
                 "--set", f"train.results_dir={SMOKE_RESULTS}"]
@@ -754,12 +793,11 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
                            skn.segment_max.launches)
         rows = trainer.recorder.epochs
         steps = len(rows) * trainer.n_batches
-        per_step, per_gen, per_build = SSL_B1[name]
-        want = per_step * steps + per_gen * (len(rows) + 2) + per_build
+        want, how = b1_count(name, len(rows), trainer.n_batches,
+                             int(trainer.cfg.model.get("fix_steps", 1)))
         log(f"  {name}: {len(rows)} epochs of {trainer.n_batches} steps in {wall:.1f} s; B1 "
-            f"{b1} launches ({want} counted from the code: {per_step} per step, {per_gen} "
-            f"per evaluation, {per_build} at construction; {combine} with the split rows' "
-            f"combine), B2 {b2}")
+            f"{b1} launches ({want} counted from the code: {how}; {combine} with the split "
+            f"rows' combine), B2 {b2}")
         if (b1, b2) != (want, 0):
             raise AssertionError(f"{name} launched B1 {b1}, B2 {b2} times; the code counts "
                                  f"{want} and 0")
@@ -791,6 +829,189 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
         del trainer, model, cpu_model
     return out
 
+
+def view_operands(data, dev) -> dict[str, dict]:
+    """One AutoCF view and one GFormer view at their published configs on
+    ``data`` (on ``dev``), from seeded random weights and draws, built as
+    ``epoch_state`` builds each view (layouts on the card); per model its
+    ``model`` and ``view``."""
+    out = {}
+    for seed, name in enumerate(("autocf", "gformer")):
+        cfg = load_config(name, dataset=DATASET, overrides={"data.dir": DATA_DIR})
+        model = build_model(cfg, data)
+        model.init_params(generator(seed, 2))
+        with torch.no_grad():
+            view = model.one_view(model.view_draws(
+                torch.Generator(device=dev).manual_seed(seed)))
+        torch.cuda.synchronize()
+        out[name] = {"model": model, "view": view}
+    return out
+
+
+def host_graph_layouts(rows, cols, n_rows: int, n_cols: int,
+                       dev) -> tuple[sk.CsrLayout, sk.CsrLayout]:
+    """The host build of the all-ones graph of edges ``rows`` → ``cols``
+    (copied to the host): each layout sorted stably by its destinations,
+    ``csr_layout``, back on ``dev``."""
+    rows, cols = rows.cpu().numpy(), cols.cpu().numpy()
+    ones = np.ones(rows.size, np.float32)
+    o, p = np.argsort(rows, kind="stable"), np.argsort(cols, kind="stable")
+    return (sk.csr_layout(rows[o], cols[o], ones, o, n_rows, n_cols, dev),
+            sk.csr_layout(cols[p], rows[p], ones, p, n_cols, n_rows, dev))
+
+
+def check_same(what: str, got, want) -> None:
+    """Every field of two layouts (NamedTuples) equal, tensors by
+    ``torch.equal`` and dtype; the plan caches are not compared."""
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if f == "plans":
+            continue
+        if hasattr(a, "_fields"):
+            check_same(f"{what}.{f}", a, b)
+        elif torch.is_tensor(a):
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"{what}.{f}: device build differs from the host's")
+        elif a != b:
+            raise AssertionError(f"{what}.{f}: {a} != {b}")
+
+
+def check_layout_builds(name: str, graphs: dict, segs: dict, widths=(32, 4, 1)) -> int:
+    """Each device-built CsrGraph and SegmentLayout equal to the host build
+    of the same edges, and its split plans, built on the card, equal to the
+    host's ``split_plan`` at the thresholds B1 picks for ``widths``.
+    Returns the number of layouts held."""
+    layouts = []
+    for tag, g in graphs.items():
+        fwd, bwd = host_graph_layouts(g.rows, g.cols, g.n_rows, g.n_cols, g.rows.device)
+        check_same(f"{name}.{tag}.fwd", g.fwd, fwd)
+        check_same(f"{name}.{tag}.bwd", g.bwd, bwd)
+        layouts += [(f"{tag}.fwd", g.fwd), (f"{tag}.bwd", g.bwd)]
+    for tag, lay in segs.items():
+        check_same(f"{name}.{tag}", lay,
+                   skn.build_segment_layout(lay.ids, lay.num_segments, lay.ids.device))
+        layouts.append((tag, lay.csr))
+    for tag, lay in layouts:
+        for t in sorted({schedule(lay, d)[1] for d in widths}):
+            check_same(f"{name}.{tag}.plan{t}", sk.layout_plan(lay, t), sk.split_plan(lay.indptr, t))
+    return len(layouts)
+
+
+def check_segment_b1(errs: ErrTrack, name: str, lay: skn.SegmentLayout, widths, gen) -> None:
+    """B1 as segment sum (value and gradient) and as a gather's backward
+    over ``lay``, against the plain versions, at each width."""
+    dev = lay.ids.device
+    n, S, ids = lay.n, lay.num_segments, lay.ids.long()
+    for d in widths:
+        x = torch.randn(n, d, generator=gen, device=dev)
+        w_out = torch.randn(S, d, generator=gen, device=dev)
+        xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+        yk = skn.SegmentSumFn.apply(lay, xk)
+        (yk * w_out).sum().backward()
+        yp = plain_seg.segment_sum(xp, lay.ids, S)
+        (yp * w_out).sum().backward()
+        errs.check(f"{name}.sum.d{d}", yk.detach(), yp.detach())
+        errs.check(f"{name}.sum.d{d}.grad", xk.grad, xp.grad)
+        table = torch.randn(S, d, generator=gen, device=dev)
+        w_e = torch.randn(n, d, generator=gen, device=dev)
+        tk, tp = table.clone().requires_grad_(), table.clone().requires_grad_()
+        yk, yp = skn.TakeFn.apply(lay, tk), tp[ids]
+        (yk * w_e).sum().backward()
+        (yp * w_e).sum().backward()
+        errs.check(f"{name}.take.d{d}", yk.detach(), yp.detach())
+        errs.check(f"{name}.take.d{d}.grad", tk.grad, tp.grad)
+    torch.cuda.synchronize()
+    log(f"  {name}: {n} edges into {S} rows, widths {list(widths)}: ok")
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of ``fn`` through a synchronise, after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(out))
+
+
+def time_layout_builds(ops: dict) -> dict[str, dict]:
+    """One view's layouts built on the card (the view's own build functions, and
+    each layout's split plan at the d-32 threshold) against the host build
+    of the same layouts from the same edges on the card: copied to the host,
+    sorted there, copied back, the plans by ``split_plan``."""
+    dev = torch.device("cuda", 0)
+    n = ops["autocf"]["model"].n_nodes
+    ac, gf = ops["autocf"]["view"], ops["gformer"]["view"]
+    ac_ids = [lay.ids for lay in ac["dec"][:2]]
+    gf_ids = [lay.ids for lay in (*gf["aug_seg"], *gf["dec_seg"])]
+    aug_r, aug_c = gf["aug_rows"], gf["aug_cols"]
+
+    def plans(lays, host):
+        for lay in lays:
+            t = schedule(lay, 32)[1]
+            (sk.split_plan(lay.indptr, t) if host else sk.layout_plan(lay, t))
+
+    def device_build(ids_list, graph):
+        segs = [skn.segment_layout_from_ids(ids, n).csr for ids in ids_list]
+        lays = segs if graph is None else segs + list(sk.csr_graph_from_edges(*graph, n, n)[:2])
+        plans(lays, host=False)
+
+    def host_build(ids_list, graph):
+        segs = [skn.build_segment_layout(ids.cpu(), n, dev).csr for ids in ids_list]
+        lays = segs if graph is None else segs + list(host_graph_layouts(*graph, n, n, dev))
+        plans(lays, host=True)
+
+    return {"autocf_view": {"device_ms": wall_ms(lambda: device_build(ac_ids, None)),
+                            "host_ms": wall_ms(lambda: host_build(ac_ids, None)),
+                            "layouts": "2 segment layouts of the decoder, 1,650,921 edges"},
+            "gformer_view": {"device_ms": wall_ms(lambda: device_build(gf_ids, (aug_r, aug_c))),
+                             "host_ms": wall_ms(lambda: host_build(gf_ids, (aug_r, aug_c))),
+                             "layouts": "the augmented CsrGraph (656,865 edges) and 4 segment "
+                                        "layouts (augmented and decoder rows and cols)"}}
+
+
+def time_view_shapes(ops: dict, gen) -> dict[str, dict]:
+    """Device and event times of B1 at the new shapes: AutoCF's decoder as
+    the attention's segment sums (d 32, d 4) and the gathers' backward (d
+    32, also beside ``index_put_``); GFormer's augmented hop with the view's
+    encoder values both ways, and its decoder's segment sum and gathers'
+    backward at d 32."""
+    dev = torch.device("cuda", 0)
+    t = {}
+    ac, gf = ops["autocf"]["view"], ops["gformer"]["view"]
+
+    def seg_sum(key, lay, d):
+        x = torch.randn(lay.n, d, generator=gen, device=dev)
+        csr = csr_tensor(lay.csr)
+        t[key] = timing(lambda: sk.csr_spmm(lay.csr, x), lambda: sk.csr_spmm_plain(lay.csr, x),
+                        lambda: torch.sparse.mm(csr, x))
+        t[key]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay.csr, x))
+
+    def take_bwd(key, lay, d):
+        g = torch.randn(lay.n, d, generator=gen, device=dev)
+        ids, csr = lay.ids.long(), csr_tensor(lay.csr)
+        t[key] = timing(lambda: sk.csr_spmm(lay.csr, g), lambda: sk.csr_spmm_plain(lay.csr, g),
+                        lambda: torch.sparse.mm(csr, g),
+                        index_put=lambda: g.new_zeros(lay.num_segments, d).index_put_(
+                            (ids,), g, accumulate=True))
+
+    seg_sum("autocf_dec_sum_d32", ac["dec"][0], 32)
+    seg_sum("autocf_dec_sum_d4", ac["dec"][0], 4)
+    take_bwd("autocf_dec_take_bwd_d32", ac["dec"][1], 32)
+    aug, ew = gf["aug"], gf["enc_vals"]
+    x = torch.randn(aug.n_cols, 32, generator=gen, device=dev)
+    for key, lay in (("gformer_aug_hop", aug.fwd), ("gformer_aug_hop_t", aug.bwd)):
+        csr = csr_tensor(lay, ew[lay.edge_ids.long()])
+        t[key] = timing(lambda: sk.csr_spmm(lay, x, ew), lambda: sk.csr_spmm_plain(lay, x, ew),
+                        lambda: torch.sparse.mm(csr, x))
+        t[key]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay, x, ew))
+    seg_sum("gformer_dec_sum_d32", gf["dec_seg"][0], 32)
+    take_bwd("gformer_dec_take_bwd_d32", gf["dec_seg"][1], 32)
+    return t
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1035,7 +1256,60 @@ def main() -> int:
     log("== 11. the self-supervised general_cf paths")
     ssl_runs = ssl_paths(errs)
 
-    log("== 12. result")
+    log("== 12. B1 on layouts built on the card: AutoCF's and GFormer's views")
+    t0 = time.perf_counter()
+    ops = view_operands(data, dev)
+    ac, gf = ops["autocf"]["view"], ops["gformer"]["view"]
+    log(f"built one AutoCF view and one GFormer view in {time.perf_counter() - t0:.1f} s: "
+        f"AutoCF decoder {ac['dec'][0].n} edges (kept {int(ac['keep'].sum())} of "
+        f"{ops['autocf']['model'].nnz}); GFormer augmented {gf['aug'].nnz} edges, decoder "
+        f"{gf['dec_seg'][0].n}")
+    n_lay = check_layout_builds("autocf", {}, {"dec_rows": ac["dec"][0], "dec_cols": ac["dec"][1]})
+    n_lay += check_layout_builds("gformer", {"aug": gf["aug"]},
+                                 {"aug_rows": gf["aug_seg"][0], "aug_cols": gf["aug_seg"][1],
+                                  "dec_rows": gf["dec_seg"][0], "dec_cols": gf["dec_seg"][1]})
+    log(f"{n_lay} layouts built on the card equal the host builds of the same edges, field "
+        f"for field, split plans included")
+    view_errs = ErrTrack()
+    check_segment_b1(view_errs, "autocf_dec_rows", ac["dec"][0], (32, 4), gen)
+    check_segment_b1(view_errs, "autocf_dec_cols", ac["dec"][1], (32,), gen)
+    check_segment_b1(view_errs, "gformer_aug_rows", gf["aug_seg"][0], (32, 4), gen)
+    check_segment_b1(view_errs, "gformer_aug_cols", gf["aug_seg"][1], (32,), gen)
+    check_segment_b1(view_errs, "gformer_dec_rows", gf["dec_seg"][0], (32, 4), gen)
+    check_segment_b1(view_errs, "gformer_dec_cols", gf["dec_seg"][1], (32,), gen)
+    check_graph(view_errs, "gformer_aug", gf["aug"], (32, 1), gen, with_grads=True)
+    xv = torch.randn(gf["aug"].n_cols, 32, generator=gen, device=dev)
+    xk, xp = xv.clone().requires_grad_(), xv.clone().requires_grad_()
+    w_out = torch.randn(gf["aug"].n_rows, 32, generator=gen, device=dev)
+    yk = sk.SpmmPvFn.apply(gf["aug"], xk, gf["enc_vals"])
+    (yk * w_out).sum().backward()
+    yp = sk.csr_spmm_plain(gf["aug"].fwd, xp, gf["enc_vals"])
+    (yp * w_out).sum().backward()
+    view_errs.check("gformer_aug.enc_vals", yk.detach(), yp.detach())
+    view_errs.check("gformer_aug.enc_vals.dx", xk.grad, xp.grad)
+    log(f"max abs err {view_errs.abs:.3g}, max rel err {view_errs.rel:.3g} (tolerance {TOL})")
+
+    log("== 13. the views' shapes timing")
+    view_t = time_view_shapes(ops, gen)
+    view_bound = {"autocf_dec_sum_d32": bound_ms(ac["dec"][0].csr, 32),
+                  "autocf_dec_sum_d4": bound_ms(ac["dec"][0].csr, 4),
+                  "autocf_dec_take_bwd_d32": bound_ms(ac["dec"][1].csr, 32),
+                  "gformer_aug_hop": bound_ms(gf["aug"].fwd, 32, "mask"),
+                  "gformer_aug_hop_t": bound_ms(gf["aug"].bwd, 32, "mask"),
+                  "gformer_dec_sum_d32": bound_ms(gf["dec_seg"][0].csr, 32),
+                  "gformer_dec_take_bwd_d32": bound_ms(gf["dec_seg"][1].csr, 32)}
+    for k, r in view_t.items():
+        log_timing(k, r, view_bound[k])
+    builds = time_layout_builds(ops)
+    for k, r in builds.items():
+        log(f"  {k} layouts ({r['layouts']}): built on the card {r['device_ms']:.2f} ms, "
+            f"on the host {r['host_ms']:.2f} ms (host clock, median of 5)")
+    del ops
+
+    log("== 14. AutoCF, GFormer and AdaGCL paths")
+    view_runs = ssl_paths(errs, models=VIEW_MODELS)
+
+    log("== 15. result")
     common = {"route": "cuda", "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
               "replaces": "sslrec_tpu/ops/pallas_spmm.py:123",
               "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel"}
@@ -1054,6 +1328,7 @@ def main() -> int:
     lgcn_err = ErrTrack()
     lgcn_err.abs, lgcn_err.rel = main_abs, main_rel
     lgcn_counts, kg_counts = (launches, lgcn_combine), (kg_b1, kg_combine)
+    ssl_runs = {**ssl_runs, **view_runs}
     ssl_b1 = sum(r["launches"] for r in ssl_runs.values())
     ssl_combine = sum(r["combine_launches"] for r in ssl_runs.values())
     b1 = b1_row("csr_spmm", hop["none"], hop_bound["none"],
@@ -1067,7 +1342,7 @@ def main() -> int:
                 launches_per_step={"lightgcn": launches / steps, "kgcl": kg_b1 / kg_steps,
                                    **{k: r["per_step"] for k, r in ssl_runs.items()}},
                 max_rel_err_all_checks=max(errs.rel, seg_errs.rel, rel_errs.rel,
-                                           ui_errs.rel, ssl_errs.rel),
+                                           ui_errs.rel, ssl_errs.rel, view_errs.rel),
                 stress={"max_abs_err": stress_errs.abs, "max_rel_err": stress_errs.rel,
                         "reference": "plain version in float64"},
                 library_call="torch.sparse.mm on a CSR tensor of the layout")
@@ -1124,6 +1399,26 @@ def main() -> int:
         **{k: v for k, v in ssl_t["dccf_dew"].items()},
         "bound_ms": ssl_bound["dccf_dew"][0], "bound_by": ssl_bound["dccf_dew"][1],
         "library_call": "torch.sparse.sampled_addmm(pattern, g, x.T, beta=0)"}
+    ac_counts = tuple(view_runs["autocf"][k] for k in ("launches", "combine_launches"))
+    gf_counts = tuple(view_runs["gformer"][k] for k in ("launches", "combine_launches"))
+    for k, counts, lay, d, call in (
+            ("autocf_dec_sum_d32", ac_counts, ac["dec"][0].csr, 32, sparse_mm),
+            ("autocf_dec_sum_d4", ac_counts, ac["dec"][0].csr, 4, sparse_mm),
+            ("autocf_dec_take_bwd_d32", ac_counts, ac["dec"][1].csr, 32,
+             sparse_mm + "; index_put_ms: zeros.index_put_((ids,), g, accumulate=True), the "
+                         "call autograd makes for an index's backward"),
+            ("gformer_aug_hop", gf_counts, gf["aug"].fwd, 32,
+             "torch.sparse.mm on a CSR tensor whose values already carry the view's values"),
+            ("gformer_aug_hop_t", gf_counts, gf["aug"].bwd, 32,
+             "torch.sparse.mm on a CSR tensor whose values already carry the view's values"),
+            ("gformer_dec_sum_d32", gf_counts, gf["dec_seg"][0].csr, 32, sparse_mm),
+            ("gformer_dec_take_bwd_d32", gf_counts, gf["dec_seg"][1].csr, 32,
+             sparse_mm + "; index_put_ms: zeros.index_put_((ids,), g, accumulate=True)")):
+        rows_b1.append(b1_row(
+            f"csr_spmm.{k}", view_t[k], view_bound[k], counts, view_errs,
+            {"n_rows": lay.n_rows, "n_cols": lay.n_cols, "nnz": lay.cols.shape[0], "d": d,
+             "built_on": "the card"}, library_call=call))
+    rows_b1[-7]["layout_build"] = builds
     b2_row = {
         "name": "segment_max", "route": "cuda",
         "source": "sslrec_tpu_torch/csrc/segment_max.cu",

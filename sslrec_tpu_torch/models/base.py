@@ -16,6 +16,16 @@ Optional
 ``step_generator = True``            ``loss`` gets the epoch's device generator, not a PRF key
 ``epoch_state(gen, epoch) -> aux``   once per epoch under ``no_grad``, with the epoch's device
                                      generator; reaches ``loss`` as ``batch["aux"]``
+``train_step(batch, key) -> aux``    a model-managed step (AdaGCL's three updates): the model
+                                     owns its optimizers, and the trainer calls this in place of
+                                     its own Adam step and builds no optimizer
+``batch_fields``                     the batch's index fields; without ``"neg"`` the trainer
+                                     draws no negatives
+
+Every batch also carries ``batch["step"]``, the step's index in the epoch
+(an int), and the trainer sets ``model._n_batches_hint`` to the number of
+steps an epoch before the first ``epoch_state``, so that a model can size
+its per-epoch state by it (AutoCF's and GFormer's view banks).
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from torch import nn
 
 class RecModel(nn.Module):
     step_generator = False
+    batch_fields = ("user", "pos", "neg")
 
     def __init__(self, cfg, data):
         super().__init__()
@@ -46,3 +57,14 @@ class RecModel(nn.Module):
 
     def rating(self, user_emb: torch.Tensor, item_emb: torch.Tensor) -> torch.Tensor:
         return user_emb @ item_emb.T
+
+
+def linear_layer(in_dim: int, out_dim: int, device) -> nn.ParameterDict:
+    """A dense layer in the JAX package's layout, ``{"w": [in, out], "b":
+    [out]}``, uninitialised (fill it from ``initializers.linear_params``)."""
+    return nn.ParameterDict({"w": nn.Parameter(torch.empty(in_dim, out_dim, device=device)),
+                             "b": nn.Parameter(torch.empty(out_dim, device=device))})
+
+
+def apply_linear(p: nn.ParameterDict, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["w"] + p["b"]

@@ -1,5 +1,5 @@
 """Model registry: name → class (port of ``sslrec_tpu/models/registry.py``;
-LightGCN, the self-supervised general_cf family and KGCL so far).  Lookup is
+the general_cf family and KGCL so far).  Lookup is
 case-insensitive."""
 
 from __future__ import annotations
@@ -18,6 +18,9 @@ _REGISTRY: dict[str, tuple[str, str]] = {
     "lightgcl": (_GENERAL_CF + "lightgcl", "LightGCL"),
     "hccf": (_GENERAL_CF + "hccf", "HCCF"),
     "dccf": (_GENERAL_CF + "dccf", "DCCF"),
+    "autocf": (_GENERAL_CF + "autocf", "AutoCF"),
+    "gformer": (_GENERAL_CF + "gformer", "GFormer"),
+    "adagcl": (_GENERAL_CF + "adagcl", "AdaGCL"),
     "kgcl": ("sslrec_tpu_torch.models.kg.kgcl", "KGCL"),
 }
 

@@ -31,7 +31,8 @@ import torch
 
 from sslrec_tpu_torch.ops import segment as plain
 from sslrec_tpu_torch.ops.cuda_build import load_kernel
-from sslrec_tpu_torch.ops.spmm_kernel import CsrLayout, csr_layout, csr_spmm
+from sslrec_tpu_torch.ops.spmm_kernel import (CsrLayout, compact, csr_layout, csr_spmm,
+                                               stable_order)
 
 
 class SegmentLayout(NamedTuple):
@@ -59,7 +60,10 @@ def segmax_group_width(lengths: np.ndarray) -> int:
     up to a power of two, from 4 to 32, so a group strides a typical segment
     a few times and many segments share a warp (PERF.md has the sweep over
     widths that chose this)."""
-    mean = float(np.mean(lengths)) if lengths.size else 0.0
+    return _group_width_of_mean(float(np.mean(lengths)) if lengths.size else 0.0)
+
+
+def _group_width_of_mean(mean: float) -> int:
     return min(32, max(4, 1 << max(0, int(np.ceil(mean / 4)) - 1).bit_length()))
 
 
@@ -85,6 +89,34 @@ def build_segment_layout(segment_ids, num_segments: int, device="cpu") -> Segmen
     return SegmentLayout(csr=csr, ids=torch.from_numpy(ids.astype(np.int32)).to(device),
                          num_segments=int(num_segments), n=int(n), group_width=width,
                          long_segments=long_segments(lengths, width, device))
+
+
+def segment_layout_from_ids(ids: torch.Tensor, num_segments: int) -> SegmentLayout:
+    """:func:`build_segment_layout` of int ``ids`` (any order) built on their
+    own device, field for field equal to the host build: a stable sort, the
+    segment offsets by a search of the sorted ids, the long segments
+    compacted on the device.  One host read: the number of long segments and
+    the ids' range, which is checked."""
+    n = ids.shape[0]
+    keys, order, indptr = stable_order(ids, num_segments)
+    lengths = indptr[1:] - indptr[:-1]
+    # the host takes the mean of the lengths, which is n / num_segments
+    width = _group_width_of_mean(n / num_segments if num_segments else 0.0)
+    is_long = lengths > LONG_STRIDES * width
+    n_long = 0
+    if n:
+        n_long, lo, hi = torch.stack([is_long.sum(), ids.min().long(),
+                                      ids.max().long()]).tolist()
+        if lo < 0 or hi >= num_segments:
+            raise ValueError(f"segment ids must lie in [0, {num_segments})")
+    csr = CsrLayout(indptr=indptr.int(), rows=keys.int(), cols=order.int(),
+                    vals=torch.ones(n, dtype=torch.float32, device=ids.device),
+                    edge_ids=torch.arange(n, dtype=torch.int32, device=ids.device),
+                    n_rows=int(num_segments), n_cols=int(n), ids_identity=True,
+                    vals_ones=True, plans={})
+    longs = compact(is_long, torch.arange(num_segments, device=ids.device), n_long)
+    return SegmentLayout(csr=csr, ids=ids.int(), num_segments=int(num_segments), n=int(n),
+                         group_width=width, long_segments=longs.int())
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""CSR SpMM: host layout and split plan, the CUDA kernel's wrapper, autograd,
-edge-dropout PRF.
+"""CSR SpMM: layouts and split plans (built on the host, or on the edges' own
+device), the CUDA kernel's wrapper, autograd, edge-dropout PRF.
 
 Port of ``sslrec_tpu/ops/pallas_spmm.py``.  The TPU kernel there reduced
 padded edge chunks (R-row blocks, M-edge chunks) with one-hot matmuls; that
@@ -39,7 +39,7 @@ class CsrLayout(NamedTuple):
     of each slot, through which a per-edge multiplier held in the original
     edge order is read; ``ids_identity`` marks ``edge_ids == arange(nnz)`` and
     ``vals_ones`` marks ``vals`` all 1 (segment layouts, KGCL's bi-adjacency),
-    so the kernel reads neither there; ``plans`` caches :func:`split_plan` by
+    so the kernel reads neither there; ``plans`` caches the split plan by
     threshold.
     """
 
@@ -56,9 +56,9 @@ class CsrLayout(NamedTuple):
 
 
 class CsrGraph(NamedTuple):
-    """Forward and transposed layouts of a sparse operator A, plus its
-    row-sorted COO arrays in the original edge order (for edge-weight
-    gradients)."""
+    """Forward and transposed layouts of a sparse operator A, plus its COO
+    arrays in the original edge order (for edge-weight gradients; row-sorted
+    in a host build)."""
 
     fwd: CsrLayout
     bwd: CsrLayout  # Aᵀ, for dx = Aᵀ g
@@ -117,6 +117,79 @@ def build_csr_graph(g: CooGraph, device="cpu") -> CsrGraph:
 
 
 # ---------------------------------------------------------------------------
+# Layouts built on the tensors' own device
+# ---------------------------------------------------------------------------
+#
+# For graphs made anew every view (AutoCF's and GFormer's), a host build
+# would copy the edges to the host and back each time.  These functions sort
+# on the edges' device and give, field for field, what the host build gives for
+# the same edges; the host build stays the reference.  Sizes the host must
+# know (the flags, the split plan's counts) are read back in one transfer per
+# build, and lists whose length that read gives are compacted by a scatter
+# rather than by boolean indexing, which would read its own size.
+
+def stable_order(keys: torch.Tensor, n_keys: int):
+    """``(sorted keys int64, stable argsort int64, indptr int64 [n_keys+1])``
+    of int ``keys`` in ``[0, n_keys)``, on their device, without a host read:
+    ``indptr[k]`` counts the keys below ``k``."""
+    sorted_keys, order = torch.sort(keys.long(), stable=True)
+    bounds = torch.arange(n_keys + 1, device=keys.device)
+    return sorted_keys, order, torch.searchsorted(sorted_keys, bounds)
+
+
+def compact(mask: torch.Tensor, values: torch.Tensor, n: int) -> torch.Tensor:
+    """``values[mask]`` given its length ``n``, with no host read: each kept
+    value scattered to its rank, the others to a slot past the end."""
+    rank = torch.cumsum(mask, 0) - 1
+    out = values.new_empty(n + 1)
+    out.scatter_(0, torch.where(mask, rank, n), values)
+    return out[:n]
+
+
+def _is_arange(t: torch.Tensor) -> torch.Tensor:
+    return (t == torch.arange(t.shape[0], device=t.device)).all()
+
+
+def csr_graph_from_edges(rows: torch.Tensor, cols: torch.Tensor, n_rows: int,
+                         n_cols: int) -> CsrGraph:
+    """Both layouts of the all-ones operator ``A[rows[e], cols[e]] += 1``
+    built on the edges' device: unsorted int ``rows`` / ``cols`` [nnz], which
+    are the original edge order (duplicates and self loops allowed).
+
+    Each layout sorts its destinations stably, so it equals the host build
+    ``csr_layout(dst[o], src[o], ones, o, …)`` with ``o`` the stable argsort
+    of its destinations, field for field; for row-sorted edges that is what
+    :func:`build_csr_graph` gives.  One host read: both layouts'
+    ``ids_identity`` and the ids' range, which is checked.
+    """
+    dev, nnz = rows.device, rows.shape[0]
+    if cols.shape != (nnz,):
+        raise ValueError(f"csr_graph_from_edges: rows {tuple(rows.shape)}, "
+                         f"cols {tuple(cols.shape)}")
+    ones = torch.ones(nnz, dtype=torch.float32, device=dev)
+
+    def layout(dst, src, n_dst, n_src):
+        keys, order, indptr = stable_order(dst, n_dst)
+        return CsrLayout(indptr=indptr.int(), rows=keys.int(), cols=src[order].int(),
+                         vals=ones, edge_ids=order.int(), n_rows=int(n_dst),
+                         n_cols=int(n_src), ids_identity=True, vals_ones=True, plans={})
+
+    fwd = layout(rows, cols, n_rows, n_cols)
+    bwd = layout(cols, rows, n_cols, n_rows)
+    if nnz:
+        fwd_id, bwd_id, r_lo, r_hi, c_lo, c_hi = torch.stack([
+            t.long() for t in (_is_arange(fwd.edge_ids), _is_arange(bwd.edge_ids),
+                               rows.min(), rows.max(), cols.min(), cols.max())]).tolist()
+        if r_lo < 0 or r_hi >= n_rows or c_lo < 0 or c_hi >= n_cols:
+            raise ValueError(f"csr_graph_from_edges: ids out of range for "
+                             f"{n_rows} x {n_cols}")
+        fwd = fwd._replace(ids_identity=bool(fwd_id))
+        bwd = bwd._replace(ids_identity=bool(bwd_id))
+    return CsrGraph(fwd=fwd, bwd=bwd, rows=rows.int(), cols=cols.int(), vals=ones,
+                    n_rows=int(n_rows), n_cols=int(n_cols))
+
+
+# ---------------------------------------------------------------------------
 # Split plan: rows cut into chunks of at most T edges
 # ---------------------------------------------------------------------------
 
@@ -149,7 +222,8 @@ class SplitPlan(NamedTuple):
 
 def split_plan(indptr_t: torch.Tensor, t: int) -> SplitPlan:
     """The chunks of the rows of ``indptr_t`` under threshold ``t``, built on
-    the host and placed on ``indptr_t``'s device; see :class:`SplitPlan`."""
+    the host and placed on ``indptr_t``'s device; see :class:`SplitPlan`.
+    The reference for :func:`device_split_plan`, which B1 uses."""
     if t < 1:
         raise ValueError(f"split threshold must be >= 1, got {t}")
     device = indptr_t.device
@@ -174,6 +248,35 @@ def split_plan(indptr_t: torch.Tensor, t: int) -> SplitPlan:
                      chunk_dst=t32(chunk_dst), empty_rows=t32(np.flatnonzero(deg == 0)),
                      split_rows=t32(live[split]), split_ptr=t32(split_ptr),
                      n_slots=int(split_ptr[-1]))
+
+
+def device_split_plan(indptr_t: torch.Tensor, t: int) -> SplitPlan:
+    """:func:`split_plan` built on ``indptr_t``'s own device, field for field
+    equal to it, with one host read (the numbers of chunks, split rows,
+    partials and empty rows) and no copy of the layout to the host."""
+    if t < 1:
+        raise ValueError(f"split threshold must be >= 1, got {t}")
+    dev = indptr_t.device
+    indptr = indptr_t.long()
+    deg = indptr[1:] - indptr[:-1]
+    per_row = (deg + (t - 1)) // t                       # 0 for an empty row
+    split, empty = per_row > 1, deg == 0
+    n_chunks, n_split, n_slots, n_empty = torch.stack(
+        [per_row.sum(), split.sum(), (per_row * split).sum(), empty.sum()]).tolist()
+    row_ids = torch.arange(deg.shape[0], device=dev)
+    chunk_row = torch.repeat_interleave(row_ids, per_row, output_size=n_chunks)
+    first = torch.cumsum(per_row, 0) - per_row           # each row's first chunk
+    k = torch.arange(n_chunks, device=dev) - first[chunk_row]
+    chunk_ptr = torch.cat([indptr[chunk_row] + k * t, indptr[-1:]])
+    in_split = split[chunk_row]
+    slot = torch.cumsum(in_split, 0) - 1
+    chunk_dst = torch.where(in_split, -1 - slot, chunk_row)
+    split_ptr = torch.cat([indptr.new_zeros(1),
+                           torch.cumsum(compact(split, per_row, n_split), 0)])
+    return SplitPlan(t=int(t), chunk_ptr=chunk_ptr.int(), chunk_row=chunk_row.int(),
+                     chunk_dst=chunk_dst.int(), empty_rows=compact(empty, row_ids, n_empty).int(),
+                     split_rows=compact(split, row_ids, n_split).int(),
+                     split_ptr=split_ptr.int(), n_slots=int(n_slots))
 
 
 def lane_group(d: int) -> int:
@@ -204,10 +307,10 @@ def split_threshold(nnz: int, group: int, resident: int) -> int:
 
 
 def layout_plan(layout: CsrLayout, t: int) -> SplitPlan:
-    """``split_plan`` of ``layout`` at ``t``, built once on the host and
-    cached on the layout."""
+    """The split plan of ``layout`` at ``t``, built once on the layout's
+    device (:func:`device_split_plan`) and cached on the layout."""
     if t not in layout.plans:
-        layout.plans[t] = split_plan(layout.indptr, t)
+        layout.plans[t] = device_split_plan(layout.indptr, t)
     return layout.plans[t]
 
 

@@ -20,6 +20,11 @@ epoch, to ``epoch_state(gen, epoch)``, whose result reaches every step's
 ``loss`` as ``batch["aux"]``; a ``step_generator`` model then gets it in
 ``loss`` in place of the PRF key.  Such draws are made on the device, never
 copied from the host.
+
+Every batch carries its step's index in the epoch as ``batch["step"]``; a
+model whose ``batch_fields`` lack ``"neg"`` gets no negatives drawn; and a
+model with its own ``train_step`` (AdaGCL) owns its optimizers, so the
+trainer builds none and calls that method for each batch.
 """
 
 from __future__ import annotations
@@ -73,15 +78,21 @@ class Trainer:
         self.data = data
         self.logger = logger    # made by train() when None
         self.device = data.device
-        self.optimizer = build_optimizer(cfg, model.parameters())
+        self.optimizer = (None if hasattr(model, "train_step")
+                          else build_optimizer(cfg, model.parameters()))
         self.batch_size = int(cfg.train.batch_size)
         self.n_batches = -(-data.n_train // self.batch_size)
+        # models with per-fix_steps view banks size them from the batch count
+        model._n_batches_hint = self.n_batches
 
     # ------------------------------------------------------------------
     def train_step(self, batch: dict, key) -> dict:
         """One Adam step on ``batch`` (user/pos/neg index tensors) with the
         dropout PRF ``key``, or the epoch's device generator for a model with
-        ``step_generator``; returns the loss terms as detached tensors."""
+        ``step_generator``; returns the loss terms as detached tensors.  A
+        model with its own ``train_step`` takes the step instead."""
+        if self.optimizer is None:
+            return self.model.train_step(batch, key)
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.model.loss(batch, key)
         loss.backward()
@@ -90,8 +101,9 @@ class Trainer:
 
     def epoch_draws(self, epoch: int):
         """Epoch ``epoch``'s batches ``[n_batches, B]`` (indices into the train
-        interactions), one negative per interaction, and per-step PRF keys
-        ``[n_batches, 2]`` (uint32 values in int64), all on the data's device."""
+        interactions), one negative per interaction (None for a model whose
+        ``batch_fields`` lack ``"neg"``), and per-step PRF keys ``[n_batches,
+        2]`` (uint32 values in int64), all on the data's device."""
         data, bsz, n_batches = self.data, self.batch_size, self.n_batches
         gen = generator(int(self.cfg.train.seed), epoch)
         perm = torch.randperm(data.n_train, generator=gen)
@@ -99,8 +111,10 @@ class Trainer:
         if pad:
             perm = torch.cat([perm, perm[:pad]])
         idx = perm.view(n_batches, bsz).to(self.device)
-        negs = sample_negatives(gen, data.train_users, data.train_edge_set,
-                                data.item_num)
+        negs = None
+        if "neg" in self.model.batch_fields:
+            negs = sample_negatives(gen, data.train_users, data.train_edge_set,
+                                    data.item_num)
         keys = torch.randint(0, 2**32, (n_batches, 2), generator=gen,
                              dtype=torch.int64).to(self.device)
         return idx, negs, keys
@@ -118,8 +132,10 @@ class Trainer:
         if hasattr(model, "epoch_state"):
             aux_state = model.epoch_state(gen, epoch)
         sums = None
-        for bidx, key in zip(idx, keys):
-            batch = {"user": users[bidx], "pos": items[bidx], "neg": negs[bidx]}
+        for step, (bidx, key) in enumerate(zip(idx, keys)):
+            batch = {"user": users[bidx], "pos": items[bidx], "step": step}
+            if negs is not None:
+                batch["neg"] = negs[bidx]
             if aux_state is not None:
                 batch["aux"] = aux_state
             aux = self.train_step(batch, key)

@@ -80,3 +80,36 @@ def kgcl_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     flat = {k: params[k] for k in ("all_embed", "relation_embed", "rgat_w", "rgat_a")}
     flat.update({f"rgat_fc.{k}": params["rgat_fc"][k] for k in ("w", "b")})
     return _state(flat)
+
+
+def _layers(prefix: str, layers: list) -> dict:
+    """A JAX list of ``{"w", "b"}`` layers as ``prefix.i.w`` / ``prefix.i.b``."""
+    return {f"{prefix}.{i}.{k}": v for i, lin in enumerate(layers) for k, v in lin.items()}
+
+
+def autocf_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The two tables, and the JAX list ``gt`` of ``{q, k, v}`` [d, d] as
+    ``gt.i.q`` / ``gt.i.k`` / ``gt.i.v``."""
+    flat = {k: params[k] for k in ("user_embeds", "item_embeds")}
+    flat.update(_layers("gt", params["gt"]))
+    return _state(flat)
+
+
+def gformer_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The two tables, ``gt.{q,k,v}``, and the PNN's two dense layers
+    ``pnn_hidden.{w,b}`` ([2d, d]) and ``pnn_out.{w,b}`` ([d, d])."""
+    flat = {k: params[k] for k in ("user_embeds", "item_embeds")}
+    for part in ("gt", "pnn_hidden", "pnn_out"):
+        flat.update({f"{part}.{k}": v for k, v in params[part].items()})
+    return _state(flat)
+
+
+def adagcl_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The three partitions: ``rec``'s two tables at the top level, and the
+    lists of dense layers of ``vgae`` (``enc_mean``, ``enc_std``, ``dec``) and
+    ``dn`` (``nb``, ``self``, ``attn``) as ``vgae.enc_mean.0.w`` and so on."""
+    flat = dict(params["rec"])
+    for part in ("vgae", "dn"):
+        for name, layers in params[part].items():
+            flat.update(_layers(f"{part}.{name}", layers))
+    return _state(flat)

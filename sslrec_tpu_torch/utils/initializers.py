@@ -19,3 +19,18 @@ def xavier_uniform(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Te
 def normal_init(gen: torch.Generator, shape, std=0.02, dtype=torch.float32) -> torch.Tensor:
     """N(0, std²), drawn on ``gen``'s device."""
     return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype) * std
+
+
+def linear_params(gen: torch.Generator, in_dim: int, out_dim: int, bias: bool = True,
+                  dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """``nn.Linear``'s default init in the JAX package's layout: ``w`` [in, out]
+    and ``b`` [out], each U(±1/√in), drawn on ``gen``'s device."""
+    limit = 1.0 / math.sqrt(in_dim)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=gen.device, dtype=dtype) * (2 * limit) - limit
+
+    p = {"w": u(in_dim, out_dim)}
+    if bias:
+        p["b"] = u(out_dim)
+    return p

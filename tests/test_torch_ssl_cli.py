@@ -1,12 +1,16 @@
 """The port's CLI trains and evaluates each self-supervised general_cf model
 on a tiny split on the CPU and writes its results artifact; and, where there
 is a CUDA card, one training step of each on the card equals the same step
-on the CPU's plain versions.
+on the CPU's plain versions (AutoCF's and GFormer's views built on each
+device from the same draws; AdaGCL's whole four-phase step, held by the
+parameters it leaves).
 
 Nothing here imports JAX, so on a machine with a card and no JAX the file
 runs as ``python -m pytest --noconftest tests/test_torch_ssl_cli.py``.
 The card test's tolerance is chip_smoke's: max |card - CPU| / max |CPU| <=
-1e-5 for the loss and each gradient (float sums in another order).
+1e-5 for the loss and each gradient (float sums in another order); AdaGCL's
+parameters after its step's five Adam updates, which divide by √v and so
+magnify those differences, within rtol 1e-4, atol 1e-6, as against JAX.
 """
 
 import json
@@ -23,7 +27,8 @@ from sslrec_tpu_torch.models.registry import build_model
 from sslrec_tpu_torch.trainer.trainer import generator
 from test_torch_main import _toy_split
 
-MODELS = ["sgl", "simgcl", "directau", "ncl", "lightgcl", "hccf", "dccf"]
+MODELS = ["sgl", "simgcl", "directau", "ncl", "lightgcl", "hccf", "dccf", "autocf", "gformer",
+          "adagcl"]
 
 
 @pytest.mark.parametrize("model", MODELS)
@@ -78,20 +83,39 @@ def test_step_on_cuda_matches_cpu(model):
     batch = {k: torch.randint(0, hi, (256,), generator=gen, dtype=torch.int32)
              for k, hi in (("user", cpu.user_num), ("pos", cpu.item_num),
                            ("neg", cpu.item_num))}
-    if hasattr(cpu, "epoch_state"):
+    batch["step"] = 0
+    view_draws = None
+    if hasattr(cpu, "view_draws"):
+        cpu._n_batches_hint = card._n_batches_hint = 1
+        view_draws = [cpu.view_draws(gen)]
+    elif hasattr(cpu, "epoch_state"):
         batch["aux"] = cpu.epoch_state(gen, 0)
     draws = cpu.step_draws(gen) if cpu.step_generator else None
     key = torch.tensor([11, 12])
     out = {}
     for dev, m in (("cpu", cpu), ("cuda", card)):
         def on(x):
-            return {k: on(v) for k, v in x.items()} if isinstance(x, dict) else x.to(dev)
+            if isinstance(x, dict):
+                return {k: on(v) for k, v in x.items()}
+            return x.to(dev) if torch.is_tensor(x) else x
 
+        b = on(batch)
+        if view_draws is not None:
+            b["aux"] = m.epoch_state(None, 0, draws=[on(d) for d in view_draws])
         kw = {} if draws is None else {"draws": on(draws)}
-        loss, _ = m.loss(on(batch), on(key), **kw)
+        if hasattr(m, "train_step"):
+            aux = m.train_step(b, None, **kw)
+            out[dev] = aux["loss"].cpu().reshape(1), {k: p.detach().cpu()
+                                                      for k, p in m.named_parameters()}
+            continue
+        loss, _ = m.loss(b, on(key), **kw)
         loss.backward()
         out[dev] = loss.detach().cpu().reshape(1), {k: p.grad.cpu()
                                                     for k, p in m.named_parameters()}
     _close_to(out["cuda"][0], out["cpu"][0], f"{model} loss")
     for k, g in out["cpu"][1].items():
-        _close_to(out["cuda"][1][k], g, f"{model} grad {k}")
+        if hasattr(cpu, "train_step"):
+            torch.testing.assert_close(out["cuda"][1][k], g, rtol=1e-4, atol=1e-6,
+                                       msg=f"{model} parameter {k} after the step")
+        else:
+            _close_to(out["cuda"][1][k], g, f"{model} grad {k}")

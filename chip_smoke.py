@@ -68,11 +68,28 @@ Phases, in order; any failure raises and the script exits non-zero:
 14. drive AutoCF, GFormer and AdaGCL the same way as phase 11 (2 epochs at
    their published configs), B1's launches asserted equal to ``VIEW_B1``'s
    count from the code;
-15. print the ``{"kernels": [...]}`` line, then the card line, then
+15. load yelp_sub for DcRec, DSL and MHCN and hold B1 against its plain
+   version at the social paths' shapes within 1e-5: the bi-adjacency hop
+   (38,422², d 64), the normalised trust graph both ways, DcRec's all-ones
+   UI and trust layouts under a view's weights (d 64 and the d 1 degree
+   sum), one UI view's 43,077 added edges in a layout built on the card
+   (held field for field against the host build first), MHCN's R both ways
+   and its three motif channels;
+16. time them, each beside its bound, its plain version and
+   ``torch.sparse.mm``, and the added edges' layout build on the card
+   beside the host build;
+17. drive DcRec, MHCN and DSL the same way as phase 11 (2 epochs at their
+   published configs on yelp_sub), B1's launches asserted equal to
+   ``SOCIAL_B1``'s count from the code (DcRec's views with added edges
+   counted from the run's draws), no B2;
+18. the tuner and resume on the card: a 2-trial LightGCN grid of 1 epoch
+   each (its tune artifact and no run artifact), and LightGCN 4 epochs
+   against 2 + a resumed 2, the train states after epoch 3 bit-equal;
+19. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
-``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs`` and ``view_operands``
-build the paths' operands; the comparison of checkouts
+``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
+``social_operands`` build the paths' operands; the comparison of checkouts
 (``chip_compare.py``) times its kernels on the first two.
 """
 
@@ -97,6 +114,7 @@ from sslrec_tpu_torch.config import load_config
 from sslrec_tpu_torch.data import general_cf
 from sslrec_tpu_torch.data import kg as kg_data
 from sslrec_tpu_torch.data.general_cf import bundle_from_matrices
+from sslrec_tpu_torch.data.registry import load_data
 from sslrec_tpu_torch.models.general_cf.dccf import plain_and_norm_adj
 from sslrec_tpu_torch.models.general_cf.lightgcl import rect_norm_adj
 from sslrec_tpu_torch.models.registry import build_model
@@ -107,6 +125,7 @@ from sslrec_tpu_torch.ops import spmm_kernel as sk
 from sslrec_tpu_torch.ops.sparse import CooGraph, from_scipy
 from sslrec_tpu_torch.profile_epoch import device_us
 from sslrec_tpu_torch.trainer.trainer import Trainer, generator
+from sslrec_tpu_torch.utils import checkpoint as ckpt
 
 TOL = 1e-5                  # max |kernel - plain| / max |plain|
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -166,13 +185,42 @@ VIEW_MODELS = ("autocf", "gformer", "adagcl")
 #   normaliser's two gathers' backward (4), layer 1 as layer 0 with the
 #   logits' two gathers' backward and the hop's dx (7): 39 a step; generate 2.
 VIEW_B1 = {"autocf": (9, 4, 4, 4), "gformer": (27, 0, 3, 2), "adagcl": (39, 0, 0, 2)}
+SOCIAL_DATASET = "yelp_sub"
+SOCIAL_MODELS = ("dcrec", "mhcn", "dsl")
+# B1 launches of DcRec, MHCN and DSL at their published configs on yelp_sub,
+# counted from the code: (per training step, per generate()).  Every hop's
+# input needs a gradient, so each forward hop has one dx hop; a degree sum's
+# input is constant and has none.
+# - DcRec (4 layers): the base tower's 4 hops and dx: 8; a UI view without
+#   added edges: the user and item degree sums (d 1) over the fixed layout
+#   and, per layer, a hop each way with dx: 2 + 16 = 18; a trust view
+#   without added edges: 1 degree sum and 4 transposed hops with dx: 9;
+#   4 views: 8 + 2·18 + 2·9 = 62.  A view whose kind adds edges runs as
+#   many again over the added edges' layout (DCREC_ADDED_B1), counted from
+#   the views the run drew (``DcRec.added_views``); generate: 4 hops.
+# - MHCN (2 layers): per layer the three motif hops, Rᵀ's and R's hops, with
+#   dx: 20; the SSL term's three channel hops with dx: 6; 26 a step;
+#   generate 10.
+# - DSL: 3 UI hops and 2 trust hops with dx: 10 a step; generate: the UI
+#   tower's 3 hops.
+SOCIAL_B1 = {"dcrec": (62, 4), "mhcn": (26, 10), "dsl": (10, 3)}
+DCREC_ADDED_B1 = {"ui": 18, "uu": 9}
 
 
-def b1_count(name: str, epochs: int, n_batches: int, fix_steps: int) -> tuple[int, str]:
+def b1_count(name: str, epochs: int, n_batches: int, fix_steps: int,
+             model=None) -> tuple[int, str]:
     """B1 launches of ``epochs`` epochs of ``n_batches`` steps of model
     ``name`` through the CLI (an evaluation each epoch, the best valid and
-    the test), counted from the code, and how they were counted."""
+    the test), counted from the code, and how they were counted; DcRec's
+    views with added edges are read from the trained ``model``."""
     steps, evals = epochs * n_batches, epochs + 2
+    if name in SOCIAL_B1:
+        per_step, per_gen = SOCIAL_B1[name]
+        added = getattr(model, "added_views", {"ui": 0, "uu": 0})
+        extra = sum(DCREC_ADDED_B1[k] * n for k, n in added.items())
+        return (per_step * steps + extra + per_gen * evals,
+                f"{per_step} per step, {per_gen} per evaluation, {extra} over the added "
+                f"edges of {added['ui']} UI and {added['uu']} trust views")
     if name in SSL_B1:
         per_step, per_gen, per_build = SSL_B1[name]
         return (per_step * steps + per_gen * evals + per_build,
@@ -430,9 +478,10 @@ def small_step_check(errs: ErrTrack) -> None:
         model = build_model(cfg, data)
         model.init_params(generator(1, 2))
         trainer = Trainer(cfg, model, data)
-        idx, negs, keys = trainer.epoch_draws(0)
+        idx, sampled, keys = trainer.epoch_draws(0)
         b = idx[0]
-        batch = {"user": data.train_users[b], "pos": data.train_items[b], "neg": negs[b]}
+        batch = {"user": data.train_users[b], "pos": data.train_items[b],
+                 "neg": sampled["neg"][b]}
         loss, _ = model.loss(batch, keys[0])
         loss.backward()
         losses[dev] = loss.detach().reshape(1).cpu()
@@ -784,7 +833,7 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
     for name in models:
         argv = ["--model", name, "--data_dir", data_dir, "--dataset", dataset,
                 "--epoch", str(epochs), "--device", device, "--set", "train.test_step=1",
-                "--set", f"train.results_dir={SMOKE_RESULTS}"]
+                "--set", f"train.results_dir={SMOKE_RESULTS}", "--set", "tune.enable=false"]
         sk.csr_spmm.launches = sk.csr_spmm.combine_launches = skn.segment_max.launches = 0
         t0 = time.perf_counter()
         trainer = port_main.main(argv)
@@ -794,7 +843,7 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
         rows = trainer.recorder.epochs
         steps = len(rows) * trainer.n_batches
         want, how = b1_count(name, len(rows), trainer.n_batches,
-                             int(trainer.cfg.model.get("fix_steps", 1)))
+                             int(trainer.cfg.model.get("fix_steps", 1)), trainer.model)
         log(f"  {name}: {len(rows)} epochs of {trainer.n_batches} steps in {wall:.1f} s; B1 "
             f"{b1} launches ({want} counted from the code: {how}; {combine} with the split "
             f"rows' combine), B2 {b2}")
@@ -808,8 +857,8 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
                 f"{r['train_s']:.3f} s, valid recall@20 {r['valid']['recall'][1]:.5f}, eval "
                 f"{r['eval_s']:.3f} s")
         model = trainer.model
-        if cpu_data is None:
-            cpu_data = general_cf.load(trainer.cfg, "cpu")
+        if cpu_data is None or trainer.cfg.data.type == "social":
+            cpu_data = load_data(trainer.cfg, "cpu")
         cpu_model = build_model(trainer.cfg, cpu_data)
         cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
         if name == "lightgcl":
@@ -1012,6 +1061,126 @@ def time_view_shapes(ops: dict, gen) -> dict[str, dict]:
     seg_sum("gformer_dec_sum_d32", gf["dec_seg"][0], 32)
     take_bwd("gformer_dec_take_bwd_d32", gf["dec_seg"][1], 32)
     return t
+
+def social_operands(dev) -> dict:
+    """The social paths' B1 operands on yelp_sub, on ``dev``: the bi-adjacency
+    (DcRec's base tower, DSL's UI tower) and the normalised trust graph
+    (DSL's), DcRec's all-ones UI and trust layouts with one seeded view's
+    weights (an edge drop of the published count) and one UI view's added
+    edges, their layout built on the card; MHCN's three motif channels and
+    its joint matrix R, as the handler loads them."""
+    over = {"data.dir": DATA_DIR}
+    dc = build_model(load_config("dcrec", dataset=SOCIAL_DATASET, overrides=over),
+                     load_data(load_config("dcrec", dataset=SOCIAL_DATASET, overrides=over),
+                               dev))
+    mh = load_data(load_config("mhcn", dataset=SOCIAL_DATASET, overrides=over), dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    drop = dc._draw_view(gen, 1, dc.ui_rows, dc.user_num, dc.item_num, dc.n_aug_ui)["w"]
+    add = dc._draw_view(gen, 0, dc.ui_rows, dc.user_num, dc.item_num, dc.n_aug_ui)["add"]
+    added = dc._added({"w": None, "add": add}, dc.user_num, dc.item_num)
+    ex = mh.extras
+    return {"dcrec": dc, "bi": dc.adj, "uu": load_data(load_config(
+                "dsl", dataset=SOCIAL_DATASET, overrides=over), dev).extras["uu_adj"],
+            "ui": dc.ui, "trust": dc.trust, "drop_w": drop, "added": added,
+            "h_s": ex["mhcn_h_s"], "h_j": ex["mhcn_h_j"], "h_p": ex["mhcn_h_p"],
+            "r": ex["mhcn_r"]}
+
+
+def time_social_shapes(ops: dict, gen) -> dict[str, dict]:
+    """Device times (and with L2 flushed, ``cold_ms``) of B1 at the social
+    paths' shapes, d 64 unless named: the yelp_sub bi-adjacency hop, DcRec's
+    transposed trust hop under a view's values, its UI view's hop both ways
+    under the drop weights, the hop over a view's added edges both ways, the
+    view's degree sum (d 1), MHCN's R both ways and its three channels;
+    each beside its plain version and ``torch.sparse.mm``."""
+    dev = ops["bi"].vals.device
+    t = {}
+
+    def row(key, lay, d, ew=None):
+        x = torch.randn(lay.n_cols, d, generator=gen, device=dev)
+        vals = None if ew is None else lay.vals * ew[lay.edge_ids.long()]
+        csr = csr_tensor(lay, vals)
+        t[key] = timing(lambda: sk.csr_spmm(lay, x, ew), lambda: sk.csr_spmm_plain(lay, x, ew),
+                        lambda: torch.sparse.mm(csr, x))
+        t[key]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay, x, ew))
+
+    ui, added, trust = ops["ui"], ops["added"], ops["trust"]
+    row("yelp_bi_hop_d64", ops["bi"].fwd, 64)
+    row("dcrec_trust_hop_t_d64", trust.bwd, 64,
+        torch.rand(trust.nnz, generator=gen, device=dev))
+    view_w = ops["drop_w"] * torch.rand(ui.nnz, generator=gen, device=dev)
+    row("dcrec_ui_view_d64", ui.fwd, 64, view_w)
+    row("dcrec_ui_view_t_d64", ui.bwd, 64, view_w)
+    added_w = torch.rand(added.nnz, generator=gen, device=dev)
+    row("dcrec_added_hop_d64", added.fwd, 64, added_w)
+    row("dcrec_added_hop_t_d64", added.bwd, 64, added_w)
+    row("dcrec_view_deg_d1", ui.fwd, 1, ops["drop_w"])
+    row("mhcn_r_d64", ops["r"].fwd, 64)
+    row("mhcn_r_t_d64", ops["r"].bwd, 64)
+    for ch in ("h_s", "h_j", "h_p"):
+        row(f"mhcn_{ch}_d64", ops[ch].fwd, 64)
+    return t
+
+
+def social_bounds(ops: dict) -> dict[str, tuple[float, str]]:
+    ui, added, trust = ops["ui"], ops["added"], ops["trust"]
+    return {"yelp_bi_hop_d64": bound_ms(ops["bi"].fwd, 64),
+            "dcrec_trust_hop_t_d64": bound_ms(trust.bwd, 64, "mask"),
+            "dcrec_ui_view_d64": bound_ms(ui.fwd, 64, "mask"),
+            "dcrec_ui_view_t_d64": bound_ms(ui.bwd, 64, "mask"),
+            "dcrec_added_hop_d64": bound_ms(added.fwd, 64, "mask"),
+            "dcrec_added_hop_t_d64": bound_ms(added.bwd, 64, "mask"),
+            "dcrec_view_deg_d1": bound_ms(ui.fwd, 1, "mask"),
+            "mhcn_r_d64": bound_ms(ops["r"].fwd, 64), "mhcn_r_t_d64": bound_ms(ops["r"].bwd, 64),
+            **{f"mhcn_{ch}_d64": bound_ms(ops[ch].fwd, 64) for ch in ("h_s", "h_j", "h_p")}}
+
+
+def tune_and_resume(device: str = "cuda", data_dir: str = DATA_DIR,
+                    dataset: str = DATASET) -> dict:
+    """On the card: a 2-trial LightGCN grid of 1 epoch each, which must write
+    its tune artifact and no run artifact under a scratch results_dir; and
+    a LightGCN run of 4 epochs against 2 and a resumed 2, whose train states
+    after epoch 3 (parameters, Adam state, best snapshot, bookkeeping) must
+    be bit-equal."""
+    base = ["--model", "lightgcn", "--data_dir", data_dir, "--dataset", dataset,
+            "--device", device, "--set", "train.test_step=1", "--set", "train.early_stop=false"]
+    tune_dir = os.path.join(SMOKE_RESULTS, "tune")
+    t0 = time.perf_counter()
+    best = port_main.main(base + [
+        "--epoch", "1", "--set", f"train.results_dir={tune_dir}", "--set", "tune.enable=true",
+        "--set", "tune.hyperparameters=[reg_weight]", "--set", "tune.reg_weight=[1.0e-8, 1.0e-4]"])
+    doc = json.load(open(os.path.join(tune_dir, f"lightgcn_{dataset}_tune.json")))
+    if (sorted(os.listdir(tune_dir)) != [f"lightgcn_{dataset}_tune.json"]
+            or len(doc["trials"]) != 2 or doc["best"]["score"] != best[0]):
+        raise AssertionError(f"tune: {os.listdir(tune_dir)}, {doc}")
+    log(f"  2-trial grid in {time.perf_counter() - t0:.1f} s: "
+        f"{[(t['assignment'], round(t['score'], 5)) for t in doc['trials']]}, best {best}")
+    every = ["--set", "train.save_state_every=2", "--set", "train.results_dir="]
+    t0 = time.perf_counter()
+    straight = port_main.main(base + every + ["--epoch", "4"])
+    first = port_main.main(base + every + ["--epoch", "2"])
+    resumed = port_main.main(base + every + ["--epoch", "4", "--set",
+                                             f"train.resume_path={first.state_path}"])
+    template = straight._state_template()
+    a = ckpt.load(straight.state_path, template)
+    b = ckpt.load(resumed.state_path, template)
+    n = 0
+    for part in ("params", "best_params"):
+        for k in a[part]:
+            check_exact(f"resume.{part}.{k}", b[part][k], a[part][k])
+            n += 1
+    for i, st in a["opt_state"]["adam"].items():
+        for k, v in st.items():
+            check_exact(f"resume.adam[{i}].{k}", b["opt_state"]["adam"][i][k], v)
+            n += 1
+    if (a["epoch"], a["best_metric"], a["wait"]) != (b["epoch"], b["best_metric"], b["wait"]):
+        raise AssertionError(f"resume bookkeeping {a['epoch'], a['best_metric'], a['wait']} "
+                             f"!= {b['epoch'], b['best_metric'], b['wait']}")
+    log(f"  4 epochs against 2 + resumed 2 in {time.perf_counter() - t0:.1f} s: the states "
+        f"after epoch {a['epoch']} equal bit for bit ({n} tensors), best_metric "
+        f"{a['best_metric']:.5f}, wait {a['wait']}")
+    return {"tune": doc, "resume_tensors": n}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1309,7 +1478,53 @@ def main() -> int:
     log("== 14. AutoCF, GFormer and AdaGCL paths")
     view_runs = ssl_paths(errs, models=VIEW_MODELS)
 
-    log("== 15. result")
+    log("== 15. B1 against plain, the social paths' shapes (yelp_sub)")
+    t0 = time.perf_counter()
+    soc = social_operands(dev)
+    dc = soc["dcrec"]
+    log(f"loaded yelp_sub for DcRec, DSL and MHCN in {time.perf_counter() - t0:.1f} s: "
+        f"{dc.user_num} users, {dc.item_num} items, {dc.ui.nnz} train pairs, "
+        f"{dc.trust.nnz} trust edges; bi-adjacency {soc['bi'].n_rows} nodes, {soc['bi'].nnz} "
+        f"edges; a UI view drops {int((soc['drop_w'] == 0).sum())} and adds "
+        f"{soc['added'].nnz}; MHCN channels nnz {soc['h_s'].nnz}, {soc['h_j'].nnz}, "
+        f"{soc['h_p'].nnz}, R {soc['r'].nnz}")
+    n_lay = check_layout_builds("dcrec", {"ui": soc["ui"], "trust": soc["trust"],
+                                          "ui_added": soc["added"]}, {}, widths=(64, 1))
+    log(f"{n_lay} layouts built on the card equal the host builds of the same edges, "
+        f"split plans included")
+    soc_errs = ErrTrack()
+    check_graph(soc_errs, "yelp_bi", soc["bi"], (64,), gen, with_grads=True)
+    check_graph(soc_errs, "yelp_trust_norm", soc["uu"], (64,), gen, with_grads=True)
+    check_graph(soc_errs, "dcrec_trust", soc["trust"], (64, 1), gen, with_grads=True)
+    check_graph(soc_errs, "dcrec_ui", soc["ui"], (64, 1), gen, with_grads=True)
+    check_graph(soc_errs, "dcrec_ui_added", soc["added"], (64, 1), gen, with_grads=True)
+    for ch in ("r", "h_s", "h_j", "h_p"):
+        check_graph(soc_errs, f"mhcn_{ch}", soc[ch], (64,), gen, with_grads=True)
+    log(f"max abs err {soc_errs.abs:.3g}, max rel err {soc_errs.rel:.3g} (tolerance {TOL})")
+
+    log("== 16. the social paths' shapes timing")
+    soc_t = time_social_shapes(soc, gen)
+    soc_bound = social_bounds(soc)
+    for k, r in soc_t.items():
+        log_timing(k, r, soc_bound[k])
+    ui_rows, ui_cols, n_u, n_i = dc.ui_rows, dc.ui_cols, dc.user_num, dc.item_num
+    add_rows, add_cols = soc["added"].rows, soc["added"].cols
+    build = {"device_ms": wall_ms(lambda: sk.csr_graph_from_edges(add_rows, add_cols, n_u, n_i)),
+             "host_ms": wall_ms(lambda: host_graph_layouts(add_rows, add_cols, n_u, n_i, dev))}
+    log(f"  a view's added-edge layouts ({soc['added'].nnz} edges, both directions): built "
+        f"on the card {build['device_ms']:.2f} ms, on the host {build['host_ms']:.2f} ms "
+        f"(host clock, median of 5)")
+    soc_shapes = {k: (soc[k].n_rows, soc[k].n_cols, soc[k].nnz)
+                  for k in ("bi", "trust", "ui", "added", "r", "h_s", "h_j", "h_p")}
+    del soc, dc, ui_rows, ui_cols, add_rows, add_cols
+
+    log("== 17. DcRec, MHCN and DSL paths (yelp_sub)")
+    soc_runs = ssl_paths(errs, dataset=SOCIAL_DATASET, models=SOCIAL_MODELS)
+
+    log("== 18. the tuner and resume on the card")
+    tr = tune_and_resume()
+
+    log("== 19. result")
     common = {"route": "cuda", "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
               "replaces": "sslrec_tpu/ops/pallas_spmm.py:123",
               "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel"}
@@ -1328,7 +1543,7 @@ def main() -> int:
     lgcn_err = ErrTrack()
     lgcn_err.abs, lgcn_err.rel = main_abs, main_rel
     lgcn_counts, kg_counts = (launches, lgcn_combine), (kg_b1, kg_combine)
-    ssl_runs = {**ssl_runs, **view_runs}
+    ssl_runs = {**ssl_runs, **view_runs, **soc_runs}
     ssl_b1 = sum(r["launches"] for r in ssl_runs.values())
     ssl_combine = sum(r["combine_launches"] for r in ssl_runs.values())
     b1 = b1_row("csr_spmm", hop["none"], hop_bound["none"],
@@ -1419,6 +1634,37 @@ def main() -> int:
             {"n_rows": lay.n_rows, "n_cols": lay.n_cols, "nnz": lay.cols.shape[0], "d": d,
              "built_on": "the card"}, library_call=call))
     rows_b1[-7]["layout_build"] = builds
+    soc_rows = {  # key: (operand, width, the paths whose runs launch B1 there, library call)
+        "yelp_bi_hop_d64": ("bi", 64, ("dcrec", "dsl"), sparse_mm),
+        "dcrec_trust_hop_t_d64": ("trust", 64, ("dcrec",), "torch.sparse.mm on a CSR tensor "
+                                  "whose values already carry the view's values"),
+        "dcrec_ui_view_d64": ("ui", 64, ("dcrec",), "torch.sparse.mm, values pre-multiplied"),
+        "dcrec_ui_view_t_d64": ("ui", 64, ("dcrec",), "torch.sparse.mm, values pre-multiplied"),
+        "dcrec_added_hop_d64": ("added", 64, ("dcrec",), "torch.sparse.mm, values "
+                                "pre-multiplied"),
+        "dcrec_added_hop_t_d64": ("added", 64, ("dcrec",), "torch.sparse.mm, values "
+                                  "pre-multiplied"),
+        "dcrec_view_deg_d1": ("ui", 1, ("dcrec",), "torch.sparse.mm, values pre-multiplied"),
+        "mhcn_r_d64": ("r", 64, ("mhcn",), sparse_mm),
+        "mhcn_r_t_d64": ("r", 64, ("mhcn",), sparse_mm),
+        **{f"mhcn_{ch}_d64": (ch, 64, ("mhcn",), sparse_mm) for ch in ("h_s", "h_j", "h_p")}}
+    for k, (op, d_k, paths, call) in soc_rows.items():
+        n_r, n_c, nnz_k = soc_shapes[op]
+        if "_t_" in k:
+            n_r, n_c = n_c, n_r
+        counts = (sum(soc_runs[p]["launches"] for p in paths),
+                  sum(soc_runs[p]["combine_launches"] for p in paths))
+        rows_b1.append(b1_row(
+            f"csr_spmm.{k}", soc_t[k], soc_bound[k], counts, soc_errs,
+            {"n_rows": n_r, "n_cols": n_c, "nnz": nnz_k, "d": d_k,
+             "layout": "transposed" if "_t_" in k else "forward",
+             **({"built_on": "the card"} if op == "added" else {})},
+            library_call=call, launches_of=list(paths)))
+        if k == "dcrec_added_hop_d64":
+            rows_b1[-1]["layout_build"] = build
+    rows_b1[0]["tuner_and_resume_on_card"] = {
+        "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
+        "resume_bit_equal_tensors": tr["resume_tensors"]}
     b2_row = {
         "name": "segment_max", "route": "cuda",
         "source": "sslrec_tpu_torch/csrc/segment_max.cu",

@@ -1,5 +1,6 @@
 """Data-handler registry: scenario type → loader (port of
-``sslrec_tpu/data/registry.py``; the ``general_cf`` and ``kg`` scenarios so far)."""
+``sslrec_tpu/data/registry.py``; the ``general_cf``, ``kg`` and ``social``
+scenarios so far)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import importlib
 _HANDLERS = {
     "general_cf": "sslrec_tpu_torch.data.general_cf",
     "kg": "sslrec_tpu_torch.data.kg",
+    "social": "sslrec_tpu_torch.data.social",
 }
 
 

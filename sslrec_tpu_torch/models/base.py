@@ -18,7 +18,13 @@ Optional
                                      generator; reaches ``loss`` as ``batch["aux"]``
 ``train_step(batch, key) -> aux``    a model-managed step (AdaGCL's three updates): the model
                                      owns its optimizers, and the trainer calls this in place of
-                                     its own Adam step and builds no optimizer
+                                     its own Adam step and builds no optimizer; such a model also
+                                     has ``optimizers() -> {name: optimizer}``, whose state
+                                     checkpoints save and restore
+``extra_negatives(gen, arrays)``     full-epoch auxiliary streams ({name: [n] tensor}) drawn from
+                                     the epoch's generator, sliced per batch (DSL's social negatives)
+``grad_clip``                        a float: the trainer clips the gradients' global norm to it
+                                     before weight decay and Adam
 ``batch_fields``                     the batch's index fields; without ``"neg"`` the trainer
                                      draws no negatives
 

@@ -91,6 +91,10 @@ class AdaGCL(RecModel):
         self.opt_vgae = build_optimizer(cfg, self.vgae.parameters())
         self.opt_dn = build_optimizer(cfg, self.dn.parameters())
 
+    def optimizers(self) -> dict:
+        """The three Adams by name, which checkpoints save and restore."""
+        return {"rec": self.opt_rec, "vgae": self.opt_vgae, "dn": self.opt_dn}
+
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
         """Xavier tables and ``nn.Linear``-default layers, drawn from ``gen``."""

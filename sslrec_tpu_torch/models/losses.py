@@ -4,6 +4,7 @@ contrastive pieces, with the JAX package's reductions and epsilons)."""
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 import torch.nn.functional as F
 
 
@@ -12,6 +13,11 @@ def bpr_loss(anc_embeds, pos_embeds, neg_embeds):
     pos_preds = (anc_embeds * pos_embeds).sum(-1)
     neg_preds = (anc_embeds * neg_embeds).sum(-1)
     return F.softplus(neg_preds - pos_preds).sum()
+
+
+def reg_pick_embeds(embeds_list):
+    """Sum of squared entries over picked embedding batches."""
+    return sum((e * e).sum() for e in embeds_list)
 
 
 def reg_params(params: dict[str, torch.Tensor]):
@@ -66,3 +72,43 @@ def uniformity_loss(x):
     n = x.shape[0]
     total = torch.exp(-2.0 * sq).sum() - n
     return torch.log(total / (n * (n - 1)))
+
+
+def _grace_row_sums(rows, z_all, tau: float, g_n: int):
+    """Per row of ``rows`` and per view ``h``: Σ_j exp(⟨row, z_h,j⟩ / τ) → [C, G]."""
+    s = torch.exp(rows @ z_all.T / tau)
+    return s.view(rows.shape[0], g_n, -1).sum(-1)
+
+
+def grace_pair_losses(zs, tau: float, chunk: int = 256) -> dict:
+    """All ordered-pair GRACE semi-losses over ``G`` same-shaped ``[N, d]``
+    views (port of the JAX package's ``hmgcr.grace_pair_losses``), as
+    ``{(g, h): mean semi-loss}``:
+
+        semi(g→h)[i] = -log(e^{⟨ẑ_g,i, ẑ_h,i⟩/τ} /
+                            (rowsum_i(g, g) + rowsum_i(g, h) − e^{‖ẑ_g,i‖²/τ}) + 1e-8)
+
+    with ``ẑ`` rows normalised by ``√(‖z‖² + 1e-12)`` and ``rowsum_i(g, h) =
+    Σ_j e^{⟨ẑ_g,i, ẑ_h,j⟩/τ}``.  One pass over the concatenated views in
+    chunks of ``chunk`` rows computes every row-sum table; each chunk runs
+    under ``torch.utils.checkpoint``, so the ``[chunk, G·N]`` similarities
+    are recomputed in the backward pass and the ``[G·N, G·N]`` matrix is
+    never held whole (JAX's remat)."""
+    g_n, n = len(zs), zs[0].shape[0]
+    zn = [_l2norm_safe(z) for z in zs]
+    z_all = torch.cat(zn, 0)
+    sums = torch.cat([
+        torch.utils.checkpoint.checkpoint(_grace_row_sums, z_all[s:s + chunk], z_all, tau,
+                                          g_n, use_reentrant=False)
+        for s in range(0, g_n * n, chunk)]).view(g_n, n, g_n)       # [g, i, h]
+    out = {}
+    for g in range(g_n):
+        # ‖ẑ_g,i‖² is not assumed 1: a post-relu view may have zero rows
+        self_diag = torch.exp((zn[g] * zn[g]).sum(-1) / tau)
+        for h in range(g_n):
+            if g == h:
+                continue
+            diag = (zn[g] * zn[h]).sum(-1)
+            denom = sums[g, :, g] + sums[g, :, h] - self_diag
+            out[(g, h)] = -torch.log(torch.exp(diag / tau) / denom + 1e-8).sum() / n
+    return out

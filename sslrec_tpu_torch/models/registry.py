@@ -1,12 +1,13 @@
 """Model registry: name → class (port of ``sslrec_tpu/models/registry.py``;
-the general_cf family and KGCL so far).  Lookup is
-case-insensitive."""
+the general_cf family, KGCL, and the social family's DcRec, MHCN and DSL so
+far).  Lookup is case-insensitive."""
 
 from __future__ import annotations
 
 import importlib
 
 _GENERAL_CF = "sslrec_tpu_torch.models.general_cf."
+_SOCIAL = "sslrec_tpu_torch.models.social."
 
 # name -> (module path, class name). Populated as model families land.
 _REGISTRY: dict[str, tuple[str, str]] = {
@@ -22,6 +23,9 @@ _REGISTRY: dict[str, tuple[str, str]] = {
     "gformer": (_GENERAL_CF + "gformer", "GFormer"),
     "adagcl": (_GENERAL_CF + "adagcl", "AdaGCL"),
     "kgcl": ("sslrec_tpu_torch.models.kg.kgcl", "KGCL"),
+    "dcrec": (_SOCIAL + "dcrec", "DcRec"),
+    "mhcn": (_SOCIAL + "mhcn", "MHCN"),
+    "dsl": (_SOCIAL + "dsl", "DSL"),
 }
 
 

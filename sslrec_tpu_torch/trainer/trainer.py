@@ -25,6 +25,22 @@ Every batch carries its step's index in the epoch as ``batch["step"]``; a
 model whose ``batch_fields`` lack ``"neg"`` gets no negatives drawn; and a
 model with its own ``train_step`` (AdaGCL) owns its optimizers, so the
 trainer builds none and calls that method for each batch.
+
+The other hooks, as in the JAX trainer: a handler's
+``extras["train_arrays"]`` (DSL's paired CF and social stream) replaces the
+``(user, pos)`` arrays that batches index; a model's ``extra_negatives(gen,
+arrays)`` adds full-epoch streams drawn from the epoch's generator after the
+negatives and sliced per batch like them; a model's ``grad_clip`` clips the
+gradients' global norm before weight decay and Adam, as
+``optax.chain(clip_by_global_norm, …)`` does.
+
+Checkpoints (``utils/checkpoint.py``): ``train.save_model`` writes the best
+parameters after the final test; ``train.save_state_every`` writes the train
+state (parameters, optimizer state, epoch, best snapshot, ``best_metric``,
+``wait``) after the evaluation of every that-many epochs; and
+``train.resume_path`` restores such a state and goes on from the next epoch.
+Since each epoch's draws depend only on ``(seed, epoch)``, a resumed run
+repeats the uninterrupted one bit for bit on the same device.
 """
 
 from __future__ import annotations
@@ -38,7 +54,9 @@ from sslrec_tpu_torch.data.base import DataBundle
 from sslrec_tpu_torch.data.sampling import sample_negatives
 from sslrec_tpu_torch.trainer.logger import Logger, log_exceptions
 from sslrec_tpu_torch.trainer.metrics import Evaluator
+from sslrec_tpu_torch.utils import checkpoint as ckpt
 from sslrec_tpu_torch.utils.results import RunRecorder
+from sslrec_tpu_torch.utils.summary import make_writer
 
 
 def build_optimizer(cfg, params) -> torch.optim.Optimizer:
@@ -51,6 +69,17 @@ def build_optimizer(cfg, params) -> torch.optim.Optimizer:
     wd = float(cfg.optimizer.get("weight_decay", 0.0) or 0.0)
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=wd)
+
+
+def clip_grad_global_norm(params, max_norm: float) -> None:
+    """``optax.clip_by_global_norm``: where the gradients' global L2 norm is at
+    least ``max_norm``, scale each by ``max_norm / norm`` (divided, then
+    multiplied, as optax does), in place."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    clip = norm >= max_norm
+    for g in grads:
+        g.copy_(torch.where(clip, g / norm * max_norm, g))
 
 
 INIT_STREAM = 2**32    # generator path of the parameter draw, apart from epochs
@@ -80,6 +109,11 @@ class Trainer:
         self.device = data.device
         self.optimizer = (None if hasattr(model, "train_step")
                           else build_optimizer(cfg, model.parameters()))
+        self.grad_clip = float(getattr(model, "grad_clip", 0.0) or 0.0)
+        # the per-interaction arrays that batches index (a handler may pair
+        # other streams with them, as DSL's social pairs)
+        self.arrays = dict(data.extras.get("train_arrays")
+                           or {"user": data.train_users, "pos": data.train_items})
         self.batch_size = int(cfg.train.batch_size)
         self.n_batches = -(-data.n_train // self.batch_size)
         # models with per-fix_steps view banks size them from the batch count
@@ -96,14 +130,17 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.model.loss(batch, key)
         loss.backward()
+        if self.grad_clip:
+            clip_grad_global_norm(self.model.parameters(), self.grad_clip)
         self.optimizer.step()
         return {**{k: v.detach() for k, v in aux.items()}, "loss": loss.detach()}
 
     def epoch_draws(self, epoch: int):
         """Epoch ``epoch``'s batches ``[n_batches, B]`` (indices into the train
-        interactions), one negative per interaction (None for a model whose
-        ``batch_fields`` lack ``"neg"``), and per-step PRF keys ``[n_batches,
-        2]`` (uint32 values in int64), all on the data's device."""
+        interactions), the full-epoch sampled streams (``"neg"``, one negative
+        per interaction, unless the model's ``batch_fields`` lack it, and the
+        model's ``extra_negatives``), and per-step PRF keys ``[n_batches, 2]``
+        (uint32 values in int64), all on the data's device."""
         data, bsz, n_batches = self.data, self.batch_size, self.n_batches
         gen = generator(int(self.cfg.train.seed), epoch)
         perm = torch.randperm(data.n_train, generator=gen)
@@ -111,17 +148,18 @@ class Trainer:
         if pad:
             perm = torch.cat([perm, perm[:pad]])
         idx = perm.view(n_batches, bsz).to(self.device)
-        negs = None
+        sampled = {}
         if "neg" in self.model.batch_fields:
-            negs = sample_negatives(gen, data.train_users, data.train_edge_set,
-                                    data.item_num)
+            sampled["neg"] = sample_negatives(gen, self.arrays["user"], data.train_edge_set,
+                                              data.item_num)
+        if hasattr(self.model, "extra_negatives"):
+            sampled.update(self.model.extra_negatives(gen, self.arrays))
         keys = torch.randint(0, 2**32, (n_batches, 2), generator=gen,
                              dtype=torch.int64).to(self.device)
-        return idx, negs, keys
+        return idx, sampled, keys
 
     def train_epoch(self, epoch: int) -> dict[str, float]:
-        idx, negs, keys = self.epoch_draws(epoch)
-        users, items = self.data.train_users, self.data.train_items
+        idx, sampled, keys = self.epoch_draws(epoch)
         model = self.model
         gen = aux_state = None
         if model.step_generator or hasattr(model, "epoch_state"):
@@ -133,9 +171,8 @@ class Trainer:
             aux_state = model.epoch_state(gen, epoch)
         sums = None
         for step, (bidx, key) in enumerate(zip(idx, keys)):
-            batch = {"user": users[bidx], "pos": items[bidx], "step": step}
-            if negs is not None:
-                batch["neg"] = negs[bidx]
+            batch = {k: v[bidx] for k, v in (*self.arrays.items(), *sampled.items())}
+            batch["step"] = step
             if aux_state is not None:
                 batch["aux"] = aux_state
             aux = self.train_step(batch, key)
@@ -143,17 +180,42 @@ class Trainer:
         return {k: float(v) / self.n_batches for k, v in sums.items()}
 
     # ------------------------------------------------------------------
+    def optimizers(self) -> dict:
+        """The run's optimizers by name: the trainer's Adam, or those of a
+        model with its own ``train_step`` (its ``optimizers()``)."""
+        if self.optimizer is None:
+            return self.model.optimizers()
+        return {"adam": self.optimizer}
+
+    def _state_template(self) -> dict:
+        params = self.model.state_dict()
+        return {"params": params, "opt_state": ckpt.optim_template(self.optimizers()),
+                "epoch": 0, "best_params": params, "best_metric": 0.0, "wait": 0}
+
+    def _restore(self, path: str):
+        """Load the train state at ``path``; returns (best snapshot on the
+        run's device, best_metric, wait, the next epoch)."""
+        state = ckpt.load(path, self._state_template())
+        self.model.load_state_dict(state["params"])
+        ckpt.load_optim_state(self.optimizers(), state["opt_state"])
+        best = {k: v.to(self.device) for k, v in state["best_params"].items()}
+        return best, float(state["best_metric"]), int(state["wait"]), int(state["epoch"]) + 1
+
     @log_exceptions
     def train(self) -> dict[str, torch.Tensor]:
-        """Initialise, train, evaluate; returns the best parameters (a state
-        dict), also left loaded in the model."""
+        """Initialise (or resume), train, evaluate; returns the best parameters
+        (a state dict), also left loaded in the model."""
         cfg, model = self.cfg, self.model
         if self.logger is None:
             self.logger = Logger(cfg)
         model.init_params(generator(int(cfg.train.seed), INIT_STREAM))
         best_metric = -1.0
         best_state = _snapshot(model)
-        wait = 0
+        wait = start_epoch = 0
+        resume = cfg.train.get("resume_path")
+        if resume:
+            best_state, best_metric, wait, start_epoch = self._restore(resume)
+            self.logger.log(f"resumed from {resume} at epoch {start_epoch}")
 
         eval_split = self.data.valid if self.data.valid is not None else self.data.test
         evaluator = Evaluator(eval_split, cfg)
@@ -164,12 +226,15 @@ class Trainer:
         early_stop = bool(cfg.train.get("early_stop", False))
         test_step = int(cfg.train.get("test_step", 1))
         n_epochs = int(cfg.train.epoch)
+        save_every = int(cfg.train.get("save_state_every", 0) or 0)
 
+        writer = make_writer(cfg)
         recorder = RunRecorder(cfg)
         recorder.note(device=_device_name(self.device))
         self.recorder = recorder
+        self.state_path = self.ckpt_path = None
 
-        for epoch in range(n_epochs):
+        for epoch in range(start_epoch, n_epochs):
             _sync(self.device)
             t0 = time.perf_counter()
             losses = self.train_epoch(epoch)        # reading the losses syncs
@@ -177,6 +242,7 @@ class Trainer:
                       "train_examples": self.n_batches * self.batch_size}
             if cfg.train.get("log_loss", True):
                 self.logger.log_loss(epoch, losses)
+            writer.add_scalar("Loss/train", losses["loss"], epoch)
             epoch_valid = None
             if epoch % test_step == 0:
                 t0 = time.perf_counter()
@@ -184,6 +250,7 @@ class Trainer:
                 timing.update(eval_s=time.perf_counter() - t0,
                               eval_users=eval_split.n_test_users)
                 epoch_valid = results
+                writer.add_scalar("HR/test", float(results[metric0][0]), epoch)
                 self.logger.log_eval(results, cfg.test.k, epoch=epoch,
                                      name=f"(valid, {timing['eval_s']:.1f}s)")
                 cur = float(results[metric0][0])
@@ -199,16 +266,27 @@ class Trainer:
                     recorder.record_epoch(epoch, losses, epoch_valid, **timing)
                     break
             recorder.record_epoch(epoch, losses, epoch_valid, **timing)
+            # after the evaluation and the best snapshot's update, so that a
+            # resumed run carries the bookkeeping the uninterrupted run had here
+            if save_every and (epoch + 1) % save_every == 0:
+                self.state_path = ckpt.checkpoint_path(cfg.model.name, cfg.data.name, ".state")
+                ckpt.save(self.state_path, {
+                    "params": model.state_dict(),
+                    "opt_state": ckpt.optim_state(self.optimizers()), "epoch": epoch,
+                    "best_params": best_state, "best_metric": float(best_metric),
+                    "wait": int(wait)})
+                self.logger.log(f"saved train state to {self.state_path}")
         else:
             # fixed-epoch run without early stop: when the final epoch is off
             # the test_step grid it was never scored; score it so the run does
             # not report a stale earlier snapshot as "best"
-            if n_epochs > 0 and (n_epochs - 1) % test_step != 0:
+            if n_epochs > start_epoch and (n_epochs - 1) % test_step != 0:
                 cur = float(evaluator(model)[metric0][0])
                 if cur > best_metric:
                     best_metric = cur
                     best_state = _snapshot(model)
 
+        writer.close()
         model.load_state_dict(best_state)
         final_valid = evaluator(model)
         self.logger.log_eval(final_valid, cfg.test.k, name="(best valid)")
@@ -217,9 +295,17 @@ class Trainer:
         rpath = recorder.finalize(best_valid=final_valid, test=test_results)
         if rpath:
             self.logger.log(f"wrote results artifact {rpath}")
+        if cfg.train.get("save_model", False):
+            self.ckpt_path = ckpt.checkpoint_path(cfg.model.name, cfg.data.name)
+            ckpt.save(self.ckpt_path, best_state)
+            self.logger.log(f"saved checkpoint to {self.ckpt_path}")
         self.best_state = best_state
         self.test_results = test_results
         return best_state
+
+    def test(self) -> dict:
+        """The test split's metrics of the model's current parameters."""
+        return Evaluator(self.data.test, self.cfg)(self.model)
 
 
 def _snapshot(model) -> dict[str, torch.Tensor]:

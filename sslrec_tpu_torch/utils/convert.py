@@ -113,3 +113,33 @@ def adagcl_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
         for name, layers in params[part].items():
             flat.update(_layers(f"{part}.{name}", layers))
     return _state(flat)
+
+
+def _linears(params: dict, tables, linears) -> dict[str, torch.Tensor]:
+    """The ``tables`` as they are and each dense layer of ``linears`` as
+    ``name.w`` ([in, out], the JAX layout) and ``name.b``."""
+    flat = {k: params[k] for k in tables}
+    flat.update({f"{k}.{p}": v for k in linears for p, v in params[k].items()})
+    return _state(flat)
+
+
+def dcrec_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The three tables (``ui_user_embeds``, ``uu_user_embeds``,
+    ``ui_item_embeds``) and the two heads ``ui_linear`` / ``uu_linear``."""
+    return _linears(params, ("ui_user_embeds", "uu_user_embeds", "ui_item_embeds"),
+                    ("ui_linear", "uu_linear"))
+
+
+def mhcn_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The two tables, ``attn`` [1, d] and ``attn_mat`` [d, d], and the JAX
+    lists ``gating`` (4) and ``sgating`` (3) as ``gating.i.w`` and so on."""
+    flat = {k: params[k] for k in ("user_embeds", "item_embeds", "attn", "attn_mat")}
+    flat.update(_layers("gating", params["gating"]))
+    flat.update(_layers("sgating", params["sgating"]))
+    return _state(flat)
+
+
+def dsl_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The two tables and the label's layers ``linear1`` ([2d, d]) and
+    ``linear2`` ([d, 1])."""
+    return _linears(params, ("user_embeds", "item_embeds"), ("linear1", "linear2"))

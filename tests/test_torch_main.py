@@ -65,10 +65,15 @@ for name in names:
 import chip_smoke
 import chip_compare
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "jaxlib", "optax") or k.startswith(("jax.", "optax."))
+             if k in ("jax", "jaxlib", "optax", "flax") or k.startswith(("jax.", "optax.", "flax."))
              or k == "sslrec_tpu" or k.startswith("sslrec_tpu."))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 41 else 0)   # the package's module count
+# the modules of the tuner, checkpoints and the social family among them
+want = {"sslrec_tpu_torch." + m for m in (
+    "trainer.tuner", "utils.checkpoint", "utils.summary", "data.social",
+    "models.social.dcrec", "models.social.mhcn", "models.social.dsl")}
+missing = sorted(want - set(names))
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 52 else 0)   # the package's module count
 """
 
 

@@ -36,10 +36,12 @@ def test_cli_trains_and_evaluates_on_cpu(model, tmp_path, monkeypatch):
     _toy_split(tmp_path)
     monkeypatch.chdir(tmp_path)     # the logger writes ./log
     res = tmp_path / "res"
+    # tune.enable off: NCL's shipped config asks for its grid search, which
+    # test_torch_tuner.py drives; this test is of one training run
     trainer = tmain.main(["--model", model, "--data_dir", str(tmp_path), "--dataset", "toy",
                           "--device", "cpu", "--epoch", "2", "--set", "train.test_step=1",
                           "--set", "train.batch_size=128", "--set", "model.embedding_size=8",
-                          "--set", f"train.results_dir={res}"])
+                          "--set", f"train.results_dir={res}", "--set", "tune.enable=false"])
     doc = json.loads((res / f"{model}_toy.json").read_text())
     assert "partial" not in doc and doc["device"] == "cpu"
     assert [r["epoch"] for r in doc["trajectory"]] == [0, 1]

@@ -85,12 +85,37 @@ Phases, in order; any failure raises and the script exits non-zero:
 18. the tuner and resume on the card: a 2-trial LightGCN grid of 1 epoch
    each (its tune artifact and no run artifact), and LightGCN 4 epochs
    against 2 + a resumed 2, the train states after epoch 3 bit-equal;
-19. print the ``{"kernels": [...]}`` line, then the card line, then
+19. drive KCGN and SMIN the same way as phase 11 (2 epochs at their
+   published configs on yelp_sub: the CLI loads the data and builds both
+   models on the card), B1's launches equal to ``SOCIAL_B1``;
+20. hold B1 against its plain version at the trained models' shapes within
+   1e-5, value and gradients, both layouts: KCGN's expanded-graph
+   destination sum and source gather (161,500 edges), its uu and ii DGI
+   hops at d 128 (80,564 and ~3.44M edges), their component sums and label
+   gathers (the ii graph's single component of 29,422 nodes against the
+   plain version in float64); SMIN's five metapath hops at d 64 (ITI ~3.44M
+   edges), its DGI and 2-hop subgraph hops and the one-hop edges' gathers
+   at d 192;
+21. time them, each beside its bound, its plain version and
+   ``torch.sparse.mm``;
+22. drive KGIN and KGRec 2 epochs through the CLI on the synthetic KG of
+   phase 6, B1's and B2's launches equal to ``KG_COUNTS``; then hold B2
+   exactly at the trained KGRec's uncapped triplets' heads (300,000 into
+   30,000) and B1 at both models' segment layouts (heads at d 64, 33, 1;
+   tails, relations, the interact edges' users, items and entities) within
+   1e-5, and time both;
+23. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
-``social_operands`` build the paths' operands; the comparison of checkouts
-(``chip_compare.py``) times its kernels on the first two.
+``social_operands`` build the paths' operands (``kcgn_smin_operands`` and
+``kg_full_operands`` take them from the trained models); the comparison of
+checkouts (``chip_compare.py``) times its kernels on the first two.
+
+Every device time (``device_ms``) must come from two profiler windows that
+agree and that are at least the work's bound: a window that lost kernel
+records is measured again, and a time that cannot be made whole fails the
+script.
 """
 
 from __future__ import annotations
@@ -203,8 +228,35 @@ SOCIAL_MODELS = ("dcrec", "mhcn", "dsl")
 #   generate 10.
 # - DSL: 3 UI hops and 2 trust hops with dx: 10 a step; generate: the UI
 #   tower's 3 hops.
-SOCIAL_B1 = {"dcrec": (62, 4), "mhcn": (26, 10), "dsl": (10, 3)}
+# - KCGN (2 layers): the expanded graph's hop, a destination sum, and its
+#   source gather's backward: 2; per DGI graph (uu, ii) the node table's hop,
+#   its row shuffle's hop and the component sum, each with dx, and the
+#   summary gather's backward over the labels: 7; 16 a step; generate 1.
+# - SMIN (3 layers): 3 user and 2 item metapaths of 2 hops with dx: 20;
+#   Informax's DGI hops of the node table and its shuffle and the subgraph
+#   hop with dx: 6; the one-hop edges' two endpoint gathers' backward: 2;
+#   28 a step; generate 10.
+SOCIAL_B1 = {"dcrec": (62, 4), "mhcn": (26, 10), "dsl": (10, 3), "kcgn": (16, 1),
+             "smin": (28, 10)}
 DCREC_ADDED_B1 = {"ui": 18, "uu": 9}
+KCGN_SMIN = ("kcgn", "smin")
+KG_MODELS = ("kgin", "kgrec")
+# B1 and B2 launches of KGIN and KGRec at their published configs (2 hops),
+# counted from the code: ((B1, B2) per training step, (B1, B2) per generate()).
+# - KGIN: the heads' live count once, per hop the heads' sum and the users'
+#   sum: 5 forward; backward the relation take once and per hop the tails'
+#   and the interact entities' gathers: 5; 10 a step; generate 5.
+# - KGRec: without gradient the heads' live count, the rationale softmax (a
+#   B2 shift and a B1 sum), the heads' and tails' score sums and the tails'
+#   live count: 5 B1, 1 B2; the encoder per hop two heads' fused attention
+#   (a B2 shift and a B1 [n, 33] sum each) and the users' sum: 3 B1, 2 B2;
+#   the UI tower per hop 2 sums; the KG tower its live count and a sum per
+#   hop: 3; 18 B1, 5 B2 forward; backward the relation take once, per
+#   encoder hop the heads', tails' and interact entities' gathers (6), the UI
+#   tower's gathers but the last hop's user-side one, whose output is unused
+#   (3), and the KG tower's tails' gathers (2): 12; 30 B1, 5 B2 a step;
+#   generate 6 B1, 4 B2.
+KG_COUNTS = {"kgin": ((10, 0), (5, 0)), "kgrec": ((30, 5), (6, 4))}
 
 
 def b1_count(name: str, epochs: int, n_batches: int, fix_steps: int,
@@ -214,6 +266,10 @@ def b1_count(name: str, epochs: int, n_batches: int, fix_steps: int,
     the test), counted from the code, and how they were counted; DcRec's
     views with added edges are read from the trained ``model``."""
     steps, evals = epochs * n_batches, epochs + 2
+    if name in KG_COUNTS:
+        (per_step, _), (per_gen, _) = KG_COUNTS[name]
+        return (per_step * steps + per_gen * evals,
+                f"{per_step} per step, {per_gen} per evaluation")
     if name in SOCIAL_B1:
         per_step, per_gen = SOCIAL_B1[name]
         added = getattr(model, "added_views", {"ui": 0, "uu": 0})
@@ -232,7 +288,23 @@ def b1_count(name: str, epochs: int, n_batches: int, fix_steps: int,
             f"({views} of each), {per_gen} per evaluation")
 
 
+def b2_count(name: str, epochs: int, n_batches: int) -> int:
+    """B2 launches of ``epochs`` epochs of model ``name`` through the CLI,
+    counted from the code: KGRec's alone among the paths ``ssl_paths`` runs."""
+    if name not in KG_COUNTS:
+        return 0
+    (_, per_step), (_, per_gen) = KG_COUNTS[name]
+    return per_step * epochs * n_batches + per_gen * (epochs + 2)
+
+
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's heading ("== ...") with the seconds since the
+    script started."""
+    if msg.startswith("== "):
+        msg = f"{msg} (at {time.perf_counter() - T_START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -348,42 +420,70 @@ def stress_graph(dev) -> sk.CsrGraph:
                                        n_rows=deg.size, n_cols=60_000), dev)
 
 
-def device_ms(fn, iters: int = 50, warmup: int = 5, retries: int = 2) -> float:
-    """Mean device time of one call, after a warm-up: the summed durations of
-    the kernels, copies and memsets that ``iters`` calls put on the card
-    (torch.profiler), over ``iters``.  Host time between launches is not in
-    it, so it is the kernel's own time even where the host is slower."""
+def device_ms(fn, floor: float = 0.0, iters: int = 50, warmup: int = 5,
+              windows: int = 8, agree: float = 0.2) -> float:
+    """Mean device time of one call, after a warm-up: the kernels, copies and
+    memsets that ``iters`` calls put on the card (torch.profiler), each
+    kind's mean duration times its count per call, summed.  Host time
+    between launches is not in it, so it is the kernel's own time even where
+    the host is slower.
+
+    The profiler loses kernel records and now and then misreads durations
+    (on the H100: 2 of a window's 50 B2 calls every time, 8 of 150 records
+    of a flush and a B1 call, a whole window read at half its time, a 31 µs
+    B1 call once read as 9.4 µs, under the least time its work can take).
+    So a kind's count per call is its records over ``iters``, rounded; a
+    window counts only where it has every kind at the count per call of the
+    fullest window seen and its time per call is at least ``floor`` (the
+    work's bound, ms); the reading is the mean of the first two such windows
+    whose times agree within ``agree``.  Raises when ``windows`` windows give
+    no such pair."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    us = sum(device_us(e) for e in events)
-    if us <= 0:
-        # a profiler window that recorded no device activity: measure again,
-        # then give up naming what it saw
-        if retries:
-            return device_ms(fn, iters, warmup, retries - 1)
-        raise AssertionError(f"device_ms: no device time recorded in {iters} calls; "
-                             f"events {[e.key for e in prof.key_averages()][:8]}")
-    return us / iters / 1e3
+    whole, seen = [], []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and e.count and not getattr(e, "is_user_annotation", False)]
+        per_call = {e.key: max(1, round(e.count / iters)) for e in events}
+        ms = sum(device_us(e) / e.count * per_call[e.key] for e in events) / 1e3
+        seen.append((per_call, sum(e.count for e in events), round(ms, 6)))
+        fullest = max((k for k, _, _ in seen), key=lambda k: sum(k.values()))
+        if not events or per_call != fullest or ms < floor:
+            continue
+        for k0, ms0 in whole:
+            if k0 == fullest and abs(ms - ms0) <= agree * max(ms, ms0):
+                return (ms + ms0) / 2
+        whole.append((per_call, ms))
+    raise AssertionError(f"device_ms: no two whole windows of {iters} calls agree among "
+                         f"{windows} (records, ms per call: {[w[1:] for w in seen]}; kinds "
+                         f"per call {seen[-1][0]}; floor {floor:.6f} ms)")
 
 
-def cold_ms(fn, flush_bytes: int = 64 * 2**20) -> float:
+def cold_ms(fn, floor: float = 0.0, flush_bytes: int = 64 * 2**20, tries: int = 3) -> float:
     """Device time of ``fn`` with the 50 MB L2 cache flushed before each
     call: that of a ``flush_bytes`` fill followed by the call, less that of
     the fill alone.  Repeated calls on one input otherwise find it in L2
-    wherever it fits there."""
+    wherever it fits there.  Each reading has its floor (the fill's bound,
+    and ``floor`` for ``fn``'s work); a difference under ``floor`` is
+    measured again, up to ``tries`` times, then raises."""
     buf = torch.empty(flush_bytes // 4, device="cuda")
+    fill_floor = 1e3 * flush_bytes / HBM_BYTES_PER_S
 
     def flush():
         buf.fill_(0.0)
 
-    return device_ms(lambda: (flush(), fn())) - device_ms(flush)
+    got = []
+    for _ in range(tries):
+        got.append(device_ms(lambda: (flush(), fn()), fill_floor + floor)
+                   - device_ms(flush, fill_floor))
+        if got[-1] >= floor:
+            return got[-1]
+    raise AssertionError(f"cold_ms: {got} ms under the floor {floor:.6f} ms")
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -426,12 +526,14 @@ def bound_ms(lay: sk.CsrLayout, d: int, mode: str = "none") -> tuple[float, str]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def timing(kernel, plain, library=None, **extra) -> dict:
+def timing(kernel, plain, library=None, floor: float = 0.0, **extra) -> dict:
     """Device times (torch.profiler) of a kernel call, its plain version and a
     library call, then their CUDA-event times, in that order; ``extra``
-    callables are timed on the device too, under their own names."""
-    r = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
-         "library_ms": None if library is None else device_ms(library)}
+    callables are timed on the device too, under their own names.  The
+    first three compute the same function, so each device reading must be
+    at least ``floor``, its bound (ms)."""
+    r = {"ms": device_ms(kernel, floor), "plain_ms": device_ms(plain, floor),
+         "library_ms": None if library is None else device_ms(library, floor)}
     r.update({f"{k}_ms": device_ms(fn) for k, fn in extra.items()})
     r.update({"event_ms": time_ms(kernel), "plain_event_ms": time_ms(plain),
               "library_event_ms": None if library is None else time_ms(library)})
@@ -629,36 +731,40 @@ def check_relation_take(errs: ErrTrack, rel: skn.OneHotTake, d: int, gen) -> Non
 
 def time_kgcl_shapes(seg_lay: skn.SegmentLayout, deg_lay: skn.SegmentLayout,
                      ui: sk.CsrGraph, ui_w: torch.Tensor, rel_lay: skn.SegmentLayout,
-                     gen) -> dict[str, dict]:
-    """Device and event times at the KGCL path's shapes: B2; B1 as the RGAT's
-    [n × 65] segment sum, as the [n_bi × 1] degree sum, as the UI hop at
-    d = 64 under a view's values (both layouts), and as the relation take's
-    backward with both yardsticks."""
+                     gen) -> tuple[dict[str, dict], dict[str, tuple[float, str]]]:
+    """Device and event times at the KGCL path's shapes, and their bounds: B2;
+    B1 as the RGAT's [n × 65] segment sum, as the [n_bi × 1] degree sum, as
+    the UI hop at d = 64 under a view's values (both layouts), and as the
+    relation take's backward with both yardsticks."""
     dev = seg_lay.ids.device
     n, S = seg_lay.n, seg_lay.num_segments
     t = {}
+    bounds = {"b2": segmax_bound_ms(seg_lay), "kg_sum_d65": bound_ms(seg_lay.csr, 65),
+              "kg_sum_d1": bound_ms(deg_lay.csr, 1), "ui_hop_d64": bound_ms(ui.fwd, 64, "mask"),
+              "relation_take": bound_ms(rel_lay.csr, 64)}
     logits = torch.randn(n, generator=gen, device=dev)
     ids64 = seg_lay.ids.long()
     amax = torch.full((S,), float("-inf"), device=dev)
     t["b2"] = timing(lambda: skn.segment_max(seg_lay, logits),
                      lambda: skn.segment_max_plain(seg_lay, logits),
-                     lambda: amax.scatter_reduce_(0, ids64, logits, "amax", include_self=False))
+                     lambda: amax.scatter_reduce_(0, ids64, logits, "amax", include_self=False),
+                     bounds["b2"][0])
     x65 = torch.randn(n, 65, generator=gen, device=dev)
     csr_seg = csr_tensor(seg_lay.csr)
     t["kg_sum_d65"] = timing(
         lambda: sk.csr_spmm(seg_lay.csr, x65), lambda: sk.csr_spmm_plain(seg_lay.csr, x65),
-        lambda: torch.sparse.mm(csr_seg, x65))
+        lambda: torch.sparse.mm(csr_seg, x65), bounds["kg_sum_d65"][0])
     x1 = torch.rand(deg_lay.n, 1, generator=gen, device=dev)
     csr_deg = csr_tensor(deg_lay.csr)
     t["kg_sum_d1"] = timing(lambda: sk.csr_spmm(deg_lay.csr, x1),
                             lambda: sk.csr_spmm_plain(deg_lay.csr, x1),
-                            lambda: torch.sparse.mm(csr_deg, x1))
+                            lambda: torch.sparse.mm(csr_deg, x1), bounds["kg_sum_d1"][0])
     x64 = torch.randn(ui.n_cols, 64, generator=gen, device=dev)
     csr_ui = csr_tensor(ui.fwd, ui.fwd.vals * ui_w)          # forward ids: the identity
     csr_ui_b = csr_tensor(ui.bwd, ui.bwd.vals * ui_w[ui.bwd.edge_ids.long()])
     t["ui_hop_d64"] = timing(lambda: sk.csr_spmm(ui.fwd, x64, ui_w),
                              lambda: sk.csr_spmm_plain(ui.fwd, x64, ui_w),
-                             lambda: torch.sparse.mm(csr_ui, x64),
+                             lambda: torch.sparse.mm(csr_ui, x64), bound_ms(ui.fwd, 64)[0],
                              bwd=lambda: sk.csr_spmm(ui.bwd, x64, ui_w),
                              library_bwd=lambda: torch.sparse.mm(csr_ui_b, x64))
     g = torch.randn(rel_lay.n, 64, generator=gen, device=dev)
@@ -668,9 +774,9 @@ def time_kgcl_shapes(seg_lay: skn.SegmentLayout, deg_lay: skn.SegmentLayout,
         lambda: sk.csr_spmm(rel_lay.csr, g), lambda: sk.csr_spmm_plain(rel_lay.csr, g),
         lambda: g.new_zeros(rel_lay.num_segments, 64).index_put_((rel_ids,), g,
                                                                    accumulate=True),
-        onehot=lambda: onehot.T @ g)
+        bounds["relation_take"][0], onehot=lambda: onehot.T @ g)
     t["relation_take"]["onehot_mb"] = onehot.numel() * 4 / 1e6
-    return t
+    return t, bounds
 
 
 def segmax_bound_ms(lay: skn.SegmentLayout) -> tuple[float, str]:
@@ -776,14 +882,23 @@ def dew_bound_ms(g: sk.CsrGraph, d: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ssl_shapes(plain: sk.CsrGraph, rect: sk.CsrGraph, gen) -> dict[str, dict]:
-    """Device and event times at the new shapes: B1 as DCCF's hop with a
-    learned weight over its all-ones layouts (forward and transposed) and the
-    weight's gradient (dew, plain torch, with ``sampled_addmm`` as its
-    yardstick); LightGCL's rectangular hop at d 32 and its SVD's width 13,
-    both directions.  Each kernel is also timed with L2 flushed (``cold_ms``)."""
+def time_ssl_shapes(plain: sk.CsrGraph, rect: sk.CsrGraph,
+                    gen) -> tuple[dict[str, dict], dict[str, tuple[float, str]]]:
+    """Device and event times at the new shapes, and their bounds: B1 as
+    DCCF's hop with a learned weight over its all-ones layouts (forward and
+    transposed) and the weight's gradient (dew, plain torch, with
+    ``sampled_addmm`` as its yardstick); LightGCL's rectangular hop at d 32
+    and its SVD's width 13, both directions.  Each kernel is also timed with
+    L2 flushed (``cold_ms``)."""
     dev = plain.vals.device
     t = {}
+    b = {"dccf_hop": bound_ms(plain.fwd, 32, "mask"), "dccf_hop_t": bound_ms(plain.bwd, 32, "mask"),
+         "dccf_dew": dew_bound_ms(plain, 32),
+         **{f"lightgcl_d{d}{s}": bound_ms(lay, d) for d in (32, 13)
+            for s, lay in (("", rect.fwd), ("_t", rect.bwd))}}
+    # the weighted hops' floor: the bound without the weight, which the
+    # library call (values pre-multiplied) does not read
+    f_hop, f_hop_t = bound_ms(plain.fwd, 32)[0], bound_ms(plain.bwd, 32)[0]
     x = torch.randn(plain.n_cols, 32, generator=gen, device=dev)
     g_out = torch.randn(plain.n_rows, 32, generator=gen, device=dev)
     ew = torch.rand(plain.nnz, generator=gen, device=dev)
@@ -792,43 +907,47 @@ def time_ssl_shapes(plain: sk.CsrGraph, rect: sk.CsrGraph, gen) -> dict[str, dic
     pattern = csr_tensor(plain.fwd)
     t["dccf_hop"] = timing(lambda: sk.csr_spmm(plain.fwd, x, ew),
                            lambda: sk.csr_spmm_plain(plain.fwd, x, ew),
-                           lambda: torch.sparse.mm(csr_f, x))
+                           lambda: torch.sparse.mm(csr_f, x), f_hop)
     t["dccf_hop_t"] = timing(lambda: sk.csr_spmm(plain.bwd, x, ew),
                              lambda: sk.csr_spmm_plain(plain.bwd, x, ew),
-                             lambda: torch.sparse.mm(csr_b, x))
+                             lambda: torch.sparse.mm(csr_b, x), f_hop_t)
     t["dccf_dew"] = timing(
         lambda: plain.vals * (g_out[plain.rows] * x[plain.cols]).sum(-1),
         lambda: plain.vals * (g_out[plain.rows] * x[plain.cols]).sum(-1),
-        lambda: torch.sparse.sampled_addmm(pattern, g_out, x.T, beta=0.0))
+        lambda: torch.sparse.sampled_addmm(pattern, g_out, x.T, beta=0.0), b["dccf_dew"][0])
     for d in (32, 13):
         xi = torch.randn(rect.n_cols, d, generator=gen, device=dev)
         xu = torch.randn(rect.n_rows, d, generator=gen, device=dev)
         csr_r, csr_rt = csr_tensor(rect.fwd), csr_tensor(rect.bwd)
         t[f"lightgcl_d{d}"] = timing(lambda: sk.csr_spmm(rect.fwd, xi),
                                      lambda: sk.csr_spmm_plain(rect.fwd, xi),
-                                     lambda: torch.sparse.mm(csr_r, xi))
+                                     lambda: torch.sparse.mm(csr_r, xi),
+                                     b[f"lightgcl_d{d}"][0])
         t[f"lightgcl_d{d}_t"] = timing(lambda: sk.csr_spmm(rect.bwd, xu),
                                        lambda: sk.csr_spmm_plain(rect.bwd, xu),
-                                       lambda: torch.sparse.mm(csr_rt, xu))
-        t[f"lightgcl_d{d}"]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(rect.fwd, xi))
-        t[f"lightgcl_d{d}_t"]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(rect.bwd, xu))
-    t["dccf_hop"]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(plain.fwd, x, ew))
-    t["dccf_hop_t"]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(plain.bwd, x, ew))
+                                       lambda: torch.sparse.mm(csr_rt, xu),
+                                       b[f"lightgcl_d{d}_t"][0])
+        t[f"lightgcl_d{d}"]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(rect.fwd, xi),
+                                                 b[f"lightgcl_d{d}"][0])
+        t[f"lightgcl_d{d}_t"]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(rect.bwd, xu),
+                                                   b[f"lightgcl_d{d}_t"][0])
+    t["dccf_hop"]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(plain.fwd, x, ew), f_hop)
+    t["dccf_hop_t"]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(plain.bwd, x, ew), f_hop_t)
     t["dccf_dew"]["cold_ms"] = cold_ms(
-        lambda: plain.vals * (g_out[plain.rows] * x[plain.cols]).sum(-1))
-    return t
+        lambda: plain.vals * (g_out[plain.rows] * x[plain.cols]).sum(-1), b["dccf_dew"][0])
+    return t, b
 
 
 def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
-              dataset: str = DATASET, epochs: int = 2,
-              models=SSL_MODELS) -> dict[str, dict]:
-    """Each of ``models`` (self-supervised general_cf models) trained
-    ``epochs`` epochs at its published config through
-    ``sslrec_tpu_torch.main``, with the launch counts reset just before and
-    read just after the run; checks the losses, B1's launches against
-    :func:`b1_count` and no B2 launch, and ``generate()`` against the same
-    forward on the CPU's plain versions (LightGCL with the card's SVD
-    factors)."""
+              dataset: str = DATASET, epochs: int = 2, models=SSL_MODELS,
+              keep: dict | None = None) -> dict[str, dict]:
+    """Each of ``models`` trained ``epochs`` epochs at its published config
+    through ``sslrec_tpu_torch.main``, with the launch counts reset just
+    before and read just after the run; checks the losses, B1's launches
+    against :func:`b1_count`, B2's against :func:`b2_count`, and
+    ``generate()`` against the same forward on the CPU's plain versions
+    (LightGCL with the card's SVD factors).  Each trained model goes into
+    ``keep`` where it is given, so later phases take its layouts."""
     cpu_data, out = None, {}
     for name in models:
         argv = ["--model", name, "--data_dir", data_dir, "--dataset", dataset,
@@ -844,12 +963,13 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
         steps = len(rows) * trainer.n_batches
         want, how = b1_count(name, len(rows), trainer.n_batches,
                              int(trainer.cfg.model.get("fix_steps", 1)), trainer.model)
+        want_b2 = b2_count(name, len(rows), trainer.n_batches)
         log(f"  {name}: {len(rows)} epochs of {trainer.n_batches} steps in {wall:.1f} s; B1 "
             f"{b1} launches ({want} counted from the code: {how}; {combine} with the split "
-            f"rows' combine), B2 {b2}")
-        if (b1, b2) != (want, 0):
+            f"rows' combine), B2 {b2} ({want_b2} counted from the code)")
+        if (b1, b2) != (want, want_b2):
             raise AssertionError(f"{name} launched B1 {b1}, B2 {b2} times; the code counts "
-                                 f"{want} and 0")
+                                 f"{want} and {want_b2}")
         for r in rows:
             if not all(math.isfinite(v) for v in r["loss"].values()):
                 raise AssertionError(f"{name} epoch {r['epoch']}: losses {r['loss']}")
@@ -857,7 +977,7 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
                 f"{r['train_s']:.3f} s, valid recall@20 {r['valid']['recall'][1]:.5f}, eval "
                 f"{r['eval_s']:.3f} s")
         model = trainer.model
-        if cpu_data is None or trainer.cfg.data.type == "social":
+        if cpu_data is None or trainer.cfg.data.type in ("social", "kg"):
             cpu_data = load_data(trainer.cfg, "cpu")
         cpu_model = build_model(trainer.cfg, cpu_data)
         cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
@@ -871,8 +991,11 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
         test = trainer.test_results
         log(f"    test recall@20 {test['recall'][1]:.5f}, ndcg@20 {test['ndcg'][1]:.5f}; "
             f"generate() {tuple(gu.shape)} + {tuple(gi.shape)} = the CPU's plain forward")
-        out[name] = {"launches": b1, "combine_launches": combine, "steps": steps,
-                     "per_step": b1 / steps, "wall_s": wall,
+        if keep is not None:
+            keep[name] = model
+        out[name] = {"launches": b1, "combine_launches": combine, "b2_launches": b2,
+                     "steps": steps, "per_step": b1 / steps, "wall_s": wall,
+                     "train_s": [r["train_s"] for r in rows],
                      "test_recall20": float(test["recall"][1]),
                      "test_ndcg20": float(test["ndcg"][1])}
         del trainer, model, cpu_model
@@ -946,29 +1069,33 @@ def check_layout_builds(name: str, graphs: dict, segs: dict, widths=(32, 4, 1)) 
     return len(layouts)
 
 
-def check_segment_b1(errs: ErrTrack, name: str, lay: skn.SegmentLayout, widths, gen) -> None:
+def check_segment_b1(errs: ErrTrack, name: str, lay: skn.SegmentLayout, widths, gen,
+                     ref64: bool = False) -> None:
     """B1 as segment sum (value and gradient) and as a gather's backward
-    over ``lay``, against the plain versions, at each width."""
+    over ``lay``, against the plain versions, at each width.  ``ref64``: the
+    plain versions run in float64 (segments so long that float32 rounding in
+    another sum order alone would reach the tolerance)."""
     dev = lay.ids.device
     n, S, ids = lay.n, lay.num_segments, lay.ids.long()
+    dt = torch.float64 if ref64 else torch.float32
     for d in widths:
         x = torch.randn(n, d, generator=gen, device=dev)
         w_out = torch.randn(S, d, generator=gen, device=dev)
-        xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+        xk, xp = x.clone().requires_grad_(), x.to(dt, copy=True).requires_grad_()
         yk = skn.SegmentSumFn.apply(lay, xk)
         (yk * w_out).sum().backward()
         yp = plain_seg.segment_sum(xp, lay.ids, S)
         (yp * w_out).sum().backward()
-        errs.check(f"{name}.sum.d{d}", yk.detach(), yp.detach())
-        errs.check(f"{name}.sum.d{d}.grad", xk.grad, xp.grad)
+        errs.check(f"{name}.sum.d{d}", yk.detach(), yp.detach().float())
+        errs.check(f"{name}.sum.d{d}.grad", xk.grad, xp.grad.float())
         table = torch.randn(S, d, generator=gen, device=dev)
         w_e = torch.randn(n, d, generator=gen, device=dev)
-        tk, tp = table.clone().requires_grad_(), table.clone().requires_grad_()
+        tk, tp = table.clone().requires_grad_(), table.to(dt, copy=True).requires_grad_()
         yk, yp = skn.TakeFn.apply(lay, tk), tp[ids]
         (yk * w_e).sum().backward()
         (yp * w_e).sum().backward()
-        errs.check(f"{name}.take.d{d}", yk.detach(), yp.detach())
-        errs.check(f"{name}.take.d{d}.grad", tk.grad, tp.grad)
+        errs.check(f"{name}.take.d{d}", yk.detach(), yp.detach().float())
+        errs.check(f"{name}.take.d{d}.grad", tk.grad, tp.grad.float())
     torch.cuda.synchronize()
     log(f"  {name}: {n} edges into {S} rows, widths {list(widths)}: ok")
 
@@ -1023,28 +1150,30 @@ def time_layout_builds(ops: dict) -> dict[str, dict]:
                                         "layouts (augmented and decoder rows and cols)"}}
 
 
-def time_view_shapes(ops: dict, gen) -> dict[str, dict]:
-    """Device and event times of B1 at the new shapes: AutoCF's decoder as
-    the attention's segment sums (d 32, d 4) and the gathers' backward (d
-    32, also beside ``index_put_``); GFormer's augmented hop with the view's
-    encoder values both ways, and its decoder's segment sum and gathers'
-    backward at d 32."""
+def time_view_shapes(ops: dict, gen) -> tuple[dict[str, dict], dict[str, tuple[float, str]]]:
+    """Device and event times of B1 at the new shapes, and their bounds:
+    AutoCF's decoder as the attention's segment sums (d 32, d 4) and the
+    gathers' backward (d 32, also beside ``index_put_``); GFormer's augmented
+    hop with the view's encoder values both ways, and its decoder's segment
+    sum and gathers' backward at d 32."""
     dev = torch.device("cuda", 0)
-    t = {}
+    t, b = {}, {}
     ac, gf = ops["autocf"]["view"], ops["gformer"]["view"]
 
     def seg_sum(key, lay, d):
         x = torch.randn(lay.n, d, generator=gen, device=dev)
         csr = csr_tensor(lay.csr)
+        b[key] = bound_ms(lay.csr, d)
         t[key] = timing(lambda: sk.csr_spmm(lay.csr, x), lambda: sk.csr_spmm_plain(lay.csr, x),
-                        lambda: torch.sparse.mm(csr, x))
-        t[key]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay.csr, x))
+                        lambda: torch.sparse.mm(csr, x), b[key][0])
+        t[key]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay.csr, x), b[key][0])
 
     def take_bwd(key, lay, d):
         g = torch.randn(lay.n, d, generator=gen, device=dev)
         ids, csr = lay.ids.long(), csr_tensor(lay.csr)
+        b[key] = bound_ms(lay.csr, d)
         t[key] = timing(lambda: sk.csr_spmm(lay.csr, g), lambda: sk.csr_spmm_plain(lay.csr, g),
-                        lambda: torch.sparse.mm(csr, g),
+                        lambda: torch.sparse.mm(csr, g), b[key][0],
                         index_put=lambda: g.new_zeros(lay.num_segments, d).index_put_(
                             (ids,), g, accumulate=True))
 
@@ -1055,12 +1184,13 @@ def time_view_shapes(ops: dict, gen) -> dict[str, dict]:
     x = torch.randn(aug.n_cols, 32, generator=gen, device=dev)
     for key, lay in (("gformer_aug_hop", aug.fwd), ("gformer_aug_hop_t", aug.bwd)):
         csr = csr_tensor(lay, ew[lay.edge_ids.long()])
+        b[key], floor = bound_ms(lay, 32, "mask"), bound_ms(lay, 32)[0]
         t[key] = timing(lambda: sk.csr_spmm(lay, x, ew), lambda: sk.csr_spmm_plain(lay, x, ew),
-                        lambda: torch.sparse.mm(csr, x))
-        t[key]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay, x, ew))
+                        lambda: torch.sparse.mm(csr, x), floor)
+        t[key]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay, x, ew), floor)
     seg_sum("gformer_dec_sum_d32", gf["dec_seg"][0], 32)
     take_bwd("gformer_dec_take_bwd_d32", gf["dec_seg"][1], 32)
-    return t
+    return t, b
 
 def social_operands(dev) -> dict:
     """The social paths' B1 operands on yelp_sub, on ``dev``: the bi-adjacency
@@ -1086,23 +1216,25 @@ def social_operands(dev) -> dict:
             "r": ex["mhcn_r"]}
 
 
-def time_social_shapes(ops: dict, gen) -> dict[str, dict]:
+def time_social_shapes(ops: dict, gen) -> tuple[dict[str, dict], dict[str, tuple[float, str]]]:
     """Device times (and with L2 flushed, ``cold_ms``) of B1 at the social
-    paths' shapes, d 64 unless named: the yelp_sub bi-adjacency hop, DcRec's
-    transposed trust hop under a view's values, its UI view's hop both ways
-    under the drop weights, the hop over a view's added edges both ways, the
-    view's degree sum (d 1), MHCN's R both ways and its three channels;
-    each beside its plain version and ``torch.sparse.mm``."""
+    paths' shapes, d 64 unless named, and their bounds: the yelp_sub
+    bi-adjacency hop, DcRec's transposed trust hop under a view's values,
+    its UI view's hop both ways under the drop weights, the hop over a
+    view's added edges both ways, the view's degree sum (d 1), MHCN's R both
+    ways and its three channels; each beside its plain version and
+    ``torch.sparse.mm``."""
     dev = ops["bi"].vals.device
-    t = {}
+    t, b = {}, {}
 
     def row(key, lay, d, ew=None):
         x = torch.randn(lay.n_cols, d, generator=gen, device=dev)
         vals = None if ew is None else lay.vals * ew[lay.edge_ids.long()]
         csr = csr_tensor(lay, vals)
+        b[key], floor = bound_ms(lay, d, "none" if ew is None else "mask"), bound_ms(lay, d)[0]
         t[key] = timing(lambda: sk.csr_spmm(lay, x, ew), lambda: sk.csr_spmm_plain(lay, x, ew),
-                        lambda: torch.sparse.mm(csr, x))
-        t[key]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay, x, ew))
+                        lambda: torch.sparse.mm(csr, x), floor)
+        t[key]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay, x, ew), floor)
 
     ui, added, trust = ops["ui"], ops["added"], ops["trust"]
     row("yelp_bi_hop_d64", ops["bi"].fwd, 64)
@@ -1119,20 +1251,172 @@ def time_social_shapes(ops: dict, gen) -> dict[str, dict]:
     row("mhcn_r_t_d64", ops["r"].bwd, 64)
     for ch in ("h_s", "h_j", "h_p"):
         row(f"mhcn_{ch}_d64", ops[ch].fwd, 64)
-    return t
+    return t, b
 
 
-def social_bounds(ops: dict) -> dict[str, tuple[float, str]]:
-    ui, added, trust = ops["ui"], ops["added"], ops["trust"]
-    return {"yelp_bi_hop_d64": bound_ms(ops["bi"].fwd, 64),
-            "dcrec_trust_hop_t_d64": bound_ms(trust.bwd, 64, "mask"),
-            "dcrec_ui_view_d64": bound_ms(ui.fwd, 64, "mask"),
-            "dcrec_ui_view_t_d64": bound_ms(ui.bwd, 64, "mask"),
-            "dcrec_added_hop_d64": bound_ms(added.fwd, 64, "mask"),
-            "dcrec_added_hop_t_d64": bound_ms(added.bwd, 64, "mask"),
-            "dcrec_view_deg_d1": bound_ms(ui.fwd, 1, "mask"),
-            "mhcn_r_d64": bound_ms(ops["r"].fwd, 64), "mhcn_r_t_d64": bound_ms(ops["r"].bwd, 64),
-            **{f"mhcn_{ch}_d64": bound_ms(ops[ch].fwd, 64) for ch in ("h_s", "h_j", "h_p")}}
+def kcgn_smin_operands(k, m) -> dict:
+    """KCGN's and SMIN's B1 operands as the trained models ``k`` and ``m``
+    hold them: KCGN's expanded graph's destination and source segment
+    layouts, its uu and ii DGI graphs, component sums and label layouts;
+    SMIN's five metapath graphs, its DGI and 2-hop subgraph graphs and the
+    one-hop edges' row and column layouts."""
+    return {"seg": {"kcgn_dst": k.seg_dst.layout, "kcgn_src": k.seg_src.layout,
+                    "kcgn_uu_labels": k.uu_labels.layout, "kcgn_ii_labels": k.ii_labels.layout,
+                    "smin_edge_rows": m.edge_rows.layout, "smin_edge_cols": m.edge_cols.layout},
+            "graphs": {"kcgn_uu": k.uu_g, "kcgn_ii": k.ii_g, "kcgn_uu_comp": k.uu_sub_adj,
+                       "kcgn_ii_comp": k.ii_sub_adj, "smin_dgi": m.dgi_graph,
+                       "smin_sub": m.sub_adj,
+                       **{f"smin_{p.lower()}": g for p, g in zip(
+                           (*m.cfg.model.user_graph_indx.split("_"),
+                            *m.cfg.model.item_graph_indx.split("_")),
+                           (*m.user_paths, *m.item_paths))}}}
+
+
+# (key, operand, width, layout) of each KCGN/SMIN shape timed in phase 21;
+# a segment layout's "take_bwd" is its gather's backward, a B1 sum like "sum"
+KCGN_SMIN_SHAPES = (
+    ("kcgn_dst_sum_d64", "kcgn_dst", 64, "seg"), ("kcgn_src_take_bwd_d64", "kcgn_src", 64, "seg"),
+    ("kcgn_uu_hop_d128", "kcgn_uu", 128, "fwd"), ("kcgn_ii_hop_d128", "kcgn_ii", 128, "fwd"),
+    ("kcgn_ii_hop_t_d128", "kcgn_ii", 128, "bwd"),
+    ("kcgn_uu_comp_sum_d128", "kcgn_uu_comp", 128, "fwd"),
+    ("kcgn_ii_comp_sum_d128", "kcgn_ii_comp", 128, "fwd"),
+    ("kcgn_uu_label_take_bwd_d128", "kcgn_uu_labels", 128, "seg"),
+    ("kcgn_ii_label_take_bwd_d128", "kcgn_ii_labels", 128, "seg"),
+    ("smin_uu_hop_d64", "smin_uu", 64, "fwd"), ("smin_uiu_hop_d64", "smin_uiu", 64, "fwd"),
+    ("smin_uitiu_hop_d64", "smin_uitiu", 64, "fwd"), ("smin_iui_hop_d64", "smin_iui", 64, "fwd"),
+    ("smin_iti_hop_d64", "smin_iti", 64, "fwd"), ("smin_iti_hop_t_d64", "smin_iti", 64, "bwd"),
+    ("smin_dgi_hop_d192", "smin_dgi", 192, "fwd"), ("smin_sub_hop_d192", "smin_sub", 192, "fwd"),
+    ("smin_edge_take_bwd_d192", "smin_edge_rows", 192, "seg"))
+
+
+def shape_layout(ops: dict, op: str, layout: str) -> sk.CsrLayout:
+    if layout == "seg":
+        return ops["seg"][op].csr
+    return getattr(ops["graphs"][op], layout)
+
+
+def time_layouts(ops: dict, shapes, gen) -> tuple[dict, dict]:
+    """Device times (and with L2 flushed, ``cold_ms``) of B1 at ``shapes``,
+    each beside its plain version and ``torch.sparse.mm``, the schedule the
+    host picks, and its bound."""
+    t, bounds = {}, {}
+    for key, op, d, layout in shapes:
+        lay = shape_layout(ops, op, layout)
+        x = torch.randn(lay.n_cols, d, generator=gen, device=lay.vals.device)
+        csr = csr_tensor(lay)
+        bounds[key] = bound_ms(lay, d)
+        t[key] = timing(lambda: sk.csr_spmm(lay, x), lambda: sk.csr_spmm_plain(lay, x),
+                        lambda: torch.sparse.mm(csr, x), bounds[key][0])
+        t[key]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay, x), bounds[key][0])
+        group, thresh = schedule(lay, d)
+        plan = sk.layout_plan(lay, thresh)
+        t[key].update(lane_group=group, split_threshold=thresh, chunks=plan.n_chunks,
+                      split_rows=plan.split_rows.numel())
+    return t, bounds
+
+
+def kg_full_operands(gi, gr) -> dict:
+    """The segment layouts of the trained KGIN ``gi`` and KGRec ``gr`` over
+    the uncapped triplets and the interact edges."""
+    return {"graphs": {},
+            "seg": {"kg_full_heads": gr.seg_h.layout, "kg_full_tails": gr.seg_t.layout,
+                    "kg_full_rels": gr.rel_take.layout, "kgin_im_users": gi.seg_iu.layout,
+                    "kgin_im_ents": gi.seg_ic.layout, "kgrec_ie_users": gr.seg_ieu.layout,
+                    "kgrec_ie_items": gr.seg_iei.layout, "kgrec_ie_ents": gr.seg_ie_ent.layout}}
+
+
+# (key, operand, width, layout) of each KGIN/KGRec B1 shape timed in phase 22
+KG_SHAPES = (
+    ("kg_full_heads_sum_d64", "kg_full_heads", 64, "seg"),
+    ("kg_full_heads_attn_d33", "kg_full_heads", 33, "seg"),
+    ("kg_full_heads_count_d1", "kg_full_heads", 1, "seg"),
+    ("kg_full_tails_take_bwd_d64", "kg_full_tails", 64, "seg"),
+    ("kg_full_rel_take_bwd_d64", "kg_full_rels", 64, "seg"),
+    ("kgin_im_user_sum_d64", "kgin_im_users", 64, "seg"),
+    ("kgin_im_ent_take_bwd_d64", "kgin_im_ents", 64, "seg"),
+    ("kgrec_ie_item_sum_d64", "kgrec_ie_items", 64, "seg"))
+
+
+def kcgn_smin_phases(errs: ErrTrack, gen) -> dict:
+    """Phases 19-21: KCGN and SMIN driven through the CLI on yelp_sub, then
+    B1 held and timed at the trained models' shapes."""
+    log("== 19. KCGN and SMIN paths (yelp_sub)")
+    trained = {}
+    runs = ssl_paths(errs, dataset=SOCIAL_DATASET, models=KCGN_SMIN, keep=trained)
+    km, sm = trained["kcgn"], trained["smin"]
+    ks = kcgn_smin_operands(km, sm)
+    shapes = {k: (g.n_rows, g.n_cols, g.nnz) for k, g in ks["graphs"].items()}
+    shapes.update({k: (lay.num_segments, lay.n, lay.n) for k, lay in ks["seg"].items()})
+    log(f"  KCGN expanded graph {km.n_nodes} nodes, {km.seg_dst.layout.n} edges, "
+        f"{km.r_class} rating class(es), {km.max_time} time ids; uu / ii DGI graphs "
+        f"{km.uu_g.nnz} / {km.ii_g.nnz} edges, {km.uu_sub_adj.n_rows} / "
+        f"{km.ii_sub_adj.n_rows} components; SMIN metapaths "
+        + ", ".join(f"{k[5:].upper()} {v[2]}" for k, v in shapes.items()
+                    if k.startswith("smin_") and k[5:] in ("uu", "uiu", "uitiu", "iui", "iti"))
+        + f"; one-hop graph {sm.dgi_graph.nnz} edges, 2-hop subgraph {sm.sub_adj.nnz}")
+
+    log("== 20. B1 against plain, the trained KCGN's and SMIN's shapes")
+    ks_errs = ErrTrack()
+    for k, lay in ks["seg"].items():
+        d_k = 192 if k.startswith("smin") else (64 if k in ("kcgn_dst", "kcgn_src") else 128)
+        check_segment_b1(ks_errs, k, lay, (d_k,), gen, ref64=k == "kcgn_ii_labels")
+    for k, g in ks["graphs"].items():
+        d_k = 64 if k.startswith("smin") and k not in ("smin_dgi", "smin_sub") else (
+            192 if k.startswith("smin") else 128)
+        check_graph(ks_errs, k, g, (d_k,), gen, with_grads=True, ref64=k == "kcgn_ii_comp")
+    log(f"max abs err {ks_errs.abs:.3g}, max rel err {ks_errs.rel:.3g} (tolerance {TOL}; the "
+        f"single {km.ii_sub_adj.nnz}-edge row of the ii component sum and its label layout "
+        f"against the plain version in float64)")
+
+    log("== 21. KCGN's and SMIN's shapes timing")
+    t, bound = time_layouts(ks, KCGN_SMIN_SHAPES, gen)
+    for k, r in t.items():
+        log_timing(k, r, bound[k])
+    return {"runs": runs, "errs": ks_errs, "t": t, "bound": bound, "shapes": shapes}
+
+
+def kg_phases(errs: ErrTrack, gen, dev) -> dict:
+    """Phase 22: KGIN and KGRec driven through the CLI on the synthetic KG
+    (written by phase 6), then B2 held exactly and B1 within the tolerance
+    at the trained models' shapes over the uncapped triplets, both timed."""
+    log("== 22. KGIN and KGRec: the paths, then B1 and B2 at the uncapped triplets' shapes")
+    trained = {}
+    runs = ssl_paths(errs, data_dir=SMOKE_RESULTS, dataset=KG_DATASET, models=KG_MODELS,
+                     keep=trained)
+    kgf = kg_full_operands(trained["kgin"], trained["kgrec"])
+    heads = kgf["seg"]["kg_full_heads"]
+    shapes = {k: (lay.num_segments, lay.n, lay.n) for k, lay in kgf["seg"].items()}
+    log(f"  {heads.n} uncapped triplets into {heads.num_segments} heads (B2 group width "
+        f"{heads.group_width}, {heads.long_segments.numel()} in the whole-warp bin), "
+        f"{trained['kgin'].im_vals.shape[0]} interact edges")
+    kgf_errs = ErrTrack()
+    n_h = heads.n
+    logits = torch.randn(n_h, generator=gen, device=dev) * 5
+    keep = torch.rand(n_h, generator=gen, device=dev) < 0.5
+    for tag, data in (("logits", logits), ("masked", torch.where(keep, logits, -1e9)),
+                      ("all_masked", torch.full((n_h,), -1e9, device=dev))):
+        check_exact(f"segmax.kgrec.{tag}", skn.segment_max(heads, data),
+                    skn.segment_max_plain(heads, data))
+    log("  B2 at the uncapped heads: exact (logits, masked, all masked)")
+    widths = {"kg_full_heads": (64, 33, 1)}
+    for k, lay in kgf["seg"].items():
+        check_segment_b1(kgf_errs, k, lay, widths.get(k, (64,)), gen)
+    log(f"max abs err {kgf_errs.abs:.3g}, max rel err {kgf_errs.rel:.3g} (tolerance {TOL})")
+    t, bound = time_layouts(kgf, KG_SHAPES, gen)
+    ids64 = heads.ids.long()
+    amax = torch.full((heads.num_segments,), float("-inf"), device=dev)
+    bound["b2_kgrec_heads"] = segmax_bound_ms(heads)
+    t["b2_kgrec_heads"] = timing(
+        lambda: skn.segment_max(heads, logits), lambda: skn.segment_max_plain(heads, logits),
+        lambda: amax.scatter_reduce_(0, ids64, logits, "amax", include_self=False),
+        bound["b2_kgrec_heads"][0])
+    for k, r in t.items():
+        log_timing(k, r, bound[k])
+    heads_shape = {"n": heads.n, "num_segments": heads.num_segments,
+                   "group_width": heads.group_width,
+                   "long_segments": heads.long_segments.numel()}
+    return {"runs": runs, "errs": kgf_errs, "t": t, "bound": bound, "shapes": shapes,
+            "heads_shape": heads_shape}
 
 
 def tune_and_resume(device: str = "cuda", data_dir: str = DATA_DIR,
@@ -1255,27 +1539,30 @@ def main() -> int:
              "prf": lambda: sk.csr_spmm(lay, x, prf),
              "mask_bwd": lambda: sk.csr_spmm(g.bwd, x, mask),
              "prf_bwd": lambda: sk.csr_spmm(g.bwd, x, prf)}
+    hop_bound = {k: bound_ms(g.bwd if k.endswith("bwd") else lay, d, k.split("_")[0])
+                 for k in calls}
+    # each mode's floor: the bound without the multiplier, which the library
+    # call (values pre-multiplied) does not read
+    floor = {k: bound_ms(g.bwd if k.endswith("bwd") else lay, d)[0] for k in calls}
     order = list(calls) + list(calls)[::-1]      # in turns, to show the spread
     repeat = {k: [] for k in calls}
     for k in order:
-        repeat[k].append(device_ms(calls[k]))
+        repeat[k].append(device_ms(calls[k], floor[k]))
     hop = {
         "none": timing(lambda: sk.csr_spmm(lay, x), lambda: sk.csr_spmm_plain(lay, x),
-                       lambda: torch.sparse.mm(csr_t, x)),
+                       lambda: torch.sparse.mm(csr_t, x), floor["none"]),
         "mask": timing(lambda: sk.csr_spmm(lay, x, mask),
                        lambda: sk.csr_spmm_plain(lay, x, mask),
-                       lambda: torch.sparse.mm(csr_m, x)),
+                       lambda: torch.sparse.mm(csr_m, x), floor["mask"]),
         "prf": timing(lambda: sk.csr_spmm(lay, x, prf), lambda: sk.csr_spmm_plain(lay, x, prf),
-                      lambda: torch.sparse.mm(csr_m, x)),
+                      lambda: torch.sparse.mm(csr_m, x), floor["prf"]),
         "mask_bwd": timing(lambda: sk.csr_spmm(g.bwd, x, mask),
                            lambda: sk.csr_spmm_plain(g.bwd, x, mask),
-                           lambda: torch.sparse.mm(csr_mb, x)),
+                           lambda: torch.sparse.mm(csr_mb, x), floor["mask_bwd"]),
         "prf_bwd": timing(lambda: sk.csr_spmm(g.bwd, x, prf),
                           lambda: sk.csr_spmm_plain(g.bwd, x, prf),
-                          lambda: torch.sparse.mm(csr_mb, x)),
+                          lambda: torch.sparse.mm(csr_mb, x), floor["prf_bwd"]),
     }
-    hop_bound = {k: bound_ms(g.bwd if k.endswith("bwd") else lay, d, k.split("_")[0])
-                 for k in hop}
     for k, r in hop.items():
         log_timing(f"LightGCN hop, {k}", r, hop_bound[k])
         log("    again, in turns: " + ", ".join(f"{v * 1e3:.2f}" for v in repeat[k]))
@@ -1351,12 +1638,7 @@ def main() -> int:
     check_graph(ui_errs, "kgcl_ui", ui, (64,), gen, with_grads=True)
 
     log("== 7. KGCL shapes timing")
-    kg = time_kgcl_shapes(seg_lay, deg_lay, ui, ui_w, rel.layout, gen)
-    kg_bound = {"b2": segmax_bound_ms(seg_lay),
-                "kg_sum_d65": bound_ms(seg_lay.csr, 65),
-                "kg_sum_d1": bound_ms(deg_lay.csr, 1),
-                "ui_hop_d64": bound_ms(ui.fwd, 64, "mask"),
-                "relation_take": bound_ms(rel.layout.csr, 64)}
+    kg, kg_bound = time_kgcl_shapes(seg_lay, deg_lay, ui, ui_w, rel.layout, gen)
     for k, r in kg.items():
         log_timing(k, r, kg_bound[k])
     rt = kg["relation_take"]
@@ -1413,12 +1695,7 @@ def main() -> int:
         f"DCCF's plain layouts read no vals: {plain.fwd.vals_ones and plain.bwd.vals_ones}")
 
     log("== 10. the self-supervised models' shapes timing")
-    ssl_t = time_ssl_shapes(plain, lgcl, gen)
-    ssl_bound = {"dccf_hop": bound_ms(plain.fwd, 32, "mask"),
-                 "dccf_hop_t": bound_ms(plain.bwd, 32, "mask"),
-                 "dccf_dew": dew_bound_ms(plain, 32),
-                 "lightgcl_d32": bound_ms(lgcl.fwd, 32), "lightgcl_d32_t": bound_ms(lgcl.bwd, 32),
-                 "lightgcl_d13": bound_ms(lgcl.fwd, 13), "lightgcl_d13_t": bound_ms(lgcl.bwd, 13)}
+    ssl_t, ssl_bound = time_ssl_shapes(plain, lgcl, gen)
     for k, r in ssl_t.items():
         log_timing(k, r, ssl_bound[k])
 
@@ -1459,14 +1736,7 @@ def main() -> int:
     log(f"max abs err {view_errs.abs:.3g}, max rel err {view_errs.rel:.3g} (tolerance {TOL})")
 
     log("== 13. the views' shapes timing")
-    view_t = time_view_shapes(ops, gen)
-    view_bound = {"autocf_dec_sum_d32": bound_ms(ac["dec"][0].csr, 32),
-                  "autocf_dec_sum_d4": bound_ms(ac["dec"][0].csr, 4),
-                  "autocf_dec_take_bwd_d32": bound_ms(ac["dec"][1].csr, 32),
-                  "gformer_aug_hop": bound_ms(gf["aug"].fwd, 32, "mask"),
-                  "gformer_aug_hop_t": bound_ms(gf["aug"].bwd, 32, "mask"),
-                  "gformer_dec_sum_d32": bound_ms(gf["dec_seg"][0].csr, 32),
-                  "gformer_dec_take_bwd_d32": bound_ms(gf["dec_seg"][1].csr, 32)}
+    view_t, view_bound = time_view_shapes(ops, gen)
     for k, r in view_t.items():
         log_timing(k, r, view_bound[k])
     builds = time_layout_builds(ops)
@@ -1503,8 +1773,7 @@ def main() -> int:
     log(f"max abs err {soc_errs.abs:.3g}, max rel err {soc_errs.rel:.3g} (tolerance {TOL})")
 
     log("== 16. the social paths' shapes timing")
-    soc_t = time_social_shapes(soc, gen)
-    soc_bound = social_bounds(soc)
+    soc_t, soc_bound = time_social_shapes(soc, gen)
     for k, r in soc_t.items():
         log_timing(k, r, soc_bound[k])
     ui_rows, ui_cols, n_u, n_i = dc.ui_rows, dc.ui_cols, dc.user_num, dc.item_num
@@ -1524,7 +1793,10 @@ def main() -> int:
     log("== 18. the tuner and resume on the card")
     tr = tune_and_resume()
 
-    log("== 19. result")
+    ks = kcgn_smin_phases(errs, gen)
+    kgp = kg_phases(errs, gen, dev)
+
+    log("== 23. result")
     common = {"route": "cuda", "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
               "replaces": "sslrec_tpu/ops/pallas_spmm.py:123",
               "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel"}
@@ -1538,12 +1810,22 @@ def main() -> int:
                 "max_abs_err": err.abs, "max_rel_err": err.rel, "shape": shape,
                 **r, "bound_ms": bound[0], "bound_by": bound[1], **more}
 
+    def b2_row(name, r, bound, path_launches, shape, **more):
+        return {"name": name, "route": "cuda", "source": "sslrec_tpu_torch/csrc/segment_max.cu",
+                "replaces": "sslrec_tpu/ops/pallas_segment.py:137",
+                "replaces_fn": "sslrec_tpu/ops/pallas_segment.py::_segmax_kernel",
+                "launches": path_launches, "max_abs_err": 0.0, "shape": shape, **r,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_call": "Tensor.scatter_reduce_(0, ids, data, 'amax', "
+                                "include_self=False) into a -inf-filled tensor (the plain "
+                                "version's own call)", **more}
+
     hop_shape = {"n_rows": lay.n_rows, "n_cols": lay.n_cols, "nnz": nnz, "d": d,
                  "lane_group": group, "split_threshold": t_pick}
     lgcn_err = ErrTrack()
     lgcn_err.abs, lgcn_err.rel = main_abs, main_rel
     lgcn_counts, kg_counts = (launches, lgcn_combine), (kg_b1, kg_combine)
-    ssl_runs = {**ssl_runs, **view_runs, **soc_runs}
+    ssl_runs = {**ssl_runs, **view_runs, **soc_runs, **ks["runs"], **kgp["runs"]}
     ssl_b1 = sum(r["launches"] for r in ssl_runs.values())
     ssl_combine = sum(r["combine_launches"] for r in ssl_runs.values())
     b1 = b1_row("csr_spmm", hop["none"], hop_bound["none"],
@@ -1557,7 +1839,8 @@ def main() -> int:
                 launches_per_step={"lightgcn": launches / steps, "kgcl": kg_b1 / kg_steps,
                                    **{k: r["per_step"] for k, r in ssl_runs.items()}},
                 max_rel_err_all_checks=max(errs.rel, seg_errs.rel, rel_errs.rel,
-                                           ui_errs.rel, ssl_errs.rel, view_errs.rel),
+                                           ui_errs.rel, ssl_errs.rel, view_errs.rel,
+                                           soc_errs.rel, ks["errs"].rel, kgp["errs"].rel),
                 stress={"max_abs_err": stress_errs.abs, "max_rel_err": stress_errs.rel,
                         "reference": "plain version in float64"},
                 library_call="torch.sparse.mm on a CSR tensor of the layout")
@@ -1662,26 +1945,39 @@ def main() -> int:
             library_call=call, launches_of=list(paths)))
         if k == "dcrec_added_hop_d64":
             rows_b1[-1]["layout_build"] = build
+    for k, op, d_k, layout in KCGN_SMIN_SHAPES + KG_SHAPES:
+        model = k.split("_")[0]
+        paths = {"kcgn": ("kcgn",), "smin": ("smin",), "kgin": ("kgin",),
+                 "kgrec": ("kgrec",), "kg": KG_MODELS}[model]
+        ph = ks if model in KCGN_SMIN else kgp
+        counts = (sum(ssl_runs[p]["launches"] for p in paths),
+                  sum(ssl_runs[p]["combine_launches"] for p in paths))
+        n_r, n_c, nnz_k = ph["shapes"][op]
+        if layout == "bwd":
+            n_r, n_c = n_c, n_r
+        rows_b1.append(b1_row(
+            f"csr_spmm.{k}", ph["t"][k], ph["bound"][k], counts, ph["errs"],
+            {"n_rows": n_r, "n_cols": n_c, "nnz": nnz_k, "d": d_k,
+             "layout": {"seg": "segment layout", "fwd": "forward",
+                        "bwd": "transposed"}[layout]},
+            library_call=sparse_mm, launches_of=list(paths)))
     rows_b1[0]["tuner_and_resume_on_card"] = {
         "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
         "resume_bit_equal_tensors": tr["resume_tensors"]}
-    b2_row = {
-        "name": "segment_max", "route": "cuda",
-        "source": "sslrec_tpu_torch/csrc/segment_max.cu",
-        "replaces": "sslrec_tpu/ops/pallas_segment.py:137",
-        "replaces_fn": "sslrec_tpu/ops/pallas_segment.py::_segmax_kernel",
-        "launches": kg_b2,
-        "launches_by_path": {"lightgcn": lgcn_b2, "kgcl": kg_b2,
-                             **{k: 0 for k in ssl_runs}},
-        "launches_per_step": {"kgcl": kg_b2 / kg_steps},
-        "max_abs_err": 0.0,
-        "shape": {**seg_shape, "group_width": seg_lay.group_width,
-                  "long_segments": seg_lay.long_segments.numel()},
-        **kg["b2"], "bound_ms": kg_bound["b2"][0], "bound_by": kg_bound["b2"][1],
-        "library_call": "Tensor.scatter_reduce_(0, ids, data, 'amax', include_self=False) "
-                        "into a -inf-filled tensor (the plain version's own call)",
-    }
-    log(json.dumps({"kernels": rows_b1 + [b2_row]}))
+    b2_rows = [
+        b2_row("segment_max", kg["b2"], kg_bound["b2"],
+               kg_b2 + sum(r["b2_launches"] for r in ssl_runs.values()),
+               {**seg_shape, "group_width": seg_lay.group_width,
+                "long_segments": seg_lay.long_segments.numel()},
+               launches_by_path={"lightgcn": lgcn_b2, "kgcl": kg_b2,
+                                 **{k: r["b2_launches"] for k, r in ssl_runs.items()}},
+               launches_per_step={"kgcl": kg_b2 / kg_steps,
+                                  "kgrec": ssl_runs["kgrec"]["b2_launches"]
+                                  / ssl_runs["kgrec"]["steps"]}),
+        b2_row("segment_max.kgrec_heads", kgp["t"]["b2_kgrec_heads"],
+               kgp["bound"]["b2_kgrec_heads"], ssl_runs["kgrec"]["b2_launches"],
+               kgp["heads_shape"], launches_of=["kgrec"])]
+    log(json.dumps({"kernels": rows_b1 + b2_rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,14 @@ def reg_pick_embeds(embeds_list):
     return sum((e * e).sum() for e in embeds_list)
 
 
+def bce_logits(score: torch.Tensor, label: float) -> torch.Tensor:
+    """Per-element BCE with logits, in the JAX package's form; ``max(s, 0)``
+    is ``torch.maximum`` against zeros, whose gradient at a tie is a half,
+    as ``jnp.maximum``'s."""
+    return (torch.maximum(score, torch.zeros_like(score)) - score * label
+            + torch.log1p(torch.exp(-score.abs())))
+
+
 def reg_params(params: dict[str, torch.Tensor]):
     """L2² over every parameter, summed in name order (the JAX package's
     pytree-leaf order)."""

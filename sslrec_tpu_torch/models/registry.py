@@ -1,6 +1,6 @@
 """Model registry: name → class (port of ``sslrec_tpu/models/registry.py``;
-the general_cf family, KGCL, and the social family's DcRec, MHCN and DSL so
-far).  Lookup is case-insensitive."""
+the general_cf family, KGCL, KGIN and KGRec, and the social family so far).
+Lookup is case-insensitive."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import importlib
 
 _GENERAL_CF = "sslrec_tpu_torch.models.general_cf."
 _SOCIAL = "sslrec_tpu_torch.models.social."
+_KG = "sslrec_tpu_torch.models.kg."
 
 # name -> (module path, class name). Populated as model families land.
 _REGISTRY: dict[str, tuple[str, str]] = {
@@ -22,10 +23,14 @@ _REGISTRY: dict[str, tuple[str, str]] = {
     "autocf": (_GENERAL_CF + "autocf", "AutoCF"),
     "gformer": (_GENERAL_CF + "gformer", "GFormer"),
     "adagcl": (_GENERAL_CF + "adagcl", "AdaGCL"),
-    "kgcl": ("sslrec_tpu_torch.models.kg.kgcl", "KGCL"),
+    "kgcl": (_KG + "kgcl", "KGCL"),
+    "kgin": (_KG + "kgin", "KGIN"),
+    "kgrec": (_KG + "kgrec", "KGRec"),
     "dcrec": (_SOCIAL + "dcrec", "DcRec"),
     "mhcn": (_SOCIAL + "mhcn", "MHCN"),
     "dsl": (_SOCIAL + "dsl", "DSL"),
+    "kcgn": (_SOCIAL + "kcgn", "KCGN"),
+    "smin": (_SOCIAL + "smin", "SMIN"),
 }
 
 

@@ -138,20 +138,21 @@ def segment_max_plain(lay: SegmentLayout, data: torch.Tensor) -> torch.Tensor:
 def segment_max(lay: SegmentLayout, data: torch.Tensor) -> torch.Tensor:
     """``out[s] = max_{i: ids[i]=s} data[i]``, −inf for an empty segment;
     ``data`` float32 [n].  Its input is detached: the op has no gradient, as
-    ``segment_max_blocked`` (a softmax shift, where a constant is exact).
+    ``segment_max_blocked`` (a softmax shift, where a constant is exact); a
+    strided view (one head's column of ``[n, heads]`` logits) is copied.
 
     A CPU ``data`` takes :func:`segment_max_plain`; a CUDA ``data`` launches
     the kernel on the current stream with the layout's group width
     (``segment_max.launches`` counts those launches) or raises.
     """
-    data = data.detach()
+    data = data.detach().contiguous()
     if data.device.type == "cpu":
         return segment_max_plain(lay, data)
     if data.device.type != "cuda":
         raise ValueError(f"segment_max: no kernel for device {data.device}")
     csr, longs = lay.csr, lay.long_segments
-    if data.shape != (lay.n,) or data.dtype != torch.float32 or not data.is_contiguous():
-        raise ValueError(f"segment_max: data must be contiguous float32 [{lay.n}], "
+    if data.shape != (lay.n,) or data.dtype != torch.float32:
+        raise ValueError(f"segment_max: data must be float32 [{lay.n}], "
                          f"got {data.dtype} {tuple(data.shape)}")
     for name, t in (("indptr", csr.indptr), ("perm", csr.cols), ("long_segments", longs)):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != data.device:

@@ -53,6 +53,17 @@ def normalize_adj_sym(mat: sp.spmatrix, eps: float = 1e-10) -> sp.coo_matrix:
     return (d @ mat @ d).tocoo()
 
 
+def normalize_adj_left(mat: sp.spmatrix, eps: float = 1e-10) -> sp.coo_matrix:
+    """Row (random-walk) normalisation D^-1 A, degrees over rows plus ``eps``;
+    a row whose degree is then 0 (``eps=0``, an empty row) stays zero."""
+    mat = mat.tocoo()
+    degree = np.asarray(mat.sum(axis=-1)).reshape(-1) + eps
+    with np.errstate(divide="ignore"):
+        d_inv = 1.0 / degree
+    d_inv[np.isinf(d_inv)] = 0.0
+    return (sp.diags(d_inv) @ mat).tocoo()
+
+
 def make_bi_adj(ui_mat: sp.spmatrix, n_users: int, n_items: int,
                 self_loop: bool = False) -> sp.coo_matrix:
     """Bidirectional [[0, R], [R^T, 0]] adjacency, binarised then sym-normalised."""

@@ -143,3 +143,50 @@ def dsl_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """The two tables and the label's layers ``linear1`` ([2d, d]) and
     ``linear2`` ([d, 1])."""
     return _linears(params, ("user_embeds", "item_embeds"), ("linear1", "linear2"))
+
+
+def _list(prefix: str, arrays: list) -> dict:
+    """A JAX list of arrays as ``prefix.0``, ``prefix.1``, … (an ``nn.ParameterList``)."""
+    return {f"{prefix}.{i}": a for i, a in enumerate(arrays)}
+
+
+def smin_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The two tables, the lists ``u_conv_w`` / ``i_conv_w`` of [d, d] hop
+    weights as ``u_conv_w.i``, the scalar ``prelu``, and each semantic
+    attention's ``l1`` dense layer and ``l2.w`` ([128, 1]) as
+    ``attn_u.l1.w`` and so on."""
+    flat = {k: params[k] for k in ("user_embeds", "item_embeds", "prelu")}
+    for k in ("u_conv_w", "i_conv_w"):
+        flat.update(_list(k, params[k]))
+    for k in ("attn_u", "attn_i"):
+        flat.update({f"{k}.l1.{p}": v for p, v in params[k]["l1"].items()})
+        flat[f"{k}.l2.w"] = params[k]["l2"]["w"]
+    return _state(flat)
+
+
+def kcgn_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The user table, the (item × rating) table, ``time_lin.{w,b}``, the
+    lists ``u_w`` / ``v_w`` as ``u_w.i``, the scalar ``prelu`` and, with
+    ``fuse: weight``, ``fuse_w`` ([items, ratings, 1])."""
+    flat = {k: params[k] for k in ("user_embeds", "item_embeds", "prelu", "fuse_w")
+            if k in params}
+    flat.update({f"time_lin.{p}": v for p, v in params["time_lin"].items()})
+    for k in ("u_w", "v_w"):
+        flat.update(_list(k, params[k]))
+    return _state(flat)
+
+
+def kgin_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """Four arrays under the same names: ``all_embed``, ``latent_emb``,
+    ``weight`` and ``disen_weight_att``."""
+    return _state({k: params[k] for k in
+                   ("all_embed", "latent_emb", "weight", "disen_weight_att")})
+
+
+def kgrec_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The tables ``all_embed``, ``relation_emb`` and ``w_q``, and the two
+    contrast MLPs' dense layers as ``cl_mlp1.0.w`` and so on."""
+    flat = {k: params[k] for k in ("all_embed", "relation_emb", "w_q")}
+    flat.update(_layers("cl_mlp1", params["cl_mlp1"]))
+    flat.update(_layers("cl_mlp2", params["cl_mlp2"]))
+    return _state(flat)

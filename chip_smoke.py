@@ -104,7 +104,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    30,000) and B1 at both models' segment layouts (heads at d 64, 33, 1;
    tails, relations, the interact edges' users, items and entities) within
    1e-5, and time both;
-23. print the ``{"kernels": [...]}`` line, then the card line, then
+23. write a synthetic split shaped like Amazon Sports and Outdoors 5-core
+   (35,598 users, 18,357 items, 296,337 interactions; ``sports_like_seqs``)
+   and drive BERT4Rec, CL4SRec, DuoRec, ICLRec, DCRec_seq and MAERec 2
+   epochs each at their published configs through the CLI, B1's launches
+   equal to ``SEQ_B1`` (0 for the first four), no B2, each ``generate()``
+   equal to the CPU's plain forward;
+24. hold B1 against its plain version at the trained DCRec_seq's
+   transition, similarity and test graphs and MAERec's distance-3 graph
+   (d 64 and 1, both layouts, value, dx and dew) within 1e-5;
+25. B1's bf16 mode (``SSLREC_PALLAS_PRECISION=default``): against its bf16
+   plain version within 1e-5 and the float32 plain version within 3.8e-3
+   at the LightGCN hop (both layouts, with and without the dropout PRF),
+   KGCL's segment sum (d 64) and MAERec's encoder hop, every call repeated
+   bit for bit, the float32 mode bit for bit as before the switch; then
+   LightGCN 2 epochs in bf16 mode, B1's launches equal to the float32 run's;
+26. time DCRec_seq's hops and degree sums and MAERec's hop and d 1 spread,
+   and the bf16 mode beside the float32 mode at the LightGCN and MAERec
+   hops, each beside its bound, its plain version and ``torch.sparse.mm``;
+27. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
@@ -257,6 +275,32 @@ KG_MODELS = ("kgin", "kgrec")
 #   (3), and the KG tower's tails' gathers (2): 12; 30 B1, 5 B2 a step;
 #   generate 6 B1, 4 B2.
 KG_COUNTS = {"kgin": ((10, 0), (5, 0)), "kgrec": ((30, 5), (6, 4))}
+SEQ_DATASET = "sports_syn"  # written under SMOKE_RESULTS/sequential/sports_syn/
+SEQ_MODELS = ("bert4rec", "cl4srec", "duorec", "iclrec", "dcrec_seq", "maerec")
+# B1 launches of the sequential models at their published configs, counted
+# from the code: (per training step, per mask step, per view of the epoch's
+# mask bank, per generate()).  BERT4Rec, CL4SRec, DuoRec and ICLRec run no
+# B1 (their towers are dense products); none runs B2.
+# - DCRec_seq: three GCNs (the transition, similarity and augmented graph),
+#   each its in- and out-degree sums (d 1) and 2 hops: 12; the civil and
+#   foreign readouts, a hop and a count sum (d 1) each: 4; backward the 6
+#   GCN hops' and the 2 readout hops' dx (a degree or count sum's input is
+#   constant): 8; 24 a step; generate: the test graphs' two GCNs, 8.
+# - MAERec: the encoder's 2 hops and their dx: 4 a step; on a mask step
+#   (step % mask_steps == 0) the path scores: the degree sum, the first hop,
+#   per depth (3) a d 64 hop, a d 1 hop and a degree sum: 11, and the 4 d 64
+#   hops' dx: 15; a view: the path scores' 11, the closure's 2 spreads (d 1)
+#   and the kept edges' degree sum: 14; generate: the encoder's 2 hops.
+SEQ_B1 = {"bert4rec": (0, 0, 0, 0), "cl4srec": (0, 0, 0, 0), "duorec": (0, 0, 0, 0),
+          "iclrec": (0, 0, 0, 0), "dcrec_seq": (24, 0, 0, 8), "maerec": (4, 15, 14, 2)}
+BF16_VS_F32 = 3.8e-3        # the JAX bf16 mode's error against XLA (BENCH_r05.json)
+# three bf16 roundings a contribution (x, the value, the product), each
+# within 2^-8 relative: every output of the bf16 mode is within this share
+# of the sum of its contributions' magnitudes of the float32 output
+BF16_ROUNDING = 3 * 2.0**-8 + 2.0**-15
+PRECISION_VAR = "SSLREC_PALLAS_PRECISION"
+
+
 
 
 def b1_count(name: str, epochs: int, n_batches: int, fix_steps: int,
@@ -264,8 +308,15 @@ def b1_count(name: str, epochs: int, n_batches: int, fix_steps: int,
     """B1 launches of ``epochs`` epochs of ``n_batches`` steps of model
     ``name`` through the CLI (an evaluation each epoch, the best valid and
     the test), counted from the code, and how they were counted; DcRec's
-    views with added edges are read from the trained ``model``."""
+    views with added edges are read from the trained ``model``; views are
+    made every ``fix_steps`` steps (MAERec's ``mask_steps``)."""
     steps, evals = epochs * n_batches, epochs + 2
+    if name in SEQ_B1:
+        per_step, per_mask, per_view, per_gen = SEQ_B1[name]
+        masks = epochs * -(-n_batches // fix_steps) if per_mask or per_view else 0
+        return (per_step * steps + (per_mask + per_view) * masks + per_gen * evals,
+                f"{per_step} per step, {per_mask} per mask step and {per_view} per view "
+                f"({masks} of each), {per_gen} per evaluation")
     if name in KG_COUNTS:
         (per_step, _), (per_gen, _) = KG_COUNTS[name]
         return (per_step * steps + per_gen * evals,
@@ -961,8 +1012,10 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
                            skn.segment_max.launches)
         rows = trainer.recorder.epochs
         steps = len(rows) * trainer.n_batches
+        m_cfg = trainer.cfg.model
         want, how = b1_count(name, len(rows), trainer.n_batches,
-                             int(trainer.cfg.model.get("fix_steps", 1)), trainer.model)
+                             int(m_cfg.get("fix_steps", m_cfg.get("mask_steps", 1))),
+                             trainer.model)
         want_b2 = b2_count(name, len(rows), trainer.n_batches)
         log(f"  {name}: {len(rows)} epochs of {trainer.n_batches} steps in {wall:.1f} s; B1 "
             f"{b1} launches ({want} counted from the code: {how}; {combine} with the split "
@@ -970,14 +1023,15 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
         if (b1, b2) != (want, want_b2):
             raise AssertionError(f"{name} launched B1 {b1}, B2 {b2} times; the code counts "
                                  f"{want} and {want_b2}")
+        at20 = list(trainer.cfg.test.k).index(20)
         for r in rows:
             if not all(math.isfinite(v) for v in r["loss"].values()):
                 raise AssertionError(f"{name} epoch {r['epoch']}: losses {r['loss']}")
             log(f"    epoch {r['epoch']}: loss {r['loss']['loss']:.5f}, train "
-                f"{r['train_s']:.3f} s, valid recall@20 {r['valid']['recall'][1]:.5f}, eval "
-                f"{r['eval_s']:.3f} s")
+                f"{r['train_s']:.3f} s, valid recall@20 {r['valid']['recall'][at20]:.5f}, "
+                f"eval {r['eval_s']:.3f} s")
         model = trainer.model
-        if cpu_data is None or trainer.cfg.data.type in ("social", "kg"):
+        if cpu_data is None or trainer.cfg.data.type in ("social", "kg", "sequential"):
             cpu_data = load_data(trainer.cfg, "cpu")
         cpu_model = build_model(trainer.cfg, cpu_data)
         cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
@@ -987,17 +1041,20 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
         with torch.no_grad():
             gu, gi = model.generate()
             cu, ci = cpu_model.generate()
-        errs.check(f"{name}.generate", torch.cat([gu, gi]).cpu(), torch.cat([cu, ci]))
+        got, ref = torch.cat([gu, gi]).cpu(), torch.cat([cu, ci])
+        errs.check(f"{name}.generate", got, ref)
         test = trainer.test_results
-        log(f"    test recall@20 {test['recall'][1]:.5f}, ndcg@20 {test['ndcg'][1]:.5f}; "
-            f"generate() {tuple(gu.shape)} + {tuple(gi.shape)} = the CPU's plain forward")
+        log(f"    test recall@20 {test['recall'][at20]:.5f}, ndcg@20 {test['ndcg'][at20]:.5f}; "
+            f"generate() {tuple(gu.shape)} + {tuple(gi.shape)} = the CPU's plain forward "
+            f"(rel err {rel_err(got, ref):.3g})")
         if keep is not None:
             keep[name] = model
         out[name] = {"launches": b1, "combine_launches": combine, "b2_launches": b2,
                      "steps": steps, "per_step": b1 / steps, "wall_s": wall,
                      "train_s": [r["train_s"] for r in rows],
-                     "test_recall20": float(test["recall"][1]),
-                     "test_ndcg20": float(test["ndcg"][1])}
+                     "test_recall20": float(test["recall"][at20]),
+                     "test_ndcg20": float(test["ndcg"][at20]),
+                     "train_rows": trainer.data.n_train, "n_batches": trainer.n_batches}
         del trainer, model, cpu_model
     return out
 
@@ -1466,6 +1523,289 @@ def tune_and_resume(device: str = "cuda", data_dir: str = DATA_DIR,
     return {"tune": doc, "resume_tensors": n}
 
 
+def sports_like_seqs(n_users: int = 35_598, n_items: int = 18_357,
+                     n_inter: int = 296_337, seed: int = 2020) -> list[list[int]]:
+    """Item sequences shaped like Amazon Sports and Outdoors 5-core (S3-Rec's
+    dataset table: 35,598 users, 18,357 items, 296,337 interactions): every
+    user at least 5 items, lengths 5 plus a geometric tail (mean 8.32),
+    items drawn from a Zipf-like popularity (exponent 0.8 over a random
+    ranking of the ids), and with probability 0.4 the next item a near
+    neighbour of the previous in that ranking, so that transitions repeat;
+    every id 1..n_items occurs."""
+    rng = np.random.default_rng(seed)
+    extra = rng.geometric(1.0 / (1.0 + (n_inter / n_users - 5.0)), n_users) - 1
+    lens = 5 + extra
+    diff = n_inter - int(lens.sum())
+    while diff:
+        users = rng.choice(n_users, abs(diff), replace=True)
+        step = 1 if diff > 0 else -1
+        np.add.at(lens, users, step)
+        lens = np.maximum(lens, 5)
+        diff = n_inter - int(lens.sum())
+    rank_to_id = rng.permutation(n_items) + 1
+    pop = 1.0 / np.arange(1, n_items + 1) ** 0.8
+    ranks = rng.choice(n_items, n_inter, p=pop / pop.sum())
+    near = rng.random(n_inter) < 0.4
+    hop = rng.integers(-20, 21, n_inter)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    first = np.zeros(n_inter, bool)
+    first[starts] = True
+    for i in np.flatnonzero(near & ~first):         # a walk in the popularity ranking
+        ranks[i] = min(max(ranks[i - 1] + hop[i], 0), n_items - 1)
+    items = rank_to_id[ranks]
+    missing = np.setdiff1d(np.arange(1, n_items + 1), items)
+    items[rng.choice(n_inter, missing.size, replace=False)] = missing
+    return [items[s:s + n].tolist() for s, n in zip(starts, lens)]
+
+
+def write_seq_dataset(name: str, seqs) -> str:
+    """The handler's TSV split under SMOKE_RESULTS/sequential/<name>/: a
+    user's train row is its sequence but the last two items with the second
+    to last as target, its test row all but the last with the last as
+    target."""
+    d = os.path.join(SMOKE_RESULTS, "sequential", name)
+    os.makedirs(d, exist_ok=True)
+    for split, cut in (("train", 2), ("test", 1)):
+        with open(os.path.join(d, f"{split}.tsv"), "w") as f:
+            f.write("uid\tseq\tlast\n")
+            f.writelines(f"{u}\t{' '.join(map(str, s[:-cut]))}\t{s[-cut]}\n"
+                         for u, s in enumerate(seqs))
+    return d
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+def set_precision(bf16: bool) -> None:
+    """B1's precision mode, as the variable the JAX package reads sets it."""
+    if bf16:
+        os.environ[PRECISION_VAR] = "default"
+    else:
+        os.environ.pop(PRECISION_VAR, None)
+    sk.bf16_mode.cache_clear()
+    if sk.bf16_mode() != bf16:
+        raise AssertionError(f"bf16 mode {sk.bf16_mode()}, want {bf16}")
+
+
+def bf16_cases(lgcn: sk.CsrGraph, seg_lay: skn.SegmentLayout, maerec, gen) -> dict:
+    """(layout, x, multiplier) of each bf16 check: the LightGCN hop both
+    ways with and without the dropout PRF, the KGCL segment sum at d 64, and
+    MAERec's encoder hop both ways under a view's values."""
+    dev = lgcn.vals.device
+    prf = sk.prf_mask(torch.tensor([3, 4], device=dev), lgcn, 0.5)
+    view = maerec.one_view(maerec.draws(gen))
+    mg = maerec.graph
+
+    def x(lay, d):
+        return torch.randn(lay.n_cols, d, generator=gen, device=dev)
+
+    return {"lightgcn_hop": (lgcn.fwd, x(lgcn.fwd, 32), None),
+            "lightgcn_hop_t": (lgcn.bwd, x(lgcn.bwd, 32), None),
+            "lightgcn_hop_prf": (lgcn.fwd, x(lgcn.fwd, 32), prf),
+            "lightgcn_hop_prf_t": (lgcn.bwd, x(lgcn.bwd, 32), prf),
+            "kgcl_segment_sum_d64": (seg_lay.csr, x(seg_lay.csr, 64), None),
+            "maerec_hop_d64": (mg.fwd, x(mg.fwd, 64), view["enc_vals"]),
+            "maerec_hop_t_d64": (mg.bwd, x(mg.bwd, 64), view["enc_vals"])}
+
+
+def bf16_checks(cases: dict) -> dict:
+    """The bf16 mode against its plain version (within 1e-5 relative) and
+    against the float32 plain version: every output within the rounding
+    bound ``BF16_ROUNDING`` of its contributions' magnitudes, and the error
+    over the largest output recorded beside the JAX mode's 3.76e-3 (which is
+    one input's reading, not a bound: the JAX mode's own formula reads
+    3.2e-3 to 4.5e-3 at the LightGCN hop on seeded normals,
+    ``tests/test_torch_spmm_bf16.py``); every call repeated bit for bit;
+    then the float32 mode again, equal bit for bit to its output before the
+    switch.  Returns the errors by case."""
+    f32 = {}
+    for k, (lay, x, w) in cases.items():
+        # every case's values and multiplier are non-negative
+        mag = sk.csr_spmm_plain(lay, x.abs(), w)
+        f32[k] = (sk.csr_spmm(lay, x, w), sk.csr_spmm_plain(lay, x, w), mag)
+    set_precision(True)
+    out = {}
+    try:
+        for k, (lay, x, w) in cases.items():
+            got = sk.csr_spmm(lay, x, w)
+            check_exact(f"bf16.{k}.repeat", sk.csr_spmm(lay, x, w), got)
+            plain_bf16 = sk.csr_spmm_plain(lay, x, w)
+            e_plain, e_f32 = rel_err(got, plain_bf16), rel_err(got, f32[k][1])
+            mag = f32[k][2]
+            share = float(((got - f32[k][1]).abs() / mag.clamp(min=1e-30)).max())
+            within = bool(((got - f32[k][1]).abs()
+                           <= BF16_ROUNDING * mag + 1e-7 * float(mag.max())).all())
+            out[k] = {"max_abs_err": float((got - plain_bf16).abs().max()),
+                      "max_rel_err": e_plain, "max_rel_err_vs_f32": e_f32,
+                      "max_err_share_of_magnitude": share,
+                      "within_jax_reading_3_8e-3": e_f32 <= BF16_VS_F32}
+            if e_plain > TOL or not within or not e_f32 > 0:
+                raise AssertionError(f"bf16 {k}: rel err {e_plain:.3g} against the bf16 plain "
+                                     f"version (<= {TOL}); against float32 {e_f32:.3g} of the "
+                                     f"largest output, {share:.3g} of an output's magnitude "
+                                     f"(<= {BF16_ROUNDING:.4g})")
+            log(f"  bf16 {k}: rel err {e_plain:.3g} against its plain version; against the "
+                f"float32 plain version {e_f32:.3g} of the largest output (the JAX mode's "
+                f"reading: 3.76e-3), at most {share:.3g} of an output's magnitude (bound "
+                f"{BF16_ROUNDING:.4g})")
+    finally:
+        set_precision(False)
+    for k, (lay, x, w) in cases.items():
+        check_exact(f"f32.{k}.after_bf16", sk.csr_spmm(lay, x, w), f32[k][0])
+    log("  float32 mode after the switch back: every case equal bit for bit to its output "
+        "before it")
+    return out
+
+
+def bf16_lightgcn_path(want: tuple[int, int]) -> dict:
+    """LightGCN 2 epochs through the CLI with B1 in bf16 mode, the counts
+    reset around it: finite losses, and B1's launches (and the split rows'
+    combines) equal to the float32 run's ``want``, since the mode changes no
+    call."""
+    argv = ["--model", "lightgcn", "--data_dir", DATA_DIR, "--dataset", DATASET,
+            "--epoch", "2", "--device", "cuda", "--set", "train.test_step=1",
+            "--set", f"train.results_dir={os.path.join(SMOKE_RESULTS, 'bf16')}"]
+    set_precision(True)
+    try:
+        sk.csr_spmm.launches = sk.csr_spmm.combine_launches = skn.segment_max.launches = 0
+        trainer = port_main.main(argv)
+        got = (sk.csr_spmm.launches, sk.csr_spmm.combine_launches)
+    finally:
+        set_precision(False)
+    rows = trainer.recorder.epochs
+    losses = [r["loss"]["loss"] for r in rows]
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses) or got != want:
+        raise AssertionError(f"bf16 LightGCN: losses {losses}, launches {got}, want {want}")
+    r20 = [r["valid"]["recall"][1] for r in rows]
+    log(f"  bf16 LightGCN: losses {[round(v, 6) for v in losses]}, valid recall@20 "
+        f"{[round(v, 5) for v in r20]}, B1 launches {got[0]} ({got[1]} with the combine), "
+        f"as the float32 run")
+    return {"launches": got[0], "combine_launches": got[1], "losses": losses,
+            "valid_recall20": r20, "train_s": [r["train_s"] for r in rows]}
+
+
+def time_b1(lay: sk.CsrLayout, x: torch.Tensor, w, **extra) -> tuple[dict, tuple[float, str]]:
+    """B1 at ``lay`` (multiplier ``w``: None or a [nnz] tensor) beside its
+    plain version and ``torch.sparse.mm`` on the values pre-multiplied, its
+    time with L2 flushed, ``extra`` callables' device times, and its bound
+    (the floor: the bound without the multiplier, which the library call
+    does not read)."""
+    d = x.shape[1]
+    bound = bound_ms(lay, d, "none" if w is None else "mask")
+    floor = bound_ms(lay, d)[0]
+    vals = lay.vals if w is None else lay.vals * w[lay.edge_ids.long()]
+    csr = csr_tensor(lay, vals)
+    r = timing(lambda: sk.csr_spmm(lay, x, w), lambda: sk.csr_spmm_plain(lay, x, w),
+               lambda: torch.sparse.mm(csr, x), floor, **extra)
+    r["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay, x, w), floor)
+    group, thresh = schedule(lay, d)
+    r.update(lane_group=group, split_threshold=thresh,
+             chunks=sk.layout_plan(lay, thresh).n_chunks)
+    return r, bound
+
+
+def seq_operands(dm, mm, gen) -> dict:
+    """(layout, x, multiplier) of each timed sequential shape, from the
+    trained DCRec_seq ``dm`` and MAERec ``mm``: the GCN hops both ways under
+    a view's values and the degree sums (d 1); MAERec's encoder hop both
+    ways under a mask-bank view and the closure spread (d 1, no values)."""
+    dev = mm.item_emb.device
+    n = dm.n_items1
+
+    def x(lay, d):
+        return torch.randn(lay.n_cols, d, generator=gen, device=dev)
+
+    we_adj = torch.rand(dm.adj.nnz, generator=gen, device=dev)
+    we_sim = torch.rand(dm.sim.nnz, generator=gen, device=dev)
+    view = mm.one_view(mm.draws(gen))
+    closure = (torch.rand(mm.n_items1, 1, generator=gen, device=dev) < 0.01).float()
+    return {
+        "dcrec_seq_adj_hop_d64": (dm.adj.g.fwd, x(dm.adj.g.fwd, 64), we_adj),
+        "dcrec_seq_adj_hop_t_d64": (dm.adj.g.bwd, x(dm.adj.g.bwd, 64), we_adj),
+        "dcrec_seq_sim_hop_d64": (dm.sim.g.fwd, x(dm.sim.g.fwd, 64), we_sim),
+        "dcrec_seq_sim_hop_t_d64": (dm.sim.g.bwd, x(dm.sim.g.bwd, 64), we_sim),
+        "dcrec_seq_deg_d1": (dm.adj.g.fwd, torch.ones(n, 1, device=dev), we_adj),
+        "dcrec_seq_deg_t_d1": (dm.adj.g.bwd, torch.ones(n, 1, device=dev), we_adj),
+        "maerec_hop_d64": (mm.graph.fwd, x(mm.graph.fwd, 64), view["enc_vals"]),
+        "maerec_hop_t_d64": (mm.graph.bwd, x(mm.graph.bwd, 64), view["enc_vals"]),
+        "maerec_spread_d1": (mm.graph.fwd, closure, None)}
+
+
+def seq_phases(errs: ErrTrack, gen, lgcn: sk.CsrGraph, seg_lay: skn.SegmentLayout,
+               lgcn_counts: tuple[int, int]) -> dict:
+    """Phases 23-26: the sequential family on a sports-shaped split, B1 at
+    DCRec_seq's and MAERec's layouts, B1's bf16 mode, and their timing."""
+    log("== 23. the sequential paths (a synthetic sports-shaped split)")
+    t0 = time.perf_counter()
+    seqs = sports_like_seqs()
+    write_seq_dataset(SEQ_DATASET, seqs)
+    lens = np.array([len(s) for s in seqs])
+    split = {"users": len(seqs), "items": int(max(max(s) for s in seqs)),
+             "interactions": int(lens.sum()), "mean_len": float(lens.mean()),
+             "min_len": int(lens.min()), "max_len": int(lens.max()),
+             "write_s": time.perf_counter() - t0}
+    log(f"  wrote {SEQ_DATASET}: {split['users']} users, {split['items']} items, "
+        f"{split['interactions']} interactions (length {split['min_len']}..{split['max_len']}, "
+        f"mean {split['mean_len']:.2f}) in {split['write_s']:.1f} s")
+    trained = {}
+    t0 = time.perf_counter()
+    runs = ssl_paths(errs, data_dir=SMOKE_RESULTS, dataset=SEQ_DATASET, models=SEQ_MODELS,
+                     keep=trained)
+    dm, mm = trained["dcrec_seq"], trained["maerec"]
+    sizes = {"train_rows": {k: r["train_rows"] for k, r in runs.items()},
+             "dcrec_seq": {"adj": dm.adj.nnz, "sim": dm.sim.nnz, "adj_test": dm.adj_test.nnz,
+                           "sim_test": dm.sim_test.nnz},
+             "maerec": {"ii": mm.nnz}, "paths_s": time.perf_counter() - t0}
+    log(f"  train rows {sizes['train_rows']}; DCRec_seq graph nnz {sizes['dcrec_seq']}; "
+        f"MAERec distance-3 graph nnz {mm.nnz}; {sizes['paths_s']:.1f} s")
+
+    log("== 24. B1 against plain, DCRec_seq's and MAERec's layouts")
+    t0 = time.perf_counter()
+    seq_errs = ErrTrack()
+    for k, g in (("dcrec_seq_adj", dm.adj.g), ("dcrec_seq_sim", dm.sim.g),
+                 ("dcrec_seq_adj_test", dm.adj_test.g), ("maerec_ii", mm.graph)):
+        check_graph(seq_errs, k, g, (64, 1), gen, with_grads=True)
+    log(f"max abs err {seq_errs.abs:.3g}, max rel err {seq_errs.rel:.3g} (tolerance {TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    log("== 25. B1's bf16 mode (SSLREC_PALLAS_PRECISION=default)")
+    t0 = time.perf_counter()
+    cases = bf16_cases(lgcn, seg_lay, mm, gen)
+    bf16_err = bf16_checks(cases)
+    bf16_path = bf16_lightgcn_path(lgcn_counts)
+    log(f"  {time.perf_counter() - t0:.1f} s")
+
+    log("== 26. the sequential shapes and the bf16 mode timing")
+    t0 = time.perf_counter()
+    t, bound = {}, {}
+    ops = seq_operands(dm, mm, gen)
+    for k, (lay, x, w) in ops.items():
+        t[k], bound[k] = time_b1(lay, x, w)
+        log_timing(k, t[k], bound[k])
+    for k in ("lightgcn_hop", "maerec_hop_d64"):
+        lay, x, w = cases[k]
+        f32_r, _ = time_b1(lay, x, w)
+        set_precision(True)
+        try:
+            key = f"bf16_{k}"
+            # the call's own cast of x to bf16, timed alone beside it
+            t[key], bound[key] = time_b1(lay, x, w, cast=lambda: x.to(torch.bfloat16))
+        finally:
+            set_precision(False)
+        t[key].update(f32_ms=f32_r["ms"], f32_cold_ms=f32_r["cold_ms"],
+                      **bf16_err[k])
+        log_timing(key, t[key], bound[key])
+        log(f"    float32 mode: {f32_r['ms'] * 1e3:.2f} us device, {f32_r['cold_ms'] * 1e3:.2f} "
+            f"cold; bf16 mode {t[key]['cold_ms'] * 1e3:.2f} cold; the cast of x alone "
+            f"{t[key]['cast_ms'] * 1e3:.2f}")
+    log(f"  {time.perf_counter() - t0:.1f} s")
+    return {"runs": runs, "errs": seq_errs, "t": t, "bound": bound, "split": split,
+            "sizes": sizes, "bf16_err": bf16_err, "bf16_path": bf16_path,
+            "shapes": {k: (lay.n_rows, lay.n_cols, lay.cols.shape[0], x.shape[1])
+                       for k, (lay, x, _) in {**ops, **cases}.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -1676,14 +2016,20 @@ def main() -> int:
             f"({r['eval_users'] / r['eval_s']:.0f} users/s)")
     log(f"  test recall@20 {kg_trainer.test_results['recall'][1]:.5f}, "
         f"ndcg@20 {kg_trainer.test_results['ndcg'][1]:.5f}")
+    # the reference runs in float64: the RGAT's row normalisation magnifies
+    # float32 rounding where a head's attention sum nearly cancels, and a
+    # float32 reference on the CPU, whose rounding varies with the host, has
+    # read over the tolerance against the same training
     cpu_model = build_model(kg_cfg, kg_cpu)
     cpu_model.load_state_dict({k: v.cpu() for k, v in kg_trainer.model.state_dict().items()})
+    cpu_model.double()
     with torch.no_grad():
         gu, gi = kg_trainer.model.generate()
         cu, ci = cpu_model.generate()
-    errs.check("kgcl.generate", torch.cat([gu, gi]).cpu(), torch.cat([cu, ci]))
+    got, ref = torch.cat([gu, gi]).cpu().double(), torch.cat([cu, ci])
+    errs.check("kgcl.generate", got, ref)
     log(f"  trained embeddings {tuple(gu.shape)} + {tuple(gi.shape)} finite, = the same "
-        f"forward on the CPU's plain versions: ok")
+        f"forward on the CPU's plain versions in float64 (rel err {rel_err(got, ref):.3g})")
     kgcl_small_step_check(errs)
 
     log("== 9. B1 against plain, the self-supervised models' shapes")
@@ -1795,8 +2141,9 @@ def main() -> int:
 
     ks = kcgn_smin_phases(errs, gen)
     kgp = kg_phases(errs, gen, dev)
+    seq = seq_phases(errs, gen, data.extras["bi_adj"], seg_lay, (launches, lgcn_combine))
 
-    log("== 23. result")
+    log("== 27. result")
     common = {"route": "cuda", "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
               "replaces": "sslrec_tpu/ops/pallas_spmm.py:123",
               "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel"}
@@ -1825,7 +2172,8 @@ def main() -> int:
     lgcn_err = ErrTrack()
     lgcn_err.abs, lgcn_err.rel = main_abs, main_rel
     lgcn_counts, kg_counts = (launches, lgcn_combine), (kg_b1, kg_combine)
-    ssl_runs = {**ssl_runs, **view_runs, **soc_runs, **ks["runs"], **kgp["runs"]}
+    ssl_runs = {**ssl_runs, **view_runs, **soc_runs, **ks["runs"], **kgp["runs"],
+                **seq["runs"]}
     ssl_b1 = sum(r["launches"] for r in ssl_runs.values())
     ssl_combine = sum(r["combine_launches"] for r in ssl_runs.values())
     b1 = b1_row("csr_spmm", hop["none"], hop_bound["none"],
@@ -1840,7 +2188,9 @@ def main() -> int:
                                    **{k: r["per_step"] for k, r in ssl_runs.items()}},
                 max_rel_err_all_checks=max(errs.rel, seg_errs.rel, rel_errs.rel,
                                            ui_errs.rel, ssl_errs.rel, view_errs.rel,
-                                           soc_errs.rel, ks["errs"].rel, kgp["errs"].rel),
+                                           soc_errs.rel, ks["errs"].rel, kgp["errs"].rel,
+                                           seq["errs"].rel,
+                                           *(e["max_rel_err"] for e in seq["bf16_err"].values())),
                 stress={"max_abs_err": stress_errs.abs, "max_rel_err": stress_errs.rel,
                         "reference": "plain version in float64"},
                 library_call="torch.sparse.mm on a CSR tensor of the layout")
@@ -1961,6 +2311,39 @@ def main() -> int:
              "layout": {"seg": "segment layout", "fwd": "forward",
                         "bwd": "transposed"}[layout]},
             library_call=sparse_mm, launches_of=list(paths)))
+    for k, r in seq["t"].items():
+        model = "maerec" if "maerec" in k else "dcrec_seq"
+        counts = (ssl_runs[model]["launches"], ssl_runs[model]["combine_launches"])
+        err, more = seq["errs"], {"launches_of": [model]}
+        if k.startswith("bf16_"):
+            err = ErrTrack()
+            be = seq["bf16_err"][k[5:]]
+            err.abs, err.rel = be["max_abs_err"], be["max_rel_err"]
+            more = {"precision": "bf16 mode (SSLREC_PALLAS_PRECISION=default): x gathered as "
+                                 "bf16 rows, each product rounded to bf16, summed in float32",
+                    "max_rel_err_vs_f32_plain": be["max_rel_err_vs_f32"],
+                    "bf16_checks": seq["bf16_err"],
+                    "f32_ms": r["f32_ms"], "f32_cold_ms": r["f32_cold_ms"],
+                    "bound_note": "the function's bound: x read once as float32, out written "
+                                  "once (the cast to bf16 is part of the call)"}
+            if k == "bf16_lightgcn_hop":
+                p = seq["bf16_path"]
+                counts = (p["launches"], p["combine_launches"])
+                more.update(launches_of=["lightgcn (bf16 mode, 2 epochs)"], bf16_path=p)
+            else:
+                more.update(launches_of=["maerec"],
+                            launches_scope="B1's launches in the MAERec run, float32 mode: "
+                                           "the bf16 mode is the same kernel under the "
+                                           "variable, driven on the LightGCN path")
+        n_r, n_c, nnz_k, d_k = seq["shapes"][k[5:] if k.startswith("bf16_") else k]
+        vals = "" if k.endswith("spread_d1") else " whose values already carry the call's values"
+        rows_b1.append(b1_row(
+            f"csr_spmm.{k}", r, seq["bound"][k], counts, err,
+            {"n_rows": n_r, "n_cols": n_c, "nnz": nnz_k, "d": d_k,
+             "layout": "transposed" if "_t_" in k or k.endswith("_t") else "forward"},
+            library_call=f"torch.sparse.mm on a CSR tensor of the layout{vals}", **more))
+    rows_b1[-1]["sequential"] = {"split": seq["split"], "sizes": seq["sizes"],
+                                 "runs": seq["runs"]}
     rows_b1[0]["tuner_and_resume_on_card"] = {
         "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
         "resume_bit_equal_tensors": tr["resume_tensors"]}

@@ -1,4 +1,5 @@
-// CSR sparse-matrix x dense-matrix product for Hopper (sm_90a), f32.
+// CSR sparse-matrix x dense-matrix product for Hopper (sm_90a), f32, with a
+// bf16 mode.
 //
 // Replaces sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel, the TPU kernel that
 // runs every graph-propagation hop (forward, and backward on the transposed
@@ -52,10 +53,20 @@
 // accumulator per feature, and partials in chunk order, so two calls give
 // bit-identical output.  An empty row writes 0.
 //
-// Not done here (later work): the bf16 gather mode of the JAX package
-// (SSLREC_PALLAS_PRECISION=default); TMA / cp.async staging of the edge
-// arrays; fusing the split rows' combine into the last-arriving chunk.
+// bf16 mode (the JAX package's SSLREC_PALLAS_PRECISION=default, which halves
+// the gathered bytes): x arrives as bf16 rows (the host casts it once a
+// call), and each edge's contribution is
+//
+//   bf16( bf16(x[col]) * bf16(vals[e] * w(e)) )      accumulated in f32,
+//
+// the product formed in f32 from the two bf16 operands (exact: 8 x 8
+// mantissa bits) and rounded once, which is the JAX package's bf16 multiply.
+// The f32 mode is untouched by it.
+//
+// Not done here (later work): TMA / cp.async staging of the edge arrays;
+// fusing the split rows' combine into the last-arriving chunk.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,7 +90,7 @@ struct Params {
   uint32_t salt;
   float keep_rate;
   int resize_val;
-  const float* x;
+  const void* x;           // float rows, or bf16 rows in bf16 mode
   float* out;
   float* partials;
   int d;
@@ -123,6 +134,24 @@ __device__ __forceinline__ void load_vec(float (&dst)[VEC], const float* src) {
   }
 }
 
+// VEC bf16 values (8 bytes for VEC 4) widened to float.
+template <int VEC>
+__device__ __forceinline__ void load_vec(float (&dst)[VEC], const __nv_bfloat16* src) {
+  if constexpr (VEC == 4) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(src));
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+    dst[0] = __low2float(a); dst[1] = __high2float(a);
+    dst[2] = __low2float(b); dst[3] = __high2float(b);
+  } else {
+    dst[0] = __bfloat162float(src[0]);
+  }
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 template <int VEC>
 __device__ __forceinline__ void store_vec(float* dst, const float (&src)[VEC]) {
   if constexpr (VEC == 4) {
@@ -135,8 +164,10 @@ __device__ __forceinline__ void store_vec(float* dst, const float (&src)[VEC]) {
 // One group of G = 2^log2g lanes per item.  Items [0, n_chunks) are chunks,
 // the rest empty rows.  A group's lanes share their item, so a group leaves
 // whole and its shuffles (masked to the group) always see all its lanes.
-template <int VEC, int NV, int MODE>
+template <typename T, int VEC, int NV, int MODE>
 __global__ void __launch_bounds__(kThreads) spmm_chunks(const Params p) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const T* __restrict__ x = static_cast<const T*>(p.x);
   constexpr int U = NV >= 8 ? 1 : 8 / NV;     // edges whose x loads are in flight together
   const int G = 1 << p.log2g;
   const int lane = threadIdx.x & 31;
@@ -190,7 +221,7 @@ __global__ void __launch_bounds__(kThreads) spmm_chunks(const Params p) {
           for (int k = 0; k < NV; ++k) {
             const int f = f0 + (k * G + sub) * VEC;
             if (j0 + u < n && f < d)
-              load_vec<VEC>(xv[u][k], p.x + static_cast<int64_t>(cj[u]) * d + f);
+              load_vec<VEC>(xv[u][k], x + static_cast<int64_t>(cj[u]) * d + f);
           }
         }
         if constexpr (MODE == kPrf) {
@@ -203,12 +234,18 @@ __global__ void __launch_bounds__(kThreads) spmm_chunks(const Params p) {
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
+          const float vu = kBf16 ? round_bf16(vj[u]) : vj[u];
 #pragma unroll
           for (int k = 0; k < NV; ++k) {
             const int f = f0 + (k * G + sub) * VEC;
             if (j0 + u < n && f < d) {
 #pragma unroll
-              for (int i = 0; i < VEC; ++i) acc[k][i] = fmaf(vj[u], xv[u][k][i], acc[k][i]);
+              for (int i = 0; i < VEC; ++i) {
+                if constexpr (kBf16)
+                  acc[k][i] = __fadd_rn(acc[k][i], round_bf16(__fmul_rn(vu, xv[u][k][i])));
+                else
+                  acc[k][i] = fmaf(vu, xv[u][k][i], acc[k][i]);
+              }
             }
           }
         }
@@ -247,22 +284,22 @@ combine_chunks(const int* __restrict__ split_ptr, const int* __restrict__ split_
   out[static_cast<int64_t>(split_rows[i]) * d + f] = acc;
 }
 
-template <int VEC, int NV>
+template <typename T, int VEC, int NV>
 void launch_mode(int mode, int blocks, cudaStream_t s, const Params& p) {
   switch (mode) {
-    case kNone: spmm_chunks<VEC, NV, kNone><<<blocks, kThreads, 0, s>>>(p); break;
-    case kTensor: spmm_chunks<VEC, NV, kTensor><<<blocks, kThreads, 0, s>>>(p); break;
-    default: spmm_chunks<VEC, NV, kPrf><<<blocks, kThreads, 0, s>>>(p); break;
+    case kNone: spmm_chunks<T, VEC, NV, kNone><<<blocks, kThreads, 0, s>>>(p); break;
+    case kTensor: spmm_chunks<T, VEC, NV, kTensor><<<blocks, kThreads, 0, s>>>(p); break;
+    default: spmm_chunks<T, VEC, NV, kPrf><<<blocks, kThreads, 0, s>>>(p); break;
   }
 }
 
-template <int VEC>
+template <typename T, int VEC>
 void launch_nv(int nv, int mode, int blocks, cudaStream_t s, const Params& p) {
   switch (nv) {
-    case 1: launch_mode<VEC, 1>(mode, blocks, s, p); break;
-    case 2: launch_mode<VEC, 2>(mode, blocks, s, p); break;
-    case 3: launch_mode<VEC, 3>(mode, blocks, s, p); break;
-    default: launch_mode<VEC, kMaxNv>(mode, blocks, s, p); break;
+    case 1: launch_mode<T, VEC, 1>(mode, blocks, s, p); break;
+    case 2: launch_mode<T, VEC, 2>(mode, blocks, s, p); break;
+    case 3: launch_mode<T, VEC, 3>(mode, blocks, s, p); break;
+    default: launch_mode<T, VEC, kMaxNv>(mode, blocks, s, p); break;
   }
 }
 
@@ -273,15 +310,16 @@ void launch_nv(int nv, int mode, int blocks, cudaStream_t s, const Params& p) {
 // ids are the identity, vals on one whose values are all ones; at most one of
 // ew (a [nnz] multiplier in the original edge order) and key (the dropout
 // PRF's int64 [2] key) is set; partials holds one d-row per chunk of a split
-// row.  Launches on `stream` and returns the first cudaGetLastError() that is
-// not 0 (0 on success); it does not synchronise.
+// row; x holds bf16 rows where x_bf16 is set (the bf16 mode), else float.
+// Launches on `stream` and returns the first cudaGetLastError() that is not 0
+// (0 on success); it does not synchronise.
 extern "C" int csr_spmm_f32(const void* chunk_ptr, const void* chunk_dst, int n_chunks,
                             const void* empty_rows, int n_empty, const void* split_ptr,
                             const void* split_rows, int n_split, const void* cols,
                             const void* vals, const void* edge_ids, const void* ew,
                             const void* key, unsigned salt, float keep_rate, int resize_val,
                             const void* x, void* out, void* partials, int d, int log2g,
-                            void* stream) {
+                            int x_bf16, void* stream) {
   if (d <= 0 || n_chunks + n_empty <= 0) return 0;
   if (log2g < 0 || log2g > 5) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{static_cast<const int*>(chunk_ptr), static_cast<const int*>(chunk_dst),
@@ -289,9 +327,10 @@ extern "C" int csr_spmm_f32(const void* chunk_ptr, const void* chunk_dst, int n_
                  static_cast<const int*>(cols), static_cast<const float*>(vals),
                  static_cast<const int*>(edge_ids), static_cast<const float*>(ew),
                  static_cast<const long long*>(key), salt, keep_rate, resize_val,
-                 static_cast<const float*>(x), static_cast<float*>(out),
+                 x, static_cast<float*>(out),
                  static_cast<float*>(partials), d, log2g};
-  const bool vec4 = d % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const uintptr_t align = x_bf16 ? 7 : 15;     // a 4-vector's bytes, less one
+  const bool vec4 = d % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & align) == 0;
   const int vec = vec4 ? 4 : 1;
   const int nvec = (d + vec - 1) / vec;
   const int g = 1 << log2g;
@@ -300,10 +339,16 @@ extern "C" int csr_spmm_f32(const void* chunk_ptr, const void* chunk_dst, int n_
   const int64_t threads = static_cast<int64_t>(n_chunks + n_empty) << log2g;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4)
-    launch_nv<4>(nv, mode, blocks, s, p);
-  else
-    launch_nv<1>(nv, mode, blocks, s, p);
+  if (x_bf16) {
+    if (vec4)
+      launch_nv<__nv_bfloat16, 4>(nv, mode, blocks, s, p);
+    else
+      launch_nv<__nv_bfloat16, 1>(nv, mode, blocks, s, p);
+  } else if (vec4) {
+    launch_nv<float, 4>(nv, mode, blocks, s, p);
+  } else {
+    launch_nv<float, 1>(nv, mode, blocks, s, p);
+  }
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || n_split <= 0) return err;
   const int64_t cthreads = static_cast<int64_t>(n_split) * d;

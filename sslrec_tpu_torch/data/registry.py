@@ -1,6 +1,6 @@
 """Data-handler registry: scenario type → loader (port of
-``sslrec_tpu/data/registry.py``; the ``general_cf``, ``kg`` and ``social``
-scenarios so far)."""
+``sslrec_tpu/data/registry.py``; the ``general_cf``, ``kg``, ``social`` and
+``sequential`` scenarios so far)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ _HANDLERS = {
     "general_cf": "sslrec_tpu_torch.data.general_cf",
     "kg": "sslrec_tpu_torch.data.kg",
     "social": "sslrec_tpu_torch.data.social",
+    "sequential": "sslrec_tpu_torch.data.sequential",
 }
 
 

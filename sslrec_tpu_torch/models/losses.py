@@ -120,3 +120,18 @@ def grace_pair_losses(zs, tau: float, chunk: int = 256) -> dict:
             denom = sums[g, :, g] + sums[g, :, h] - self_diag
             out[(g, h)] = -torch.log(torch.exp(diag / tau) / denom + 1e-8).sum() / n
     return out
+
+
+def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 0):
+    """Mean cross entropy over the positions whose label is not
+    ``ignore_index`` (BERT4Rec's masked-item loss); 0 where there is none."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    valid = (labels != ignore_index).to(logits.dtype)
+    return -(ll * valid).sum() / valid.sum().clamp(min=1.0)
+
+
+def next_item_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean of −log softmax(logits)[target] over the batch."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, 1, targets.long()[:, None])[:, 0].mean()

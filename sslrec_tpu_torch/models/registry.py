@@ -1,5 +1,5 @@
 """Model registry: name → class (port of ``sslrec_tpu/models/registry.py``;
-the general_cf family, KGCL, KGIN and KGRec, and the social family so far).
+the general_cf, social and sequential families, KGCL, KGIN and KGRec so far).
 Lookup is case-insensitive."""
 
 from __future__ import annotations
@@ -9,6 +9,7 @@ import importlib
 _GENERAL_CF = "sslrec_tpu_torch.models.general_cf."
 _SOCIAL = "sslrec_tpu_torch.models.social."
 _KG = "sslrec_tpu_torch.models.kg."
+_SEQ = "sslrec_tpu_torch.models.sequential."
 
 # name -> (module path, class name). Populated as model families land.
 _REGISTRY: dict[str, tuple[str, str]] = {
@@ -31,6 +32,12 @@ _REGISTRY: dict[str, tuple[str, str]] = {
     "dsl": (_SOCIAL + "dsl", "DSL"),
     "kcgn": (_SOCIAL + "kcgn", "KCGN"),
     "smin": (_SOCIAL + "smin", "SMIN"),
+    "bert4rec": (_SEQ + "bert4rec", "BERT4Rec"),
+    "cl4srec": (_SEQ + "cl4srec", "CL4SRec"),
+    "duorec": (_SEQ + "duorec", "DuoRec"),
+    "iclrec": (_SEQ + "iclrec", "ICLRec"),
+    "dcrec_seq": (_SEQ + "dcrec", "DCRecSeq"),
+    "maerec": (_SEQ + "maerec", "MAERec"),
 }
 
 

@@ -10,7 +10,11 @@ into chunks of at most T edges by :func:`split_plan`, a row of more than T
 edges summed as several chunks and combined in chunk order.
 
 Dispatch: a tensor on the CPU goes to :func:`csr_spmm_plain`; a CUDA tensor
-launches the kernel or raises.  The backward pass of every hop is the same
+launches the kernel or raises.  Both follow the precision mode
+(:func:`bf16_mode`): exact float32 by default; with
+``SSLREC_PALLAS_PRECISION=default``, the variable the JAX package reads,
+every contribution is ``bf16(bf16(x[col]) · bf16(vals·w))`` summed in
+float32, and the kernel gathers x as bf16 rows.  The backward pass of every hop is the same
 kernel on the transposed layout, which is always built: A need not be
 symmetric.  Edge dropout (:class:`PrfMask`) is evaluated inside the kernel
 from each layout's edge ids; :class:`EdgeMask` carries a materialised
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -318,7 +323,7 @@ def csr_spmm_split_plain(layout: CsrLayout, plan: SplitPlan, x: torch.Tensor,
                          ew=None) -> torch.Tensor:
     """Plain PyTorch emulation of the kernel's schedule, for tests: each
     chunk's sum, then every split row's partials added in chunk order."""
-    contrib = _edge_values(layout, ew)[:, None] * x[layout.cols]
+    contrib = _contributions(layout, x, ew)
     sizes = torch.diff(plan.chunk_ptr.long())
     chunk_of_edge = torch.repeat_interleave(torch.arange(plan.n_chunks, device=x.device),
                                             sizes)
@@ -347,7 +352,34 @@ def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return load_kernel("csr_spmm", "csr_spmm_f32",
                        [p, p, i, p, i, p, p, i, p, p, p, p, p, ctypes.c_uint, ctypes.c_float,
-                        i, p, p, p, i, i, p])
+                        i, p, p, p, i, i, i, p])
+
+
+@functools.lru_cache(maxsize=1)
+def bf16_mode() -> bool:
+    """Whether ``SSLREC_PALLAS_PRECISION`` is ``default`` (read once, as the
+    JAX package's ``_mxu_precision``; ``bf16_mode.cache_clear()`` rereads it).
+
+    The JAX package's mode: its hops gather ``bf16(x)`` and multiply by
+    ``bf16(vals·w)`` in bf16, and the TPU's one-pass matmul rounds every
+    segment sum's contribution to bf16, each summed in float32.  Here every
+    B1 call, hop or segment sum, forms ``bf16(bf16(x[col]) · bf16(vals·w))``
+    and sums it in float32 (for a segment sum, whose values are 1, that is
+    ``bf16(x)``); the backward pass's hops follow the same mode, and a learned
+    weight's gradient stays float32."""
+    return os.environ.get("SSLREC_PALLAS_PRECISION", "highest").lower() == "default"
+
+
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _contributions(layout: CsrLayout, x: torch.Tensor, ew) -> torch.Tensor:
+    """Each slot's ``vals[e]·w(e)·x[cols[e]]``, rounded as the mode says."""
+    ev = _edge_values(layout, ew)
+    if bf16_mode():
+        return _round_bf16(_round_bf16(x[layout.cols]) * _round_bf16(ev).to(x.dtype)[:, None])
+    return ev[:, None] * x[layout.cols]
 
 
 def _edge_values(layout: CsrLayout, ew) -> torch.Tensor:
@@ -360,9 +392,10 @@ def _edge_values(layout: CsrLayout, ew) -> torch.Tensor:
 
 
 def csr_spmm_plain(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the same sum through ``index_add_``."""
+    """Plain PyTorch version of the kernel: the same sum through ``index_add_``,
+    in the precision mode (:func:`bf16_mode`)."""
     out = torch.zeros(layout.n_rows, x.shape[1], dtype=x.dtype, device=x.device)
-    return out.index_add_(0, layout.rows, _edge_values(layout, ew)[:, None] * x[layout.cols])
+    return out.index_add_(0, layout.rows, _contributions(layout, x, ew))
 
 
 def _check(layout: CsrLayout, x: torch.Tensor, ew):
@@ -402,7 +435,8 @@ def csr_spmm(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
     evaluated inside the kernel.
 
     A CPU ``x`` takes :func:`csr_spmm_plain`; a CUDA ``x`` launches the kernel
-    on the current stream with the lane group and split threshold that
+    (in bf16 mode on a bf16 copy of ``x``, made here) on the current stream
+    with the lane group and split threshold that
     :func:`lane_group` and :func:`split_threshold` pick for ``d``, the layout
     and the card, or raises.  ``csr_spmm.launches`` counts the launches of the
     chunk kernel, one a call; ``csr_spmm.combine_launches`` those of the
@@ -424,6 +458,8 @@ def csr_spmm(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
     partials = torch.empty(plan.n_slots, d, dtype=torch.float32, device=x.device)
     prf = ew if isinstance(ew, PrfMask) else None
     tensor_ew = None if prf is not None else ew
+    bf16 = bf16_mode()
+    xk = x.to(torch.bfloat16) if bf16 else x
     err = _kernel()(
         plan.chunk_ptr.data_ptr(), plan.chunk_dst.data_ptr(), plan.n_chunks,
         plan.empty_rows.data_ptr(), plan.empty_rows.shape[0],
@@ -435,8 +471,8 @@ def csr_spmm(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
         0 if prf is None else prf.salts & _U32,
         1.0 if prf is None else prf.keep_rate,
         int(prf is not None and prf.resize_val),
-        x.data_ptr(), out.data_ptr(), partials.data_ptr(), d, group.bit_length() - 1,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        xk.data_ptr(), out.data_ptr(), partials.data_ptr(), d, group.bit_length() - 1,
+        int(bf16), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"csr_spmm: launch of libcsr_spmm.so's kernel failed: "
                            f"cudaError {err}")

@@ -138,7 +138,9 @@ class Trainer:
     def epoch_draws(self, epoch: int):
         """Epoch ``epoch``'s batches ``[n_batches, B]`` (indices into the train
         interactions), the full-epoch sampled streams (``"neg"``, one negative
-        per interaction, unless the model's ``batch_fields`` lack it, and the
+        per interaction, from ``[extras["neg_low"], item_num)`` (``neg_low`` 0
+        unless the handler sets it: 1 for the sequential models' 1-based
+        ids), unless the model's ``batch_fields`` lack it, and the
         model's ``extra_negatives``), and per-step PRF keys ``[n_batches, 2]``
         (uint32 values in int64), all on the data's device."""
         data, bsz, n_batches = self.data, self.batch_size, self.n_batches
@@ -151,7 +153,8 @@ class Trainer:
         sampled = {}
         if "neg" in self.model.batch_fields:
             sampled["neg"] = sample_negatives(gen, self.arrays["user"], data.train_edge_set,
-                                              data.item_num)
+                                              data.item_num,
+                                              low=int(data.extras.get("neg_low", 0)))
         if hasattr(self.model, "extra_negatives"):
             sampled.update(self.model.extra_negatives(gen, self.arrays))
         keys = torch.randint(0, 2**32, (n_batches, 2), generator=gen,

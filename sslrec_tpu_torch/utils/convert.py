@@ -190,3 +190,60 @@ def kgrec_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     flat.update(_layers("cl_mlp1", params["cl_mlp1"]))
     flat.update(_layers("cl_mlp2", params["cl_mlp2"]))
     return _state(flat)
+
+
+def _tree(prefix: str, node) -> dict:
+    """A nested JAX tree of dicts and lists as dotted names (lists by index)."""
+    if isinstance(node, dict):
+        items = node.items()
+    elif isinstance(node, (list, tuple)):
+        items = enumerate(node)
+    else:
+        return {prefix: node}
+    out = {}
+    for k, v in items:
+        out.update(_tree(f"{prefix}.{k}" if prefix else str(k), v))
+    return out
+
+
+def _tower(params: dict, extra=()) -> dict[str, torch.Tensor]:
+    """The transformer tower's ``emb`` (``token`` where present, ``pos``) and
+    ``layers`` (``layers.i.attn.q.w`` …, ``ff.w1``, ``ln1.scale`` …), and
+    the model's ``extra`` top-level entries, under the same dotted names."""
+    flat = _tree("emb", params["emb"])
+    flat.update(_tree("layers", params["layers"]))
+    for k in extra:
+        flat.update(_tree(k, params[k]))
+    return _state(flat)
+
+
+def bert4rec_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The tower and the output projection ``out_fc.{w,b}`` ([d, item_num + 1])."""
+    return _tower(params, ("out_fc",))
+
+
+def cl4srec_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The tower and nothing else (the head is its token table)."""
+    return _tower(params)
+
+
+def duorec_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The tower and nothing else."""
+    return _tower(params)
+
+
+def iclrec_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The tower and nothing else; the centroids are per-epoch state."""
+    return _tower(params)
+
+
+def dcrec_seq_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The tower, ``cl_fc1`` / ``cl_fc2`` dense layers, ``attn_weights``
+    [d, d], ``attn`` [1, d] and the GCN's layer norm ``gcn_ln``."""
+    return _tower(params, ("cl_fc1", "cl_fc2", "attn_weights", "attn", "gcn_ln"))
+
+
+def maerec_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The tower without a token table (``emb.pos``, ``layers``), the item
+    table ``item_emb`` and the decoder's ``dec.l1`` … ``dec.l3``."""
+    return _tower(params, ("item_emb", "dec"))

@@ -84,7 +84,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    counted from the run's draws), no B2;
 18. the tuner and resume on the card: a 2-trial LightGCN grid of 1 epoch
    each (its tune artifact and no run artifact), and LightGCN 4 epochs
-   against 2 + a resumed 2, the train states after epoch 3 bit-equal;
+   against 2 + a resumed 2, the train states after epoch 3 bit-equal; the
+   sports-shaped split of phase 23 is written here, and MAERec (at batch
+   4096: 47 steps an epoch) is held the same way, its loss history in the
+   train state;
 19. drive KCGN and SMIN the same way as phase 11 (2 epochs at their
    published configs on yelp_sub: the CLI loads the data and builds both
    models on the card), B1's launches equal to ``SOCIAL_B1``;
@@ -104,12 +107,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    30,000) and B1 at both models' segment layouts (heads at d 64, 33, 1;
    tails, relations, the interact edges' users, items and entities) within
    1e-5, and time both;
-23. write a synthetic split shaped like Amazon Sports and Outdoors 5-core
+23. on the synthetic split shaped like Amazon Sports and Outdoors 5-core
    (35,598 users, 18,357 items, 296,337 interactions; ``sports_like_seqs``)
-   and drive BERT4Rec, CL4SRec, DuoRec, ICLRec, DCRec_seq and MAERec 2
-   epochs each at their published configs through the CLI, B1's launches
-   equal to ``SEQ_B1`` (0 for the first four), no B2, each ``generate()``
-   equal to the CPU's plain forward;
+   drive BERT4Rec, CL4SRec, DuoRec, ICLRec, DCRec_seq and MAERec 1
+   epoch each (``SEQ_EPOCHS``) at their published configs through the
+   CLI, B1's launches equal to ``SEQ_B1`` (0 for the first four), no B2,
+   each ``generate()`` equal to the CPU's plain forward;
 24. hold B1 against its plain version at the trained DCRec_seq's
    transition, similarity and test graphs and MAERec's distance-3 graph
    (d 64 and 1, both layouts, value, dx and dew) within 1e-5;
@@ -122,7 +125,29 @@ Phases, in order; any failure raises and the script exits non-zero:
 26. time DCRec_seq's hops and degree sums and MAERec's hop and d 1 spread,
    and the bf16 mode beside the float32 mode at the LightGCN and MAERec
    hops, each beside its bound, its plain version and ``torch.sparse.mm``;
-27. print the ``{"kernels": [...]}`` line, then the card line, then
+27. drive DiffKG and KGCL with ``model.train_trans`` (its TransE sub-loop)
+   2 epochs each through the CLI on the synthetic KG of phase 6, B1's and
+   B2's launches equal to ``KG_COUNTS`` (DiffKG 30 B1 + 4 B2 a step, one
+   B1 an epoch for its diffusion's UI hop), each ``generate()`` equal to the
+   CPU's plain forward in float64;
+28. hold the trained DiffKG's denoised-KG layouts (built on the card each
+   epoch) against the host builds, B2 exactly at its denoised and capped
+   heads, and B1 within 1e-5 at its RGAT sums and gathers (heads, tails,
+   relations, both KGs), its UI hop under the all-ones view's values and
+   its ukgc term's rectangular UI matrix, both directions;
+29. write a synthetic split shaped like Tmall (CML's table: 31,882 users,
+   31,232 items, 1,451,219 interactions over pv, fav, cart and buy, the
+   per-behavior counts assumed: ``TMALL_SHAPE``; ``tmall_like_split``) with
+   HMGCR's meta-path intersections under ``SMOKE_RESULTS/multi_behavior/
+   tmall/``, and drive MBGMN, HMGCR and SMBRec 2 epochs each at their
+   published configs, B1's launches equal to ``MB_B1``, no B2, each
+   ``generate()`` equal to the CPU's plain forward;
+30. hold B1 within 1e-5 at every behavior's A and AT (d 32 and 16) and
+   every meta path's (d 16), both layouts, value and gradients;
+31. time DiffKG's and the multi-behavior shapes and B2 at the denoised and
+   capped heads, each beside its bound, its plain version and the library
+   call (``torch.sparse.mm``; ``scatter_reduce_`` for B2);
+32. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
@@ -259,8 +284,9 @@ SOCIAL_B1 = {"dcrec": (62, 4), "mhcn": (26, 10), "dsl": (10, 3), "kcgn": (16, 1)
 DCREC_ADDED_B1 = {"ui": 18, "uu": 9}
 KCGN_SMIN = ("kcgn", "smin")
 KG_MODELS = ("kgin", "kgrec")
-# B1 and B2 launches of KGIN and KGRec at their published configs (2 hops),
-# counted from the code: ((B1, B2) per training step, (B1, B2) per generate()).
+# B1 and B2 launches of the KG paths through the CLI at their published
+# configs (2 hops), counted from the code: (B1, B2) per training step, per
+# generate(), per epoch (its epoch_state) and at construction.
 # - KGIN: the heads' live count once, per hop the heads' sum and the users'
 #   sum: 5 forward; backward the relation take once and per hop the tails'
 #   and the interact entities' gathers: 5; 10 a step; generate 5.
@@ -274,9 +300,46 @@ KG_MODELS = ("kgin", "kgrec")
 #   tower's gathers but the last hop's user-side one, whose output is unused
 #   (3), and the KG tower's tails' gathers (2): 12; 30 B1, 5 B2 a step;
 #   generate 6 B1, 4 B2.
-KG_COUNTS = {"kgin": ((10, 0), (5, 0)), "kgrec": ((30, 5), (6, 4))}
+# - DiffKG (cl_pattern 1): two forwards a step (the capped KG's and the
+#   denoised KG's), each an RGAT of 2 hops (per hop a B2 shift, the
+#   softmax's B1 sum and the attention sum; backward the softmax's sum and
+#   the heads' and tails' gathers: 5 B1) with the relation take's backward
+#   once (11 B1, 2 B2), and 2 UI hops with their dx (4): 30 B1, 4 B2 a step;
+#   generate 6 B1, 2 B2; an epoch's diffusion the ukgc term's one transposed
+#   UI hop; construction the all-ones view's degree sum.
+# - KGCL with train_trans: phase 8's counts (KGCL_B1_PER_STEP, ...); the
+#   TransE sub-loop's gathers are embeddings, no launch.
+KG_COUNTS = {"kgin": {"step": (10, 0), "gen": (5, 0)},
+             "kgrec": {"step": (30, 5), "gen": (6, 4)},
+             "diffkg": {"step": (30, 4), "gen": (6, 2), "epoch": (1, 0), "build": (1, 0)},
+             "kgcl": {"step": (31, 6), "gen": (5, 2), "epoch": (6, 4)}}
+KG_NEW = ("diffkg", "kgcl")
+KG_NEW_ARGS = {"kgcl": ["--set", "model.train_trans=true"]}
+MB_DATASET = "tmall"        # written under SMOKE_RESULTS/multi_behavior/tmall/
+MB_MODELS = ("mbgmn", "hmgcr", "smbrec")
+# B1 launches of the multi-behavior models at their published configs on the
+# four Tmall behaviors, counted from the code: (per training step, per
+# generate()).  None runs B2.
+# - MBGMN (2 layers): a behavior's tower specialises (A·items, AT·users) and
+#   runs 2 hops a layer: 6; the final tower the same over every behavior:
+#   24; 48 forward; the hinge carries no gradient (detach_pre_loss), so only
+#   the final tower's 24 hops have a dx: 72 a step (one step an epoch:
+#   trnNum 100 users); generate 48.
+# - HMGCR (3 layers, 4 meta-path towers): per layer A·i then AT·u, each with
+#   dx: 48 a step; generate 24.
+# - SMBRec (2 layers, 4 behavior towers): 32 a step; generate 16.
+MB_B1 = {"mbgmn": (72, 48), "hmgcr": (48, 24), "smbrec": (32, 16)}
+# Tmall (CML, WSDM 2022): 31,882 users, 31,232 items, 1,451,219 interactions
+# over page view, favourite, cart and buy.  The split per behavior is this
+# script's assumption (pv densest, buy sparsest), the test's held-out buys
+# included in buy's count.
+TMALL_SHAPE = {"users": 31_882, "items": 31_232,
+               "counts": {"pv": 1_000_000, "fav": 144_000, "cart": 140_000, "buy": 167_219}}
 SEQ_DATASET = "sports_syn"  # written under SMOKE_RESULTS/sequential/sports_syn/
 SEQ_MODELS = ("bert4rec", "cl4srec", "duorec", "iclrec", "dcrec_seq", "maerec")
+# the sequential paths' depth: one epoch each, so that the script's later
+# phases fit its time (CL4SRec, DuoRec and ICLRec take 12-20 s an epoch)
+SEQ_EPOCHS = 1
 # B1 launches of the sequential models at their published configs, counted
 # from the code: (per training step, per mask step, per view of the epoch's
 # mask bank, per generate()).  BERT4Rec, CL4SRec, DuoRec and ICLRec run no
@@ -318,7 +381,13 @@ def b1_count(name: str, epochs: int, n_batches: int, fix_steps: int,
                 f"{per_step} per step, {per_mask} per mask step and {per_view} per view "
                 f"({masks} of each), {per_gen} per evaluation")
     if name in KG_COUNTS:
-        (per_step, _), (per_gen, _) = KG_COUNTS[name]
+        c = {k: v[0] for k, v in KG_COUNTS[name].items()}
+        per_epoch, build = c.get("epoch", 0), c.get("build", 0)
+        return (c["step"] * steps + per_epoch * epochs + c["gen"] * evals + build,
+                f"{c['step']} per step, {per_epoch} per epoch, {c['gen']} per evaluation, "
+                f"{build} at construction")
+    if name in MB_B1:
+        per_step, per_gen = MB_B1[name]
         return (per_step * steps + per_gen * evals,
                 f"{per_step} per step, {per_gen} per evaluation")
     if name in SOCIAL_B1:
@@ -341,11 +410,12 @@ def b1_count(name: str, epochs: int, n_batches: int, fix_steps: int,
 
 def b2_count(name: str, epochs: int, n_batches: int) -> int:
     """B2 launches of ``epochs`` epochs of model ``name`` through the CLI,
-    counted from the code: KGRec's alone among the paths ``ssl_paths`` runs."""
+    counted from the code: the KG paths' alone among those ``ssl_paths`` runs."""
     if name not in KG_COUNTS:
         return 0
-    (_, per_step), (_, per_gen) = KG_COUNTS[name]
-    return per_step * epochs * n_batches + per_gen * (epochs + 2)
+    c = {k: v[1] for k, v in KG_COUNTS[name].items()}
+    return (c["step"] * epochs * n_batches + c.get("epoch", 0) * epochs
+            + c["gen"] * (epochs + 2) + c.get("build", 0))
 
 
 T_START = time.perf_counter()
@@ -991,19 +1061,24 @@ def time_ssl_shapes(plain: sk.CsrGraph, rect: sk.CsrGraph,
 
 def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
               dataset: str = DATASET, epochs: int = 2, models=SSL_MODELS,
-              keep: dict | None = None) -> dict[str, dict]:
+              keep: dict | None = None, extra_args: dict | None = None,
+              ref64=()) -> dict[str, dict]:
     """Each of ``models`` trained ``epochs`` epochs at its published config
     through ``sslrec_tpu_torch.main``, with the launch counts reset just
     before and read just after the run; checks the losses, B1's launches
     against :func:`b1_count`, B2's against :func:`b2_count`, and
     ``generate()`` against the same forward on the CPU's plain versions
-    (LightGCL with the card's SVD factors).  Each trained model goes into
-    ``keep`` where it is given, so later phases take its layouts."""
+    (LightGCL with the card's SVD factors; in float64 for the models in
+    ``ref64``, whose RGAT's row normalisation magnifies float32 rounding, as
+    phase 8 holds KGCL).  ``extra_args`` adds a model's CLI arguments.  Each
+    trained model goes into ``keep`` where it is given, so later phases take
+    its layouts."""
     cpu_data, out = None, {}
     for name in models:
         argv = ["--model", name, "--data_dir", data_dir, "--dataset", dataset,
                 "--epoch", str(epochs), "--device", device, "--set", "train.test_step=1",
-                "--set", f"train.results_dir={SMOKE_RESULTS}", "--set", "tune.enable=false"]
+                "--set", f"train.results_dir={SMOKE_RESULTS}", "--set", "tune.enable=false",
+                *(extra_args or {}).get(name, [])]
         sk.csr_spmm.launches = sk.csr_spmm.combine_launches = skn.segment_max.launches = 0
         t0 = time.perf_counter()
         trainer = port_main.main(argv)
@@ -1031,17 +1106,19 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
                 f"{r['train_s']:.3f} s, valid recall@20 {r['valid']['recall'][at20]:.5f}, "
                 f"eval {r['eval_s']:.3f} s")
         model = trainer.model
-        if cpu_data is None or trainer.cfg.data.type in ("social", "kg", "sequential"):
+        if cpu_data is None or trainer.cfg.data.type != "general_cf":
             cpu_data = load_data(trainer.cfg, "cpu")
         cpu_model = build_model(trainer.cfg, cpu_data)
         cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
         if name == "lightgcl":
             for k in ("ut", "vt", "u_mul_s", "v_mul_s"):
                 setattr(cpu_model, k, getattr(model, k).cpu())
+        if name in ref64:
+            cpu_model.double()
         with torch.no_grad():
             gu, gi = model.generate()
             cu, ci = cpu_model.generate()
-        got, ref = torch.cat([gu, gi]).cpu(), torch.cat([cu, ci])
+        got, ref = torch.cat([gu, gi]).cpu().to(cu.dtype), torch.cat([cu, ci])
         errs.check(f"{name}.generate", got, ref)
         test = trainer.test_results
         log(f"    test recall@20 {test['recall'][at20]:.5f}, ndcg@20 {test['ndcg'][at20]:.5f}; "
@@ -1050,6 +1127,7 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
         if keep is not None:
             keep[name] = model
         out[name] = {"launches": b1, "combine_launches": combine, "b2_launches": b2,
+                     "losses": [r["loss"] for r in rows],
                      "steps": steps, "per_step": b1 / steps, "wall_s": wall,
                      "train_s": [r["train_s"] for r in rows],
                      "test_recall20": float(test["recall"][at20]),
@@ -1432,6 +1510,18 @@ def kcgn_smin_phases(errs: ErrTrack, gen) -> dict:
     return {"runs": runs, "errs": ks_errs, "t": t, "bound": bound, "shapes": shapes}
 
 
+def check_b2(what: str, lay: skn.SegmentLayout, gen, valid=None) -> None:
+    """B2 equal to its plain version over ``lay``: random logits, the logits
+    at -1e9 where ``valid`` is 0 (else on a random half), all at -1e9."""
+    dev = lay.ids.device
+    logits = torch.randn(lay.n, generator=gen, device=dev) * 5
+    keep = (torch.rand(lay.n, generator=gen, device=dev) < 0.5) if valid is None else valid > 0
+    for tag, data in (("logits", logits), ("masked", torch.where(keep, logits, -1e9)),
+                      ("all_masked", torch.full((lay.n,), -1e9, device=dev))):
+        check_exact(f"segmax.{what}.{tag}", skn.segment_max(lay, data),
+                    skn.segment_max_plain(lay, data))
+
+
 def kg_phases(errs: ErrTrack, gen, dev) -> dict:
     """Phase 22: KGIN and KGRec driven through the CLI on the synthetic KG
     (written by phase 6), then B2 held exactly and B1 within the tolerance
@@ -1447,19 +1537,14 @@ def kg_phases(errs: ErrTrack, gen, dev) -> dict:
         f"{heads.group_width}, {heads.long_segments.numel()} in the whole-warp bin), "
         f"{trained['kgin'].im_vals.shape[0]} interact edges")
     kgf_errs = ErrTrack()
-    n_h = heads.n
-    logits = torch.randn(n_h, generator=gen, device=dev) * 5
-    keep = torch.rand(n_h, generator=gen, device=dev) < 0.5
-    for tag, data in (("logits", logits), ("masked", torch.where(keep, logits, -1e9)),
-                      ("all_masked", torch.full((n_h,), -1e9, device=dev))):
-        check_exact(f"segmax.kgrec.{tag}", skn.segment_max(heads, data),
-                    skn.segment_max_plain(heads, data))
+    check_b2("kgrec", heads, gen)
     log("  B2 at the uncapped heads: exact (logits, masked, all masked)")
     widths = {"kg_full_heads": (64, 33, 1)}
     for k, lay in kgf["seg"].items():
         check_segment_b1(kgf_errs, k, lay, widths.get(k, (64,)), gen)
     log(f"max abs err {kgf_errs.abs:.3g}, max rel err {kgf_errs.rel:.3g} (tolerance {TOL})")
     t, bound = time_layouts(kgf, KG_SHAPES, gen)
+    logits = torch.randn(heads.n, generator=gen, device=dev) * 5
     ids64 = heads.ids.long()
     amax = torch.full((heads.num_segments,), float("-inf"), device=dev)
     bound["b2_kgrec_heads"] = segmax_bound_ms(heads)
@@ -1476,13 +1561,51 @@ def kg_phases(errs: ErrTrack, gen, dev) -> dict:
             "heads_shape": heads_shape}
 
 
+def resume_check(model: str, data_dir: str, dataset: str, extra=(), device: str = "cuda",
+                 tag: str = "") -> int:
+    """``model`` 4 epochs straight against 2 and a resumed 2 through the CLI,
+    a state saved every 2 epochs: the train states after epoch 3 (every
+    tensor: parameters, optimizer states, best snapshot, the model's own
+    extra state) must be bit-equal, and the bookkeeping equal.  Returns the
+    number of tensors held."""
+    base = ["--model", model, "--data_dir", data_dir, "--dataset", dataset, "--device", device,
+            "--set", "train.test_step=1", "--set", "train.early_stop=false",
+            "--set", "train.save_state_every=2", "--set", "train.results_dir=", *extra]
+    t0 = time.perf_counter()
+    straight = port_main.main(base + ["--epoch", "4"])
+    first = port_main.main(base + ["--epoch", "2"])
+    resumed = port_main.main(base + ["--epoch", "4", "--set",
+                                     f"train.resume_path={first.state_path}"])
+    template = straight._state_template()
+    a = ckpt.load(straight.state_path, template)
+    b = ckpt.load(resumed.state_path, template)
+
+    def walk(x, y, where):
+        if torch.is_tensor(x):
+            check_exact(f"resume.{model}.{where}", y, x)
+            return 1
+        if isinstance(x, dict):
+            return sum(walk(x[k], y[k], f"{where}.{k}") for k in x)
+        if x != y:
+            raise AssertionError(f"resume.{model}.{where}: {x} != {y}")
+        return 0
+
+    n = walk(a, b, "state")
+    extra_state = a.get("extra", {})
+    log(f"  {model} {tag}4 epochs against 2 + resumed 2 in {time.perf_counter() - t0:.1f} s: "
+        f"the states after epoch {a['epoch']} equal bit for bit ({n} tensors), best_metric "
+        f"{a['best_metric']:.5f}, wait {a['wait']}"
+        + (f", extra state {sorted(extra_state)}" if extra_state else ""))
+    return n
+
+
 def tune_and_resume(device: str = "cuda", data_dir: str = DATA_DIR,
                     dataset: str = DATASET) -> dict:
     """On the card: a 2-trial LightGCN grid of 1 epoch each, which must write
-    its tune artifact and no run artifact under a scratch results_dir; and
-    a LightGCN run of 4 epochs against 2 and a resumed 2, whose train states
-    after epoch 3 (parameters, Adam state, best snapshot, bookkeeping) must
-    be bit-equal."""
+    its tune artifact and no run artifact under a scratch results_dir; a
+    LightGCN run of 4 epochs against 2 and a resumed 2 (:func:`resume_check`);
+    and MAERec's on the sports-shaped split at batch 4096 (47 steps an epoch,
+    one mask step; its loss history rides in the train state)."""
     base = ["--model", "lightgcn", "--data_dir", data_dir, "--dataset", dataset,
             "--device", device, "--set", "train.test_step=1", "--set", "train.early_stop=false"]
     tune_dir = os.path.join(SMOKE_RESULTS, "tune")
@@ -1496,31 +1619,26 @@ def tune_and_resume(device: str = "cuda", data_dir: str = DATA_DIR,
         raise AssertionError(f"tune: {os.listdir(tune_dir)}, {doc}")
     log(f"  2-trial grid in {time.perf_counter() - t0:.1f} s: "
         f"{[(t['assignment'], round(t['score'], 5)) for t in doc['trials']]}, best {best}")
-    every = ["--set", "train.save_state_every=2", "--set", "train.results_dir="]
+    n = resume_check("lightgcn", data_dir, dataset, device=device)
+    n_maerec = resume_check("maerec", SMOKE_RESULTS, SEQ_DATASET, device=device,
+                            extra=["--set", "train.batch_size=4096"], tag="(batch 4096) ")
+    return {"tune": doc, "resume_tensors": n, "maerec_resume_tensors": n_maerec}
+
+
+def write_sports_split() -> dict:
+    """The sports-shaped sequential split under SMOKE_RESULTS and its sizes."""
     t0 = time.perf_counter()
-    straight = port_main.main(base + every + ["--epoch", "4"])
-    first = port_main.main(base + every + ["--epoch", "2"])
-    resumed = port_main.main(base + every + ["--epoch", "4", "--set",
-                                             f"train.resume_path={first.state_path}"])
-    template = straight._state_template()
-    a = ckpt.load(straight.state_path, template)
-    b = ckpt.load(resumed.state_path, template)
-    n = 0
-    for part in ("params", "best_params"):
-        for k in a[part]:
-            check_exact(f"resume.{part}.{k}", b[part][k], a[part][k])
-            n += 1
-    for i, st in a["opt_state"]["adam"].items():
-        for k, v in st.items():
-            check_exact(f"resume.adam[{i}].{k}", b["opt_state"]["adam"][i][k], v)
-            n += 1
-    if (a["epoch"], a["best_metric"], a["wait"]) != (b["epoch"], b["best_metric"], b["wait"]):
-        raise AssertionError(f"resume bookkeeping {a['epoch'], a['best_metric'], a['wait']} "
-                             f"!= {b['epoch'], b['best_metric'], b['wait']}")
-    log(f"  4 epochs against 2 + resumed 2 in {time.perf_counter() - t0:.1f} s: the states "
-        f"after epoch {a['epoch']} equal bit for bit ({n} tensors), best_metric "
-        f"{a['best_metric']:.5f}, wait {a['wait']}")
-    return {"tune": doc, "resume_tensors": n}
+    seqs = sports_like_seqs()
+    write_seq_dataset(SEQ_DATASET, seqs)
+    lens = np.array([len(s) for s in seqs])
+    split = {"users": len(seqs), "items": int(max(max(s) for s in seqs)),
+             "interactions": int(lens.sum()), "mean_len": float(lens.mean()),
+             "min_len": int(lens.min()), "max_len": int(lens.max()),
+             "write_s": time.perf_counter() - t0}
+    log(f"  wrote {SEQ_DATASET}: {split['users']} users, {split['items']} items, "
+        f"{split['interactions']} interactions (length {split['min_len']}..{split['max_len']}, "
+        f"mean {split['mean_len']:.2f}) in {split['write_s']:.1f} s")
+    return split
 
 
 def sports_like_seqs(n_users: int = 35_598, n_items: int = 18_357,
@@ -1705,6 +1823,27 @@ def time_b1(lay: sk.CsrLayout, x: torch.Tensor, w, **extra) -> tuple[dict, tuple
     return r, bound
 
 
+def bf16_library_ms(lay: sk.CsrLayout, x: torch.Tensor, w) -> tuple[float | None, str]:
+    """The bf16 mode's library call: ``torch.sparse.mm`` on a bfloat16 CSR
+    tensor of ``lay`` (values pre-multiplied by ``w``) and bfloat16 ``x``:
+    its device time and what it is, or None and PyTorch's refusal."""
+    vals = lay.vals if w is None else lay.vals * w[lay.edge_ids.long()]
+    csr = torch.sparse_csr_tensor(lay.indptr, lay.cols, vals.to(torch.bfloat16),
+                                  size=(lay.n_rows, lay.n_cols))
+    xb = x.to(torch.bfloat16)
+    try:
+        torch.sparse.mm(csr, xb)
+        torch.cuda.synchronize()
+    except Exception as e:      # a yardstick only: PyTorch may not take bfloat16 CSR
+        return None, ("torch.sparse.mm refuses a bfloat16 CSR tensor here: "
+                      + str(e).splitlines()[0][:200])
+    what = "torch.sparse.mm on a bfloat16 CSR tensor (values pre-multiplied) and bfloat16 x"
+    try:
+        return device_ms(lambda: torch.sparse.mm(csr, xb)), what
+    except AssertionError as e:     # the profiler's windows did not agree: no reading
+        return None, f"{what}: not measured ({str(e)[:200]})"
+
+
 def seq_operands(dm, mm, gen) -> dict:
     """(layout, x, multiplier) of each timed sequential shape, from the
     trained DCRec_seq ``dm`` and MAERec ``mm``: the GCN hops both ways under
@@ -1733,25 +1872,15 @@ def seq_operands(dm, mm, gen) -> dict:
 
 
 def seq_phases(errs: ErrTrack, gen, lgcn: sk.CsrGraph, seg_lay: skn.SegmentLayout,
-               lgcn_counts: tuple[int, int]) -> dict:
-    """Phases 23-26: the sequential family on a sports-shaped split, B1 at
-    DCRec_seq's and MAERec's layouts, B1's bf16 mode, and their timing."""
+               lgcn_counts: tuple[int, int], split: dict) -> dict:
+    """Phases 23-26: the sequential family on the sports-shaped split (written
+    in phase 18), B1 at DCRec_seq's and MAERec's layouts, B1's bf16 mode,
+    and their timing."""
     log("== 23. the sequential paths (a synthetic sports-shaped split)")
-    t0 = time.perf_counter()
-    seqs = sports_like_seqs()
-    write_seq_dataset(SEQ_DATASET, seqs)
-    lens = np.array([len(s) for s in seqs])
-    split = {"users": len(seqs), "items": int(max(max(s) for s in seqs)),
-             "interactions": int(lens.sum()), "mean_len": float(lens.mean()),
-             "min_len": int(lens.min()), "max_len": int(lens.max()),
-             "write_s": time.perf_counter() - t0}
-    log(f"  wrote {SEQ_DATASET}: {split['users']} users, {split['items']} items, "
-        f"{split['interactions']} interactions (length {split['min_len']}..{split['max_len']}, "
-        f"mean {split['mean_len']:.2f}) in {split['write_s']:.1f} s")
     trained = {}
     t0 = time.perf_counter()
     runs = ssl_paths(errs, data_dir=SMOKE_RESULTS, dataset=SEQ_DATASET, models=SEQ_MODELS,
-                     keep=trained)
+                     keep=trained, epochs=SEQ_EPOCHS)
     dm, mm = trained["dcrec_seq"], trained["maerec"]
     sizes = {"train_rows": {k: r["train_rows"] for k, r in runs.items()},
              "dcrec_seq": {"adj": dm.adj.nnz, "sim": dm.sim.nnz, "adj_test": dm.adj_test.nnz,
@@ -1793,17 +1922,236 @@ def seq_phases(errs: ErrTrack, gen, lgcn: sk.CsrGraph, seg_lay: skn.SegmentLayou
             t[key], bound[key] = time_b1(lay, x, w, cast=lambda: x.to(torch.bfloat16))
         finally:
             set_precision(False)
+        lib_ms, lib_call = bf16_library_ms(lay, x, w)
         t[key].update(f32_ms=f32_r["ms"], f32_cold_ms=f32_r["cold_ms"],
-                      **bf16_err[k])
+                      library_f32_ms=t[key]["library_ms"], library_ms=lib_ms,
+                      library_call=lib_call, **bf16_err[k])
         log_timing(key, t[key], bound[key])
         log(f"    float32 mode: {f32_r['ms'] * 1e3:.2f} us device, {f32_r['cold_ms'] * 1e3:.2f} "
             f"cold; bf16 mode {t[key]['cold_ms'] * 1e3:.2f} cold; the cast of x alone "
-            f"{t[key]['cast_ms'] * 1e3:.2f}")
+            f"{t[key]['cast_ms'] * 1e3:.2f}; library: {lib_call}; in float32 "
+            f"{t[key]['library_f32_ms'] * 1e3:.2f}")
     log(f"  {time.perf_counter() - t0:.1f} s")
     return {"runs": runs, "errs": seq_errs, "t": t, "bound": bound, "split": split,
             "sizes": sizes, "bf16_err": bf16_err, "bf16_path": bf16_path,
             "shapes": {k: (lay.n_rows, lay.n_cols, lay.cols.shape[0], x.shape[1])
                        for k, (lay, x, _) in {**ops, **cases}.items()}}
+
+
+# (key, operand, width, layout) of each DiffKG B1 shape timed in phase 31
+DIFFKG_SHAPES = (
+    ("diffkg_dkg_heads_sum_d64", "dkg_heads", 64, "seg"),
+    ("diffkg_dkg_heads_softmax_sum_d1", "dkg_heads", 1, "seg"),
+    ("diffkg_dkg_tails_take_bwd_d64", "dkg_tails", 64, "seg"),
+    ("diffkg_dkg_rels_take_bwd_d64", "dkg_rels", 64, "seg"),
+    ("diffkg_kg_heads_sum_d64", "kg_heads", 64, "seg"),
+    ("diffkg_kg_tails_take_bwd_d64", "kg_tails", 64, "seg"),
+    ("diffkg_ukgc_hop_t_d64", "ui_rect", 64, "bwd"))
+
+
+def kg_new_phases(errs: ErrTrack, gen, dev) -> dict:
+    """Phases 27-28: DiffKG and KGCL with its TransE sub-loop driven through
+    the CLI on the synthetic KG (written by phase 6), then B2 held exactly
+    and B1 within the tolerance at the trained DiffKG's shapes, its denoised
+    KG's layouts (built on the card each epoch) against the host builds."""
+    log("== 27. DiffKG and KGCL with train_trans (the synthetic KG)")
+    trained = {}
+    runs = ssl_paths(errs, data_dir=SMOKE_RESULTS, dataset=KG_DATASET, models=KG_NEW,
+                     keep=trained, extra_args=KG_NEW_ARGS, ref64=KG_NEW)
+    runs["kgcl_train_trans"] = runs.pop("kgcl")     # apart from phase 8's KGCL run
+    kg_losses = [r["kg_loss"] for r in runs["kgcl_train_trans"]["losses"]]
+    if len(kg_losses) != 2 or not all(math.isfinite(v) for v in kg_losses):
+        raise AssertionError(f"KGCL's TransE losses {kg_losses}")
+    dm = trained["diffkg"]
+    dkg = dm._last_dkg
+    valid = float(dkg.valid.mean())
+    kg_bsz = int(trained["kgcl"].cfg.train.get("kg_batch_size", 4096))
+    log(f"  KGCL's TransE sub-loop: kg_loss {[round(v, 5) for v in kg_losses]} over "
+        f"{max(dm._map_r.numel() // kg_bsz, 1)} steps of {kg_bsz} an epoch; "
+        f"DiffKG's denoised KG {dkg.h.n} edges into {dkg.h.num_segments} heads ({valid:.3f} "
+        f"valid; B2 group width {dkg.h.group_width}), the capped KG {dm.kg.h.n} edges, "
+        f"denoiser loss {dm.diff_loss:.5f}")
+
+    log("== 28. B2 and B1 against plain, DiffKG's shapes")
+    t0 = time.perf_counter()
+    n_lay = check_layout_builds("diffkg", {}, {"dkg_heads": dkg.h, "dkg_tails": dkg.t,
+                                               "dkg_rels": dkg.r}, widths=(64, 1))
+    check_b2("diffkg_dkg_heads", dkg.h, gen, dkg.valid)
+    check_b2("diffkg_kg_heads", dm.kg.h, gen)
+    log(f"  {n_lay} denoised-KG layouts built on the card equal the host builds; B2 exact at "
+        f"the denoised and the capped heads (logits, invalid edges at -1e9, all at -1e9)")
+    kg_errs = ErrTrack()
+    ops = {"graphs": {"ui_rect": dm.ui},
+           "seg": {"dkg_heads": dkg.h, "dkg_tails": dkg.t, "dkg_rels": dkg.r,
+                   "kg_heads": dm.kg.h, "kg_tails": dm.kg.t, "kg_rels": dm.kg.r}}
+    for k, lay in ops["seg"].items():
+        check_segment_b1(kg_errs, f"diffkg_{k}", lay, (64, 1) if k.endswith("heads") else (64,),
+                         gen)
+    check_graph(kg_errs, "diffkg_ui_rect", dm.ui, (64,), gen, with_grads=True)
+    bi = dm.bi.graph
+    x = torch.randn(bi.n_cols, 64, generator=gen, device=dev)
+    w_out = torch.randn(bi.n_rows, 64, generator=gen, device=dev)
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    yk = sk.SpmmPvFn.apply(bi, xk, dm.adj_vals)
+    (yk * w_out).sum().backward()
+    yp = sk.csr_spmm_plain(bi.fwd, xp, dm.adj_vals)
+    (yp * w_out).sum().backward()
+    kg_errs.check("diffkg_ui_hop", yk.detach(), yp.detach())
+    kg_errs.check("diffkg_ui_hop.dx", xk.grad, xp.grad)
+    log(f"max abs err {kg_errs.abs:.3g}, max rel err {kg_errs.rel:.3g} (tolerance {TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"runs": runs, "errs": kg_errs, "ops": ops, "model": dm,
+            "shapes": {k: (lay.num_segments, lay.n, lay.n) for k, lay in ops["seg"].items()}
+            | {"ui_rect": (dm.ui.n_rows, dm.ui.n_cols, dm.ui.nnz)}}
+
+
+def tmall_like_split(shape=None, seed=2022):
+    """Behavior matrices shaped like Tmall (``TMALL_SHAPE``): unique (user,
+    item) pairs, users by a lognormal activity, items by a Zipf-like
+    popularity (exponent 0.5 over a random ranking of the ids); fav and cart
+    take 80% of their pairs from pv's, buy 70% from fav's and cart's and 20%
+    from pv's, the rest fresh.  Each user with two or more buys has one held
+    out (the test).  Returns ``({behavior: csr}, {meta path: csr}, test)``,
+    the meta paths the intersections HMGCR reads."""
+    rng = np.random.default_rng(seed)
+    shape = shape or TMALL_SHAPE
+    n_u, n_i, counts = shape["users"], shape["items"], shape["counts"]
+    u_p = rng.lognormal(0.0, 1.0, n_u)
+    u_p /= u_p.sum()
+    i_p = 1.0 / np.arange(1, n_i + 1) ** 0.5
+    i_p = (i_p / i_p.sum())[np.argsort(rng.permutation(n_i))]
+
+    def fresh(n, taken):
+        out = np.zeros(0, np.int64)
+        while out.size < n:
+            k = 2 * (n - out.size) + 1000
+            c = rng.choice(n_u, k, p=u_p).astype(np.int64) * n_i + rng.choice(n_i, k, p=i_p)
+            c = np.setdiff1d(np.unique(c), np.concatenate([taken, out]))
+            out = np.concatenate([out, rng.permutation(c)[: n - out.size]])
+        return out
+
+    def nested(n, parents):
+        picked = [rng.choice(p, min(int(share * n), p.size), replace=False)
+                  for p, share in parents]
+        base = np.unique(np.concatenate(picked))
+        return np.unique(np.concatenate([base, fresh(n - base.size, base)]))
+
+    codes = {"pv": fresh(counts["pv"], np.zeros(0, np.int64))}
+    codes["fav"] = nested(counts["fav"], [(codes["pv"], 0.8)])
+    codes["cart"] = nested(counts["cart"], [(codes["pv"], 0.8)])
+    codes["buy"] = nested(counts["buy"], [(np.union1d(codes["fav"], codes["cart"]), 0.7),
+                                          (codes["pv"], 0.2)])
+    buy_u = codes["buy"] // n_i
+    order = rng.permutation(codes["buy"].size)
+    first = order[np.unique(buy_u[order], return_index=True)[1]]   # one random buy a user
+    many = np.bincount(buy_u, minlength=n_u)[buy_u[first]] >= 2
+    test = codes["buy"][first[many]]
+    codes["buy"] = np.setdiff1d(codes["buy"], test)
+
+    def mat(c):
+        return sp.csr_matrix((np.ones(c.size, np.float32), (c // n_i, c % n_i)),
+                             shape=(n_u, n_i))
+
+    mats = {b: mat(c) for b, c in codes.items()}
+    pv, fav, cart, buy = (mats[b] for b in ("pv", "fav", "cart", "buy"))
+    metas = {"buy": buy, "pv_buy": pv.multiply(buy).tocsr(),
+             "pv_fav_buy": pv.multiply(fav).multiply(buy).tocsr(),
+             "pv_fav_cart_buy": pv.multiply(fav).multiply(cart).multiply(buy).tocsr()}
+    return mats, metas, mat(test)
+
+
+def write_mb_dataset(name: str) -> dict:
+    """The Tmall-shaped split in the handler's layout under
+    ``SMOKE_RESULTS/multi_behavior/<name>/``; returns its sizes."""
+    import pickle
+    t0 = time.perf_counter()
+    mats, metas, tst = tmall_like_split()
+    d = os.path.join(SMOKE_RESULTS, "multi_behavior", name)
+    os.makedirs(d, exist_ok=True)
+    for key, m in (*mats.items(), *((k, m) for k, m in metas.items() if k != "buy"),
+                   ("test", tst)):
+        fname = "test_mat.pkl" if key == "test" else f"train_mat_{key}.pkl"
+        with open(os.path.join(d, fname), "wb") as f:
+            pickle.dump(m, f)
+    sizes = {"users": tst.shape[0], "items": tst.shape[1],
+             "nnz": {k: int(m.nnz) for k, m in mats.items()},
+             "meta_nnz": {k: int(m.nnz) for k, m in metas.items()},
+             "test": int(tst.nnz), "write_s": time.perf_counter() - t0}
+    sizes["interactions"] = sum(sizes["nnz"].values()) + sizes["test"]
+    log(f"  wrote {name}: {sizes['users']} users, {sizes['items']} items, "
+        f"{sizes['interactions']} interactions ({sizes['nnz']}, {sizes['test']} held-out "
+        f"buys); meta paths {sizes['meta_nnz']}; {sizes['write_s']:.1f} s")
+    return sizes
+
+
+def mb_phases(errs: ErrTrack, gen) -> dict:
+    """Phases 29-30: the Tmall-shaped split, MBGMN, HMGCR and SMBRec driven
+    through the CLI on it, then B1 held at the trained models' behavior and
+    meta-path graphs, both directions, value and gradients."""
+    log("== 29. the multi-behavior paths (a synthetic Tmall-shaped split)")
+    sizes = write_mb_dataset(MB_DATASET)
+    trained = {}
+    runs = ssl_paths(errs, data_dir=SMOKE_RESULTS, dataset=MB_DATASET, models=MB_MODELS,
+                     keep=trained)
+    sm, hm = trained["smbrec"], trained["hmgcr"]
+    sizes["co_user_nnz"] = int(sm.co_indices.numel())
+    log(f"  SMBRec's co-user rows {sizes['co_user_nnz']} entries; train rows "
+        f"{ {k: r['train_rows'] for k, r in runs.items()} }")
+
+    log("== 30. B1 against plain, the behavior and meta-path graphs")
+    t0 = time.perf_counter()
+    mb_errs = ErrTrack()
+    behaviors = ("pv", "fav", "cart", "buy")
+    graphs = {**{f"{b}_{d}": g for b, pair in zip(behaviors, sm.graphs)
+                 for d, g in zip(("a", "at"), pair)},
+              **{f"meta_{m}_{d}": g for m, pair in zip(
+                  ("buy", "pv_buy", "pv_fav_buy", "pv_fav_cart_buy"), hm.graphs)
+                 for d, g in zip(("a", "at"), pair)}}
+    for k, g in graphs.items():
+        check_graph(mb_errs, k, g, (16,) if k.startswith("meta") else (32, 16), gen,
+                    with_grads=True)
+    log(f"max abs err {mb_errs.abs:.3g}, max rel err {mb_errs.rel:.3g} (tolerance {TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"runs": runs, "errs": mb_errs, "sizes": sizes, "graphs": graphs}
+
+
+# (key, operand, width, layout) of each multi-behavior B1 shape timed in phase 31
+MB_SHAPES = (
+    *((f"mb_{b}_{d}_d32", f"{b}_{d}", 32, "fwd") for b in ("pv", "fav", "cart", "buy")
+      for d in ("a", "at")),
+    ("mb_pv_a_d16", "pv_a", 16, "fwd"),
+    *((f"hmgcr_{m}_{d}_d16", f"meta_{m}_{d}", 16, "fwd")
+      for m in ("pv_buy", "pv_fav_buy", "pv_fav_cart_buy") for d in ("a", "at")))
+
+
+def new_shapes_timing(kgn: dict, mbp: dict, gen) -> dict:
+    """Phase 31: B1 at DiffKG's and the multi-behavior models' shapes, its UI
+    hop under the all-ones view's values, and B2 at the denoised and the
+    capped heads, each beside its bound, its plain version and the library
+    call."""
+    log("== 31. DiffKG's and the multi-behavior shapes timing")
+    t0 = time.perf_counter()
+    dm = kgn["model"]
+    t, bound = time_layouts(kgn["ops"], DIFFKG_SHAPES, gen)
+    bi = dm.bi.graph
+    x = torch.randn(bi.n_cols, 64, generator=gen, device=bi.vals.device)
+    t["diffkg_ui_hop_d64"], bound["diffkg_ui_hop_d64"] = time_b1(bi.fwd, x, dm.adj_vals)
+    mb_t, mb_bound = time_layouts({"graphs": mbp["graphs"], "seg": {}}, MB_SHAPES, gen)
+    t.update(mb_t)
+    bound.update(mb_bound)
+    for key, lay in (("b2_diffkg_dkg_heads", dm._last_dkg.h), ("b2_diffkg_kg_heads", dm.kg.h)):
+        logits = torch.randn(lay.n, generator=gen, device=lay.ids.device)
+        ids64 = lay.ids.long()
+        amax = torch.full((lay.num_segments,), float("-inf"), device=lay.ids.device)
+        bound[key] = segmax_bound_ms(lay)
+        t[key] = timing(lambda: skn.segment_max(lay, logits),
+                        lambda: skn.segment_max_plain(lay, logits),
+                        lambda: amax.scatter_reduce_(0, ids64, logits, "amax",
+                                                     include_self=False), bound[key][0])
+    for k, r in t.items():
+        log_timing(k, r, bound[k])
+    log(f"  {time.perf_counter() - t0:.1f} s")
+    return {"t": t, "bound": bound}
 
 
 def main() -> int:
@@ -2137,13 +2485,17 @@ def main() -> int:
     soc_runs = ssl_paths(errs, dataset=SOCIAL_DATASET, models=SOCIAL_MODELS)
 
     log("== 18. the tuner and resume on the card")
+    sports = write_sports_split()
     tr = tune_and_resume()
 
     ks = kcgn_smin_phases(errs, gen)
     kgp = kg_phases(errs, gen, dev)
-    seq = seq_phases(errs, gen, data.extras["bi_adj"], seg_lay, (launches, lgcn_combine))
+    seq = seq_phases(errs, gen, data.extras["bi_adj"], seg_lay, (launches, lgcn_combine), sports)
+    kgn = kg_new_phases(errs, gen, dev)
+    mbp = mb_phases(errs, gen)
+    newt = new_shapes_timing(kgn, mbp, gen)
 
-    log("== 27. result")
+    log("== 32. result")
     common = {"route": "cuda", "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
               "replaces": "sslrec_tpu/ops/pallas_spmm.py:123",
               "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel"}
@@ -2173,7 +2525,7 @@ def main() -> int:
     lgcn_err.abs, lgcn_err.rel = main_abs, main_rel
     lgcn_counts, kg_counts = (launches, lgcn_combine), (kg_b1, kg_combine)
     ssl_runs = {**ssl_runs, **view_runs, **soc_runs, **ks["runs"], **kgp["runs"],
-                **seq["runs"]}
+                **seq["runs"], **kgn["runs"], **mbp["runs"]}
     ssl_b1 = sum(r["launches"] for r in ssl_runs.values())
     ssl_combine = sum(r["combine_launches"] for r in ssl_runs.values())
     b1 = b1_row("csr_spmm", hop["none"], hop_bound["none"],
@@ -2189,7 +2541,7 @@ def main() -> int:
                 max_rel_err_all_checks=max(errs.rel, seg_errs.rel, rel_errs.rel,
                                            ui_errs.rel, ssl_errs.rel, view_errs.rel,
                                            soc_errs.rel, ks["errs"].rel, kgp["errs"].rel,
-                                           seq["errs"].rel,
+                                           seq["errs"].rel, kgn["errs"].rel, mbp["errs"].rel,
                                            *(e["max_rel_err"] for e in seq["bf16_err"].values())),
                 stress={"max_abs_err": stress_errs.abs, "max_rel_err": stress_errs.rel,
                         "reference": "plain version in float64"},
@@ -2337,16 +2689,48 @@ def main() -> int:
                                            "variable, driven on the LightGCN path")
         n_r, n_c, nnz_k, d_k = seq["shapes"][k[5:] if k.startswith("bf16_") else k]
         vals = "" if k.endswith("spread_d1") else " whose values already carry the call's values"
+        r = dict(r)
+        call = r.pop("library_call", f"torch.sparse.mm on a CSR tensor of the layout{vals}")
         rows_b1.append(b1_row(
             f"csr_spmm.{k}", r, seq["bound"][k], counts, err,
             {"n_rows": n_r, "n_cols": n_c, "nnz": nnz_k, "d": d_k,
              "layout": "transposed" if "_t_" in k or k.endswith("_t") else "forward"},
-            library_call=f"torch.sparse.mm on a CSR tensor of the layout{vals}", **more))
+            library_call=call, **more))
     rows_b1[-1]["sequential"] = {"split": seq["split"], "sizes": seq["sizes"],
                                  "runs": seq["runs"]}
+    kg_shape = {**kgn["shapes"], **{k: (g.n_rows, g.n_cols, g.nnz)
+                                    for k, g in mbp["graphs"].items()}}
+    new_shapes = [(k, op, d_k, layout, ("diffkg",)) for k, op, d_k, layout in DIFFKG_SHAPES]
+    new_shapes.append(("diffkg_ui_hop_d64", None, 64, "fwd", ("diffkg",)))
+    new_shapes += [(k, op, d_k, layout, ("hmgcr",) if k.startswith("hmgcr") else
+                    ("mbgmn", "smbrec") if "d32" in k else ("mbgmn",))
+                   for k, op, d_k, layout in MB_SHAPES]
+    for k, op, d_k, layout, paths in new_shapes:
+        counts = (sum(ssl_runs[p]["launches"] for p in paths),
+                  sum(ssl_runs[p]["combine_launches"] for p in paths))
+        if op is None:          # the UI hop: the bi-adjacency under the all-ones view's values
+            g = kgn["model"].bi.graph
+            shape = {"n_rows": g.n_rows, "n_cols": g.n_cols, "nnz": g.nnz, "d": d_k,
+                     "layout": "forward"}
+            call = "torch.sparse.mm on a CSR tensor whose values already carry the view's values"
+        else:
+            n_r, n_c, nnz_k = kg_shape[op]
+            if layout == "bwd":
+                n_r, n_c = n_c, n_r
+            shape = {"n_rows": n_r, "n_cols": n_c, "nnz": nnz_k, "d": d_k,
+                     "layout": {"seg": "segment layout", "fwd": "forward",
+                                "bwd": "transposed"}[layout]}
+            call = sparse_mm
+        if op is not None and op.startswith("dkg"):
+            shape["built_on"] = "the card, each epoch"
+        rows_b1.append(b1_row(f"csr_spmm.{k}", newt["t"][k], newt["bound"][k], counts,
+                              kgn["errs"] if k.startswith("diffkg") else mbp["errs"], shape,
+                              library_call=call, launches_of=list(paths)))
+    rows_b1[-1]["multi_behavior"] = {"split": mbp["sizes"], "runs": mbp["runs"]}
     rows_b1[0]["tuner_and_resume_on_card"] = {
         "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
-        "resume_bit_equal_tensors": tr["resume_tensors"]}
+        "resume_bit_equal_tensors": tr["resume_tensors"],
+        "maerec_resume_bit_equal_tensors": tr["maerec_resume_tensors"]}
     b2_rows = [
         b2_row("segment_max", kg["b2"], kg_bound["b2"],
                kg_b2 + sum(r["b2_launches"] for r in ssl_runs.values()),
@@ -2360,6 +2744,16 @@ def main() -> int:
         b2_row("segment_max.kgrec_heads", kgp["t"]["b2_kgrec_heads"],
                kgp["bound"]["b2_kgrec_heads"], ssl_runs["kgrec"]["b2_launches"],
                kgp["heads_shape"], launches_of=["kgrec"])]
+    dm = kgn["model"]
+    for key, lay, what in (("b2_diffkg_dkg_heads", dm._last_dkg.h, "the denoised KG's heads, "
+                            "a layout built on the card each epoch"),
+                           ("b2_diffkg_kg_heads", dm.kg.h, "the capped KG's heads")):
+        b2_rows.append(b2_row(
+            f"segment_max.{key[3:]}", newt["t"][key], newt["bound"][key],
+            ssl_runs["diffkg"]["b2_launches"],
+            {"n": lay.n, "num_segments": lay.num_segments, "group_width": lay.group_width,
+             "long_segments": lay.long_segments.numel(), "what": what},
+            launches_of=["diffkg"]))
     log(json.dumps({"kernels": rows_b1 + b2_rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

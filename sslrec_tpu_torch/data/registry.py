@@ -1,6 +1,6 @@
 """Data-handler registry: scenario type → loader (port of
-``sslrec_tpu/data/registry.py``; the ``general_cf``, ``kg``, ``social`` and
-``sequential`` scenarios so far)."""
+``sslrec_tpu/data/registry.py``; the ``general_cf``, ``kg``, ``social``,
+``sequential`` and ``multi_behavior`` scenarios)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ _HANDLERS = {
     "kg": "sslrec_tpu_torch.data.kg",
     "social": "sslrec_tpu_torch.data.social",
     "sequential": "sslrec_tpu_torch.data.sequential",
+    "multi_behavior": "sslrec_tpu_torch.data.multi_behavior",
 }
 
 

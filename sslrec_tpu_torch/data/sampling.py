@@ -34,3 +34,14 @@ def sample_negatives(gen: torch.Generator, users: torch.Tensor,
     cands = torch.randint(low, n_items, (rounds, n), generator=gen,
                           device=gen.device, dtype=torch.int32)
     return pick_negatives(cands.to(users.device), users, edge_set)
+
+
+def sample_from_rows(indptr: torch.Tensor, indices: torch.Tensor, rows: torch.Tensor,
+                     u: torch.Tensor):
+    """Entries of CSR rows ``rows`` drawn with replacement at the uniform
+    offsets ``u`` [n, S] (``floor(u · max(len, 1))``), and each row's length;
+    an empty row's draws are arbitrary, for the caller to replace."""
+    start = indptr[rows]
+    deg = indptr[rows + 1] - start
+    off = (u * deg.clamp(min=1)[:, None]).long()
+    return indices[(start[:, None] + off).clamp(0, indices.shape[0] - 1)], deg

@@ -14,8 +14,8 @@ Optional
 --------
 ``rating(user_emb, item_emb) -> scores``  (default: dot product)
 ``step_generator = True``            ``loss`` gets the epoch's device generator, not a PRF key
-``epoch_state(gen, epoch) -> aux``   once per epoch under ``no_grad``, with the epoch's device
-                                     generator; reaches ``loss`` as ``batch["aux"]``
+``epoch_state(gen, epoch) -> aux``   once per epoch, with the epoch's device generator; reaches
+                                     ``loss`` as ``batch["aux"]`` (DiffKG trains its denoiser in it)
 ``train_step(batch, key) -> aux``    a model-managed step (AdaGCL's three updates): the model
                                      owns its optimizers, and the trainer calls this in place of
                                      its own Adam step and builds no optimizer; such a model also
@@ -27,6 +27,11 @@ Optional
                                      before weight decay and Adam
 ``batch_fields``                     the batch's index fields; without ``"neg"`` the trainer
                                      draws no negatives
+``epoch_schedule(n_train, bsz)``     ``(steps, batch size)`` of an epoch, in place of one pass over
+                                     the interactions (MBGMN)
+``train_trans`` and ``kg_loss(h, r, t, neg)``  the trainer's TransE sub-loop after each epoch
+``extra_state()`` / ``load_extra_state(state)``  model state that a train state saves beside the
+                                     parameters and optimizers (MAERec's loss history)
 
 Every batch also carries ``batch["step"]``, the step's index in the epoch
 (an int), and the trainer sets ``model._n_batches_hint`` to the number of

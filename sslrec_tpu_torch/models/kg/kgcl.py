@@ -1,6 +1,6 @@
 """KGCL — knowledge-graph contrastive learning with KG-stability-guided
 UI-graph augmentation (port of ``sslrec_tpu/models/kg/kgcl.py``, without the
-``train.mesh`` partitioned branch and without ``train_trans``).
+``train.mesh`` partitioned branch).
 
 - RGAT over (head, relation, tail) edges: per-edge logit
   ``leaky_relu(⟨fc([h;t]), rel⟩)`` → per-head segment softmax → weighted tail
@@ -13,6 +13,8 @@ UI-graph augmentation (port of ``sslrec_tpu/models/kg/kgcl.py``, without the
 - Per epoch (:meth:`epoch_state`): two 50% KG edge samples → entity
   stability (cosine) → per-item keep weights → two Bernoulli UI-edge views.
 - Loss: BPR (sum) + decay·½L2/B + InfoNCE over the two views' forwards.
+- ``model.train_trans``: the trainer's TransE sub-loop after each epoch
+  (:meth:`KGCL.kg_loss` on batches of the full triplets, an Adam of its own).
 
 Every random draw is a method of its own (:meth:`step_draws`,
 :meth:`epoch_draws`) apart from the arithmetic, which takes the draws as
@@ -28,6 +30,7 @@ from torch import nn
 
 from sslrec_tpu_torch.models import losses
 from sslrec_tpu_torch.models.base import RecModel
+from sslrec_tpu_torch.models.layers import take_rows
 from sslrec_tpu_torch.ops.segment_kernel import OneHotTake, SegmentOps
 from sslrec_tpu_torch.ops.spmm import spmm
 from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask
@@ -46,9 +49,7 @@ class KGCL(RecModel):
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         m = cfg.model
-        if bool(m.get("train_trans", False)):
-            raise NotImplementedError("KGCL with model.train_trans (the TransE "
-                                      "sub-loop) is not ported yet")
+        self.train_trans = bool(m.get("train_trans", False))
         self.n_relations = data.extras["relation_num"]
         self.n_entities = data.extras["entity_num"]
         self.n_nodes = data.extras["node_num"]
@@ -218,6 +219,19 @@ class KGCL(RecModel):
         between = torch.exp((z1n * z2n).sum(dim=-1) / self.tau)
         denom = torch.exp(z1n @ zan.T / self.tau).sum(dim=1)
         return (-torch.log(between / denom + 1e-12)).sum()
+
+    # -- TransE objective (the trainer's sub-loop when train_trans) ----------
+    def kg_loss(self, h, r, pos_t, neg_t):
+        """Squared TransE distances on the entity rows of ``all_embed``:
+        mean ``-log σ(neg - pos)`` plus 1e-3 × the four mean half-squared norms."""
+        ent = self.all_embed[self.user_num:]
+        r_e = take_rows(self.relation_embed, r)
+        h_e, p_e, n_e = take_rows(ent, h), take_rows(ent, pos_t), take_rows(ent, neg_t)
+        pos_score = ((h_e + r_e - p_e) ** 2).sum(1)
+        neg_score = ((h_e + r_e - n_e) ** 2).sum(1)
+        kg = (-F.logsigmoid(neg_score - pos_score)).mean()
+        l2 = sum(((x ** 2).sum(1) / 2.0).mean() for x in (h_e, r_e, p_e, n_e))
+        return kg + 1e-3 * l2
 
     def generate(self):
         return self.forward()

@@ -122,6 +122,24 @@ def grace_pair_losses(zs, tau: float, chunk: int = 256) -> dict:
     return out
 
 
+def grace_loss(z1, z2, tau: float, chunk: int = 1024):
+    """The GRACE semi-loss of view ``z1`` against ``z2`` (port of the JAX
+    package's ``hmgcr.grace_loss``): ``semi(0→1)`` of
+    :func:`grace_pair_losses` over the two views, the row sums taken for
+    ``z1``'s rows only, ``chunk`` rows at a time under
+    ``torch.utils.checkpoint``."""
+    n = z1.shape[0]
+    z1n, z2n = _l2norm_safe(z1), _l2norm_safe(z2)
+    z_all = torch.cat([z1n, z2n])
+    sums = torch.cat([
+        torch.utils.checkpoint.checkpoint(_grace_row_sums, z1n[s:s + chunk], z_all, tau, 2,
+                                          use_reentrant=False)
+        for s in range(0, n, chunk)])                                # [n, 2]
+    denom = sums[:, 0] + sums[:, 1] - torch.exp((z1n * z1n).sum(-1) / tau)
+    diag = (z1n * z2n).sum(-1)
+    return -torch.log(torch.exp(diag / tau) / denom + 1e-8).sum() / n
+
+
 def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 0):
     """Mean cross entropy over the positions whose label is not
     ``ignore_index`` (BERT4Rec's masked-item loss); 0 where there is none."""

@@ -1,5 +1,5 @@
 """Model registry: name → class (port of ``sslrec_tpu/models/registry.py``;
-the general_cf, social and sequential families, KGCL, KGIN and KGRec so far).
+every family but CML and KMCLR of the multi-behavior one).
 Lookup is case-insensitive."""
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ _GENERAL_CF = "sslrec_tpu_torch.models.general_cf."
 _SOCIAL = "sslrec_tpu_torch.models.social."
 _KG = "sslrec_tpu_torch.models.kg."
 _SEQ = "sslrec_tpu_torch.models.sequential."
+_MB = "sslrec_tpu_torch.models.multi_behavior."
 
 # name -> (module path, class name). Populated as model families land.
 _REGISTRY: dict[str, tuple[str, str]] = {
@@ -27,6 +28,7 @@ _REGISTRY: dict[str, tuple[str, str]] = {
     "kgcl": (_KG + "kgcl", "KGCL"),
     "kgin": (_KG + "kgin", "KGIN"),
     "kgrec": (_KG + "kgrec", "KGRec"),
+    "diffkg": (_KG + "diffkg", "DiffKG"),
     "dcrec": (_SOCIAL + "dcrec", "DcRec"),
     "mhcn": (_SOCIAL + "mhcn", "MHCN"),
     "dsl": (_SOCIAL + "dsl", "DSL"),
@@ -38,6 +40,9 @@ _REGISTRY: dict[str, tuple[str, str]] = {
     "iclrec": (_SEQ + "iclrec", "ICLRec"),
     "dcrec_seq": (_SEQ + "dcrec", "DCRecSeq"),
     "maerec": (_SEQ + "maerec", "MAERec"),
+    "mbgmn": (_MB + "mbgmn", "MBGMN"),
+    "hmgcr": (_MB + "hmgcr", "HMGCR"),
+    "smbrec": (_MB + "smbrec", "SMBRec"),
 }
 
 

@@ -32,7 +32,8 @@ class StepDraws:
         self.gen, self.given = gen, given
         self.device = device if device is not None else gen.device
 
-    def _take(self, name, make):
+    def draw(self, name: str, make):
+        """``make()``, or the given draw ``name``."""
         if self.given is not None:
             v = self.given[name]
             return v.to(self.device) if torch.is_tensor(v) else v
@@ -40,17 +41,21 @@ class StepDraws:
 
     def uniform(self, name: str, shape, low: float = 0.0) -> torch.Tensor:
         """Uniform in ``[low, 1)``."""
-        return self._take(name, lambda: low + (1.0 - low) * torch.rand(
+        return self.draw(name, lambda: low + (1.0 - low) * torch.rand(
             shape, generator=self.gen, device=self.gen.device))
 
     def normal(self, name: str, shape) -> torch.Tensor:
-        return self._take(name, lambda: torch.randn(shape, generator=self.gen,
+        return self.draw(name, lambda: torch.randn(shape, generator=self.gen,
                                                     device=self.gen.device))
 
     def keep(self, name: str, p: float, shape) -> torch.Tensor:
         """Bernoulli(p) as ``U < p``."""
-        return self._take(name, lambda: torch.rand(shape, generator=self.gen,
+        return self.draw(name, lambda: torch.rand(shape, generator=self.gen,
                                                    device=self.gen.device) < p)
+
+    def permutation(self, name: str, n: int) -> torch.Tensor:
+        return self.draw(name, lambda: torch.randperm(n, generator=self.gen,
+                                                       device=self.gen.device))
 
     def randint(self, name: str, low: int, high, shape) -> torch.Tensor:
         """Uniform integers in ``[low, high)``; ``high`` an int or a tensor of
@@ -63,7 +68,7 @@ class StepDraws:
             span = (high - low).to(u.device)
             return low + torch.minimum((u * span).long(), span - 1)
 
-        return self._take(name, make)
+        return self.draw(name, make)
 
     def dropout(self, name: str, rate: float):
         """A tower's dropout callable (``None`` at rate 0)."""

@@ -17,7 +17,8 @@ drives a sequential transformer (port of
   edges drawn by inverse CDF, negatives in [1, n) rejected against the
   item-item edge set (half corrupt each end), the decoder's NCE, L2 over
   every parameter, and on each mask step −mean(path scores)·reward, the
-  reward from the main-loss history the model carries; then its own Adam
+  reward from the main-loss history the model carries (and a train state
+  saves, through ``extra_state``); then its own Adam
   (weight decay first where set, as ``optax.chain`` orders it).  The path
   scores' term is 0 off the mask steps, so it is computed only on them.
 
@@ -113,6 +114,15 @@ class MAERec(SequentialModel):
 
     def optimizers(self) -> dict:
         return {"adam": self.opt}
+
+    def extra_state(self) -> dict:
+        """The loss history the reward reads, for the train state: the JAX
+        package carries it in its optimizer state, so a checkpoint saves it."""
+        return {"loss_hist": self.loss_hist.detach().cpu().clone(), "hist_len": int(self.hist_len)}
+
+    def load_extra_state(self, state: dict) -> None:
+        self.loss_hist = state["loss_hist"].to(self.loss_hist.device)
+        self.hist_len = int(state["hist_len"])
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:

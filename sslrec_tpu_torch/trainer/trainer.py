@@ -34,13 +34,21 @@ negatives and sliced per batch like them; a model's ``grad_clip`` clips the
 gradients' global norm before weight decay and Adam, as
 ``optax.chain(clip_by_global_norm, …)`` does.
 
+A model's ``epoch_schedule(n_train, batch_size)`` sets the epoch's number of
+steps and batch size in place of one pass over the interactions (MBGMN's
+``trnNum`` users an epoch).  A model with ``train_trans`` set and a
+``kg_loss`` (KGCL) runs the TransE sub-loop after each epoch's steps
+(:meth:`Trainer.kg_trans_epoch`), with an Adam of its own kept across epochs.
+
 Checkpoints (``utils/checkpoint.py``): ``train.save_model`` writes the best
 parameters after the final test; ``train.save_state_every`` writes the train
 state (parameters, optimizer state, epoch, best snapshot, ``best_metric``,
-``wait``) after the evaluation of every that-many epochs; and
-``train.resume_path`` restores such a state and goes on from the next epoch.
-Since each epoch's draws depend only on ``(seed, epoch)``, a resumed run
-repeats the uninterrupted one bit for bit on the same device.
+``wait``, and a model's ``extra_state()`` where it has one: MAERec's loss
+history) after the evaluation of every that-many epochs; and
+``train.resume_path`` restores such a state (``load_extra_state`` for the
+model's part) and goes on from the next epoch.  Since each epoch's draws
+depend only on ``(seed, epoch)``, a resumed run repeats the uninterrupted one
+bit for bit on the same device.
 """
 
 from __future__ import annotations
@@ -48,10 +56,12 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from sslrec_tpu_torch.data.base import DataBundle
 from sslrec_tpu_torch.data.sampling import sample_negatives
+from sslrec_tpu_torch.ops.sparse import build_edge_set
 from sslrec_tpu_torch.trainer.logger import Logger, log_exceptions
 from sslrec_tpu_torch.trainer.metrics import Evaluator
 from sslrec_tpu_torch.utils import checkpoint as ckpt
@@ -84,6 +94,7 @@ def clip_grad_global_norm(params, max_norm: float) -> None:
 
 INIT_STREAM = 2**32    # generator path of the parameter draw, apart from epochs
 DEVICE_STREAM = 1      # generator path of a model's own per-epoch device draws
+KG_STREAM = 2          # generator path of the TransE sub-loop's batches
 
 
 def generator(seed: int, *path: int, device="cpu") -> torch.Generator:
@@ -115,7 +126,15 @@ class Trainer:
         self.arrays = dict(data.extras.get("train_arrays")
                            or {"user": data.train_users, "pos": data.train_items})
         self.batch_size = int(cfg.train.batch_size)
-        self.n_batches = -(-data.n_train // self.batch_size)
+        if hasattr(model, "epoch_schedule"):
+            self.n_batches, self.batch_size = model.epoch_schedule(data.n_train,
+                                                                    self.batch_size)
+        else:
+            self.n_batches = -(-data.n_train // self.batch_size)
+        self.kg_trans = bool(getattr(model, "train_trans", False)) and hasattr(model, "kg_loss")
+        self.kg_optimizer = None
+        if self.kg_trans:
+            self._kg = self._kg_structures()
         # models with per-fix_steps view banks size them from the batch count
         model._n_batches_hint = self.n_batches
 
@@ -146,10 +165,11 @@ class Trainer:
         data, bsz, n_batches = self.data, self.batch_size, self.n_batches
         gen = generator(int(self.cfg.train.seed), epoch)
         perm = torch.randperm(data.n_train, generator=gen)
-        pad = n_batches * bsz - data.n_train
+        rows = n_batches * bsz      # fewer than n_train under a model's epoch_schedule
+        pad = max(rows - data.n_train, 0)
         if pad:
             perm = torch.cat([perm, perm[:pad]])
-        idx = perm.view(n_batches, bsz).to(self.device)
+        idx = perm[:rows].view(n_batches, bsz).to(self.device)
         sampled = {}
         if "neg" in self.model.batch_fields:
             sampled["neg"] = sample_negatives(gen, self.arrays["user"], data.train_edge_set,
@@ -180,7 +200,58 @@ class Trainer:
                 batch["aux"] = aux_state
             aux = self.train_step(batch, key)
             sums = aux if sums is None else {k: sums[k] + v for k, v in aux.items()}
-        return {k: float(v) / self.n_batches for k, v in sums.items()}
+        losses = {k: float(v) / self.n_batches for k, v in sums.items()}
+        if self.kg_trans:
+            losses["kg_loss"] = self.kg_trans_epoch(*self.kg_trans_draws(epoch))
+        return losses
+
+    # -- the TransE sub-loop (KGCL's train_trans) -------------------------
+    def _kg_structures(self) -> dict:
+        """The full triplets on the device, the (head, tail) edge set over the
+        entities, the batch size and the number of steps an epoch."""
+        trip = self.data.extras["kg_triplets_full"]
+        n_ent = int(self.data.extras["entity_num"])
+        ht = sp.coo_matrix((np.ones(len(trip), np.float32), (trip[:, 0], trip[:, 2])),
+                           shape=(n_ent, n_ent))
+        bsz = int(self.cfg.train.get("kg_batch_size", 4096))
+        return {"trip": torch.from_numpy(trip.astype(np.int64)).to(self.device),
+                "edges": build_edge_set(ht, device=self.device), "n_ent": n_ent,
+                "bsz": bsz, "steps": max(len(trip) // bsz, 1)}
+
+    def kg_trans_draws(self, epoch: int):
+        """Epoch ``epoch``'s TransE batches: triplet indices drawn with
+        replacement ``[steps, kg_batch_size]`` and one negative tail per
+        triplet, rejected against the (head, tail) edge set, from a CPU
+        generator seeded by ``(seed, epoch, KG_STREAM)``."""
+        kg = self._kg
+        gen = generator(int(self.cfg.train.seed), epoch, KG_STREAM)
+        idx = torch.randint(0, kg["trip"].shape[0], (kg["steps"], kg["bsz"]),
+                            generator=gen).to(self.device)
+        negs = sample_negatives(gen, kg["trip"][idx.reshape(-1), 0], kg["edges"], kg["n_ent"])
+        return idx, negs.view(kg["steps"], kg["bsz"])
+
+    def kg_trans_epoch(self, idx: torch.Tensor, negs: torch.Tensor) -> float:
+        """One TransE pass (``kg_loss`` on each batch, then the sub-loop's
+        Adam, built from the ``optimizer`` config on first use and kept
+        across epochs); returns the mean loss.  Every parameter steps, as
+        optax updates the whole tree: one that ``kg_loss`` does not reach
+        takes a zero gradient."""
+        kg = self._kg
+        params = list(self.model.parameters())
+        if self.kg_optimizer is None:
+            self.kg_optimizer = build_optimizer(self.cfg, params)
+        total = 0.0
+        for bidx, neg in zip(idx, negs):
+            h, r, t = kg["trip"][bidx].unbind(1)
+            self.kg_optimizer.zero_grad(set_to_none=True)
+            loss = self.model.kg_loss(h, r, t, neg)
+            loss.backward()
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self.kg_optimizer.step()
+            total = total + loss.detach()
+        return float(total) / idx.shape[0]
 
     # ------------------------------------------------------------------
     def optimizers(self) -> dict:
@@ -190,10 +261,17 @@ class Trainer:
             return self.model.optimizers()
         return {"adam": self.optimizer}
 
+    def _extra(self) -> dict:
+        """The model's own train state (``extra_state()``), if it has one."""
+        if hasattr(self.model, "extra_state"):
+            return {"extra": self.model.extra_state()}
+        return {}
+
     def _state_template(self) -> dict:
         params = self.model.state_dict()
         return {"params": params, "opt_state": ckpt.optim_template(self.optimizers()),
-                "epoch": 0, "best_params": params, "best_metric": 0.0, "wait": 0}
+                "epoch": 0, "best_params": params, "best_metric": 0.0, "wait": 0,
+                **self._extra()}
 
     def _restore(self, path: str):
         """Load the train state at ``path``; returns (best snapshot on the
@@ -201,6 +279,8 @@ class Trainer:
         state = ckpt.load(path, self._state_template())
         self.model.load_state_dict(state["params"])
         ckpt.load_optim_state(self.optimizers(), state["opt_state"])
+        if "extra" in state:
+            self.model.load_extra_state(state["extra"])
         best = {k: v.to(self.device) for k, v in state["best_params"].items()}
         return best, float(state["best_metric"]), int(state["wait"]), int(state["epoch"]) + 1
 
@@ -277,7 +357,7 @@ class Trainer:
                     "params": model.state_dict(),
                     "opt_state": ckpt.optim_state(self.optimizers()), "epoch": epoch,
                     "best_params": best_state, "best_metric": float(best_metric),
-                    "wait": int(wait)})
+                    "wait": int(wait), **self._extra()})
                 self.logger.log(f"saved train state to {self.state_path}")
         else:
             # fixed-epoch run without early stop: when the final epoch is off

@@ -82,6 +82,21 @@ def kgcl_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return _state(flat)
 
 
+def diffkg_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The recommender's four arrays under the same names: ``u_embeds``,
+    ``e_embeds``, ``r_embeds`` and ``rgat_w`` ([2d, d])."""
+    return _state({k: params[k] for k in ("u_embeds", "e_embeds", "r_embeds", "rgat_w")})
+
+
+def diffkg_denoiser_from_jax(dn: dict) -> dict[str, torch.Tensor]:
+    """DiffKG's denoiser (``_dn_params``: the lists ``in`` and ``out`` of
+    dense layers and the time embedding's ``emb``) as ``in.0.w``, ``out.0.b``,
+    ``emb.w`` …, the names :meth:`DiffKG.load_denoiser` takes."""
+    flat = {**_layers("in", dn["in"]), **_layers("out", dn["out"])}
+    flat.update({f"emb.{k}": v for k, v in dn["emb"].items()})
+    return _state(flat)
+
+
 def _layers(prefix: str, layers: list) -> dict:
     """A JAX list of ``{"w", "b"}`` layers as ``prefix.i.w`` / ``prefix.i.b``."""
     return {f"{prefix}.{i}.{k}": v for i, lin in enumerate(layers) for k, v in lin.items()}
@@ -247,3 +262,25 @@ def maerec_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """The tower without a token table (``emb.pos``, ``layers``), the item
     table ``item_emb`` and the decoder's ``dec.l1`` … ``dec.l3``."""
     return _tower(params, ("item_emb", "dec"))
+
+
+def mbgmn_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The tables ``u_embed``, ``i_embed``, ``beh_embeds`` ([behaviors + 1,
+    d/2]) and ``q``, and the dense layers ``spec_u`` … ``pred_fc5`` as
+    ``spec_u.w`` / ``spec_u.b``."""
+    return _linears(params, ("u_embed", "i_embed", "beh_embeds", "q"),
+                    [k for k in params if k.startswith(("spec_", "pred_fc"))])
+
+
+def hmgcr_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX list ``towers`` as ``towers.i.user_emb``, ``towers.i.item_emb``,
+    ``towers.i.u_w.l`` and ``towers.i.i_w.l``."""
+    return _state(_tree("towers", params["towers"]))
+
+
+def smbrec_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The towers as HMGCR's, ``cat_trans`` / ``user_trans`` dense layers and
+    ``beh_weights``."""
+    flat = _tree("towers", params["towers"])
+    flat.update(_tree("", {k: params[k] for k in ("cat_trans", "user_trans", "beh_weights")}))
+    return _state(flat)

@@ -1,7 +1,8 @@
 """The port's checkpoints: the file round trip with every name, shape and
 dtype checked against a template, a JAX (flax msgpack) file refused, resume
 bit-equal on the CPU (4 epochs straight against 2 and a resumed 2, for
-LightGCN and for AdaGCL with its three Adams), ``save_model`` under
+LightGCN, for AdaGCL with its three Adams, and for MAERec with its Adam and
+the loss history its reward reads), ``save_model`` under
 ``checkpoint_torch/``, the test-from-checkpoint mode, and the CSV scalar
 writer of ``train.tensorboard``."""
 
@@ -16,6 +17,8 @@ from flax import serialization
 from sslrec_tpu_torch import main as tmain
 from sslrec_tpu_torch.utils import checkpoint as ckpt
 from test_torch_main import _toy_split
+from test_torch_seq_cli import PER_MODEL as SEQ_PER_MODEL, SMALL as SEQ_SMALL
+from test_torch_seq_data import write_seq_dir
 
 
 def _argv(root, model, *more):
@@ -54,11 +57,15 @@ def test_jax_checkpoint_is_refused(tmp_path):
         ckpt.load(str(path), {"user_embeds": torch.zeros(3, 2)})
 
 
-@pytest.mark.parametrize("model", ["lightgcn", "adagcl"])
+@pytest.mark.parametrize("model", ["lightgcn", "adagcl", "maerec"])
 def test_resume_is_bit_equal(model, tmp_path, monkeypatch):
-    _toy_split(tmp_path)
     monkeypatch.chdir(tmp_path)
     every = ["--set", "train.save_state_every=2"]
+    if model == "maerec":       # a sequential split, MAERec at a small width
+        write_seq_dir(tmp_path)
+        every += [*SEQ_SMALL, *SEQ_PER_MODEL["maerec"], "--set", "train.batch_size=64"]
+    else:
+        _toy_split(tmp_path)
     straight = tmain.main(_argv(tmp_path, model, "--epoch", "4", *every))
     first = tmain.main(_argv(tmp_path, model, "--epoch", "2", *every))
     resumed = tmain.main(_argv(tmp_path, model, "--epoch", "4", *every,
@@ -73,6 +80,11 @@ def test_resume_is_bit_equal(model, tmp_path, monkeypatch):
     for part in ("params", "best_params"):
         for k in a[part]:
             assert torch.equal(a[part][k], b[part][k]), f"{part}.{k}"
+    if model == "maerec":
+        assert a["extra"]["hist_len"] == b["extra"]["hist_len"] == 3
+        assert torch.equal(a["extra"]["loss_hist"], b["extra"]["loss_hist"])
+    else:
+        assert "extra" not in a
     names = set(a["opt_state"])
     assert names == ({"rec", "vgae", "dn"} if model == "adagcl" else {"adam"})
     for name in names:

@@ -2,7 +2,10 @@
 carried across, ``generate``, ``forward`` under injected KG masks and view
 values, the loss and every parameter gradient (dropout off, and on with the
 same injected masks), three Adam steps, the epoch's keep probabilities and
-views, a CPU CLI run, and one step on the card against the CPU.
+views, the TransE sub-loop of ``train_trans`` (``kg_loss`` and its
+gradients, one epoch of the trainer's sub-loop under the same indices and
+negatives), CPU CLI runs with and without it, and one step on the card
+against the CPU.
 
 Random draws differ between jax.random and torch, so the tests inject them:
 into the port through its draw-free arguments, into JAX by standing in for
@@ -27,6 +30,7 @@ import torch
 from sslrec_tpu.config import load_config as jload_config
 from sslrec_tpu.data import kg as jkg
 from sslrec_tpu.models.kg.kgcl import KGCL as JKGCL
+from sslrec_tpu.trainer import trainer as jtrainer
 from sslrec_tpu.trainer.trainer import build_optimizer as jbuild_optimizer
 from sslrec_tpu_torch import main as tmain
 from sslrec_tpu_torch.config import load_config as tload_config
@@ -238,8 +242,81 @@ def test_epoch_state_draws_on_generator(kg_root):
 
 
 def test_train_trans_not_ported(kg_root):
-    with pytest.raises(NotImplementedError, match="train_trans"):
-        _build(kg_root, **{"model.train_trans": True})
+    """The TransE sub-loop is ported: the model builds, and the trainer runs
+    the sub-loop only where ``train_trans`` is set."""
+    for flag in (True, False):
+        _, _, tmodel, tdata, _, tcfg = _build(kg_root, **{"model.train_trans": flag})
+        assert tmodel.train_trans is flag and Trainer(tcfg, tmodel, tdata).kg_trans is flag
+
+
+def _kg_batches(jmodel, n_steps, bsz, seed):
+    """Triplet indices with replacement and negative tails, as numpy."""
+    rng = np.random.default_rng(seed)
+    n_trip = len(jmodel._kg_triplets)
+    return (rng.integers(0, n_trip, (n_steps, bsz)),
+            rng.integers(0, jmodel.n_entities, (n_steps, bsz)))
+
+
+def test_kg_loss_and_grads_match_jax(kg_root):
+    jmodel, params, tmodel, *_ = _build(kg_root)
+    idx, neg = _kg_batches(jmodel, 1, 64, 21)
+    trip = jmodel._kg_triplets[idx[0]]
+    h, r, t = trip[:, 0], trip[:, 1], trip[:, 2]
+    jloss, jgrads = jax.value_and_grad(jmodel.kg_loss)(
+        params, tuple(jnp.asarray(a, jnp.int32) for a in (h, r, t, neg[0])))
+    tloss = tmodel.kg_loss(*(_t(a) for a in (h, r, t, neg[0])))
+    tloss.backward()
+    np.testing.assert_allclose(tloss.item(), float(jloss), rtol=RTOL)
+    _close_grad(tmodel.all_embed.grad, jgrads["all_embed"])
+    _close_grad(tmodel.relation_embed.grad, jgrads["relation_embed"])
+    assert tmodel.rgat_fc["w"].grad is None and not np.asarray(jgrads["rgat_fc"]["w"]).any()
+
+
+class _Silent:
+    def log(self, *a, **k):
+        pass
+
+
+def test_kg_trans_epoch_matches_jax(kg_root, monkeypatch):
+    """One epoch of the TransE sub-loop (3 steps of 64) against the JAX
+    trainer's ``_kg_trans_epoch``, the indices and negatives injected into
+    both; the JAX epoch runs eagerly, its draws standing in for
+    ``jax.random.randint`` and ``sample_negatives``."""
+    ov = {"train.kg_batch_size": 64, "model.train_trans": True}
+    jmodel, params, tmodel, tdata, jcfg, tcfg = _build(kg_root, **ov)
+    n_steps = len(jmodel._kg_triplets) // 64
+    idx, neg = _kg_batches(jmodel, n_steps, 64, 22)
+    idx_q, neg_q = [jnp.asarray(a, jnp.int32) for a in idx], [jnp.asarray(a, jnp.int32)
+                                                             for a in neg]
+    monkeypatch.setattr(jax.random, "randint", lambda *a, **k: idx_q.pop(0))
+    monkeypatch.setattr(jtrainer, "sample_negatives", lambda *a, **k: neg_q.pop(0))
+    jt = jtrainer.Trainer(jcfg, jmodel, jkg.load(jcfg), logger=_Silent())
+    with jax.disable_jit():
+        jparams, jloss = jt._kg_trans_epoch(params, jax.random.PRNGKey(0))
+    assert not idx_q and not neg_q
+    trainer = Trainer(tcfg, tmodel, tdata)
+    tloss = trainer.kg_trans_epoch(_t(idx), _t(neg))
+    np.testing.assert_allclose(tloss, float(jloss), rtol=1e-5)
+    want = kgcl_params_from_jax(jax.device_get(jparams))
+    for name, p in tmodel.named_parameters():
+        _close(p, want[name].numpy(), rtol=1e-4, atol=1e-6)
+    moved = tmodel.all_embed.detach().numpy() != np.asarray(params["all_embed"])
+    assert moved[jmodel.user_num:].any() and not moved[: jmodel.user_num].any()
+    ti, tn = trainer.kg_trans_draws(0)
+    assert ti.shape == tn.shape == (n_steps, 64) and trainer.kg_trans_draws(0)[0].equal(ti)
+
+
+def test_cli_trains_kgcl_with_train_trans(kg_root, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    trainer = tmain.main(["--model", "kgcl", "--data_dir", str(kg_root), "--dataset", "toy",
+                          "--device", "cpu", "--epoch", "2", "--set=model.train_trans=true",
+                          "--set=train.kg_batch_size=64",
+                          *[f"--set={k}={v}" for k, v in SMALL.items()]])
+    rows = trainer.recorder.epochs
+    assert [r["epoch"] for r in rows] == [0, 1] and trainer.kg_optimizer is not None
+    for r in rows:
+        assert set(r["loss"]) == {"rec_loss", "cl_loss", "loss", "kg_loss"}
+        assert all(np.isfinite(v) for v in r["loss"].values())
 
 
 def test_cli_trains_kgcl_and_writes_results_torch(kg_root, tmp_path, monkeypatch):

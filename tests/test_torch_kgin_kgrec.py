@@ -137,7 +137,7 @@ DRAWS = {"kgin": kgin_draws, "kgrec": kgrec_draws}
 
 def _check_loss_and_grads(name, jm, params, tm, seed, key, nonzero=True):
     jbatch, tbatch = _batch(jm, seed)
-    (jloss, jaux), jgrads = jax.value_and_grad(jm.loss, has_aux=True)(params, jbatch, key)
+    (jloss, jaux), jgrads = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(params, jbatch, key)
     tloss, taux = tm.loss(tbatch, None, draws=DRAWS[name](jm, key))
     tloss.backward()
     _close(tloss.item(), float(jloss), f"{name} loss")
@@ -293,10 +293,11 @@ def test_three_adam_steps(kg_root, name, monkeypatch):
     opt = jbuild_optimizer(jcfg)
     opt_state = opt.init(params)
     trainer = Trainer(tcfg, tm, tdata)
+    loss_fn = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))
     for step in range(3):
         key = jax.random.PRNGKey(30 + step)
         jbatch, tbatch = _batch(jm, 20 + step)
-        (jloss, _), grads = jax.value_and_grad(jm.loss, has_aux=True)(params, jbatch, key)
+        (jloss, _), grads = loss_fn(params, jbatch, key)
         updates, opt_state = opt.update(grads, opt_state, params)
         params = jax.tree.map(lambda p, u: p + u, params, updates)
         draws = DRAWS[name](jm, key)

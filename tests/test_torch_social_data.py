@@ -138,9 +138,9 @@ def test_missing_file_and_unported_models_raise(tmp_path):
         load_data(cfg)
     # every social model is ported; a model the port lacks raises at build
     trn, tst, trust = social_split()
-    cfg = tload_config("dcrec").set_path("model.name", "diffkg")
+    cfg = tload_config("dcrec").set_path("model.name", "cml")
     data = tsocial.bundle_from_matrices(cfg, trn, tst, trust)
-    with pytest.raises(KeyError, match="diffkg"):
+    with pytest.raises(KeyError, match="cml"):
         build_model(cfg, data)
 
 

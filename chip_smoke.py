@@ -147,7 +147,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 31. time DiffKG's and the multi-behavior shapes and B2 at the denoised and
    capped heads, each beside its bound, its plain version and the library
    call (``torch.sparse.mm``; ``scatter_reduce_`` for B2);
-32. print the ``{"kernels": [...]}`` line, then the card line, then
+32. on phase 29's split, with a meta-user file (``MB_META_FILE``: a seeded
+   permutation of the users with a buy and another behavior, this
+   script's assumption) and the repository's real Tmall ``kg.txt`` (39,290
+   triplets) copied beside it, drive CML and KMCLR 2 epochs each at their
+   published configs, B1's launches equal to ``MB_B1`` and ``MB_EPOCH_B1``
+   (KMCLR's epoch hook), no B2, each ``generate()`` equal to the CPU's plain
+   forward;
+33. hold B1 within 1e-5 at CML's behavior graphs (A and AT, d 16), at
+   KMCLR's buy bi-adjacency under a view's values (d 32), both layouts,
+   value and gradients, and at the segment layouts of KMCLR's per-item
+   entity and relation lists (999,424 slots, 961,308 of them in the pad's
+   row; small integer inputs, plain in float64) as sum and gather
+   backward, d 32;
+34. time them, each beside its bound, its plain version and
+   ``torch.sparse.mm``, and KMCLR's epoch hook in its four parts (host
+   clock);
+35. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
@@ -186,6 +202,7 @@ from sslrec_tpu_torch.data.registry import load_data
 from sslrec_tpu_torch.models.general_cf.dccf import plain_and_norm_adj
 from sslrec_tpu_torch.models.general_cf.lightgcl import rect_norm_adj
 from sslrec_tpu_torch.models.registry import build_model
+from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
 from sslrec_tpu_torch.ops import cuda_build
 from sslrec_tpu_torch.ops import segment as plain_seg
 from sslrec_tpu_torch.ops import segment_kernel as skn
@@ -328,7 +345,25 @@ MB_MODELS = ("mbgmn", "hmgcr", "smbrec")
 # - HMGCR (3 layers, 4 meta-path towers): per layer A·i then AT·u, each with
 #   dx: 48 a step; generate 24.
 # - SMBRec (2 layers, 4 behavior towers): 32 a step; generate 16.
-MB_B1 = {"mbgmn": (72, 48), "hmgcr": (48, 24), "smbrec": (32, 16)}
+# - CML (3 layers, 4 behaviors, d 16): a GCN is 4 × (A·items, AT·users) a
+#   layer: 24 hops; rounds 1 and 3 take them with their dx (48 each), round
+#   2 runs the clone's GCN without gradient (24): 120 a step; generate 24.
+# - KMCLR (3 layers, d 32): two rounds of 24 hops and 24 dx: 96 a step;
+#   generate 24; its epoch hook below (MB_EPOCH_B1).
+MB_B1 = {"mbgmn": (72, 48), "hmgcr": (48, 24), "smbrec": (32, 16), "cml": (120, 24),
+         "kmclr": (96, 24)}
+# KMCLR's epoch hook, counted from the code: each of its ``n_bpr`` contrast
+# steps (``n_buy // bpr_batch_size``) runs the KG LightGCN three times (the
+# BPR side and two views) of 3 hops over the buy bi-adjacency, each hop with
+# its dx (18), and four relation GATs, whose entity and relation gathers'
+# backward are segment sums (8): 26; the two views' values are a segment
+# sum each (2) and the KG users one more LightGCN (3); TransR and TATEC run
+# no B1.  Once a run, the all-ones view's values (a segment sum) are made at
+# the first contrast step.
+MB_EPOCH_B1 = {"kmclr": lambda model: (26 * model.n_bpr + 2 + 3, 1)}
+MB_NEW = ("cml", "kmclr")
+MB_META_FILE = "meta_multi_single_beh_user_index_shuffle"
+TMALL_KG = os.path.join("datasets", "multi_behavior", "tmall", "kg.txt")
 # Tmall (CML, WSDM 2022): 31,882 users, 31,232 items, 1,451,219 interactions
 # over page view, favourite, cart and buy.  The split per behavior is this
 # script's assumption (pv densest, buy sparsest), the test's held-out buys
@@ -388,8 +423,10 @@ def b1_count(name: str, epochs: int, n_batches: int, fix_steps: int,
                 f"{build} at construction")
     if name in MB_B1:
         per_step, per_gen = MB_B1[name]
-        return (per_step * steps + per_gen * evals,
-                f"{per_step} per step, {per_gen} per evaluation")
+        per_epoch, once = MB_EPOCH_B1[name](model) if name in MB_EPOCH_B1 else (0, 0)
+        return (per_step * steps + per_gen * evals + per_epoch * epochs + once,
+                f"{per_step} per step, {per_gen} per evaluation, {per_epoch} per epoch, "
+                f"{once} once")
     if name in SOCIAL_B1:
         per_step, per_gen = SOCIAL_B1[name]
         added = getattr(model, "added_views", {"ui": 0, "uu": 0})
@@ -1205,17 +1242,26 @@ def check_layout_builds(name: str, graphs: dict, segs: dict, widths=(32, 4, 1)) 
 
 
 def check_segment_b1(errs: ErrTrack, name: str, lay: skn.SegmentLayout, widths, gen,
-                     ref64: bool = False) -> None:
+                     ref64: bool = False, ints: bool = False) -> None:
     """B1 as segment sum (value and gradient) and as a gather's backward
     over ``lay``, against the plain versions, at each width.  ``ref64``: the
     plain versions run in float64 (segments so long that float32 rounding in
-    another sum order alone would reach the tolerance)."""
+    another sum order alone would reach the tolerance); ``ints``: the inputs
+    are small integers, as ``check_graph``'s with ``ref64``, for a segment so
+    long (~10^6 slots) that float32 rounding of random normals alone comes
+    within a factor 2 of the tolerance: their sums are exact in float32."""
     dev = lay.ids.device
     n, S, ids = lay.n, lay.num_segments, lay.ids.long()
     dt = torch.float64 if ref64 else torch.float32
+
+    def rand(*shape):
+        if ints:
+            return torch.randint(-8, 9, shape, generator=gen, device=dev).float()
+        return torch.randn(*shape, generator=gen, device=dev)
+
     for d in widths:
-        x = torch.randn(n, d, generator=gen, device=dev)
-        w_out = torch.randn(S, d, generator=gen, device=dev)
+        x = rand(n, d)
+        w_out = rand(S, d)
         xk, xp = x.clone().requires_grad_(), x.to(dt, copy=True).requires_grad_()
         yk = skn.SegmentSumFn.apply(lay, xk)
         (yk * w_out).sum().backward()
@@ -1223,8 +1269,8 @@ def check_segment_b1(errs: ErrTrack, name: str, lay: skn.SegmentLayout, widths, 
         (yp * w_out).sum().backward()
         errs.check(f"{name}.sum.d{d}", yk.detach(), yp.detach().float())
         errs.check(f"{name}.sum.d{d}.grad", xk.grad, xp.grad.float())
-        table = torch.randn(S, d, generator=gen, device=dev)
-        w_e = torch.randn(n, d, generator=gen, device=dev)
+        table = rand(S, d)
+        w_e = rand(n, d)
         tk, tp = table.clone().requires_grad_(), table.to(dt, copy=True).requires_grad_()
         yk, yp = skn.TakeFn.apply(lay, tk), tp[ids]
         (yk * w_e).sum().backward()
@@ -2154,6 +2200,132 @@ def new_shapes_timing(kgn: dict, mbp: dict, gen) -> dict:
     return {"t": t, "bound": bound}
 
 
+def write_mb_extras(name: str) -> dict:
+    """Beside phase 29's split: CML's meta users (a seeded permutation of the
+    users with a buy and at least one other behavior; an assumption, the
+    real file being absent) and the repository's real Tmall ``kg.txt``."""
+    import pickle
+    import shutil
+    d = os.path.join(SMOKE_RESULTS, "multi_behavior", name)
+    mats = {}
+    for b in ("pv", "fav", "cart", "buy"):
+        with open(os.path.join(d, f"train_mat_{b}.pkl"), "rb") as f:
+            mats[b] = sp.csr_matrix(pickle.load(f))
+    has = {b: np.diff(m.indptr) > 0 for b, m in mats.items()}
+    meta = np.nonzero(has["buy"] & (has["pv"] | has["fav"] | has["cart"]))[0]
+    meta = np.random.default_rng(2022).permutation(meta).astype(np.int64)
+    with open(os.path.join(d, MB_META_FILE), "wb") as f:
+        pickle.dump(meta.tolist(), f)
+    shutil.copy(TMALL_KG, os.path.join(d, "kg.txt"))
+    trip = np.loadtxt(TMALL_KG, dtype=np.int64, ndmin=2)
+    per_item = np.bincount(trip[:, 0])
+    out = {"meta_users": int(meta.size), "kg_triplets": int(trip.shape[0]),
+           "kg_relations": np.bincount(trip[:, 1]).tolist(),
+           "kg_max_id": int(trip[:, [0, 2]].max()), "kg_items": int((per_item > 0).sum()),
+           "kg_max_per_item": int(per_item.max())}
+    log(f"  {MB_META_FILE}: {out['meta_users']} users (buy and another behavior, seeded "
+        f"permutation: an assumption); kg.txt (real, Tmall): {out['kg_triplets']} triplets, "
+        f"relations {out['kg_relations']}, ids <= {out['kg_max_id']}, {out['kg_items']} items "
+        f"with a triplet, at most {out['kg_max_per_item']} an item")
+    return out
+
+
+def check_weighted(errs: ErrTrack, name: str, g: sk.CsrGraph, w: torch.Tensor, d: int,
+                   gen) -> None:
+    """B1 against plain on both layouts of ``g`` under the constant multiplier
+    ``w`` ([nnz], the original edge order): value, and dx through
+    :class:`SpmmPvFn`."""
+    dev = g.vals.device
+    for direction, gd in (("fwd", g), ("bwd", g.t())):
+        tag = f"{name}.{direction}.d{d}"
+        x = torch.randn(gd.n_cols, d, generator=gen, device=dev)
+        w_out = torch.randn(gd.n_rows, d, generator=gen, device=dev)
+        got = sk.csr_spmm(gd.fwd, x, w)
+        check_exact(f"{tag}.repeat", sk.csr_spmm(gd.fwd, x, w), got)
+        errs.check(f"{tag}.plain", got, sk.csr_spmm_plain(gd.fwd, x, w))
+        xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+        (sk.SpmmPvFn.apply(gd, xk, w) * w_out).sum().backward()
+        (sk.csr_spmm_plain(gd.fwd, xp, w) * w_out).sum().backward()
+        errs.check(f"{tag}.dx", xk.grad, xp.grad)
+    torch.cuda.synchronize()
+    log(f"  {name}: {g.n_rows}x{g.n_cols}, nnz {g.nnz}, d {d}, under a view's values: ok")
+
+
+def mb_new_phases(errs: ErrTrack, gen) -> dict:
+    """Phases 32-33: CML and KMCLR driven through the CLI on phase 29's split,
+    then B1 held at CML's behavior graphs and KMCLR's bi-adjacency under a
+    view's values."""
+    log("== 32. CML and KMCLR (the Tmall-shaped split, real Tmall kg.txt)")
+    extras = write_mb_extras(MB_DATASET)
+    trained = {}
+    runs = ssl_paths(errs, data_dir=SMOKE_RESULTS, dataset=MB_DATASET, models=MB_NEW,
+                     keep=trained)
+    km = trained["kmclr"]
+    extras.update(kmclr_kg={"entities": km.n_entities, "relations": km.n_relations,
+                            "cap": km.kg_cap, "trans_batches": km.n_trans,
+                            "contrast_steps": km.n_bpr},
+                  kmclr_hook_s_last_epoch=dict(km.hook_s))
+    log(f"  KMCLR: {km.n_entities} entities, {km.n_relations} relations, lists of "
+        f"{km.kg_cap}; {km.n_trans} TransR/TATEC batches and {km.n_bpr} contrast steps an "
+        f"epoch; the last epoch's hook (s): {km.hook_s}")
+
+    log("== 33. B1 against plain, CML's behavior graphs and KMCLR's views")
+    t0 = time.perf_counter()
+    mb_errs = ErrTrack()
+    graphs = {f"cml_{b}_{d}": g for b, pair in zip(("pv", "fav", "cart", "buy"),
+                                                   trained["cml"].gcn.graphs)
+              for d, g in zip(("a", "at"), pair)}
+    for k, g in graphs.items():
+        check_graph(mb_errs, k, g, (16,), gen, with_grads=True)
+    with torch.no_grad():
+        views = km.make_views(StepDraws(gen))
+    graphs["kmclr_bi"] = km.bi.graph
+    for v, w in enumerate(views):
+        check_weighted(mb_errs, f"kmclr_bi_view{v}", km.bi.graph, w, 32, gen)
+    check_weighted(mb_errs, "kmclr_bi_ones", km.bi.graph, km.ones_vals(), 32, gen)
+    segs = {"kmclr_ent_lists": km.ent_lay, "kmclr_rel_lists": km.rel_lay}
+    for k, lay in segs.items():     # the pad's row: 961,308 of the 999,424 slots
+        check_segment_b1(mb_errs, k, lay, (32,), gen, ref64=True, ints=True)
+    log(f"max abs err {mb_errs.abs:.3g}, max rel err {mb_errs.rel:.3g} (tolerance {TOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"runs": runs, "errs": mb_errs, "extras": extras, "graphs": graphs, "segs": segs,
+            "view": views[0], "model": km}
+
+
+# (key, operand, width, layout) of each CML B1 shape timed in phase 34
+CML_SHAPES = tuple((f"cml_{b}_{d}_d16", f"cml_{b}_{d}", 16, "fwd")
+                   for b in ("pv", "fav", "cart", "buy") for d in ("a", "at")
+                   if (b, d) != ("pv", "a"))
+# and KMCLR's per-item lists' gathers' backward (segment sums), d 32
+KMCLR_SEG_SHAPES = (("kmclr_ent_lists_d32", "kmclr_ent_lists", 32, "seg"),
+                    ("kmclr_rel_lists_d32", "kmclr_rel_lists", 32, "seg"))
+
+
+def mb_new_timing(mbn: dict, gen) -> dict:
+    """Phase 34: B1 at CML's behavior graphs (d 16; pv's A at d 16 is phase
+    31's) and KMCLR's bi-adjacency under a view's values (d 32, both
+    layouts), each beside its bound, its plain version and
+    ``torch.sparse.mm``; KMCLR's epoch hook in its four parts."""
+    log("== 34. CML's and KMCLR's shapes timing")
+    t0 = time.perf_counter()
+    t, bound = time_layouts({"graphs": mbn["graphs"], "seg": mbn["segs"]},
+                            CML_SHAPES + KMCLR_SEG_SHAPES, gen)
+    g, w = mbn["graphs"]["kmclr_bi"], mbn["view"]
+    for key, lay in (("kmclr_bi_view_d32", g.fwd), ("kmclr_bi_view_t_d32", g.bwd)):
+        x = torch.randn(lay.n_cols, 32, generator=gen, device=w.device)
+        t[key], bound[key] = time_b1(lay, x, w)
+    for k, r in t.items():
+        log_timing(k, r, bound[k])
+    km = mbn["model"]
+    km.epoch_state(gen, 2)
+    hook = dict(km.hook_s)
+    log(f"  KMCLR's epoch hook, host clock (s, each part synchronised): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in hook.items())
+        + f"; {sum(hook.values()):.3f} in all")
+    log(f"  {time.perf_counter() - t0:.1f} s")
+    return {"t": t, "bound": bound, "hook_s": hook}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -2495,7 +2667,10 @@ def main() -> int:
     mbp = mb_phases(errs, gen)
     newt = new_shapes_timing(kgn, mbp, gen)
 
-    log("== 32. result")
+    mbn = mb_new_phases(errs, gen)
+    mbt = mb_new_timing(mbn, gen)
+
+    log("== 35. result")
     common = {"route": "cuda", "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
               "replaces": "sslrec_tpu/ops/pallas_spmm.py:123",
               "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel"}
@@ -2525,7 +2700,7 @@ def main() -> int:
     lgcn_err.abs, lgcn_err.rel = main_abs, main_rel
     lgcn_counts, kg_counts = (launches, lgcn_combine), (kg_b1, kg_combine)
     ssl_runs = {**ssl_runs, **view_runs, **soc_runs, **ks["runs"], **kgp["runs"],
-                **seq["runs"], **kgn["runs"], **mbp["runs"]}
+                **seq["runs"], **kgn["runs"], **mbp["runs"], **mbn["runs"]}
     ssl_b1 = sum(r["launches"] for r in ssl_runs.values())
     ssl_combine = sum(r["combine_launches"] for r in ssl_runs.values())
     b1 = b1_row("csr_spmm", hop["none"], hop_bound["none"],
@@ -2542,6 +2717,7 @@ def main() -> int:
                                            ui_errs.rel, ssl_errs.rel, view_errs.rel,
                                            soc_errs.rel, ks["errs"].rel, kgp["errs"].rel,
                                            seq["errs"].rel, kgn["errs"].rel, mbp["errs"].rel,
+                                           mbn["errs"].rel,
                                            *(e["max_rel_err"] for e in seq["bf16_err"].values())),
                 stress={"max_abs_err": stress_errs.abs, "max_rel_err": stress_errs.rel,
                         "reference": "plain version in float64"},
@@ -2727,6 +2903,36 @@ def main() -> int:
                               kgn["errs"] if k.startswith("diffkg") else mbp["errs"], shape,
                               library_call=call, launches_of=list(paths)))
     rows_b1[-1]["multi_behavior"] = {"split": mbp["sizes"], "runs": mbp["runs"]}
+    for k, op, d_k, layout in CML_SHAPES:
+        g = mbn["graphs"][op]
+        rows_b1.append(b1_row(
+            f"csr_spmm.{k}", mbt["t"][k], mbt["bound"][k],
+            (mbn["runs"]["cml"]["launches"], mbn["runs"]["cml"]["combine_launches"]),
+            mbn["errs"], {"n_rows": g.n_rows, "n_cols": g.n_cols, "nnz": g.nnz, "d": d_k,
+                          "layout": "forward"},
+            library_call=sparse_mm, launches_of=["cml"]))
+    for k, op, d_k, _ in KMCLR_SEG_SHAPES:
+        lay = mbn["segs"][op]
+        rows_b1.append(b1_row(
+            f"csr_spmm.{k}", mbt["t"][k], mbt["bound"][k],
+            (mbn["runs"]["kmclr"]["launches"], mbn["runs"]["kmclr"]["combine_launches"]),
+            mbn["errs"], {"n": lay.n, "num_segments": lay.num_segments, "d": d_k,
+                          "layout": "segment layout",
+                          "what": "the backward of the gather of KMCLR's per-item "
+                                  + ("entity" if "ent" in k else "relation") + " lists"},
+            library_call=sparse_mm, launches_of=["kmclr"]))
+    g = mbn["graphs"]["kmclr_bi"]
+    for k in ("kmclr_bi_view_d32", "kmclr_bi_view_t_d32"):
+        rows_b1.append(b1_row(
+            f"csr_spmm.{k}", mbt["t"][k], mbt["bound"][k],
+            (mbn["runs"]["kmclr"]["launches"], mbn["runs"]["kmclr"]["combine_launches"]),
+            mbn["errs"], {"n_rows": g.n_rows, "n_cols": g.n_cols, "nnz": g.nnz, "d": 32,
+                          "layout": "transposed" if "_t_" in k else "forward",
+                          "what": "the buy bi-adjacency under a make_views view's values"},
+            library_call="torch.sparse.mm on a CSR tensor whose values already carry the "
+                         "view's values", launches_of=["kmclr"]))
+    rows_b1[-1]["cml_kmclr"] = {"data": mbn["extras"], "runs": mbn["runs"],
+                                "kmclr_hook_s": mbt["hook_s"]}
     rows_b1[0]["tuner_and_resume_on_card"] = {
         "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
         "resume_bit_equal_tensors": tr["resume_tensors"],

@@ -1,5 +1,5 @@
 """Multi-behavior data handler (port of ``sslrec_tpu/data/multi_behavior.py``:
-MBGMN, HMGCR and SMBRec).
+MBGMN, HMGCR, SMBRec, CML and KMCLR, and the plain MF view ``load_mf``).
 
 Reads ``<data.dir>/multi_behavior/<name>/``: one pickled
 ``train_mat_<behavior>.pkl`` per behavior of ``BEHAVIORS[name]``, binarised,
@@ -15,7 +15,10 @@ degrees, of the binarised matrix and of its transpose.  HMGCR also gets the
 meta-path matrices ``train_mat_<meta path>.pkl`` (``META_PATHS``) as graphs
 of the same form; SMBRec each behavior's user degrees and the user
 co-interaction CSR of the target behavior (``M Mᵀ``, diagonal removed).
-Files are read from ``data.dir`` only.
+CML reads its meta users, the pickled index list
+``meta_multi_single_beh_user_index_shuffle`` (a missing file raises, as in
+the JAX package); KMCLR the triplets of ``kg.txt`` (``h r t`` lines) where
+the file is there.  Files are read from ``data.dir`` only.
 """
 
 from __future__ import annotations
@@ -85,15 +88,49 @@ def load(cfg, device="cpu") -> DataBundle:
                 f"multi_behavior/{name}: required behavior matrix missing: {path}")
     mats = [_read(os.path.join(d, f"train_mat_{b}.pkl")) for b in behaviors]
     tst = _read(os.path.join(d, "test_mat.pkl"))
-    meta_mats = None
-    if cfg.model.name.lower() == "hmgcr":
+    model = cfg.model.name.lower()
+    meta_mats = meta_users = kg_triplets = None
+    if model == "hmgcr":
         meta_mats = [_read(os.path.join(d, f"train_mat_{mp}.pkl")) for mp in META_PATHS[name]]
+    if model == "kmclr":
+        kg_path = os.path.join(d, "kg.txt")
+        if os.path.exists(kg_path):
+            kg_triplets = np.loadtxt(kg_path, dtype=np.int64, ndmin=2)
+    if model == "cml":
+        with open(os.path.join(d, "meta_multi_single_beh_user_index_shuffle"), "rb") as f:
+            meta_users = np.asarray(pickle.load(f), np.int32)
     return bundle_from_behaviors(cfg, behaviors, mats, tst, meta_mats=meta_mats,
+                                 meta_users=meta_users, kg_triplets=kg_triplets,
                                  device=device)
 
 
-def bundle_from_behaviors(cfg, behaviors, mats, tst_mat, meta_mats=None,
-                          device="cpu") -> DataBundle:
+def load_mf(cfg, device="cpu") -> DataBundle:
+    """The plain matrix-factorisation view of a multi-behavior dataset (the
+    ``multi_behavior_mf`` type): the target behavior's train matrix (the last
+    behavior where ``model.target`` is not one) and the test split, no
+    propagation graphs."""
+    name = cfg.data.name
+    d = os.path.join(cfg.data.get("dir") or _DEFAULT_DATA_ROOT, "multi_behavior", name)
+    behaviors = BEHAVIORS[name]
+    target = cfg.model.get("target", "buy")
+    beh = target if target in behaviors else behaviors[-1]
+    trn = _read(os.path.join(d, f"train_mat_{beh}.pkl")).tocoo()
+    tst = _read(os.path.join(d, "test_mat.pkl"))
+    order = np.lexsort((trn.col, trn.row))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return DataBundle(
+        user_num=int(trn.shape[0]), item_num=int(trn.shape[1]),
+        train_users=t(trn.row[order]), train_items=t(trn.col[order]),
+        train_edge_set=sparse_ops.build_edge_set(trn, device=device),
+        valid=None, test=_eval_data(tst.tocoo(), trn, device),
+        extras={"train_mat_scipy": trn})
+
+
+def bundle_from_behaviors(cfg, behaviors, mats, tst_mat, meta_mats=None, meta_users=None,
+                          kg_triplets=None, device="cpu") -> DataBundle:
     target = cfg.model.get("target", "buy")
     t_idx = behaviors.index(target) if target in behaviors else len(behaviors) - 1
     trn = (mats[t_idx] != 0).astype(np.float32).tocoo()
@@ -111,6 +148,10 @@ def bundle_from_behaviors(cfg, behaviors, mats, tst_mat, meta_mats=None,
     }
     if meta_mats is not None:
         extras["meta_path_graphs"] = [behavior_graphs(m, device) for m in meta_mats]
+    if meta_users is not None:
+        extras["meta_users"] = t(meta_users)
+    if kg_triplets is not None:
+        extras["kg_triplets"] = kg_triplets
     if cfg.model.name.lower() == "smbrec":
         extras["beh_degrees"] = torch.from_numpy(np.stack(
             [np.asarray((m != 0).sum(axis=1)).reshape(-1) for m in mats]

@@ -12,10 +12,26 @@ checkpoint and evaluates it on the test split, training nothing; else it
 trains and evaluates.  The run computes on the card (``--device cuda``, the
 default) unless the CPU is asked for; it never falls back from one to the
 other.
+
+Before the data loads, ``train.mesh`` and ``train.distributed`` are checked
+(:mod:`~sslrec_tpu_torch.parallel.mesh`: a mesh of more than one device, or
+a multi-host run, raises ``NotImplementedError``), and the diagnostics of
+the JAX package's CLI are set up:
+
+- ``train.debug_nans``: autograd's anomaly mode, and a check of every
+  step's loss that raises ``FloatingPointError`` where it is not finite
+  (the type ``jax_debug_nans`` raises);
+- ``train.profile: <dir>``: a ``torch.profiler`` trace of the whole run, the
+  data load included, exported to ``<dir>`` as a Chrome trace when the run
+  ends, whether it ends well or not;
+- the dispatch trace (:mod:`~sslrec_tpu_torch.utils.dispatch_trace`):
+  ``SSLREC_TRACE_FILE``, ``runs_torch/dispatch_trace_<pid>.log`` unless it
+  is set already; the CLI leaves the variable as it found it.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import torch
@@ -23,10 +39,12 @@ import torch
 from sslrec_tpu_torch.config import parse_cli
 from sslrec_tpu_torch.data.registry import load_data
 from sslrec_tpu_torch.models.registry import build_model
+from sslrec_tpu_torch.parallel.mesh import maybe_distributed_init, mesh_from_config
 from sslrec_tpu_torch.trainer.logger import Logger
 from sslrec_tpu_torch.trainer.trainer import Trainer
 from sslrec_tpu_torch.trainer.tuner import grid_search
 from sslrec_tpu_torch.utils import checkpoint as ckpt
+from sslrec_tpu_torch.utils import dispatch_trace
 
 
 def resolve_device(name: str) -> torch.device:
@@ -41,11 +59,33 @@ def resolve_device(name: str) -> torch.device:
     raise ValueError(f"unknown device {name!r}")
 
 
+def start_profile(profile_dir: str, device: torch.device):
+    """A running ``torch.profiler`` trace of the host and, on the card, the
+    device."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def stop_profile(prof, profile_dir: str, name: str) -> str:
+    """Stop ``prof`` and export its Chrome trace into ``profile_dir``."""
+    prof.stop()
+    path = os.path.join(profile_dir, f"{name}_{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
 def main(argv=None):
     """Run the CLI; returns the :class:`Trainer` (a tune returns ``(best test
     score, assignment)``)."""
     cfg = parse_cli(argv)
     device = resolve_device(cfg.train.device)
+    mesh_from_config(cfg, device)
+    maybe_distributed_init(cfg)
     # full float32 in the rating matmul: TF32 would add ~1e-3 to the scores
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -53,11 +93,23 @@ def main(argv=None):
         # CLI runs write a results artifact; the JAX package's results/ stays
         # its own
         cfg = cfg.set_path("train.results_dir", "results_torch")
+    set_trace = "SSLREC_TRACE_FILE" not in os.environ
+    if set_trace:
+        os.environ["SSLREC_TRACE_FILE"] = f"runs_torch/dispatch_trace_{os.getpid()}.log"
+    debug_nans = bool(cfg.train.get("debug_nans", False))
+    profile_dir = str(cfg.train.get("profile", "") or "")
     logger = Logger(cfg)
+    prof = None
     try:
         name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu")
         logger.log(f"device: {device} ({name})")
+        if debug_nans:
+            torch.autograd.set_detect_anomaly(True)
+            logger.log("autograd anomaly mode and the loss check enabled (train.debug_nans)")
+        if profile_dir:
+            prof = start_profile(profile_dir, device)
+            logger.log(f"capturing profiler trace to {profile_dir}")
         data = load_data(cfg, device)
         logger.log(f"data loaded: {data.user_num} users x {data.item_num} items, "
                    f"{data.n_train} train interactions")
@@ -74,6 +126,14 @@ def main(argv=None):
         trainer.train()
         return trainer
     finally:
+        if prof is not None:
+            path = stop_profile(prof, profile_dir, f"{cfg.model.name}_{cfg.data.name}")
+            logger.log(f"profiler trace written to {path}")
+        if debug_nans:
+            torch.autograd.set_detect_anomaly(False)
+        if set_trace:
+            del os.environ["SSLREC_TRACE_FILE"]
+            dispatch_trace.reset()
         logger.close()
 
 

@@ -1,6 +1,5 @@
-"""Model registry: name → class (port of ``sslrec_tpu/models/registry.py``;
-every family but CML and KMCLR of the multi-behavior one).
-Lookup is case-insensitive."""
+"""Model registry: name → class (port of ``sslrec_tpu/models/registry.py``,
+all 31 models).  Lookup is case-insensitive."""
 
 from __future__ import annotations
 
@@ -43,6 +42,8 @@ _REGISTRY: dict[str, tuple[str, str]] = {
     "mbgmn": (_MB + "mbgmn", "MBGMN"),
     "hmgcr": (_MB + "hmgcr", "HMGCR"),
     "smbrec": (_MB + "smbrec", "SMBRec"),
+    "cml": (_MB + "cml", "CML"),
+    "kmclr": (_MB + "kmclr", "KMCLR"),
 }
 
 

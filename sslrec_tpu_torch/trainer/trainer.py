@@ -49,6 +49,12 @@ history) after the evaluation of every that-many epochs; and
 model's part) and goes on from the next epoch.  Since each epoch's draws
 depend only on ``(seed, epoch)``, a resumed run repeats the uninterrupted one
 bit for bit on the same device.
+
+Diagnostics: the dispatch trace (``utils/dispatch_trace.py``) brackets an
+epoch's steps, the loss sync, each evaluation and each state save, as the
+JAX trainer does; ``train.trace_sync`` synchronizes the card after every
+step; ``train.debug_nans`` raises ``FloatingPointError`` at the first step
+whose loss is not finite (the CLI also turns on autograd's anomaly mode).
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from sslrec_tpu_torch.ops.sparse import build_edge_set
 from sslrec_tpu_torch.trainer.logger import Logger, log_exceptions
 from sslrec_tpu_torch.trainer.metrics import Evaluator
 from sslrec_tpu_torch.utils import checkpoint as ckpt
+from sslrec_tpu_torch.utils import dispatch_trace as trace
 from sslrec_tpu_torch.utils.results import RunRecorder
 from sslrec_tpu_torch.utils.summary import make_writer
 
@@ -131,6 +138,8 @@ class Trainer:
                                                                     self.batch_size)
         else:
             self.n_batches = -(-data.n_train // self.batch_size)
+        self.trace_sync = bool(cfg.train.get("trace_sync", False))
+        self.debug_nans = bool(cfg.train.get("debug_nans", False))
         self.kg_trans = bool(getattr(model, "train_trans", False)) and hasattr(model, "kg_loss")
         self.kg_optimizer = None
         if self.kg_trans:
@@ -145,14 +154,25 @@ class Trainer:
         ``step_generator``; returns the loss terms as detached tensors.  A
         model with its own ``train_step`` takes the step instead."""
         if self.optimizer is None:
-            return self.model.train_step(batch, key)
+            aux = self.model.train_step(batch, key)
+            self._check_finite(aux["loss"], batch)
+            return aux
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.model.loss(batch, key)
+        self._check_finite(loss, batch)
         loss.backward()
         if self.grad_clip:
             clip_grad_global_norm(self.model.parameters(), self.grad_clip)
         self.optimizer.step()
         return {**{k: v.detach() for k, v in aux.items()}, "loss": loss.detach()}
+
+    def _check_finite(self, loss: torch.Tensor, batch: dict) -> None:
+        """Under ``train.debug_nans``, ``FloatingPointError`` where ``loss`` is
+        not finite (before its backward, whose NaNs autograd's anomaly mode
+        reports)."""
+        if self.debug_nans and not bool(torch.isfinite(loss).all()):
+            raise FloatingPointError(f"train.debug_nans: step {batch.get('step')}: "
+                                     f"loss {float(loss)}")
 
     def epoch_draws(self, epoch: int):
         """Epoch ``epoch``'s batches ``[n_batches, B]`` (indices into the train
@@ -193,14 +213,21 @@ class Trainer:
         if hasattr(model, "epoch_state"):
             aux_state = model.epoch_state(gen, epoch)
         sums = None
+        tag = f"ep{epoch}.whole_epoch"
+        trace.mark(tag, steps=self.n_batches, model=self.cfg.model.name)
         for step, (bidx, key) in enumerate(zip(idx, keys)):
             batch = {k: v[bidx] for k, v in (*self.arrays.items(), *sampled.items())}
             batch["step"] = step
             if aux_state is not None:
                 batch["aux"] = aux_state
             aux = self.train_step(batch, key)
+            if self.trace_sync:
+                _sync(self.device)
             sums = aux if sums is None else {k: sums[k] + v for k, v in aux.items()}
+        trace.done(tag)
+        trace.mark(f"ep{epoch}.losses_sync")
         losses = {k: float(v) / self.n_batches for k, v in sums.items()}
+        trace.done(f"ep{epoch}.losses_sync")
         if self.kg_trans:
             losses["kg_loss"] = self.kg_trans_epoch(*self.kg_trans_draws(epoch))
         return losses
@@ -329,7 +356,9 @@ class Trainer:
             epoch_valid = None
             if epoch % test_step == 0:
                 t0 = time.perf_counter()
+                trace.mark(f"ep{epoch}.eval")
                 results = evaluator(model)          # reading the metrics syncs
+                trace.done(f"ep{epoch}.eval")
                 timing.update(eval_s=time.perf_counter() - t0,
                               eval_users=eval_split.n_test_users)
                 epoch_valid = results
@@ -353,11 +382,13 @@ class Trainer:
             # resumed run carries the bookkeeping the uninterrupted run had here
             if save_every and (epoch + 1) % save_every == 0:
                 self.state_path = ckpt.checkpoint_path(cfg.model.name, cfg.data.name, ".state")
+                trace.mark(f"ep{epoch}.save_state", path=self.state_path)
                 ckpt.save(self.state_path, {
                     "params": model.state_dict(),
                     "opt_state": ckpt.optim_state(self.optimizers()), "epoch": epoch,
                     "best_params": best_state, "best_metric": float(best_metric),
                     "wait": int(wait), **self._extra()})
+                trace.done(f"ep{epoch}.save_state")
                 self.logger.log(f"saved train state to {self.state_path}")
         else:
             # fixed-epoch run without early stop: when the final epoch is off

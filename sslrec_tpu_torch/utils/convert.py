@@ -284,3 +284,21 @@ def smbrec_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     flat = _tree("towers", params["towers"])
     flat.update(_tree("", {k: params[k] for k in ("cat_trans", "user_trans", "beh_weights")}))
     return _state(flat)
+
+
+def cml_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The ``gcn`` tree (``gcn.user_emb``, ``gcn.u_w.l`` …) and the ``meta``
+    tree (``meta.ssl1.w`` …, the scalar ``meta.prelu``, ``meta.beh_emb``)
+    under ``meta_net``."""
+    flat = _tree("gcn", params["gcn"])
+    flat.update(_tree("meta_net", params["meta"]))
+    return _state(flat)
+
+
+def kmclr_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The ``mb`` tree as CML's ``gcn`` and the ``kg`` tree (``kg.item.0``,
+    ``kg.entity.1``, ``kg.transR_W``, ``kg.gat_fc.w`` …) under the same
+    dotted names."""
+    flat = _tree("mb", params["mb"])
+    flat.update(_tree("kg", params["kg"]))
+    return _state(flat)

@@ -136,11 +136,11 @@ def test_missing_file_and_unported_models_raise(tmp_path):
     cfg = tload_config("dcrec", dataset="toy", overrides={"data.dir": str(tmp_path)})
     with pytest.raises(FileNotFoundError, match="tst_mat.pkl"):
         load_data(cfg)
-    # every social model is ported; a model the port lacks raises at build
+    # every model is ported; a name the registry lacks raises at build
     trn, tst, trust = social_split()
-    cfg = tload_config("dcrec").set_path("model.name", "cml")
+    cfg = tload_config("dcrec").set_path("model.name", "no_such_model")
     data = tsocial.bundle_from_matrices(cfg, trn, tst, trust)
-    with pytest.raises(KeyError, match="cml"):
+    with pytest.raises(KeyError, match="no_such_model"):
         build_model(cfg, data)
 
 

@@ -163,7 +163,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 34. time them, each beside its bound, its plain version and
    ``torch.sparse.mm``, and KMCLR's epoch hook in its four parts (host
    clock);
-35. print the ``{"kernels": [...]}`` line, then the card line, then
+35. ``tune.parallel``'s lanes: hold B1 under the Functions' vmap rule at
+   the LightGCN hop (K in ``LANE_KS`` lanes of d 32 folded into one call at
+   d 32·K, no multiplier and the PRF mode; DCCF's learned weight with 3
+   lanes, a call a lane), value and gradients per lane within 1e-5, one
+   launch a hop where the weight has no lanes; time the 3-lane fold (d 96)
+   beside its bound, its plain version, ``torch.sparse.mm`` and three d 32
+   calls; drive LightGCN's shipped grid (2 epochs, 3 lanes), DCCF's and
+   KCGN's 2 x 2 (1 epoch, 2 lanes) through the CLI with ``tune.parallel`` and
+   serially: each trial's test score equal to its serial score, B1's
+   launches equal to ``LANES_B1``'s count, no B2, each grid's wall time;
+36. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
@@ -208,6 +218,7 @@ from sslrec_tpu_torch.ops import segment as plain_seg
 from sslrec_tpu_torch.ops import segment_kernel as skn
 from sslrec_tpu_torch.ops import spmm_kernel as sk
 from sslrec_tpu_torch.ops.sparse import CooGraph, from_scipy
+from sslrec_tpu_torch.ops.spmm import spmm as sk_spmm
 from sslrec_tpu_torch.profile_epoch import device_us
 from sslrec_tpu_torch.trainer.trainer import Trainer, generator
 from sslrec_tpu_torch.utils import checkpoint as ckpt
@@ -397,6 +408,42 @@ BF16_VS_F32 = 3.8e-3        # the JAX bf16 mode's error against XLA (BENCH_r05.j
 # of the sum of its contributions' magnitudes of the float32 output
 BF16_ROUNDING = 3 * 2.0**-8 + 2.0**-15
 PRECISION_VAR = "SSLREC_PALLAS_PRECISION"
+# The tune.parallel lanes (phase 35): the widths B1 is held at under the lanes'
+# vmap rule (K lanes of d 32 folded to d 32·K), and the grids driven both ways
+LANE_KS = (2, 3, 4, 8)
+# B1 launches of the lanes, counted from the code: (per training step, per
+# generate()) of a chunk of K lanes at layer_num L.  A call whose weight has
+# no lanes runs once for all K lanes on [n, K·d] (the Functions' vmap rule,
+# ops/spmm_kernel.py vmap_lanes); DCCF's learned edge weights are each
+# lane's own, so its degree sums, masked hops and their dx take a call a
+# lane; evaluations run one lane at a time.  K = 1 is the serial loop's.
+# - LightGCN: L hops and their dx: 2L; generate L.
+# - DCCF: per layer the GNN hop and its dx (2), two degree sums and two
+#   masked hops (4K), the masked hops' dx (2K): (2 + 6K)·L; generate 5L.
+# - KCGN: SOCIAL_B1's count at L, every call folded: 2(L - 1) + 14;
+#   generate L - 1.
+LANES_B1 = {"lightgcn": lambda L, K: (2 * L, L),
+            "dccf": lambda L, K: ((2 + 6 * K) * L, 5 * L),
+            "kcgn": lambda L, K: (2 * (L - 1) + 14, L - 1)}
+# the grids, each run with tune.parallel and serially: LightGCN's shipped grid
+# (2 layer_num groups of 3 lanes, 2 epochs), DCCF's and KCGN's 2 x 2 (2
+# groups of 2 lanes, 1 epoch) at their published configs
+LANE_GRIDS = {
+    "lightgcn": {"data": (DATA_DIR, DATASET), "epochs": 2, "parallel": 3,
+                 "grid": {"layer_num": [2, 3], "reg_weight": [1.0e-6, 1.0e-7, 1.0e-8]}},
+    "dccf": {"data": (DATA_DIR, DATASET), "epochs": 1, "parallel": 2,
+             "grid": {"layer_num": [2, 3], "cl_weight": [1.0e-1, 1.0e-2]}},
+    "kcgn": {"data": (DATA_DIR, "yelp_sub"), "epochs": 1, "parallel": 2,
+             "grid": {"layer_num": [1, 2], "reg_weight": [1.0e-1, 1.0e-2]}}}
+# a trial's test recall@10, lanes against serial, must be equal: the same
+# hits give the same float32 sums in the same order, and one swap of two
+# items at a top-k boundary moves recall@10 by 1 / (test users · |ground
+# truth|), as much as the gap between two of KCGN's trials on yelp_sub, so
+# any looser limit would pass a lane that trained on another trial's scalars.
+# The lanes' hops run at width K·d, where B1 picks a wider lane group and a
+# longer split threshold (float32 rounding), and vmap batches dense weight
+# gradients; every trial of every run so far gave the serial score exactly.
+LANES_SCORE_TOL = 0.0
 
 
 
@@ -2326,6 +2373,154 @@ def mb_new_timing(mbn: dict, gen) -> dict:
     return {"t": t, "bound": bound, "hook_s": hook}
 
 
+def lanes_b1(name: str, groups, k: int, n_batches: int, epochs: int) -> tuple[int, int]:
+    """B1 launches of a grid's lanes run and of its serial run, counted from
+    the code (:data:`LANES_B1`): ``groups`` lists (layer_num, trials) per
+    structural group; each group runs chunks of ``k`` lanes (the tail padded);
+    with ``train.test_step=1`` and no early stop a chunk evaluates every lane
+    each epoch and tests it once, a serial trial evaluates each epoch, its
+    best valid and its test."""
+    lanes = serial = 0
+    for layers, n in groups:
+        step, per_gen = LANES_B1[name](layers, k)
+        lanes += -(-n // k) * (epochs * n_batches * step + per_gen * k * (epochs + 1))
+        step1, _ = LANES_B1[name](layers, 1)
+        serial += n * (epochs * n_batches * step1 + per_gen * (epochs + 2))
+    return lanes, serial
+
+
+def yaml_list(values) -> str:
+    """A list for ``--set``, floats in YAML's float form (``1.0e-06``)."""
+    return "[" + ", ".join(f"{v:.1e}" if isinstance(v, float) else str(v)
+                           for v in values) + "]"
+
+
+def run_grid(name: str, spec: dict, parallel: int, device: str = "cuda") -> dict:
+    """``spec``'s grid of model ``name`` through the CLI, with ``tune.parallel``
+    at ``parallel`` (0: the serial loop), the launch counts reset just before
+    and read just after; its tune artifact (mode, no run artifact) and each
+    trial's test score."""
+    tune_dir = os.path.join(SMOKE_RESULTS, f"tune_{name}_{parallel}")
+    grid = spec["grid"]
+    argv = ["--model", name, "--data_dir", spec["data"][0], "--dataset", spec["data"][1],
+            "--device", device, "--epoch", str(spec["epochs"]), "--set", "train.test_step=1",
+            "--set", "train.early_stop=false", "--set", f"train.results_dir={tune_dir}",
+            "--set", "tune.enable=true", "--set", f"tune.parallel={parallel}",
+            "--set", f"tune.hyperparameters=[{', '.join(grid)}]",
+            *(a for h, v in grid.items() for a in ("--set", f"tune.{h}={yaml_list(v)}"))]
+    sk.csr_spmm.launches = sk.csr_spmm.combine_launches = skn.segment_max.launches = 0
+    t0 = time.perf_counter()
+    best = port_main.main(argv)
+    wall = time.perf_counter() - t0
+    b1, combine, b2 = (sk.csr_spmm.launches, sk.csr_spmm.combine_launches,
+                       skn.segment_max.launches)
+    art = f"{name}_{spec['data'][1]}_tune.json"
+    doc = json.load(open(os.path.join(tune_dir, art)))
+    mode = "vmapped" if parallel > 1 else "serial"
+    if (sorted(os.listdir(tune_dir)) != [art] or doc["mode"] != mode
+            or doc["best"]["score"] != best[0]):
+        raise AssertionError(f"{name} tune ({mode}): {os.listdir(tune_dir)}, {doc}")
+    return {"wall_s": wall, "launches": b1, "combine_launches": combine, "b2_launches": b2,
+            "scores": {json.dumps(t["assignment"], sort_keys=True): t["score"]
+                       for t in doc["trials"]}}
+
+
+def lanes_phases(errs: ErrTrack, gen, data, n_batches: dict, dev) -> dict:
+    """Phase 35: B1 under the lanes' vmap rule at the LightGCN hop (K lanes of
+    d 32 folded into one call at d 32·K, no multiplier and the PRF mode; and
+    DCCF's learned weight with lanes, a call a lane), value and gradients per
+    lane against the plain version, one launch a hop where the weight has no
+    lanes; the time of the 3-lane fold (d 96); then LightGCN's, DCCF's and
+    KCGN's grids through the CLI with tune.parallel and serially: each
+    trial's test score equal to its serial score, B1's launches equal to
+    :func:`lanes_b1`'s count, no B2, and each grid's wall time."""
+    log("== 35. the tune.parallel lanes: B1 under the vmap rule, three grids both ways")
+    g = data.extras["bi_adj"]
+    plain, _ = ssl_graphs(data, dev)
+    lane_errs = ErrTrack()
+    key = torch.tensor([12345, 678], device=dev)
+    checked = []
+    for k in LANE_KS:
+        for mode, w in (("none", None), ("prf", sk.prf_mask(key, g, 0.5))):
+            x = torch.randn(k, g.n_cols, 32, generator=gen, device=dev, requires_grad=True)
+            ct = torch.randn(k, g.n_rows, 32, generator=gen, device=dev)
+            before = sk.csr_spmm.launches
+            y = torch.func.vmap(lambda xl: sk_spmm(g, xl, w))(x)
+            (dx,) = torch.autograd.grad((y * ct).sum(), x)
+            launched = sk.csr_spmm.launches - before
+            if launched != 2:
+                raise AssertionError(f"lanes K={k} {mode}: {launched} B1 launches for a hop "
+                                     f"and its dx, want 2")
+            for i in range(k):
+                lane_errs.check(f"lanes{k}.{mode}.lane{i}", y[i].detach(),
+                                sk.csr_spmm_plain(g.fwd, x[i].detach(), w))
+                lane_errs.check(f"lanes{k}.{mode}.lane{i}.dx", dx[i],
+                                sk.csr_spmm_plain(g.bwd, ct[i], w))
+            checked.append((k, mode))
+            del x, ct, y, dx
+    k = 3
+    x = torch.randn(k, plain.n_cols, 32, generator=gen, device=dev, requires_grad=True)
+    ew = torch.rand(k, plain.nnz, generator=gen, device=dev, requires_grad=True)
+    ct = torch.randn(k, plain.n_rows, 32, generator=gen, device=dev)
+    before = sk.csr_spmm.launches
+    y = torch.func.vmap(lambda xl, wl: sk_spmm(plain, xl, wl))(x, ew)
+    dx, dew = torch.autograd.grad((y * ct).sum(), (x, ew))
+    launched = sk.csr_spmm.launches - before
+    if launched != 2 * k:
+        raise AssertionError(f"lanes with a learned weight: {launched} launches, want {2 * k}")
+    for i in range(k):
+        xi = x[i].detach().clone().requires_grad_()
+        wi = ew[i].detach().clone().requires_grad_()
+        yi = sk.csr_spmm_plain(plain.fwd, xi, wi)
+        dxi, dwi = torch.autograd.grad((yi * ct[i]).sum(), (xi, wi))
+        lane_errs.check(f"dccf_lanes.lane{i}", y[i].detach(), yi.detach())
+        lane_errs.check(f"dccf_lanes.lane{i}.dx", dx[i], dxi)
+        lane_errs.check(f"dccf_lanes.lane{i}.dew", dew[i], dwi)
+    del x, ew, ct, y, dx, dew
+    log(f"B1 under the lanes' vmap rule at the LightGCN hop ({g.n_rows} nodes, {g.nnz} "
+        f"edges), K in {LANE_KS} lanes of d 32, no multiplier and PRF: one launch for the "
+        f"hop and one for its dx each; DCCF's learned weight with 3 lanes: a launch a lane; "
+        f"value and gradients per lane: max abs err {lane_errs.abs:.3g}, max rel err "
+        f"{lane_errs.rel:.3g} (tolerance {TOL})")
+
+    lay = g.fwd
+    x96 = torch.randn(g.n_cols, 96, generator=gen, device=dev)
+    x32 = torch.randn(g.n_cols, 32, generator=gen, device=dev)
+    t96, bound96 = time_b1(lay, x96, None,
+                           three_d32=lambda: [sk.csr_spmm(lay, x32) for _ in range(3)])
+    log_timing("LightGCN hop, 3-lane fold d 96", t96, bound96)
+    del x96, x32
+
+    grids = {}
+    for name, spec in LANE_GRIDS.items():
+        lanes = run_grid(name, spec, spec["parallel"])
+        serial = run_grid(name, spec, 0)
+        per_group = int(np.prod([len(v) for h, v in spec["grid"].items() if h != "layer_num"]))
+        want = lanes_b1(name, [(L, per_group) for L in spec["grid"]["layer_num"]],
+                        spec["parallel"], n_batches[name], spec["epochs"])
+        got = (lanes["launches"], serial["launches"])
+        diff = max(abs(lanes["scores"][a] - serial["scores"][a]) for a in serial["scores"])
+        log(f"  {name}: {len(serial['scores'])} trials, lanes (tune.parallel="
+            f"{spec['parallel']}) {lanes['wall_s']:.1f} s, serial {serial['wall_s']:.1f} s "
+            f"(host clock, data load included); B1 {got[0]} / {got[1]} launches ({want[0]} / "
+            f"{want[1]} counted from the code, {n_batches[name]} steps an epoch); B2 "
+            f"{lanes['b2_launches']} / {serial['b2_launches']}; test recall@10 lanes - serial "
+            f"max |diff| {diff:.3g} (tolerance {LANES_SCORE_TOL})")
+        for a in serial["scores"]:
+            log(f"    {a}: lanes {lanes['scores'][a]:.5f}, serial {serial['scores'][a]:.5f}")
+        if set(lanes["scores"]) != set(serial["scores"]) or diff > LANES_SCORE_TOL:
+            raise AssertionError(f"{name}: lanes {lanes['scores']} against serial "
+                                 f"{serial['scores']}")
+        if got != want or lanes["b2_launches"] or serial["b2_launches"]:
+            raise AssertionError(f"{name}: B1 launched {got}, the code counts {want}; B2 "
+                                 f"{lanes['b2_launches']}, {serial['b2_launches']}")
+        grids[name] = {"lanes": lanes, "serial": serial, "want_b1": want,
+                       "max_score_diff": diff, "parallel": spec["parallel"],
+                       "epochs": spec["epochs"], "grid": spec["grid"]}
+    return {"errs": lane_errs, "checked": checked, "t96": t96, "bound96": bound96,
+            "grids": grids}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -2669,8 +2864,11 @@ def main() -> int:
 
     mbn = mb_new_phases(errs, gen)
     mbt = mb_new_timing(mbn, gen)
+    lanes_steps = {"lightgcn": -(-data.n_train // int(cfg.train.batch_size)),
+                   "dccf": ssl_runs["dccf"]["n_batches"], "kcgn": ks["runs"]["kcgn"]["n_batches"]}
+    lp = lanes_phases(errs, gen, data, lanes_steps, dev)
 
-    log("== 35. result")
+    log("== 36. result")
     common = {"route": "cuda", "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
               "replaces": "sslrec_tpu/ops/pallas_spmm.py:123",
               "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel"}
@@ -2717,7 +2915,7 @@ def main() -> int:
                                            ui_errs.rel, ssl_errs.rel, view_errs.rel,
                                            soc_errs.rel, ks["errs"].rel, kgp["errs"].rel,
                                            seq["errs"].rel, kgn["errs"].rel, mbp["errs"].rel,
-                                           mbn["errs"].rel,
+                                           mbn["errs"].rel, lp["errs"].rel,
                                            *(e["max_rel_err"] for e in seq["bf16_err"].values())),
                 stress={"max_abs_err": stress_errs.abs, "max_rel_err": stress_errs.rel,
                         "reference": "plain version in float64"},
@@ -2933,6 +3131,30 @@ def main() -> int:
                          "view's values", launches_of=["kmclr"]))
     rows_b1[-1]["cml_kmclr"] = {"data": mbn["extras"], "runs": mbn["runs"],
                                 "kmclr_hook_s": mbt["hook_s"]}
+    lane_grids = lp["grids"]
+    rows_b1.append(b1_row(
+        "csr_spmm.lightgcn_hop_lanes3_d96", lp["t96"], lp["bound96"],
+        (lane_grids["lightgcn"]["lanes"]["launches"],
+         lane_grids["lightgcn"]["lanes"]["combine_launches"]), lp["errs"],
+        {**hop_shape, "d": 96, "lane_group": lp["t96"]["lane_group"],
+         "split_threshold": lp["t96"]["split_threshold"],
+         "what": "the LightGCN hop under tune.parallel's 3-lane fold: 3 lanes of d 32 laid "
+                 "side by side as one [n, 96] operand"},
+        library_call="torch.sparse.mm on a CSR tensor of the layout at d 96; three_d32_ms: "
+                     "three B1 calls at d 32, the three lanes one at a time",
+        launches_of=["lightgcn grid with tune.parallel=3"],
+        lanes={"checked_k_and_mode": lp["checked"],
+               "grids": {k: {"lanes_wall_s": v["lanes"]["wall_s"],
+                             "serial_wall_s": v["serial"]["wall_s"],
+                             "b1_lanes_serial": [v["lanes"]["launches"],
+                                                 v["serial"]["launches"]],
+                             "b1_counted": list(v["want_b1"]),
+                             "max_score_diff": v["max_score_diff"],
+                             "parallel": v["parallel"], "epochs": v["epochs"],
+                             "grid": v["grid"],
+                             "lanes_scores": v["lanes"]["scores"],
+                             "serial_scores": v["serial"]["scores"]}
+                         for k, v in lane_grids.items()}}))
     rows_b1[0]["tuner_and_resume_on_card"] = {
         "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
         "resume_bit_equal_tensors": tr["resume_tensors"],

@@ -97,8 +97,8 @@ class DCCF(RecModel):
                 acc.append(v)
         return final[:u], final[u:], views
 
-    def _cl_loss(self, users, items, views):
-        u, t, n = self.user_num, self.temperature, users.shape[0]
+    def _cl_loss(self, users, items, views, t):
+        u, n = self.user_num, users.shape[0]
         cl = 0.0
         for gnn, inte, gaa, iaa in zip(*views):
             ug, ui, ua, uia = (v[:u][users] for v in (gnn, inte, gaa, iaa))
@@ -107,12 +107,21 @@ class DCCF(RecModel):
                 cl = cl + losses.infonce_loss(a, b, b, t) / n
         return cl
 
+    def hparams(self) -> dict:
+        """The lane scalars of ``tune.parallel`` (layer_num is structural)."""
+        return {"reg_weight": self.reg_weight, "cl_weight": self.cl_weight,
+                "temperature": self.temperature}
+
     def loss(self, batch: dict, key=None):
+        hp = batch.get("hp", {})
+        reg_w = hp.get("reg_weight", self.reg_weight)
+        cl_w = hp.get("cl_weight", self.cl_weight)
+        t = hp.get("temperature", self.temperature)
         ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
         u_emb, i_emb, views = self.forward()
         bpr = losses.bpr_loss(u_emb[ancs], i_emb[poss], i_emb[negs]) / ancs.shape[0]
-        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
-        cl = self.cl_weight * self._cl_loss(ancs, torch.cat([poss, negs]), views)
+        reg = reg_w * losses.reg_params(dict(self.named_parameters()))
+        cl = cl_w * self._cl_loss(ancs, torch.cat([poss, negs]), views, t)
         return bpr + reg + cl, {"bpr_loss": bpr, "reg_loss": reg, "cl_loss": cl}
 
     def generate(self):

@@ -40,11 +40,16 @@ class DirectAU(RecModel):
             / (self.layer_num + 1)
         return acc[: self.user_num], acc[self.user_num:]
 
+    def hparams(self) -> dict:
+        """The lane scalar of ``tune.parallel`` (layer_num is structural)."""
+        return {"gamma": self.gamma}
+
     def loss(self, batch: dict, key=None):
+        gamma = batch.get("hp", {}).get("gamma", self.gamma)
         user_embeds, item_embeds = self.propagate()
         anc, pos = user_embeds[batch["user"]], item_embeds[batch["pos"]]
         align = losses.alignment_loss(anc, pos)
-        uniform = self.gamma * (losses.uniformity_loss(anc) + losses.uniformity_loss(pos)) / 2.0
+        uniform = gamma * (losses.uniformity_loss(anc) + losses.uniformity_loss(pos)) / 2.0
         return align + uniform, {"align_loss": align, "uniform_loss": uniform}
 
     def generate(self):

@@ -103,8 +103,16 @@ class HCCF(RecModel):
         total = embeds + torch.stack(gcn).sum(0) + torch.stack(hyper).sum(0)
         return total, gcn, hyper
 
+    def hparams(self) -> dict:
+        """The lane scalars of ``tune.parallel`` (the shipped grid's
+        layer_num is structural)."""
+        return {"cl_weight": self.cl_weight, "temperature": self.temperature}
+
     def loss(self, batch: dict, gen: torch.Generator | None, draws: dict | None = None):
         """``draws`` (else drawn from ``gen``) as :meth:`step_draws` returns them."""
+        hp = batch.get("hp", {})
+        cl_w = hp.get("cl_weight", self.cl_weight)
+        t = hp.get("temperature", self.temperature)
         draws = self.step_draws(gen) if draws is None else draws
         ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
         embeds, gcn, hyper = self.forward(draws)
@@ -115,9 +123,9 @@ class HCCF(RecModel):
         cl = 0.0
         for e1, e2 in zip(gcn, hyper):
             e1 = e1.detach()
-            cl = cl + losses.infonce_loss_spec_nodes(e1[:u], e2[:u], ancs, self.temperature)
-            cl = cl + losses.infonce_loss_spec_nodes(e1[u:], e2[u:], poss, self.temperature)
-        cl = cl * self.cl_weight
+            cl = cl + losses.infonce_loss_spec_nodes(e1[:u], e2[:u], ancs, t)
+            cl = cl + losses.infonce_loss_spec_nodes(e1[u:], e2[u:], poss, t)
+        cl = cl * cl_w
         reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
         return bpr + cl + reg, {"bpr_loss": bpr, "reg_loss": reg, "cl_loss": cl}
 

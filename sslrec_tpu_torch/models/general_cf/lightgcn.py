@@ -46,13 +46,21 @@ class LightGCN(RecModel):
         ew = augment.edge_drop(key, self.adj, self.keep_rate)
         return self.propagate(edge_weight=ew)
 
+    def hparams(self) -> dict:
+        """The tuned loss scalars that ride a lane of ``tune.parallel``
+        (:mod:`~sslrec_tpu_torch.trainer.lanes`); ``loss`` reads them from
+        ``batch["hp"]`` where it is set.  A tuned key outside it (layer_num)
+        is structural."""
+        return {"reg_weight": self.reg_weight}
+
     def loss(self, batch: dict, key: torch.Tensor):
+        reg_w = batch.get("hp", {}).get("reg_weight", self.reg_weight)
         user_embeds, item_embeds = self.forward_train(key)
         anc = user_embeds[batch["user"]]
         pos = item_embeds[batch["pos"]]
         neg = item_embeds[batch["neg"]]
         bpr = losses.bpr_loss(anc, pos, neg) / anc.shape[0]
-        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        reg = reg_w * losses.reg_params(dict(self.named_parameters()))
         return bpr + reg, {"bpr_loss": bpr, "reg_loss": reg}
 
     def generate(self):

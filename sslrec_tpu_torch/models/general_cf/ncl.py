@@ -5,7 +5,8 @@ centroids (port of ``sslrec_tpu/models/general_cf/ncl.py``).
 No edge dropout.  Training propagates ``max(layer_num, 2·high_order)`` hops
 but the prediction sums only the first ``layer_num + 1`` layers (so
 :meth:`generate` runs ``layer_num`` hops).  :meth:`epoch_state` re-clusters
-the current tables every ``epoch_period`` epochs (the JAX trainer's hook);
+the current tables every ``epoch_period`` epochs (the JAX trainer's hook)
+through :meth:`epoch_state_fn`, which the tuner's lanes call once a lane;
 the prototype loss holds the centroids constant.
 """
 
@@ -28,32 +29,48 @@ class NCL(LightGCN):
         self.high_order = int(m.high_order)
         self.cluster_num = int(m.cluster_num)
         self.epoch_period = int(m.epoch_period)
+        self.epoch_state_period = self.epoch_period     # the lanes' refresh period
         self.n_hops = max(self.layer_num, 2 * self.high_order)
         self._clusters = None
 
     @torch.no_grad()
+    def epoch_state_fn(self, gen: torch.Generator | None, draws: dict | None = None) -> dict:
+        """Centroids and assignments of both tables from the current
+        parameters; ``draws`` (``{"user", "item"}``: each table's initial
+        k-means rows) else drawn from ``gen``.  A pure function of the
+        parameters and the draws, so the tuner's lanes call it once a lane
+        (the JAX model's ``epoch_state_fn``)."""
+        draws = draws or {}
+        ucent, u2c, _ = augment.kmeans(self.user_embeds, self.cluster_num, gen=gen,
+                                       pick=draws.get("user"))
+        icent, i2c, _ = augment.kmeans(self.item_embeds, self.cluster_num, gen=gen,
+                                       pick=draws.get("item"))
+        return {"user_centroids": ucent, "user2cluster": u2c,
+                "item_centroids": icent, "item2cluster": i2c}
+
     def epoch_state(self, gen: torch.Generator | None, epoch: int = 0,
                     draws: dict | None = None) -> dict:
-        """Centroids and assignments of both tables, new at the first call
-        and every ``epoch_period`` epochs, else the last ones; ``draws``
-        (``{"user", "item"}``: each table's initial k-means rows) else drawn
-        from ``gen``."""
+        """:meth:`epoch_state_fn`'s clusters, new at the first call and every
+        ``epoch_period`` epochs, else the last ones."""
         if self._clusters is None or epoch % self.epoch_period == 0:
-            draws = draws or {}
-            ucent, u2c, _ = augment.kmeans(self.user_embeds, self.cluster_num, gen=gen,
-                                           pick=draws.get("user"))
-            icent, i2c, _ = augment.kmeans(self.item_embeds, self.cluster_num, gen=gen,
-                                           pick=draws.get("item"))
-            self._clusters = {"user_centroids": ucent, "user2cluster": u2c,
-                              "item_centroids": icent, "item2cluster": i2c}
+            self._clusters = self.epoch_state_fn(gen, draws)
         return self._clusters
+
+    def hparams(self) -> dict:
+        """The lane scalars of ``tune.parallel``."""
+        return {"temperature": self.temperature, "proto_weight": self.proto_weight,
+                "struct_weight": self.struct_weight}
 
     def _propagate_list(self, n_hops: int):
         embeds = torch.cat([self.user_embeds, self.item_embeds], dim=0)
         return [embeds, *spmm_layers(self.adj, embeds, n_hops).unbind(0)]
 
     def loss(self, batch: dict, key=None):
-        aux, t = batch["aux"], self.temperature
+        hp = batch.get("hp", {})
+        t = hp.get("temperature", self.temperature)
+        proto_w = hp.get("proto_weight", self.proto_weight)
+        struct_w = hp.get("struct_weight", self.struct_weight)
+        aux = batch["aux"]
         ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
         embeds_list = self._propagate_list(self.n_hops)
         final = sum(embeds_list[: self.layer_num + 1])
@@ -65,12 +82,12 @@ class NCL(LightGCN):
         u_ego, i_ego, u_ctx, i_ctx = ego[:u], ego[u:], context[:u], context[u:]
         struct = (losses.infonce_loss(u_ctx[ancs], u_ego[ancs], u_ego, t)
                   + losses.infonce_loss(i_ctx[poss], i_ego[poss], i_ego, t)
-                  ) / ancs.shape[0] * self.struct_weight
+                  ) / ancs.shape[0] * struct_w
 
         ucent, icent = aux["user_centroids"].detach(), aux["item_centroids"].detach()
         proto = (losses.infonce_loss(u_ego[ancs], ucent[aux["user2cluster"][ancs]], ucent, t)
                  + losses.infonce_loss(i_ego[poss], icent[aux["item2cluster"][poss]], icent, t)
-                 ) / ancs.shape[0] * self.proto_weight
+                 ) / ancs.shape[0] * proto_w
 
         reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
         loss = bpr + struct + proto + reg

@@ -53,9 +53,18 @@ class SGL(LightGCN):
         out = spmm_views(self.adj, x0s, self.layer_num, ews)      # [2, L, N, d]
         return x0s[0] + out[0].sum(dim=0), x0s[1] + out[1].sum(dim=0)
 
+    def hparams(self) -> dict:
+        """The lane scalars of ``tune.parallel`` (layer_num is structural)."""
+        return {"reg_weight": self.reg_weight, "cl_weight": self.cl_weight,
+                "temperature": self.temperature}
+
     def loss(self, batch: dict, key, draws: dict | None = None):
         """``key``: the step's PRF key, or for ``node_drop`` the epoch's device
         generator; ``draws`` (else drawn from it) as :meth:`step_draws`."""
+        hp = batch.get("hp", {})
+        reg_w = hp.get("reg_weight", self.reg_weight)
+        cl_w = hp.get("cl_weight", self.cl_weight)
+        t = hp.get("temperature", self.temperature)
         if self.step_generator and draws is None:
             draws = self.step_draws(key)
         v1, v2 = self._two_views(key, draws)
@@ -64,10 +73,9 @@ class SGL(LightGCN):
         u3, i3 = self.propagate()                  # the clean view, for BPR
         ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
         bpr = losses.bpr_loss(u3[ancs], i3[poss], i3[negs]) / ancs.shape[0]
-        t = self.temperature
         cl = (losses.infonce_loss(u1[ancs], u2[ancs], u2, t)
               + losses.infonce_loss(i1[poss], i2[poss], i2, t)
               + losses.infonce_loss(i1[negs], i2[negs], i2, t))
-        cl = cl / ancs.shape[0] * self.cl_weight
-        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        cl = cl / ancs.shape[0] * cl_w
+        reg = reg_w * losses.reg_params(dict(self.named_parameters()))
         return bpr + cl + reg, {"bpr_loss": bpr, "reg_loss": reg, "cl_loss": cl}

@@ -30,25 +30,34 @@ class SimGCL(LightGCN):
         shape = (2, self.layer_num, self.user_num + self.item_num, self.embedding_size)
         return {"noise": torch.rand(shape, generator=gen, device=gen.device)}
 
-    def _two_perturbed(self, noise):
+    def _two_perturbed(self, noise, eps):
         x0 = torch.cat([self.user_embeds, self.item_embeds], dim=0)
         out = spmm_views(self.adj, [x0, x0], self.layer_num,
-                         post=lambda u, x: augment.embed_perturb(u, x, self.eps),
+                         post=lambda u, x: augment.embed_perturb(u, x, eps),
                          keys=noise)
         return x0 + out[0].sum(dim=0), x0 + out[1].sum(dim=0)
 
+    def hparams(self) -> dict:
+        """The lane scalars of ``tune.parallel`` (layer_num is structural; eps
+        only scales the noise, so it rides a lane too)."""
+        return {"reg_weight": self.reg_weight, "cl_weight": self.cl_weight,
+                "temperature": self.temperature, "eps": self.eps}
+
     def loss(self, batch: dict, gen: torch.Generator | None, draws: dict | None = None):
         """``draws`` (else drawn from ``gen``) as :meth:`step_draws` returns them."""
+        hp = batch.get("hp", {})
+        reg_w = hp.get("reg_weight", self.reg_weight)
+        cl_w = hp.get("cl_weight", self.cl_weight)
+        t = hp.get("temperature", self.temperature)
         draws = self.step_draws(gen) if draws is None else draws
-        v1, v2 = self._two_perturbed(draws["noise"])
+        v1, v2 = self._two_perturbed(draws["noise"], hp.get("eps", self.eps))
         u = self.user_num
         u1, i1, u2, i2 = v1[:u], v1[u:], v2[:u], v2[u:]
         u3, i3 = self.propagate()
         ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
         bpr = losses.bpr_loss(u3[ancs], i3[poss], i3[negs]) / ancs.shape[0]
-        t = self.temperature
         cl = (losses.infonce_loss(u1[ancs], u2[ancs], u2, t)
               + losses.infonce_loss(i1[poss], i2[poss], i2, t))
-        cl = cl / ancs.shape[0] * self.cl_weight
-        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        cl = cl / ancs.shape[0] * cl_w
+        reg = reg_w * losses.reg_params(dict(self.named_parameters()))
         return bpr + cl + reg, {"bpr_loss": bpr, "reg_loss": reg, "cl_loss": cl}

@@ -88,6 +88,48 @@ def _grace_row_sums(rows, z_all, tau: float, g_n: int):
     return s.view(rows.shape[0], g_n, -1).sum(-1)
 
 
+class GraceRowSumsFn(torch.autograd.Function):
+    """:func:`_grace_row_sums` of every row of ``z_all`` ``[G·N, d]``, ``chunk``
+    rows at a time → ``[G·N, G]``.  Only ``z_all`` is saved: the backward
+    recomputes each chunk's ``[chunk, G·N]`` similarities (JAX's remat), so
+    none outlives its chunk.  This is ``torch.utils.checkpoint`` of each
+    chunk written out, because a checkpoint's recomputation, which runs in
+    the backward pass, cannot reach the lanes of ``torch.func.vmap``; under
+    vmap each lane takes its own call (the dot products mix the features, so
+    lanes cannot share one)."""
+
+    @staticmethod
+    def forward(z_all, tau: float, g_n: int, chunk: int):
+        return torch.cat([_grace_row_sums(z_all[s:s + chunk], z_all, tau, g_n)
+                          for s in range(0, z_all.shape[0], chunk)])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.tau, ctx.g_n, ctx.chunk = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (z_all,) = ctx.saved_tensors
+        tau, g_n, chunk = ctx.tau, ctx.g_n, ctx.chunk
+        n = z_all.shape[0] // g_n
+        dz = torch.zeros_like(z_all)
+        for s in range(0, z_all.shape[0], chunk):
+            rows = z_all[s:s + chunk]
+            e = torch.exp(rows @ z_all.T / tau)                      # [C, G·N]
+            de = grad[s:s + chunk, :, None].expand(-1, g_n, n).reshape(e.shape)
+            dl = de * e / tau
+            dz[s:s + chunk] += dl @ z_all
+            dz += dl.T @ rows
+        return dz, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, z_all, tau, g_n, chunk):
+        outs = [GraceRowSumsFn.apply(z_all.select(in_dims[0], i), tau, g_n, chunk)
+                for i in range(info.batch_size)]
+        return torch.stack(outs), 0
+
+
 def grace_pair_losses(zs, tau: float, chunk: int = 256) -> dict:
     """All ordered-pair GRACE semi-losses over ``G`` same-shaped ``[N, d]``
     views (port of the JAX package's ``hmgcr.grace_pair_losses``), as
@@ -98,17 +140,12 @@ def grace_pair_losses(zs, tau: float, chunk: int = 256) -> dict:
 
     with ``ẑ`` rows normalised by ``√(‖z‖² + 1e-12)`` and ``rowsum_i(g, h) =
     Σ_j e^{⟨ẑ_g,i, ẑ_h,j⟩/τ}``.  One pass over the concatenated views in
-    chunks of ``chunk`` rows computes every row-sum table; each chunk runs
-    under ``torch.utils.checkpoint``, so the ``[chunk, G·N]`` similarities
-    are recomputed in the backward pass and the ``[G·N, G·N]`` matrix is
-    never held whole (JAX's remat)."""
+    chunks of ``chunk`` rows computes every row-sum table
+    (:class:`GraceRowSumsFn`, whose backward recomputes each chunk), so the
+    ``[G·N, G·N]`` matrix is never held whole (JAX's remat)."""
     g_n, n = len(zs), zs[0].shape[0]
     zn = [_l2norm_safe(z) for z in zs]
-    z_all = torch.cat(zn, 0)
-    sums = torch.cat([
-        torch.utils.checkpoint.checkpoint(_grace_row_sums, z_all[s:s + chunk], z_all, tau,
-                                          g_n, use_reentrant=False)
-        for s in range(0, g_n * n, chunk)]).view(g_n, n, g_n)       # [g, i, h]
+    sums = GraceRowSumsFn.apply(torch.cat(zn, 0), tau, g_n, chunk).view(g_n, n, g_n)
     out = {}
     for g in range(g_n):
         # ‖ẑ_g,i‖² is not assumed 1: a post-relu view may have zero rows

@@ -55,6 +55,8 @@ class GCNTower(nn.Module):
 
 
 class HMGCR(RecModel):
+    lanes_pending = True
+
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         m = cfg.model

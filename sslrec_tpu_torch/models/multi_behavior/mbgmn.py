@@ -44,6 +44,7 @@ _LINEARS = ("spec_u", "spec_i", "spec_u1", "spec_i1", "spec_u2", "spec_i2",
 
 
 class MBGMN(RecModel):
+    lanes_pending = True
     step_generator = True
     batch_fields = ("user", "pos")      # the loss samples its own users and items
 

@@ -34,6 +34,7 @@ BLOCK = 128
 
 
 class SMBRec(RecModel):
+    lanes_pending = True
     step_generator = True
 
     def __init__(self, cfg, data):

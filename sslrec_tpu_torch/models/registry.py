@@ -51,12 +51,16 @@ def available_models() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def build_model(cfg, data):
-    """The model named by ``cfg.model.name``, with its parameters on the data's
-    device, not yet initialised: call ``init_params``."""
-    name = cfg.model.name.lower()
+def model_class(name: str) -> type:
+    """The class of model ``name``."""
+    name = name.lower()
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: {available_models()}")
     module_path, cls_name = _REGISTRY[name]
-    cls = getattr(importlib.import_module(module_path), cls_name)
-    return cls(cfg, data)
+    return getattr(importlib.import_module(module_path), cls_name)
+
+
+def build_model(cfg, data):
+    """The model named by ``cfg.model.name``, with its parameters on the data's
+    device, not yet initialised: call ``init_params``."""
+    return model_class(cfg.model.name)(cfg, data)

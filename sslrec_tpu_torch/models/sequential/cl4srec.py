@@ -65,6 +65,8 @@ class SeqTowerModel(SequentialModel):
 
 
 class CL4SRec(SeqTowerModel):
+    lanes_pending = True
+
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         self.lmd = float(cfg.model.lmd)

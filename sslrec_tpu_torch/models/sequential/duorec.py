@@ -44,6 +44,8 @@ def candidate_table(lasts: np.ndarray, item_num: int, width: int = 20):
 
 
 class DuoRec(SeqTowerModel):
+    lanes_pending = True
+
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         self.lmd_sem = float(cfg.model.lmd_sem)

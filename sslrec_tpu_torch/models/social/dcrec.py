@@ -36,7 +36,7 @@ from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask, csr_graph_from_edges
 from sslrec_tpu_torch.utils.initializers import linear_params, xavier_uniform
 
 EDGE_ADD, EDGE_DROP, NODE_DROP = 0, 1, 2
-GRACE_CHUNK = 1024      # rows a chunk of grace_pair_losses (its checkpointed unit)
+GRACE_CHUNK = 1024      # rows a chunk of grace_pair_losses (its recomputed unit)
 
 
 def _inv_sqrt(deg):
@@ -180,9 +180,18 @@ class DcRec(RecModel):
         return acc / (self.layer_num + 1)
 
     # -- objective -------------------------------------------------------------------
+    def hparams(self) -> dict:
+        """The lane scalars of ``tune.parallel`` (layer_num is structural)."""
+        return {"reg_weight": self.reg_weight, "cross_weight": self.cross_weight,
+                "domain_weight": self.domain_weight}
+
     def loss(self, batch: dict, gen: torch.Generator | None, views: list | None = None):
         """BPR + L2 of the picked embeddings + the domain and cross GRACE
         terms; ``views`` (else drawn from ``gen``) as :meth:`step_views` gives."""
+        hp = batch.get("hp", {})
+        reg_w = hp.get("reg_weight", self.reg_weight)
+        cross_w = hp.get("cross_weight", self.cross_weight)
+        domain_w = hp.get("domain_weight", self.domain_weight)
         user_embeds, item_embeds = self._lightgcn_base()
         if self.keep_rate >= 1.0:       # no augmentation: every view is the base graph
             uiu1 = uiu2 = user_embeds
@@ -209,10 +218,10 @@ class DcRec(RecModel):
         def gca(a, b):
             return 0.5 * (pu[(a, b)] + pu[(b, a)])
 
-        cross = self.cross_weight * (gca(0, 2) + gca(0, 3) + gca(1, 2) + gca(1, 3))
+        cross = cross_w * (gca(0, 2) + gca(0, 3) + gca(1, 2) + gca(1, 3))
         i_loss = gca(2, 3) + 0.5 * (pi[(0, 1)] + pi[(1, 0)])
-        domain = self.domain_weight * (i_loss + gca(0, 1))
-        reg = self.reg_weight * losses.reg_pick_embeds([anc_e, pos_e, neg_e])
+        domain = domain_w * (i_loss + gca(0, 1))
+        reg = reg_w * losses.reg_pick_embeds([anc_e, pos_e, neg_e])
         loss = bpr + reg + domain + cross
         return loss, {"bpr_loss": bpr, "reg_loss": reg, "domain_loss": domain,
                       "cross_loss": cross}

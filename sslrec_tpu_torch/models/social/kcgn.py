@@ -166,16 +166,21 @@ class KCGN(RecModel):
         return (losses.bce_logits((pos * summary).sum(1), 1.0),
                 losses.bce_logits((neg * summary).sum(1), 0.0))
 
+    def hparams(self) -> dict:
+        """The lane scalar of ``tune.parallel`` (layer_num is structural)."""
+        return {"reg_weight": self.reg_weight}
+
     def loss(self, batch: dict, gen: torch.Generator | None, draws: dict | None = None):
         """BPR (summed) + reg · L2 of the picked rows + the uu and ii DGI terms
         over the batch's users and items in components of more than
         ``subnode`` nodes; ``draws`` (else from ``gen``) as :meth:`step_draws`."""
+        reg_w = batch.get("hp", {}).get("reg_weight", self.reg_weight)
         draws = self.step_draws(gen) if draws is None else draws
         ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
         user_embeds, item_embeds = self.forward()
         anc_e, pos_e, neg_e = user_embeds[ancs], item_embeds[poss], item_embeds[negs]
         bpr = losses.bpr_loss(anc_e, pos_e, neg_e)
-        reg = self.reg_weight * losses.reg_pick_embeds([anc_e, pos_e, neg_e])
+        reg = reg_w * losses.reg_pick_embeds([anc_e, pos_e, neg_e])
         up, un = self._dgi(self.uu_g, user_embeds, draws["perm_u"], self.uu_sub_adj,
                            self.uu_sub_norm, self.uu_labels)
         umask = user_embeds.new_zeros(self.user_num)

@@ -119,17 +119,24 @@ class MHCN(RecModel):
         neg_g = score(edge[:, p["col3"]][p["row3"]], graph[None, :])
         return local - torch.log(torch.sigmoid(pos_g - neg_g) + 1e-12).sum()
 
+    def hparams(self) -> dict:
+        """The lane scalars of ``tune.parallel`` (layer_num is structural)."""
+        return {"reg_weight": self.reg_weight, "ss_rate": self.ss_rate}
+
     def loss(self, batch: dict, gen: torch.Generator | None, draws: list | None = None):
         """BPR (summed) + L2 of every parameter + ``ss_rate`` × the three
         channels' SSL terms; ``draws`` (else from ``gen``) as :meth:`ssl_draws`."""
+        hp = batch.get("hp", {})
+        reg_w = hp.get("reg_weight", self.reg_weight)
+        ss_rate = hp.get("ss_rate", self.ss_rate)
         draws = self.ssl_draws(gen) if draws is None else draws
         user_embeds, item_embeds = self.forward()
         bpr = losses.bpr_loss(user_embeds[batch["user"]], item_embeds[batch["pos"]],
                               item_embeds[batch["neg"]])
-        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        reg = reg_w * losses.reg_params(dict(self.named_parameters()))
         sg = self.sgating
         ss = sum(self._hierarchical_ssl(self._gate(sg[c], user_embeds), adj, draws[c])
-                 for c, adj in enumerate((self.h_s, self.h_j, self.h_p))) * self.ss_rate
+                 for c, adj in enumerate((self.h_s, self.h_j, self.h_p))) * ss_rate
         return bpr + reg + ss, {"bpr_loss": bpr, "reg_loss": reg, "ss_loss": ss}
 
     def generate(self):

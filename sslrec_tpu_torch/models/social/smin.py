@@ -131,15 +131,24 @@ class SMIN(RecModel):
         return (disc(pos, graph_embeds, 1.0), disc(neg, graph_embeds, 0.0),
                 disc(pos, features, 1.0), disc(neg, features, 0.0), rebuilt)
 
+    def hparams(self) -> dict:
+        """The lane scalars of ``tune.parallel`` (layer_num is structural)."""
+        return {"reg_weight": self.reg_weight, "lambda1": self.lambda1,
+                "lambda2": self.lambda2}
+
     def loss(self, batch: dict, gen: torch.Generator | None, draws: dict | None = None):
         """BPR (summed) + reg · L2 of the picked rows + Informax over the batch's
         nodes; ``draws`` (else from ``gen``) as :meth:`step_draws` returns them."""
+        hp = batch.get("hp", {})
+        reg_w = hp.get("reg_weight", self.reg_weight)
+        lam1 = hp.get("lambda1", self.lambda1)
+        lam2 = hp.get("lambda2", self.lambda2)
         draws = self.step_draws(gen) if draws is None else draws
         ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
         user_embeds, item_embeds = self.forward()
         anc_e, pos_e, neg_e = user_embeds[ancs], item_embeds[poss], item_embeds[negs]
         bpr = losses.bpr_loss(anc_e, pos_e, neg_e)
-        reg = self.reg_weight * losses.reg_pick_embeds([anc_e, pos_e, neg_e])
+        reg = reg_w * losses.reg_pick_embeds([anc_e, pos_e, neg_e])
         feats = torch.cat([user_embeds, item_embeds], 0)
         p_xj, n_xj, p_xi, n_xi, rebuilt = self._informax(feats, draws["perm"])
         mask = feats.new_zeros(feats.shape[0])
@@ -147,8 +156,8 @@ class SMIN(RecModel):
         mask[self.user_num + poss.long()] = 1.0
         mask[self.user_num + negs.long()] = 1.0
         denom = mask.sum()
-        informax = (self.lambda1 * (((mask * p_xj).sum() + (mask * n_xj).sum()) / denom)
-                    + self.lambda2 * (((mask * p_xi).sum() + (mask * n_xi).sum()) / denom
+        informax = (lam1 * (((mask * p_xj).sum() + (mask * n_xj).sum()) / denom)
+                    + lam2 * (((mask * p_xi).sum() + (mask * n_xi).sum()) / denom
                                       + rebuilt))
         loss = bpr + reg + informax
         return loss, {"bpr_loss": bpr, "reg_loss": reg, "informax_loss": informax}

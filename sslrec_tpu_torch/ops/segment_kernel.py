@@ -31,8 +31,8 @@ import torch
 
 from sslrec_tpu_torch.ops import segment as plain
 from sslrec_tpu_torch.ops.cuda_build import load_kernel
-from sslrec_tpu_torch.ops.spmm_kernel import (CsrLayout, compact, csr_layout, csr_spmm,
-                                               stable_order)
+from sslrec_tpu_torch.ops.spmm_kernel import (CsrLayout, PlanCache, compact, csr_layout,
+                                               csr_spmm, lane_of, stable_order, vmap_lanes)
 
 
 class SegmentLayout(NamedTuple):
@@ -113,7 +113,7 @@ def segment_layout_from_ids(ids: torch.Tensor, num_segments: int) -> SegmentLayo
                     vals=torch.ones(n, dtype=torch.float32, device=ids.device),
                     edge_ids=torch.arange(n, dtype=torch.int32, device=ids.device),
                     n_rows=int(num_segments), n_cols=int(n), ids_identity=True,
-                    vals_ones=True, plans={})
+                    vals_ones=True, plans=PlanCache())
     longs = compact(is_long, torch.arange(num_segments, device=ids.device), n_long)
     return SegmentLayout(csr=csr, ids=ids.int(), num_segments=int(num_segments), n=int(n),
                          group_width=width, long_segments=longs.int())
@@ -187,51 +187,79 @@ def _segment_sum(lay: SegmentLayout, data: torch.Tensor) -> torch.Tensor:
 
 class SegmentSumFn(torch.autograd.Function):
     """``out[s] = Σ_{i: ids[i]=s} data[i]`` through B1; ``data`` [n] or [n, d].
-    Backward: the gather ``g[ids]``, the transpose of a segment sum."""
+    Backward: the gather ``g[ids]``, the transpose of a segment sum.  Under
+    ``torch.func.vmap`` the lanes fold into the feature dimension
+    (:func:`~sslrec_tpu_torch.ops.spmm_kernel.vmap_lanes`): one B1 call."""
 
     @staticmethod
-    def forward(ctx, lay: SegmentLayout, data: torch.Tensor):
-        ctx.ids = lay.ids
+    def forward(lay: SegmentLayout, data: torch.Tensor):
         return _segment_sum(lay, data)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.ids = inputs[0].ids
 
     @staticmethod
     def backward(ctx, g):
         return None, g[ctx.ids]
 
+    @staticmethod
+    def vmap(info, in_dims, lay, data):
+        return vmap_lanes(SegmentSumFn, info, in_dims, lay, data)
+
 
 class TakeFn(torch.autograd.Function):
     """``x[ids]`` whose backward is the B1 segment sum rather than the
-    scatter-add autograd derives for an index; ``x`` [num_segments, d]."""
+    scatter-add autograd derives for an index; ``x`` [num_segments, d].
+    Under ``torch.func.vmap`` the lanes fold into the feature dimension, so
+    the backward is one B1 call."""
 
     @staticmethod
-    def forward(ctx, lay: SegmentLayout, x: torch.Tensor):
-        ctx.lay = lay
+    def forward(lay: SegmentLayout, x: torch.Tensor):
         return x[lay.ids]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.lay = inputs[0]
 
     @staticmethod
     def backward(ctx, g):
         return None, _segment_sum(ctx.lay, g)
 
+    @staticmethod
+    def vmap(info, in_dims, lay, x):
+        return vmap_lanes(TakeFn, info, in_dims, lay, x)
+
 
 class SegmentSoftmaxFn(torch.autograd.Function):
     """Softmax within segments, shifted by B2's max; closed-form backward
-    ``s ⊙ (g − Σ_seg(g ⊙ s))``, whose only reduction is another B1 sum."""
+    ``s ⊙ (g − Σ_seg(g ⊙ s))``, whose only reduction is another B1 sum.
+    Under ``torch.func.vmap`` each lane takes its own call: B2 reduces one
+    [n] column, so the lanes' logits cannot share a launch."""
 
     @staticmethod
-    def forward(ctx, lay: SegmentLayout, logits: torch.Tensor):
+    def forward(lay: SegmentLayout, logits: torch.Tensor):
         mx = segment_max(lay, logits)
         mx = torch.where(torch.isfinite(mx), mx, 0.0)     # empty segments
         shifted = torch.exp(logits - mx[lay.ids])
-        s = shifted / (_segment_sum(lay, shifted)[lay.ids] + 1e-16)
-        ctx.lay = lay
-        ctx.save_for_backward(s)
-        return s
+        return shifted / (_segment_sum(lay, shifted)[lay.ids] + 1e-16)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.lay = inputs[0]
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):
         (s,) = ctx.saved_tensors
         dot = _segment_sum(ctx.lay, s * g)
         return None, s * (g - dot[ctx.lay.ids])
+
+    @staticmethod
+    def vmap(info, in_dims, lay, logits):
+        outs = [SegmentSoftmaxFn.apply(lay, lane_of(logits, in_dims[1], i))
+                for i in range(info.batch_size)]
+        return torch.stack(outs), 0
 
 
 def attn_aggregate(lay: SegmentLayout, logits: torch.Tensor, values: torch.Tensor,

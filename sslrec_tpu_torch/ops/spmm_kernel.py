@@ -30,9 +30,18 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from sslrec_tpu_torch.ops.cuda_build import load_kernel
 from sslrec_tpu_torch.ops.sparse import CooGraph
+
+
+class PlanCache(dict):
+    """A layout's split plans by threshold.  A dict subclass, so that a
+    pytree takes it as a leaf: ``torch.func.vmap`` rebuilds the containers
+    of a Function's operands (the layout's NamedTuples, a plain dict among
+    them) and passes the leaves on, so this cache stays the layout's own
+    under vmap, where a plain dict would be a new empty one every call."""
 
 
 class CsrLayout(NamedTuple):
@@ -44,8 +53,8 @@ class CsrLayout(NamedTuple):
     of each slot, through which a per-edge multiplier held in the original
     edge order is read; ``ids_identity`` marks ``edge_ids == arange(nnz)`` and
     ``vals_ones`` marks ``vals`` all 1 (segment layouts, KGCL's bi-adjacency),
-    so the kernel reads neither there; ``plans`` caches the split plan by
-    threshold.
+    so the kernel reads neither there; ``plans`` (a :class:`PlanCache`)
+    caches the split plan by threshold.
     """
 
     indptr: torch.Tensor
@@ -57,7 +66,7 @@ class CsrLayout(NamedTuple):
     n_cols: int
     ids_identity: bool
     vals_ones: bool
-    plans: dict
+    plans: PlanCache
 
 
 class CsrGraph(NamedTuple):
@@ -98,7 +107,7 @@ def csr_layout(rows, cols, vals, edge_ids, n_rows, n_cols, device) -> CsrLayout:
                      edge_ids=t(edge_ids, np.int32),
                      n_rows=int(n_rows), n_cols=int(n_cols),
                      ids_identity=bool(np.array_equal(edge_ids, np.arange(edge_ids.size))),
-                     vals_ones=bool((vals == 1).all()), plans={})
+                     vals_ones=bool((vals == 1).all()), plans=PlanCache())
 
 
 def build_csr_graph(g: CooGraph, device="cpu") -> CsrGraph:
@@ -177,7 +186,7 @@ def csr_graph_from_edges(rows: torch.Tensor, cols: torch.Tensor, n_rows: int,
         keys, order, indptr = stable_order(dst, n_dst)
         return CsrLayout(indptr=indptr.int(), rows=keys.int(), cols=src[order].int(),
                          vals=ones, edge_ids=order.int(), n_rows=int(n_dst),
-                         n_cols=int(n_src), ids_identity=True, vals_ones=True, plans={})
+                         n_cols=int(n_src), ids_identity=True, vals_ones=True, plans=PlanCache())
 
     fwd = layout(rows, cols, n_rows, n_cols)
     bwd = layout(cols, rows, n_cols, n_rows)
@@ -493,13 +502,18 @@ class SpmmFn(torch.autograd.Function):
     """``A @ x`` with an optional learned per-edge weight (port of
     ``pallas_spmm``).  dx = Aᵀ(ew) g is the same kernel on the transposed
     layout; d ew[e] = vals[e]·⟨g[row_e], x[col_e]⟩ is a gather-dot in plain
-    torch, computed only when the weight needs a gradient."""
+    torch, computed only when the weight needs a gradient.  Under
+    ``torch.func.vmap`` its rule is :func:`vmap_lanes`."""
 
     @staticmethod
-    def forward(ctx, g: CsrGraph, x: torch.Tensor, ew: torch.Tensor | None):
+    def forward(g: CsrGraph, x: torch.Tensor, ew: torch.Tensor | None):
+        return csr_spmm(g.fwd, x.contiguous(), ew)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        g, x, ew = inputs
         ctx.graph = g
         ctx.save_for_backward(x, ew)
-        return csr_spmm(g.fwd, x.contiguous(), ew)
 
     @staticmethod
     def backward(ctx, grad):
@@ -512,24 +526,89 @@ class SpmmFn(torch.autograd.Function):
             dew = g.vals * (grad[g.rows] * x[g.cols]).sum(-1)
         return None, dx, dew
 
+    @staticmethod
+    def vmap(info, in_dims, g, x, ew):
+        return vmap_lanes(SpmmFn, info, in_dims, g, x, ew)
+
 
 class SpmmPvFn(torch.autograd.Function):
     """``(W∘A) @ x`` with a constant multiplier ``W`` (port of
     ``pallas_spmm_pv``): a materialised [nnz] tensor, or a :class:`PrfMask`
     whose key and salt are all that is kept for the backward.  The
-    multiplier gets no cotangent; dx is the kernel on the transposed layout."""
+    multiplier gets no cotangent; dx is the kernel on the transposed layout.
+    Under ``torch.func.vmap`` its rule is :func:`vmap_lanes`."""
 
     @staticmethod
-    def forward(ctx, g: CsrGraph, x: torch.Tensor, w):
+    def forward(g: CsrGraph, x: torch.Tensor, w):
+        return csr_spmm(g.fwd, x.contiguous(), w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        g, _, w = inputs
         ctx.graph, ctx.prf = g, w if isinstance(w, PrfMask) else None
         if ctx.prf is None:
             ctx.save_for_backward(w)
-        return csr_spmm(g.fwd, x.contiguous(), w)
 
     @staticmethod
     def backward(ctx, grad):
         w = ctx.prf if ctx.prf is not None else ctx.saved_tensors[0]
         return None, csr_spmm(ctx.graph.bwd, grad.contiguous(), w), None
+
+    @staticmethod
+    def vmap(info, in_dims, g, x, w):
+        return vmap_lanes(SpmmPvFn, info, in_dims, g, x, w)
+
+
+# ---------------------------------------------------------------------------
+# Lanes: the Functions' rule under torch.func.vmap
+# ---------------------------------------------------------------------------
+#
+# The tuner's lanes (trainer/lanes.py) run K trials of a grid as one model
+# under torch.func.vmap.  A Function's vmap rule is handed the physical
+# tensors and, for each operand, the dimension that holds the lanes (None
+# for a tensor that no lane owns: the graph, a dropout key, a constant
+# mask).  Where only the dense operand has lanes, they are laid side by side
+# in its feature dimension, [n, K, d] -> [n, K·d], and the Function runs
+# once: every column of B1's sum is independent of the others, so each
+# lane's d columns are what that lane alone would give, forward and
+# backward.  The output keeps the lanes next to the features (out_dims 1),
+# so that the next hop's fold is a view.  Where the weight has lanes (DCCF's
+# learned edge weight, a function of each lane's parameters) every lane
+# takes its own call.
+
+def has_lanes(dims) -> bool:
+    """Whether an operand's ``in_dims`` entry (an int, None, or a structure of
+    them for a :class:`PrfMask`) gives any of its tensors a lane dimension."""
+    return any(d is not None for d in pytree.tree_leaves(dims))
+
+
+def lane_of(arg, dims, i: int):
+    """Lane ``i`` of an operand whose lane dimension ``dims`` gives
+    (contiguous, as the kernel wants its weights)."""
+    if isinstance(arg, PrfMask):
+        return arg._replace(key=lane_of(arg.key, dims.key, i))
+    if isinstance(arg, torch.Tensor) and dims is not None:
+        return arg.select(dims, i).contiguous()
+    return arg
+
+
+def vmap_lanes(fn, info, in_dims, op, x, *w):
+    """The vmap rule of a Function ``fn.apply(op, x[, w])`` whose output rows
+    mix ``x``'s rows and never its columns (B1's hops and segment sums, a
+    gather).  ``op`` (the graph or segment layout) has no lanes.  With no
+    lanes in ``w``: one call on ``x`` folded to ``[n, K·d]``, returned as
+    ``[m, K, d]`` at ``out_dims`` 1.  Else one call a lane, stacked at 0."""
+    k = info.batch_size
+    op_dims, x_dims, *w_dims = in_dims
+    if has_lanes(op_dims):
+        raise ValueError(f"{fn.__name__}: the graph or layout cannot have lanes")
+    if not any(has_lanes(d) for d in w_dims):
+        lanes = x.movedim(x_dims, 1)                        # [n, K, ...]
+        out = fn.apply(op, lanes.reshape(lanes.shape[0], -1), *w)
+        return out.view(out.shape[0], k, *lanes.shape[2:]), 1
+    outs = [fn.apply(op, lane_of(x, x_dims, i), *(lane_of(a, d, i) for a, d in zip(w, w_dims)))
+            for i in range(k)]
+    return torch.stack(outs), 0
 
 
 # ---------------------------------------------------------------------------

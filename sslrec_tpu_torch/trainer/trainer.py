@@ -167,12 +167,12 @@ class Trainer:
         return {**{k: v.detach() for k, v in aux.items()}, "loss": loss.detach()}
 
     def _check_finite(self, loss: torch.Tensor, batch: dict) -> None:
-        """Under ``train.debug_nans``, ``FloatingPointError`` where ``loss`` is
-        not finite (before its backward, whose NaNs autograd's anomaly mode
-        reports)."""
+        """Under ``train.debug_nans``, ``FloatingPointError`` where ``loss`` (a
+        scalar, or the tuner's lanes' ``[K]``) is not finite (before its
+        backward, whose NaNs autograd's anomaly mode reports)."""
         if self.debug_nans and not bool(torch.isfinite(loss).all()):
             raise FloatingPointError(f"train.debug_nans: step {batch.get('step')}: "
-                                     f"loss {float(loss)}")
+                                     f"loss {loss.tolist()}")
 
     def epoch_draws(self, epoch: int):
         """Epoch ``epoch``'s batches ``[n_batches, B]`` (indices into the train
@@ -201,32 +201,42 @@ class Trainer:
                              dtype=torch.int64).to(self.device)
         return idx, sampled, keys
 
-    def train_epoch(self, epoch: int) -> dict[str, float]:
+    def train_epoch(self, epoch: int, step=None, epoch_state=None) -> dict:
+        """Epoch ``epoch``'s steps on :meth:`epoch_draws`; returns each loss
+        term's mean over the steps.  ``step(batch, key) -> {name: loss}``
+        takes each batch (:meth:`train_step` by default) and ``epoch_state(gen,
+        epoch)`` makes the state that reaches it as ``batch["aux"]`` (the
+        model's hook by default): the tuner's lanes pass their vmapped step,
+        whose losses are ``[K]`` (their means then lists), and their lanes'
+        states."""
         idx, sampled, keys = self.epoch_draws(epoch)
         model = self.model
+        step = step or self.train_step
+        if epoch_state is None and hasattr(model, "epoch_state"):
+            epoch_state = model.epoch_state
         gen = aux_state = None
-        if model.step_generator or hasattr(model, "epoch_state"):
+        if model.step_generator or epoch_state is not None:
             gen = generator(int(self.cfg.train.seed), epoch, DEVICE_STREAM,
                             device=self.device)
         if model.step_generator:
             keys = [gen] * self.n_batches
-        if hasattr(model, "epoch_state"):
-            aux_state = model.epoch_state(gen, epoch)
+        if epoch_state is not None:
+            aux_state = epoch_state(gen, epoch)
         sums = None
         tag = f"ep{epoch}.whole_epoch"
         trace.mark(tag, steps=self.n_batches, model=self.cfg.model.name)
-        for step, (bidx, key) in enumerate(zip(idx, keys)):
+        for i, (bidx, key) in enumerate(zip(idx, keys)):
             batch = {k: v[bidx] for k, v in (*self.arrays.items(), *sampled.items())}
-            batch["step"] = step
+            batch["step"] = i
             if aux_state is not None:
                 batch["aux"] = aux_state
-            aux = self.train_step(batch, key)
+            aux = step(batch, key)
             if self.trace_sync:
                 _sync(self.device)
             sums = aux if sums is None else {k: sums[k] + v for k, v in aux.items()}
         trace.done(tag)
         trace.mark(f"ep{epoch}.losses_sync")
-        losses = {k: float(v) / self.n_batches for k, v in sums.items()}
+        losses = {k: _mean(v, self.n_batches) for k, v in sums.items()}
         trace.done(f"ep{epoch}.losses_sync")
         if self.kg_trans:
             losses["kg_loss"] = self.kg_trans_epoch(*self.kg_trans_draws(epoch))
@@ -319,12 +329,12 @@ class Trainer:
         if self.logger is None:
             self.logger = Logger(cfg)
         model.init_params(generator(int(cfg.train.seed), INIT_STREAM))
-        best_metric = -1.0
+        track = BestOnValid(cfg)
         best_state = _snapshot(model)
-        wait = start_epoch = 0
+        start_epoch = 0
         resume = cfg.train.get("resume_path")
         if resume:
-            best_state, best_metric, wait, start_epoch = self._restore(resume)
+            best_state, track.best[0], track.wait[0], start_epoch = self._restore(resume)
             self.logger.log(f"resumed from {resume} at epoch {start_epoch}")
 
         eval_split = self.data.valid if self.data.valid is not None else self.data.test
@@ -332,9 +342,6 @@ class Trainer:
         test_evaluator = Evaluator(self.data.test, cfg)
 
         metric0 = cfg.test.metrics[0]
-        patience = int(cfg.train.get("patience", 0) or 0)
-        early_stop = bool(cfg.train.get("early_stop", False))
-        test_step = int(cfg.train.get("test_step", 1))
         n_epochs = int(cfg.train.epoch)
         save_every = int(cfg.train.get("save_state_every", 0) or 0)
 
@@ -354,7 +361,7 @@ class Trainer:
                 self.logger.log_loss(epoch, losses)
             writer.add_scalar("Loss/train", losses["loss"], epoch)
             epoch_valid = None
-            if epoch % test_step == 0:
+            if track.due(epoch):
                 t0 = time.perf_counter()
                 trace.mark(f"ep{epoch}.eval")
                 results = evaluator(model)          # reading the metrics syncs
@@ -365,16 +372,11 @@ class Trainer:
                 writer.add_scalar("HR/test", float(results[metric0][0]), epoch)
                 self.logger.log_eval(results, cfg.test.k, epoch=epoch,
                                      name=f"(valid, {timing['eval_s']:.1f}s)")
-                cur = float(results[metric0][0])
-                if cur > best_metric:
-                    best_metric = cur
+                if track.update([float(results[metric0][0])])[0]:
                     best_state = _snapshot(model)
-                    wait = 0
-                else:
-                    wait += 1
-                if early_stop and wait >= patience:
+                if track.stop()[0]:
                     self.logger.log(f"Early stop at epoch {epoch} "
-                                    f"(best {metric0}@{cfg.test.k[0]}={best_metric:.5f})")
+                                    f"(best {metric0}@{cfg.test.k[0]}={track.best[0]:.5f})")
                     recorder.record_epoch(epoch, losses, epoch_valid, **timing)
                     break
             recorder.record_epoch(epoch, losses, epoch_valid, **timing)
@@ -386,18 +388,16 @@ class Trainer:
                 ckpt.save(self.state_path, {
                     "params": model.state_dict(),
                     "opt_state": ckpt.optim_state(self.optimizers()), "epoch": epoch,
-                    "best_params": best_state, "best_metric": float(best_metric),
-                    "wait": int(wait), **self._extra()})
+                    "best_params": best_state, "best_metric": float(track.best[0]),
+                    "wait": int(track.wait[0]), **self._extra()})
                 trace.done(f"ep{epoch}.save_state")
                 self.logger.log(f"saved train state to {self.state_path}")
         else:
             # fixed-epoch run without early stop: when the final epoch is off
             # the test_step grid it was never scored; score it so the run does
             # not report a stale earlier snapshot as "best"
-            if n_epochs > start_epoch and (n_epochs - 1) % test_step != 0:
-                cur = float(evaluator(model)[metric0][0])
-                if cur > best_metric:
-                    best_metric = cur
+            if track.final_due(start_epoch, n_epochs):
+                if track.update([float(evaluator(model)[metric0][0])], count=False)[0]:
                     best_state = _snapshot(model)
 
         writer.close()
@@ -420,6 +420,65 @@ class Trainer:
     def test(self) -> dict:
         """The test split's metrics of the model's current parameters."""
         return Evaluator(self.data.test, self.cfg)(self.model)
+
+
+class BestOnValid:
+    """The best-on-valid bookkeeping of ``k`` runs at once (a single run is
+    ``k = 1``; the tuner's lanes are one a lane): every ``test_step`` epochs
+    each running run's valid score either beats its best, or adds one to its
+    ``wait``; under ``early_stop`` a run whose ``wait`` reaches ``patience``
+    stops.  A fixed-epoch run whose last epoch is off the ``test_step`` grid
+    scores that epoch too (without counting it), so that it does not report
+    a stale earlier snapshot as its best."""
+
+    def __init__(self, cfg, k: int = 1):
+        self.test_step = int(cfg.train.get("test_step", 1))
+        self.patience = int(cfg.train.get("patience", 0) or 0)
+        self.early_stop = bool(cfg.train.get("early_stop", False))
+        self.best = np.full((k,), -1.0)
+        self.wait = np.zeros((k,), np.int64)
+        self.stopped = np.zeros((k,), bool)
+
+    def due(self, epoch: int) -> bool:
+        """Whether epoch ``epoch`` is evaluated."""
+        return epoch % self.test_step == 0
+
+    def final_due(self, start_epoch: int, n_epochs: int) -> bool:
+        """Whether a run of epochs ``[start_epoch, n_epochs)`` that did not
+        stop early scores its last epoch after the loop."""
+        return n_epochs > start_epoch and (n_epochs - 1) % self.test_step != 0
+
+    def active(self) -> np.ndarray:
+        """The runs that have not stopped."""
+        return np.flatnonzero(~self.stopped)
+
+    def update(self, scores, runs=None, count: bool = True) -> np.ndarray:
+        """Take ``scores[i]`` for each run ``i`` of ``runs`` (default: every
+        run); returns the mask ``[k]`` of the runs whose best it beat, whose
+        ``wait`` goes back to 0 (the others' up by one, where ``count``)."""
+        scores = np.asarray(scores, np.float64)
+        runs = np.arange(len(self.best)) if runs is None else np.asarray(runs, np.int64)
+        improved = np.zeros(self.best.shape, bool)
+        improved[runs] = scores[runs] > self.best[runs]
+        self.best[improved] = scores[improved]
+        if count:
+            self.wait[runs] = np.where(improved[runs], 0, self.wait[runs] + 1)
+        return improved
+
+    def stop(self) -> np.ndarray:
+        """Stop the running runs that hit ``patience`` under ``early_stop``;
+        returns the mask ``[k]`` of the runs that stopped now."""
+        newly = ~self.stopped & (self.wait >= self.patience) & self.early_stop
+        self.stopped |= newly
+        return newly
+
+
+def _mean(v, n: int):
+    """A loss term's sum over ``n`` steps as its mean: a float, or a list of
+    floats for the lanes' ``[K]``."""
+    if torch.is_tensor(v) and v.dim() > 0:
+        return (v.double() / n).tolist()
+    return float(v) / n
 
 
 def _snapshot(model) -> dict[str, torch.Tensor]:

@@ -69,7 +69,8 @@ bad = sorted(k for k in sys.modules
              or k == "sslrec_tpu" or k.startswith("sslrec_tpu."))
 # the modules of the tuner, checkpoints, the social family, KGIN/KGRec, the
 # sequential family, DiffKG, the multi-behavior family (CML and KMCLR too),
-# the preprocessing CLI, the dispatch trace and the mesh guard among them
+# the preprocessing CLI, the dispatch trace, the mesh guard and the tuner's
+# lanes among them
 want = {"sslrec_tpu_torch." + m for m in (
     "trainer.tuner", "utils.checkpoint", "utils.summary", "data.social",
     "models.social.dcrec", "models.social.mhcn", "models.social.dsl",
@@ -81,7 +82,7 @@ want = {"sslrec_tpu_torch." + m for m in (
     "data.multi_behavior", "models.multi_behavior.mbgmn", "models.multi_behavior.hmgcr",
     "models.multi_behavior.smbrec", "models.multi_behavior.cml",
     "models.multi_behavior.kmclr", "tools.preprocess", "utils.dispatch_trace",
-    "parallel.mesh")}
+    "parallel.mesh", "trainer.lanes")}
 missing = sorted(want - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 80 else 0)   # the package's module count

@@ -1,7 +1,7 @@
 """The port's serial grid search against the JAX package's tuner: the trial
 configs of the shipped grids, per-trial scores equal to single runs with the
 same overrides, the tune artifact's fields, the CLI's tune branch (no run
-artifact), and ``tune.parallel`` refused."""
+artifact), and ``tune.parallel``'s lanes through the CLI."""
 
 import json
 
@@ -80,9 +80,21 @@ def test_cli_runs_ncl_grid_and_writes_no_run_artifact(tmp_path, monkeypatch):
     assert np.isfinite(score) and assignment in ({"temperature": 0.1}, {"temperature": 0.2})
 
 
-def test_parallel_lanes_raise(tmp_path, monkeypatch):
+def test_cli_parallel_lanes_write_a_vmapped_artifact(tmp_path, monkeypatch):
+    """``tune.parallel=2`` through the CLI: the grid's two structural groups
+    (layer_num) run as two lanes each; the tune artifact says ``vmapped``,
+    no run artifact is written, and every trial's score is the serial
+    grid's."""
     _toy_split(tmp_path)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="tune.parallel"):
-        tmain.main(_argv(tmp_path, tmp_path / "res", "lightgcn", *GRID,
-                         "--set", "tune.parallel=2"))
+    best = tmain.main(_argv(tmp_path, tmp_path / "lanes", "lightgcn", *GRID,
+                            "--set", "tune.parallel=2"))
+    assert sorted(p.name for p in (tmp_path / "lanes").iterdir()) == ["lightgcn_toy_tune.json"]
+    doc = json.loads((tmp_path / "lanes" / "lightgcn_toy_tune.json").read_text())
+    assert doc["mode"] == "vmapped" and doc["best"] == {"assignment": best[1], "score": best[0]}
+    tmain.main(_argv(tmp_path, tmp_path / "serial", "lightgcn", *GRID))
+    serial = json.loads((tmp_path / "serial" / "lightgcn_toy_tune.json").read_text())
+    assert serial["mode"] == "serial"
+    assert [t["assignment"] for t in doc["trials"]] == [t["assignment"] for t in serial["trials"]]
+    for got, want in zip(doc["trials"], serial["trials"]):
+        assert abs(got["score"] - want["score"]) <= 1e-4, (got, want)

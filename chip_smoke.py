@@ -171,9 +171,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    beside its bound, its plain version, ``torch.sparse.mm`` and three d 32
    calls; drive LightGCN's shipped grid (2 epochs, 3 lanes), DCCF's and
    KCGN's 2 x 2 (1 epoch, 2 lanes) through the CLI with ``tune.parallel`` and
-   serially: each trial's test score equal to its serial score, B1's
-   launches equal to ``LANES_B1``'s count, no B2, each grid's wall time;
-36. print the ``{"kernels": [...]}`` line, then the card line, then
+   serially: each trial's test score equal to its serial score, B1's launches
+   equal to ``LANES_B1``'s count, no B2, each grid's wall time;
+36. the lanes of MBGMN, HMGCR, SMBRec, CL4SRec, DuoRec and DCRec_seq at
+   their published configs on phase 29's and phase 18's splits: one step of
+   ``LANE_K`` lanes against the single steps for HMGCR (in float64, B1's
+   plain version in place of the kernel), CL4SRec and DuoRec (loss and
+   gradients within the CPU test's tolerance, the parameters after Adam); ``LANE_TIMED_STEPS`` lanes steps timed against single steps for
+   all six; B1 under the lanes' vmap rule at the folded Tmall pv graph (d
+   2 x 32) and DCRec_seq's transition hop (d 2 x 64), value and dx per lane
+   within 1e-5, one launch a hop, timed beside its bound, plain version,
+   ``torch.sparse.mm`` and the calls a lane at a time; MBGMN's, SMBRec's and
+   DCRec_seq's 2-trial grids (1 epoch, 2 lanes) through the CLI with
+   ``tune.parallel`` and serially, held as phase 35's (DCRec_seq's to
+   within a few swaps at the top-k boundary: ``LAST_LANE_GRIDS``);
+37. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
@@ -220,7 +232,8 @@ from sslrec_tpu_torch.ops import spmm_kernel as sk
 from sslrec_tpu_torch.ops.sparse import CooGraph, from_scipy
 from sslrec_tpu_torch.ops.spmm import spmm as sk_spmm
 from sslrec_tpu_torch.profile_epoch import device_us
-from sslrec_tpu_torch.trainer.trainer import Trainer, generator
+from sslrec_tpu_torch.trainer.lanes import Lanes
+from sslrec_tpu_torch.trainer.trainer import DEVICE_STREAM, Trainer, build_optimizer, generator
 from sslrec_tpu_torch.utils import checkpoint as ckpt
 
 TOL = 1e-5                  # max |kernel - plain| / max |plain|
@@ -422,9 +435,23 @@ LANE_KS = (2, 3, 4, 8)
 #   masked hops (4K), the masked hops' dx (2K): (2 + 6K)·L; generate 5L.
 # - KCGN: SOCIAL_B1's count at L, every call folded: 2(L - 1) + 14;
 #   generate L - 1.
+# - MBGMN (phase 36; 4 behaviors): each behavior's tower specialises (2
+#   hops) and runs 2 hops a layer, the final tower the same over all four:
+#   16 + 16L forward; only the final tower's 8 + 8L take a dx (the hinge is
+#   detached): 24 + 24L (MB_B1's 72 at L 2); generate 16 + 16L.
+# - SMBRec (phase 36; 4 behavior towers): 2 hops a layer each, with their
+#   dx: 16L; generate 8L.
+# - DCRec_seq (phase 36): SEQ_B1's 24 and 8 at every K.  Its edge weights
+#   (the graphs' values, the dropout draws the lanes share and the batch's
+#   removed edges) have no lanes, and weight_mean enters after the hops, so
+#   every call folds; the degree sums (their input is ones) have no lanes
+#   at all.
 LANES_B1 = {"lightgcn": lambda L, K: (2 * L, L),
             "dccf": lambda L, K: ((2 + 6 * K) * L, 5 * L),
-            "kcgn": lambda L, K: (2 * (L - 1) + 14, L - 1)}
+            "kcgn": lambda L, K: (2 * (L - 1) + 14, L - 1),
+            "mbgmn": lambda L, K: (24 + 24 * L, 16 + 16 * L),
+            "smbrec": lambda L, K: (16 * L, 8 * L),
+            "dcrec_seq": lambda L, K: (24, 8)}
 # the grids, each run with tune.parallel and serially: LightGCN's shipped grid
 # (2 layer_num groups of 3 lanes, 2 epochs), DCCF's and KCGN's 2 x 2 (2
 # groups of 2 lanes, 1 epoch) at their published configs
@@ -435,15 +462,61 @@ LANE_GRIDS = {
              "grid": {"layer_num": [2, 3], "cl_weight": [1.0e-1, 1.0e-2]}},
     "kcgn": {"data": (DATA_DIR, "yelp_sub"), "epochs": 1, "parallel": 2,
              "grid": {"layer_num": [1, 2], "reg_weight": [1.0e-1, 1.0e-2]}}}
-# a trial's test recall@10, lanes against serial, must be equal: the same
-# hits give the same float32 sums in the same order, and one swap of two
-# items at a top-k boundary moves recall@10 by 1 / (test users · |ground
-# truth|), as much as the gap between two of KCGN's trials on yelp_sub, so
+# a trial's test score (recall at the config's first k), lanes against
+# serial, must be equal: the same hits give the same float32 sums in the same
+# order, and one swap of two items at a top-k boundary moves recall by 1 /
+# (test users · |ground truth|), as much as the gap between two of KCGN's trials on yelp_sub, so
 # any looser limit would pass a lane that trained on another trial's scalars.
 # The lanes' hops run at width K·d, where B1 picks a wider lane group and a
 # longer split threshold (float32 rounding), and vmap batches dense weight
 # gradients; every trial of every run so far gave the serial score exactly.
 LANES_SCORE_TOL = 0.0
+# Phase 36, the lanes of the multi-behavior and sequential models: each at
+# its published config on its smoke split; MBGMN's, SMBRec's and
+# DCRec_seq's 2-trial grids driven both ways (1 group of 2 lanes, 1 epoch).
+# DCRec_seq's grid alone is held to "swaps" swaps, not to equality: its
+# lanes step differs from its single steps in the last bits of nearly every
+# weight gradient (vmap runs the weight gradients' products as batched GEMMs
+# and their sums over the batch as reductions along a lane dimension, where
+# the single step runs plain GEMMs and reductions), and over an epoch's 70
+# steps that moves 2 of 35,598 test users across the top-k boundary in its
+# cl_lambda 1e-2 trial, the same 2 in every run on the card.  A swap moves
+# recall by at most 1 / (test users · the fewest ground-truth items of a test
+# user), read from the split (:func:`swap_unit`); 4 swaps is a quarter of the
+# gap between its two trials' serial scores (16 swaps), and each lane must
+# still lie nearer its own trial's serial score than half that gap
+# (:func:`lane_is_its_trial`).
+LAST_LANES = {"mbgmn": MB_DATASET, "smbrec": MB_DATASET, "hmgcr": MB_DATASET,
+              "cl4srec": SEQ_DATASET, "duorec": SEQ_DATASET, "dcrec_seq": SEQ_DATASET}
+LAST_LANE_GRIDS = {
+    "mbgmn": {"data": (SMOKE_RESULTS, MB_DATASET), "epochs": 1, "parallel": 2,
+              "grid": {"layer_num": [2], "reg_weight": [1.0e-1, 1.0e-2]}},
+    "smbrec": {"data": (SMOKE_RESULTS, MB_DATASET), "epochs": 1, "parallel": 2,
+               "grid": {"layer_num": [2], "reg_weight": [1.0e-1, 1.0e-2]}},
+    "dcrec_seq": {"data": (SMOKE_RESULTS, SEQ_DATASET), "epochs": 1, "parallel": 2,
+                  "grid": {"cl_lambda": [1.0e-4, 1.0e-2], "weight_mean": [0.5]}, "swaps": 4}}
+# HMGCR's, CL4SRec's and DuoRec's epochs (12-14 s) are too long for a grid
+# both ways: one step of LANE_K lanes is held against the lanes' single steps
+# instead, with the CPU test's tolerance (tests/test_torch_tune_lanes.py):
+# loss and gradients within LANE_REL of the tensor's largest entry plus
+# LANE_ATOL; after Adam, LANE_ADAM_ATOL wherever the single run's gradient is
+# at least LANE_SURE of its tensor's largest entry and LANE_SURE_ABS (Adam's
+# first step, lr·g/(|g| + 1e-8), turns the rounding of a gradient near 1e-8,
+# as the attention key biases' gradient, which softmax ignores, into a step
+# of up to lr).
+# HMGCR's step is held in float64 (LANE_F64), with B1's plain version in
+# place of the kernel, which takes float32 only, at LANE_REL_F64: in float32
+# its layer weights' gradients, which sum the GRACE terms of all 31,882 users
+# over four meta paths, cancel, and the lanes' batched GEMMs reorder those
+# sums by 1.0e-4 of the largest entry on the card, ten times the float32
+# limit; in float64 the same step agrees to rounding, so a fault of the
+# lanes' path cannot hide under that limit.
+LANE_STEP_MODELS = ("hmgcr", "cl4srec", "duorec")
+LANE_F64 = ("hmgcr",)
+LANE_K = 2
+LANE_REL, LANE_ATOL, LANE_ADAM_ATOL, LANE_SURE, LANE_SURE_ABS = 1e-5, 1e-7, 1e-6, 1e-4, 1e-6
+LANE_REL_F64 = 1e-10
+LANE_TIMED_STEPS = 20       # each of the six: LANE_K-lane steps against single steps
 
 
 
@@ -2431,9 +2504,8 @@ def lanes_phases(errs: ErrTrack, gen, data, n_batches: dict, dev) -> dict:
     DCCF's learned weight with lanes, a call a lane), value and gradients per
     lane against the plain version, one launch a hop where the weight has no
     lanes; the time of the 3-lane fold (d 96); then LightGCN's, DCCF's and
-    KCGN's grids through the CLI with tune.parallel and serially: each
-    trial's test score equal to its serial score, B1's launches equal to
-    :func:`lanes_b1`'s count, no B2, and each grid's wall time."""
+    KCGN's grids through the CLI with tune.parallel and serially
+    (:func:`grids_both_ways`)."""
     log("== 35. the tune.parallel lanes: B1 under the vmap rule, three grids both ways")
     g = data.extras["bi_adj"]
     plain, _ = ssl_graphs(data, dev)
@@ -2442,22 +2514,8 @@ def lanes_phases(errs: ErrTrack, gen, data, n_batches: dict, dev) -> dict:
     checked = []
     for k in LANE_KS:
         for mode, w in (("none", None), ("prf", sk.prf_mask(key, g, 0.5))):
-            x = torch.randn(k, g.n_cols, 32, generator=gen, device=dev, requires_grad=True)
-            ct = torch.randn(k, g.n_rows, 32, generator=gen, device=dev)
-            before = sk.csr_spmm.launches
-            y = torch.func.vmap(lambda xl: sk_spmm(g, xl, w))(x)
-            (dx,) = torch.autograd.grad((y * ct).sum(), x)
-            launched = sk.csr_spmm.launches - before
-            if launched != 2:
-                raise AssertionError(f"lanes K={k} {mode}: {launched} B1 launches for a hop "
-                                     f"and its dx, want 2")
-            for i in range(k):
-                lane_errs.check(f"lanes{k}.{mode}.lane{i}", y[i].detach(),
-                                sk.csr_spmm_plain(g.fwd, x[i].detach(), w))
-                lane_errs.check(f"lanes{k}.{mode}.lane{i}.dx", dx[i],
-                                sk.csr_spmm_plain(g.bwd, ct[i], w))
+            fold_check(lane_errs, f"lanes{k}.{mode}", g, w, 32, k, gen)
             checked.append((k, mode))
-            del x, ct, y, dx
     k = 3
     x = torch.randn(k, plain.n_cols, 32, generator=gen, device=dev, requires_grad=True)
     ew = torch.rand(k, plain.nnz, generator=gen, device=dev, requires_grad=True)
@@ -2491,34 +2549,332 @@ def lanes_phases(errs: ErrTrack, gen, data, n_batches: dict, dev) -> dict:
     log_timing("LightGCN hop, 3-lane fold d 96", t96, bound96)
     del x96, x32
 
+    grids = grids_both_ways(LANE_GRIDS, n_batches)
+    return {"errs": lane_errs, "checked": checked, "t96": t96, "bound96": bound96,
+            "grids": grids}
+
+
+def lane_is_its_trial(a: str, lanes: dict, serial: dict) -> bool:
+    """Trial ``a``'s lanes score is nearer its serial score than half the gap
+    from that score to every other trial's distinct serial score."""
+    drift = abs(lanes[a] - serial[a])
+    gaps = [abs(s - serial[a]) for b, s in serial.items() if b != a and s != serial[a]]
+    return all(drift < g / 2 for g in gaps)
+
+
+def swap_unit(data) -> float:
+    """The most that one swap at a top-k boundary moves a split's test recall:
+    1 / (test users · the fewest ground-truth items of a test user)."""
+    t = data.test
+    fewest = int(t.ground_truth.lengths[t.test_users.long()].min())
+    return 1.0 / (t.n_test_users * max(fewest, 1))
+
+
+def grids_both_ways(specs: dict, n_batches: dict, swap_units: dict | None = None,
+                    device: str = "cuda") -> dict:
+    """Each grid of ``specs`` through the CLI with ``tune.parallel`` and
+    serially: each trial's test score equal to its serial score
+    (``LANES_SCORE_TOL``), or, for a grid with ``"swaps"``, within that many
+    of ``swap_units[name]`` and nearer its own serial score than half the gap
+    to any other trial's (:func:`lane_is_its_trial`); B1's launches equal to
+    :func:`lanes_b1`'s count (``n_batches`` steps an epoch), no B2, and each
+    grid's wall time."""
     grids = {}
-    for name, spec in LANE_GRIDS.items():
-        lanes = run_grid(name, spec, spec["parallel"])
-        serial = run_grid(name, spec, 0)
+    for name, spec in specs.items():
+        swaps = spec.get("swaps", 0)
+        tol = swaps * swap_units[name] if swaps else LANES_SCORE_TOL
+        lanes = run_grid(name, spec, spec["parallel"], device)
+        serial = run_grid(name, spec, 0, device)
         per_group = int(np.prod([len(v) for h, v in spec["grid"].items() if h != "layer_num"]))
-        want = lanes_b1(name, [(L, per_group) for L in spec["grid"]["layer_num"]],
+        want = lanes_b1(name, [(L, per_group) for L in spec["grid"].get("layer_num", [None])],
                         spec["parallel"], n_batches[name], spec["epochs"])
         got = (lanes["launches"], serial["launches"])
         diff = max(abs(lanes["scores"][a] - serial["scores"][a]) for a in serial["scores"])
+        strays = [a for a in serial["scores"] if not lane_is_its_trial(a, lanes["scores"],
+                                                                        serial["scores"])]
+        held = (f"{swaps} swaps of {swap_units[name]:.4g}, and nearer its own trial's serial "
+                f"score than half the gap to any other's" if swaps else "equal")
         log(f"  {name}: {len(serial['scores'])} trials, lanes (tune.parallel="
             f"{spec['parallel']}) {lanes['wall_s']:.1f} s, serial {serial['wall_s']:.1f} s "
             f"(host clock, data load included); B1 {got[0]} / {got[1]} launches ({want[0]} / "
             f"{want[1]} counted from the code, {n_batches[name]} steps an epoch); B2 "
-            f"{lanes['b2_launches']} / {serial['b2_launches']}; test recall@10 lanes - serial "
-            f"max |diff| {diff:.3g} (tolerance {LANES_SCORE_TOL})")
+            f"{lanes['b2_launches']} / {serial['b2_launches']}; test score lanes - serial "
+            f"max |diff| {diff:.3g} (tolerance {tol:.4g}: {held})")
         for a in serial["scores"]:
             log(f"    {a}: lanes {lanes['scores'][a]:.5f}, serial {serial['scores'][a]:.5f}")
-        if set(lanes["scores"]) != set(serial["scores"]) or diff > LANES_SCORE_TOL:
+        if set(lanes["scores"]) != set(serial["scores"]) or diff > tol or strays:
             raise AssertionError(f"{name}: lanes {lanes['scores']} against serial "
-                                 f"{serial['scores']}")
+                                 f"{serial['scores']} (tolerance {tol:.4g})")
         if got != want or lanes["b2_launches"] or serial["b2_launches"]:
             raise AssertionError(f"{name}: B1 launched {got}, the code counts {want}; B2 "
                                  f"{lanes['b2_launches']}, {serial['b2_launches']}")
         grids[name] = {"lanes": lanes, "serial": serial, "want_b1": want,
-                       "max_score_diff": diff, "parallel": spec["parallel"],
+                       "max_score_diff": diff, "score_tol": tol, "parallel": spec["parallel"],
                        "epochs": spec["epochs"], "grid": spec["grid"]}
-    return {"errs": lane_errs, "checked": checked, "t96": t96, "bound96": bound96,
-            "grids": grids}
+    return grids
+
+
+def grid_summary(grids: dict) -> dict:
+    """The kernels line's record of :func:`grids_both_ways`'s grids."""
+    return {k: {"lanes_wall_s": v["lanes"]["wall_s"], "serial_wall_s": v["serial"]["wall_s"],
+                "b1_lanes_serial": [v["lanes"]["launches"], v["serial"]["launches"]],
+                "b1_counted": list(v["want_b1"]), "max_score_diff": v["max_score_diff"],
+                "score_tol": v["score_tol"],
+                "parallel": v["parallel"], "epochs": v["epochs"], "grid": v["grid"],
+                "lanes_scores": v["lanes"]["scores"], "serial_scores": v["serial"]["scores"]}
+            for k, v in grids.items()}
+
+
+def lane_hp(cfg, probe, k: int, dev) -> dict:
+    """``k`` lanes' scalars of each of ``probe``'s ``hparams()`` keys: the
+    first ``k`` values of its list in the config's tune grid (its config
+    value repeated where the grid does not tune it), [k] float32."""
+    tuned = set(cfg.tune.get("hyperparameters", ()))
+    hp = {h: [float(v) for v in (list(cfg.tune[h])[:k] if h in tuned else [cfg.model[h]] * k)]
+          for h in probe.hparams()}
+    if any(len(v) != k for v in hp.values()):
+        raise AssertionError(f"{cfg.model.name}: fewer than {k} lanes in the grid: {hp}")
+    return {h: torch.tensor(v, dtype=torch.float32, device=dev) for h, v in hp.items()}
+
+
+def lane_batches(lanes: Lanes, n: int) -> list:
+    """The first ``n`` batches of epoch 0 (wrapping) with their PRF keys, or
+    the epoch's device generator for a ``step_generator`` model."""
+    idx, sampled, keys = lanes.trainer.epoch_draws(0)
+    gen = generator(int(lanes.cfg.train.seed), 0, DEVICE_STREAM, device=lanes.device)
+    out = []
+    for i in range(n):
+        b = {k: v[idx[i % len(idx)]] for k, v in (*lanes.trainer.arrays.items(),
+                                                   *sampled.items())}
+        b["step"] = i
+        out.append((b, gen if lanes.probe.step_generator else keys[i % len(keys)]))
+    return out
+
+
+def lanes_step_check(lanes: Lanes, hp: dict, rel: float = LANE_REL, atol: float = LANE_ATOL,
+                     sure_abs: float = LANE_SURE_ABS) -> dict:
+    """One step of the lanes of ``hp`` from the probe's initial parameters
+    against each lane's single step (its trial's config) from the same
+    parameters, first batch of epoch 0 and draws, in the probe's dtype: loss
+    and every gradient within ``rel`` of the tensor's largest entry plus
+    ``atol``; a parameter the loss leaves out keeps no gradient in either;
+    the parameters after the lanes' Adam equal to Adam of each lane alone bit
+    for bit, and the single run's within ``LANE_ADAM_ATOL`` where its gradient
+    is sure (at least ``LANE_SURE`` of its tensor's largest entry and
+    ``sure_abs``).  Shared with ``tests/test_torch_tune_lanes.py``.  Returns
+    the lanes' losses, the largest share of its tolerance that a loss and a
+    gradient took, the largest relative gradient error, and the largest
+    difference after Adam."""
+    cfg, data, dev = lanes.cfg, lanes.data, lanes.device
+    k = next(iter(hp.values())).shape[0]
+    params = lanes.init_lanes(k)
+    init = {n: p.detach().clone() for n, p in params.items()}
+    dtype = next(iter(init.values())).dtype
+    idx, sampled, keys = lanes.trainer.epoch_draws(0)
+    batch = {n: v[idx[0]] for n, v in (*lanes.trainer.arrays.items(), *sampled.items())}
+    batch["step"] = 0
+    seed = int(cfg.train.seed)
+    gen = generator(seed, 0, DEVICE_STREAM, device=dev)
+    aux = lanes.epoch_state(params, gen) if lanes.has_aux else None
+    loss = lanes.step(params, build_optimizer(cfg, list(params.values())), batch,
+                      gen if lanes.probe.step_generator else keys[0], hp, aux)
+    grads = {n: p.grad for n, p in params.items()}
+    for i in range(k):      # Adam is elementwise: each lane's update is its own
+        alone = [init[n][i].clone().requires_grad_() for n in params]
+        for a, n in zip(alone, params):     # Adam skips a leaf the loss leaves out
+            a.grad = None if grads[n] is None else grads[n][i].clone()
+        build_optimizer(cfg, alone).step()
+        for a, n in zip(alone, params):
+            if not torch.equal(a.detach(), params[n][i].detach()):
+                raise AssertionError(f"{cfg.model.name} lane {i} {n}: the lanes' Adam is not "
+                                     f"Adam of the lane alone")
+    worst = {"loss": 0.0, "grad": 0.0, "grad_rel": 0.0, "grad_rel_at": "", "adam_abs": 0.0}
+    failed = []
+
+    def close(what, got, want, field):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        worst[field] = max(worst[field], err / (rel * scale + atol))
+        # the largest relative error among tensors whose gradient is not
+        # rounding alone (the attention key biases' is ~1e-12)
+        if field == "grad" and scale >= LANE_SURE_ABS and err / scale > worst["grad_rel"]:
+            worst["grad_rel"], worst["grad_rel_at"] = err / scale, what
+        if not err <= rel * scale + atol:
+            failed.append(f"{what}: {err:.3g} > {rel} x {scale:.3g} + {atol}")
+
+    for i in range(k):
+        lcfg = cfg.replace(model={h: float(v[i]) for h, v in hp.items()})
+        model = build_model(lcfg, data).to(dtype)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(init["model." + n][i])
+        lgen = generator(seed, 0, DEVICE_STREAM, device=dev)
+        lbatch = dict(batch)
+        if lanes.has_aux:
+            lbatch["aux"] = model.epoch_state(lgen, 0)
+        out = Trainer(lcfg, model, data).train_step(
+            lbatch, lgen if model.step_generator else keys[0])
+        close(f"lane {i} loss", loss[i], out["loss"], "loss")
+        for n, p in model.named_parameters():
+            g = grads["model." + n]
+            if g is None:
+                if p.grad is not None or not torch.equal(params["model." + n][i], p):
+                    failed.append(f"lane {i} {n}: out of the lanes' loss, not of the single "
+                                  f"run's")
+                continue
+            close(f"lane {i} grad {n}", g[i], p.grad, "grad")
+            sure = (p.grad.abs() >= LANE_SURE * p.grad.abs().max()) & (
+                p.grad.abs() >= sure_abs)
+            d = float((params["model." + n][i].detach()[sure] - p.detach()[sure]).abs().max()
+                      ) if bool(sure.any()) else 0.0
+            worst["adam_abs"] = max(worst["adam_abs"], d)
+            if d > LANE_ADAM_ATOL:
+                failed.append(f"lane {i} {n} after Adam: {d:.3g} > {LANE_ADAM_ATOL}")
+        del model
+    if failed:
+        raise AssertionError(f"{cfg.model.name}: {len(failed)} checks failed: "
+                             + "; ".join(failed[:12]))
+    return {"lanes_loss": loss.tolist(), "rel": rel, "atol": atol, "dtype": str(dtype), **worst}
+
+
+class plain_b1:
+    """B1's plain version in place of its kernel while the block runs, for a
+    float64 check on the card (the kernel takes float32 only); its launch
+    counters are left as they were."""
+
+    def __enter__(self):
+        self.real = sk.csr_spmm
+        sk.csr_spmm = skn.csr_spmm = sk.csr_spmm_plain
+        return self
+
+    def __exit__(self, *exc):
+        sk.csr_spmm = skn.csr_spmm = self.real
+        return False
+
+
+def time_lane_steps(lanes: Lanes, hp: dict, n: int = LANE_TIMED_STEPS, warmup: int = 2) -> dict:
+    """Host-clock ms of a step of the lanes of ``hp`` and of a single step
+    (the probe under its own config, through the serial trainer's step),
+    each the mean of ``n`` steps on epoch 0's batches after ``warmup``, the
+    card synced before and after; ``ratio`` is the lanes' step over one
+    trial's (K where the lanes save nothing)."""
+    k = next(iter(hp.values())).shape[0]
+    params = lanes.init_lanes(k)
+    opt = build_optimizer(lanes.cfg, list(params.values()))
+    batches = lane_batches(lanes, warmup + n)
+
+    def run(step) -> float:
+        for b, key in batches[:warmup]:
+            step(dict(b), key)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b, key in batches[warmup:]:
+            step(dict(b), key)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    lanes_ms = run(lambda b, key: lanes.step(params, opt, b, key, hp, None))
+    single_ms = run(lanes.trainer.train_step)
+    del params, opt
+    return {"k": k, "steps": n, "lanes_ms": lanes_ms, "single_ms": single_ms,
+            "ratio": lanes_ms / single_ms}
+
+
+def fold_check(errs: ErrTrack, what: str, g: sk.CsrGraph, w, d: int, k: int, gen) -> None:
+    """B1 under the lanes' vmap rule at ``g`` (k lanes of width ``d``; ``w``
+    None, a :class:`PrfMask` or a constant [nnz] multiplier): one launch for
+    the hop and one for its dx, each lane's value and dx against the plain
+    version."""
+    x = torch.randn(k, g.n_cols, d, generator=gen, device=g.fwd.cols.device, requires_grad=True)
+    ct = torch.randn(k, g.n_rows, d, generator=gen, device=x.device)
+    ew = sk.EdgeMask(w) if isinstance(w, torch.Tensor) else w
+    before = sk.csr_spmm.launches
+    y = torch.func.vmap(lambda xl: sk_spmm(g, xl, ew))(x)
+    (dx,) = torch.autograd.grad((y * ct).sum(), x)
+    launched = sk.csr_spmm.launches - before
+    if launched != 2:
+        raise AssertionError(f"{what}: {launched} B1 launches for a hop and its dx, want 2")
+    for i in range(k):
+        errs.check(f"{what}.lane{i}", y[i].detach(), sk.csr_spmm_plain(g.fwd, x[i].detach(), w))
+        errs.check(f"{what}.lane{i}.dx", dx[i], sk.csr_spmm_plain(g.bwd, ct[i], w))
+
+
+def fold_timing(errs: ErrTrack, what: str, g: sk.CsrGraph, w, d: int, gen) -> dict:
+    """:func:`fold_check` of ``LANE_K`` lanes of width ``d`` at ``g``, then B1
+    timed at the fold's width beside its bound, plain version,
+    ``torch.sparse.mm`` and ``LANE_K`` calls at width ``d``."""
+    fold_check(errs, what, g, w, d, LANE_K, gen)
+    lay = g.fwd
+    x = torch.randn(g.n_cols, LANE_K * d, generator=gen, device=lay.cols.device)
+    xd = x[:, :d].contiguous()
+    r, bound = time_b1(lay, x, w, **{f"lanes_d{d}": lambda: [sk.csr_spmm(lay, xd, w)
+                                                             for _ in range(LANE_K)]})
+    log_timing(f"{what} ({LANE_K} lanes of d {d} as one [{g.n_cols}, {LANE_K * d}] operand)",
+               r, bound)
+    return {"t": r, "bound": bound,
+            "shape": {"n_rows": g.n_rows, "n_cols": g.n_cols, "nnz": g.nnz, "d": LANE_K * d}}
+
+
+def last_lanes_phases(gen, dev) -> dict:
+    """Phase 36: the lanes of MBGMN, HMGCR, SMBRec, CL4SRec, DuoRec and
+    DCRec_seq at their published configs.  Per model: one step of
+    ``LANE_K`` lanes held against the single steps (HMGCR in float64 with
+    B1's plain version, CL4SRec, DuoRec),
+    and ``LANE_TIMED_STEPS`` lanes steps timed against single steps (all
+    six); B1 under the lanes' vmap rule and timed at the folded Tmall pv
+    graph (d 2 x 32) and DCRec_seq's transition hop (d 2 x 64, the call's
+    values); then MBGMN's, SMBRec's and DCRec_seq's grids both ways
+    (:func:`grids_both_ways`)."""
+    log("== 36. the lanes of MBGMN, HMGCR, SMBRec, CL4SRec, DuoRec and DCRec_seq")
+    fold_errs = ErrTrack()
+    steps, timed, n_batches, folds, swap_units = {}, {}, {}, {}, {}
+    for name, dataset in LAST_LANES.items():
+        t0 = time.perf_counter()
+        cfg = port_main.parse_cli(["--model", name, "--data_dir", SMOKE_RESULTS, "--dataset",
+                                   dataset, "--device", "cuda"])
+        data = load_data(cfg, dev)
+        lanes = Lanes(cfg, build_model(cfg, data), data)
+        n_batches[name] = lanes.trainer.n_batches
+        hp = lane_hp(cfg, lanes.probe, LANE_K, dev)
+        load_s = time.perf_counter() - t0
+        if name in LAST_LANE_GRIDS and LAST_LANE_GRIDS[name].get("swaps"):
+            swap_units[name] = swap_unit(data)
+        if name in LANE_F64:
+            with plain_b1():
+                steps[name] = lanes_step_check(
+                    Lanes(cfg, build_model(cfg, data).to(torch.float64), data), hp,
+                    rel=LANE_REL_F64, atol=0.0)
+        elif name in LANE_STEP_MODELS:
+            steps[name] = lanes_step_check(lanes, hp)
+        if name in steps:
+            log(f"  {name}: one {LANE_K}-lane step against the single steps "
+                f"({steps[name]['dtype']}), hp "
+                f"{ {h: v.tolist() for h, v in hp.items()} }: losses {steps[name]['lanes_loss']}"
+                f"; largest error over its tolerance ({steps[name]['rel']} of the largest entry + "
+                f"{steps[name]['atol']}): loss {steps[name]['loss']:.3g}, gradients "
+                f"{steps[name]['grad']:.3g} (largest relative {steps[name]['grad_rel']:.3g}, "
+                f"{steps[name]['grad_rel_at']}); after Adam max abs diff "
+                f"{steps[name]['adam_abs']:.3g} (tolerance {LANE_ADAM_ATOL})")
+        timed[name] = time_lane_steps(lanes, hp)
+        t = timed[name]
+        log(f"  {name}: {t['steps']} steps of {LANE_K} lanes {t['lanes_ms']:.2f} ms a step, "
+            f"single {t['single_ms']:.2f} ms; ratio {t['ratio']:.3f} ({LANE_K}: the lanes save "
+            f"nothing; host clock, synced); load and build {load_s:.1f} s")
+        if name == "smbrec":
+            key = "tmall_pv_a_lanes2_d64"
+            folds[key] = fold_timing(fold_errs, key, data.extras["behavior_graphs"][0][0],
+                                     None, 32, gen)
+        elif name == "dcrec_seq":
+            key, adj = "dcrec_seq_adj_hop_lanes2_d128", lanes.probe.adj
+            folds[key] = fold_timing(fold_errs, key, adj.g,
+                                     torch.rand(adj.nnz, generator=gen, device=dev), 64, gen)
+        del lanes, data
+        torch.cuda.empty_cache()
+    log(f"  B1 under the lanes' vmap rule at the folded shapes: max abs err {fold_errs.abs:.3g}, "
+        f"max rel err {fold_errs.rel:.3g} (tolerance {TOL}), one launch a hop and one a dx")
+    grids = grids_both_ways(LAST_LANE_GRIDS, n_batches, swap_units)
+    return {"errs": fold_errs, "steps": steps, "timed": timed, "folds": folds,
+            "grids": grids, "n_batches": n_batches}
 
 
 def main() -> int:
@@ -2867,8 +3223,9 @@ def main() -> int:
     lanes_steps = {"lightgcn": -(-data.n_train // int(cfg.train.batch_size)),
                    "dccf": ssl_runs["dccf"]["n_batches"], "kcgn": ks["runs"]["kcgn"]["n_batches"]}
     lp = lanes_phases(errs, gen, data, lanes_steps, dev)
+    llp = last_lanes_phases(gen, dev)
 
-    log("== 36. result")
+    log("== 37. result")
     common = {"route": "cuda", "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
               "replaces": "sslrec_tpu/ops/pallas_spmm.py:123",
               "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel"}
@@ -2915,7 +3272,7 @@ def main() -> int:
                                            ui_errs.rel, ssl_errs.rel, view_errs.rel,
                                            soc_errs.rel, ks["errs"].rel, kgp["errs"].rel,
                                            seq["errs"].rel, kgn["errs"].rel, mbp["errs"].rel,
-                                           mbn["errs"].rel, lp["errs"].rel,
+                                           mbn["errs"].rel, lp["errs"].rel, llp["errs"].rel,
                                            *(e["max_rel_err"] for e in seq["bf16_err"].values())),
                 stress={"max_abs_err": stress_errs.abs, "max_rel_err": stress_errs.rel,
                         "reference": "plain version in float64"},
@@ -3143,18 +3500,28 @@ def main() -> int:
         library_call="torch.sparse.mm on a CSR tensor of the layout at d 96; three_d32_ms: "
                      "three B1 calls at d 32, the three lanes one at a time",
         launches_of=["lightgcn grid with tune.parallel=3"],
-        lanes={"checked_k_and_mode": lp["checked"],
-               "grids": {k: {"lanes_wall_s": v["lanes"]["wall_s"],
-                             "serial_wall_s": v["serial"]["wall_s"],
-                             "b1_lanes_serial": [v["lanes"]["launches"],
-                                                 v["serial"]["launches"]],
-                             "b1_counted": list(v["want_b1"]),
-                             "max_score_diff": v["max_score_diff"],
-                             "parallel": v["parallel"], "epochs": v["epochs"],
-                             "grid": v["grid"],
-                             "lanes_scores": v["lanes"]["scores"],
-                             "serial_scores": v["serial"]["scores"]}
-                         for k, v in lane_grids.items()}}))
+        lanes={"checked_k_and_mode": lp["checked"], "grids": grid_summary(lane_grids)}))
+    last_grids = llp["grids"]
+    for key, f in llp["folds"].items():
+        model = "smbrec" if key.startswith("tmall") else "dcrec_seq"
+        paths = ("mbgmn", "smbrec") if model == "smbrec" else ("dcrec_seq",)
+        counts = (sum(last_grids[p]["lanes"]["launches"] for p in paths),
+                  sum(last_grids[p]["lanes"]["combine_launches"] for p in paths))
+        rows_b1.append(b1_row(
+            f"csr_spmm.{key}", f["t"], f["bound"], counts, llp["errs"],
+            {**f["shape"], "layout": "forward", "lane_group": f["t"]["lane_group"],
+             "split_threshold": f["t"]["split_threshold"],
+             "what": f"tune.parallel's {LANE_K}-lane fold: {LANE_K} lanes of d "
+                     f"{f['shape']['d'] // LANE_K} as one operand"
+                     + ("" if model == "smbrec" else ", the call's values")},
+            library_call="torch.sparse.mm on a CSR tensor of the layout at the fold's width"
+                         + ("" if model == "smbrec" else ", values pre-multiplied")
+                         + f"; lanes_d{f['shape']['d'] // LANE_K}_ms: {LANE_K} B1 calls at "
+                         "the lane's width, one lane at a time",
+            launches_of=[f"{p} grid with tune.parallel={LANE_K}" for p in paths]))
+    rows_b1[-1]["last_lanes"] = {
+        "steps": llp["steps"], "timed": llp["timed"], "n_batches": llp["n_batches"],
+        "grids": grid_summary(last_grids)}
     rows_b1[0]["tuner_and_resume_on_card"] = {
         "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
         "resume_bit_equal_tensors": tr["resume_tensors"],

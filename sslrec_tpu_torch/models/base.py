@@ -34,8 +34,6 @@ Optional
                                      parameters and optimizers (MAERec's loss history)
 ``hparams() -> {name: float}``      the scalars its ``loss`` reads from ``batch["hp"]`` where
                                      given: the tuner's ``tune.parallel`` runs a grid of them as lanes
-``lanes_pending = True``             the JAX package runs its grid as lanes, the port does not yet:
-                                     the tuner runs it serially and names the next port item
 
 Every batch also carries ``batch["step"]``, the step's index in the epoch
 (an int), and the trainer sets ``model._n_batches_hint`` to the number of
@@ -51,7 +49,6 @@ from torch import nn
 
 class RecModel(nn.Module):
     step_generator = False
-    lanes_pending = False
     batch_fields = ("user", "pos", "neg")
 
     def __init__(self, cfg, data):

@@ -4,7 +4,6 @@ contrastive pieces, with the JAX package's reductions and epsilons)."""
 from __future__ import annotations
 
 import torch
-import torch.utils.checkpoint
 import torch.nn.functional as F
 
 
@@ -89,43 +88,44 @@ def _grace_row_sums(rows, z_all, tau: float, g_n: int):
 
 
 class GraceRowSumsFn(torch.autograd.Function):
-    """:func:`_grace_row_sums` of every row of ``z_all`` ``[G·N, d]``, ``chunk``
-    rows at a time → ``[G·N, G]``.  Only ``z_all`` is saved: the backward
-    recomputes each chunk's ``[chunk, G·N]`` similarities (JAX's remat), so
-    none outlives its chunk.  This is ``torch.utils.checkpoint`` of each
-    chunk written out, because a checkpoint's recomputation, which runs in
-    the backward pass, cannot reach the lanes of ``torch.func.vmap``; under
-    vmap each lane takes its own call (the dot products mix the features, so
-    lanes cannot share one)."""
+    """:func:`_grace_row_sums` of the first ``n_rows`` rows of ``z_all``
+    ``[G·N, d]``, ``chunk`` rows at a time → ``[n_rows, G]``.  Only ``z_all``
+    is saved: the backward recomputes each chunk's ``[chunk, G·N]``
+    similarities (JAX's remat), so none outlives its chunk.  This is
+    ``torch.utils.checkpoint`` of each chunk written out, because a
+    checkpoint's recomputation, which runs in the backward pass, cannot reach
+    the lanes of ``torch.func.vmap``; under vmap each lane takes its own call
+    (the dot products mix the features, so lanes cannot share one)."""
 
     @staticmethod
-    def forward(z_all, tau: float, g_n: int, chunk: int):
-        return torch.cat([_grace_row_sums(z_all[s:s + chunk], z_all, tau, g_n)
-                          for s in range(0, z_all.shape[0], chunk)])
+    def forward(z_all, tau: float, g_n: int, chunk: int, n_rows: int):
+        return torch.cat([_grace_row_sums(z_all[s:min(s + chunk, n_rows)], z_all, tau, g_n)
+                          for s in range(0, n_rows, chunk)])
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(inputs[0])
-        ctx.tau, ctx.g_n, ctx.chunk = inputs[1:]
+        ctx.tau, ctx.g_n, ctx.chunk, ctx.n_rows = inputs[1:]
 
     @staticmethod
     def backward(ctx, grad):
         (z_all,) = ctx.saved_tensors
-        tau, g_n, chunk = ctx.tau, ctx.g_n, ctx.chunk
+        tau, g_n, chunk, n_rows = ctx.tau, ctx.g_n, ctx.chunk, ctx.n_rows
         n = z_all.shape[0] // g_n
         dz = torch.zeros_like(z_all)
-        for s in range(0, z_all.shape[0], chunk):
-            rows = z_all[s:s + chunk]
+        for s in range(0, n_rows, chunk):
+            stop = min(s + chunk, n_rows)
+            rows = z_all[s:stop]
             e = torch.exp(rows @ z_all.T / tau)                      # [C, G·N]
-            de = grad[s:s + chunk, :, None].expand(-1, g_n, n).reshape(e.shape)
+            de = grad[s:stop, :, None].expand(-1, g_n, n).reshape(e.shape)
             dl = de * e / tau
-            dz[s:s + chunk] += dl @ z_all
+            dz[s:stop] += dl @ z_all
             dz += dl.T @ rows
-        return dz, None, None, None
+        return dz, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, z_all, tau, g_n, chunk):
-        outs = [GraceRowSumsFn.apply(z_all.select(in_dims[0], i), tau, g_n, chunk)
+    def vmap(info, in_dims, z_all, tau, g_n, chunk, n_rows):
+        outs = [GraceRowSumsFn.apply(z_all.select(in_dims[0], i), tau, g_n, chunk, n_rows)
                 for i in range(info.batch_size)]
         return torch.stack(outs), 0
 
@@ -145,7 +145,7 @@ def grace_pair_losses(zs, tau: float, chunk: int = 256) -> dict:
     ``[G·N, G·N]`` matrix is never held whole (JAX's remat)."""
     g_n, n = len(zs), zs[0].shape[0]
     zn = [_l2norm_safe(z) for z in zs]
-    sums = GraceRowSumsFn.apply(torch.cat(zn, 0), tau, g_n, chunk).view(g_n, n, g_n)
+    sums = GraceRowSumsFn.apply(torch.cat(zn, 0), tau, g_n, chunk, g_n * n).view(g_n, n, g_n)
     out = {}
     for g in range(g_n):
         # ‖ẑ_g,i‖² is not assumed 1: a post-relu view may have zero rows
@@ -163,15 +163,11 @@ def grace_loss(z1, z2, tau: float, chunk: int = 1024):
     """The GRACE semi-loss of view ``z1`` against ``z2`` (port of the JAX
     package's ``hmgcr.grace_loss``): ``semi(0→1)`` of
     :func:`grace_pair_losses` over the two views, the row sums taken for
-    ``z1``'s rows only, ``chunk`` rows at a time under
-    ``torch.utils.checkpoint``."""
+    ``z1``'s rows only, ``chunk`` rows at a time (:class:`GraceRowSumsFn`,
+    which recomputes each chunk in the backward and runs under vmap)."""
     n = z1.shape[0]
     z1n, z2n = _l2norm_safe(z1), _l2norm_safe(z2)
-    z_all = torch.cat([z1n, z2n])
-    sums = torch.cat([
-        torch.utils.checkpoint.checkpoint(_grace_row_sums, z1n[s:s + chunk], z_all, tau, 2,
-                                          use_reentrant=False)
-        for s in range(0, n, chunk)])                                # [n, 2]
+    sums = GraceRowSumsFn.apply(torch.cat([z1n, z2n]), tau, 2, chunk, n)   # [n, 2]
     denom = sums[:, 0] + sums[:, 1] - torch.exp((z1n * z1n).sum(-1) / tau)
     diag = (z1n * z2n).sum(-1)
     return -torch.log(torch.exp(diag / tau) / denom + 1e-8).sum() / n

@@ -55,8 +55,6 @@ class GCNTower(nn.Module):
 
 
 class HMGCR(RecModel):
-    lanes_pending = True
-
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         m = cfg.model
@@ -78,6 +76,12 @@ class HMGCR(RecModel):
         users = [u for u, _ in embeds]
         items = [i for _, i in embeds]
         return sum(users) / len(users), sum(items) / len(items), users, items
+
+    def hparams(self) -> dict:
+        """The lane scalar of ``tune.parallel``: ``model.reg_weight``, inert
+        (the module's docstring); it folds the shipped 9-trial grid into 3
+        structural groups (layer_num), as in the JAX package."""
+        return {"reg_weight": float(self.cfg.model.get("reg_weight", 0.0))}
 
     def loss(self, batch: dict, key=None):
         ancs, poss, negs = batch["user"].long(), batch["pos"].long(), batch["neg"].long()

@@ -44,7 +44,6 @@ _LINEARS = ("spec_u", "spec_i", "spec_u1", "spec_i1", "spec_u2", "spec_i2",
 
 
 class MBGMN(RecModel):
-    lanes_pending = True
     step_generator = True
     batch_fields = ("user", "pos")      # the loss samples its own users and items
 
@@ -188,6 +187,14 @@ class MBGMN(RecModel):
             uids.append(rep.repeat(2))
             iids.append(torch.cat([pos.reshape(-1), negs.reshape(-1)]))
         return uids, iids
+
+    def hparams(self) -> dict:
+        """The lane scalar of ``tune.parallel``: ``model.reg_weight``, which
+        nothing reads (a documented no-op, as in the JAX package: the loss
+        regularises with ``train.reg``, as the reference MBGMN does).  As an
+        inert lane it folds the shipped 9-trial grid into 3 structural groups
+        (layer_num) without changing any trial."""
+        return {"reg_weight": float(self.cfg.model.get("reg_weight", 0.0))}
 
     def loss(self, batch: dict, gen, draws: dict | None = None):
         dr = StepDraws(gen, draws, self.device)

@@ -6,8 +6,9 @@
   of ``beh_weights · degree``, then ``user_trans``; items by ``cat_trans``
   over the towers side by side.
 - Loss: BPR (sum) + ``cl_weight``·CL + ``reg_weight``·L2 of the picked
-  rows.  CL, per behavior: every user in blocks of 128 anchors (the last
-  block wrapping to the first users, as the JAX package pads), each anchor
+  rows; both weights ride ``tune.parallel``'s lanes (``hparams()``).  CL,
+  per behavior: every user in blocks of 128 anchors (the last block
+  wrapping to the first users, as the JAX package pads), each anchor
   ``sample_num_pos`` co-interacting users drawn with replacement from its
   row of the target behavior's ``M Mᵀ`` (itself where the row is empty); a
   block's term is the sum of ``-log(exp(sim/τ) + 1e-8)`` over its
@@ -34,7 +35,6 @@ BLOCK = 128
 
 
 class SMBRec(RecModel):
-    lanes_pending = True
     step_generator = True
 
     def __init__(self, cfg, data):
@@ -96,7 +96,14 @@ class SMBRec(RecModel):
 
         return (neglog_sim(er, en[pos]) - neglog_sim(er, er)).sum()
 
+    def hparams(self) -> dict:
+        """The lane scalars of ``tune.parallel`` (layer_num is structural)."""
+        return {"reg_weight": self.reg_weight, "cl_weight": self.cl_weight}
+
     def loss(self, batch: dict, gen, draws: dict | None = None):
+        hp = batch.get("hp", {})
+        reg_w = hp.get("reg_weight", self.reg_weight)
+        cl_w = hp.get("cl_weight", self.cl_weight)
         dr = StepDraws(gen, draws, self.device)
         ancs, poss, negs = batch["user"].long(), batch["pos"].long(), batch["neg"].long()
         user_emb, item_emb, beh_users = self.forward()
@@ -106,7 +113,7 @@ class SMBRec(RecModel):
         n_pad = self.user_num + (-self.user_num) % BLOCK
         cl = sum(self.contrast(dr.uniform(f"co_u{b}", (n_pad, self.samp_pos)), u)
                  for b, u in enumerate(beh_users))
-        loss = bpr + self.cl_weight * cl + self.reg_weight * reg
+        loss = bpr + cl_w * cl + reg_w * reg
         return loss, {"bpr_loss": bpr, "cl_loss": cl}
 
     def generate(self):

@@ -20,7 +20,8 @@ from sslrec_tpu_torch.models.sequential.base_seq import SequentialModel
 
 def nt_xent(z1: torch.Tensor, z2: torch.Tensor, temp) -> torch.Tensor:
     """In-batch NT-Xent: per row of the 2B views, the cross entropy of its
-    partner against every view but itself and its partner."""
+    partner against every view but itself and its partner.  ``temp`` is a
+    float or a tensor (a lane's scalar): it only divides."""
     b = z1.shape[0]
     z = torch.cat([z1, z2], 0)
     sim = z @ z.T / temp
@@ -65,14 +66,20 @@ class SeqTowerModel(SequentialModel):
 
 
 class CL4SRec(SeqTowerModel):
-    lanes_pending = True
-
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         self.lmd = float(cfg.model.lmd)
         self.tau = float(cfg.model.tau)
 
+    def hparams(self) -> dict:
+        """The lane scalars of ``tune.parallel``; ``dropout_rate`` stays
+        structural (it sizes the tower's dropout calls)."""
+        return {"lmd": self.lmd, "tau": self.tau}
+
     def loss(self, batch: dict, gen, draws: dict | None = None):
+        hp = batch.get("hp", {})
+        lmd = hp.get("lmd", self.lmd)
+        tau = hp.get("tau", self.tau)
         dr = self.draws(gen, draws)
         seqs = batch["seq"]
         h = self._encode(seqs, dr.dropout("drop", self.dropout_rate))
@@ -81,5 +88,5 @@ class CL4SRec(SeqTowerModel):
         v1, v2 = seq_augment.cl4srec_two_views(seqs, op_u, d1, d2, self.mask_token)
         h1 = self._encode(v1, dr.dropout("drop1", self.dropout_rate))
         h2 = self._encode(v2, dr.dropout("drop2", self.dropout_rate))
-        cl_loss = self.lmd * nt_xent(h1, h2, self.tau)
+        cl_loss = lmd * nt_xent(h1, h2, tau)
         return rec_loss + cl_loss, {"rec_loss": rec_loss, "cl_loss": cl_loss}

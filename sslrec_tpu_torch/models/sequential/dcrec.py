@@ -143,9 +143,6 @@ class ItemGraph:
 
 
 class DCRecSeq(SequentialModel):
-    # its hparams() and loss read batch["hp"], but its lanes are not held yet
-    lanes_pending = True
-
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         m = cfg.model

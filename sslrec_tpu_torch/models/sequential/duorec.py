@@ -44,8 +44,6 @@ def candidate_table(lasts: np.ndarray, item_num: int, width: int = 20):
 
 
 class DuoRec(SeqTowerModel):
-    lanes_pending = True
-
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         self.lmd_sem = float(cfg.model.lmd_sem)
@@ -61,7 +59,14 @@ class DuoRec(SeqTowerModel):
         rows = self.cand_table[lasts.long(), j.long()]
         return torch.where((cnt > 0)[:, None], self.train_seqs[rows.long()], seqs)
 
+    def hparams(self) -> dict:
+        """The lane scalars of ``tune.parallel``."""
+        return {"lmd_sem": self.lmd_sem, "tau": self.tau}
+
     def loss(self, batch: dict, gen, draws: dict | None = None):
+        hp = batch.get("hp", {})
+        lmd_sem = hp.get("lmd_sem", self.lmd_sem)
+        tau = hp.get("tau", self.tau)
         dr = self.draws(gen, draws)
         seqs, lasts = batch["seq"], batch["pos"]
         h = self._encode(seqs, dr.dropout("drop", self.dropout_rate))
@@ -70,5 +75,5 @@ class DuoRec(SeqTowerModel):
         j = dr.randint("sem_j", 0, self.cand_count[lasts.long()].clamp(min=1), lasts.shape)
         h2 = self._encode(self.semantic_views(seqs, lasts, j),
                           dr.dropout("drop2", self.dropout_rate))
-        cl_loss = self.lmd_sem * nt_xent(h1, h2, self.tau)
+        cl_loss = lmd_sem * nt_xent(h1, h2, tau)
         return rec_loss + cl_loss, {"rec_loss": rec_loss, "cl_loss": cl_loss}

@@ -9,17 +9,16 @@ trials and best score go into ``<results_dir>/<model>_<dataset>_tune.json``.
 ``tune.parallel: K`` trains K trials at once as lanes of one stacked model
 (:mod:`~sslrec_tpu_torch.trainer.lanes`), where the model has an
 ``hparams()`` hook whose scalars its ``loss`` reads from ``batch["hp"]``:
-LightGCN, SGL, SimGCL, DirectAU, DCCF, HCCF, NCL, MHCN, DcRec, KCGN and
-SMIN.  Tuned keys outside ``hparams()`` are structural: the trials are
-grouped by them and each group runs its chunks of K lanes, the tail chunk
-padded with its last trial.  Each key of ``hparams()`` is the ``cfg.model``
-key it reads, so a lane's scalars come from its trial's config.  The rest
-falls back to the serial loop with the JAX package's conditions and log
+LightGCN, SGL, SimGCL, DirectAU, DCCF, HCCF, NCL, MHCN, DcRec, KCGN, SMIN,
+MBGMN, HMGCR, SMBRec, CL4SRec, DuoRec and DCRec_seq (MBGMN's and HMGCR's
+``reg_weight`` an inert lane, as in the JAX package).  Tuned keys outside
+``hparams()`` are structural: the trials are grouped by them and each group
+runs its chunks of K lanes, the tail chunk padded with its last trial.  Each
+key of ``hparams()`` is the ``cfg.model`` key it reads, so a lane's scalars
+come from its trial's config.  The rest falls back to the serial loop with the JAX package's conditions and log
 lines (:func:`lanes_refusal`: no ``hparams()``, KGCL with ``train_trans``, an
 ``epoch_state`` without an ``epoch_state_fn``, a ``train.mesh``), as does a
-grid whose groups are all single trials; so does a model that declares
-``lanes_pending`` (the JAX package's other six lanes models, whose lanes are
-the next port item), with a second line that says so.
+grid whose groups are all single trials.
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ import time
 
 import torch
 
-from sslrec_tpu_torch.models.registry import build_model, model_class
+from sslrec_tpu_torch.models.registry import build_model
 from sslrec_tpu_torch.trainer.lanes import Lanes
 from sslrec_tpu_torch.trainer.trainer import Trainer
 
@@ -54,9 +53,6 @@ def grid_search(cfg, data, logger):
             return best
         logger.log("tune.parallel unsupported for this model/config; "
                    "falling back to serial grid search")
-        if model_class(cfg.model.name).lanes_pending:
-            logger.log(f"tune.parallel: {cfg.model.name}'s lanes are not ported yet "
-                       "(ROADMAP Queue A, next item)")
     return _serial_grid_search(cfg, data, logger)
 
 
@@ -122,7 +118,7 @@ def vmapped_grid_search(cfg, data, logger, n_parallel):
     """K trials at once as lanes; returns ``(score, assignment)``, or None
     where the grid cannot run as lanes (the caller then runs it serially)."""
     trials = list(trial_configs(cfg))
-    if not trials or model_class(cfg.model.name).lanes_pending:
+    if not trials:
         return None
     tuned = set(cfg.tune.get("hyperparameters", ()))
     probe0 = build_model(trials[0][0], data)

@@ -3,8 +3,9 @@ Tmall-named split of ``test_torch_mb_data.py`` (300 users × 200 items, d 8):
 weights carried across, ``generate()``, the loss and every gradient given the
 same draws (MBGMN's users, positives' offsets, negatives and fallbacks, with
 the hinge detached as shipped and not; SMBRec's co-user offsets), three Adam
-steps, MBGMN's epoch schedule, a CPU CLI run of each, and one step on the
-card against the CPU.
+steps, MBGMN's epoch schedule, a CPU CLI run of each, one step on the card
+against the CPU, and HMGCR's ``grace_loss`` against the checkpointed form it
+had before it ran under vmap (float64, 1e-12).
 
 Draws are injected into JAX by standing in for ``jax.random.randint`` /
 ``uniform`` and MBGMN's ``sample_negatives`` with the same numpy arrays, in
@@ -321,3 +322,42 @@ def test_step_on_cuda_matches_cpu(name):
     _close(out["cuda"][0], out["cpu"][0].numpy())
     for k, g in out["cpu"][1].items():
         _close_grad(out["cuda"][1][k], g.numpy())
+
+
+def _grace_loss_checkpointed(z1, z2, tau, chunk):
+    """HMGCR's GRACE semi-loss in its earlier form: the row sums of ``z1``'s
+    rows ``chunk`` at a time under ``torch.utils.checkpoint``."""
+    import torch.utils.checkpoint
+    from sslrec_tpu_torch.models.losses import _grace_row_sums, _l2norm_safe
+    n = z1.shape[0]
+    z1n, z2n = _l2norm_safe(z1), _l2norm_safe(z2)
+    z_all = torch.cat([z1n, z2n])
+    sums = torch.cat([torch.utils.checkpoint.checkpoint(
+        _grace_row_sums, z1n[s:s + chunk], z_all, tau, 2, use_reentrant=False)
+        for s in range(0, n, chunk)])
+    denom = sums[:, 0] + sums[:, 1] - torch.exp((z1n * z1n).sum(-1) / tau)
+    diag = (z1n * z2n).sum(-1)
+    return -torch.log(torch.exp(diag / tau) / denom + 1e-8).sum() / n
+
+
+@pytest.mark.parametrize("n,chunk", [(300, 1024), (300, 100), (300, 64)])
+def test_grace_loss_equals_its_checkpointed_form(n, chunk):
+    """``losses.grace_loss`` on ``GraceRowSumsFn`` (which runs under vmap)
+    against the checkpointed form it replaced, float64: value and both
+    views' gradients within 1e-12; under ``torch.func.vmap`` over 3 lanes,
+    each lane the same."""
+    from sslrec_tpu_torch.models import losses
+    rng = np.random.default_rng(n + chunk)
+    z1, z2 = (torch.from_numpy(rng.standard_normal((3, n, 8))).requires_grad_()
+              for _ in range(2))
+    z1.data[0, :5] = 0.0                    # zero rows (a post-sigmoid view has none; relu's may)
+    got = torch.func.vmap(lambda a, b: losses.grace_loss(a, b, 0.4, chunk))(z1, z2)
+    g1, g2 = torch.autograd.grad(got.sum(), (z1, z2))
+    for i in range(3):
+        a, b = z1[i].detach().requires_grad_(), z2[i].detach().requires_grad_()
+        want = _grace_loss_checkpointed(a, b, 0.4, chunk)
+        w1, w2 = torch.autograd.grad(want, (a, b))
+        one = losses.grace_loss(a, b, 0.4, chunk)
+        o1, o2 = torch.autograd.grad(one, (a, b))
+        for g, w in ((got[i], want), (one, want), (g1[i], w1), (g2[i], w2), (o1, w1), (o2, w2)):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-12)

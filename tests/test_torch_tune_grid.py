@@ -2,10 +2,11 @@
 the cases of the JAX package's ``tests/test_tuner.py`` (NCL's padded tail
 chunk, SimGCL's eps lane, HCCF's structural groups, DCCF's three lane
 scalars, the fall-backs without benefit, for a structural-only KGIN grid
-and for AutoCF's ``epoch_state``), each trial's lanes score equal to its
-serial score within 1e-4 (JAX's own test allows 5e-3); a lane's best
-parameters against a single run's; the OOM halving; and the fall-back of
-the JAX package's lanes models whose hooks are not ported yet."""
+and for AutoCF's ``epoch_state``), and HMGCR's and CL4SRec's grids, each
+trial's lanes score equal to its serial score within 1e-4 (JAX's own test
+allows 5e-3); the structural groups of the shipped grids of the six
+multi-behavior and sequential lanes models; a lane's best parameters
+against a single run's; and the OOM halving."""
 
 import numpy as np
 import pytest
@@ -14,12 +15,16 @@ import torch
 from conftest import random_ui_matrix
 from sslrec_tpu_torch.config import load_config
 from sslrec_tpu_torch.data import kg as tkg
+from sslrec_tpu_torch.data import multi_behavior as tmb
+from sslrec_tpu_torch.data import sequential as tseq
 from sslrec_tpu_torch.data.general_cf import bundle_from_matrices as tbundle
-from sslrec_tpu_torch.models.registry import available_models, build_model, model_class
+from sslrec_tpu_torch.models.registry import build_model, model_class
 from sslrec_tpu_torch.trainer import lanes as tlanes
 from sslrec_tpu_torch.trainer import tuner
 from sslrec_tpu_torch.trainer.trainer import Trainer
 from test_torch_kg_data import write_kg_dir
+from test_torch_mb_data import mb_split
+from test_torch_seq_data import synthetic_seqs
 
 SCORE_TOL = 1e-4
 
@@ -181,25 +186,84 @@ def test_autocf_falls_back_for_its_epoch_state(name, monkeypatch):
     assert tuner.lanes_refusal(probe, cfg) is None
 
 
-# the JAX package's lanes models whose lanes the port does not have yet
-PENDING = ("mbgmn", "hmgcr", "smbrec", "cl4srec", "duorec", "dcrec_seq")
+def _mb_data(name, cfg):
+    behaviors, mats, metas, tst = mb_split()
+    return tmb.bundle_from_behaviors(cfg, behaviors, mats, tst,
+                                     meta_mats=metas if name == "hmgcr" else None)
 
 
-def test_lanes_pending_models_are_the_jax_packages_other_lanes_models():
-    assert {n for n in available_models() if model_class(n).lanes_pending} == set(PENDING)
+def test_hmgcr_shipped_grid_shape():
+    """HMGCR's shipped 9-trial grid (layer_num x reg_weight): 3 structural
+    groups of 3 lanes, each trial's score the serial one; ``reg_weight`` is
+    an inert lane, so the trials of a group score alike."""
+    over = {**BASE, "train.epoch": 2, "train.batch_size": 1024, "model.hidden_dim": 8,
+            "tune.hyperparameters":
+            ["layer_num", "reg_weight"], "tune.layer_num": [1, 2, 3],
+            "tune.reg_weight": [1.0e-1, 1.0e-2, 1.0e-3]}
+    data = _mb_data("hmgcr", load_config("hmgcr", overrides=over))
+    slog, vlog, best_s, best_v = _both("hmgcr", over, data, 3)
+    ser = _same_scores(slog, vlog, 9)
+    assert any("9 trials in 3 structural group(s) x 3 lanes" in ln for ln in vlog.lines)
+    for layers in (1, 2, 3):
+        group = {s for a, s in ser.items() if f"'layer_num': {layers}," in a}
+        assert len(group) == 1, (layers, group)
+    assert abs(best_s[0] - best_v[0]) <= SCORE_TOL
 
 
-@pytest.mark.parametrize("name", PENDING)
-def test_unported_lanes_models_fall_back_with_the_next_item(name, monkeypatch):
-    """A model that declares ``lanes_pending`` runs serially, with JAX's line
-    and one naming the next port item (no model is built for the check)."""
-    cfg = load_config(name, overrides={"tune.enable": True, "tune.parallel": 2})
-    assert tuner.vmapped_grid_search(cfg, None, _Log(), 2) is None
-    monkeypatch.setattr(tuner, "_serial_grid_search", lambda c, d, lg: "serial")
+def test_cl4srec_dropout_rate_is_structural():
+    """CL4SRec's grid with ``dropout_rate`` structural (it sizes the tower's
+    dropout calls) and ``lmd`` and ``tau`` on lanes: 2 groups of 4 trials in
+    chunks of 3 lanes, the tail chunk padded."""
+    over = {**BASE, "train.epoch": 2, "train.batch_size": 16, "model.max_seq_len": 10,
+            "model.n_layers": 1, "model.n_heads": 2,
+            "tune.hyperparameters": ["dropout_rate", "lmd", "tau"],
+            "tune.dropout_rate": [0.1, 0.3], "tune.lmd": [0.05, 0.2], "tune.tau": [0.5, 0.9]}
+    data = tseq.bundle_from_seqs(load_config("cl4srec", overrides=over), *synthetic_seqs())
+    slog, vlog, best_s, best_v = _both("cl4srec", over, data, 3)
+    _same_scores(slog, vlog, 8)
+    assert any("8 trials in 2 structural group(s) x 3 lanes" in ln for ln in vlog.lines)
+    assert [ln for ln in vlog.lines if ln.startswith("tune group")] == [
+        "tune group {'dropout_rate': 0.1}: 4 trials", "tune group {'dropout_rate': 0.3}: 4 trials"]
+    assert abs(best_s[0] - best_v[0]) <= SCORE_TOL
+
+
+# the shipped grids of the six multi-behavior and sequential lanes models:
+# the structural groups JAX forms and the trials in each
+SHIPPED_GROUPS = {"mbgmn": (3, 3), "hmgcr": (3, 3), "smbrec": (2, 3), "cl4srec": (3, 9),
+                  "duorec": (1, 9), "dcrec_seq": (1, 9)}
+
+
+@pytest.mark.parametrize("name", list(SHIPPED_GROUPS))
+def test_shipped_grid_groups(name, tmp_path, monkeypatch):
+    """The shipped grid runs as lanes in JAX's structural groups and writes a
+    ``"vmapped"`` artifact (each chunk's training stood in for: its trials'
+    scores are their order in the grid)."""
+    import json
+    n_groups, per_group = SHIPPED_GROUPS[name]
+    chunks = []
+
+    def run(lanes, chunk, logger):
+        chunks.append([a for _, a in chunk])
+        return np.arange(len(chunk), dtype=float)
+
+    monkeypatch.setattr(tuner, "_run_vmapped_chunk", run)
+    seq = name in ("cl4srec", "duorec", "dcrec_seq")
+    small = ({"model.max_seq_len": 10, "model.n_layers": 1, "model.n_heads": 2,
+              "model.sim_group_k": 2} if seq else {"model.hidden_dim": 8})
+    cfg = load_config(name, overrides={**small, "model.embedding_size": 8, "tune.enable": True,
+                                       "tune.parallel": per_group,
+                                       "train.results_dir": str(tmp_path)})
+    data = tseq.bundle_from_seqs(cfg, *synthetic_seqs()) if seq else _mb_data(name, cfg)
     log = _Log()
-    assert tuner.grid_search(cfg, None, log) == "serial"
-    assert log.lines[0].startswith("tune.parallel unsupported")
-    assert "ROADMAP Queue A, next item" in log.lines[1] and name in log.lines[1]
+    assert tuner.grid_search(cfg, data, log) is not None
+    assert any(f"{n_groups * per_group} trials in {n_groups} structural group(s) x "
+               f"{per_group} lanes" in ln for ln in log.lines), log.lines
+    assert [len(c) for c in chunks] == [per_group] * n_groups
+    structural = set(cfg.tune.hyperparameters) - set(build_model(cfg, data).hparams())
+    for c in chunks:
+        assert len({tuple(a[h] for h in structural) for a in c}) == 1
+    doc = json.loads((tmp_path / f"{name}_{cfg.data.name}_tune.json").read_text())
+    assert doc["mode"] == "vmapped" and len(doc["trials"]) == n_groups * per_group
 
 
 def test_out_of_memory_halves_the_lanes(monkeypatch):

@@ -49,7 +49,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``sampled_addmm`` as the yardstick), LightGCL's hop at d 32 and 13 both
    ways, each beside its bound, its plain version and ``torch.sparse.mm``;
 11. drive each of SGL, SimGCL, DirectAU, NCL, LightGCL, HCCF and DCCF
-   through ``sslrec_tpu_torch.main`` (2 epochs at its published config on
+   through ``sslrec_tpu_torch.main`` (``PATH_EPOCHS`` at its published config on
    alibaba-fashion), the counts reset around each run: finite losses, B1's
    launches equal to ``SSL_B1``'s count from the code, no B2, and
    ``generate()`` equal to the same forward on the CPU's plain versions;
@@ -65,7 +65,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``torch.sparse.mm`` (the gathers' backward also beside
    ``index_put_(…, accumulate=True)``), and one view's layout build on the
    card beside the host build of the same layouts;
-14. drive AutoCF, GFormer and AdaGCL the same way as phase 11 (2 epochs at
+14. drive AutoCF, GFormer and AdaGCL the same way as phase 11 (``PATH_EPOCHS`` at
    their published configs), B1's launches asserted equal to ``VIEW_B1``'s
    count from the code;
 15. load yelp_sub for DcRec, DSL and MHCN and hold B1 against its plain
@@ -78,7 +78,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 16. time them, each beside its bound, its plain version and
    ``torch.sparse.mm``, and the added edges' layout build on the card
    beside the host build;
-17. drive DcRec, MHCN and DSL the same way as phase 11 (2 epochs at their
+17. drive DcRec, MHCN and DSL the same way as phase 11 (``PATH_EPOCHS`` at their
    published configs on yelp_sub), B1's launches asserted equal to
    ``SOCIAL_B1``'s count from the code (DcRec's views with added edges
    counted from the run's draws), no B2;
@@ -86,9 +86,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    each (its tune artifact and no run artifact), and LightGCN 4 epochs
    against 2 + a resumed 2, the train states after epoch 3 bit-equal; the
    sports-shaped split of phase 23 is written here, and MAERec (at batch
-   4096: 47 steps an epoch) is held the same way, its loss history in the
-   train state;
-19. drive KCGN and SMIN the same way as phase 11 (2 epochs at their
+   4096: 47 steps an epoch) is held as 2 epochs against 1 + a resumed 1, its
+   loss history in the train state;
+19. drive KCGN and SMIN the same way as phase 11 (``PATH_EPOCHS`` at their
    published configs on yelp_sub: the CLI loads the data and builds both
    models on the card), B1's launches equal to ``SOCIAL_B1``;
 20. hold B1 against its plain version at the trained models' shapes within
@@ -101,7 +101,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    at d 192;
 21. time them, each beside its bound, its plain version and
    ``torch.sparse.mm``;
-22. drive KGIN and KGRec 2 epochs through the CLI on the synthetic KG of
+22. drive KGIN and KGRec ``PATH_EPOCHS`` through the CLI on the synthetic KG of
    phase 6, B1's and B2's launches equal to ``KG_COUNTS``; then hold B2
    exactly at the trained KGRec's uncapped triplets' heads (300,000 into
    30,000) and B1 at both models' segment layouts (heads at d 64, 33, 1;
@@ -126,7 +126,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the bf16 mode beside the float32 mode at the LightGCN and MAERec
    hops, each beside its bound, its plain version and ``torch.sparse.mm``;
 27. drive DiffKG and KGCL with ``model.train_trans`` (its TransE sub-loop)
-   2 epochs each through the CLI on the synthetic KG of phase 6, B1's and
+   ``PATH_EPOCHS`` each through the CLI on the synthetic KG of phase 6, B1's and
    B2's launches equal to ``KG_COUNTS`` (DiffKG 30 B1 + 4 B2 a step, one
    B1 an epoch for its diffusion's UI hop), each ``generate()`` equal to the
    CPU's plain forward in float64;
@@ -139,7 +139,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    31,232 items, 1,451,219 interactions over pv, fav, cart and buy, the
    per-behavior counts assumed: ``TMALL_SHAPE``; ``tmall_like_split``) with
    HMGCR's meta-path intersections under ``SMOKE_RESULTS/multi_behavior/
-   tmall/``, and drive MBGMN, HMGCR and SMBRec 2 epochs each at their
+   tmall/``, and drive MBGMN, HMGCR and SMBRec ``PATH_EPOCHS`` each at their
    published configs, B1's launches equal to ``MB_B1``, no B2, each
    ``generate()`` equal to the CPU's plain forward;
 30. hold B1 within 1e-5 at every behavior's A and AT (d 32 and 16) and
@@ -150,7 +150,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 32. on phase 29's split, with a meta-user file (``MB_META_FILE``: a seeded
    permutation of the users with a buy and another behavior, this
    script's assumption) and the repository's real Tmall ``kg.txt`` (39,290
-   triplets) copied beside it, drive CML and KMCLR 2 epochs each at their
+   triplets) copied beside it, drive CML and KMCLR ``PATH_EPOCHS`` each at their
    published configs, B1's launches equal to ``MB_B1`` and ``MB_EPOCH_B1``
    (KMCLR's epoch hook), no B2, each ``generate()`` equal to the CPU's plain
    forward;
@@ -185,8 +185,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    DCRec_seq's 2-trial grids (1 epoch, 2 lanes) through the CLI with
    ``tune.parallel`` and serially, held as phase 35's (DCRec_seq's to
    within a few swaps at the top-k boundary: ``LAST_LANE_GRIDS``);
-37. print the ``{"kernels": [...]}`` line, then the card line, then
+37. the device mesh (``sslrec_tpu_torch/parallel``): (a) partition the
+   alibaba-fashion bi-adjacency for a ``model`` axis of 2 and of 4
+   (``MESH_PARTS``) and hold B1 on every shard's layouts (its destination
+   rows over the gathered ``[U_pad + I_pad, 32]`` table, and transposed) against
+   its plain version, with no multiplier and under the in-kernel PRF keyed
+   by the original edge id (``torch.equal`` to the kernel fed the whole
+   graph's mask, and each shard's mask equal to the whole one's gathered
+   through ``src_idx``), the reassembled shards against the unpartitioned
+   hop, and time each shard's hop beside its bound, its plain version and
+   ``torch.sparse.mm``; (b) train LightGCN ``MESH_EPOCHS`` epoch at its
+   published config on a ``{data: 2, model: 2}`` mesh of four gloo processes
+   sharing card 0 (through the library's ``launch.spawn`` with an explicit
+   gloo group) and hold its losses, parameters and test metrics against the
+   single-device run's, within the CPU tests' tolerances, and each rank's
+   B1 launches against the count from the code; four processes on one card
+   give no speed figure for a mesh; (c) in a one-rank NCCL group, one step
+   of ``mesh_partitioned_propagate`` with a one-shard partition and
+   ``owned_lookup``, value and gradients, against the plain hop;
+38. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
+
+The paths of phases 11, 14, 17, 19, 22, 27, 29 and 32 train ``PATH_EPOCHS``
+epoch each (2 before the mesh's phase was added), and phase 18 holds MAERec's
+resume as 2 epochs against 1 and a resumed 1, to leave the mesh's phase room
+in the time limit.
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
 ``social_operands`` build the paths' operands (``kcgn_smin_operands`` and
@@ -225,6 +248,9 @@ from sslrec_tpu_torch.models.general_cf.dccf import plain_and_norm_adj
 from sslrec_tpu_torch.models.general_cf.lightgcl import rect_norm_adj
 from sslrec_tpu_torch.models.registry import build_model
 from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
+from sslrec_tpu_torch.parallel import checks as mesh_checks
+from sslrec_tpu_torch.parallel import dist_train, launch
+from sslrec_tpu_torch.parallel import mesh as mesh_mod
 from sslrec_tpu_torch.ops import cuda_build
 from sslrec_tpu_torch.ops import segment as plain_seg
 from sslrec_tpu_torch.ops import segment_kernel as skn
@@ -399,6 +425,7 @@ SEQ_MODELS = ("bert4rec", "cl4srec", "duorec", "iclrec", "dcrec_seq", "maerec")
 # the sequential paths' depth: one epoch each, so that the script's later
 # phases fit its time (CL4SRec, DuoRec and ICLRec take 12-20 s an epoch)
 SEQ_EPOCHS = 1
+PATH_EPOCHS = 1             # the CLI paths of phases 11-32 (phase 5 and 8 keep 2)
 # B1 launches of the sequential models at their published configs, counted
 # from the code: (per training step, per mask step, per view of the epoch's
 # mask bank, per generate()).  BERT4Rec, CL4SRec, DuoRec and ICLRec run no
@@ -516,7 +543,7 @@ LANE_F64 = ("hmgcr",)
 LANE_K = 2
 LANE_REL, LANE_ATOL, LANE_ADAM_ATOL, LANE_SURE, LANE_SURE_ABS = 1e-5, 1e-7, 1e-6, 1e-4, 1e-6
 LANE_REL_F64 = 1e-10
-LANE_TIMED_STEPS = 20       # each of the six: LANE_K-lane steps against single steps
+LANE_TIMED_STEPS = 10       # each of the six: LANE_K-lane steps against single steps
 
 
 
@@ -781,17 +808,19 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def bound_ms(lay: sk.CsrLayout, d: int, mode: str = "none") -> tuple[float, str]:
+def bound_ms(lay: sk.CsrLayout, d: int, mode: str = "none",
+             x_rows: int | None = None) -> tuple[float, str]:
     """Least time for one B1 call: each input the function needs read once
-    (x, cols, indptr, and vals unless the layout's are all ones), the output
-    written once, over HBM bandwidth; 2·nnz·d flops over the float32 peak;
-    the larger.  ``mode``: "none"; "mask" (a [nnz] multiplier read, through
-    the edge ids on a permuted layout; one multiply per edge); "prf" (no
-    mask: the edge ids on a permuted layout only, and the PRF's
-    operations)."""
+    (x's ``x_rows`` rows, by default all ``n_cols``; cols, indptr, and vals
+    unless the layout's are all ones), the output written once, over HBM
+    bandwidth; 2·nnz·d flops over the float32 peak; the larger.  ``mode``:
+    "none"; "mask" (a [nnz] multiplier read, through the edge ids on a
+    permuted layout; one multiply per edge); "prf" (no mask: the edge ids on
+    a permuted layout only, and the PRF's operations)."""
     nnz = lay.cols.shape[0]
     vals = 0 if lay.vals_ones else nnz
-    n_bytes = 4 * (lay.n_cols * d + lay.n_rows * d + nnz + vals + lay.n_rows + 1)
+    x_rows = lay.n_cols if x_rows is None else x_rows
+    n_bytes = 4 * (x_rows * d + lay.n_rows * d + nnz + vals + lay.n_rows + 1)
     flops = 2 * nnz * d
     ids_bytes = 0 if lay.ids_identity else 4 * nnz
     if mode == "mask":
@@ -1217,7 +1246,7 @@ def time_ssl_shapes(plain: sk.CsrGraph, rect: sk.CsrGraph,
 
 
 def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
-              dataset: str = DATASET, epochs: int = 2, models=SSL_MODELS,
+              dataset: str = DATASET, epochs: int = PATH_EPOCHS, models=SSL_MODELS,
               keep: dict | None = None, extra_args: dict | None = None,
               ref64=()) -> dict[str, dict]:
     """Each of ``models`` trained ``epochs`` epochs at its published config
@@ -1728,19 +1757,19 @@ def kg_phases(errs: ErrTrack, gen, dev) -> dict:
 
 
 def resume_check(model: str, data_dir: str, dataset: str, extra=(), device: str = "cuda",
-                 tag: str = "") -> int:
-    """``model`` 4 epochs straight against 2 and a resumed 2 through the CLI,
-    a state saved every 2 epochs: the train states after epoch 3 (every
-    tensor: parameters, optimizer states, best snapshot, the model's own
-    extra state) must be bit-equal, and the bookkeeping equal.  Returns the
-    number of tensors held."""
+                 tag: str = "", half: int = 2) -> int:
+    """``model`` ``2·half`` epochs straight against ``half`` and a resumed
+    ``half`` through the CLI, a state saved every ``half`` epochs: the train
+    states after the last epoch (every tensor: parameters, optimizer states,
+    best snapshot, the model's own extra state) must be bit-equal, and the
+    bookkeeping equal.  Returns the number of tensors held."""
     base = ["--model", model, "--data_dir", data_dir, "--dataset", dataset, "--device", device,
             "--set", "train.test_step=1", "--set", "train.early_stop=false",
-            "--set", "train.save_state_every=2", "--set", "train.results_dir=", *extra]
+            "--set", f"train.save_state_every={half}", "--set", "train.results_dir=", *extra]
     t0 = time.perf_counter()
-    straight = port_main.main(base + ["--epoch", "4"])
-    first = port_main.main(base + ["--epoch", "2"])
-    resumed = port_main.main(base + ["--epoch", "4", "--set",
+    straight = port_main.main(base + ["--epoch", str(2 * half)])
+    first = port_main.main(base + ["--epoch", str(half)])
+    resumed = port_main.main(base + ["--epoch", str(2 * half), "--set",
                                      f"train.resume_path={first.state_path}"])
     template = straight._state_template()
     a = ckpt.load(straight.state_path, template)
@@ -1758,7 +1787,8 @@ def resume_check(model: str, data_dir: str, dataset: str, extra=(), device: str 
 
     n = walk(a, b, "state")
     extra_state = a.get("extra", {})
-    log(f"  {model} {tag}4 epochs against 2 + resumed 2 in {time.perf_counter() - t0:.1f} s: "
+    log(f"  {model} {tag}{2 * half} epochs against {half} + resumed {half} in "
+        f"{time.perf_counter() - t0:.1f} s: "
         f"the states after epoch {a['epoch']} equal bit for bit ({n} tensors), best_metric "
         f"{a['best_metric']:.5f}, wait {a['wait']}"
         + (f", extra state {sorted(extra_state)}" if extra_state else ""))
@@ -1770,8 +1800,9 @@ def tune_and_resume(device: str = "cuda", data_dir: str = DATA_DIR,
     """On the card: a 2-trial LightGCN grid of 1 epoch each, which must write
     its tune artifact and no run artifact under a scratch results_dir; a
     LightGCN run of 4 epochs against 2 and a resumed 2 (:func:`resume_check`);
-    and MAERec's on the sports-shaped split at batch 4096 (47 steps an epoch,
-    one mask step; its loss history rides in the train state)."""
+    and MAERec's, 2 against 1 and a resumed 1, on the sports-shaped split at
+    batch 4096 (47 steps an epoch, one mask step; its loss history rides in
+    the train state)."""
     base = ["--model", "lightgcn", "--data_dir", data_dir, "--dataset", dataset,
             "--device", device, "--set", "train.test_step=1", "--set", "train.early_stop=false"]
     tune_dir = os.path.join(SMOKE_RESULTS, "tune")
@@ -1787,7 +1818,8 @@ def tune_and_resume(device: str = "cuda", data_dir: str = DATA_DIR,
         f"{[(t['assignment'], round(t['score'], 5)) for t in doc['trials']]}, best {best}")
     n = resume_check("lightgcn", data_dir, dataset, device=device)
     n_maerec = resume_check("maerec", SMOKE_RESULTS, SEQ_DATASET, device=device,
-                            extra=["--set", "train.batch_size=4096"], tag="(batch 4096) ")
+                            extra=["--set", "train.batch_size=4096"], tag="(batch 4096) ",
+                            half=1)
     return {"tune": doc, "resume_tensors": n, "maerec_resume_tensors": n_maerec}
 
 
@@ -2126,7 +2158,7 @@ def kg_new_phases(errs: ErrTrack, gen, dev) -> dict:
                      keep=trained, extra_args=KG_NEW_ARGS, ref64=KG_NEW)
     runs["kgcl_train_trans"] = runs.pop("kgcl")     # apart from phase 8's KGCL run
     kg_losses = [r["kg_loss"] for r in runs["kgcl_train_trans"]["losses"]]
-    if len(kg_losses) != 2 or not all(math.isfinite(v) for v in kg_losses):
+    if len(kg_losses) != PATH_EPOCHS or not all(math.isfinite(v) for v in kg_losses):
         raise AssertionError(f"KGCL's TransE losses {kg_losses}")
     dm = trained["diffkg"]
     dkg = dm._last_dkg
@@ -2877,6 +2909,214 @@ def last_lanes_phases(gen, dev) -> dict:
             "grids": grids, "n_batches": n_batches}
 
 
+MESH_PARTS = (2, 4)         # phase 37(a): the model axes the bi-adjacency is partitioned for
+MESH_RUN = {"data": 2, "model": 2}      # phase 37(b): four gloo ranks on card 0
+MESH_EPOCHS = 1
+MESH_PARAM_TOL = {"rtol": 2e-4, "atol": 2e-5}   # the CPU tests' (and JAX's) tolerances
+MESH_METRIC_TOL = {"rtol": 1e-4, "atol": 1e-6}
+
+
+def mesh_hops(errs: ErrTrack, gen, data, d: int, dev) -> dict:
+    """Phase 37(a): B1 on every shard of the bi-adjacency partitioned for each
+    of ``MESH_PARTS``, both layouts, against its plain version (no
+    multiplier; the whole graph's PRF, bit for bit the kernel fed its mask),
+    each shard's PRF mask equal to the whole one's gathered through
+    ``src_idx``, the reassembled forward shards against the whole hop; then
+    each shard's hop timed beside its bound, which counts the rows of x that
+    the shard's edges reference.  Returns the timings, bounds, shapes and
+    the reassembly's differences."""
+    g = data.extras["bi_adj"]
+    coo = CooGraph(g.rows.cpu(), g.cols.cpu(), g.vals.cpu(), g.n_rows, g.n_cols)
+    n_u, n_i = data.user_num, data.item_num
+    prf = sk.prf_mask(torch.tensor([12345, 678], device=dev), g, 0.5)
+    mask = prf.w
+    out = {"t": {}, "bound": {}, "shape": {}, "whole_diff": {}, "build_s": {}}
+    for parts in MESH_PARTS:
+        t0 = time.perf_counter()
+        sg = dist_train.partition_graph(coo, n_u, n_i, parts)
+        shards = [dist_train.shard_graph(sg, p, dev) for p in range(parts)]
+        out["build_s"][parts] = time.perf_counter() - t0
+        x = torch.randn(sg.n_pad, d, generator=gen, device=dev)
+        real = torch.cat([torch.arange(n_u), sg.u_loc * parts + torch.arange(n_i)]).to(dev)
+        whole = sk.csr_spmm(g.fwd, x[real].contiguous())
+        fwd_out = []
+        for p, sh in enumerate(shards):
+            xt = torch.randn(sg.n_local, d, generator=gen, device=dev)
+            for tag, lay, xi in (("fwd", sh.graph.fwd, x), ("bwd", sh.graph.bwd, xt)):
+                what = f"mesh.P{parts}.shard{p}.{tag}"
+                got = sk.csr_spmm(lay, xi)
+                check_exact(f"{what}.repeat", sk.csr_spmm(lay, xi), got)
+                errs.check(f"{what}.plain", got, sk.csr_spmm_plain(lay, xi))
+                kp = sk.csr_spmm(lay, xi, prf)
+                check_exact(f"{what}.prf=mask", kp, sk.csr_spmm(lay, xi, mask))
+                errs.check(f"{what}.prf", kp, sk.csr_spmm_plain(lay, xi, prf))
+                if tag == "fwd":
+                    fwd_out.append(got)
+            src = torch.from_numpy(sg.src_idx[p]).to(dev).long()[sh.live]
+            check_exact(f"mesh.P{parts}.shard{p}.mask", prf.at(sh.graph.fwd.edge_ids), mask[src])
+            check_exact(f"mesh.P{parts}.shard{p}.mask_t", prf.at(sh.graph.bwd.edge_ids),
+                        mask[src][sh.order])
+        full = torch.stack(fwd_out)
+        glob = torch.cat([full[:, :sg.u_loc].reshape(-1, d), full[:, sg.u_loc:].reshape(-1, d)])
+        diff = float((glob[real] - whole).abs().max())
+        rel = diff / float(whole.abs().max())
+        exact = torch.equal(glob[real], whole)
+        out["whole_diff"][parts] = {"max_abs": diff, "max_rel": rel, "bit_equal": exact}
+        if rel > TOL:
+            raise AssertionError(f"P {parts}: the shards' hop differs from the whole hop by "
+                                 f"{rel:.3g} > {TOL}")
+        nnz = [int(sh.graph.nnz) for sh in shards]
+        log(f"  P {parts}: U_loc {sg.u_loc}, I_loc {sg.i_loc}, shard nnz {nnz} (E_pad "
+            f"{sg.src_idx.shape[1]}), partition and layouts {out['build_s'][parts]:.2f} s; "
+            f"every shard within {TOL} of plain, PRF = mask bit for bit, the shards' mask = "
+            f"the whole one's through src_idx; reassembled hop - whole hop: max abs "
+            f"{diff:.3g}, rel {rel:.3g}{' (bit-equal)' if exact else ''}")
+        for p, sh in enumerate(shards):
+            for tag, lay, n_in in (("", sh.graph.fwd, sg.n_pad), ("_t", sh.graph.bwd, sg.n_local)):
+                xi = torch.randn(n_in, d, generator=gen, device=dev)
+                k = f"mesh_hop_P{parts}_shard{p}{tag}"
+                # a shard reads only the rows of x that its edges reference
+                x_rows = int(torch.unique(lay.cols).numel())
+                bound = bound_ms(lay, d, x_rows=x_rows)
+                csr = csr_tensor(lay)
+                out["t"][k] = timing(lambda lay=lay, xi=xi: sk.csr_spmm(lay, xi),
+                                     lambda lay=lay, xi=xi: sk.csr_spmm_plain(lay, xi),
+                                     lambda csr=csr, xi=xi: torch.sparse.mm(csr, xi), bound[0])
+                out["bound"][k] = bound
+                group, t_pick = schedule(lay, d)
+                out["shape"][k] = {"n_rows": lay.n_rows, "n_cols": lay.n_cols,
+                                   "x_rows_read": x_rows,
+                                   "nnz": int(lay.cols.shape[0]), "d": d, "shards": parts,
+                                   "shard": p, "layout": "transposed" if tag else "forward",
+                                   "lane_group": group, "split_threshold": t_pick}
+                log_timing(f"shard {p} of {parts}{' (transposed)' if tag else ''}",
+                           out["t"][k], bound)
+    return out
+
+
+def mesh_run(dev, hop_shapes: dict) -> dict:
+    """Phase 37(b): LightGCN ``MESH_EPOCHS`` epoch on a ``MESH_RUN`` mesh of
+    gloo processes sharing card 0, through ``launch.spawn`` of the CLI, held
+    against the single-device run of the same arguments: losses (rtol 1e-5),
+    whole tables (``MESH_PARAM_TOL``), test metrics (``MESH_METRIC_TOL``),
+    and each rank's B1 launches by layout against the count from the code
+    (the forward layout 2 a step and 2 an evaluation, the transposed one 2
+    a step); ``hop_shapes`` are phase 37(a)'s shapes of the shard layouts."""
+    argv = ["--model", "lightgcn", "--data_dir", DATA_DIR, "--dataset", DATASET,
+            "--epoch", str(MESH_EPOCHS), "--device", "cuda", "--set", "train.test_step=1"]
+    t0 = time.perf_counter()
+    single = port_main.main(argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/mesh_single"])
+    single_s = time.perf_counter() - t0
+    world = MESH_RUN["data"] * MESH_RUN["model"]
+    mesh_argv = argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/mesh",
+                        "--set", f"train.mesh.data={MESH_RUN['data']}",
+                        "--set", f"train.mesh.model={MESH_RUN['model']}"]
+    t0 = time.perf_counter()
+    run = launch.MeshRun(launch.spawn(launch.cli_rank, (mesh_argv,), world, device="cuda:0",
+                                      backend="gloo"))
+    mesh_s = time.perf_counter() - t0
+    if run.mesh != MESH_RUN:
+        raise AssertionError(f"mesh run on {run.mesh}, want {MESH_RUN}")
+    dev_tab = {}
+    for k, v in single.best_state.items():
+        got, ref = run.best_state[k], v.cpu()
+        dev_tab[k] = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, **MESH_PARAM_TOL):
+            raise AssertionError(f"mesh run {k}: max abs diff {dev_tab[k]:.3g} beyond "
+                                 f"{MESH_PARAM_TOL}")
+    dev_met = {}
+    for m, v in single.test_results.items():
+        got = np.asarray(run.test_results[m])
+        dev_met[m] = float(np.abs(got - np.asarray(v)).max())
+        np.testing.assert_allclose(got, v, **MESH_METRIC_TOL, err_msg=f"mesh run {m}")
+    losses = [(a["loss"]["loss"], b["loss"]["loss"])
+              for a, b in zip(single.recorder.epochs, run.epochs)]
+    for a, b in losses:
+        if not math.isclose(a, b, rel_tol=1e-5):
+            raise AssertionError(f"mesh run loss {b} against {a}")
+    steps = single.n_batches * MESH_EPOCHS
+    want = 4 * steps + 2 * (MESH_EPOCHS + 2)
+    got = [r["launches"] for r in run.ranks]
+    if got != [want] * world or any(r["b2_launches"] for r in run.ranks):
+        raise AssertionError(f"mesh run B1 launches by rank {got}, want {want} each (4 a step "
+                             f"over {steps} steps, 2 an evaluation), no B2")
+    layouts = {(s["n_rows"], s["n_cols"]): s["layout"] for s in hop_shapes.values()
+               if s["shards"] == MESH_RUN["model"]}
+    want_by = {"forward": 2 * steps + 2 * (MESH_EPOCHS + 2), "transposed": 2 * steps}
+    by_layout = [{layouts.get(k, str(k)): c for k, c in r["launches_by_shape"].items()}
+                 for r in run.ranks]
+    if any({k: c[0] for k, c in b.items()} != want_by for b in by_layout):
+        raise AssertionError(f"mesh run B1 launches by rank and layout {by_layout}, want "
+                             f"{want_by} in each rank")
+    at20 = list(single.cfg.test.k).index(20)
+    log(f"  single run {single_s:.1f} s; the {MESH_RUN} mesh of {world} gloo processes on card 0 "
+        f"{mesh_s:.1f} s (processes, data, {MESH_EPOCHS} epoch of {single.n_batches} steps, "
+        f"evaluations); losses {losses}; whole tables' max abs diff {dev_tab}; test metrics' "
+        f"max abs diff {dev_met}; test recall@20 {run.test_results['recall'][at20]:.5f}; B1 "
+        f"{want} launches in each rank (4 a step, 2 an evaluation); four processes sharing "
+        f"one card give no speed figure for a mesh")
+    return {"single_s": single_s, "mesh_s": mesh_s, "losses": losses, "param_diff": dev_tab,
+            "metric_diff": dev_met, "launches_by_rank": got,
+            "combine_by_rank": [r["combine_launches"] for r in run.ranks],
+            "by_layout_by_rank": by_layout,
+            "steps": steps, "want_per_rank": want,
+            "test_recall20": float(run.test_results["recall"][at20])}
+
+
+def mesh_nccl(data, dev) -> dict:
+    """Phase 37(c): in a one-rank NCCL group in this process, one step of
+    ``mesh_partitioned_propagate`` (2 hops under the PRF) with a one-shard
+    partition and ``owned_lookup``, value and gradients, against the plain
+    hop (``parallel.checks.propagate_grad``); 4 B1 launches."""
+    import tempfile
+    import torch.distributed as dist
+    g = data.extras["bi_adj"]
+    rng = np.random.default_rng(37)
+    n_u, n_i = data.user_num, data.item_num
+
+    def f(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    inp = {"rows": g.rows.cpu().numpy(), "cols": g.cols.cpu().numpy(),
+           "vals": g.vals.cpu().numpy(), "n": g.n_rows, "n_users": n_u, "n_items": n_i,
+           "n_data": 1, "n_model": 1, "device": str(dev), "key": np.array([3, 7]),
+           "keep_rate": 0.5, "u": f(n_u, 32), "i": f(n_i, 32), "wu": f(n_u, 32),
+           "wi": f(n_i, 32), "wa": f(4096, 32), "idx": rng.integers(0, n_u, 4096)}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            sk.csr_spmm.launches = 0
+            t0 = time.perf_counter()
+            r = mesh_checks.propagate_grad(inp)
+            torch.cuda.synchronize()
+            r["s"] = time.perf_counter() - t0
+            r["launches"] = sk.csr_spmm.launches
+        finally:
+            mesh_mod.reset()
+            dist.destroy_process_group()
+    if r["backend"] != "nccl" or max(r["value"], r["lookup"], r["grad"]) > TOL \
+            or r["launches"] != 4:
+        raise AssertionError(f"NCCL step: {r}")
+    log(f"  one-rank NCCL group: value rel err {r['value']:.3g}, lookup {r['lookup']:.3g}, "
+        f"gradients {r['grad']:.3g} against the plain hop; {r['launches']} B1 launches; "
+        f"{r['s']:.2f} s")
+    return r
+
+
+def mesh_phases(gen, data, cfg, dev) -> dict:
+    """Phase 37: the device mesh, (a) the partitioned hop at full width, (b)
+    LightGCN on a mesh of four gloo ranks on the one card, (c) NCCL."""
+    log("== 37. the device mesh: partitioned hops, a 2x2 mesh on the card, NCCL")
+    t0 = time.perf_counter()
+    errs = ErrTrack()
+    hops = mesh_hops(errs, gen, data, int(cfg.model.embedding_size), dev)
+    run = mesh_run(dev, hops["shape"])
+    nccl = mesh_nccl(data, dev)
+    log(f"  phase 37 took {time.perf_counter() - t0:.1f} s")
+    return {"errs": errs, "hops": hops, "run": run, "nccl": nccl}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -3225,7 +3465,9 @@ def main() -> int:
     lp = lanes_phases(errs, gen, data, lanes_steps, dev)
     llp = last_lanes_phases(gen, dev)
 
-    log("== 37. result")
+    mesh = mesh_phases(gen, data, cfg, dev)
+
+    log("== 38. result")
     common = {"route": "cuda", "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
               "replaces": "sslrec_tpu/ops/pallas_spmm.py:123",
               "replaces_fn": "sslrec_tpu/ops/pallas_spmm.py::_spmm_kernel"}
@@ -3273,6 +3515,7 @@ def main() -> int:
                                            soc_errs.rel, ks["errs"].rel, kgp["errs"].rel,
                                            seq["errs"].rel, kgn["errs"].rel, mbp["errs"].rel,
                                            mbn["errs"].rel, lp["errs"].rel, llp["errs"].rel,
+                                           mesh["errs"].rel,
                                            *(e["max_rel_err"] for e in seq["bf16_err"].values())),
                 stress={"max_abs_err": stress_errs.abs, "max_rel_err": stress_errs.rel,
                         "reference": "plain version in float64"},
@@ -3522,6 +3765,26 @@ def main() -> int:
     rows_b1[-1]["last_lanes"] = {
         "steps": llp["steps"], "timed": llp["timed"], "n_batches": llp["n_batches"],
         "grids": grid_summary(last_grids)}
+    mr = mesh["run"]
+    n_model = MESH_RUN["model"]
+    for k, t in mesh["hops"]["t"].items():
+        shape = mesh["hops"]["shape"][k]
+        parts, p = shape["shards"], shape["shard"]
+        ranks = [r for r in range(len(mr["launches_by_rank"])) if r % n_model == p]
+        counts = (tuple(sum(mr["by_layout_by_rank"][r][shape["layout"]][i] for r in ranks)
+                        for i in (0, 1))
+                  if parts == n_model else (0, 0))
+        rows_b1.append(b1_row(
+            f"csr_spmm.{k}", t, mesh["hops"]["bound"][k], counts, mesh["errs"],
+            {**shape, "what": f"B1, LightGCN hop, one of {parts} destination shards"},
+            library_call="torch.sparse.mm on a CSR tensor of the shard's layout",
+            launches_of=([f"the ranks holding shard {p} of the {MESH_RUN} mesh run "
+                          f"({MESH_EPOCHS} epoch, those ranks' B1 calls on this layout)"]
+                         if parts == n_model else
+                         [f"no run of this script trains on a model axis of {parts}"])))
+    rows_b1[-1]["mesh"] = {
+        "whole_diff": mesh["hops"]["whole_diff"], "run": {k: v for k, v in mr.items()},
+        "nccl": {k: v for k, v in mesh["nccl"].items()}}
     rows_b1[0]["tuner_and_resume_on_card"] = {
         "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
         "resume_bit_equal_tensors": tr["resume_tensors"],

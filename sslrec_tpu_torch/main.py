@@ -14,9 +14,17 @@ default) unless the CPU is asked for; it never falls back from one to the
 other.
 
 Before the data loads, ``train.mesh`` and ``train.distributed`` are checked
-(:mod:`~sslrec_tpu_torch.parallel.mesh`: a mesh of more than one device, or
-a multi-host run, raises ``NotImplementedError``), and the diagnostics of
-the JAX package's CLI are set up:
+(:mod:`~sslrec_tpu_torch.parallel.mesh`): a mesh that cannot be laid out on
+the devices raises ``ValueError``, and a model whose mesh branch is not
+ported ``NotImplementedError``.  A mesh of more than one device then runs
+one rank a device: with no process group running, the CLI starts the ranks
+itself (:func:`~sslrec_tpu_torch.parallel.launch.spawn`; NCCL on the card,
+gloo processes on ``--device cpu``) and returns a
+:class:`~sslrec_tpu_torch.parallel.launch.MeshRun`; under
+``train.distributed`` or ``SSLREC_DISTRIBUTED=1`` (``torchrun``) it joins the
+group those describe (:func:`~sslrec_tpu_torch.parallel.mesh.maybe_distributed_init`).
+In a group, only rank 0 logs and writes files.  The diagnostics of the JAX
+package's CLI are set up too:
 
 - ``train.debug_nans``: autograd's anomaly mode, and a check of every
   step's loss that raises ``FloatingPointError`` where it is not finite
@@ -38,12 +46,12 @@ import torch
 
 from sslrec_tpu_torch.config import parse_cli
 from sslrec_tpu_torch.data.registry import load_data
-from sslrec_tpu_torch.models.registry import build_model
-from sslrec_tpu_torch.parallel.mesh import maybe_distributed_init, mesh_from_config
-from sslrec_tpu_torch.trainer.logger import Logger
+from sslrec_tpu_torch.models.registry import build_model, model_class
+from sslrec_tpu_torch.parallel import launch
+from sslrec_tpu_torch.parallel.mesh import check_model, config_shape, maybe_distributed_init
+from sslrec_tpu_torch.trainer.logger import rank_logger
 from sslrec_tpu_torch.trainer.trainer import Trainer
 from sslrec_tpu_torch.trainer.tuner import grid_search
-from sslrec_tpu_torch.utils import checkpoint as ckpt
 from sslrec_tpu_torch.utils import dispatch_trace
 
 
@@ -53,6 +61,9 @@ def resolve_device(name: str) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError("--device cuda: no CUDA device is available "
                                "(pass --device cpu to run on the CPU)")
+        local = os.environ.get("LOCAL_RANK")
+        if local is not None:
+            torch.cuda.set_device(int(local))       # a torchrun rank's card
         return torch.device("cuda", torch.cuda.current_device())
     if name == "cpu":
         return torch.device("cpu")
@@ -81,11 +92,18 @@ def stop_profile(prof, profile_dir: str, name: str) -> str:
 
 def main(argv=None):
     """Run the CLI; returns the :class:`Trainer` (a tune returns ``(best test
-    score, assignment)``)."""
+    score, assignment)``, and a mesh whose ranks it started a
+    :class:`~sslrec_tpu_torch.parallel.launch.MeshRun`)."""
     cfg = parse_cli(argv)
     device = resolve_device(cfg.train.device)
-    mesh_from_config(cfg, device)
-    maybe_distributed_init(cfg)
+    maybe_distributed_init(cfg, device)
+    shape = config_shape(cfg, device)
+    check_model(model_class(cfg.model.name), shape)
+    if shape is not None and not torch.distributed.is_initialized():
+        # one process a device: start the ranks, each running this CLI
+        world = shape[0] * shape[1]
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return launch.MeshRun(launch.spawn(launch.cli_rank, (argv,), world, device.type))
     # full float32 in the rating matmul: TF32 would add ~1e-3 to the scores
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -98,7 +116,7 @@ def main(argv=None):
         os.environ["SSLREC_TRACE_FILE"] = f"runs_torch/dispatch_trace_{os.getpid()}.log"
     debug_nans = bool(cfg.train.get("debug_nans", False))
     profile_dir = str(cfg.train.get("profile", "") or "")
-    logger = Logger(cfg)
+    logger = rank_logger(cfg)
     prof = None
     try:
         name = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -119,7 +137,7 @@ def main(argv=None):
         trainer = Trainer(cfg, model, data, logger)
         pretrain = cfg.train.get("pretrain_path")
         if pretrain:
-            model.load_state_dict(ckpt.load(pretrain, model.state_dict()))
+            trainer.load_params(pretrain)
             trainer.test_results = trainer.test()
             logger.log_eval(trainer.test_results, cfg.test.k, name="(test from checkpoint)")
             return trainer

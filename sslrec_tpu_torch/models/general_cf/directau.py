@@ -13,12 +13,13 @@ import torch
 from torch import nn
 
 from sslrec_tpu_torch.models import losses
-from sslrec_tpu_torch.models.base import RecModel
+from sslrec_tpu_torch.models.base import MESH_CONTRASTIVE, RecModel
 from sslrec_tpu_torch.ops.spmm import spmm_layers
 from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
 
 class DirectAU(RecModel):
+    mesh_todo = MESH_CONTRASTIVE
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         self.adj = data.extras["bi_adj"]

@@ -1,10 +1,19 @@
 """LightGCN: k-layer linear propagation over the normalised bipartite adjacency
-(port of ``sslrec_tpu/models/general_cf/lightgcn.py``, without the
-``train.mesh`` partitioned branch).
+(port of ``sslrec_tpu/models/general_cf/lightgcn.py``).
 
 Sum of layer embeddings, per-batch edge dropout at ``keep_rate``, BPR (mean
 over the batch) plus L2 of all parameters.  Every hop is one CSR SpMM
 (:mod:`sslrec_tpu_torch.ops.spmm`), a CUDA kernel on the card.
+
+Under ``train.mesh`` with a ``model`` axis of M > 1 the model is this rank's
+shard (:mod:`~sslrec_tpu_torch.parallel.dist_train`): it holds rows
+``[p·U_loc, (p+1)·U_loc)`` of the user table and ``[p·I_loc, (p+1)·I_loc)`` of
+the item table (zero rows past the last), each hop gathers the whole table
+over the ``model`` group and runs B1 on the shard's edges, and a batch's rows
+come from the shards through ``owned_lookup``.  The dropout PRF is keyed by
+the original edge id, so a mesh run drops the edges its single-device run
+drops.  With ``model`` 1 the model is the single-device one, and the
+trainer splits the batch over ``data``.
 """
 
 from __future__ import annotations
@@ -15,10 +24,13 @@ from torch import nn
 from sslrec_tpu_torch.models import augment, losses
 from sslrec_tpu_torch.models.base import RecModel
 from sslrec_tpu_torch.ops.spmm import spmm_layers
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
 
 class LightGCN(RecModel):
+    mesh_todo = None
+
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         self.adj = data.extras["bi_adj"]
@@ -26,17 +38,40 @@ class LightGCN(RecModel):
         self.reg_weight = float(cfg.model.reg_weight)
         self.keep_rate = float(cfg.model.keep_rate)
         d, device = self.embedding_size, data.device
-        self.user_embeds = nn.Parameter(torch.empty(self.user_num, d, device=device))
-        self.item_embeds = nn.Parameter(torch.empty(self.item_num, d, device=device))
+        n_users, n_items = self.user_num, self.item_num
+        self.mesh = self.sg = None
+        if self.mesh_todo is None:
+            g = self.adj
+            self.mesh, self.sg = dist_train.maybe_partition_bi(
+                cfg, g.rows, g.cols, n_users, n_items, vals=g.vals, device=device)
+        if self.sg is not None:
+            self.shard = dist_train.shard_graph(self.sg, self.mesh.model_index, device)
+            self.row_shards = {"user_embeds": n_users, "item_embeds": n_items}
+            n_users, n_items = self.sg.u_loc, self.sg.i_loc
+        self.user_embeds = nn.Parameter(torch.empty(n_users, d, device=device))
+        self.item_embeds = nn.Parameter(torch.empty(n_items, d, device=device))
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
-        """Xavier-uniform tables, drawn user table first from ``gen``."""
-        for p in (self.user_embeds, self.item_embeds):
-            p.copy_(xavier_uniform(gen, tuple(p.shape)))
+        """Xavier-uniform tables, drawn user table first from ``gen`` (whole
+        tables on every rank of a mesh, each keeping its own rows)."""
+        for p, n in ((self.user_embeds, self.user_num), (self.item_embeds, self.item_num)):
+            w = xavier_uniform(gen, (n, p.shape[1]))
+            p.copy_(w if self.sg is None else dist_train.own_rows(w, p.shape[0], self.mesh))
+
+    def propagate_local(self, edge_weight=None):
+        """This shard's rows of the propagation (a mesh's ``model`` axis > 1)."""
+        return dist_train.partitioned_propagate(
+            self.sg, self.user_embeds, self.item_embeds, self.shard.graph, self.layer_num,
+            self.mesh, "sum", edge_weight)
 
     def propagate(self, edge_weight=None):
-        """Sum-of-layers propagation: ``E + Σ_l A^l E`` split into user/item."""
+        """Sum-of-layers propagation: ``E + Σ_l A^l E`` split into user/item
+        (whole tables; on a mesh, gathered from the shards)."""
+        if self.sg is not None:
+            u, i = self.propagate_local(edge_weight)
+            return (dist_train.whole_rows(u, self.user_num, self.mesh),
+                    dist_train.whole_rows(i, self.item_num, self.mesh))
         embeds = torch.cat([self.user_embeds, self.item_embeds], dim=0)
         ys = spmm_layers(self.adj, embeds, self.layer_num, edge_weight)
         acc = embeds + ys.sum(dim=0)
@@ -44,6 +79,8 @@ class LightGCN(RecModel):
 
     def forward_train(self, key: torch.Tensor):
         ew = augment.edge_drop(key, self.adj, self.keep_rate)
+        if self.sg is not None:
+            return self.propagate_local(ew)
         return self.propagate(edge_weight=ew)
 
     def hparams(self) -> dict:
@@ -56,11 +93,21 @@ class LightGCN(RecModel):
     def loss(self, batch: dict, key: torch.Tensor):
         reg_w = batch.get("hp", {}).get("reg_weight", self.reg_weight)
         user_embeds, item_embeds = self.forward_train(key)
-        anc = user_embeds[batch["user"]]
-        pos = item_embeds[batch["pos"]]
-        neg = item_embeds[batch["neg"]]
+        reg = losses.reg_params(dict(self.named_parameters()))
+        if self.sg is not None:
+            def rows(table, idx, n_loc):
+                return dist_train.owned_lookup(table, idx, n_loc, self.mesh)
+
+            anc = rows(user_embeds, batch["user"], self.sg.u_loc)
+            pos = rows(item_embeds, batch["pos"], self.sg.i_loc)
+            neg = rows(item_embeds, batch["neg"], self.sg.i_loc)
+            reg = dist_train.all_reduce_sum(reg, self.mesh.model_group)
+        else:
+            anc = user_embeds[batch["user"]]
+            pos = item_embeds[batch["pos"]]
+            neg = item_embeds[batch["neg"]]
         bpr = losses.bpr_loss(anc, pos, neg) / anc.shape[0]
-        reg = reg_w * losses.reg_params(dict(self.named_parameters()))
+        reg = reg_w * reg
         return bpr + reg, {"bpr_loss": bpr, "reg_loss": reg}
 
     def generate(self):

@@ -15,11 +15,13 @@ from __future__ import annotations
 import torch
 
 from sslrec_tpu_torch.models import augment, losses
+from sslrec_tpu_torch.models.base import MESH_CONTRASTIVE
 from sslrec_tpu_torch.models.general_cf.lightgcn import LightGCN
 from sslrec_tpu_torch.ops.spmm import spmm_layers
 
 
 class NCL(LightGCN):
+    mesh_todo = MESH_CONTRASTIVE
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         m = cfg.model

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from sslrec_tpu_torch.models import augment, losses
+from sslrec_tpu_torch.models.base import MESH_CONTRASTIVE
 from sslrec_tpu_torch.models.general_cf.lightgcn import LightGCN
 from sslrec_tpu_torch.ops.spmm import spmm_views
 from sslrec_tpu_torch.ops.spmm_kernel import split
@@ -26,6 +27,7 @@ AUGMENTATIONS = ("edge_drop", "node_drop", "random_walk")
 
 
 class SGL(LightGCN):
+    mesh_todo = MESH_CONTRASTIVE
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         self.augmentation = cfg.model.augmentation

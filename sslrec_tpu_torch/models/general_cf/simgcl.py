@@ -12,11 +12,13 @@ from __future__ import annotations
 import torch
 
 from sslrec_tpu_torch.models import augment, losses
+from sslrec_tpu_torch.models.base import MESH_CONTRASTIVE
 from sslrec_tpu_torch.models.general_cf.lightgcn import LightGCN
 from sslrec_tpu_torch.ops.spmm import spmm_views
 
 
 class SimGCL(LightGCN):
+    mesh_todo = MESH_CONTRASTIVE
     step_generator = True       # the trainer hands loss() a device generator
 
     def __init__(self, cfg, data):

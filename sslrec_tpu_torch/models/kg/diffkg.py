@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sslrec_tpu_torch.models import losses
-from sslrec_tpu_torch.models.base import RecModel
+from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel
 from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
 from sslrec_tpu_torch.ops import sparse as sparse_ops
 from sslrec_tpu_torch.ops.segment_kernel import (SegmentLayout, SegmentSoftmaxFn, SegmentSumFn,
@@ -71,6 +71,7 @@ class KgEdges(NamedTuple):
 
 
 class DiffKG(RecModel):
+    mesh_todo = MESH_PARTITIONED
     step_generator = True
 
     def __init__(self, cfg, data):

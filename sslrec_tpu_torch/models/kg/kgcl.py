@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sslrec_tpu_torch.models import losses
-from sslrec_tpu_torch.models.base import RecModel
+from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel
 from sslrec_tpu_torch.models.layers import take_rows
 from sslrec_tpu_torch.ops.segment_kernel import OneHotTake, SegmentOps
 from sslrec_tpu_torch.ops.spmm import spmm
@@ -44,6 +44,7 @@ def _l2norm_rows(x):
 
 
 class KGCL(RecModel):
+    mesh_todo = MESH_PARTITIONED
     step_generator = True       # the trainer hands loss() a device generator
 
     def __init__(self, cfg, data):

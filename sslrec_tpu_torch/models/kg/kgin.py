@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sslrec_tpu_torch.models.base import RecModel
+from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel
 from sslrec_tpu_torch.ops.segment_kernel import OneHotTake, SegmentOps
 from sslrec_tpu_torch.ops.sparse import normalize_adj_left
 from sslrec_tpu_torch.utils.initializers import xavier_uniform
@@ -77,6 +77,7 @@ def interact_edges(train_mat: sp.spmatrix, n_users: int, n_nodes: int):
 
 
 class KGIN(RecModel):
+    mesh_todo = MESH_PARTITIONED
     step_generator = True
 
     def __init__(self, cfg, data):

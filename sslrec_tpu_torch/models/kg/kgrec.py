@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
+from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.ops.segment_kernel import OneHotTake, SegmentOps
 from sslrec_tpu_torch.ops.sparse import normalize_adj_left
 from sslrec_tpu_torch.utils.initializers import linear_params, xavier_uniform
@@ -65,6 +65,7 @@ def kth_largest(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class KGRec(RecModel):
+    mesh_todo = MESH_PARTITIONED
     step_generator = True
 
     def __init__(self, cfg, data):

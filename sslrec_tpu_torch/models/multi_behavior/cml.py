@@ -60,7 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sslrec_tpu_torch.data.sampling import sample_from_rows, sample_negatives
-from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
+from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
 from sslrec_tpu_torch.ops import sparse as sparse_ops
 from sslrec_tpu_torch.ops.spmm import spmm
@@ -255,6 +255,7 @@ def adamw_first_step(p, g, lr: float, wd: float, b1=0.9, b2=0.999, eps=1e-8):
 
 
 class CML(RecModel):
+    mesh_todo = MESH_PARTITIONED
     step_generator = True
     batch_fields = ("user", "pos")
 

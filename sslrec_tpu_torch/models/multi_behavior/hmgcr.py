@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from sslrec_tpu_torch.models import losses
-from sslrec_tpu_torch.models.base import RecModel
+from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel
 from sslrec_tpu_torch.ops.spmm import spmm
 from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
@@ -55,6 +55,7 @@ class GCNTower(nn.Module):
 
 
 class HMGCR(RecModel):
+    mesh_todo = MESH_PARTITIONED
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         m = cfg.model

@@ -68,7 +68,7 @@ from torch import nn
 
 from sslrec_tpu_torch.data.kg import MaskableBiAdj
 from sslrec_tpu_torch.data.sampling import sample_negatives
-from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
+from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.models.multi_behavior.cml import (BehaviorGCN, BehaviorSampler,
                                                         ssl_terms, ssl_users)
 from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
@@ -135,6 +135,7 @@ class KGParams(nn.Module):
 
 
 class KMCLR(RecModel):
+    mesh_todo = MESH_PARTITIONED
     step_generator = True
     batch_fields = ("user", "pos")
 

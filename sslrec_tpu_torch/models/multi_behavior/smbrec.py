@@ -26,7 +26,7 @@ from torch import nn
 
 from sslrec_tpu_torch.data.sampling import sample_from_rows
 from sslrec_tpu_torch.models import losses
-from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
+from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.models.multi_behavior.hmgcr import GCNTower
 from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
 from sslrec_tpu_torch.utils.initializers import linear_params
@@ -35,6 +35,7 @@ BLOCK = 128
 
 
 class SMBRec(RecModel):
+    mesh_todo = MESH_PARTITIONED
     step_generator = True
 
     def __init__(self, cfg, data):

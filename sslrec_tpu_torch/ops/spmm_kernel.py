@@ -54,7 +54,9 @@ class CsrLayout(NamedTuple):
     edge order is read; ``ids_identity`` marks ``edge_ids == arange(nnz)`` and
     ``vals_ones`` marks ``vals`` all 1 (segment layouts, KGCL's bi-adjacency),
     so the kernel reads neither there; ``plans`` (a :class:`PlanCache`)
-    caches the split plan by threshold.
+    caches the split plan by threshold; ``n_ids``, where set, is the number of
+    edges that ``edge_ids`` index (a mesh shard's layout holds some of a
+    graph's edges under their original ids), else ``nnz``.
     """
 
     indptr: torch.Tensor
@@ -67,6 +69,7 @@ class CsrLayout(NamedTuple):
     ids_identity: bool
     vals_ones: bool
     plans: PlanCache
+    n_ids: int | None = None
 
 
 class CsrGraph(NamedTuple):
@@ -93,7 +96,7 @@ class CsrGraph(NamedTuple):
                         n_rows=self.n_cols, n_cols=self.n_rows)
 
 
-def csr_layout(rows, cols, vals, edge_ids, n_rows, n_cols, device) -> CsrLayout:
+def csr_layout(rows, cols, vals, edge_ids, n_rows, n_cols, device, n_ids=None) -> CsrLayout:
     """Layout from host arrays already sorted by destination row."""
     indptr = np.zeros(n_rows + 1, np.int64)
     np.cumsum(np.bincount(rows, minlength=n_rows), out=indptr[1:])
@@ -107,7 +110,7 @@ def csr_layout(rows, cols, vals, edge_ids, n_rows, n_cols, device) -> CsrLayout:
                      edge_ids=t(edge_ids, np.int32),
                      n_rows=int(n_rows), n_cols=int(n_cols),
                      ids_identity=bool(np.array_equal(edge_ids, np.arange(edge_ids.size))),
-                     vals_ones=bool((vals == 1).all()), plans=PlanCache())
+                     vals_ones=bool((vals == 1).all()), plans=PlanCache(), n_ids=n_ids)
 
 
 def build_csr_graph(g: CooGraph, device="cpu") -> CsrGraph:
@@ -417,6 +420,7 @@ def _check(layout: CsrLayout, x: torch.Tensor, ew):
     need(x.dtype == torch.float32 and x.is_contiguous(), "x must be contiguous float32")
     need(layout.indptr.shape == (layout.n_rows + 1,), "indptr must be [n_rows+1]")
     nnz = layout.cols.shape[0]
+    n_ids = nnz if layout.n_ids is None else layout.n_ids
     for name in ("indptr", "cols", "edge_ids"):
         t = getattr(layout, name)
         need(t.dtype == torch.int32 and t.is_contiguous(), f"{name} must be contiguous int32")
@@ -426,14 +430,14 @@ def _check(layout: CsrLayout, x: torch.Tensor, ew):
     need(layout.vals.device == x.device, "vals must be on x's device")
     if isinstance(ew, PrfMask):
         need(ew.ndim == 1, "a PrfMask with several salts must be indexed by layer first")
-        need(ew.nnz == nnz, f"PrfMask over {ew.nnz} edges, layout has {nnz}")
+        need(ew.nnz == n_ids, f"PrfMask over {ew.nnz} edges, layout has {n_ids}")
         k = ew.key
         need(k.shape == (2,) and k.dtype == torch.int64 and k.is_contiguous(),
              "PrfMask key must be contiguous int64 [2]")
         need(k.device == x.device, f"PrfMask key is on {k.device}, x on {x.device}")
     elif ew is not None:
-        need(ew.shape == (nnz,) and ew.dtype == torch.float32 and ew.is_contiguous(),
-             f"edge weight must be contiguous float32 [{nnz}]")
+        need(ew.shape == (n_ids,) and ew.dtype == torch.float32 and ew.is_contiguous(),
+             f"edge weight must be contiguous float32 [{n_ids}]")
         need(ew.device == x.device, "edge weight must be on x's device")
 
 
@@ -450,7 +454,8 @@ def csr_spmm(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
     and the card, or raises.  ``csr_spmm.launches`` counts the launches of the
     chunk kernel, one a call; ``csr_spmm.combine_launches`` those of the
     second kernel that adds split rows' partials, one a call over a layout
-    with split rows.
+    with split rows; ``csr_spmm.by_shape[(n_rows, n_cols)]`` both counts,
+    ``[launches, combine_launches]``, of the layouts of that shape.
     """
     if x.device.type == "cpu":
         return csr_spmm_plain(layout, x, ew)
@@ -485,13 +490,17 @@ def csr_spmm(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"csr_spmm: launch of libcsr_spmm.so's kernel failed: "
                            f"cudaError {err}")
+    counts = csr_spmm.by_shape.setdefault((layout.n_rows, layout.n_cols), [0, 0])
     csr_spmm.launches += 1
+    counts[0] += 1
     if plan.split_rows.shape[0]:
         csr_spmm.combine_launches += 1
+        counts[1] += 1
     return out
 
 
 csr_spmm.launches = csr_spmm.combine_launches = 0
+csr_spmm.by_shape = {}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,240 @@
+"""Rank programs that exercise the mesh's parts on numpy inputs.
+
+:func:`run` executes a list of named checks in each rank of a group started
+by :func:`~sslrec_tpu_torch.parallel.launch.spawn` and returns their outputs
+as numpy arrays; whoever started the group holds them against a reference
+(the JAX package's functions in the CPU tests, the plain single-device
+computation on the card).  Every rank runs the same checks in the same
+order, since each makes its mesh, and so its process groups, collectively.
+Inputs are whole arrays; each check takes this rank's part of them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from sslrec_tpu_torch.ops.sparse import CooGraph
+from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask
+from sslrec_tpu_torch.ops.topk import sharded_topk
+from sslrec_tpu_torch.parallel import dist_train
+from sslrec_tpu_torch.parallel.mesh import make_mesh
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _coo(inp: dict, prefix: str = "") -> CooGraph:
+    n = int(inp[prefix + "n"])
+    return CooGraph(rows=np.asarray(inp[prefix + "rows"]), cols=np.asarray(inp[prefix + "cols"]),
+                    vals=np.asarray(inp[prefix + "vals"], np.float32), n_rows=n, n_cols=n)
+
+
+def _dev(inp: dict) -> torch.device:
+    return torch.device(inp.get("device", "cpu"))
+
+
+def mesh_shape(inp: dict) -> dict:
+    m = make_mesh(inp.get("n_data"), inp.get("n_model"))
+    return {"shape": m.shape, "coords": (m.data_index, m.model_index)}
+
+
+def owned_lookup(inp: dict) -> dict:
+    """Rows ``idx`` of a table split over ``model`` ``P`` ways."""
+    mesh = make_mesh(1, int(inp["n_model"]))
+    table, n = torch.from_numpy(inp["table"]).to(_dev(inp)), int(inp["shard"])
+    local = table[mesh.model_index * n:(mesh.model_index + 1) * n]
+    idx = torch.from_numpy(inp["idx"]).to(_dev(inp))
+    return {"out": _np(dist_train.owned_lookup(local, idx, n, mesh))}
+
+
+def topk(inp: dict) -> dict:
+    """``sharded_topk`` of scores split by columns over ``model``."""
+    mesh = make_mesh(1, int(inp["n_model"]))
+    scores = torch.from_numpy(inp["scores"]).to(_dev(inp))
+    n = scores.shape[1] // mesh.n_model
+    local = scores[:, mesh.model_index * n:(mesh.model_index + 1) * n]
+    return {"out": _np(sharded_topk(local, mesh.model_index * n, int(inp["k"]),
+                                    mesh.model_group))}
+
+
+def sharded_step(inp: dict) -> dict:
+    """One :func:`~.dist_train.build_sharded_lightgcn_step` step (Adam at
+    ``lr``) from whole padded tables; the whole tables after it, and the
+    whole gradients the step gave Adam (summed over the ``data`` group)."""
+    mesh = make_mesh(int(inp["n_data"]), int(inp["n_model"]))
+    sg = dist_train.partition_graph(_coo(inp), int(inp["n_users"]), int(inp["n_items"]),
+                                    mesh.n_model)
+    init, step = dist_train.build_sharded_lightgcn_step(
+        mesh, sg, int(inp["layer_num"]), float(inp["reg_weight"]), float(inp["keep_rate"]),
+        lambda ps: torch.optim.Adam(ps, lr=float(inp["lr"])))
+    dev = _dev(inp)
+    params, opt = init({k: torch.from_numpy(inp[k]).to(dev)
+                        for k in ("user_embeds", "item_embeds")})
+    batch = {k: torch.from_numpy(inp[k]).to(dev) for k in ("user", "pos", "neg")}
+    loss = step(params, opt, batch, torch.tensor(inp["key"]))
+    out = {"loss": float(loss)}
+    for k, n in (("user_embeds", sg.u_loc), ("item_embeds", sg.i_loc)):
+        out[k] = _np(dist_train.whole_rows(params[k], n * sg.n_model, mesh))
+        out[f"{k}_grad"] = _np(dist_train.whole_rows(params[k].grad, n * sg.n_model, mesh))
+    return out
+
+
+def propagate(inp: dict) -> dict:
+    """``mesh_partitioned_propagate`` of whole padded tables under each view's
+    values (``view_vals``: a list of ``[nnz]`` in the original edge order;
+    ``combine``), the views' outputs summed, whole padded tables."""
+    mesh = make_mesh(int(inp["n_data"]), int(inp["n_model"]))
+    sg = dist_train.partition_graph(_coo(inp), int(inp["n_users"]), int(inp["n_items"]),
+                                    mesh.n_model)
+    dev = _dev(inp)
+    u_x, i_x = (dist_train.own_rows(torch.from_numpy(inp[k]).to(dev), n, mesh)
+                for k, n in (("u", sg.u_loc), ("i", sg.i_loc)))
+    u_out = i_out = 0
+    for vals in inp["view_vals"]:
+        pv = dist_train.view_vals_partitioned(sg, torch.from_numpy(vals).to(dev))
+        u, i = dist_train.mesh_partitioned_propagate(mesh, sg, u_x, i_x, pv,
+                                                     int(inp["layer_num"]), inp["combine"])
+        u_out, i_out = u_out + u, i_out + i
+    return {"u": _np(dist_train.whole_rows(u_out, sg.u_loc * sg.n_model, mesh)),
+            "i": _np(dist_train.whole_rows(i_out, sg.i_loc * sg.n_model, mesh)),
+            "pv": _np(dist_train.view_vals_partitioned(sg, torch.from_numpy(
+                inp["view_vals"][0])))}
+
+
+def _cfg(name: str, inp: dict):
+    from sslrec_tpu_torch.config import load_config
+    return load_config(name, overrides={"train.mesh": {"data": int(inp["n_data"]),
+                                                       "model": int(inp["n_model"])},
+                                        **inp.get("overrides", {})})
+
+
+def rect_pair(inp: dict) -> dict:
+    """``maybe_partition_rect_pair`` of A (users ← items) and AT under the
+    config's mesh: both partitions' arrays."""
+    cfg = _cfg("hmgcr", inp)
+    u, i = int(inp["n_users"]), int(inp["n_items"])
+    a = CooGraph(inp["a_rows"], inp["a_cols"], inp["a_vals"], u, i)
+    at = CooGraph(inp["at_rows"], inp["at_cols"], inp["at_vals"], i, u)
+    _, (sg_a, sg_at) = dist_train.maybe_partition_rect_pair(cfg, a, at, u, i)
+    return {f"{tag}.{f}": getattr(sg, f) for tag, sg in (("a", sg_a), ("at", sg_at))
+            for f in ("local_rows", "cols", "vals", "src_idx")}
+
+
+def _bundle(inp: dict, device):
+    from sslrec_tpu_torch.data.general_cf import bundle_from_matrices
+    mats = [None if inp.get(k) is None else sp.coo_matrix(inp[k]) for k in ("trn", "val", "tst")]
+    return bundle_from_matrices(*mats, device=device)
+
+
+def lightgcn(inp: dict) -> dict:
+    """The port's LightGCN under the config's mesh, loaded with whole tables
+    ``params``: ``propagate()`` and, where ``mask`` is given, ``propagate``
+    under that multiplier in the original edge order; the evaluator's test
+    metrics (``Evaluator(mesh=...)``), and the rows each rank holds."""
+    from sslrec_tpu_torch.models.general_cf.lightgcn import LightGCN
+    from sslrec_tpu_torch.trainer.metrics import Evaluator
+
+    cfg = _cfg("lightgcn", inp)
+    data = _bundle(inp, _dev(inp))
+    model = LightGCN(cfg, data)
+    mesh = model.mesh
+    params = {k: torch.from_numpy(v) for k, v in inp["params"].items()}
+    model.load_state_dict(dist_train.local_state(model, params, mesh))
+    out = {"local_rows": model.user_embeds.shape[0],
+           "sharded": model.sg is not None}
+    with torch.no_grad():
+        out["u"], out["i"] = map(_np, model.propagate())
+        if inp.get("mask") is not None:
+            ew = EdgeMask(torch.from_numpy(inp["mask"]).to(_dev(inp)))
+            out["u_mask"], out["i_mask"] = map(_np, model.propagate(ew))
+    out["metrics"] = Evaluator(data.test, cfg, mesh=mesh)(model)
+    return out
+
+
+def trainer_step(inp: dict) -> dict:
+    """One step of the port's Trainer (LightGCN, epoch 0's first batch) under
+    the config's mesh from the seeded initial tables: the whole gradients
+    (summed over ``data``) and the whole tables after Adam."""
+    from sslrec_tpu_torch.models.general_cf.lightgcn import LightGCN
+    from sslrec_tpu_torch.trainer.trainer import INIT_STREAM, Trainer, generator
+
+    cfg = _cfg("lightgcn", inp)
+    data = _bundle(inp, _dev(inp))
+    model = LightGCN(cfg, data)
+    trainer = Trainer(cfg, model, data)
+    model.init_params(generator(int(cfg.train.seed), INIT_STREAM))
+    idx, sampled, keys = trainer.epoch_draws(0)
+    terms = trainer.train_step(trainer.make_batch(idx[0], sampled, 0), keys[0])
+    shards = model.row_shards if model.sg is not None else {}
+    out = {"loss": float(terms["loss"])}
+    for name, p in model.named_parameters():
+        n = shards.get(name)
+        whole = (lambda t: t) if n is None else (lambda t: dist_train.whole_rows(t, n, model.mesh))
+        out[name] = _np(whole(p.detach()))
+        out[name + ".grad"] = _np(whole(p.grad))
+    return out
+
+
+def propagate_grad(inp: dict) -> dict:
+    """One step of ``mesh_partitioned_propagate`` (2 hops, sum, under the
+    dropout PRF of the whole graph at ``key``) and ``owned_lookup`` of rows
+    ``idx``, value and gradients of a weighted sum (the shards' terms summed
+    over ``model``, backpropagated through ``mesh_backward``), against the plain hop
+    (``csr_spmm_plain`` on the whole graph) with autograd: the largest error
+    of each relative to the plain one's largest value.  Whole tables in; a
+    shard's rows each."""
+    from sslrec_tpu_torch.ops.spmm_kernel import build_csr_graph, csr_spmm_plain, prf_mask
+
+    mesh = make_mesh(int(inp["n_data"]), int(inp["n_model"]))
+    dev = _dev(inp)
+    n_users, n_items = int(inp["n_users"]), int(inp["n_items"])
+    coo = _coo(inp)
+    sg = dist_train.partition_graph(coo, n_users, n_items, mesh.n_model)
+    whole = build_csr_graph(CooGraph(*(torch.from_numpy(np.asarray(a)) for a in
+                                       (coo.rows, coo.cols, coo.vals)), coo.n_rows,
+                                     coo.n_cols), dev)
+    prf = prf_mask(torch.tensor(inp["key"]), whole, float(inp["keep_rate"]))
+    u0, i0, wu, wi, wa = (torch.from_numpy(inp[k]).to(dev) for k in ("u", "i", "wu", "wi", "wa"))
+    idx = torch.from_numpy(inp["idx"]).to(dev)
+    u = dist_train.own_rows(u0, sg.u_loc, mesh).requires_grad_()
+    i = dist_train.own_rows(i0, sg.i_loc, mesh).requires_grad_()
+    ou, oi = dist_train.mesh_partitioned_propagate(mesh, sg, u, i, None, 2, "sum", prf)
+    anc = dist_train.owned_lookup(ou, idx, sg.u_loc, mesh)
+    own_w = [dist_train.own_rows(w, n, mesh) for w, n in ((wu, sg.u_loc), (wi, sg.i_loc))]
+    tables = (ou * own_w[0]).sum() + (oi * own_w[1]).sum()
+    loss = dist_train.all_reduce_sum(tables, mesh.model_group) + (anc * wa).sum()
+    dist_train.mesh_backward(loss, mesh, 1.0)       # a data row's replica: its whole loss
+
+    pu, pi = u0.clone().requires_grad_(), i0.clone().requires_grad_()
+    x = torch.cat([pu, pi])
+    acc, h = x, x
+    for _ in range(2):
+        h = csr_spmm_plain(whole.fwd, h, prf)
+        acc = acc + h
+    ru, ri = acc[:n_users], acc[n_users:]
+    ((ru * wu).sum() + (ri * wi).sum() + (ru[idx.long()] * wa).sum()).backward()
+
+    def err(got, ref, n_loc):
+        ref = dist_train.own_rows(ref.detach(), n_loc, mesh)
+        return float((got.detach() - ref).abs().max() / ref.abs().max())
+
+    return {"value": max(err(ou, ru, sg.u_loc), err(oi, ri, sg.i_loc)),
+            "lookup": float((anc.detach() - ru[idx.long()].detach()).abs().max()
+                            / ru.detach().abs().max()),
+            "grad": max(err(u.grad, pu.grad, sg.u_loc), err(i.grad, pi.grad, sg.i_loc)),
+            "backend": torch.distributed.get_backend() if torch.distributed.is_initialized()
+            else None}
+
+
+CHECKS = {"mesh_shape": mesh_shape, "owned_lookup": owned_lookup, "topk": topk,
+          "sharded_step": sharded_step, "propagate": propagate, "rect_pair": rect_pair,
+          "lightgcn": lightgcn, "trainer_step": trainer_step, "propagate_grad": propagate_grad}
+
+
+def run(checks: list[tuple[str, str, dict]]) -> dict:
+    """``{tag: CHECKS[name](inputs)}`` for each ``(tag, name, inputs)``, in
+    order, in this rank."""
+    return {tag: CHECKS[name](inp) for tag, name, inp in checks}

@@ -1,0 +1,461 @@
+"""Graph-partitioned, row-sharded, data-parallel training on a device mesh
+(port of ``sslrec_tpu/parallel/dist_train.py``).
+
+Layout
+------
+The user table is padded to ``U_pad = P·U_loc`` rows and split over the
+``model`` axis, the item table likewise; the propagation's node space is
+``[users_pad; items_pad]`` (``N_pad = U_pad + I_pad``).  Shard ``p`` owns user
+rows ``[p·U_loc, (p+1)·U_loc)`` and item rows ``[p·I_loc, (p+1)·I_loc)``; its
+propagation state is ``[U_loc + I_loc, d]``.
+
+Each hop gathers the whole ``[N_pad, d]`` table over the ``model`` group
+(:func:`assemble_full`), then sums the edges whose *destination* rows the
+shard owns: one B1 call on the shard's own CSR layout (:func:`shard_graph`),
+``U_loc + I_loc`` rows over the gathered columns, whose edge ids are the
+edges' ids in the whole graph, so that a multiplier in the original edge
+order (a dropout PRF, a view's values) reaches the shard through them.  Its
+backward is B1 on the transposed layout, then the gather's adjoint, a
+reduce-scatter.  A batch's rows come from the shards through
+:func:`owned_lookup` (a masked lookup and an all-reduce).
+
+The JAX package runs all of it in one process under ``shard_map``; here a
+process is a rank of the mesh (:mod:`~sslrec_tpu_torch.parallel.mesh`), and
+the collectives are ``torch.distributed`` calls with autograd.  Their
+backward sums the cotangents of the ranks, which is right for a sum of the
+ranks' losses; :func:`mesh_backward` makes the ranks' losses such a sum.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from sslrec_tpu_torch.models import losses
+from sslrec_tpu_torch.ops.sparse import CooGraph
+from sslrec_tpu_torch.ops.spmm import spmm
+from sslrec_tpu_torch.ops.spmm_kernel import CsrGraph, csr_layout, prf_mask
+from sslrec_tpu_torch.ops.spmm_kernel import _threefry2x32
+from sslrec_tpu_torch.parallel.mesh import Mesh, mesh_from_config, pad_to_multiple
+
+
+class ShardedGraph(NamedTuple):
+    """Destination-partitioned padded edge lists, host numpy, equal to the JAX
+    package's.
+
+    ``local_rows[p]``: destination row in shard-local node coordinates
+    (0..U_loc+I_loc); ``cols[p]``: source node in *global padded* coordinates;
+    ``vals[p]``: edge weight (0 for padding); ``src_idx[p]``: the edge's index
+    in the ORIGINAL (unpartitioned) edge list, -1 for padding slots.  All
+    ``[P, E_pad]``; padding slots follow each shard's sorted slots.
+    ``n_edges`` is the original graph's edge count; ``shards`` caches each
+    shard's B1 layouts (:func:`shard_graph`).
+    """
+
+    local_rows: np.ndarray
+    cols: np.ndarray
+    vals: np.ndarray
+    src_idx: np.ndarray
+    u_loc: int
+    i_loc: int
+    n_model: int
+    n_edges: int
+    shards: dict
+
+    @property
+    def n_local(self) -> int:
+        return self.u_loc + self.i_loc
+
+    @property
+    def n_pad(self) -> int:
+        return (self.u_loc + self.i_loc) * self.n_model
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def partition_graph(g, n_users: int, n_items: int, n_model: int) -> ShardedGraph:
+    """Host-side: split the bidirectional adjacency ``g`` (rows, cols, vals
+    over nodes ``[users; items]`` 0..U+I, unpadded) by destination-row owner,
+    each shard's slots sorted by local row (stably: original order within a
+    row) and padded to the longest shard."""
+    u_loc = pad_to_multiple(n_users, n_model) // n_model
+    i_loc = pad_to_multiple(n_items, n_model) // n_model
+    u_pad = u_loc * n_model
+    rows, cols, vals = _host(g.rows), _host(g.cols), _host(g.vals)
+
+    def remap(x):
+        return np.where(x < n_users, x, u_pad + (x - n_users))
+
+    rows_p, cols_p = remap(rows), remap(cols)
+    is_user = rows_p < u_pad
+    owner = np.where(is_user, rows_p // u_loc, (rows_p - u_pad) // i_loc)
+    local = np.where(is_user, rows_p % u_loc, u_loc + (rows_p - u_pad) % i_loc)
+    e_max = max(int(np.max(np.bincount(owner, minlength=n_model))), 1)
+    lr = np.zeros((n_model, e_max), np.int32)
+    lc = np.zeros((n_model, e_max), np.int32)
+    lv = np.zeros((n_model, e_max), np.float32)
+    si = np.full((n_model, e_max), -1, np.int32)
+    eids = np.arange(rows.shape[0], dtype=np.int32)
+    for p in range(n_model):
+        sel = owner == p
+        k = int(sel.sum())
+        order = np.argsort(local[sel], kind="stable")
+        lr[p, :k] = local[sel][order]
+        lc[p, :k] = cols_p[sel][order]
+        lv[p, :k] = vals[sel][order]
+        si[p, :k] = eids[sel][order]
+    return ShardedGraph(lr, lc, lv, si, u_loc, i_loc, n_model, int(rows.shape[0]), {})
+
+
+class Shard(NamedTuple):
+    """Shard ``p``'s B1 operator: ``graph`` (forward layout ``[U_loc+I_loc]``
+    rows over the ``[N_pad]`` gathered columns, and its transposed layout),
+    ``live`` the slots of the ``[E_pad]`` row it holds, and ``order`` the
+    transposed layout's slots as forward slots."""
+
+    graph: CsrGraph
+    live: torch.Tensor
+    order: torch.Tensor
+
+    def with_vals(self, vals_row: torch.Tensor) -> CsrGraph:
+        """The operator under a view's values ``vals_row`` (the shard's
+        ``[E_pad]`` row of :func:`view_vals_partitioned`), in place of the
+        partition's own."""
+        v = vals_row.to(self.graph.vals.device, torch.float32)[self.live].contiguous()
+        g = self.graph
+        fwd = g.fwd._replace(vals=v, vals_ones=False)
+        bwd = g.bwd._replace(vals=v[self.order].contiguous(), vals_ones=False)
+        return g._replace(fwd=fwd, bwd=bwd, vals=v)
+
+
+def shard_graph(sg: ShardedGraph, p: int, device) -> Shard:
+    """Shard ``p``'s B1 layouts from its live slots only (the padding slots,
+    appended after the sorted rows with row 0, would break the CSR's row
+    order), its edge ids the original ones (``src_idx``) out of ``n_edges``;
+    built once a device and cached on ``sg``."""
+    key = (int(p), str(torch.device(device)))
+    if key in sg.shards:
+        return sg.shards[key]
+    live = np.flatnonzero(sg.src_idx[p] >= 0)
+    rows, cols = sg.local_rows[p][live], sg.cols[p][live]
+    vals, ids = sg.vals[p][live], sg.src_idx[p][live]
+    n_local, n_pad = sg.n_local, sg.n_pad
+    fwd = csr_layout(rows, cols, vals, ids, n_local, n_pad, device, n_ids=sg.n_edges)
+    order = np.lexsort((rows, cols))
+    bwd = csr_layout(cols[order], rows[order], vals[order], ids[order], n_pad, n_local,
+                     device, n_ids=sg.n_edges)
+    g = CsrGraph(fwd=fwd, bwd=bwd, rows=fwd.rows, cols=fwd.cols, vals=fwd.vals,
+                 n_rows=n_local, n_cols=n_pad)
+    out = Shard(g, torch.from_numpy(live).to(device), torch.from_numpy(order).to(device))
+    sg.shards[key] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Collectives with autograd
+# ---------------------------------------------------------------------------
+
+class _GatherRows(torch.autograd.Function):
+    """``all_gather`` over ``group`` along the rows, ``[n, d]`` → ``[P·n, d]``
+    in rank order; backward: the reduce-scatter (sum) of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        chunks = [c.contiguous() for c in grad.chunk(dist.get_world_size(ctx.group))]
+        out = torch.empty_like(chunks[0])
+        dist.reduce_scatter(out, chunks, group=ctx.group)
+        return out, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """``all_reduce`` (sum) over ``group``; backward: the same of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The rows of ``x`` of every rank of ``group``, in rank order, with
+    autograd (``x`` itself outside a started group)."""
+    return x if group is None else _GatherRows.apply(x, group)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over ``group``'s ranks of ``x``, with autograd."""
+    return x if group is None else _AllReduceSum.apply(x, group)
+
+
+def assemble_full(x_local: torch.Tensor, u_loc: int, i_loc: int, mesh: Mesh) -> torch.Tensor:
+    """all_gather shard-local ``[U_loc+I_loc, d]`` states → global padded
+    ``[N_pad, d]`` (``[users of every shard; items of every shard]``)."""
+    d = x_local.shape[-1]
+    g = gather_rows(x_local, mesh.model_group).view(-1, u_loc + i_loc, d)
+    return torch.cat([g[:, :u_loc].reshape(-1, d), g[:, u_loc:].reshape(-1, d)])
+
+
+def owned_lookup(table_local: torch.Tensor, idx: torch.Tensor, shard_size: int,
+                 mesh: Mesh) -> torch.Tensor:
+    """Row-sharded table lookup: the rows of ``idx`` this shard owns (others
+    0), summed over the ``model`` group."""
+    off = mesh.model_index * shard_size
+    idx = idx.long()
+    owned = (idx >= off) & (idx < off + shard_size)
+    rows = table_local[(idx - off).clamp(0, shard_size - 1)]
+    return all_reduce_sum(torch.where(owned[:, None], rows, 0.0), mesh.model_group)
+
+
+# ---------------------------------------------------------------------------
+# Partitioned propagation
+# ---------------------------------------------------------------------------
+
+def partitioned_spmm(u_loc: int, i_loc: int, x_local: torch.Tensor, graph: CsrGraph,
+                     mesh: Mesh, ew=None) -> torch.Tensor:
+    """ONE graph-partitioned ``A @ x`` hop: gather the whole node table over
+    the ``model`` group, then B1 over the edges whose destination rows this
+    shard owns (``graph``, :func:`shard_graph`), under an optional constant
+    multiplier ``ew`` in the original edge order (an ``EdgeMask`` or a
+    ``PrfMask`` of the whole graph)."""
+    return spmm(graph, assemble_full(x_local, u_loc, i_loc, mesh), ew)
+
+
+def partitioned_propagate(sg: ShardedGraph, u_local: torch.Tensor, i_local: torch.Tensor,
+                          graph: CsrGraph, layer_num: int, mesh: Mesh, combine: str = "sum",
+                          ew=None):
+    """Multi-hop propagation from shard-local tables; ``combine``: 'sum'
+    (x0 + Σ hops, LightGCN), 'mean' (the layer mean) or 'last' (the final
+    hop).  Returns ``(user_local, item_local)``."""
+    x = torch.cat([u_local, i_local])
+    acc = [x]
+    for _ in range(layer_num):
+        x = partitioned_spmm(sg.u_loc, sg.i_loc, x, graph, mesh, ew)
+        acc.append(x)
+    if combine == "sum":
+        out = sum(acc)
+    elif combine == "mean":
+        out = sum(acc) / len(acc)
+    else:
+        out = x
+    return out[:sg.u_loc], out[sg.u_loc:]
+
+
+def view_vals_partitioned(sg: ShardedGraph, vals) -> torch.Tensor:
+    """Per-view edge values in ORIGINAL edge order → the partitioned ``[P,
+    E_pad]`` layout (padding slots get 0)."""
+    vals = torch.as_tensor(vals)
+    src = torch.from_numpy(sg.src_idx).to(vals.device).long()
+    return torch.where(src >= 0, vals[src.clamp(min=0)], 0.0)
+
+
+def mesh_partitioned_propagate(mesh: Mesh, sg: ShardedGraph, u_x: torch.Tensor,
+                               i_x: torch.Tensor, vals_part, layer_num: int,
+                               combine: str = "sum", ew=None):
+    """Graph-partitioned multi-hop propagation on this rank's shard.
+
+    The JAX function takes whole tables, and GSPMD splits them; here each
+    rank holds its own rows: ``u_x [U_loc, d]`` and ``i_x [I_loc, d]`` (padded
+    with zero rows past the last user and item), and gets its own rows of
+    the result.  ``vals_part``: the ``[P, E_pad]`` values of
+    :func:`view_vals_partitioned`, or None for the partition's own; ``ew``:
+    an optional constant multiplier in the original edge order."""
+    shard = shard_graph(sg, mesh.model_index, u_x.device)
+    graph = shard.graph if vals_part is None else shard.with_vals(vals_part[mesh.model_index])
+    return partitioned_propagate(sg, u_x, i_x, graph, layer_num, mesh, combine, ew)
+
+
+def maybe_partition_bi(cfg, rows, cols, n_users: int, n_items: int, vals=None,
+                       device="cpu"):
+    """Under a config-driven mesh whose ``model`` axis is > 1, partition a
+    bidirectional ``[users; items]``-indexed edge list by destination owner
+    and return ``(mesh, ShardedGraph)``; otherwise ``(mesh, None)``, and the
+    model keeps its single-device propagation.  ``vals`` default to ones."""
+    mesh = mesh_from_config(cfg, device)
+    if mesh is None or mesh.n_model <= 1:
+        return mesh, None
+    rows = _host(rows)
+    vals = np.ones(rows.shape[0], np.float32) if vals is None else _host(vals).astype(np.float32)
+    g = CooGraph(rows=rows, cols=_host(cols), vals=vals, n_rows=n_users + n_items,
+                 n_cols=n_users + n_items)
+    return mesh, partition_graph(g, n_users, n_items, mesh.n_model)
+
+
+def maybe_partition_rect_pair(cfg, a_graph, at_graph, n_users: int, n_items: int,
+                              device="cpu"):
+    """Partition a chained rect propagation pair (A: users←items, then AT:
+    items←users, HMGCR's and SMBRec's tower) into two direction-specific
+    :class:`ShardedGraph` s, static values in ``sg.vals``.  Returns ``(mesh,
+    (sg_a, sg_at))`` or ``(mesh, None)`` off a model-sharded mesh."""
+    mesh = mesh_from_config(cfg, device)
+    if mesh is None or mesh.n_model <= 1:
+        return mesh, None
+
+    def part(rows, cols, vals):
+        g = CooGraph(rows=rows, cols=cols, vals=np.asarray(vals, np.float32),
+                     n_rows=n_users + n_items, n_cols=n_users + n_items)
+        return partition_graph(g, n_users, n_items, mesh.n_model)
+
+    ar, ac = _host(a_graph.rows).astype(np.int64), _host(a_graph.cols).astype(np.int64)
+    tr, tc = _host(at_graph.rows).astype(np.int64), _host(at_graph.cols).astype(np.int64)
+    sg_a = part(ar, n_users + ac, _host(a_graph.vals))           # users ← items
+    sg_at = part(n_users + tr, tc, _host(at_graph.vals))         # items ← users
+    return mesh, (sg_a, sg_at)
+
+
+# ---------------------------------------------------------------------------
+# Whole tables, the backward, the gradients
+# ---------------------------------------------------------------------------
+
+def own_rows(whole: torch.Tensor, n_loc: int, mesh: Mesh) -> torch.Tensor:
+    """This shard's ``n_loc`` rows of a whole table, zero rows past its end."""
+    lo = mesh.model_index * n_loc
+    out = whole.new_zeros((n_loc, *whole.shape[1:]))
+    part = whole[lo:lo + n_loc]
+    out[:part.shape[0]] = part
+    return out
+
+
+@torch.no_grad()
+def whole_rows(local: torch.Tensor, n_rows: int, mesh: Mesh) -> torch.Tensor:
+    """The whole ``[n_rows, ...]`` table of which each shard holds ``local``."""
+    return gather_rows(local.detach(), mesh.model_group)[:n_rows].clone()
+
+
+def whole_state(model, mesh: Mesh | None) -> dict[str, torch.Tensor]:
+    """The model's parameters as whole tables (a copy), its ``row_shards``
+    gathered over the ``model`` group."""
+    shards = getattr(model, "row_shards", {}) if mesh is not None else {}
+    return {k: whole_rows(v, shards[k], mesh) if k in shards else v.detach().clone()
+            for k, v in model.state_dict().items()}
+
+
+def local_state(model, state: dict, mesh: Mesh | None) -> dict[str, torch.Tensor]:
+    """Whole tables ``state`` as the model's own rows (:func:`whole_state`'s
+    inverse)."""
+    shards = getattr(model, "row_shards", {}) if mesh is not None else {}
+    own = model.state_dict()
+    return {k: own_rows(v.to(own[k].device), own[k].shape[0], mesh) if k in shards else v
+            for k, v in state.items()}
+
+
+def batch_slice(n: int, mesh: Mesh) -> slice:
+    """This rank's slice of a batch of ``n`` over the ``data`` axis (sizes
+    differing by at most one, as ``torch.tensor_split``'s)."""
+    return slice(n * mesh.data_index // mesh.n_data, n * (mesh.data_index + 1) // mesh.n_data)
+
+
+def mesh_backward(loss: torch.Tensor, mesh: Mesh, share: float) -> None:
+    """Backpropagate this rank's ``loss`` (over its batch slice, ``share`` of
+    the whole batch) so that the gradients summed over the ``data`` group
+    (:func:`sync_grads`) are those of the whole batch's loss.
+
+    The JAX step averages the loss over ``model`` and then over ``data``
+    (``dist_train.py:299``: ``lax.pmean(lax.pmean(loss, MODEL_AXIS),
+    DATA_AXIS)``).  Here each of the ``M`` ranks of a data row computes the
+    row's whole loss and backpropagates it itself, and the collectives'
+    backward (gather ⇄ reduce-scatter, all-reduce ⇄ all-reduce) sums the
+    ``M`` equal cotangents: without the division by ``M`` every gradient
+    would be ``M`` times too large.  This is the one place that scales."""
+    (loss * (share / mesh.n_model)).backward()
+
+
+@torch.no_grad()
+def sync_grads(params, mesh: Mesh) -> None:
+    """Sum each gradient over the ``data`` group (one all-reduce), in place."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if mesh.data_group is None or not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.data_group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+@torch.no_grad()
+def reduce_terms(terms: dict, mesh: Mesh, share: float) -> dict:
+    """The whole batch's loss terms from each rank's (``share``-weighted
+    sum over the ``data`` group)."""
+    names = list(terms)
+    flat = torch.stack([torch.as_tensor(terms[k], dtype=torch.float32).reshape(())
+                        for k in names]) * share
+    if mesh.data_group is not None:
+        dist.all_reduce(flat, group=mesh.data_group)
+    return dict(zip(names, flat.unbind()))
+
+
+def fold_key(key: torch.Tensor, *coords: int) -> torch.Tensor:
+    """A PRF key with mesh coordinates folded in (one Threefry-2x32 of the
+    key at counter ``coords``), so that each shard draws its own mask."""
+    k = key.to(torch.int64)
+    c = torch.tensor(list(coords) + [0] * (2 - len(coords)), dtype=torch.int64,
+                     device=k.device)
+    x0, x1 = _threefry2x32(k[0], k[1], c[0], c[1])
+    return torch.stack([x0, x1])
+
+
+def build_sharded_lightgcn_step(mesh: Mesh, sg: ShardedGraph, layer_num: int,
+                                reg_weight: float, keep_rate: float, optimizer):
+    """Returns ``(init, train_step)``: a sharded LightGCN step, TP (row-sharded
+    tables, partitioned graph) × DP (the batch split over ``data``).
+
+    ``init({"user_embeds": [U_pad, d], "item_embeds": [I_pad, d]})`` gives
+    this rank's rows as parameters and ``optimizer(params)`` over them
+    (``optimizer`` a factory, e.g. ``lambda ps: torch.optim.Adam(ps,
+    lr)``); ``train_step(params, opt, batch, key)`` takes the whole batch
+    (``user``/``pos``/``neg``), steps on this rank's slice, and returns the
+    whole batch's loss.  Edge dropout at ``keep_rate`` < 1 draws a PRF mask
+    a shard, its key with the model and data coordinates folded in
+    (``dist_train.py:286-287``)."""
+    u_loc, i_loc = sg.u_loc, sg.i_loc
+
+    def init(whole: dict):
+        params = {"user_embeds": own_rows(whole["user_embeds"], u_loc, mesh),
+                  "item_embeds": own_rows(whole["item_embeds"], i_loc, mesh)}
+        params = {k: torch.nn.Parameter(v.contiguous()) for k, v in params.items()}
+        return params, optimizer(list(params.values()))
+
+    def train_step(params, opt, batch, key):
+        u_emb, i_emb = params["user_embeds"], params["item_embeds"]
+        shard = shard_graph(sg, mesh.model_index, u_emb.device)
+        ew = None
+        if keep_rate < 1.0:
+            k = fold_key(key, mesh.model_index, mesh.data_index).to(u_emb.device)
+            ew = prf_mask(k, shard.graph, keep_rate)._replace(nnz=sg.n_edges)
+        sl = batch_slice(batch["user"].shape[0], mesh)
+        users, poss, negs = (batch[f][sl] for f in ("user", "pos", "neg"))
+        opt.zero_grad(set_to_none=True)
+        fin_u, fin_i = partitioned_propagate(sg, u_emb, i_emb, shard.graph, layer_num, mesh,
+                                             "sum", ew)
+        anc = owned_lookup(fin_u, users, u_loc, mesh)
+        pos = owned_lookup(fin_i, poss, i_loc, mesh)
+        neg = owned_lookup(fin_i, negs, i_loc, mesh)
+        bpr = losses.bpr_loss(anc, pos, neg) / anc.shape[0]
+        reg_local = (u_emb ** 2).sum() + (i_emb ** 2).sum()
+        loss = bpr + reg_weight * all_reduce_sum(reg_local, mesh.model_group)
+        share = users.shape[0] / batch["user"].shape[0]
+        mesh_backward(loss, mesh, share)
+        sync_grads(params.values(), mesh)
+        opt.step()
+        return reduce_terms({"loss": loss.detach()}, mesh, share)["loss"]
+
+    return init, train_step

@@ -8,6 +8,8 @@ import functools
 import logging
 import os
 
+from sslrec_tpu_torch.parallel.mesh import is_main_process
+
 
 class Logger:
     def __init__(self, cfg, log_dir: str = "./log"):
@@ -45,6 +47,31 @@ class Logger:
             for k, v in zip(ks, vals):
                 parts.append(f"{metric}@{k}: {float(v):.5f}")
         self.log(f"{head}{name} {' '.join(parts)}")
+
+
+class NullLogger:
+    """The logger of a mesh rank other than 0, which logs nothing."""
+
+    def __init__(self, cfg=None):
+        self.cfg = cfg
+
+    def log(self, msg: str):
+        pass
+
+    def log_loss(self, epoch: int, losses: dict):
+        pass
+
+    def log_eval(self, results: dict, ks, epoch: int | None = None, name: str = ""):
+        pass
+
+    def close(self):
+        pass
+
+
+def rank_logger(cfg):
+    """A :class:`Logger` in the process that logs (rank 0 of a group, or the
+    only process), a :class:`NullLogger` in every other rank."""
+    return Logger(cfg) if is_main_process() else NullLogger(cfg)
 
 
 def log_exceptions(fn):

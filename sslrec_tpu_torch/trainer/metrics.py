@@ -11,12 +11,19 @@ mask train history at −1e8, take the top-k, sum the metrics; the
 ``[B, n_items]`` score matrix never leaves the device.  The JAX package packs
 the history into a bitmask because a TPU scatter is serial; here the history
 is one masked write per batch.
+
+Under a device mesh (``mesh``) the batch size is rounded up to a multiple of
+the ``data`` axis, each rank scores its slice of every batch on the whole
+tables that ``generate()`` gives, and the metric sums are added over the
+``data`` group at the end, as the JAX evaluator splits its batches over
+``data`` and all-reduces the sums.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sslrec_tpu_torch.data.base import EvalData, pad_to_batches
 from sslrec_tpu_torch.ops.topk import masked_topk_indices, topk_indices
@@ -57,18 +64,26 @@ class Evaluator:
     """Full-sort evaluator for one split; ``evaluator(model)`` scores the
     model's current parameters."""
 
-    def __init__(self, eval_data: EvalData, cfg):
+    def __init__(self, eval_data: EvalData, cfg, mesh=None):
         self.eval_data = eval_data
         self.metrics = tuple(cfg.test.metrics)
         self.ks = tuple(int(k) for k in cfg.test.k)
+        self.mesh = mesh
         device = eval_data.test_users.device
         users = eval_data.test_users.cpu().numpy()
         n = users.shape[0]
-        batches = pad_to_batches(n, int(cfg.test.batch_size))    # indices into users
-        self._user_batches = torch.from_numpy(users[batches]).to(device)
+        batch_size = int(cfg.test.batch_size)
+        if mesh is not None:
+            batch_size = -(-batch_size // mesh.n_data) * mesh.n_data
+        batches = pad_to_batches(n, batch_size)                  # indices into users
         # wrap-padded tail entries must not contribute: valid only for first n slots
-        flat_pos = np.arange(batches.size).reshape(batches.shape)
-        self._valid = torch.from_numpy((flat_pos < n).astype(np.float32)).to(device)
+        valid = np.arange(batches.size).reshape(batches.shape) < n
+        if mesh is not None:
+            part = batch_size // mesh.n_data
+            cols = slice(mesh.data_index * part, (mesh.data_index + 1) * part)
+            batches, valid = batches[:, cols], valid[:, cols]
+        self._user_batches = torch.from_numpy(users[batches]).to(device)
+        self._valid = torch.from_numpy(valid.astype(np.float32)).to(device)
 
     @torch.no_grad()
     def __call__(self, model) -> dict[str, np.ndarray]:
@@ -87,6 +102,8 @@ class Evaluator:
             sums = _batch_metric_sums(topk, gt.cols[users], gt.mask[users],
                                       gt.lengths[users], valid, self.ks)
             total = sums if total is None else total + sums
+        if self.mesh is not None and self.mesh.data_group is not None:
+            dist.all_reduce(total, group=self.mesh.data_group)
         total = total.cpu().numpy()
         denom = float(self.eval_data.n_test_users)
         return {m: total[_METRICS.index(m)] / denom for m in self.metrics}

@@ -50,6 +50,17 @@ model's part) and goes on from the next epoch.  Since each epoch's draws
 depend only on ``(seed, epoch)``, a resumed run repeats the uninterrupted one
 bit for bit on the same device.
 
+On a device mesh (``train.mesh``, :mod:`~sslrec_tpu_torch.parallel.mesh`)
+each rank draws the epoch's batches as every other rank does, takes its
+``data`` slice of each, and backpropagates its loss scaled by
+:func:`~sslrec_tpu_torch.parallel.dist_train.mesh_backward`; the ``data``
+group then sums the gradients (weighted by each slice's share of the batch,
+their mean for equal slices) before the clip, weight decay and Adam.  A
+model sharded over ``model`` holds its own rows and their Adam moments; the
+best snapshot, the returned parameters and every checkpoint are whole
+tables, so that a checkpoint moves between a mesh run and a single-device
+run.  Only rank 0 logs and writes the results artifact and checkpoints.
+
 Diagnostics: the dispatch trace (``utils/dispatch_trace.py``) brackets an
 epoch's steps, the loss sync, each evaluation and each state save, as the
 JAX trainer does; ``train.trace_sync`` synchronizes the card after every
@@ -68,12 +79,14 @@ import torch
 from sslrec_tpu_torch.data.base import DataBundle
 from sslrec_tpu_torch.data.sampling import sample_negatives
 from sslrec_tpu_torch.ops.sparse import build_edge_set
-from sslrec_tpu_torch.trainer.logger import Logger, log_exceptions
+from sslrec_tpu_torch.parallel import dist_train
+from sslrec_tpu_torch.parallel.mesh import check_model, is_main_process, mesh_from_config
+from sslrec_tpu_torch.trainer.logger import Logger, log_exceptions, rank_logger
 from sslrec_tpu_torch.trainer.metrics import Evaluator
 from sslrec_tpu_torch.utils import checkpoint as ckpt
 from sslrec_tpu_torch.utils import dispatch_trace as trace
 from sslrec_tpu_torch.utils.results import RunRecorder
-from sslrec_tpu_torch.utils.summary import make_writer
+from sslrec_tpu_torch.utils.summary import DisabledScalarWriter, make_writer
 
 
 def build_optimizer(cfg, params) -> torch.optim.Optimizer:
@@ -125,6 +138,9 @@ class Trainer:
         self.data = data
         self.logger = logger    # made by train() when None
         self.device = data.device
+        self.mesh = mesh_from_config(cfg, self.device)
+        if self.mesh is not None:
+            check_model(type(model), (self.mesh.n_data, self.mesh.n_model))
         self.optimizer = (None if hasattr(model, "train_step")
                           else build_optimizer(cfg, model.parameters()))
         self.grad_clip = float(getattr(model, "grad_clip", 0.0) or 0.0)
@@ -160,11 +176,18 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.model.loss(batch, key)
         self._check_finite(loss, batch)
-        loss.backward()
+        terms = {**{k: v.detach() for k, v in aux.items()}, "loss": loss.detach()}
+        if self.mesh is None:
+            loss.backward()
+        else:
+            share = batch["share"]
+            dist_train.mesh_backward(loss, self.mesh, share)
+            dist_train.sync_grads(self.model.parameters(), self.mesh)
+            terms = dist_train.reduce_terms(terms, self.mesh, share)
         if self.grad_clip:
             clip_grad_global_norm(self.model.parameters(), self.grad_clip)
         self.optimizer.step()
-        return {**{k: v.detach() for k, v in aux.items()}, "loss": loss.detach()}
+        return terms
 
     def _check_finite(self, loss: torch.Tensor, batch: dict) -> None:
         """Under ``train.debug_nans``, ``FloatingPointError`` where ``loss`` (a
@@ -201,6 +224,20 @@ class Trainer:
                              dtype=torch.int64).to(self.device)
         return idx, sampled, keys
 
+    def make_batch(self, bidx: torch.Tensor, sampled: dict, step: int) -> dict:
+        """Step ``step``'s batch from its indices ``bidx`` into the epoch's
+        arrays and ``sampled`` streams; on a mesh, this rank's ``data`` slice
+        of it, with its ``"share"`` of the whole batch."""
+        share = None
+        if self.mesh is not None:
+            bidx = bidx[dist_train.batch_slice(bidx.shape[0], self.mesh)]
+            share = bidx.shape[0] / self.batch_size
+        batch = {k: v[bidx] for k, v in (*self.arrays.items(), *sampled.items())}
+        batch["step"] = step
+        if share is not None:
+            batch["share"] = share
+        return batch
+
     def train_epoch(self, epoch: int, step=None, epoch_state=None) -> dict:
         """Epoch ``epoch``'s steps on :meth:`epoch_draws`; returns each loss
         term's mean over the steps.  ``step(batch, key) -> {name: loss}``
@@ -226,8 +263,7 @@ class Trainer:
         tag = f"ep{epoch}.whole_epoch"
         trace.mark(tag, steps=self.n_batches, model=self.cfg.model.name)
         for i, (bidx, key) in enumerate(zip(idx, keys)):
-            batch = {k: v[bidx] for k, v in (*self.arrays.items(), *sampled.items())}
-            batch["step"] = i
+            batch = self.make_batch(bidx, sampled, i)
             if aux_state is not None:
                 batch["aux"] = aux_state
             aux = step(batch, key)
@@ -305,8 +341,10 @@ class Trainer:
         return {}
 
     def _state_template(self) -> dict:
-        params = self.model.state_dict()
-        return {"params": params, "opt_state": ckpt.optim_template(self.optimizers()),
+        params = self._whole(self.model.state_dict(), template=True)
+        return {"params": params,
+                "opt_state": self._whole_optim(ckpt.optim_template(self.optimizers()),
+                                               template=True),
                 "epoch": 0, "best_params": params, "best_metric": 0.0, "wait": 0,
                 **self._extra()}
 
@@ -314,23 +352,84 @@ class Trainer:
         """Load the train state at ``path``; returns (best snapshot on the
         run's device, best_metric, wait, the next epoch)."""
         state = ckpt.load(path, self._state_template())
-        self.model.load_state_dict(state["params"])
-        ckpt.load_optim_state(self.optimizers(), state["opt_state"])
+        self.load_whole(state["params"])
+        ckpt.load_optim_state(self.optimizers(), self._whole_optim(state["opt_state"],
+                                                                   local=True))
         if "extra" in state:
             self.model.load_extra_state(state["extra"])
         best = {k: v.to(self.device) for k, v in state["best_params"].items()}
         return best, float(state["best_metric"]), int(state["wait"]), int(state["epoch"]) + 1
+
+    # -- whole tables on a mesh ------------------------------------------
+    def _shards(self) -> dict:
+        return getattr(self.model, "row_shards", {}) if self.mesh is not None else {}
+
+    def snapshot(self) -> dict[str, torch.Tensor]:
+        """A copy of the parameters as whole tables (gathered on a mesh: every
+        rank of the ``model`` group takes part)."""
+        return dist_train.whole_state(self.model, self.mesh)
+
+    def load_params(self, path: str) -> None:
+        """Load a parameter checkpoint (whole tables, as ``train.save_model``
+        writes it, on one device or a mesh) into the model."""
+        self.load_whole(ckpt.load(path, self._whole(self.model.state_dict(), template=True)))
+
+    def load_whole(self, state: dict) -> None:
+        """Load whole-table parameters (this rank's rows of them on a mesh)."""
+        self.model.load_state_dict(dist_train.local_state(self.model, state, self.mesh))
+
+    def _whole(self, tensors: dict, template: bool = False) -> dict:
+        """``{name: tensor}`` of the model's parameters with the row-sharded
+        ones whole (zeros of the whole shape for a ``template``)."""
+        shards = self._shards()
+        out = {}
+        for k, v in tensors.items():
+            if k in shards:
+                v = (torch.zeros((shards[k], *v.shape[1:]), dtype=v.dtype) if template
+                     else dist_train.whole_rows(v, shards[k], self.mesh))
+            out[k] = v
+        return out
+
+    def _whole_optim(self, state: dict, template: bool = False, local: bool = False) -> dict:
+        """The optimizers' per-parameter state with the moments of row-sharded
+        parameters whole (``local``: the inverse, this rank's rows)."""
+        shards = self._shards()
+        if not shards:
+            return state
+        names = [n for n, _ in self.model.named_parameters()]
+        own = dict(self.model.named_parameters())
+        out = {}
+        for opt, per in state.items():
+            out[opt] = type(per)()
+            for i, st in per.items():
+                name = names[i]
+                if name not in shards:
+                    out[opt][i] = st
+                    continue
+                moved = {}
+                for k, v in st.items():
+                    if k == "step":
+                        moved[k] = v
+                    elif local:
+                        moved[k] = dist_train.own_rows(v, own[name].shape[0], self.mesh)
+                    else:
+                        moved[k] = self._whole({name: v}, template)[name]
+                out[opt][i] = moved
+        return out
 
     @log_exceptions
     def train(self) -> dict[str, torch.Tensor]:
         """Initialise (or resume), train, evaluate; returns the best parameters
         (a state dict), also left loaded in the model."""
         cfg, model = self.cfg, self.model
+        main = is_main_process()
         if self.logger is None:
-            self.logger = Logger(cfg)
+            self.logger = rank_logger(cfg)
+        if self.mesh is not None:
+            self.logger.log(f"mesh: {self.mesh.shape}")
         model.init_params(generator(int(cfg.train.seed), INIT_STREAM))
         track = BestOnValid(cfg)
-        best_state = _snapshot(model)
+        best_state = self.snapshot()
         start_epoch = 0
         resume = cfg.train.get("resume_path")
         if resume:
@@ -338,16 +437,18 @@ class Trainer:
             self.logger.log(f"resumed from {resume} at epoch {start_epoch}")
 
         eval_split = self.data.valid if self.data.valid is not None else self.data.test
-        evaluator = Evaluator(eval_split, cfg)
-        test_evaluator = Evaluator(self.data.test, cfg)
+        evaluator = Evaluator(eval_split, cfg, mesh=self.mesh)
+        test_evaluator = Evaluator(self.data.test, cfg, mesh=self.mesh)
 
         metric0 = cfg.test.metrics[0]
         n_epochs = int(cfg.train.epoch)
         save_every = int(cfg.train.get("save_state_every", 0) or 0)
 
-        writer = make_writer(cfg)
-        recorder = RunRecorder(cfg)
+        writer = make_writer(cfg) if main else DisabledScalarWriter()
+        recorder = RunRecorder(cfg, out_dir=None if main else "")
         recorder.note(device=_device_name(self.device))
+        if self.mesh is not None:
+            recorder.note(mesh=self.mesh.shape)
         self.recorder = recorder
         self.state_path = self.ckpt_path = None
 
@@ -373,7 +474,7 @@ class Trainer:
                 self.logger.log_eval(results, cfg.test.k, epoch=epoch,
                                      name=f"(valid, {timing['eval_s']:.1f}s)")
                 if track.update([float(results[metric0][0])])[0]:
-                    best_state = _snapshot(model)
+                    best_state = self.snapshot()
                 if track.stop()[0]:
                     self.logger.log(f"Early stop at epoch {epoch} "
                                     f"(best {metric0}@{cfg.test.k[0]}={track.best[0]:.5f})")
@@ -383,25 +484,28 @@ class Trainer:
             # after the evaluation and the best snapshot's update, so that a
             # resumed run carries the bookkeeping the uninterrupted run had here
             if save_every and (epoch + 1) % save_every == 0:
-                self.state_path = ckpt.checkpoint_path(cfg.model.name, cfg.data.name, ".state")
-                trace.mark(f"ep{epoch}.save_state", path=self.state_path)
-                ckpt.save(self.state_path, {
-                    "params": model.state_dict(),
-                    "opt_state": ckpt.optim_state(self.optimizers()), "epoch": epoch,
-                    "best_params": best_state, "best_metric": float(track.best[0]),
-                    "wait": int(track.wait[0]), **self._extra()})
-                trace.done(f"ep{epoch}.save_state")
-                self.logger.log(f"saved train state to {self.state_path}")
+                state = {"params": self.snapshot(),
+                         "opt_state": self._whole_optim(ckpt.optim_state(self.optimizers())),
+                         "epoch": epoch, "best_params": best_state,
+                         "best_metric": float(track.best[0]), "wait": int(track.wait[0]),
+                         **self._extra()}
+                if main:
+                    self.state_path = ckpt.checkpoint_path(cfg.model.name, cfg.data.name,
+                                                           ".state")
+                    trace.mark(f"ep{epoch}.save_state", path=self.state_path)
+                    ckpt.save(self.state_path, state)
+                    trace.done(f"ep{epoch}.save_state")
+                    self.logger.log(f"saved train state to {self.state_path}")
         else:
             # fixed-epoch run without early stop: when the final epoch is off
             # the test_step grid it was never scored; score it so the run does
             # not report a stale earlier snapshot as "best"
             if track.final_due(start_epoch, n_epochs):
                 if track.update([float(evaluator(model)[metric0][0])], count=False)[0]:
-                    best_state = _snapshot(model)
+                    best_state = self.snapshot()
 
         writer.close()
-        model.load_state_dict(best_state)
+        self.load_whole(best_state)
         final_valid = evaluator(model)
         self.logger.log_eval(final_valid, cfg.test.k, name="(best valid)")
         test_results = test_evaluator(model)
@@ -409,7 +513,7 @@ class Trainer:
         rpath = recorder.finalize(best_valid=final_valid, test=test_results)
         if rpath:
             self.logger.log(f"wrote results artifact {rpath}")
-        if cfg.train.get("save_model", False):
+        if cfg.train.get("save_model", False) and main:
             self.ckpt_path = ckpt.checkpoint_path(cfg.model.name, cfg.data.name)
             ckpt.save(self.ckpt_path, best_state)
             self.logger.log(f"saved checkpoint to {self.ckpt_path}")
@@ -419,7 +523,7 @@ class Trainer:
 
     def test(self) -> dict:
         """The test split's metrics of the model's current parameters."""
-        return Evaluator(self.data.test, self.cfg)(self.model)
+        return Evaluator(self.data.test, self.cfg, mesh=self.mesh)(self.model)
 
 
 class BestOnValid:
@@ -479,10 +583,6 @@ def _mean(v, n: int):
     if torch.is_tensor(v) and v.dim() > 0:
         return (v.double() / n).tolist()
     return float(v) / n
-
-
-def _snapshot(model) -> dict[str, torch.Tensor]:
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
 def _device_name(device: torch.device) -> str:

@@ -31,6 +31,7 @@ import time
 import torch
 
 from sslrec_tpu_torch.models.registry import build_model
+from sslrec_tpu_torch.parallel.mesh import is_main_process
 from sslrec_tpu_torch.trainer.lanes import Lanes
 from sslrec_tpu_torch.trainer.trainer import Trainer
 
@@ -57,9 +58,10 @@ def grid_search(cfg, data, logger):
 
 
 def _write_grid_artifact(cfg, results, best, mode):
-    """Every trial's assignment and test score, beside the run artifacts."""
+    """Every trial's assignment and test score, beside the run artifacts
+    (rank 0's alone in a group)."""
     out_dir = str(cfg.train.get("results_dir", "") or "")
-    if not out_dir:
+    if not out_dir or not is_main_process():
         return None
     os.makedirs(out_dir, exist_ok=True)
     p = os.path.join(out_dir, f"{cfg.model.name}_{cfg.data.name}_tune.json")

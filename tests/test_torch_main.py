@@ -69,8 +69,8 @@ bad = sorted(k for k in sys.modules
              or k == "sslrec_tpu" or k.startswith("sslrec_tpu."))
 # the modules of the tuner, checkpoints, the social family, KGIN/KGRec, the
 # sequential family, DiffKG, the multi-behavior family (CML and KMCLR too),
-# the preprocessing CLI, the dispatch trace, the mesh guard and the tuner's
-# lanes among them
+# the preprocessing CLI, the dispatch trace, the tuner's lanes and the
+# device mesh among them
 want = {"sslrec_tpu_torch." + m for m in (
     "trainer.tuner", "utils.checkpoint", "utils.summary", "data.social",
     "models.social.dcrec", "models.social.mhcn", "models.social.dsl",
@@ -82,7 +82,8 @@ want = {"sslrec_tpu_torch." + m for m in (
     "data.multi_behavior", "models.multi_behavior.mbgmn", "models.multi_behavior.hmgcr",
     "models.multi_behavior.smbrec", "models.multi_behavior.cml",
     "models.multi_behavior.kmclr", "tools.preprocess", "utils.dispatch_trace",
-    "parallel.mesh", "trainer.lanes")}
+    "parallel.mesh", "trainer.lanes", "parallel.dist_train", "parallel.launch",
+    "parallel.checks")}
 missing = sorted(want - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 80 else 0)   # the package's module count

@@ -1,9 +1,11 @@
-"""``train.mesh`` and ``train.distributed`` in the port
-(``sslrec_tpu_torch/parallel/mesh.py``): a mesh of one device trains (absent,
-empty, 1×1, and ``{model: 1}``, whose data axis fills the CPU's one device);
-a mesh of more than one device, or one that ``make_mesh`` cannot lay out,
-``train.distributed`` and the variables of a multi-host run raise
-``NotImplementedError`` before any data is read."""
+"""``train.mesh`` and ``train.distributed`` at the port's CLI
+(``sslrec_tpu_torch/parallel/mesh.py``): a mesh of one device is the
+single-device run (absent, empty, 1×1, and ``{model: 1}``, whose data axis
+fills the CPU's one device); LightGCN trains on a mesh of gloo processes; a
+mesh that cannot be laid out raises ``ValueError`` as ``make_mesh`` does, and
+a model whose mesh branch is not ported ``NotImplementedError`` naming its
+ROADMAP item, both before any data is read; ``train.distributed`` and the
+variables of a multi-process run reach ``init_process_group``."""
 
 import numpy as np
 import pytest
@@ -14,20 +16,39 @@ from sslrec_tpu_torch.parallel import mesh
 from test_torch_main import _toy_split
 
 
-def _run(root, *sets):
-    return tmain.main(["--model", "lightgcn", "--data_dir", str(root), "--dataset", "toy",
+def _run(root, *sets, model="lightgcn"):
+    return tmain.main(["--model", model, "--data_dir", str(root), "--dataset", "toy",
                        "--device", "cpu", "--epoch", "1", "--set", "train.batch_size=128",
                        "--set", f"train.results_dir={root / 'res'}",
                        *[a for s in sets for a in ("--set", s)]])
+
+
+class Stop(Exception):
+    """Raised by the stand-in ``init_process_group`` to end the run there."""
 
 
 @pytest.fixture
 def toy(tmp_path, monkeypatch):
     _toy_split(tmp_path)
     monkeypatch.chdir(tmp_path)
-    for var in ("SSLREC_COORDINATOR", "SSLREC_DISTRIBUTED"):
+    for var in ("SSLREC_COORDINATOR", "SSLREC_NUM_PROCESSES", "SSLREC_PROCESS_ID",
+                "SSLREC_DISTRIBUTED"):
         monkeypatch.delenv(var, raising=False)
     return tmp_path
+
+
+@pytest.fixture
+def init_calls(monkeypatch):
+    """``init_process_group``'s calls, made to a stand-in that raises
+    :class:`Stop`."""
+    calls = []
+
+    def init(*a, **kw):
+        calls.append((a, kw))
+        raise Stop
+
+    monkeypatch.setattr(mesh.dist, "init_process_group", init)
+    return calls
 
 
 @pytest.mark.parametrize("sets", [(), ("train.mesh={}",),
@@ -38,30 +59,66 @@ def test_a_mesh_of_one_device_trains(toy, sets):
     assert np.isfinite(trainer.recorder.epochs[0]["loss"]["loss"])
 
 
-@pytest.mark.parametrize("sets", [("train.mesh.data=2",), ("train.mesh.model=2",),
-                                  ("train.mesh.data=1", "train.mesh.model=4"),
-                                  ("train.distributed.coordinator=localhost:1234",
-                                   "train.distributed.num_processes=2",
-                                   "train.distributed.process_id=0"),
-                                  ("train.distributed.enable=true",)])
-def test_more_than_one_device_raises(toy, sets):
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        _run(toy, *sets)
+TRAINS, CANNOT, NOT_PORTED, FORWARDED = "trains", "cannot", "not ported", "forwarded"
+
+
+@pytest.mark.parametrize("model,sets,expect", [
+    ("lightgcn", ("train.mesh.data=2", "train.mesh.model=1"), TRAINS),
+    ("lightgcn", ("train.mesh.model=2",), CANNOT),
+    ("sgl", ("train.mesh.data=2", "train.mesh.model=1"), NOT_PORTED),
+    ("lightgcn", ("train.distributed.coordinator=localhost:1234",
+                  "train.distributed.num_processes=2",
+                  "train.distributed.process_id=0"), FORWARDED),
+    ("lightgcn", ("train.distributed.enable=true",), FORWARDED)])
+def test_more_than_one_device_raises(toy, init_calls, model, sets, expect):
+    """A mesh of more than one device trains (LightGCN's, on two gloo
+    processes) or raises before any data is read: ``ValueError`` for a mesh
+    that cannot be laid out on the CPU's one device (the data axis left out
+    fills 1 // 2 = 0 devices), ``NotImplementedError`` naming ROADMAP Queue A
+    item 7 for SGL; ``train.distributed`` is forwarded to
+    ``init_process_group`` (a stand-in that stops the run there)."""
+    if expect == TRAINS:
+        run = _run(toy, *sets, model=model)
+        assert run.mesh == {"data": 2, "model": 1} and len(run.ranks) == 2
+        assert np.isfinite(run.epochs[0]["loss"]["loss"])
+        return
+    want = {CANNOT: (ValueError, "needs more than 1 devices"),
+            NOT_PORTED: (NotImplementedError, "Queue A item 7"), FORWARDED: (Stop, None)}
+    with pytest.raises(want[expect][0], match=want[expect][1]):
+        _run(toy, *sets, model=model)
     assert not (toy / "res").exists()
+    if expect == FORWARDED:
+        method = ("tcp://localhost:1234" if "coordinator" in sets[0] else "env://")
+        assert [c[1]["init_method"] for c in init_calls] == [method]
 
 
 @pytest.mark.parametrize("var,value", [("SSLREC_COORDINATOR", "localhost:1234"),
                                        ("SSLREC_DISTRIBUTED", "1")])
-def test_multi_host_variables_raise(toy, monkeypatch, var, value):
+def test_multi_host_variables_raise(toy, init_calls, monkeypatch, var, value):
+    """The variables of a multi-process run: a coordinator alone raises JAX's
+    ``ValueError`` (no process count or id); ``SSLREC_DISTRIBUTED=1`` joins
+    torchrun's group (``env://``, gloo on the CPU)."""
     monkeypatch.setenv(var, value)
-    with pytest.raises(NotImplementedError, match="SSLREC_COORDINATOR"):
-        _run(toy)
+    if var == "SSLREC_COORDINATOR":
+        with pytest.raises(ValueError, match="num_processes"):
+            _run(toy)
+        assert init_calls == []
+    else:
+        with pytest.raises(Stop):
+            _run(toy)
+        assert init_calls == [(("gloo",), {"init_method": "env://"})]
+    assert not (toy / "res").exists()
 
 
 def test_mesh_size_as_make_mesh_reckons_it():
     cfg = load_config("lightgcn")
     assert mesh.mesh_shape(cfg, 1) is None
     assert mesh.mesh_shape(cfg.set_path("train.mesh.model", 2), 8) == (4, 2)
-    assert mesh.mesh_shape(cfg.set_path("train.mesh.data", 2), 1) == (2, 0)
-    assert mesh.device_count("cpu") == 1
+    with pytest.raises(ValueError, match="mesh 2x0 needs more than 1 devices"):
+        mesh.mesh_shape(cfg.set_path("train.mesh.data", 2), None)
+    two = cfg.set_path("train.mesh.data", 2).set_path("train.mesh.model", 2)
+    assert mesh.mesh_shape(two, None) == (2, 2)       # the CPU stands in for 4 devices
+    with pytest.raises(ValueError, match="mesh 2x2 needs more than 1 devices"):
+        mesh.mesh_shape(two, 1)                        # one card
+    assert mesh.device_count("cpu") is None
     assert mesh.maybe_distributed_init(cfg) is False

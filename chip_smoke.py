@@ -169,8 +169,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    lanes, a call a lane), value and gradients per lane within 1e-5, one
    launch a hop where the weight has no lanes; time the 3-lane fold (d 96)
    beside its bound, its plain version, ``torch.sparse.mm`` and three d 32
-   calls; drive LightGCN's shipped grid (2 epochs, 3 lanes), DCCF's and
-   KCGN's 2 x 2 (1 epoch, 2 lanes) through the CLI with ``tune.parallel`` and
+   calls; drive LightGCN's shipped grid (3 lanes), DCCF's and KCGN's 2 x 2
+   (2 lanes), 1 epoch each, through the CLI with ``tune.parallel`` and
    serially: each trial's test score equal to its serial score, B1's launches
    equal to ``LANES_B1``'s count, no B2, each grid's wall time;
 36. the lanes of MBGMN, HMGCR, SMBRec, CL4SRec, DuoRec and DCRec_seq at
@@ -194,13 +194,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    graph's mask, and each shard's mask equal to the whole one's gathered
    through ``src_idx``), the reassembled shards against the unpartitioned
    hop, and time each shard's hop beside its bound, its plain version and
-   ``torch.sparse.mm``; (b) train LightGCN ``MESH_EPOCHS`` epoch at its
-   published config on a ``{data: 2, model: 2}`` mesh of four gloo processes
-   sharing card 0 (through the library's ``launch.spawn`` with an explicit
-   gloo group) and hold its losses, parameters and test metrics against the
-   single-device run's, within the CPU tests' tolerances, and each rank's
-   B1 launches against the count from the code; four processes on one card
-   give no speed figure for a mesh; (c) in a one-rank NCCL group, one step
+   ``torch.sparse.mm``; (b) train LightGCN and SGL (``MESH_MODELS``)
+   ``MESH_EPOCHS`` epoch each at their published configs on a ``{data: 2,
+   model: 2}`` mesh of four gloo processes sharing card 0 (one spawn of the
+   library's ``launch.spawn`` with an explicit gloo group, each rank running
+   the CLIs in turn) and hold their losses, parameters and test metrics
+   against the single-device runs', within the CPU tests' tolerances (SGL's
+   parameters against its ``MESH_SPLIT_REF`` run, its single run's under
+   another GEMM order recorded beside them), and each rank's B1 launches by
+   layout against ``MESH_B1``; four processes on one card give no speed
+   figure for a mesh; (c) in a one-rank NCCL group, one step
    of ``mesh_partitioned_propagate`` with a one-shard partition and
    ``owned_lookup``, value and gradients, against the plain hop;
 38. print the ``{"kernels": [...]}`` line, then the card line, then
@@ -209,7 +212,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 The paths of phases 11, 14, 17, 19, 22, 27, 29 and 32 train ``PATH_EPOCHS``
 epoch each (2 before the mesh's phase was added), and phase 18 holds MAERec's
 resume as 2 epochs against 1 and a resumed 1, to leave the mesh's phase room
-in the time limit.
+in the time limit; for SGL's mesh runs, phase 35's LightGCN grid trains 1
+epoch (was 2) and phase 36 times ``LANE_TIMED_STEPS`` 5 steps (was 10).
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
 ``social_operands`` build the paths' operands (``kcgn_smin_operands`` and
@@ -224,6 +228,7 @@ script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -480,10 +485,11 @@ LANES_B1 = {"lightgcn": lambda L, K: (2 * L, L),
             "smbrec": lambda L, K: (16 * L, 8 * L),
             "dcrec_seq": lambda L, K: (24, 8)}
 # the grids, each run with tune.parallel and serially: LightGCN's shipped grid
-# (2 layer_num groups of 3 lanes, 2 epochs), DCCF's and KCGN's 2 x 2 (2
-# groups of 2 lanes, 1 epoch) at their published configs
+# (2 layer_num groups of 3 lanes), DCCF's and KCGN's 2 x 2 (2 groups of 2
+# lanes) at their published configs, 1 epoch each (LightGCN's 2 before SGL's
+# mesh runs were added to phase 37)
 LANE_GRIDS = {
-    "lightgcn": {"data": (DATA_DIR, DATASET), "epochs": 2, "parallel": 3,
+    "lightgcn": {"data": (DATA_DIR, DATASET), "epochs": 1, "parallel": 3,
                  "grid": {"layer_num": [2, 3], "reg_weight": [1.0e-6, 1.0e-7, 1.0e-8]}},
     "dccf": {"data": (DATA_DIR, DATASET), "epochs": 1, "parallel": 2,
              "grid": {"layer_num": [2, 3], "cl_weight": [1.0e-1, 1.0e-2]}},
@@ -543,7 +549,7 @@ LANE_F64 = ("hmgcr",)
 LANE_K = 2
 LANE_REL, LANE_ATOL, LANE_ADAM_ATOL, LANE_SURE, LANE_SURE_ABS = 1e-5, 1e-7, 1e-6, 1e-4, 1e-6
 LANE_REL_F64 = 1e-10
-LANE_TIMED_STEPS = 10       # each of the six: LANE_K-lane steps against single steps
+LANE_TIMED_STEPS = 5        # each of the six: LANE_K-lane steps against single steps
 
 
 
@@ -741,32 +747,40 @@ def device_ms(fn, floor: float = 0.0, iters: int = 50, warmup: int = 5,
     window counts only where it has every kind at the count per call of the
     fullest window seen and its time per call is at least ``floor`` (the
     work's bound, ms); the reading is the mean of the first two such windows
-    whose times agree within ``agree``.  Raises when ``windows`` windows give
-    no such pair."""
+    whose times agree within ``agree``.  A window that reads no CUDA record
+    at all (4 of 8 in one run) is measured again without counting toward
+    ``windows``, up to ``3 * windows`` windows in all.  Raises when
+    ``windows`` windows that read records, or the ``3 * windows``, give no
+    such pair."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    whole, seen = [], []
-    for _ in range(windows):
+    whole, seen, empty = [], [], 0
+    while len(seen) < windows and len(seen) + empty < 3 * windows:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                   and e.count and not getattr(e, "is_user_annotation", False)]
+        if not events:
+            empty += 1
+            continue
         per_call = {e.key: max(1, round(e.count / iters)) for e in events}
         ms = sum(device_us(e) / e.count * per_call[e.key] for e in events) / 1e3
         seen.append((per_call, sum(e.count for e in events), round(ms, 6)))
         fullest = max((k for k, _, _ in seen), key=lambda k: sum(k.values()))
-        if not events or per_call != fullest or ms < floor:
+        if per_call != fullest or ms < floor:
             continue
         for k0, ms0 in whole:
             if k0 == fullest and abs(ms - ms0) <= agree * max(ms, ms0):
                 return (ms + ms0) / 2
         whole.append((per_call, ms))
     raise AssertionError(f"device_ms: no two whole windows of {iters} calls agree among "
-                         f"{windows} (records, ms per call: {[w[1:] for w in seen]}; kinds "
-                         f"per call {seen[-1][0]}; floor {floor:.6f} ms)")
+                         f"{len(seen)} that read records; {empty} of {len(seen) + empty} "
+                         f"windows read no CUDA record (records, ms per call: "
+                         f"{[w[1:] for w in seen]}; kinds per call "
+                         f"{seen[-1][0] if seen else {}}; floor {floor:.6f} ms)")
 
 
 def cold_ms(fn, floor: float = 0.0, flush_bytes: int = 64 * 2**20, tries: int = 3) -> float:
@@ -2914,6 +2928,55 @@ MESH_RUN = {"data": 2, "model": 2}      # phase 37(b): four gloo ranks on card 0
 MESH_EPOCHS = 1
 MESH_PARAM_TOL = {"rtol": 2e-4, "atol": 2e-5}   # the CPU tests' (and JAX's) tolerances
 MESH_METRIC_TOL = {"rtol": 1e-4, "atol": 1e-6}
+MESH_MODELS = ("lightgcn", "sgl")       # phase 37(b): trained on MESH_RUN, in one spawn
+# Phase 37(b)'s reference for SGL's tables: a run with MESH_RUN's data split
+# and whole tables.  SGL's InfoNCE gives every row a gradient, and Adam's
+# normalisation carries the float32 rounding of entries that cancel into the
+# tables: over 62 steps its single run moves 6.7e-5 / 8.0e-5 (users / items)
+# when cuBLASLt replaces cuBLAS, and a {2, 1} run, which changes only the
+# order in which the batch's gradient is summed, 6.3e-5 / 3.4e-5, both
+# beyond MESH_PARAM_TOL (this phase on an NVIDIA H100 80GB HBM3, 700 W).  So
+# the mesh run's tables are held within MESH_PARAM_TOL of the run with its
+# own data split, which isolates the model axis, and their deviation from
+# the single run is recorded beside the single run's own under the other
+# GEMM order (``gemm_order_control``); losses and metrics are held to the
+# single run.
+MESH_SPLIT_REF = {"data": 2, "model": 1}
+# B1 launches in each rank of a mesh run with a model axis > 1, by layout, as
+# (a step, an evaluation), counted from the code at the shipped layer counts:
+# "forward" / "transposed" the shard's layouts (the partitioned clean forward
+# and its backward, and the partitioned generate()), "whole" the whole graph's
+# two layouts, which share one shape (SGL's and SimGCL's two views of 2 hops
+# and their backward; NCL's 4 training hops and their backward, 3 in
+# generate(); DirectAU's 2 hops and their backward, 2 in generate())
+MESH_B1 = {"lightgcn": {"forward": (2, 2), "transposed": (2, 0)},
+           "sgl": {"forward": (2, 2), "transposed": (2, 0), "whole": (8, 0)},
+           "simgcl": {"forward": (2, 2), "transposed": (2, 0), "whole": (8, 0)},
+           "ncl": {"whole": (8, 3)},
+           "directau": {"whole": (4, 2)}}
+
+
+def mesh_b1_want(model: str, steps: int, evals: int) -> dict[str, int]:
+    """``MESH_B1``'s count for ``steps`` steps and ``evals`` evaluations."""
+    return {k: a * steps + b * evals for k, (a, b) in MESH_B1[model].items()}
+
+
+def mesh_layouts(n_users: int, n_items: int, n_model: int) -> dict[tuple, str]:
+    """The layouts of ``MESH_B1`` by their ``(n_rows, n_cols)`` shape on a model
+    axis of ``n_model``: a shard's forward (its rows over the gathered padded
+    nodes), its transposed, and the whole graph's."""
+    n_local = -(-n_users // n_model) + -(-n_items // n_model)
+    n_pad, n = n_local * n_model, n_users + n_items
+    return {(n_local, n_pad): "forward", (n_pad, n_local): "transposed", (n, n): "whole"}
+
+
+def mesh_launches(run, n_users: int, n_items: int) -> list[dict[str, list[int]]]:
+    """Each rank's B1 ``[launches, combine launches]`` of a mesh run
+    (``launch.MeshRun``) over ``n_users`` and ``n_items`` by
+    :func:`mesh_layouts`' names (the shape where it names none)."""
+    layouts = mesh_layouts(n_users, n_items, run.mesh["model"])
+    return [{layouts.get(k, str(k)): list(c) for k, c in r["launches_by_shape"].items()}
+            for r in run.ranks]
 
 
 def mesh_hops(errs: ErrTrack, gen, data, d: int, dev) -> dict:
@@ -2994,73 +3057,130 @@ def mesh_hops(errs: ErrTrack, gen, data, d: int, dev) -> dict:
     return out
 
 
-def mesh_run(dev, hop_shapes: dict) -> dict:
-    """Phase 37(b): LightGCN ``MESH_EPOCHS`` epoch on a ``MESH_RUN`` mesh of
-    gloo processes sharing card 0, through ``launch.spawn`` of the CLI, held
-    against the single-device run of the same arguments: losses (rtol 1e-5),
-    whole tables (``MESH_PARAM_TOL``), test metrics (``MESH_METRIC_TOL``),
-    and each rank's B1 launches by layout against the count from the code
-    (the forward layout 2 a step and 2 an evaluation, the transposed one 2
-    a step); ``hop_shapes`` are phase 37(a)'s shapes of the shard layouts."""
-    argv = ["--model", "lightgcn", "--data_dir", DATA_DIR, "--dataset", DATASET,
-            "--epoch", str(MESH_EPOCHS), "--device", "cuda", "--set", "train.test_step=1"]
-    t0 = time.perf_counter()
-    single = port_main.main(argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/mesh_single"])
-    single_s = time.perf_counter() - t0
-    world = MESH_RUN["data"] * MESH_RUN["model"]
-    mesh_argv = argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/mesh",
-                        "--set", f"train.mesh.data={MESH_RUN['data']}",
-                        "--set", f"train.mesh.model={MESH_RUN['model']}"]
-    t0 = time.perf_counter()
-    run = launch.MeshRun(launch.spawn(launch.cli_rank, (mesh_argv,), world, device="cuda:0",
-                                      backend="gloo"))
-    mesh_s = time.perf_counter() - t0
+def table_diff(a: dict, b: dict) -> dict[str, float]:
+    """Each table's largest absolute difference between two whole states."""
+    return {k: float((a[k].cpu() - v.cpu()).abs().max()) for k, v in b.items()}
+
+
+@contextlib.contextmanager
+def gemm_order_control():
+    """float32 GEMMs that sum in another order: cuBLASLt in place of cuBLAS
+    (the same math, rounded otherwise)."""
+    prev = torch.backends.cuda.preferred_blas_library()
+    torch.backends.cuda.preferred_blas_library("cublaslt")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_blas_library(prev)
+
+
+def mesh_check(model: str, single, run, n_users: int, n_items: int, split_ref=None,
+               control=None) -> dict:
+    """One model's ``MESH_RUN`` run (``launch.MeshRun``) held against its
+    single-device run: losses (rtol 1e-5), test metrics (``MESH_METRIC_TOL``),
+    each rank's B1 launches by layout against ``mesh_b1_want``
+    (``MESH_EPOCHS + 2`` evaluations: one an epoch, the best on valid, the
+    test), no B2; and the whole tables within ``MESH_PARAM_TOL`` of the
+    single run, or, given ``split_ref`` (a ``MESH_SPLIT_REF`` run), of
+    ``split_ref``, their deviations from the single run then recorded beside
+    those of ``split_ref`` and of ``control`` (the single run under
+    :func:`gemm_order_control`).  Returns the deviations and counts."""
     if run.mesh != MESH_RUN:
-        raise AssertionError(f"mesh run on {run.mesh}, want {MESH_RUN}")
-    dev_tab = {}
-    for k, v in single.best_state.items():
-        got, ref = run.best_state[k], v.cpu()
-        dev_tab[k] = float((got - ref).abs().max())
-        if not torch.allclose(got, ref, **MESH_PARAM_TOL):
-            raise AssertionError(f"mesh run {k}: max abs diff {dev_tab[k]:.3g} beyond "
-                                 f"{MESH_PARAM_TOL}")
+        raise AssertionError(f"{model}: mesh run on {run.mesh}, want {MESH_RUN}")
+    ref = single.best_state if split_ref is None else split_ref.best_state
+    for k, v in ref.items():
+        if not torch.allclose(run.best_state[k], v.cpu(), **MESH_PARAM_TOL):
+            raise AssertionError(f"{model} mesh run {k}: max abs diff "
+                                 f"{table_diff(run.best_state, ref)[k]:.3g} from the "
+                                 f"{'single' if split_ref is None else MESH_SPLIT_REF} run "
+                                 f"beyond {MESH_PARAM_TOL}")
+    dev_tab = table_diff(run.best_state, single.best_state)
+    out = {"param_diff": dev_tab}
+    if split_ref is not None:
+        out["param_diff_split_ref"] = table_diff(run.best_state, ref)
+        out["split_ref_param_diff"] = table_diff(ref, single.best_state)
+        out["control_param_diff"] = table_diff(control.best_state, single.best_state)
     dev_met = {}
     for m, v in single.test_results.items():
         got = np.asarray(run.test_results[m])
         dev_met[m] = float(np.abs(got - np.asarray(v)).max())
-        np.testing.assert_allclose(got, v, **MESH_METRIC_TOL, err_msg=f"mesh run {m}")
+        np.testing.assert_allclose(got, v, **MESH_METRIC_TOL, err_msg=f"{model} mesh run {m}")
     losses = [(a["loss"]["loss"], b["loss"]["loss"])
               for a, b in zip(single.recorder.epochs, run.epochs)]
     for a, b in losses:
         if not math.isclose(a, b, rel_tol=1e-5):
-            raise AssertionError(f"mesh run loss {b} against {a}")
+            raise AssertionError(f"{model} mesh run loss {b} against {a}")
     steps = single.n_batches * MESH_EPOCHS
-    want = 4 * steps + 2 * (MESH_EPOCHS + 2)
-    got = [r["launches"] for r in run.ranks]
-    if got != [want] * world or any(r["b2_launches"] for r in run.ranks):
-        raise AssertionError(f"mesh run B1 launches by rank {got}, want {want} each (4 a step "
-                             f"over {steps} steps, 2 an evaluation), no B2")
-    layouts = {(s["n_rows"], s["n_cols"]): s["layout"] for s in hop_shapes.values()
-               if s["shards"] == MESH_RUN["model"]}
-    want_by = {"forward": 2 * steps + 2 * (MESH_EPOCHS + 2), "transposed": 2 * steps}
-    by_layout = [{layouts.get(k, str(k)): c for k, c in r["launches_by_shape"].items()}
-                 for r in run.ranks]
-    if any({k: c[0] for k, c in b.items()} != want_by for b in by_layout):
-        raise AssertionError(f"mesh run B1 launches by rank and layout {by_layout}, want "
-                             f"{want_by} in each rank")
-    at20 = list(single.cfg.test.k).index(20)
-    log(f"  single run {single_s:.1f} s; the {MESH_RUN} mesh of {world} gloo processes on card 0 "
-        f"{mesh_s:.1f} s (processes, data, {MESH_EPOCHS} epoch of {single.n_batches} steps, "
-        f"evaluations); losses {losses}; whole tables' max abs diff {dev_tab}; test metrics' "
-        f"max abs diff {dev_met}; test recall@20 {run.test_results['recall'][at20]:.5f}; B1 "
-        f"{want} launches in each rank (4 a step, 2 an evaluation); four processes sharing "
-        f"one card give no speed figure for a mesh")
-    return {"single_s": single_s, "mesh_s": mesh_s, "losses": losses, "param_diff": dev_tab,
-            "metric_diff": dev_met, "launches_by_rank": got,
+    want = mesh_b1_want(model, steps, MESH_EPOCHS + 2)
+    by_layout = mesh_launches(run, n_users, n_items)
+    if any({k: c[0] for k, c in b.items()} != want for b in by_layout) \
+            or any(r["b2_launches"] for r in run.ranks):
+        raise AssertionError(f"{model} mesh run B1 launches by rank and layout {by_layout}, "
+                             f"want {want} in each rank, and no B2")
+    return {**out, "losses": losses, "metric_diff": dev_met,
+            "launches_by_rank": [r["launches"] for r in run.ranks],
             "combine_by_rank": [r["combine_launches"] for r in run.ranks],
-            "by_layout_by_rank": by_layout,
-            "steps": steps, "want_per_rank": want,
-            "test_recall20": float(run.test_results["recall"][at20])}
+            "by_layout_by_rank": by_layout, "steps": steps, "want_by_layout": want,
+            "test_recall20": float(run.test_results["recall"][list(single.cfg.test.k)
+                                                               .index(20)])}
+
+
+def mesh_spawn(argvs: list, shape: dict) -> list:
+    """``argvs`` run in turn on a ``shape`` mesh of gloo processes sharing
+    card 0 (``parallel.checks.cli_runs``): a ``launch.MeshRun`` each."""
+    sets = [f"train.mesh.data={shape['data']}", f"train.mesh.model={shape['model']}"]
+    argvs = [argv + [a for x in sets for a in ("--set", x)] for argv in argvs]
+    ranks = launch.spawn(mesh_checks.run,
+                         ([("cli", "cli_runs", {"argvs": argvs, "device": "cuda:0"})],),
+                         shape["data"] * shape["model"], device="cuda:0", backend="gloo")
+    return [launch.MeshRun([r["cli"]["runs"][k] for r in ranks]) for k in range(len(argvs))]
+
+
+def mesh_run(data) -> dict:
+    """Phase 37(b): each of ``MESH_MODELS`` at its shipped config,
+    ``MESH_EPOCHS`` epoch on a ``MESH_RUN`` mesh of gloo processes sharing
+    card 0 (one spawn for all, each rank running the CLIs in turn), held
+    against the single-device run of the same arguments by
+    :func:`mesh_check`; SGL's tables against its ``MESH_SPLIT_REF`` run and
+    its single run under :func:`gemm_order_control`."""
+    argvs = {m: ["--model", m, "--data_dir", DATA_DIR, "--dataset", DATASET,
+                 "--epoch", str(MESH_EPOCHS), "--device", "cuda", "--set", "train.test_step=1"]
+             for m in MESH_MODELS}
+    singles, single_s = {}, {}
+    for m, argv in argvs.items():
+        t0 = time.perf_counter()
+        singles[m] = port_main.main(argv + ["--set",
+                                            f"train.results_dir={SMOKE_RESULTS}/mesh_single"])
+        single_s[m] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with gemm_order_control():
+        control = port_main.main(argvs["sgl"] + ["--set",
+                                                 f"train.results_dir={SMOKE_RESULTS}/mesh_ctrl"])
+    single_s["sgl_gemm_order_control"] = time.perf_counter() - t0
+    mesh_argvs = [argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/mesh"]
+                  for argv in argvs.values()]
+    t0 = time.perf_counter()
+    runs = dict(zip(MESH_MODELS, mesh_spawn(mesh_argvs, MESH_RUN)))
+    mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (split_ref,) = mesh_spawn([mesh_argvs[MESH_MODELS.index("sgl")]], MESH_SPLIT_REF)
+    split_s = time.perf_counter() - t0
+    out = {"mesh_s": mesh_s, "split_ref_s": split_s, "single_s": single_s}
+    for m in MESH_MODELS:
+        refs = {"split_ref": split_ref, "control": control} if m == "sgl" else {}
+        out[m] = r = mesh_check(m, singles[m], runs[m], data.user_num, data.item_num, **refs)
+        log(f"  {m}: single run {single_s[m]:.1f} s; losses {r['losses']}; whole tables' max "
+            f"abs diff {r['param_diff']}; test metrics' max abs diff {r['metric_diff']}; test "
+            f"recall@20 {r['test_recall20']:.5f}; B1 launches in each rank by layout "
+            f"{r['want_by_layout']} over {r['steps']} steps and {MESH_EPOCHS + 2} evaluations")
+    r = out["sgl"]
+    log(f"  sgl's tables: {r['param_diff_split_ref']} from its {MESH_SPLIT_REF} run "
+        f"({split_s:.1f} s), which is {r['split_ref_param_diff']} from the single run; the "
+        f"single run under another GEMM order {r['control_param_diff']} from it")
+    log(f"  the {MESH_RUN} mesh of 4 gloo processes ran {' and '.join(MESH_MODELS)} in "
+        f"{mesh_s:.1f} s (processes, data, {MESH_EPOCHS} epoch each, evaluations); four "
+        f"processes sharing one card give no speed figure for a mesh")
+    return out
 
 
 def mesh_nccl(data, dev) -> dict:
@@ -3106,12 +3226,13 @@ def mesh_nccl(data, dev) -> dict:
 
 def mesh_phases(gen, data, cfg, dev) -> dict:
     """Phase 37: the device mesh, (a) the partitioned hop at full width, (b)
-    LightGCN on a mesh of four gloo ranks on the one card, (c) NCCL."""
+    LightGCN and SGL on a mesh of four gloo ranks on the one card, (c)
+    NCCL."""
     log("== 37. the device mesh: partitioned hops, a 2x2 mesh on the card, NCCL")
     t0 = time.perf_counter()
     errs = ErrTrack()
     hops = mesh_hops(errs, gen, data, int(cfg.model.embedding_size), dev)
-    run = mesh_run(dev, hops["shape"])
+    run = mesh_run(data)
     nccl = mesh_nccl(data, dev)
     log(f"  phase 37 took {time.perf_counter() - t0:.1f} s")
     return {"errs": errs, "hops": hops, "run": run, "nccl": nccl}
@@ -3766,22 +3887,39 @@ def main() -> int:
         "steps": llp["steps"], "timed": llp["timed"], "n_batches": llp["n_batches"],
         "grids": grid_summary(last_grids)}
     mr = mesh["run"]
-    n_model = MESH_RUN["model"]
+    n_model, world = MESH_RUN["model"], MESH_RUN["data"] * MESH_RUN["model"]
+
+    def mesh_counts(models, layout, ranks):
+        """B1's (launches, combine launches) on ``layout`` in ``ranks`` of the
+        ``models``' mesh runs."""
+        return tuple(sum(mr[m]["by_layout_by_rank"][r].get(layout, [0, 0])[i]
+                         for m in models for r in ranks) for i in (0, 1))
+
     for k, t in mesh["hops"]["t"].items():
         shape = mesh["hops"]["shape"][k]
         parts, p = shape["shards"], shape["shard"]
-        ranks = [r for r in range(len(mr["launches_by_rank"])) if r % n_model == p]
-        counts = (tuple(sum(mr["by_layout_by_rank"][r][shape["layout"]][i] for r in ranks)
-                        for i in (0, 1))
-                  if parts == n_model else (0, 0))
+        ranks = [r for r in range(world) if r % n_model == p]
+        counts = mesh_counts(MESH_MODELS, shape["layout"], ranks) if parts == n_model else (0, 0)
         rows_b1.append(b1_row(
             f"csr_spmm.{k}", t, mesh["hops"]["bound"][k], counts, mesh["errs"],
             {**shape, "what": f"B1, LightGCN hop, one of {parts} destination shards"},
             library_call="torch.sparse.mm on a CSR tensor of the shard's layout",
-            launches_of=([f"the ranks holding shard {p} of the {MESH_RUN} mesh run "
-                          f"({MESH_EPOCHS} epoch, those ranks' B1 calls on this layout)"]
+            launches_of=([f"the ranks holding shard {p} in the {MESH_RUN} mesh runs of "
+                          f"{' and '.join(MESH_MODELS)} ({MESH_EPOCHS} epoch each, those "
+                          f"ranks' B1 calls on this layout)"]
                          if parts == n_model else
                          [f"no run of this script trains on a model axis of {parts}"])))
+    rows_b1.append(b1_row(
+        "csr_spmm.mesh_sgl_whole_hop_prf", hop["prf"], hop_bound["prf"],
+        mesh_counts(("sgl",), "whole", range(world)), lgcn_err,
+        {**hop_shape, "layout": "forward",
+         "what": "SGL's augmented views on a mesh rank: B1 on the whole graph over the whole "
+                 "tables (dist_train.whole_nodes), under the views' PRF edge masks"},
+        launches_scope="SGL's B1 calls on the whole graph's forward and transposed layouts "
+                       "(one shape) in every rank of the mesh run; the time is the forward "
+                       "PRF hop's, timed in phase 1",
+        library_call="torch.sparse.mm on a CSR tensor whose values already carry the mask",
+        launches_of=[f"sgl's {MESH_RUN} mesh run, {MESH_EPOCHS} epoch, all {world} ranks"]))
     rows_b1[-1]["mesh"] = {
         "whole_diff": mesh["hops"]["whole_diff"], "run": {k: v for k, v in mr.items()},
         "nccl": {k: v for k, v in mesh["nccl"].items()}}

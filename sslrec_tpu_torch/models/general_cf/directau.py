@@ -5,6 +5,15 @@ LightGCN propagation with the *mean* of the layers, alignment on (anchor,
 positive), the gamma-weighted mean of the two uniformity terms; no edge
 dropout and no L2 term (the config's Adam ``weight_decay`` adds it to the
 gradient, in ``build_optimizer``).
+
+On a device mesh with a ``model`` axis > 1 each rank holds a row shard of
+both tables (``row_shards``, as LightGCN's), and the hops run on the whole
+graph over the whole tables, gathered from the shards with autograd
+(``dist_train.whole_nodes``).  Alignment is a mean over the batch's rows, so
+a ``data`` rank takes it over its slice; uniformity, a log-mean over all
+pairs of the batch's rows, is the one term that crosses the batch: every
+``data`` rank computes it on the whole batch's rows
+(``dist_train.gather_batch``).
 """
 
 from __future__ import annotations
@@ -13,30 +22,41 @@ import torch
 from torch import nn
 
 from sslrec_tpu_torch.models import losses
-from sslrec_tpu_torch.models.base import MESH_CONTRASTIVE, RecModel
+from sslrec_tpu_torch.models.base import RecModel
 from sslrec_tpu_torch.ops.spmm import spmm_layers
+from sslrec_tpu_torch.parallel import dist_train
+from sslrec_tpu_torch.parallel.mesh import mesh_from_config
 from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
 
 class DirectAU(RecModel):
-    mesh_todo = MESH_CONTRASTIVE
+    mesh_todo = None
+
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         self.adj = data.extras["bi_adj"]
         self.layer_num = int(cfg.model.layer_num)
         self.gamma = float(cfg.model.gamma)
         d, device = self.embedding_size, data.device
-        self.user_embeds = nn.Parameter(torch.empty(self.user_num, d, device=device))
-        self.item_embeds = nn.Parameter(torch.empty(self.item_num, d, device=device))
+        self.mesh = mesh_from_config(cfg, device)
+        if dist_train.model_sharded(self.mesh):
+            self.row_shards = {"user_embeds": self.user_num, "item_embeds": self.item_num}
+        self.user_embeds = nn.Parameter(
+            torch.empty(dist_train.shard_rows(self.user_num, self.mesh), d, device=device))
+        self.item_embeds = nn.Parameter(
+            torch.empty(dist_train.shard_rows(self.item_num, self.mesh), d, device=device))
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
-        """Xavier-uniform tables, drawn user table first from ``gen``."""
-        for p in (self.user_embeds, self.item_embeds):
-            p.copy_(xavier_uniform(gen, tuple(p.shape)))
+        """Xavier-uniform tables, drawn user table first from ``gen`` (whole
+        tables on every rank of a mesh, each keeping its own rows)."""
+        for p, n in ((self.user_embeds, self.user_num), (self.item_embeds, self.item_num)):
+            p.copy_(dist_train.own_rows(xavier_uniform(gen, (n, p.shape[1])), p.shape[0],
+                                        self.mesh))
 
     def propagate(self):
-        embeds = torch.cat([self.user_embeds, self.item_embeds], dim=0)
+        embeds = dist_train.whole_nodes(self.user_embeds, self.item_embeds, self.user_num,
+                                        self.item_num, self.mesh)
         acc = (embeds + spmm_layers(self.adj, embeds, self.layer_num).sum(dim=0)) \
             / (self.layer_num + 1)
         return acc[: self.user_num], acc[self.user_num:]
@@ -50,8 +70,13 @@ class DirectAU(RecModel):
         user_embeds, item_embeds = self.propagate()
         anc, pos = user_embeds[batch["user"]], item_embeds[batch["pos"]]
         align = losses.alignment_loss(anc, pos)
+        if self.mesh is not None:       # the whole batch's rows
+            d = anc.shape[1]
+            both = dist_train.gather_batch(torch.cat([anc, pos], 1), batch["n_whole"], self.mesh)
+            anc, pos = both[:, :d], both[:, d:]
         uniform = gamma * (losses.uniformity_loss(anc) + losses.uniformity_loss(pos)) / 2.0
         return align + uniform, {"align_loss": align, "uniform_loss": uniform}
 
+    @torch.no_grad()
     def generate(self):
         return self.propagate()

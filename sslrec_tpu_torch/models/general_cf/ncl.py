@@ -8,6 +8,12 @@ but the prediction sums only the first ``layer_num + 1`` layers (so
 the current tables every ``epoch_period`` epochs (the JAX trainer's hook)
 through :meth:`epoch_state_fn`, which the tuner's lanes call once a lane;
 the prototype loss holds the centroids constant.
+
+On a device mesh every hop runs on the whole graph over the whole tables
+(:meth:`~.LightGCN.nodes`, gathered from the row shards with autograd), so
+NCL holds its row shards without LightGCN's partition
+(``partitioned_hops``), and k-means reads the whole tables, so that every
+rank gets the single run's clusters.
 """
 
 from __future__ import annotations
@@ -15,13 +21,14 @@ from __future__ import annotations
 import torch
 
 from sslrec_tpu_torch.models import augment, losses
-from sslrec_tpu_torch.models.base import MESH_CONTRASTIVE
 from sslrec_tpu_torch.models.general_cf.lightgcn import LightGCN
 from sslrec_tpu_torch.ops.spmm import spmm_layers
+from sslrec_tpu_torch.parallel import dist_train
 
 
 class NCL(LightGCN):
-    mesh_todo = MESH_CONTRASTIVE
+    partitioned_hops = False
+
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         m = cfg.model
@@ -43,10 +50,12 @@ class NCL(LightGCN):
         parameters and the draws, so the tuner's lanes call it once a lane
         (the JAX model's ``epoch_state_fn``)."""
         draws = draws or {}
-        ucent, u2c, _ = augment.kmeans(self.user_embeds, self.cluster_num, gen=gen,
-                                       pick=draws.get("user"))
-        icent, i2c, _ = augment.kmeans(self.item_embeds, self.cluster_num, gen=gen,
-                                       pick=draws.get("item"))
+        users, items = self.user_embeds, self.item_embeds
+        if self.sharded:
+            users = dist_train.whole_rows(users, self.user_num, self.mesh)
+            items = dist_train.whole_rows(items, self.item_num, self.mesh)
+        ucent, u2c, _ = augment.kmeans(users, self.cluster_num, gen=gen, pick=draws.get("user"))
+        icent, i2c, _ = augment.kmeans(items, self.cluster_num, gen=gen, pick=draws.get("item"))
         return {"user_centroids": ucent, "user2cluster": u2c,
                 "item_centroids": icent, "item2cluster": i2c}
 
@@ -64,7 +73,7 @@ class NCL(LightGCN):
                 "struct_weight": self.struct_weight}
 
     def _propagate_list(self, n_hops: int):
-        embeds = torch.cat([self.user_embeds, self.item_embeds], dim=0)
+        embeds = self.nodes()
         return [embeds, *spmm_layers(self.adj, embeds, n_hops).unbind(0)]
 
     def loss(self, batch: dict, key=None):
@@ -91,11 +100,12 @@ class NCL(LightGCN):
                  + losses.infonce_loss(i_ego[poss], icent[aux["item2cluster"][poss]], icent, t)
                  ) / ancs.shape[0] * proto_w
 
-        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        reg = self.reg_weight * self.l2()
         loss = bpr + struct + proto + reg
         return loss, {"bpr_loss": bpr, "reg_loss": reg,
                       "struct_loss": struct, "proto_loss": proto}
 
+    @torch.no_grad()
     def generate(self):
         final = sum(self._propagate_list(self.layer_num))
         return final[: self.user_num], final[self.user_num:]

@@ -11,6 +11,16 @@ from the epoch's device generator instead (``step_generator``,
 :meth:`step_draws`).  BPR runs on the clean view; the three InfoNCE terms
 (anchors, positives, negatives, each against the whole view table) are
 divided by the batch size.
+
+On a device mesh the clean view runs graph-partitioned, as LightGCN's
+forward does, and both views run on the whole graph over the whole tables
+(:meth:`~.LightGCN.nodes`, gathered from the row shards with autograd).  The
+PRF masks come from the step key and the original edge ids, and node drop's
+uniforms from the epoch's generator, whole, so every rank draws the single
+run's masks.  Each term is a sum of per-row terms over the rank's slice of
+the batch (InfoNCE's denominators read the whole view tables, not the
+batch), so the slice's loss over its own size, weighted by its share,
+sums to the whole batch's.
 """
 
 from __future__ import annotations
@@ -18,7 +28,6 @@ from __future__ import annotations
 import torch
 
 from sslrec_tpu_torch.models import augment, losses
-from sslrec_tpu_torch.models.base import MESH_CONTRASTIVE
 from sslrec_tpu_torch.models.general_cf.lightgcn import LightGCN
 from sslrec_tpu_torch.ops.spmm import spmm_views
 from sslrec_tpu_torch.ops.spmm_kernel import split
@@ -27,7 +36,6 @@ AUGMENTATIONS = ("edge_drop", "node_drop", "random_walk")
 
 
 class SGL(LightGCN):
-    mesh_todo = MESH_CONTRASTIVE
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         self.augmentation = cfg.model.augmentation
@@ -44,7 +52,7 @@ class SGL(LightGCN):
 
     def _two_views(self, key, draws: dict | None):
         """Both augmented views' ``[N, d]`` sums of layers."""
-        x0 = torch.cat([self.user_embeds, self.item_embeds], dim=0)
+        x0 = self.nodes()
         ews = None
         if self.augmentation == "node_drop":
             x0s = [augment.node_drop(draws["node_u"][v], x0, self.keep_rate) for v in (0, 1)]
@@ -72,12 +80,12 @@ class SGL(LightGCN):
         v1, v2 = self._two_views(key, draws)
         u = self.user_num
         u1, i1, u2, i2 = v1[:u], v1[u:], v2[:u], v2[u:]
-        u3, i3 = self.propagate()                  # the clean view, for BPR
         ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
-        bpr = losses.bpr_loss(u3[ancs], i3[poss], i3[negs]) / ancs.shape[0]
+        anc, pos, neg = self.batch_rows(*self.train_tables(), batch)   # the clean view
+        bpr = losses.bpr_loss(anc, pos, neg) / ancs.shape[0]
         cl = (losses.infonce_loss(u1[ancs], u2[ancs], u2, t)
               + losses.infonce_loss(i1[poss], i2[poss], i2, t)
               + losses.infonce_loss(i1[negs], i2[negs], i2, t))
         cl = cl / ancs.shape[0] * cl_w
-        reg = reg_w * losses.reg_params(dict(self.named_parameters()))
+        reg = reg_w * self.l2()
         return bpr + cl + reg, {"bpr_loss": bpr, "reg_loss": reg, "cl_loss": cl}

@@ -5,6 +5,11 @@ Both views add sign-aligned, L2-normalised uniform noise after every hop;
 BPR runs on the clean view; CL on anchors and positives only (no negatives'
 term, unlike SGL).  The noise is drawn from the epoch's device generator
 (``step_generator``, :meth:`step_draws`), so tests can inject it.
+
+On a device mesh the clean view runs graph-partitioned, as SGL's does, and
+every rank perturbs both views of the whole tables (gathered from the row
+shards with autograd) with the whole ``[2, L, U+I, d]`` noise, drawn from
+the same seed on every rank.
 """
 
 from __future__ import annotations
@@ -12,13 +17,11 @@ from __future__ import annotations
 import torch
 
 from sslrec_tpu_torch.models import augment, losses
-from sslrec_tpu_torch.models.base import MESH_CONTRASTIVE
 from sslrec_tpu_torch.models.general_cf.lightgcn import LightGCN
 from sslrec_tpu_torch.ops.spmm import spmm_views
 
 
 class SimGCL(LightGCN):
-    mesh_todo = MESH_CONTRASTIVE
     step_generator = True       # the trainer hands loss() a device generator
 
     def __init__(self, cfg, data):
@@ -33,7 +36,7 @@ class SimGCL(LightGCN):
         return {"noise": torch.rand(shape, generator=gen, device=gen.device)}
 
     def _two_perturbed(self, noise, eps):
-        x0 = torch.cat([self.user_embeds, self.item_embeds], dim=0)
+        x0 = self.nodes()
         out = spmm_views(self.adj, [x0, x0], self.layer_num,
                          post=lambda u, x: augment.embed_perturb(u, x, eps),
                          keys=noise)
@@ -55,11 +58,11 @@ class SimGCL(LightGCN):
         v1, v2 = self._two_perturbed(draws["noise"], hp.get("eps", self.eps))
         u = self.user_num
         u1, i1, u2, i2 = v1[:u], v1[u:], v2[:u], v2[u:]
-        u3, i3 = self.propagate()
-        ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
-        bpr = losses.bpr_loss(u3[ancs], i3[poss], i3[negs]) / ancs.shape[0]
+        ancs, poss = batch["user"], batch["pos"]
+        anc, pos, neg = self.batch_rows(*self.train_tables(), batch)   # the clean view
+        bpr = losses.bpr_loss(anc, pos, neg) / ancs.shape[0]
         cl = (losses.infonce_loss(u1[ancs], u2[ancs], u2, t)
               + losses.infonce_loss(i1[poss], i2[poss], i2, t))
         cl = cl / ancs.shape[0] * cl_w
-        reg = reg_w * losses.reg_params(dict(self.named_parameters()))
+        reg = reg_w * self.l2()
         return bpr + cl + reg, {"bpr_loss": bpr, "reg_loss": reg, "cl_loss": cl}

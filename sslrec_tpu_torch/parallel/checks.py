@@ -154,28 +154,72 @@ def lightgcn(inp: dict) -> dict:
     return out
 
 
+def _whole_params(model, attr: str = "data") -> dict:
+    """The model's parameters (``attr`` "data") or gradients ("grad") as whole
+    tables: its ``row_shards`` gathered over the ``model`` group."""
+    shards = model.row_shards
+    out = {}
+    for name, p in model.named_parameters():
+        t = getattr(p, attr).detach()
+        out[name] = _np(t if name not in shards else
+                        dist_train.whole_rows(t, shards[name], model.mesh))
+    return out
+
+
+def model_step(inp: dict) -> dict:
+    """One step of the port's model ``inp["model"]`` (a config name, with
+    ``overrides``) under the config's mesh, from whole parameters ``params``
+    and the whole batch ``user``/``pos``/``neg``: this rank's ``data`` slice
+    of the batch (with its ``share`` and ``n_whole``, as the Trainer makes
+    it), ``loss(batch, key, draws=...)`` (``key`` a PRF key; ``aux`` and
+    ``draws`` where given), :func:`~.dist_train.mesh_backward` and the
+    gradients summed over ``data``: the whole batch's loss terms and the
+    whole gradients."""
+    from sslrec_tpu_torch.models.registry import build_model
+
+    cfg = _cfg(inp["model"], inp)
+    dev = _dev(inp)
+    model = build_model(cfg, _bundle(inp, dev))
+    mesh = model.mesh
+    params = {k: torch.from_numpy(v).to(dev) for k, v in inp["params"].items()}
+    model.load_state_dict(dist_train.local_state(model, params, mesh))
+    n = inp["user"].shape[0]
+    sl = dist_train.batch_slice(n, mesh)
+    batch = {k: torch.from_numpy(inp[k][sl]).to(dev) for k in ("user", "pos", "neg")}
+    share = batch["user"].shape[0] / n
+    batch.update(share=share, n_whole=n, step=0)
+    if inp.get("aux") is not None:
+        batch["aux"] = {k: torch.from_numpy(v).to(dev) for k, v in inp["aux"].items()}
+    kw = {}
+    if inp.get("draws") is not None:
+        kw["draws"] = {k: torch.from_numpy(v).to(dev) for k, v in inp["draws"].items()}
+    loss, terms = model.loss(batch, torch.from_numpy(inp["key"]).to(dev), **kw)
+    dist_train.mesh_backward(loss, mesh, share)
+    dist_train.sync_grads(model.parameters(), mesh)
+    terms = dist_train.reduce_terms({**terms, "loss": loss.detach()}, mesh, share)
+    return {"terms": {k: float(v) for k, v in terms.items()},
+            "grads": _whole_params(model, "grad"), "local_rows": model.user_embeds.shape[0]}
+
+
 def trainer_step(inp: dict) -> dict:
-    """One step of the port's Trainer (LightGCN, epoch 0's first batch) under
-    the config's mesh from the seeded initial tables: the whole gradients
-    (summed over ``data``) and the whole tables after Adam."""
-    from sslrec_tpu_torch.models.general_cf.lightgcn import LightGCN
+    """One step of the port's Trainer (the model ``inp["model"]``, LightGCN
+    by default; epoch 0's first batch, with the epoch's generator and
+    ``epoch_state`` as the epoch gives them) under the config's mesh from
+    the seeded initial tables: the whole gradients (summed over ``data``)
+    and the whole tables after Adam."""
+    from sslrec_tpu_torch.models.registry import build_model
     from sslrec_tpu_torch.trainer.trainer import INIT_STREAM, Trainer, generator
 
-    cfg = _cfg("lightgcn", inp)
+    cfg = _cfg(inp.get("model", "lightgcn"), inp)
     data = _bundle(inp, _dev(inp))
-    model = LightGCN(cfg, data)
+    model = build_model(cfg, data)
     trainer = Trainer(cfg, model, data)
     model.init_params(generator(int(cfg.train.seed), INIT_STREAM))
-    idx, sampled, keys = trainer.epoch_draws(0)
-    terms = trainer.train_step(trainer.make_batch(idx[0], sampled, 0), keys[0])
-    shards = model.row_shards if model.sg is not None else {}
-    out = {"loss": float(terms["loss"])}
-    for name, p in model.named_parameters():
-        n = shards.get(name)
-        whole = (lambda t: t) if n is None else (lambda t: dist_train.whole_rows(t, n, model.mesh))
-        out[name] = _np(whole(p.detach()))
-        out[name + ".grad"] = _np(whole(p.grad))
-    return out
+    trainer.n_batches = 1           # the epoch's first step, and no other
+    terms = trainer.train_epoch(0)
+    return {"loss": float(terms["loss"]),
+            **_whole_params(model), **{k + ".grad": v for k, v in
+                                       _whole_params(model, "grad").items()}}
 
 
 def propagate_grad(inp: dict) -> dict:
@@ -229,9 +273,33 @@ def propagate_grad(inp: dict) -> dict:
             else None}
 
 
+def cli_runs(inp: dict) -> dict:
+    """The CLI runs ``inp["argvs"]`` one after the other in this started group
+    (:func:`~.launch.cli_rank` each, as the CLI's own spawn runs one): rank
+    summaries by run.  On the CPU every B1 call counts where the card
+    counts a launch (``spmm_kernel.csr_spmm``'s counters, by layout shape),
+    so that a path's launch count can be held before it meets the card."""
+    from sslrec_tpu_torch.ops import spmm_kernel
+    from sslrec_tpu_torch.parallel import launch
+
+    kernel = spmm_kernel.csr_spmm
+    if _dev(inp).type == "cpu":
+        def counted(layout, x, ew=None):
+            counted.launches += 1
+            counted.by_shape.setdefault((layout.n_rows, layout.n_cols), [0, 0])[0] += 1
+            return kernel(layout, x, ew)
+
+        spmm_kernel.csr_spmm = counted
+    try:
+        return {"runs": [launch.cli_rank(list(argv)) for argv in inp["argvs"]]}
+    finally:
+        spmm_kernel.csr_spmm = kernel
+
+
 CHECKS = {"mesh_shape": mesh_shape, "owned_lookup": owned_lookup, "topk": topk,
           "sharded_step": sharded_step, "propagate": propagate, "rect_pair": rect_pair,
-          "lightgcn": lightgcn, "trainer_step": trainer_step, "propagate_grad": propagate_grad}
+          "lightgcn": lightgcn, "trainer_step": trainer_step, "propagate_grad": propagate_grad,
+          "model_step": model_step, "cli_runs": cli_runs}
 
 
 def run(checks: list[tuple[str, str, dict]]) -> dict:

@@ -19,6 +19,12 @@ backward is B1 on the transposed layout, then the gather's adjoint, a
 reduce-scatter.  A batch's rows come from the shards through
 :func:`owned_lookup` (a masked lookup and an all-reduce).
 
+Hops that run on the whole graph (SGL's and SimGCL's augmented views, NCL's
+and DirectAU's hops) read the tables whole through :func:`whole_nodes`, one
+gather whose adjoint is again the reduce-scatter; a term that crosses the
+batch gathers the batch's rows over the ``data`` group
+(:func:`gather_batch`).
+
 The JAX package runs all of it in one process under ``shard_map``; here a
 process is a rank of the mesh (:mod:`~sslrec_tpu_torch.parallel.mesh`), and
 the collectives are ``torch.distributed`` calls with autograd.  Their
@@ -326,8 +332,22 @@ def maybe_partition_rect_pair(cfg, a_graph, at_graph, n_users: int, n_items: int
 # Whole tables, the backward, the gradients
 # ---------------------------------------------------------------------------
 
-def own_rows(whole: torch.Tensor, n_loc: int, mesh: Mesh) -> torch.Tensor:
-    """This shard's ``n_loc`` rows of a whole table, zero rows past its end."""
+def model_sharded(mesh: Mesh | None) -> bool:
+    """Whether ``mesh`` splits the tables' rows (a ``model`` axis > 1)."""
+    return mesh is not None and mesh.n_model > 1
+
+
+def shard_rows(n: int, mesh: Mesh | None) -> int:
+    """The rows a rank holds of an ``n``-row table: a padded shard on a
+    model-sharded mesh, else all ``n``."""
+    return pad_to_multiple(n, mesh.n_model) // mesh.n_model if model_sharded(mesh) else n
+
+
+def own_rows(whole: torch.Tensor, n_loc: int, mesh: Mesh | None) -> torch.Tensor:
+    """This shard's ``n_loc`` rows of a whole table, zero rows past its end, a
+    copy (``whole`` itself off a mesh)."""
+    if mesh is None:
+        return whole
     lo = mesh.model_index * n_loc
     out = whole.new_zeros((n_loc, *whole.shape[1:]))
     part = whole[lo:lo + n_loc]
@@ -335,10 +355,42 @@ def own_rows(whole: torch.Tensor, n_loc: int, mesh: Mesh) -> torch.Tensor:
     return out
 
 
+def gather_whole(local: torch.Tensor, n_rows: int, mesh: Mesh) -> torch.Tensor:
+    """The whole ``[n_rows, ...]`` table of which each rank of the ``model``
+    group holds the row shard ``local``, with autograd: its backward is the
+    reduce-scatter of the cotangent, and the padding rows past ``n_rows`` get
+    a zero gradient."""
+    return gather_rows(local, mesh.model_group)[:n_rows]
+
+
+def whole_nodes(u_local: torch.Tensor, i_local: torch.Tensor, n_users: int, n_items: int,
+                mesh: Mesh | None) -> torch.Tensor:
+    """The differentiable whole-table path: ``[users; items]`` at the unpadded
+    ``U + I`` rows, the node space of a model's whole graph (its
+    ``bi_adj``), from this rank's row shards of the two tables (one gather
+    over the ``model`` group), or their concatenation off a model-sharded
+    mesh.
+
+    Each rank of a ``data`` row then runs the whole graph's hops itself, as
+    one device does, and computes the same loss from them; the gather's
+    adjoint sums the ``M`` equal cotangents, and :func:`mesh_backward`'s
+    division by ``M`` makes that sum the single run's gradient, as on the
+    partitioned path, with no scaling here.  Model-agnostic: any model whose
+    user and item tables are row-sharded (``row_shards``) reads its whole
+    tables through it."""
+    if not model_sharded(mesh):
+        return torch.cat([u_local, i_local])
+    u_loc = u_local.shape[0]
+    full = assemble_full(torch.cat([u_local, i_local]), u_loc, i_local.shape[0], mesh)
+    u_pad = u_loc * mesh.n_model
+    return torch.cat([full[:n_users], full[u_pad:u_pad + n_items]])
+
+
 @torch.no_grad()
 def whole_rows(local: torch.Tensor, n_rows: int, mesh: Mesh) -> torch.Tensor:
-    """The whole ``[n_rows, ...]`` table of which each shard holds ``local``."""
-    return gather_rows(local.detach(), mesh.model_group)[:n_rows].clone()
+    """The whole ``[n_rows, ...]`` table of which each shard holds ``local``,
+    detached (snapshots, checkpoints, evaluation)."""
+    return gather_whole(local.detach(), n_rows, mesh).clone()
 
 
 def whole_state(model, mesh: Mesh | None) -> dict[str, torch.Tensor]:
@@ -362,6 +414,26 @@ def batch_slice(n: int, mesh: Mesh) -> slice:
     """This rank's slice of a batch of ``n`` over the ``data`` axis (sizes
     differing by at most one, as ``torch.tensor_split``'s)."""
     return slice(n * mesh.data_index // mesh.n_data, n * (mesh.data_index + 1) // mesh.n_data)
+
+
+def gather_batch(x: torch.Tensor, n: int, mesh: Mesh | None) -> torch.Tensor:
+    """The whole batch's rows from this rank's slice ``x`` of a batch of ``n``
+    (:func:`batch_slice`), gathered over the ``data`` group in rank order,
+    with autograd (``x`` itself where the ``data`` axis is 1).  Slices that
+    differ by a row are padded to the largest, gathered and trimmed.
+
+    For a term that crosses the batch (DirectAU's uniformity): every data
+    rank computes the whole batch's term, and :func:`mesh_backward`'s
+    ``share`` makes the ranks' sum exact (the shares sum to 1, and the
+    gather's adjoint sums their cotangents)."""
+    if mesh is None or mesh.n_data <= 1:
+        return x
+    bounds = [n * k // mesh.n_data for k in range(mesh.n_data + 1)]
+    sizes = [b - a for a, b in zip(bounds, bounds[1:])]
+    width = max(sizes)
+    padded = torch.cat([x, x.new_zeros((width - x.shape[0], *x.shape[1:]))])
+    parts = gather_rows(padded, mesh.data_group).split(width)
+    return torch.cat([p[:k] for p, k in zip(parts, sizes)])
 
 
 def mesh_backward(loss: torch.Tensor, mesh: Mesh, share: float) -> None:

@@ -227,16 +227,16 @@ class Trainer:
     def make_batch(self, bidx: torch.Tensor, sampled: dict, step: int) -> dict:
         """Step ``step``'s batch from its indices ``bidx`` into the epoch's
         arrays and ``sampled`` streams; on a mesh, this rank's ``data`` slice
-        of it, with its ``"share"`` of the whole batch."""
-        share = None
+        of it, with its ``"share"`` of the whole batch and the whole batch's
+        size ``"n_whole"``."""
+        mesh_keys = {}
         if self.mesh is not None:
-            bidx = bidx[dist_train.batch_slice(bidx.shape[0], self.mesh)]
-            share = bidx.shape[0] / self.batch_size
+            n = bidx.shape[0]
+            bidx = bidx[dist_train.batch_slice(n, self.mesh)]
+            mesh_keys = {"share": bidx.shape[0] / self.batch_size, "n_whole": n}
         batch = {k: v[bidx] for k, v in (*self.arrays.items(), *sampled.items())}
         batch["step"] = step
-        if share is not None:
-            batch["share"] = share
-        return batch
+        return {**batch, **mesh_keys}
 
     def train_epoch(self, epoch: int, step=None, epoch_state=None) -> dict:
         """Epoch ``epoch``'s steps on :meth:`epoch_draws`; returns each loss

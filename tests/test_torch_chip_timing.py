@@ -6,7 +6,8 @@ call's time is each kind's mean duration times its count per call (its
 records over the 50 calls, rounded), and the guard must take a reading only
 from two windows that have every kind at the count per call of the fullest
 window seen, whose times agree within 20% and are at least the floor, and
-must raise where no such pair comes."""
+must raise where no such pair comes.  A window that reads no record does
+not count toward the 8 windows, up to 24 windows in all."""
 
 from __future__ import annotations
 
@@ -71,6 +72,11 @@ def windows(monkeypatch):
       [(50, 50 * 25.0), (49, 49 * 13.0), (50, 50 * 4.5)]], 0.026, 0.0425),
     # times more than 20% apart are passed over
     ([(50, 1500.0), (50, 1900.0), (50, 1550.0)], 0.0, 0.03050),
+    # half of the windows read no record: they do not count toward the 8, so
+    # the fifth window that reads records pairs with the fourth, in the tenth
+    # window in all
+    ([(0, 0.0), (50, 1500.0), (0, 0.0), (50, 2500.0), (0, 0.0), (50, 4000.0), (0, 0.0),
+      (50, 6500.0), (0, 0.0), (50, 6600.0)], 0.0, 0.13100),
 ])
 def test_device_ms_takes_two_whole_agreeing_windows(windows, given, floor, want):
     windows.extend(given)
@@ -80,10 +86,20 @@ def test_device_ms_takes_two_whole_agreeing_windows(windows, given, floor, want)
 @pytest.mark.parametrize("given, floor", [
     ([(50, 472.0)] * 8, 0.019),                              # every window under the floor
     ([(50, 100.0 * 2 ** i) for i in range(8)], 0.0),         # no two agree
-    ([(0, 0.0)] * 8, 0.0),                                   # nothing recorded
+    ([(0, 0.0)] * 24, 0.0),                                  # nothing recorded, 3 x 8
     ([[(50, 1250.0), (50, 250.0)]] + [[(50, 250.0)]] * 7, 0.0),  # one whole window only
 ])
 def test_device_ms_raises_without_a_whole_pair(windows, given, floor):
     windows.extend(given)
     with pytest.raises(AssertionError, match="no two whole windows"):
         cs.device_ms(lambda: None, floor, iters=50, warmup=0)
+    assert windows == []        # every window handed out was read, and no more
+
+
+def test_device_ms_says_how_many_windows_were_empty(windows):
+    """Empty windows among whole ones that never agree: 8 windows that read
+    records and 5 empty ones, then the error names the 5."""
+    windows.extend([(0, 0.0)] * 5 + [(50, 100.0 * 2 ** i) for i in range(8)])
+    with pytest.raises(AssertionError, match="among 8 that read records; 5 of 13 windows "
+                                             "read no CUDA record"):
+        cs.device_ms(lambda: None, 0.0, iters=50, warmup=0)

@@ -111,8 +111,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (35,598 users, 18,357 items, 296,337 interactions; ``sports_like_seqs``)
    drive BERT4Rec, CL4SRec, DuoRec, ICLRec, DCRec_seq and MAERec 1
    epoch each (``SEQ_EPOCHS``) at their published configs through the
-   CLI, B1's launches equal to ``SEQ_B1`` (0 for the first four), no B2,
-   each ``generate()`` equal to the CPU's plain forward;
+   CLI (CL4SRec, DuoRec, ICLRec and MAERec at batch 1024:
+   ``SEQ_BATCH_ARGS``), B1's launches equal to ``SEQ_B1`` (0 for the first four), no B2,
+   each ``generate()`` equal to the CPU's plain forward at the users of its
+   first ``SEQ_CPU_ROWS`` test sequences and every item;
 24. hold B1 against its plain version at the trained DCRec_seq's
    transition, similarity and test graphs and MAERec's distance-3 graph
    (d 64 and 1, both layouts, value, dx and dew) within 1e-5;
@@ -169,8 +171,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    lanes, a call a lane), value and gradients per lane within 1e-5, one
    launch a hop where the weight has no lanes; time the 3-lane fold (d 96)
    beside its bound, its plain version, ``torch.sparse.mm`` and three d 32
-   calls; drive LightGCN's shipped grid (3 lanes), DCCF's and KCGN's 2 x 2
-   (2 lanes), 1 epoch each, through the CLI with ``tune.parallel`` and
+   calls; drive LightGCN's shipped grid (3 lanes), KCGN's 2 x 2 and DCCF's
+   1 x 2 (2 lanes), 1 epoch each, through the CLI with ``tune.parallel`` and
    serially: each trial's test score equal to its serial score, B1's launches
    equal to ``LANES_B1``'s count, no B2, each grid's wall time;
 36. the lanes of MBGMN, HMGCR, SMBRec, CL4SRec, DuoRec and DCRec_seq at
@@ -205,7 +207,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    layout against ``MESH_B1``; four processes on one card give no speed
    figure for a mesh; (c) in a one-rank NCCL group, one step
    of ``mesh_partitioned_propagate`` with a one-shard partition and
-   ``owned_lookup``, value and gradients, against the plain hop;
+   ``owned_lookup``, value and gradients, against the plain hop; (d) the
+   KG family: partition the synthetic KG's UI bi-adjacency and KGIN's
+   interact graph for a model axis of 2, hold B1 on every shard (both
+   layouts, under values and without) against its plain version and time
+   each shard's hop; then train KGCL (with ``train_trans``), KGIN, KGRec
+   and DiffKG ``MESH_EPOCHS`` epoch each at their published configs on
+   ``MESH_KG_DATASET`` (the synthetic KG with ``MESH_KG_TRAIN_SHARE`` of
+   its train pairs: the depth cut of this phase) once on the card and once
+   on a ``{data: 1, model: 2}`` mesh of two gloo processes sharing card 0
+   (one spawn), hold their losses and test metrics within
+   ``MESH_METRIC_TOL`` and whole tables within ``MESH_PARAM_TOL`` of the
+   single runs, each rank's B1 launches by layout and B2 launches against
+   ``MESH_KG``, and in each rank B1 on its shard layouts within 1e-5 and B2
+   on its whole-KG head layouts bit for bit against their plain versions
+   (``parallel.checks.layout_probe``);
 38. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -213,7 +229,11 @@ The paths of phases 11, 14, 17, 19, 22, 27, 29 and 32 train ``PATH_EPOCHS``
 epoch each (2 before the mesh's phase was added), and phase 18 holds MAERec's
 resume as 2 epochs against 1 and a resumed 1, to leave the mesh's phase room
 in the time limit; for SGL's mesh runs, phase 35's LightGCN grid trains 1
-epoch (was 2) and phase 36 times ``LANE_TIMED_STEPS`` 5 steps (was 10).
+epoch (was 2) and phase 36 times ``LANE_TIMED_STEPS`` 5 steps (was 10); for
+the KG models' mesh runs, phase 23 holds ``SEQ_CPU_ROWS`` test sequences
+against the CPU (was all), loads the CPU data once for the sequential
+runs that share it and trains CL4SRec, DuoRec, ICLRec and MAERec at batch
+1024 (was 512), and phase 35 runs DCCF's grid as 1 x 2 (was 2 x 2).
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
 ``social_operands`` build the paths' operands (``kcgn_smin_operands`` and
@@ -251,6 +271,7 @@ from sslrec_tpu_torch.data.general_cf import bundle_from_matrices
 from sslrec_tpu_torch.data.registry import load_data
 from sslrec_tpu_torch.models.general_cf.dccf import plain_and_norm_adj
 from sslrec_tpu_torch.models.general_cf.lightgcl import rect_norm_adj
+from sslrec_tpu_torch.models.kg.kgin import interact_edges
 from sslrec_tpu_torch.models.registry import build_model
 from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
 from sslrec_tpu_torch.parallel import checks as mesh_checks
@@ -431,6 +452,14 @@ SEQ_MODELS = ("bert4rec", "cl4srec", "duorec", "iclrec", "dcrec_seq", "maerec")
 # phases fit its time (CL4SRec, DuoRec and ICLRec take 12-20 s an epoch)
 SEQ_EPOCHS = 1
 PATH_EPOCHS = 1             # the CLI paths of phases 11-32 (phase 5 and 8 keep 2)
+# Phase 23's depth cut (PR 17): each sequential model's generate() is held
+# against the CPU's plain forward on its first SEQ_CPU_ROWS test sequences
+# (of 35,598) and every item; the card's forward still encodes every one.
+SEQ_CPU_ROWS = 4096
+# and (PR 17) the four whose epoch is 371 steps at their published batch of
+# 512 train at batch 1024 (186 steps): widths and the split stay
+SEQ_BATCH_ARGS = {m: ["--set", "train.batch_size=1024"]
+                  for m in ("cl4srec", "duorec", "iclrec", "maerec")}
 # B1 launches of the sequential models at their published configs, counted
 # from the code: (per training step, per mask step, per view of the epoch's
 # mask bank, per generate()).  BERT4Rec, CL4SRec, DuoRec and ICLRec run no
@@ -485,14 +514,15 @@ LANES_B1 = {"lightgcn": lambda L, K: (2 * L, L),
             "smbrec": lambda L, K: (16 * L, 8 * L),
             "dcrec_seq": lambda L, K: (24, 8)}
 # the grids, each run with tune.parallel and serially: LightGCN's shipped grid
-# (2 layer_num groups of 3 lanes), DCCF's and KCGN's 2 x 2 (2 groups of 2
-# lanes) at their published configs, 1 epoch each (LightGCN's 2 before SGL's
-# mesh runs were added to phase 37)
+# (2 layer_num groups of 3 lanes), KCGN's 2 x 2 (2 groups of 2 lanes) and
+# DCCF's 1 x 2 (1 group of 2 lanes; 2 x 2 before the KG models' mesh runs
+# were added to phase 37) at their published configs, 1 epoch each
+# (LightGCN's 2 before SGL's mesh runs were added)
 LANE_GRIDS = {
     "lightgcn": {"data": (DATA_DIR, DATASET), "epochs": 1, "parallel": 3,
                  "grid": {"layer_num": [2, 3], "reg_weight": [1.0e-6, 1.0e-7, 1.0e-8]}},
     "dccf": {"data": (DATA_DIR, DATASET), "epochs": 1, "parallel": 2,
-             "grid": {"layer_num": [2, 3], "cl_weight": [1.0e-1, 1.0e-2]}},
+             "grid": {"layer_num": [2], "cl_weight": [1.0e-1, 1.0e-2]}},
     "kcgn": {"data": (DATA_DIR, "yelp_sub"), "epochs": 1, "parallel": 2,
              "grid": {"layer_num": [1, 2], "reg_weight": [1.0e-1, 1.0e-2]}}}
 # a trial's test score (recall at the config's first k), lanes against
@@ -1273,7 +1303,7 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
     phase 8 holds KGCL).  ``extra_args`` adds a model's CLI arguments.  Each
     trained model goes into ``keep`` where it is given, so later phases take
     its layouts."""
-    cpu_data, out = None, {}
+    cpu_data, cpu_key, out = None, None, {}
     for name in models:
         argv = ["--model", name, "--data_dir", data_dir, "--dataset", dataset,
                 "--epoch", str(epochs), "--device", device, "--set", "train.test_step=1",
@@ -1306,8 +1336,9 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
                 f"{r['train_s']:.3f} s, valid recall@20 {r['valid']['recall'][at20]:.5f}, "
                 f"eval {r['eval_s']:.3f} s")
         model = trainer.model
-        if cpu_data is None or trainer.cfg.data.type != "general_cf":
-            cpu_data = load_data(trainer.cfg, "cpu")
+        key = cpu_data_key(trainer.cfg)
+        if cpu_data is None or key is None or key != cpu_key:
+            cpu_data, cpu_key = load_data(trainer.cfg, "cpu"), key
         cpu_model = build_model(trainer.cfg, cpu_data)
         cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
         if name == "lightgcl":
@@ -1315,15 +1346,23 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
                 setattr(cpu_model, k, getattr(model, k).cpu())
         if name in ref64:
             cpu_model.double()
+        sub = None
+        if hasattr(cpu_model, "test_seqs") and cpu_model.test_seqs.shape[0] > SEQ_CPU_ROWS:
+            cpu_model.test_seqs = cpu_model.test_seqs[:SEQ_CPU_ROWS]
+            cpu_model.test_uids = cpu_model.test_uids[:SEQ_CPU_ROWS]
+            sub = cpu_model.test_uids.long()
         with torch.no_grad():
             gu, gi = model.generate()
             cu, ci = cpu_model.generate()
+        if sub is not None:
+            gu, cu = gu[sub.to(gu.device)], cu[sub]
         got, ref = torch.cat([gu, gi]).cpu().to(cu.dtype), torch.cat([cu, ci])
         errs.check(f"{name}.generate", got, ref)
         test = trainer.test_results
         log(f"    test recall@20 {test['recall'][at20]:.5f}, ndcg@20 {test['ndcg'][at20]:.5f}; "
             f"generate() {tuple(gu.shape)} + {tuple(gi.shape)} = the CPU's plain forward "
-            f"(rel err {rel_err(got, ref):.3g})")
+            f"(rel err {rel_err(got, ref):.3g})"
+            + ("" if sub is None else f"; the users of its first {SEQ_CPU_ROWS} test rows"))
         if keep is not None:
             keep[name] = model
         out[name] = {"launches": b1, "combine_launches": combine, "b2_launches": b2,
@@ -1335,6 +1374,19 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
                      "train_rows": trainer.data.n_train, "n_batches": trainer.n_batches}
         del trainer, model, cpu_model
     return out
+
+
+def cpu_data_key(cfg):
+    """What makes two runs' CPU data one bundle, so that :func:`ssl_paths`
+    loads it once: the general_cf split of the call, or a sequential split
+    with the same data keys and window; None where the data also depend on
+    the model (the KG, social and multi-behavior handlers')."""
+    if cfg.data.type == "general_cf":
+        return ("general_cf",)
+    if cfg.data.type == "sequential":
+        return ("sequential", repr(sorted(cfg.data.to_dict().items())),
+                int(cfg.model.max_seq_len))
+    return None
 
 
 def view_operands(data, dev) -> dict[str, dict]:
@@ -2092,7 +2144,7 @@ def seq_phases(errs: ErrTrack, gen, lgcn: sk.CsrGraph, seg_lay: skn.SegmentLayou
     trained = {}
     t0 = time.perf_counter()
     runs = ssl_paths(errs, data_dir=SMOKE_RESULTS, dataset=SEQ_DATASET, models=SEQ_MODELS,
-                     keep=trained, epochs=SEQ_EPOCHS)
+                     keep=trained, epochs=SEQ_EPOCHS, extra_args=SEQ_BATCH_ARGS)
     dm, mm = trained["dcrec_seq"], trained["maerec"]
     sizes = {"train_rows": {k: r["train_rows"] for k, r in runs.items()},
              "dcrec_seq": {"adj": dm.adj.nnz, "sim": dm.sim.nnz, "adj_test": dm.adj_test.nnz,
@@ -2956,6 +3008,77 @@ MESH_B1 = {"lightgcn": {"forward": (2, 2), "transposed": (2, 0)},
            "directau": {"whole": (4, 2)}}
 
 
+# B1 and B2 launches in each rank of a KG model's run on a mesh with a model
+# axis > 1, counted from the code at the published configs (2 UI layers, 2
+# KG hops), by layout as in MESH_B1 ("forward" / "transposed" the
+# partitioned graph's shard layouts; "whole" every other layout, the KG's
+# segment layouts over the whole KG and the whole graphs) and "b2", per
+# training step, per generate(), per epoch (the epoch hook) and at
+# construction.  KG_COUNTS' single-device counts, with each hop that the
+# mesh partitions moved from "whole" to the shard's layouts:
+# - KGCL: each of the step's three forwards (the main view, the two
+#   contrastive views) runs 2 partitioned UI hops, a forward launch each
+#   and a transposed one in the backward: 6 + 6 of KG_COUNTS' 31; generate
+#   2 of its 5; the epoch's views run no UI hop.  The TransE sub-loop
+#   launches nothing.
+# - KGIN: the users' interact sum of each hop is the partitioned hop (the
+#   [users; entities] graph's user-destination edges), its entity gather's
+#   backward the transposed one: 2 + 2 of 10; generate 2 of 5.
+# - KGRec: the UI tower's 2 hops are one partitioned hop each (both
+#   directions in one layout), a transposed one each in the backward (the
+#   last hop's, whose user side is unused, too): 2 + 2 where the single run
+#   has 4 + 3; generate runs no UI tower.
+# - DiffKG: both forwards' 2 UI hops and their dx: 4 + 4 of 30; generate 2
+#   of 6; the epoch's ukgc hop reads the whole users' table.
+MESH_KG = {"kgcl": {"step": {"forward": 6, "transposed": 6, "whole": 19, "b2": 6},
+                    "gen": {"forward": 2, "whole": 3, "b2": 2},
+                    "epoch": {"whole": 6, "b2": 4}},
+           "kgin": {"step": {"forward": 2, "transposed": 2, "whole": 6},
+                    "gen": {"forward": 2, "whole": 3}},
+           "kgrec": {"step": {"forward": 2, "transposed": 2, "whole": 23, "b2": 5},
+                     "gen": {"whole": 6, "b2": 4}},
+           "diffkg": {"step": {"forward": 4, "transposed": 4, "whole": 22, "b2": 4},
+                      "gen": {"forward": 2, "whole": 4, "b2": 2},
+                      "epoch": {"whole": 1}, "build": {"whole": 1}}}
+MESH_KG_MODELS = ("kgcl", "kgin", "kgrec", "diffkg")
+MESH_KG_RUN = {"data": 1, "model": 2}   # phase 37(d): two gloo ranks on card 0
+MESH_KG_ARGS = {"kgcl": ["--set", "model.train_trans=true"]}
+# Phase 37(d)'s depth cut: its runs train on the synthetic KG (the same
+# triplets, test pairs, users, items and entities) with a seeded share of
+# its train pairs, so fewer steps an epoch; widths and the KG stay.
+MESH_KG_DATASET = "synthetic_mesh"      # written under SMOKE_RESULTS/kg/synthetic_mesh_kg/
+MESH_KG_TRAIN_SHARE = 0.03125
+
+
+def mesh_kg_want(model: str, steps: int, evals: int, epochs: int) -> dict[str, int]:
+    """``MESH_KG``'s count, by layout and B2, for ``steps`` steps, ``evals``
+    evaluations and ``epochs`` epochs of one construction."""
+    times = {"step": steps, "gen": evals, "epoch": epochs, "build": 1}
+    out = {}
+    for part, counts in MESH_KG[model].items():
+        for k, c in counts.items():
+            out[k] = out.get(k, 0) + c * times[part]
+    return {k: v for k, v in out.items() if v}
+
+
+def mesh_kg_launches(run, n_users: int, n_side: int) -> list[dict[str, int]]:
+    """Each rank's B1 launches of a KG model's mesh run by ``MESH_KG``'s
+    layout names (the partition of ``[users; side]``, ``n_side`` its items
+    or, for KGIN, its entities: every other shape is "whole") and its B2
+    launches."""
+    layouts = mesh_layouts(n_users, n_side, run.mesh["model"])
+    out = []
+    for r in run.ranks:
+        by = {}
+        for shape, c in r["launches_by_shape"].items():
+            name = layouts.get(shape, "whole")
+            by[name] = by.get(name, 0) + c[0]
+        if r["b2_launches"]:
+            by["b2"] = r["b2_launches"]
+        out.append(by)
+    return out
+
+
 def mesh_b1_want(model: str, steps: int, evals: int) -> dict[str, int]:
     """``MESH_B1``'s count for ``steps`` steps and ``evals`` evaluations."""
     return {k: a * steps + b * evals for k, (a, b) in MESH_B1[model].items()}
@@ -3125,14 +3248,15 @@ def mesh_check(model: str, single, run, n_users: int, n_items: int, split_ref=No
                                                                .index(20)])}
 
 
-def mesh_spawn(argvs: list, shape: dict) -> list:
+def mesh_spawn(argvs: list, shape: dict, probe: bool = False, device: str = "cuda:0") -> list:
     """``argvs`` run in turn on a ``shape`` mesh of gloo processes sharing
-    card 0 (``parallel.checks.cli_runs``): a ``launch.MeshRun`` each."""
+    card 0 (``parallel.checks.cli_runs``, with its layout probe after each
+    run where ``probe``): a ``launch.MeshRun`` each."""
     sets = [f"train.mesh.data={shape['data']}", f"train.mesh.model={shape['model']}"]
     argvs = [argv + [a for x in sets for a in ("--set", x)] for argv in argvs]
-    ranks = launch.spawn(mesh_checks.run,
-                         ([("cli", "cli_runs", {"argvs": argvs, "device": "cuda:0"})],),
-                         shape["data"] * shape["model"], device="cuda:0", backend="gloo")
+    inp = {"argvs": argvs, "device": device, "probe": probe}
+    ranks = launch.spawn(mesh_checks.run, ([("cli", "cli_runs", inp)],),
+                         shape["data"] * shape["model"], device=device, backend="gloo")
     return [launch.MeshRun([r["cli"]["runs"][k] for r in ranks]) for k in range(len(argvs))]
 
 
@@ -3224,18 +3348,215 @@ def mesh_nccl(data, dev) -> dict:
     return r
 
 
+def write_mesh_kg_split() -> dict:
+    """Phase 37(d)'s split (``MESH_KG_DATASET``): phase 6's synthetic KG with
+    a seeded ``MESH_KG_TRAIN_SHARE`` of its train pairs, the pairs of the
+    last user and the last item among them, so that the handler counts the
+    same users, items and entities."""
+    train_cf, test_cf, triples = synthetic_kg()
+    rng = np.random.default_rng(37)
+    keep = rng.choice(len(train_cf), round(len(train_cf) * MESH_KG_TRAIN_SHARE), replace=False)
+    last = np.flatnonzero((train_cf[:, 0] == train_cf[:, 0].max())
+                          | (train_cf[:, 1] == train_cf[:, 1].max()))
+    keep = np.union1d(keep, last)
+    write_kg_dataset(MESH_KG_DATASET, train_cf[keep], test_cf, triples)
+    return {"train_pairs": int(keep.size), "of": int(len(train_cf))}
+
+
+def mesh_kg_partitions(dev) -> dict:
+    """The graphs phase 37(d)'s models partition for a model axis of 2, at
+    the whole synthetic KG's split (phase 6's): the UI bi-adjacency over
+    ``[users; items]`` (KGCL's, KGRec's and DiffKG's) and KGIN's interact
+    edges over ``[users; entities]`` (user-destination edges only), each a
+    ``ShardedGraph`` with its shards' layouts on ``dev``; and the models'
+    published width."""
+    cfg = load_config("kgin", overrides={"data.dir": SMOKE_RESULTS, "data.name": KG_DATASET})
+    data = load_data(cfg, "cpu")
+    ex = data.extras
+    u, i, e = data.user_num, data.item_num, ex["entity_num"]
+    bi = ex["bi_adj_maskable"].graph
+    rows, cols, vals = interact_edges(ex["train_mat_scipy"], u, ex["node_num"])
+    graphs = {"kg_ui": (CooGraph(bi.rows.numpy(), bi.cols.numpy(),
+                                 np.ones(bi.nnz, np.float32), u + i, u + i), i),
+              "kgin_iu": (CooGraph(rows.astype(np.int64), u + cols.astype(np.int64), vals,
+                                   u + e, u + e), e)}
+    out = {}
+    for name, (g, n_side) in graphs.items():
+        sg = dist_train.partition_graph(g, u, n_side, MESH_KG_RUN["model"])
+        out[name] = {"sg": sg, "n_users": u, "n_side": n_side,
+                     "shards": [dist_train.shard_graph(sg, p, dev) for p in range(sg.n_model)]}
+    return out, int(cfg.model.embedding_size)
+
+
+def mesh_kg_hops(errs: ErrTrack, gen, dev) -> dict:
+    """Phase 37(d)'s kernels at the whole split's shapes: B1 on each shard of
+    :func:`mesh_kg_partitions`, forward and transposed, under seeded values in
+    the original edge order (the views' and the dropout's, through
+    ``view_vals_partitioned``) and without, against its plain version; then
+    each shard's hop under values timed beside its bound (x counted as the
+    rows its edges reference), plain version and ``torch.sparse.mm``."""
+    parts, d = mesh_kg_partitions(dev)
+    out = {"t": {}, "bound": {}, "shape": {}}
+    for name, part in parts.items():
+        sg = part["sg"]
+        vals = torch.rand(sg.n_edges, generator=gen, device=dev)
+        pv = dist_train.view_vals_partitioned(sg, vals)
+        for p, sh in enumerate(part["shards"]):
+            g = sh.with_vals(pv[p])
+            for tag, lay, lay0 in (("", g.fwd, sh.graph.fwd), ("_t", g.bwd, sh.graph.bwd)):
+                x = torch.randn(lay.n_cols, d, generator=gen, device=dev)
+                what = f"mesh_kg.{name}.P2.shard{p}{tag}"
+                got = sk.csr_spmm(lay, x)
+                check_exact(f"{what}.repeat", sk.csr_spmm(lay, x), got)
+                errs.check(f"{what}.vals", got, sk.csr_spmm_plain(lay, x))
+                errs.check(f"{what}.plain", sk.csr_spmm(lay0, x), sk.csr_spmm_plain(lay0, x))
+                k = f"mesh_{name}_hop_P2_shard{p}{tag}"
+                x_rows = int(torch.unique(lay.cols).numel())
+                bound = bound_ms(lay, d, x_rows=x_rows)
+                csr = csr_tensor(lay)
+                out["t"][k] = timing(lambda lay=lay, x=x: sk.csr_spmm(lay, x),
+                                     lambda lay=lay, x=x: sk.csr_spmm_plain(lay, x),
+                                     lambda csr=csr, x=x: torch.sparse.mm(csr, x), bound[0])
+                out["bound"][k] = bound
+                group, t_pick = schedule(lay, d)
+                out["shape"][k] = {"n_rows": lay.n_rows, "n_cols": lay.n_cols,
+                                   "x_rows_read": x_rows, "nnz": int(lay.cols.shape[0]), "d": d,
+                                   "shards": sg.n_model, "shard": p, "graph": name,
+                                   "layout": "transposed" if tag else "forward",
+                                   "lane_group": group, "split_threshold": t_pick}
+                log_timing(f"{name} shard {p} of 2{' (transposed)' if tag else ''}",
+                           out["t"][k], bound)
+        log(f"  {name}: U_loc {sg.u_loc}, side_loc {sg.i_loc}, shard nnz "
+            f"{[int(sh.graph.nnz) for sh in part['shards']]} of {sg.n_edges}")
+    log(f"  B1 on the KG shards: max abs err {errs.abs:.3g}, max rel err {errs.rel:.3g} "
+        f"(tolerance {TOL})")
+    return out
+
+
+def mesh_kg_check(model: str, single: dict, run) -> dict:
+    """One KG model's ``MESH_KG_RUN`` run held against its single-device run:
+    each epoch's loss terms and the test metrics within ``MESH_METRIC_TOL``,
+    the whole tables within ``MESH_PARAM_TOL``, each rank's B1 launches by
+    layout and B2 launches against ``mesh_kg_want``, and each rank's
+    ``layout_probe`` (B1 on its shards within ``TOL`` of plain, B2 on its
+    whole-KG head layouts bit for bit).  Returns the deviations and counts."""
+    if run.mesh != MESH_KG_RUN:
+        raise AssertionError(f"{model}: mesh run on {run.mesh}, want {MESH_KG_RUN}")
+    param_diff = table_diff(run.best_state, single["best_state"])
+    misses = [k for k, v in single["best_state"].items()
+              if not torch.allclose(run.best_state[k], v, **MESH_PARAM_TOL)]
+    # the largest |a - b| / (atol + rtol |b|) of each table: 1 is the limit
+    tol_use = {k: float(((run.best_state[k] - v).abs()
+                         / (MESH_PARAM_TOL["atol"] + MESH_PARAM_TOL["rtol"] * v.abs())).max())
+               for k, v in single["best_state"].items()}
+    metric_diff = {m: float(np.abs(np.asarray(run.test_results[m]) - np.asarray(v)).max())
+                   for m, v in single["test_results"].items()}
+    for m, v in single["test_results"].items():
+        np.testing.assert_allclose(run.test_results[m], v, **MESH_METRIC_TOL,
+                                   err_msg=f"{model} mesh run {m}")
+    losses = []
+    for a, b in zip(single["epochs"], run.epochs, strict=True):
+        for term, v in a["loss"].items():
+            losses.append((term, v, b["loss"][term]))
+            np.testing.assert_allclose(b["loss"][term], v, **MESH_METRIC_TOL,
+                                       err_msg=f"{model} mesh run {term}")
+    steps = single["n_batches"] * MESH_EPOCHS
+    want = mesh_kg_want(model, steps, MESH_EPOCHS + 2, MESH_EPOCHS)
+    got = mesh_kg_launches(run, single["n_users"], single["n_side"])
+    if got != [want] * len(run.ranks):
+        raise AssertionError(f"{model} mesh run launches by rank and layout {got}, want {want} "
+                             f"in each rank")
+    probes = [r["probe"] for r in run.ranks]
+    b1_err = max(v for pr in probes for v in pr["b1"].values()) if probes[0]["b1"] else None
+    if b1_err is None or b1_err > TOL or not all(all(pr["b2"].values()) for pr in probes):
+        raise AssertionError(f"{model}: the ranks' kernels against plain: {probes}")
+    if misses:
+        raise AssertionError(f"{model} mesh run tables {misses}: max abs diff "
+                             f"{ {k: param_diff[k] for k in misses} } from the single run "
+                             f"beyond {MESH_PARAM_TOL}")
+    return {"param_diff": param_diff, "param_tol_use": tol_use, "metric_diff": metric_diff,
+            "losses": losses,
+            "by_layout_by_rank": got, "want_by_layout": want, "steps": steps,
+            "probe_b1_max_rel_err": b1_err,
+            "probe_b2_layouts": sorted(probes[0]["b2"]),
+            "test_recall20": float(run.test_results["recall"][single["k"].index(20)])}
+
+
+def mesh_kg_run(device: str = "cuda") -> dict:
+    """Phase 37(d): KGCL (with ``train_trans``), KGIN, KGRec and DiffKG at
+    their published configs, ``MESH_EPOCHS`` epoch each on the
+    ``MESH_KG_DATASET`` split, once on one device and once on a
+    ``MESH_KG_RUN`` mesh of gloo processes sharing card 0 (one spawn, each
+    rank running the CLIs in turn and probing its kernels after each), held
+    together by :func:`mesh_kg_check`; ``device`` "cpu" runs it all on the
+    CPU (a call there counts where the card counts a launch)."""
+    split = write_mesh_kg_split()
+    argvs = {m: ["--model", m, "--data_dir", SMOKE_RESULTS, "--dataset", MESH_KG_DATASET,
+                 "--epoch", str(MESH_EPOCHS), "--device", device, "--set", "train.test_step=1",
+                 "--set", "tune.enable=false", *MESH_KG_ARGS.get(m, [])]
+             for m in MESH_KG_MODELS}
+    singles = {}
+    for m, argv in argvs.items():
+        t0 = time.perf_counter()
+        tr = port_main.main(argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/mesh_kg_single"])
+        singles[m] = {"best_state": {k: v.cpu() for k, v in tr.best_state.items()},
+                      "test_results": tr.test_results, "epochs": tr.recorder.epochs,
+                      "n_batches": tr.n_batches, "n_users": tr.data.user_num,
+                      "n_side": tr.model.n_entities if m == "kgin" else tr.data.item_num,
+                      "n_train": tr.data.n_train, "k": list(tr.cfg.test.k),
+                      "s": time.perf_counter() - t0}
+        del tr
+    n = {(s["n_users"], s["n_train"]) for s in singles.values()}
+    log(f"  {MESH_KG_DATASET}: {split['train_pairs']} of the synthetic KG's {split['of']} "
+        f"train pairs (users, train pairs: {n}); single runs "
+        f"{ {m: round(s['s'], 1) for m, s in singles.items()} } s")
+    t0 = time.perf_counter()
+    runs = mesh_spawn([argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/mesh_kg"]
+                       for argv in argvs.values()], MESH_KG_RUN, probe=True,
+                      device="cuda:0" if device == "cuda" else device)
+    mesh_s = time.perf_counter() - t0
+    out = {"mesh_s": mesh_s, "single_s": {m: s["s"] for m, s in singles.items()},
+           "split": split}
+    for m, run in zip(MESH_KG_MODELS, runs):
+        out[m] = r = mesh_kg_check(m, singles[m], run)
+        use = {k: round(v, 3) for k, v in r["param_tol_use"].items()}
+        log(f"  {m}: losses {r['losses']}; whole tables' max abs diff {r['param_diff']} "
+            f"(share of MESH_PARAM_TOL used: {use}); test "
+            f"metrics' max abs diff {r['metric_diff']}; test recall@20 "
+            f"{r['test_recall20']:.5f}; launches in each rank {r['want_by_layout']} over "
+            f"{r['steps']} steps; in each rank B1 on its shards within "
+            f"{r['probe_b1_max_rel_err']:.3g} of plain, B2 exact on {r['probe_b2_layouts']}")
+    log(f"  the {MESH_KG_RUN} mesh of 2 gloo processes ran {', '.join(MESH_KG_MODELS)} in "
+        f"{mesh_s:.1f} s (processes, data, {MESH_EPOCHS} epoch each, evaluations, probes)")
+    return out
+
+
 def mesh_phases(gen, data, cfg, dev) -> dict:
     """Phase 37: the device mesh, (a) the partitioned hop at full width, (b)
     LightGCN and SGL on a mesh of four gloo ranks on the one card, (c)
-    NCCL."""
-    log("== 37. the device mesh: partitioned hops, a 2x2 mesh on the card, NCCL")
+    NCCL, (d) the KG family on a mesh of two gloo ranks."""
+    log("== 37. the device mesh: partitioned hops, a 2x2 mesh on the card, NCCL, the KG "
+        "family on a 1x2 mesh")
     t0 = time.perf_counter()
     errs = ErrTrack()
     hops = mesh_hops(errs, gen, data, int(cfg.model.embedding_size), dev)
     run = mesh_run(data)
     nccl = mesh_nccl(data, dev)
+    kg = mesh_kg_phase(gen, dev)
     log(f"  phase 37 took {time.perf_counter() - t0:.1f} s")
-    return {"errs": errs, "hops": hops, "run": run, "nccl": nccl}
+    return {"errs": errs, "hops": hops, "run": run, "nccl": nccl, "kg": kg}
+
+
+def mesh_kg_phase(gen, dev) -> dict:
+    """Phase 37(d): :func:`mesh_kg_hops`, then :func:`mesh_kg_run`."""
+    log("  (d) the KG family on the mesh")
+    t0 = time.perf_counter()
+    errs = ErrTrack()
+    hops = mesh_kg_hops(errs, gen, dev)
+    run = mesh_kg_run()
+    s = time.perf_counter() - t0
+    log(f"  phase 37(d) took {s:.1f} s")
+    return {"errs": errs, "hops": hops, "run": run, "s": s}
 
 
 def main() -> int:
@@ -3923,6 +4244,29 @@ def main() -> int:
     rows_b1[-1]["mesh"] = {
         "whole_diff": mesh["hops"]["whole_diff"], "run": {k: v for k, v in mr.items()},
         "nccl": {k: v for k, v in mesh["nccl"].items()}}
+    mk = mesh["kg"]
+    kg_graph_models = {"kg_ui": ("kgcl", "kgrec", "diffkg"), "kgin_iu": ("kgin",)}
+    for k, t in mk["hops"]["t"].items():
+        shape = mk["hops"]["shape"][k]
+        models, p = kg_graph_models[shape["graph"]], shape["shard"]
+        # rank p of the {1, 2} runs holds shard p
+        counts = sum(mk["run"][m]["by_layout_by_rank"][p].get(shape["layout"], 0)
+                     for m in models)
+        graph = ("the KG models' UI bi-adjacency" if shape["graph"] == "kg_ui"
+                 else "KGIN's interact graph (user-destination edges)")
+        rows_b1.append(b1_row(
+            f"csr_spmm.{k}", t, mk["hops"]["bound"][k], (counts, None), mk["errs"],
+            {**shape, "what": f"B1, {graph} at the whole synthetic split, one of 2 "
+                              f"destination shards, under values in the original edge order"},
+            launches_scope=f"the B1 launches on this shard's {shape['layout']} layout in rank "
+                           f"{p} of the {MESH_KG_RUN} mesh runs of {', '.join(models)} "
+                           f"({MESH_EPOCHS} epoch each on {MESH_KG_DATASET}, whose layouts "
+                           f"have this shape and fewer edges); combine launches not counted "
+                           f"apart",
+            library_call="torch.sparse.mm on a CSR tensor of the shard's layout, values "
+                         "pre-multiplied",
+            launches_of=[f"{m}'s {MESH_KG_RUN} mesh run, rank {p}" for m in models]))
+    rows_b1[-1]["mesh_kg"] = {"run": {k: v for k, v in mk["run"].items()}, "s": mk["s"]}
     rows_b1[0]["tuner_and_resume_on_card"] = {
         "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
         "resume_bit_equal_tensors": tr["resume_tensors"],
@@ -3950,6 +4294,16 @@ def main() -> int:
             {"n": lay.n, "num_segments": lay.num_segments, "group_width": lay.group_width,
              "long_segments": lay.long_segments.numel(), "what": what},
             launches_of=["diffkg"]))
+    mesh_b2 = sum(sum(r.get("b2", 0) for r in mk["run"][m]["by_layout_by_rank"])
+                  for m in MESH_KG_MODELS)
+    b2_rows.append(b2_row(
+        "segment_max.mesh_kg_whole_kg_heads", kg["b2"], kg_bound["b2"], mesh_b2,
+        {**seg_shape, "group_width": seg_lay.group_width,
+         "long_segments": seg_lay.long_segments.numel(),
+         "what": "B2 on the whole KG's head layouts inside each rank of the KG models' "
+                 "mesh runs (KGCL's capped heads timed here; KGRec's uncapped and DiffKG's "
+                 "heads in their rows)"},
+        launches_of=[f"{m}'s {MESH_KG_RUN} mesh run, both ranks" for m in MESH_KG_MODELS]))
     log(json.dumps({"kernels": rows_b1 + b2_rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -38,10 +38,13 @@ Optional
 The device mesh (:mod:`~sslrec_tpu_torch.parallel.mesh`): ``mesh_todo``
 names the ROADMAP item that will port a model's mesh branch, and a mesh of
 more than one device refuses the model while it is set (LightGCN, SGL,
-SimGCL, NCL and DirectAU clear it).  A model that trains on a mesh lists in
-``row_shards`` (``{name: whole rows}``) the tables of which each rank holds
-a row shard, so that the trainer can gather and split their snapshots and
-checkpoints.
+SimGCL, NCL, DirectAU, KGCL, KGIN, KGRec and DiffKG clear it).  A model
+that trains on a mesh lists in ``row_shards`` (``{name: whole rows}``) the
+tables of which each rank holds a row shard (the JAX package's rule: a
+table whose leading dimension counts users, items, nodes or entities), so
+that the trainer can gather and split their snapshots and checkpoints;
+every other parameter is replicated over the ``model`` axis, and the
+trainer sums its gradient over that axis.
 
 Every batch also carries ``batch["step"]``, the step's index in the epoch
 (an int), and the trainer sets ``model._n_batches_hint`` to the number of
@@ -55,8 +58,8 @@ import torch
 from torch import nn
 
 
-MESH_PARTITIONED = ("ROADMAP Queue A item 8: the JAX package's graph-partitioned branches "
-                    "of the KG and multi-behavior models")
+MESH_PARTITIONED = ("ROADMAP Queue A item 8b: the JAX package's graph-partitioned branches "
+                    "of the multi-behavior models")
 MESH_GSPMD = ("ROADMAP Queue A item 9: the models that the JAX package shards only "
               "through GSPMD's generic rule")
 

@@ -1,7 +1,6 @@
 """DiffKG: Gaussian diffusion over the KG's adjacency rows; the denoised KG
 feeds an RGAT + LightGCN recommender with a cross-view InfoNCE (port of
-``sslrec_tpu/models/kg/diffkg.py``, without the ``train.mesh`` partitioned
-branch).
+``sslrec_tpu/models/kg/diffkg.py``).
 
 - The recommender: a residual RGAT over (head, relation, tail) edges, each
   hop a segment softmax per head of ``leaky_relu(⟨[h; t] W, rel⟩)`` and the
@@ -29,6 +28,19 @@ Draws by name (:class:`StepDraws`): per step ``mess_main`` / ``mess_kg``
 [hops, n_entities, d] message-dropout keeps; per epoch ``perm``, per
 diffusion step ``s`` ``ts{s}``, ``noise{s}``, ``drop{s}``, and the rebuild's
 ``keep``; a test gives them.
+
+Under ``train.mesh`` with a ``model`` axis of M > 1 each rank holds row
+shards of ``u_embeds`` (the partition's ``U_loc`` rows) and ``e_embeds``.
+The RGAT reads the whole entity table with autograd and runs on every rank
+over the whole KG; the fixed-weight UI propagation runs graph-partitioned
+(``combine="sum"``, the RGAT's item rows through ``share_cotangent``) and
+gives the rank's rows; the batch's rows come
+through ``owned_lookup`` and InfoNCE's denominators read the KG view's
+whole tables, gathered back with autograd.  L2 sums the row shards' part
+over ``model``; ``r_embeds`` and ``rgat_w`` are replicated.  The denoiser
+reads the whole detached tables and draws from the epoch's generator, so
+every rank trains the same denoiser and rebuilds the same denoised KG as
+the single run.
 """
 
 from __future__ import annotations
@@ -43,7 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sslrec_tpu_torch.models import losses
-from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel
+from sslrec_tpu_torch.models.base import RecModel
 from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
 from sslrec_tpu_torch.ops import sparse as sparse_ops
 from sslrec_tpu_torch.ops.segment_kernel import (SegmentLayout, SegmentSoftmaxFn, SegmentSumFn,
@@ -52,6 +64,8 @@ from sslrec_tpu_torch.ops.segment_kernel import (SegmentLayout, SegmentSoftmaxFn
 from sslrec_tpu_torch.ops.spmm import spmm, spmm_t
 from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask, build_csr_graph
 from sslrec_tpu_torch.ops.topk import topk_indices
+from sslrec_tpu_torch.parallel import dist_train
+from sslrec_tpu_torch.parallel.mesh import mesh_from_config
 from sslrec_tpu_torch.trainer.trainer import generator
 from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
@@ -71,7 +85,7 @@ class KgEdges(NamedTuple):
 
 
 class DiffKG(RecModel):
-    mesh_todo = MESH_PARTITIONED
+    mesh_todo = None
     step_generator = True
 
     def __init__(self, cfg, data):
@@ -104,6 +118,14 @@ class DiffKG(RecModel):
             ("kg_heads", n), ("kg_tails", n), ("kg_rels", self.n_relations))), None)
         self.bi = ex["bi_adj_maskable"]
         self.adj_vals = self.bi.view_vals(torch.ones(self.bi.nnz_rect, device=dev))
+        self.mesh = mesh_from_config(cfg, dev)
+        self.sg = None
+        if dist_train.model_sharded(self.mesh):
+            self.row_shards = {"u_embeds": self.user_num, "e_embeds": n}
+            g = self.bi.graph
+            _, self.sg = dist_train.maybe_partition_bi(cfg, g.rows, g.cols, self.user_num,
+                                                       self.item_num, device=dev)
+            self.adj_vals_part = dist_train.view_vals_partitioned(self.sg, self.adj_vals)
 
         # the (h, t) → relation map, h-major then t, as codes h·n + t
         trip = ex["kg_triplets_full"]
@@ -144,8 +166,8 @@ class DiffKG(RecModel):
         def param(*shape):
             return nn.Parameter(torch.empty(*shape, device=dev))
 
-        self.u_embeds = param(self.user_num, d)
-        self.e_embeds = param(n, d)
+        self.u_embeds = param(dist_train.shard_rows(self.user_num, self.mesh), d)
+        self.e_embeds = param(dist_train.shard_rows(n, self.mesh), d)
         self.r_embeds = param(self.n_relations, d)
         self.rgat_w = param(2 * d, d)
         self._dn = self._dn_opt = self._last_dkg = None
@@ -153,8 +175,10 @@ class DiffKG(RecModel):
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
         """Xavier tables and RGAT weight (× √2, ``calculate_gain('relu')``)."""
-        for p in (self.u_embeds, self.e_embeds, self.r_embeds):
-            p.copy_(xavier_uniform(gen, tuple(p.shape)))
+        d = self.embedding_size
+        for p, n in ((self.u_embeds, self.user_num), (self.e_embeds, self.n_entities)):
+            p.copy_(dist_train.own_rows(xavier_uniform(gen, (n, d)), p.shape[0], self.mesh))
+        self.r_embeds.copy_(xavier_uniform(gen, tuple(self.r_embeds.shape)))
         self.rgat_w.copy_(xavier_uniform(gen, tuple(self.rgat_w.shape)) * math.sqrt(2.0))
         self._dn = self._dn_opt = self._last_dkg = None
 
@@ -165,8 +189,13 @@ class DiffKG(RecModel):
                        segment_layout_from_ids(t, self.n_entities),
                        segment_layout_from_ids(r, self.n_relations), valid)
 
-    def _rgat(self, kg: KgEdges, mess_keep=None):
-        ent = res = self.e_embeds
+    def entities(self) -> torch.Tensor:
+        """The whole entity table with autograd (gathered from the row shards
+        on a model-sharded mesh)."""
+        return dist_train.whole_table(self.e_embeds, self.n_entities, self.mesh)
+
+    def _rgat(self, kg: KgEdges, mess_keep=None, ent=None):
+        ent = res = self.entities() if ent is None else ent
         rel = TakeFn.apply(kg.r, self.r_embeds)          # the same every hop
         for hop in range(self.context_hops):
             out_t = TakeFn.apply(kg.t, ent)
@@ -184,8 +213,17 @@ class DiffKG(RecModel):
             res = self.res_lambda * res + ent
         return res
 
-    def forward(self, kg: KgEdges | None = None, mess_keep=None):
-        hids = self._rgat(self.kg if kg is None else kg, mess_keep)
+    def forward(self, kg: KgEdges | None = None, mess_keep=None, ent=None):
+        """The users' and items' tables (this rank's rows of them on a
+        model-sharded mesh); ``ent`` the whole entity table where the caller
+        has it (:meth:`entities`)."""
+        hids = self._rgat(self.kg if kg is None else kg, mess_keep, ent)
+        if self.sg is not None:
+            sg, mesh = self.sg, self.mesh
+            items = dist_train.share_cotangent(hids[: self.item_num], mesh)
+            return dist_train.mesh_partitioned_propagate(
+                mesh, sg, self.u_embeds, dist_train.own_rows(items, sg.i_loc, mesh),
+                self.adj_vals_part, self.layer_num, "sum")
         embeds = torch.cat([self.u_embeds, hids[: self.item_num]])
         acc = embeds
         for _ in range(self.layer_num):
@@ -288,8 +326,9 @@ class DiffKG(RecModel):
         step a batch; returns the mean loss.  The recommender is a constant:
         ``iu_emb = Rᵀ u`` is one transposed B1 hop of the UI matrix."""
         with torch.no_grad():
-            iu_emb = spmm_t(self.ui, self.u_embeds.detach())
-        e_emb, losses_ = self.e_embeds.detach(), []
+            u_emb = dist_train.whole_table(self.u_embeds.detach(), self.user_num, self.mesh)
+            iu_emb = spmm_t(self.ui, u_emb)
+            e_emb, losses_ = self.entities().detach(), []
         for s, bidx in enumerate(self._batches(dr)):
             x0 = self.dense_rows(bidx)
             b, n = x0.shape
@@ -346,18 +385,40 @@ class DiffKG(RecModel):
         draws = self.step_draws(gen) if draws is None else draws
         dkg = batch["aux"]["dkg"]
         main_kg, view_kg = (dkg, None) if self.cl_pattern == 0 else (None, dkg)
-        u_main, i_main = self.forward(main_kg, draws.get("mess_main"))
-        u_kg, i_kg = self.forward(view_kg, draws.get("mess_kg"))
+        ent = self.entities()
+        u_main, i_main = self.forward(main_kg, draws.get("mess_main"), ent)
+        u_kg, i_kg = self.forward(view_kg, draws.get("mess_kg"), ent)
         ancs, poss, negs = batch["user"].long(), batch["pos"].long(), batch["neg"].long()
         b = ancs.shape[0]
-        bpr = losses.bpr_loss(u_main[ancs], i_main[poss], i_main[negs]) / b
-        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
-        cl = (losses.infonce_loss(u_main[ancs], u_kg[ancs], u_kg, self.temperature)
-              + losses.infonce_loss(i_main[poss], i_kg[poss], i_kg, self.temperature)
+        if self.sg is None:
+            anc, pos, neg = u_main[ancs], i_main[poss], i_main[negs]
+        else:
+            sg, mesh = self.sg, self.mesh
+            anc = dist_train.owned_lookup(u_main, ancs, sg.u_loc, mesh)
+            pos = dist_train.owned_lookup(i_main, poss, sg.i_loc, mesh)
+            neg = dist_train.owned_lookup(i_main, negs, sg.i_loc, mesh)
+            u_kg = dist_train.gather_whole(u_kg, self.user_num, mesh)
+            i_kg = dist_train.gather_whole(i_kg, self.item_num, mesh)
+        bpr = losses.bpr_loss(anc, pos, neg) / b
+        reg = self.reg_weight * self._l2()
+        cl = (losses.infonce_loss(anc, u_kg[ancs], u_kg, self.temperature)
+              + losses.infonce_loss(pos, i_kg[poss], i_kg, self.temperature)
               ) / b * self.cl_weight
         return bpr + reg + cl, {"bpr_loss": bpr, "reg_loss": reg, "cl_loss": cl}
 
+    def _l2(self) -> torch.Tensor:
+        """L2² of every parameter; on a model-sharded mesh the row shards'
+        part summed over the ``model`` group."""
+        params = dict(self.named_parameters())
+        if self.sg is None:
+            return losses.reg_params(params)
+        shards = losses.reg_params({k: params.pop(k) for k in self.row_shards})
+        return dist_train.all_reduce_sum(shards, self.mesh.model_group) \
+            + losses.reg_params(params)
+
     def generate(self):
-        if self.cl_pattern == 0 and self._last_dkg is not None:
-            return self.forward(self._last_dkg)
-        return self.forward()
+        users, items = self.forward(self._last_dkg if self.cl_pattern == 0 else None)
+        if self.sg is None:
+            return users, items
+        return (dist_train.whole_rows(users, self.user_num, self.mesh),
+                dist_train.whole_rows(items, self.item_num, self.mesh))

@@ -1,6 +1,5 @@
 """KGCL — knowledge-graph contrastive learning with KG-stability-guided
-UI-graph augmentation (port of ``sslrec_tpu/models/kg/kgcl.py``, without the
-``train.mesh`` partitioned branch).
+UI-graph augmentation (port of ``sslrec_tpu/models/kg/kgcl.py``).
 
 - RGAT over (head, relation, tail) edges: per-edge logit
   ``leaky_relu(⟨fc([h;t]), rel⟩)`` → per-head segment softmax → weighted tail
@@ -20,6 +19,22 @@ Every random draw is a method of its own (:meth:`step_draws`,
 :meth:`epoch_draws`) apart from the arithmetic, which takes the draws as
 inputs, so tests can inject them.  Draws come from a ``torch.Generator`` on
 the run's device.
+
+Under ``train.mesh`` with a ``model`` axis of M > 1 each rank holds a
+contiguous row shard of ``all_embed`` (``dist_train``'s fused-table
+layout).  Every rank gathers the whole table with autograd and runs the
+RGAT over the whole KG with the single run's draws (they are over whole
+tables); the UI propagation runs graph-partitioned
+(``mesh_partitioned_propagate``, the views' values through
+``view_vals_partitioned``) from the rank's user and item rows cut out of
+the gathered table (the RGAT's through ``share_cotangent``, so that its
+backward takes the whole cotangent), and gives this rank's rows.  The
+batch's rows come through ``owned_lookup``; InfoNCE's denominators read
+the second view's whole tables, gathered back with autograd.  The relation
+table and the RGAT's weights are replicated (the trainer sums their
+gradients over ``model``).  Its BPR and InfoNCE are sums over the batch, so
+a ``data`` slice scales them by the whole batch over the slice, which its
+share then cancels; the L2 term is already a mean.
 """
 
 from __future__ import annotations
@@ -29,11 +44,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from sslrec_tpu_torch.models import losses
-from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel
+from sslrec_tpu_torch.models.base import RecModel
 from sslrec_tpu_torch.models.layers import take_rows
 from sslrec_tpu_torch.ops.segment_kernel import OneHotTake, SegmentOps
 from sslrec_tpu_torch.ops.spmm import spmm
 from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask
+from sslrec_tpu_torch.parallel import dist_train
+from sslrec_tpu_torch.parallel.mesh import mesh_from_config
 from sslrec_tpu_torch.utils.initializers import normal_init, xavier_uniform
 
 
@@ -44,7 +61,7 @@ def _l2norm_rows(x):
 
 
 class KGCL(RecModel):
-    mesh_todo = MESH_PARTITIONED
+    mesh_todo = None
     step_generator = True       # the trainer hands loss() a device generator
 
     def __init__(self, cfg, data):
@@ -72,12 +89,19 @@ class KGCL(RecModel):
         self.seg_t = SegmentOps(data.extras["kg_tails"], self.n_entities, device)
         self.rel_take = OneHotTake(data.extras["kg_rels"], self.n_relations, device)
 
+        self.mesh = mesh_from_config(cfg, device)
+        self.sg = None
+        if dist_train.model_sharded(self.mesh):
+            self.row_shards = {"all_embed": self.n_nodes}
+            g = self.bi.graph
+            _, self.sg = dist_train.maybe_partition_bi(cfg, g.rows, g.cols, self.user_num,
+                                                       self.item_num, device=device)
         d = self.embedding_size
 
         def param(*shape):
             return nn.Parameter(torch.empty(*shape, device=device))
 
-        self.all_embed = param(self.n_nodes, d)
+        self.all_embed = param(dist_train.shard_rows(self.n_nodes, self.mesh), d)
         self.relation_embed = param(self.n_relations, d)
         self.rgat_w = param(d, d)           # unused by the forward, as in JAX
         self.rgat_a = param(2 * d, 1)       # unused by the forward, as in JAX
@@ -86,7 +110,9 @@ class KGCL(RecModel):
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
         """The JAX package's initialisers, drawn in its order from ``gen``."""
-        self.all_embed.copy_(normal_init(gen, tuple(self.all_embed.shape), 0.1))
+        self.all_embed.copy_(dist_train.own_rows(
+            normal_init(gen, (self.n_nodes, self.embedding_size), 0.1),
+            self.all_embed.shape[0], self.mesh))
         self.relation_embed.copy_(normal_init(gen, tuple(self.relation_embed.shape), 0.1))
         self.rgat_w.copy_(xavier_uniform(gen, tuple(self.rgat_w.shape)) * 1.414)
         self.rgat_a.copy_(xavier_uniform(gen, tuple(self.rgat_a.shape)) * 1.414)
@@ -146,8 +172,20 @@ class KGCL(RecModel):
         return out
 
     # -- UI propagation -----------------------------------------------------
-    def _ui_prop(self, entity_emb, adj_vals):
-        all_emb = torch.cat([self.all_embed[: self.user_num], entity_emb[: self.item_num]])
+    def embed(self) -> torch.Tensor:
+        """The whole ``all_embed`` with autograd (gathered from the row shards
+        on a model-sharded mesh)."""
+        return dist_train.whole_table(self.all_embed, self.n_nodes, self.mesh)
+
+    def _ui_prop(self, users, entity_emb, adj_vals):
+        if self.sg is not None:
+            sg, mesh = self.sg, self.mesh
+            return dist_train.mesh_partitioned_propagate(
+                mesh, sg, dist_train.own_rows(users, sg.u_loc, mesh),
+                dist_train.own_rows(dist_train.share_cotangent(entity_emb[: self.item_num], mesh),
+                                    sg.i_loc, mesh),
+                dist_train.view_vals_partitioned(sg, adj_vals), self.layer_num, "mean")
+        all_emb = torch.cat([users, entity_emb[: self.item_num]])
         acc = all_emb
         for _ in range(self.layer_num):
             all_emb = spmm(self.bi.graph, all_emb, EdgeMask(adj_vals))
@@ -155,19 +193,29 @@ class KGCL(RecModel):
         mean = acc / (self.layer_num + 1)
         return mean[: self.user_num], mean[self.user_num:]
 
-    def forward(self, kg_mask=None, adj_vals=None, mess_keep=None, hop0=None):
-        entity_emb = self._rgat(self.all_embed[self.user_num:], edge_mask=kg_mask,
-                                mess_keep=mess_keep, hop0=hop0)
+    def forward(self, kg_mask=None, adj_vals=None, mess_keep=None, hop0=None, emb=None):
+        """The users' and items' tables (this rank's rows of them on a
+        model-sharded mesh); ``emb`` the whole ``all_embed`` where the caller
+        has it (:meth:`embed`)."""
+        emb = self.embed() if emb is None else emb
+        entity_emb = self._rgat(emb[self.user_num:], edge_mask=kg_mask, mess_keep=mess_keep,
+                                hop0=hop0)
         if adj_vals is None:
-            adj_vals = self.bi.view_vals(
-                torch.ones(self.bi.nnz_rect, device=self.all_embed.device))
-        return self._ui_prop(entity_emb, adj_vals)
+            adj_vals = self.bi.view_vals(torch.ones(self.bi.nnz_rect, device=emb.device))
+        return self._ui_prop(emb[: self.user_num], entity_emb, adj_vals)
+
+    def _rows(self, table, idx, n_loc):
+        """Rows ``idx`` of a :meth:`forward` table (through ``owned_lookup``
+        from the shards on a model-sharded mesh)."""
+        if self.sg is None:
+            return table[idx]
+        return dist_train.owned_lookup(table, idx, n_loc, self.mesh)
 
     # -- per-epoch view generation (trainer hook) ---------------------------
     @torch.no_grad()
     def keep_probs(self, kg_mask1, kg_mask2):
         """Per-rect-edge keep probability: the stability weight of its item."""
-        entity_emb = self.all_embed[self.user_num:]
+        entity_emb = self.embed()[self.user_num:]
         v1 = _l2norm_rows(self._rgat(entity_emb, edge_mask=kg_mask1)[: self.item_num])
         v2 = _l2norm_rows(self._rgat(entity_emb, edge_mask=kg_mask2)[: self.item_num])
         s = torch.exp((v1 * v2).sum(dim=-1))
@@ -199,18 +247,28 @@ class KGCL(RecModel):
             adj_vals = self.bi.view_vals(draws["rect_keep"]) / (1 - self.node_dropout_rate)
             kg_keep = draws["kg_keep"]
 
-        hop0 = self._hop_inputs(self.all_embed[self.user_num:])
+        emb = self.embed()
+        hop0 = self._hop_inputs(emb[self.user_num:])
         user_emb, item_emb = self.forward(kg_mask=kg_keep, adj_vals=adj_vals,
-                                          mess_keep=draws.get("mess_keep"), hop0=hop0)
-        u_e, pos_e, neg_e = user_emb[user], item_emb[pos], item_emb[neg]
-        rec = losses.bpr_loss(u_e, pos_e, neg_e)
+                                          mess_keep=draws.get("mess_keep"), hop0=hop0, emb=emb)
+        u_loc, i_loc = (None, None) if self.sg is None else (self.sg.u_loc, self.sg.i_loc)
+        u_e = self._rows(user_emb, user, u_loc)
+        pos_e, neg_e = self._rows(item_emb, pos, i_loc), self._rows(item_emb, neg, i_loc)
+        # the sums over a data slice, scaled to the whole batch (1 off a mesh)
+        scale = batch.get("n_whole", u_e.shape[0]) / u_e.shape[0]
+        rec = losses.bpr_loss(u_e, pos_e, neg_e) * scale
         reg = 0.5 * ((u_e ** 2).sum() + (pos_e ** 2).sum() + (neg_e ** 2).sum()) \
             / u_e.shape[0]
 
-        u1, i1 = self.forward(kg_mask=aux["kg_mask1"], adj_vals=aux["ui_vals1"], hop0=hop0)
-        u2, i2 = self.forward(kg_mask=aux["kg_mask2"], adj_vals=aux["ui_vals2"], hop0=hop0)
-        cl = self.cl_weight * (self._infonce_overall(u1[user], u2[user], u2)
-                               + self._infonce_overall(i1[pos], i2[pos], i2))
+        u1, i1 = self.forward(kg_mask=aux["kg_mask1"], adj_vals=aux["ui_vals1"], hop0=hop0,
+                              emb=emb)
+        u2, i2 = self.forward(kg_mask=aux["kg_mask2"], adj_vals=aux["ui_vals2"], hop0=hop0,
+                              emb=emb)
+        u2 = dist_train.whole_table(u2, self.user_num, self.mesh)
+        i2 = dist_train.whole_table(i2, self.item_num, self.mesh)
+        cl = self.cl_weight * scale * (
+            self._infonce_overall(self._rows(u1, user, u_loc), u2[user], u2)
+            + self._infonce_overall(self._rows(i1, pos, i_loc), i2[pos], i2))
         loss = rec + self.decay * reg + cl
         return loss, {"rec_loss": rec, "cl_loss": cl}
 
@@ -225,7 +283,7 @@ class KGCL(RecModel):
     def kg_loss(self, h, r, pos_t, neg_t):
         """Squared TransE distances on the entity rows of ``all_embed``:
         mean ``-log σ(neg - pos)`` plus 1e-3 × the four mean half-squared norms."""
-        ent = self.all_embed[self.user_num:]
+        ent = self.embed()[self.user_num:]
         r_e = take_rows(self.relation_embed, r)
         h_e, p_e, n_e = take_rows(ent, h), take_rows(ent, pos_t), take_rows(ent, neg_t)
         pos_score = ((h_e + r_e - p_e) ** 2).sum(1)
@@ -235,4 +293,8 @@ class KGCL(RecModel):
         return kg + 1e-3 * l2
 
     def generate(self):
-        return self.forward()
+        users, items = self.forward()
+        if self.sg is None:
+            return users, items
+        return (dist_train.whole_rows(users, self.user_num, self.mesh),
+                dist_train.whole_rows(items, self.item_num, self.mesh))

@@ -1,6 +1,5 @@
 """KGIN: intent-disentangled relational path aggregation over the KG (port
-of ``sslrec_tpu/models/kg/kgin.py``, without the ``train.mesh`` partitioned
-branch).
+of ``sslrec_tpu/models/kg/kgin.py``).
 
 A hop takes, per KG edge, the tail's embedding times its relation's weight
 and averages those into the heads (a masked segment mean); users sum their
@@ -20,6 +19,18 @@ dropout's masks (the KG edges kept with probability ``node_dropout_rate``,
 as in the JAX package; the interact edges with ``1 - rate``) and each hop's
 message-dropout masks from the epoch's device generator; a test injects
 JAX's through ``loss``'s ``draws``.
+
+Under ``train.mesh`` with a ``model`` axis of M > 1 each rank holds a
+contiguous row shard of ``all_embed`` (``dist_train``'s fused-table
+layout) and gathers the whole table with autograd.  The entities' KG mean
+runs on the whole tables on every rank; the users' side is row-wise, so a
+rank keeps only its users' rows (``U_loc``, cut out of the gathered
+table), and the user ← entity interact hop runs graph-partitioned over the
+``[users; entities]`` space (only user-destination edges, the node-dropped
+values through ``view_vals_partitioned``, JAX's ``combine="last"``; the
+entities through ``share_cotangent``).  The
+batch's user rows come through ``owned_lookup``; ``latent_emb``,
+``weight`` and ``disen_weight_att`` are replicated.
 """
 
 from __future__ import annotations
@@ -30,9 +41,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel
+from sslrec_tpu_torch.models.base import RecModel
 from sslrec_tpu_torch.ops.segment_kernel import OneHotTake, SegmentOps
 from sslrec_tpu_torch.ops.sparse import normalize_adj_left
+from sslrec_tpu_torch.parallel import dist_train
+from sslrec_tpu_torch.parallel.mesh import mesh_from_config
 from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
 
@@ -77,7 +90,7 @@ def interact_edges(train_mat: sp.spmatrix, n_users: int, n_nodes: int):
 
 
 class KGIN(RecModel):
-    mesh_todo = MESH_PARTITIONED
+    mesh_todo = None
     step_generator = True
 
     def __init__(self, cfg, data):
@@ -107,13 +120,20 @@ class KGIN(RecModel):
         self.seg_iu = SegmentOps(rows, self.user_num, device)
         self.seg_ic = SegmentOps(cols, self.n_entities, device)
         self.im_vals = torch.from_numpy(vals).to(device)
+        self.mesh = mesh_from_config(cfg, device)
+        self.sg = None
+        if dist_train.model_sharded(self.mesh):
+            self.row_shards = {"all_embed": self.n_nodes}
+            _, self.sg = dist_train.maybe_partition_bi(
+                cfg, rows.astype(np.int64), self.user_num + cols.astype(np.int64),
+                self.user_num, self.n_entities, vals=vals, device=device)
 
         d = self.embedding_size
 
         def param(*shape):
             return nn.Parameter(torch.empty(*shape, device=device))
 
-        self.all_embed = param(self.n_nodes, d)
+        self.all_embed = param(dist_train.shard_rows(self.n_nodes, self.mesh), d)
         self.latent_emb = param(self.n_factors, d)
         self.weight = param(self.n_relations - 1, d)
         self.disen_weight_att = param(self.n_factors, self.n_relations - 1)
@@ -121,7 +141,10 @@ class KGIN(RecModel):
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
         """Xavier for every parameter, from ``gen``."""
-        for p in (self.all_embed, self.latent_emb, self.weight, self.disen_weight_att):
+        self.all_embed.copy_(dist_train.own_rows(
+            xavier_uniform(gen, (self.n_nodes, self.embedding_size)), self.all_embed.shape[0],
+            self.mesh))
+        for p in (self.latent_emb, self.weight, self.disen_weight_att):
             p.copy_(xavier_uniform(gen, tuple(p.shape)))
 
     def step_draws(self, gen: torch.Generator) -> dict:
@@ -148,21 +171,33 @@ class KGIN(RecModel):
             contrib = contrib * kg_mask[:, None]
         entity_agg = self.seg_h.sum(contrib) / cnt[:, None]
         score = torch.softmax(user_emb @ self.latent_emb.T, dim=1)             # [U, F]
-        user_agg = self.seg_iu.sum(self.seg_ic.take(entity_emb) * im_vals[:, None])
+        if self.sg is not None:       # im_vals: the partitioned layout's [P, E_pad]
+            sg, mesh = self.sg, self.mesh
+            ents = dist_train.own_rows(dist_train.share_cotangent(entity_emb, mesh), sg.i_loc,
+                                       mesh)
+            user_agg, _ = dist_train.mesh_partitioned_propagate(
+                mesh, sg, torch.zeros_like(user_emb), ents, im_vals, 1, "last")
+        else:
+            user_agg = self.seg_iu.sum(self.seg_ic.take(entity_emb) * im_vals[:, None])
         disen_w = torch.softmax(self.disen_weight_att, dim=-1) @ self.weight   # [F, d]
         user_agg = user_agg * (score @ disen_w) + user_agg
         return entity_agg, user_agg
 
     def _gcn(self, draws: dict | None):
-        """Entity and user tables after the hops; ``draws`` None in evaluation."""
+        """Entity and user tables after the hops (this rank's users on a
+        model-sharded mesh); ``draws`` None in evaluation."""
         draws = draws or {}
-        user_emb = self.all_embed[: self.user_num]
-        entity_emb = self.all_embed[self.user_num:]
+        emb = dist_train.whole_table(self.all_embed, self.n_nodes, self.mesh)
+        user_emb = emb[: self.user_num]
+        entity_emb = emb[self.user_num:]
         kg_mask, im_vals = None, self.im_vals
         if "kg_mask" in draws:
             kg_mask = draws["kg_mask"]
             im_vals = torch.where(draws["im_keep"], self.im_vals / (1 - self.node_dropout_rate),
                                   0.0)
+        if self.sg is not None:
+            user_emb = dist_train.own_rows(user_emb, self.sg.u_loc, self.mesh)
+            im_vals = dist_train.view_vals_partitioned(self.sg, im_vals)
         # the relation rows and the heads' counts are the same every hop
         rel_emb = self.rel_take.take(self.weight)
         ones = torch.ones(self.n_kg, device=entity_emb.device)
@@ -172,6 +207,8 @@ class KGIN(RecModel):
             entity_emb, user_emb = self._hop(entity_emb, user_emb, rel_emb, cnt, kg_mask, im_vals)
             if "mess_keep" in draws:
                 keep_e, keep_u = draws["mess_keep"][hop]
+                if self.sg is not None:
+                    keep_u = dist_train.own_rows(keep_u, self.sg.u_loc, self.mesh)
                 scale = 1 - self.mess_dropout_rate
                 entity_emb = torch.where(keep_e, entity_emb / scale, 0.0)
                 user_emb = torch.where(keep_u, user_emb / scale, 0.0)
@@ -198,7 +235,11 @@ class KGIN(RecModel):
         """``draws`` (else from ``gen``) as :meth:`step_draws` returns them."""
         draws = self.step_draws(gen) if draws is None else draws
         ent, usr = self._gcn(draws)
-        u_e, p_e, n_e = usr[batch["user"]], ent[batch["pos"]], ent[batch["neg"]]
+        if self.sg is None:
+            u_e = usr[batch["user"]]
+        else:
+            u_e = dist_train.owned_lookup(usr, batch["user"], self.sg.u_loc, self.mesh)
+        p_e, n_e = ent[batch["pos"]], ent[batch["neg"]]
         mf = -F.logsigmoid((u_e * p_e).sum(1) - (u_e * n_e).sum(1)).mean()
         reg = self.decay * ((u_e ** 2).sum() + (p_e ** 2).sum() + (n_e ** 2).sum()) \
             / 2.0 / u_e.shape[0]
@@ -207,4 +248,6 @@ class KGIN(RecModel):
 
     def generate(self):
         ent, usr = self._gcn(None)
+        if self.sg is not None:
+            usr = dist_train.whole_rows(usr, self.user_num, self.mesh)
         return usr, ent[: self.item_num]

@@ -1,7 +1,6 @@
 """KGRec: rationale-aware KG recommendation, an attentive KG GNN with
 attention-guided MAE edge masking and a cross-view contrast (port of
-``sslrec_tpu/models/kg/kgrec.py``, without the ``train.mesh`` partitioned
-branch).
+``sslrec_tpu/models/kg/kgrec.py``).
 
 - The shared hop: two-head edge attention ``q·(k ⊙ rel) / √d_k`` between a
   head's and a tail's projected embeddings, a segment softmax per head over
@@ -29,6 +28,17 @@ values of a sort, which ties do not change.
 Draws: the model sets ``step_generator``; :meth:`step_draws` draws every
 mask, uniform, edge id and permutation of a step from the epoch's device
 generator; a test injects JAX's through ``loss``'s ``draws``.
+
+Under ``train.mesh`` with a ``model`` axis of M > 1 each rank holds a
+contiguous row shard of ``all_embed`` (``dist_train``'s fused-table
+layout) and gathers the whole table with autograd.  The encoder, the
+rationale scores, their top-k and the KG tower run over the whole KG on
+every rank, as one device runs them, with the single run's draws; the UI
+tower runs graph-partitioned over the bidirectional interact edges (the
+rationale weights as ``[ui_w; ui_w]`` through ``view_vals_partitioned``,
+one ``combine="last"`` hop at a time), and its item rows are gathered back
+whole for the contrast.  ``relation_emb``, ``w_q`` and the contrast's MLPs
+are replicated.
 """
 
 from __future__ import annotations
@@ -38,9 +48,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel, apply_linear, linear_layer
+from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.ops.segment_kernel import OneHotTake, SegmentOps
 from sslrec_tpu_torch.ops.sparse import normalize_adj_left
+from sslrec_tpu_torch.parallel import dist_train
+from sslrec_tpu_torch.parallel.mesh import mesh_from_config
 from sslrec_tpu_torch.utils.initializers import linear_params, xavier_uniform
 
 
@@ -65,7 +77,7 @@ def kth_largest(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class KGRec(RecModel):
-    mesh_todo = MESH_PARTITIONED
+    mesh_todo = None
     step_generator = True
 
     def __init__(self, cfg, data):
@@ -108,13 +120,21 @@ class KGRec(RecModel):
         self.seg_ieu = SegmentOps(ie_u, self.user_num, device)
         self.seg_iei = SegmentOps(ie_i, self.item_num, device)
         self.seg_ie_ent = SegmentOps(ie_i, self.n_entities, device)
+        self.mesh = mesh_from_config(cfg, device)
+        self.sg = None
+        if dist_train.model_sharded(self.mesh):
+            self.row_shards = {"all_embed": self.n_nodes}
+            u = self.user_num
+            _, self.sg = dist_train.maybe_partition_bi(
+                cfg, np.concatenate([ie_u, u + ie_i]), np.concatenate([u + ie_i, ie_u]), u,
+                self.item_num, device=device)
 
         d = self.embedding_size
 
         def param(*shape):
             return nn.Parameter(torch.empty(*shape, device=device))
 
-        self.all_embed = param(self.n_nodes, d)
+        self.all_embed = param(dist_train.shard_rows(self.n_nodes, self.mesh), d)
         self.relation_emb = param(self.n_relations - 1, d)
         self.w_q = param(d, d)
         self.cl_mlp1 = nn.ModuleList([linear_layer(d, d, device) for _ in range(2)])
@@ -123,9 +143,11 @@ class KGRec(RecModel):
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
         """Xavier tables and query weight, ``nn.Linear``-default MLPs, from ``gen``."""
-        for p in (self.all_embed, self.relation_emb, self.w_q):
-            p.copy_(xavier_uniform(gen, tuple(p.shape)))
         d = self.embedding_size
+        self.all_embed.copy_(dist_train.own_rows(xavier_uniform(gen, (self.n_nodes, d)),
+                                                 self.all_embed.shape[0], self.mesh))
+        for p in (self.relation_emb, self.w_q):
+            p.copy_(xavier_uniform(gen, tuple(p.shape)))
         for lin in (*self.cl_mlp1, *self.cl_mlp2):
             for k, v in linear_params(gen, d, d).items():
                 lin[k].copy_(v)
@@ -182,9 +204,14 @@ class KGRec(RecModel):
         user_agg = self.seg_ieu.sum(ie_w[:, None] * self.seg_ie_ent.take(entity_emb))
         return entity_agg, user_agg
 
-    def _gcn(self, rel_emb, kg_mask, ie_mask, mess_keep=None):
-        user_emb = self.all_embed[: self.user_num]
-        entity_emb = self.all_embed[self.user_num:]
+    def embed(self) -> torch.Tensor:
+        """The whole ``all_embed`` with autograd (gathered from the row shards
+        on a model-sharded mesh)."""
+        return dist_train.whole_table(self.all_embed, self.n_nodes, self.mesh)
+
+    def _gcn(self, emb, rel_emb, kg_mask, ie_mask, mess_keep=None):
+        user_emb = emb[: self.user_num]
+        entity_emb = emb[self.user_num:]
         ie_w = self.ie_w * ie_mask / (1 - self.node_dropout_rate)
         ent_res, usr_res = entity_emb, user_emb
         for hop in range(self.context_hops):
@@ -200,9 +227,20 @@ class KGRec(RecModel):
         return ent_res, usr_res
 
     # -- auxiliary towers ----------------------------------------------------
-    def _forward_ui(self, ui_w):
-        user_emb = self.all_embed[: self.user_num]
-        item_emb = self.all_embed[self.user_num: self.user_num + self.item_num]
+    def _forward_ui(self, emb, ui_w):
+        user_emb = emb[: self.user_num]
+        item_emb = emb[self.user_num: self.user_num + self.item_num]
+        if self.sg is not None:
+            sg, mesh = self.sg, self.mesh
+            user_emb = dist_train.own_rows(user_emb, sg.u_loc, mesh)
+            item_emb = item_res = dist_train.own_rows(item_emb, sg.i_loc, mesh)
+            pv = dist_train.view_vals_partitioned(sg, torch.cat([ui_w, ui_w]))
+            for _ in range(self.context_hops):
+                u_agg, i_agg = dist_train.mesh_partitioned_propagate(
+                    mesh, sg, user_emb, item_emb, pv, 1, "last")
+                user_emb, item_emb = _l2norm_rows(u_agg), _l2norm_rows(i_agg)
+                item_res = item_res + item_emb
+            return dist_train.gather_whole(item_res, self.item_num, mesh)
         item_res = item_emb
         for _ in range(self.context_hops):
             u_agg = self.seg_ieu.sum(ui_w[:, None] * self.seg_iei.take(item_emb))
@@ -211,8 +249,8 @@ class KGRec(RecModel):
             item_res = item_res + item_emb
         return item_res
 
-    def _forward_kg(self, rel_emb, kg_mask):
-        entity_emb = self.all_embed[self.user_num:]
+    def _forward_kg(self, emb, rel_emb, kg_mask):
+        entity_emb = emb[self.user_num:]
         res = entity_emb
         cnt = self.seg_h.sum(kg_mask).clamp(min=1.0)[:, None]
         for _ in range(self.context_hops):
@@ -244,10 +282,11 @@ class KGRec(RecModel):
         live = draws["live"]
         # one relation take serves every use: its backward is one B1 sum
         rel_emb = self.rel_take.take(self.relation_emb)
+        emb = self.embed()
 
         with torch.no_grad():
             head_live = self.seg_h.sum(live)
-            attn_score = self._norm_attn(self.all_embed[self.user_num:], rel_emb, live, head_live)
+            attn_score = self._norm_attn(emb[self.user_num:], rel_emb, live, head_live)
             am1 = self.seg_h.sum(attn_score) / head_live.clamp(min=1.0)
             am2 = self.seg_t.sum(attn_score) / self.seg_t.sum(live).clamp(min=1.0)
             am1 = torch.where(am1 == 0.0, 1.0, am1)
@@ -260,7 +299,8 @@ class KGRec(RecModel):
             mae_mask[mae_ids] = 1.0
             enc_mask = live * (1.0 - mae_mask)
 
-        ent_emb, usr_emb = self._gcn(rel_emb, enc_mask, draws["ie_mask"], draws.get("mess_keep"))
+        ent_emb, usr_emb = self._gcn(emb, rel_emb, enc_mask, draws["ie_mask"],
+                                     draws.get("mess_keep"))
         u_e, p_e, n_e = usr_emb[user], ent_emb[pos], ent_emb[neg]
         mf = -F.logsigmoid((u_e * p_e).sum(1) - (u_e * n_e).sum(1)).mean()
         reg = self.decay * ((u_e ** 2).sum() + (p_e ** 2).sum() + (n_e ** 2).sum()) \
@@ -282,8 +322,8 @@ class KGRec(RecModel):
             cl_ui_mask = (ui_logits >= ui_th).float()
             ui_w = self.ie_w * draws["ie_mask"] / (1 - self.node_dropout_rate)
             ui_w = ui_w * cl_ui_mask / (1 - self.cl_drop)
-        item_ui = self._forward_ui(ui_w)
-        item_kg = self._forward_kg(rel_emb, cl_kg_mask)
+        item_ui = self._forward_ui(emb, ui_w)
+        item_kg = self._forward_kg(emb, rel_emb, cl_kg_mask)
         cl = self.cl_coef * self._contrast(item_ui, item_kg, draws["perm"])
         return mf + reg + mae + cl, {"rec_loss": mf, "mae_loss": mae, "cl_loss": cl}
 
@@ -291,5 +331,5 @@ class KGRec(RecModel):
     def generate(self):
         ones = torch.ones(self.n_kg, device=self.all_embed.device)
         ie_mask = torch.ones(self.n_ui, device=self.all_embed.device) * (1 - self.node_dropout_rate)
-        ent, usr = self._gcn(self.rel_take.take(self.relation_emb), ones, ie_mask)
+        ent, usr = self._gcn(self.embed(), self.rel_take.take(self.relation_emb), ones, ie_mask)
         return usr, ent[: self.item_num]

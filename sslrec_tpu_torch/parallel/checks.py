@@ -123,10 +123,29 @@ def rect_pair(inp: dict) -> dict:
             for f in ("local_rows", "cols", "vals", "src_idx")}
 
 
-def _bundle(inp: dict, device):
+def _bundle(inp: dict, device, cfg=None):
+    """The data of ``inp``: a KG split (``inp["kg"]``: ``train_cf``,
+    ``test_cf``, ``triplets``, ``n_entities``, ``n_relations``, as the KG
+    handler's ``bundle_from_kg`` takes them, under ``cfg``), else a general_cf
+    one from the ``trn`` / ``val`` / ``tst`` matrices."""
+    if inp.get("kg") is not None:
+        from sslrec_tpu_torch.data.kg import bundle_from_kg
+        kg = inp["kg"]
+        return bundle_from_kg(cfg, kg["train_cf"], kg["test_cf"], kg["triplets"],
+                              int(kg["n_entities"]), int(kg["n_relations"]), device=device)
     from sslrec_tpu_torch.data.general_cf import bundle_from_matrices
     mats = [None if inp.get(k) is None else sp.coo_matrix(inp[k]) for k in ("trn", "val", "tst")]
     return bundle_from_matrices(*mats, device=device)
+
+
+def _tensors(x, device):
+    """numpy arrays (in dicts, lists and tuples, kept as such) as tensors on
+    ``device``."""
+    if isinstance(x, dict):
+        return {k: _tensors(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tensors(v, device) for v in x)
+    return torch.from_numpy(np.asarray(x)).to(device)
 
 
 def lightgcn(inp: dict) -> dict:
@@ -156,11 +175,16 @@ def lightgcn(inp: dict) -> dict:
 
 def _whole_params(model, attr: str = "data") -> dict:
     """The model's parameters (``attr`` "data") or gradients ("grad") as whole
-    tables: its ``row_shards`` gathered over the ``model`` group."""
+    tables: its ``row_shards`` gathered over the ``model`` group (a
+    parameter without a gradient: None)."""
     shards = model.row_shards
     out = {}
     for name, p in model.named_parameters():
-        t = getattr(p, attr).detach()
+        t = getattr(p, attr)
+        if t is None:
+            out[name] = None
+            continue
+        t = t.detach()
         out[name] = _np(t if name not in shards else
                         dist_train.whole_rows(t, shards[name], model.mesh))
     return out
@@ -179,7 +203,7 @@ def model_step(inp: dict) -> dict:
 
     cfg = _cfg(inp["model"], inp)
     dev = _dev(inp)
-    model = build_model(cfg, _bundle(inp, dev))
+    model = build_model(cfg, _bundle(inp, dev, cfg))
     mesh = model.mesh
     params = {k: torch.from_numpy(v).to(dev) for k, v in inp["params"].items()}
     model.load_state_dict(dist_train.local_state(model, params, mesh))
@@ -189,16 +213,22 @@ def model_step(inp: dict) -> dict:
     share = batch["user"].shape[0] / n
     batch.update(share=share, n_whole=n, step=0)
     if inp.get("aux") is not None:
-        batch["aux"] = {k: torch.from_numpy(v).to(dev) for k, v in inp["aux"].items()}
+        batch["aux"] = _tensors(inp["aux"], dev)
+        if "dkg" in batch["aux"]:       # DiffKG's denoised KG: heads, tails, relations, validity
+            batch["aux"]["dkg"] = model.kg_edges(*batch["aux"]["dkg"])
     kw = {}
     if inp.get("draws") is not None:
-        kw["draws"] = {k: torch.from_numpy(v).to(dev) for k, v in inp["draws"].items()}
-    loss, terms = model.loss(batch, torch.from_numpy(inp["key"]).to(dev), **kw)
+        kw["draws"] = _tensors(inp["draws"], dev)
+    key = None if inp.get("key") is None else torch.from_numpy(inp["key"]).to(dev)
+    loss, terms = model.loss(batch, key, **kw)
     dist_train.mesh_backward(loss, mesh, share)
-    dist_train.sync_grads(model.parameters(), mesh)
+    dist_train.sync_model_grads(model, mesh)
     terms = dist_train.reduce_terms({**terms, "loss": loss.detach()}, mesh, share)
+    own = model.state_dict()
+    shapes = {k: tuple(own[k].shape) for k in model.row_shards}
     return {"terms": {k: float(v) for k, v in terms.items()},
-            "grads": _whole_params(model, "grad"), "local_rows": model.user_embeds.shape[0]}
+            "grads": _whole_params(model, "grad"), "local_shapes": shapes,
+            "local_rows": next(iter(shapes.values()))[0]}
 
 
 def trainer_step(inp: dict) -> dict:
@@ -211,15 +241,30 @@ def trainer_step(inp: dict) -> dict:
     from sslrec_tpu_torch.trainer.trainer import INIT_STREAM, Trainer, generator
 
     cfg = _cfg(inp.get("model", "lightgcn"), inp)
-    data = _bundle(inp, _dev(inp))
+    data = _bundle(inp, _dev(inp), cfg)
     model = build_model(cfg, data)
     trainer = Trainer(cfg, model, data)
     model.init_params(generator(int(cfg.train.seed), INIT_STREAM))
     trainer.n_batches = 1           # the epoch's first step, and no other
     terms = trainer.train_epoch(0)
-    return {"loss": float(terms["loss"]),
+    return {"loss": float(terms["loss"]), "terms": {k: float(v) for k, v in terms.items()},
             **_whole_params(model), **{k + ".grad": v for k, v in
-                                       _whole_params(model, "grad").items()}}
+                                       _whole_params(model, "grad").items()},
+            **_model_state(model)}
+
+
+def _model_state(model) -> dict:
+    """State a model keeps outside its parameters after an epoch's hook:
+    DiffKG's denoiser (``dn.<name>``) and its denoised KG's edges (``dkg.h``,
+    ``dkg.t``, ``dkg.r``, ``dkg.valid``)."""
+    out = {}
+    if getattr(model, "_dn", None) is not None:
+        out.update({f"dn.{k}": _np(v) for k, v in model._dn.items()})
+    dkg = getattr(model, "_last_dkg", None)
+    if dkg is not None:
+        out.update({f"dkg.{k}": _np(getattr(dkg, k).ids) for k in ("h", "t", "r")})
+        out["dkg.valid"] = _np(dkg.valid)
+    return out
 
 
 def propagate_grad(inp: dict) -> dict:
@@ -273,27 +318,77 @@ def propagate_grad(inp: dict) -> dict:
             else None}
 
 
+# the head layouts whose segment softmax B2 shifts, by model class
+B2_LAYOUTS = {"KGCL": lambda m: {"kg_heads": m.seg_h.layout},
+              "KGRec": lambda m: {"kg_full_heads": m.seg_h.layout},
+              "DiffKG": lambda m: {"kg_heads": m.kg.h, "dkg_heads": m._last_dkg.h}}
+
+
+def layout_probe(trainer) -> dict:
+    """The kernels on a trained model's layouts in this rank, each against its
+    plain version on seeded random inputs at the model's width: B1 on the
+    rank's shard layouts of the model's partitioned graph (``sg``), forward
+    and transposed, without a multiplier and under random values in the
+    original edge order (a view's, through ``view_vals_partitioned``), the
+    largest error relative to the plain output's largest entry; B2 on the
+    model's head layouts over the whole KG (``B2_LAYOUTS``), whether it equals
+    the plain version bit for bit."""
+    from sslrec_tpu_torch.ops import segment_kernel, spmm_kernel
+
+    model, dev = trainer.model, trainer.device
+    gen = torch.Generator(device=dev).manual_seed(17 + model.mesh.rank)
+    d = model.embedding_size
+    out = {"b1": {}, "b2": {}}
+    sg = getattr(model, "sg", None)
+    if sg is not None:
+        p = model.mesh.model_index
+        shard = dist_train.shard_graph(sg, p, dev)
+        vals = torch.rand(sg.n_edges, generator=gen, device=dev)
+        graphs = {"": shard.graph,
+                  ".vals": shard.with_vals(dist_train.view_vals_partitioned(sg, vals)[p])}
+        for tag, g in graphs.items():
+            for name, lay in (("forward", g.fwd), ("transposed", g.bwd)):
+                x = torch.randn(lay.n_cols, d, generator=gen, device=dev)
+                ref = spmm_kernel.csr_spmm_plain(lay, x)
+                err = (spmm_kernel.csr_spmm(lay, x) - ref).abs().max() / ref.abs().max()
+                out["b1"][name + tag] = float(err)
+    for name, lay in B2_LAYOUTS.get(type(model).__name__, lambda m: {})(model).items():
+        logits = torch.randn(lay.n, generator=gen, device=dev) * 5
+        out["b2"][name] = bool(torch.equal(segment_kernel.segment_max(lay, logits),
+                                           segment_kernel.segment_max_plain(lay, logits)))
+    return out
+
+
 def cli_runs(inp: dict) -> dict:
     """The CLI runs ``inp["argvs"]`` one after the other in this started group
     (:func:`~.launch.cli_rank` each, as the CLI's own spawn runs one): rank
-    summaries by run.  On the CPU every B1 call counts where the card
-    counts a launch (``spmm_kernel.csr_spmm``'s counters, by layout shape),
-    so that a path's launch count can be held before it meets the card."""
-    from sslrec_tpu_torch.ops import spmm_kernel
+    summaries by run.  On the CPU every B1 and B2 call counts where the card
+    counts a launch (``spmm_kernel.csr_spmm``'s counters, by layout shape,
+    also where ``segment_kernel`` calls it, and ``segment_max.launches``),
+    so that a path's launch count can be held before it meets the card.
+    ``inp["probe"]`` set: each run ends with :func:`layout_probe`."""
+    from sslrec_tpu_torch.ops import segment_kernel, spmm_kernel
     from sslrec_tpu_torch.parallel import launch
 
-    kernel = spmm_kernel.csr_spmm
+    kernel, segmax = spmm_kernel.csr_spmm, segment_kernel.segment_max
     if _dev(inp).type == "cpu":
         def counted(layout, x, ew=None):
             counted.launches += 1
             counted.by_shape.setdefault((layout.n_rows, layout.n_cols), [0, 0])[0] += 1
             return kernel(layout, x, ew)
 
-        spmm_kernel.csr_spmm = counted
+        def counted_max(lay, data):
+            counted_max.launches += 1
+            return segmax(lay, data)
+
+        spmm_kernel.csr_spmm = segment_kernel.csr_spmm = counted
+        segment_kernel.segment_max = counted_max
     try:
-        return {"runs": [launch.cli_rank(list(argv)) for argv in inp["argvs"]]}
+        probe = layout_probe if inp.get("probe") else None
+        return {"runs": [launch.cli_rank(list(argv), probe) for argv in inp["argvs"]]}
     finally:
-        spmm_kernel.csr_spmm = kernel
+        spmm_kernel.csr_spmm = segment_kernel.csr_spmm = kernel
+        segment_kernel.segment_max = segmax
 
 
 CHECKS = {"mesh_shape": mesh_shape, "owned_lookup": owned_lookup, "topk": topk,

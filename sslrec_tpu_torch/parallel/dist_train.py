@@ -25,6 +25,22 @@ gather whose adjoint is again the reduce-scatter; a term that crosses the
 batch gathers the batch's rows over the ``data`` group
 (:func:`gather_batch`).
 
+A model whose user and item rows live in one fused table (the KG models'
+``all_embed [users; entities]``) row-shards that table contiguously: rank
+``p`` holds rows ``[p·N_loc, (p+1)·N_loc)``, ``N_loc = ⌈N / M⌉``, so that
+:func:`whole_state`, :func:`local_state` and checkpoints treat it as any
+other row shard.  Such a model reads the whole table with autograd
+(:func:`whole_table`) and cuts the partition's ``U_loc`` and ``I_loc`` rows
+out of it (:func:`own_rows`, differentiable) for a partitioned hop; where
+a computation that every rank runs alike (an RGAT) makes those rows, its
+output passes :func:`share_cotangent`, so that its backward sees the whole
+cotangent on every rank, as one device's does.
+
+A parameter outside ``row_shards`` is replicated: every rank of a ``model``
+group holds all of it and reads it directly, with no collective whose
+backward would sum the ranks' cotangents, so :func:`sync_model_grads` sums
+its gradient over the ``model`` group.
+
 The JAX package runs all of it in one process under ``shard_map``; here a
 process is a rank of the mesh (:mod:`~sslrec_tpu_torch.parallel.mesh`), and
 the collectives are ``torch.distributed`` calls with autograd.  Their
@@ -202,6 +218,21 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
+class _ShareCotangent(torch.autograd.Function):
+    """Identity; backward: the mean over ``group`` of the ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g / dist.get_world_size(ctx.group), None
+
+
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """The rows of ``x`` of every rank of ``group``, in rank order, with
     autograd (``x`` itself outside a started group)."""
@@ -345,7 +376,8 @@ def shard_rows(n: int, mesh: Mesh | None) -> int:
 
 def own_rows(whole: torch.Tensor, n_loc: int, mesh: Mesh | None) -> torch.Tensor:
     """This shard's ``n_loc`` rows of a whole table, zero rows past its end, a
-    copy (``whole`` itself off a mesh)."""
+    copy (``whole`` itself off a mesh); with autograd, the rows' gradient
+    going back to the same rows of ``whole``."""
     if mesh is None:
         return whole
     lo = mesh.model_index * n_loc
@@ -384,6 +416,25 @@ def whole_nodes(u_local: torch.Tensor, i_local: torch.Tensor, n_users: int, n_it
     full = assemble_full(torch.cat([u_local, i_local]), u_loc, i_local.shape[0], mesh)
     u_pad = u_loc * mesh.n_model
     return torch.cat([full[:n_users], full[u_pad:u_pad + n_items]])
+
+
+def share_cotangent(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """``x``, a whole table that every rank of a ``model`` group computes
+    alike, for a partitioned hop that reads each rank's rows of it
+    (:func:`own_rows`): in the backward each rank's cotangent (its own rows')
+    is replaced by the group's mean, so that the computation that made ``x``
+    runs its backward on the whole cotangent on every rank, as one device
+    does (JAX's GSPMD sums it there too), rather than on a part of it whose
+    results the gather's reduce-scatter adds later.  The gradient is the
+    same; the float sums are the single run's.  ``x`` itself off a
+    model-sharded mesh."""
+    return _ShareCotangent.apply(x, mesh.model_group) if model_sharded(mesh) else x
+
+
+def whole_table(local: torch.Tensor, n_rows: int, mesh: Mesh | None) -> torch.Tensor:
+    """:func:`gather_whole` on a model-sharded mesh, else ``local`` (which is
+    then the whole table)."""
+    return gather_whole(local, n_rows, mesh) if model_sharded(mesh) else local
 
 
 @torch.no_grad()
@@ -447,20 +498,42 @@ def mesh_backward(loss: torch.Tensor, mesh: Mesh, share: float) -> None:
     row's whole loss and backpropagates it itself, and the collectives'
     backward (gather ⇄ reduce-scatter, all-reduce ⇄ all-reduce) sums the
     ``M`` equal cotangents: without the division by ``M`` every gradient
-    would be ``M`` times too large.  This is the one place that scales."""
+    would be ``M`` times too large.  This is the one place that scales.
+
+    A replicated parameter (outside the model's ``row_shards``) has no such
+    collective: each rank's gradient is its own part of the sum, ``1/M`` of
+    the whole where every rank computes the same, its own rows' share where
+    the rank reads it over its row shard; :func:`sync_model_grads` adds the
+    parts over the ``model`` group."""
     (loss * (share / mesh.n_model)).backward()
 
 
-@torch.no_grad()
-def sync_grads(params, mesh: Mesh) -> None:
-    """Sum each gradient over the ``data`` group (one all-reduce), in place."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if mesh.data_group is None or not grads:
+def _all_reduce_grads(grads: list, group) -> None:
+    if group is None or not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=mesh.data_group)
+    dist.all_reduce(flat, group=group)
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
+
+
+@torch.no_grad()
+def sync_grads(params, mesh: Mesh, replicated=()) -> None:
+    """Sum the gradients of ``replicated`` over the ``model`` group (each rank
+    holds a part of theirs, :func:`mesh_backward`), then every gradient of
+    ``params`` over the ``data`` group, in place, one all-reduce each."""
+    _all_reduce_grads([p.grad for p in replicated if p.grad is not None], mesh.model_group)
+    _all_reduce_grads([p.grad for p in params if p.grad is not None], mesh.data_group)
+
+
+def sync_model_grads(model, mesh: Mesh) -> None:
+    """:func:`sync_grads` of every parameter of ``model``; on a model-sharded
+    mesh those outside its ``row_shards`` are replicated, summed over the
+    ``model`` group first."""
+    shards = getattr(model, "row_shards", {})
+    replicated = [p for name, p in model.named_parameters()
+                  if name not in shards] if model_sharded(mesh) else []
+    sync_grads(model.parameters(), mesh, replicated)
 
 
 @torch.no_grad()

@@ -66,9 +66,11 @@ def _worker(rank: int, world: int, tmp: str, backend: str, device: str, fn, args
         dist.destroy_process_group()
 
 
-def cli_rank(argv: list[str]) -> dict:
+def cli_rank(argv: list[str], probe=None) -> dict:
     """A rank of a CLI run (``sslrec_tpu_torch.main``) in a started group:
-    what the parent returns from it (see :class:`MeshRun`)."""
+    what the parent returns from it (see :class:`MeshRun`); ``probe(trainer)``,
+    where given, runs after the launch counts are read and adds its result
+    under ``"probe"``."""
     from sslrec_tpu_torch import main as cli
     from sslrec_tpu_torch.ops import segment_kernel, spmm_kernel
 
@@ -78,7 +80,7 @@ def cli_rank(argv: list[str]) -> dict:
     trainer = cli.main(argv)
     out = {"rank": dist.get_rank(), "launches": spmm_kernel.csr_spmm.launches,
            "combine_launches": spmm_kernel.csr_spmm.combine_launches,
-           "launches_by_shape": dict(spmm_kernel.csr_spmm.by_shape),
+           "launches_by_shape": {k: list(c) for k, c in spmm_kernel.csr_spmm.by_shape.items()},
            "b2_launches": segment_kernel.segment_max.launches}
     if hasattr(trainer, "best_state"):
         out.update(best_state={k: v.cpu() for k, v in trainer.best_state.items()},
@@ -87,6 +89,8 @@ def cli_rank(argv: list[str]) -> dict:
                    local_shapes={k: tuple(v.shape) for k, v in trainer.model.state_dict().items()})
     elif hasattr(trainer, "test_results"):
         out.update(test_results=trainer.test_results)
+    if probe is not None:
+        out["probe"] = probe(trainer)
     return out
 
 

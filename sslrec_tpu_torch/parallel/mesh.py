@@ -133,7 +133,8 @@ def check_model(model_cls, shape) -> None:
     if shape is not None and todo is not None:
         raise NotImplementedError(
             f"train.mesh {shape[0]}x{shape[1]}: {model_cls.__name__} does not run on a "
-            f"device mesh yet ({todo}); LightGCN, SGL, SimGCL, NCL and DirectAU do")
+            f"device mesh yet ({todo}); LightGCN, SGL, SimGCL, NCL, DirectAU, KGCL, KGIN, "
+            f"KGRec and DiffKG do")
 
 
 _MESHES: dict = {}

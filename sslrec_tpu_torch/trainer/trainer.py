@@ -55,7 +55,10 @@ each rank draws the epoch's batches as every other rank does, takes its
 ``data`` slice of each, and backpropagates its loss scaled by
 :func:`~sslrec_tpu_torch.parallel.dist_train.mesh_backward`; the ``data``
 group then sums the gradients (weighted by each slice's share of the batch,
-their mean for equal slices) before the clip, weight decay and Adam.  A
+their mean for equal slices) before the clip, weight decay and Adam; the
+gradients of a model's replicated parameters (those outside its
+``row_shards``) are first summed over the ``model`` group.  The TransE
+sub-loop splits its batches over ``data`` the same way.  A
 model sharded over ``model`` holds its own rows and their Adam moments; the
 best snapshot, the returned parameters and every checkpoint are whole
 tables, so that a checkpoint moves between a mesh run and a single-device
@@ -182,7 +185,7 @@ class Trainer:
         else:
             share = batch["share"]
             dist_train.mesh_backward(loss, self.mesh, share)
-            dist_train.sync_grads(self.model.parameters(), self.mesh)
+            dist_train.sync_model_grads(self.model, self.mesh)
             terms = dist_train.reduce_terms(terms, self.mesh, share)
         if self.grad_clip:
             clip_grad_global_norm(self.model.parameters(), self.grad_clip)
@@ -308,20 +311,36 @@ class Trainer:
         Adam, built from the ``optimizer`` config on first use and kept
         across epochs); returns the mean loss.  Every parameter steps, as
         optax updates the whole tree: one that ``kg_loss`` does not reach
-        takes a zero gradient."""
-        kg = self._kg
+        takes a zero gradient.
+
+        On a mesh the batch splits over ``data`` as the main step's does
+        (``kg_loss`` is a mean over the batch's triplets, so a slice's mean
+        weighted by its share sums to the whole batch's), and the gradients
+        go through the main step's ``mesh_backward`` and gradient sums."""
+        kg, mesh = self._kg, self.mesh
         params = list(self.model.parameters())
         if self.kg_optimizer is None:
             self.kg_optimizer = build_optimizer(self.cfg, params)
         total = 0.0
         for bidx, neg in zip(idx, negs):
+            share = 1.0
+            if mesh is not None:
+                sl = dist_train.batch_slice(bidx.shape[0], mesh)
+                share = (sl.stop - sl.start) / bidx.shape[0]
+                bidx, neg = bidx[sl], neg[sl]
             h, r, t = kg["trip"][bidx].unbind(1)
             self.kg_optimizer.zero_grad(set_to_none=True)
             loss = self.model.kg_loss(h, r, t, neg)
-            loss.backward()
+            if mesh is None:
+                loss.backward()
+            else:
+                dist_train.mesh_backward(loss, mesh, share)
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if mesh is not None:
+                dist_train.sync_model_grads(self.model, mesh)
+                loss = dist_train.reduce_terms({"loss": loss.detach()}, mesh, share)["loss"]
             self.kg_optimizer.step()
             total = total + loss.detach()
         return float(total) / idx.shape[0]

@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Measurements behind ``chip_smoke.py`` phase 37(d) (the KG family on a
-``{data: 1, model: 2}`` mesh), each on one CUDA card:
+"""Measurements behind ``chip_smoke.py`` phases 37(d) and 37(e) (the KG and
+the multi-behavior families on a ``{data: 1, model: 2}`` mesh), each on one
+CUDA card:
 
-    python3 chip_kg_mesh.py phase      # phase 37(d) alone; a table beyond the tolerance is
-                                       # printed with every table's share of it, then raised
+    python3 chip_kg_mesh.py phase      # phases 37(d) and (e) alone, one spawn; a table beyond
+                                       # the tolerance is printed with every table's share of
+                                       # it, then raised
+    python3 chip_kg_mesh.py phase-mb   # phase 37(e) alone (phase 29's split written first)
     python3 chip_kg_mesh.py control    # KGCL's and DiffKG's single runs on the phase's split:
                                        # again, under cuBLASLt, and twice with torch's
                                        # deterministic algorithms
+    python3 chip_kg_mesh.py control-mb # the same for HMGCR, SMBRec, CML and KMCLR on 37(e)'s
     python3 chip_kg_mesh.py regions    # KGCL's mesh run against its single run, with and
                                        # without TransE: the largest difference in all_embed's
                                        # user, item and other entity rows
 
 Each builds the kernels, writes the synthetic KG and the phase's split
-(``chip_smoke.write_mesh_kg_split``) and prints one JSON line last.
+(``chip_smoke.write_mesh_kg_split``; the multi-behavior ones phase 29's
+Tmall-shaped split and ``chip_smoke.write_mesh_mb_split``'s) and prints one
+JSON line last.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ from sslrec_tpu_torch.ops import cuda_build
 
 
 def argv(model: str, *sets: str) -> list[str]:
-    out = ["--model", model, "--data_dir", cs.SMOKE_RESULTS, "--dataset", cs.MESH_KG_DATASET,
+    root, dataset = ((cs.MESH_MB_DIR, cs.MB_DATASET) if model in cs.MESH_MB
+                     else (cs.SMOKE_RESULTS, cs.MESH_KG_DATASET))
+    out = ["--model", model, "--data_dir", root, "--dataset", dataset,
            "--epoch", str(cs.MESH_EPOCHS), "--device", "cuda", "--set", "train.test_step=1",
            "--set", "tune.enable=false", "--set", f"train.results_dir={cs.SMOKE_RESULTS}/kg_mesh"]
     return out + [a for s in sets for a in ("--set", s)]
@@ -41,9 +49,9 @@ def single(model: str, *sets: str) -> dict:
     return {k: v.cpu() for k, v in tr.best_state.items()}
 
 
-def phase() -> dict:
-    """Phase 37(d), its table misses recorded with every table's share of
-    ``MESH_PARAM_TOL`` before they raise."""
+def phase(families=("kg", "mb")) -> dict:
+    """Phases 37(d) and (e) (``families``), their table misses recorded with
+    every table's share of ``MESH_PARAM_TOL`` before they raise."""
     check, missed = cs.mesh_kg_check, []
 
     def lenient(model, one, run):
@@ -58,21 +66,33 @@ def phase() -> dict:
 
     cs.mesh_kg_check = lenient
     dev = torch.device("cuda")
-    out = cs.mesh_kg_phase(torch.Generator(device=dev).manual_seed(0), dev)
-    run = out["run"]
-    return {"s": out["s"], "mesh_s": run["mesh_s"], "single_s": run["single_s"],
-            "split": run["split"], "missed": missed,
-            **{m: {k: run[m][k] for k in ("param_diff", "param_tol_use")}
-               for m in cs.MESH_KG_MODELS}}
+    out = cs.mesh_kg_phase(torch.Generator(device=dev).manual_seed(0), dev, families)
+    res = {"s": out["s"], "missed": missed}
+    for fam, run, models in (("kg", out["run"], cs.MESH_KG_MODELS),
+                             ("mb", out["mb"]["run"], cs.MESH_MB_MODELS)):
+        if run:
+            res[fam] = {"mesh_s": run["mesh_s"], "single_s": run["single_s"],
+                        "split": run["split"],
+                        **{m: {k: run[m][k] for k in ("param_diff", "param_tol_use", "losses")}
+                           for m in models}}
+    if out["mb"]["hops"]:
+        res["mb_hops"] = {k: {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                              "library_ms": t["library_ms"],
+                              "bound_ms": out["mb"]["hops"]["bound"][k][0]}
+                          for k, t in out["mb"]["hops"]["t"].items()}
+    return res
 
 
-def control() -> dict:
+def control(models=("kgcl", "diffkg")) -> dict:
     """The single runs' own spread: repeated, under cuBLASLt, and twice under
     ``torch.use_deterministic_algorithms`` (warn only: the warnings name the
     path's nondeterministic ops)."""
-    cs.write_mesh_kg_split()
+    if any(m in cs.MESH_MB for m in models):
+        cs.write_mesh_mb_split()
+    else:
+        cs.write_mesh_kg_split()
     out = {}
-    for m in ("kgcl", "diffkg"):
+    for m in models:
         sets = cs.MESH_KG_ARGS.get(m, [])[1::2]
         a, b = single(m, *sets), single(m, *sets)
         with cs.gemm_order_control():
@@ -119,8 +139,11 @@ def regions() -> dict:
 
 def main() -> int:
     what = sys.argv[1] if len(sys.argv) > 1 else "phase"
-    if what not in ("phase", "control", "regions"):
-        raise SystemExit(f"chip_kg_mesh: {what!r}: phase, control or regions")
+    cs.MESH_MB_TIMED = cs.MESH_MB_TIMED_ALL
+    runs = {"phase": phase, "phase-mb": lambda: phase(("mb",)), "control": control,
+            "control-mb": lambda: control(cs.MESH_MB_MODELS), "regions": regions}
+    if what not in runs:
+        raise SystemExit(f"chip_kg_mesh: {what!r}: one of {', '.join(runs)}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_kg_mesh: needs a CUDA card")
     t0 = time.perf_counter()
@@ -128,8 +151,11 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     cs.log(cs.card_line())
     cuda_build.build_libraries(force=True)
-    cs.write_kg_dataset(cs.KG_DATASET, *cs.synthetic_kg())
-    out = {"phase": phase, "control": control, "regions": regions}[what]()
+    if what in ("phase", "control", "regions"):
+        cs.write_kg_dataset(cs.KG_DATASET, *cs.synthetic_kg())
+    if what in ("phase", "phase-mb", "control-mb"):
+        cs.write_mb_dataset(cs.MB_DATASET)
+    out = runs[what]()
     print(json.dumps({what: out, "total_s": time.perf_counter() - t0}), flush=True)
     return 1 if out.get("missed") else 0
 

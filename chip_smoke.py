@@ -111,7 +111,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    (35,598 users, 18,357 items, 296,337 interactions; ``sports_like_seqs``)
    drive BERT4Rec, CL4SRec, DuoRec, ICLRec, DCRec_seq and MAERec 1
    epoch each (``SEQ_EPOCHS``) at their published configs through the
-   CLI (CL4SRec, DuoRec, ICLRec and MAERec at batch 1024:
+   CLI (CL4SRec, DuoRec, ICLRec and MAERec at batch 2048:
    ``SEQ_BATCH_ARGS``), B1's launches equal to ``SEQ_B1`` (0 for the first four), no B2,
    each ``generate()`` equal to the CPU's plain forward at the users of its
    first ``SEQ_CPU_ROWS`` test sequences and every item;
@@ -197,7 +197,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    through ``src_idx``), the reassembled shards against the unpartitioned
    hop, and time each shard's hop beside its bound, its plain version and
    ``torch.sparse.mm``; (b) train LightGCN and SGL (``MESH_MODELS``)
-   ``MESH_EPOCHS`` epoch each at their published configs on a ``{data: 2,
+   ``MESH_EPOCHS`` epoch each at their published configs on
+   ``MESH_CF_DATASET`` (alibaba-fashion with ``MESH_CF_TRAIN_SHARE`` of its
+   train pairs: the depth cut of this part) on a ``{data: 2,
    model: 2}`` mesh of four gloo processes sharing card 0 (one spawn of the
    library's ``launch.spawn`` with an explicit gloo group, each rank running
    the CLIs in turn) and hold their losses, parameters and test metrics
@@ -221,7 +223,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    single runs, each rank's B1 launches by layout and B2 launches against
    ``MESH_KG``, and in each rank B1 on its shard layouts within 1e-5 and B2
    on its whole-KG head layouts bit for bit against their plain versions
-   (``parallel.checks.layout_probe``);
+   (``parallel.checks.layout_probe``); (e) the multi-behavior family:
+   partition phase 29's whole Tmall-shaped split as HMGCR, SMBRec, CML and
+   KMCLR do for a model axis of 2 (each behavior's A and AT as one
+   bidirectional graph, each behavior's and meta path's chained pair apart,
+   KMCLR's buy bi-adjacency: ``mesh_mb_partitions``), hold B1 on both
+   shards of each, forward and transposed, at d 16 and 32 (the buy
+   bi-adjacency under values) within ``TOL`` of plain and time those of
+   ``MESH_MB_TIMED``; then train the four ``MESH_EPOCHS`` epoch
+   each at their published configs on ``MESH_MB_DIR`` (phase 29's split
+   with ``MESH_MB_TRAIN_SHARE`` of each behavior's train pairs, CML's meta
+   users and the real Tmall ``kg.txt`` beside it: the depth cut) once on
+   the card and once on the ``{data: 1, model: 2}`` mesh, in 37(d)'s
+   spawn, held as 37(d)'s runs, their launches against ``MESH_MB`` and B1
+   in each rank on the shard layouts of every graph it partitions within
+   ``MESH_MB_B1_TOL``;
 38. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -229,11 +245,17 @@ The paths of phases 11, 14, 17, 19, 22, 27, 29 and 32 train ``PATH_EPOCHS``
 epoch each (2 before the mesh's phase was added), and phase 18 holds MAERec's
 resume as 2 epochs against 1 and a resumed 1, to leave the mesh's phase room
 in the time limit; for SGL's mesh runs, phase 35's LightGCN grid trains 1
-epoch (was 2) and phase 36 times ``LANE_TIMED_STEPS`` 5 steps (was 10); for
+epoch (was 2) and phase 36 times ``LANE_TIMED_STEPS`` steps (was 10,
+then 5); for
 the KG models' mesh runs, phase 23 holds ``SEQ_CPU_ROWS`` test sequences
 against the CPU (was all), loads the CPU data once for the sequential
 runs that share it and trains CL4SRec, DuoRec, ICLRec and MAERec at batch
-1024 (was 512), and phase 35 runs DCCF's grid as 1 x 2 (was 2 x 2).
+1024 (was 512), and phase 35 runs DCCF's grid as 1 x 2 (was 2 x 2); for
+the multi-behavior models' mesh runs, phase 23 holds 2048 test sequences
+against the CPU (was 4096) and trains those four at batch 2048 (was 1024),
+phase 37(b) trains on ``MESH_CF_DATASET`` (was the whole alibaba-fashion
+split), 37(d)'s KGCL runs its TransE sub-loop at batch 16384 (was 4096)
+and phase 36 times 3 lanes steps (was 5).
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
 ``social_operands`` build the paths' operands (``kcgn_smin_operands`` and
@@ -455,10 +477,11 @@ PATH_EPOCHS = 1             # the CLI paths of phases 11-32 (phase 5 and 8 keep 
 # Phase 23's depth cut (PR 17): each sequential model's generate() is held
 # against the CPU's plain forward on its first SEQ_CPU_ROWS test sequences
 # (of 35,598) and every item; the card's forward still encodes every one.
-SEQ_CPU_ROWS = 4096
-# and (PR 17) the four whose epoch is 371 steps at their published batch of
-# 512 train at batch 1024 (186 steps): widths and the split stay
-SEQ_BATCH_ARGS = {m: ["--set", "train.batch_size=1024"]
+SEQ_CPU_ROWS = 2048
+# and the four whose epoch is 371 steps at their published batch of 512
+# train at batch 2048 (93 steps; first 1024, to make room for phase 37(d),
+# then 2048, for 37(e)): widths and the split stay
+SEQ_BATCH_ARGS = {m: ["--set", "train.batch_size=2048"]
                   for m in ("cl4srec", "duorec", "iclrec", "maerec")}
 # B1 launches of the sequential models at their published configs, counted
 # from the code: (per training step, per mask step, per view of the epoch's
@@ -579,7 +602,7 @@ LANE_F64 = ("hmgcr",)
 LANE_K = 2
 LANE_REL, LANE_ATOL, LANE_ADAM_ATOL, LANE_SURE, LANE_SURE_ABS = 1e-5, 1e-7, 1e-6, 1e-4, 1e-6
 LANE_REL_F64 = 1e-10
-LANE_TIMED_STEPS = 5        # each of the six: LANE_K-lane steps against single steps
+LANE_TIMED_STEPS = 3        # each of the six: LANE_K-lane steps against single steps
 
 
 
@@ -973,15 +996,21 @@ def synthetic_kg(n_users=20000, n_items=15000, n_ents=30000, n_rels=20,
     return train_cf, test_cf, np.unique(raw, axis=0)
 
 
+def write_cf_pairs(path: str, pairs: np.ndarray) -> None:
+    """(user, item) pairs grouped by user, users ascending, in the KG
+    handler's ``u i1 i2 ...`` lines."""
+    users, starts = np.unique(pairs[:, 0], return_index=True)
+    with open(path, "w") as f:
+        for u, items in zip(users, np.split(pairs[:, 1], starts[1:])):
+            f.write(" ".join(map(str, [u, *items])) + "\n")
+
+
 def write_kg_dataset(name: str, train_cf, test_cf, triples) -> None:
     """The KG handler's layout under ``SMOKE_RESULTS/kg/<name>_kg/``."""
     d = os.path.join(SMOKE_RESULTS, "kg", f"{name}_kg")
     os.makedirs(d, exist_ok=True)
     for fname, pairs in (("train.txt", train_cf), ("test.txt", test_cf)):
-        users, starts = np.unique(pairs[:, 0], return_index=True)
-        with open(os.path.join(d, fname), "w") as f:
-            for u, items in zip(users, np.split(pairs[:, 1], starts[1:])):
-                f.write(" ".join(map(str, [u, *items])) + "\n")
+        write_cf_pairs(os.path.join(d, fname), pairs)
     np.savetxt(os.path.join(d, "kg_final.txt"), triples, fmt="%d")
 
 
@@ -2317,20 +2346,43 @@ def tmall_like_split(shape=None, seed=2022):
                              shape=(n_u, n_i))
 
     mats = {b: mat(c) for b, c in codes.items()}
-    pv, fav, cart, buy = (mats[b] for b in ("pv", "fav", "cart", "buy"))
-    metas = {"buy": buy, "pv_buy": pv.multiply(buy).tocsr(),
-             "pv_fav_buy": pv.multiply(fav).multiply(buy).tocsr(),
-             "pv_fav_cart_buy": pv.multiply(fav).multiply(cart).multiply(buy).tocsr()}
-    return mats, metas, mat(test)
+    return mats, meta_path_mats(mats), mat(test)
 
 
 def write_mb_dataset(name: str) -> dict:
     """The Tmall-shaped split in the handler's layout under
     ``SMOKE_RESULTS/multi_behavior/<name>/``; returns its sizes."""
-    import pickle
     t0 = time.perf_counter()
-    mats, metas, tst = tmall_like_split()
+    return write_mb_files(name, *tmall_like_split(), t0)
+
+
+def read_mb_split(name: str) -> tuple[dict, sp.csr_matrix]:
+    """The behavior matrices and the test matrix of a split that
+    :func:`write_mb_files` wrote."""
+    import pickle
     d = os.path.join(SMOKE_RESULTS, "multi_behavior", name)
+    out = {}
+    for key in ("pv", "fav", "cart", "buy", "test"):
+        fname = "test_mat.pkl" if key == "test" else f"train_mat_{key}.pkl"
+        with open(os.path.join(d, fname), "rb") as f:
+            out[key] = sp.csr_matrix(pickle.load(f))
+    return out, out.pop("test")
+
+
+def meta_path_mats(mats: dict) -> dict:
+    """HMGCR's meta paths of Tmall's behaviors: the intersections."""
+    pv, fav, cart, buy = (mats[b] for b in ("pv", "fav", "cart", "buy"))
+    return {"buy": buy, "pv_buy": pv.multiply(buy).tocsr(),
+            "pv_fav_buy": pv.multiply(fav).multiply(buy).tocsr(),
+            "pv_fav_cart_buy": pv.multiply(fav).multiply(cart).multiply(buy).tocsr()}
+
+
+def write_mb_files(name: str, mats: dict, metas: dict, tst, t0: float,
+                   root: str = SMOKE_RESULTS) -> dict:
+    """``mats``, ``metas`` and the test matrix ``tst`` in the handler's layout
+    under ``<root>/multi_behavior/<name>/``; returns their sizes."""
+    import pickle
+    d = os.path.join(root, "multi_behavior", name)
     os.makedirs(d, exist_ok=True)
     for key, m in (*mats.items(), *((k, m) for k, m in metas.items() if k != "buy"),
                    ("test", tst)):
@@ -2418,13 +2470,14 @@ def new_shapes_timing(kgn: dict, mbp: dict, gen) -> dict:
     return {"t": t, "bound": bound}
 
 
-def write_mb_extras(name: str) -> dict:
-    """Beside phase 29's split: CML's meta users (a seeded permutation of the
-    users with a buy and at least one other behavior; an assumption, the
-    real file being absent) and the repository's real Tmall ``kg.txt``."""
+def write_mb_extras(name: str, root: str = SMOKE_RESULTS) -> dict:
+    """Beside phase 29's split (or another under ``root``): CML's meta users
+    (a seeded permutation of the users with a buy and at least one other
+    behavior; an assumption, the real file being absent) and the
+    repository's real Tmall ``kg.txt``."""
     import pickle
     import shutil
-    d = os.path.join(SMOKE_RESULTS, "multi_behavior", name)
+    d = os.path.join(root, "multi_behavior", name)
     mats = {}
     for b in ("pv", "fav", "cart", "buy"):
         with open(os.path.join(d, f"train_mat_{b}.pkl"), "rb") as f:
@@ -2994,6 +3047,12 @@ MESH_MODELS = ("lightgcn", "sgl")       # phase 37(b): trained on MESH_RUN, in o
 # GEMM order (``gemm_order_control``); losses and metrics are held to the
 # single run.
 MESH_SPLIT_REF = {"data": 2, "model": 1}
+# Phase 37(b)'s depth cut, which makes room for 37(e): LightGCN and SGL
+# train on alibaba-fashion with a seeded share of its train pairs (the same
+# users, items, valid and test pairs), 16 steps an epoch where the whole
+# split has 62; phase 37(a) still partitions the whole bi-adjacency.
+MESH_CF_DATASET = "alibaba_mesh"    # written under SMOKE_RESULTS/kg/alibaba_mesh_kg/
+MESH_CF_TRAIN_SHARE = 0.25
 # B1 launches in each rank of a mesh run with a model axis > 1, by layout, as
 # (a step, an evaluation), counted from the code at the shipped layer counts:
 # "forward" / "transposed" the shard's layouts (the partitioned clean forward
@@ -3042,7 +3101,9 @@ MESH_KG = {"kgcl": {"step": {"forward": 6, "transposed": 6, "whole": 19, "b2": 6
                       "epoch": {"whole": 1}, "build": {"whole": 1}}}
 MESH_KG_MODELS = ("kgcl", "kgin", "kgrec", "diffkg")
 MESH_KG_RUN = {"data": 1, "model": 2}   # phase 37(d): two gloo ranks on card 0
-MESH_KG_ARGS = {"kgcl": ["--set", "model.train_trans=true"]}
+# KGCL's TransE sub-loop at batch 16384 (18 steps an epoch over the full
+# triplets, was 73 at its published 4096: a depth cut, for 37(e))
+MESH_KG_ARGS = {"kgcl": ["--set", "model.train_trans=true", "--set", "train.kg_batch_size=16384"]}
 # Phase 37(d)'s depth cut: its runs train on the synthetic KG (the same
 # triplets, test pairs, users, items and entities) with a seeded share of
 # its train pairs, so fewer steps an epoch; widths and the KG stay.
@@ -3050,15 +3111,52 @@ MESH_KG_DATASET = "synthetic_mesh"      # written under SMOKE_RESULTS/kg/synthet
 MESH_KG_TRAIN_SHARE = 0.03125
 
 
-def mesh_kg_want(model: str, steps: int, evals: int, epochs: int) -> dict[str, int]:
-    """``MESH_KG``'s count, by layout and B2, for ``steps`` steps, ``evals``
-    evaluations and ``epochs`` epochs of one construction."""
-    times = {"step": steps, "gen": evals, "epoch": epochs, "build": 1}
+# B1 launches in each rank of a multi-behavior model's run on a mesh with a
+# model axis > 1, counted from the code at the published configs on the
+# Tmall-shaped split (4 behaviors; HMGCR's 4 meta-path towers), by layout as
+# in MESH_KG, per training step, per generate(), per KMCLR contrast step, per
+# epoch (the hook's other parts) and once.  Every hop of these models is
+# partitioned, and all their partitions share one node space [users;
+# items], so one forward and one transposed shape:
+# - HMGCR (4 towers, 3 layers) and SMBRec (4 towers, 2 layers): each layer's
+#   A hop and AT hop, and the backward of both (the first A hop reads the
+#   item table): 2·4·3 = 24 and 2·4·2 = 16 each way; generate the forward.
+# - CML (4 behaviors, 3 layers): one bidirectional hop a behavior and layer,
+#   12 a GCN forward; rounds 1 and 3 run it with its backward, round 2
+#   through the constant clone without: 36 forward, 24 transposed a step;
+#   generate 12.
+# - KMCLR: its MB GCN as CML's, 2 rounds: 24 + 24 a step, generate 12; a
+#   contrast step of the hook runs three LightGCNs of 3 hops over the buy
+#   bi-adjacency (the all-ones view's and two views') with their backward,
+#   9 + 9, and the four GATs' entity and relation list gathers' backward, 8
+#   whole-KG segment sums; an epoch's views make their values (2 whole) and
+#   get_all runs 3 hops; the all-ones view's values are made once.
+MESH_MB = {"hmgcr": {"step": {"forward": 24, "transposed": 24}, "gen": {"forward": 24}},
+           "smbrec": {"step": {"forward": 16, "transposed": 16}, "gen": {"forward": 16}},
+           "cml": {"step": {"forward": 36, "transposed": 24}, "gen": {"forward": 12}},
+           "kmclr": {"step": {"forward": 24, "transposed": 24}, "gen": {"forward": 12},
+                     "contrast": {"forward": 9, "transposed": 9, "whole": 8},
+                     "epoch": {"forward": 3, "whole": 2}, "build": {"whole": 1}}}
+MESH_MB_MODELS = ("hmgcr", "smbrec", "cml", "kmclr")
+
+
+def mesh_table_want(table: dict, model: str, steps: int, evals: int, epochs: int,
+                    contrast: int = 0) -> dict[str, int]:
+    """``table[model]``'s count (``MESH_KG`` or ``MESH_MB``), by layout and
+    B2, for ``steps`` steps, ``evals`` evaluations, ``epochs`` epochs and
+    ``contrast`` KMCLR contrast steps of one construction."""
+    times = {"step": steps, "gen": evals, "epoch": epochs, "build": 1, "contrast": contrast}
     out = {}
-    for part, counts in MESH_KG[model].items():
+    for part, counts in table[model].items():
         for k, c in counts.items():
             out[k] = out.get(k, 0) + c * times[part]
     return {k: v for k, v in out.items() if v}
+
+
+def mesh_kg_want(model: str, steps: int, evals: int, epochs: int) -> dict[str, int]:
+    """``MESH_KG``'s count for ``steps`` steps, ``evals`` evaluations and
+    ``epochs`` epochs of one construction."""
+    return mesh_table_want(MESH_KG, model, steps, evals, epochs)
 
 
 def mesh_kg_launches(run, n_users: int, n_side: int) -> list[dict[str, int]]:
@@ -3260,14 +3358,37 @@ def mesh_spawn(argvs: list, shape: dict, probe: bool = False, device: str = "cud
     return [launch.MeshRun([r["cli"]["runs"][k] for r in ranks]) for k in range(len(argvs))]
 
 
+def write_mesh_cf_split() -> dict:
+    """Phase 37(b)'s split (``MESH_CF_DATASET``): alibaba-fashion's with a
+    seeded ``MESH_CF_TRAIN_SHARE`` of its train pairs, the pairs of the last
+    user and the last item among them, so that the handler counts the same
+    users and items; its valid and test pairs whole."""
+    import shutil
+    src = os.path.join(DATA_DIR, "kg", f"{DATASET}_kg")
+    d = os.path.join(SMOKE_RESULTS, "kg", f"{MESH_CF_DATASET}_kg")
+    os.makedirs(d, exist_ok=True)
+    train = kg_data.read_cf(os.path.join(src, "train.txt"))
+    keep = np.random.default_rng(37).choice(len(train), round(len(train) * MESH_CF_TRAIN_SHARE),
+                                            replace=False)
+    last = np.flatnonzero((train[:, 0] == train[:, 0].max())
+                          | (train[:, 1] == train[:, 1].max()))
+    keep = np.union1d(keep, last)
+    write_cf_pairs(os.path.join(d, "train.txt"), train[keep])
+    for fname in ("valid.txt", "test.txt"):
+        shutil.copy(os.path.join(src, fname), os.path.join(d, fname))
+    return {"train_pairs": int(keep.size), "of": int(len(train))}
+
+
 def mesh_run(data) -> dict:
     """Phase 37(b): each of ``MESH_MODELS`` at its shipped config,
-    ``MESH_EPOCHS`` epoch on a ``MESH_RUN`` mesh of gloo processes sharing
+    ``MESH_EPOCHS`` epoch on ``MESH_CF_DATASET`` (:func:`write_mesh_cf_split`)
+    on a ``MESH_RUN`` mesh of gloo processes sharing
     card 0 (one spawn for all, each rank running the CLIs in turn), held
     against the single-device run of the same arguments by
     :func:`mesh_check`; SGL's tables against its ``MESH_SPLIT_REF`` run and
     its single run under :func:`gemm_order_control`."""
-    argvs = {m: ["--model", m, "--data_dir", DATA_DIR, "--dataset", DATASET,
+    split = write_mesh_cf_split()
+    argvs = {m: ["--model", m, "--data_dir", SMOKE_RESULTS, "--dataset", MESH_CF_DATASET,
                  "--epoch", str(MESH_EPOCHS), "--device", "cuda", "--set", "train.test_step=1"]
              for m in MESH_MODELS}
     singles, single_s = {}, {}
@@ -3289,7 +3410,9 @@ def mesh_run(data) -> dict:
     t0 = time.perf_counter()
     (split_ref,) = mesh_spawn([mesh_argvs[MESH_MODELS.index("sgl")]], MESH_SPLIT_REF)
     split_s = time.perf_counter() - t0
-    out = {"mesh_s": mesh_s, "split_ref_s": split_s, "single_s": single_s}
+    out = {"mesh_s": mesh_s, "split_ref_s": split_s, "single_s": single_s, "split": split}
+    log(f"  {MESH_CF_DATASET}: {split['train_pairs']} of alibaba-fashion's {split['of']} train "
+        f"pairs")
     for m in MESH_MODELS:
         refs = {"split_ref": split_ref, "control": control} if m == "sgl" else {}
         out[m] = r = mesh_check(m, singles[m], runs[m], data.user_num, data.item_num, **refs)
@@ -3434,12 +3557,14 @@ def mesh_kg_hops(errs: ErrTrack, gen, dev) -> dict:
 
 
 def mesh_kg_check(model: str, single: dict, run) -> dict:
-    """One KG model's ``MESH_KG_RUN`` run held against its single-device run:
-    each epoch's loss terms and the test metrics within ``MESH_METRIC_TOL``,
-    the whole tables within ``MESH_PARAM_TOL``, each rank's B1 launches by
-    layout and B2 launches against ``mesh_kg_want``, and each rank's
-    ``layout_probe`` (B1 on its shards within ``TOL`` of plain, B2 on its
-    whole-KG head layouts bit for bit).  Returns the deviations and counts."""
+    """One KG (phase 37(d)) or multi-behavior (37(e)) model's ``MESH_KG_RUN``
+    run held against its single-device run: each epoch's loss terms and the
+    test metrics within ``MESH_METRIC_TOL``, the whole tables within
+    ``MESH_PARAM_TOL``, each rank's B1 launches by layout and B2 launches
+    against ``mesh_kg_want`` or ``MESH_MB``'s count, and each rank's
+    ``layout_probe`` (B1 on its shards within ``TOL`` of plain, within
+    ``MESH_MB_B1_TOL`` for 37(e); B2 on its whole-KG head layouts bit for
+    bit).  Returns the deviations and counts."""
     if run.mesh != MESH_KG_RUN:
         raise AssertionError(f"{model}: mesh run on {run.mesh}, want {MESH_KG_RUN}")
     param_diff = table_diff(run.best_state, single["best_state"])
@@ -3461,14 +3586,17 @@ def mesh_kg_check(model: str, single: dict, run) -> dict:
             np.testing.assert_allclose(b["loss"][term], v, **MESH_METRIC_TOL,
                                        err_msg=f"{model} mesh run {term}")
     steps = single["n_batches"] * MESH_EPOCHS
-    want = mesh_kg_want(model, steps, MESH_EPOCHS + 2, MESH_EPOCHS)
+    want = (mesh_table_want(MESH_MB, model, steps, MESH_EPOCHS + 2, MESH_EPOCHS,
+                            single["n_bpr"] * MESH_EPOCHS) if model in MESH_MB
+            else mesh_kg_want(model, steps, MESH_EPOCHS + 2, MESH_EPOCHS))
     got = mesh_kg_launches(run, single["n_users"], single["n_side"])
     if got != [want] * len(run.ranks):
         raise AssertionError(f"{model} mesh run launches by rank and layout {got}, want {want} "
                              f"in each rank")
     probes = [r["probe"] for r in run.ranks]
     b1_err = max(v for pr in probes for v in pr["b1"].values()) if probes[0]["b1"] else None
-    if b1_err is None or b1_err > TOL or not all(all(pr["b2"].values()) for pr in probes):
+    b1_tol = MESH_MB_B1_TOL if model in MESH_MB else TOL
+    if b1_err is None or b1_err > b1_tol or not all(all(pr["b2"].values()) for pr in probes):
         raise AssertionError(f"{model}: the ranks' kernels against plain: {probes}")
     if misses:
         raise AssertionError(f"{model} mesh run tables {misses}: max abs diff "
@@ -3482,43 +3610,57 @@ def mesh_kg_check(model: str, single: dict, run) -> dict:
             "test_recall20": float(run.test_results["recall"][single["k"].index(20)])}
 
 
-def mesh_kg_run(device: str = "cuda") -> dict:
+def mesh_single(model: str, argv: list, results: str) -> dict:
+    """A phase 37(d)/(e) model's single-device run (``argv``): what
+    :func:`mesh_kg_check` holds the mesh run to."""
+    t0 = time.perf_counter()
+    tr = port_main.main(argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/{results}_single"])
+    return {"best_state": {k: v.cpu() for k, v in tr.best_state.items()},
+            "test_results": tr.test_results, "epochs": tr.recorder.epochs,
+            "n_batches": tr.n_batches, "n_users": tr.data.user_num,
+            "n_side": tr.model.n_entities if model == "kgin" else tr.data.item_num,
+            "n_train": tr.data.n_train, "k": list(tr.cfg.test.k),
+            "n_bpr": int(getattr(tr.model, "n_bpr", 0)), "s": time.perf_counter() - t0}
+
+
+def mesh_kg_run(device: str = "cuda", families=("kg",)) -> dict:
     """Phase 37(d): KGCL (with ``train_trans``), KGIN, KGRec and DiffKG at
     their published configs, ``MESH_EPOCHS`` epoch each on the
     ``MESH_KG_DATASET`` split, once on one device and once on a
     ``MESH_KG_RUN`` mesh of gloo processes sharing card 0 (one spawn, each
     rank running the CLIs in turn and probing its kernels after each), held
-    together by :func:`mesh_kg_check`; ``device`` "cpu" runs it all on the
-    CPU (a call there counts where the card counts a launch)."""
-    split = write_mesh_kg_split()
-    argvs = {m: ["--model", m, "--data_dir", SMOKE_RESULTS, "--dataset", MESH_KG_DATASET,
-                 "--epoch", str(MESH_EPOCHS), "--device", device, "--set", "train.test_step=1",
-                 "--set", "tune.enable=false", *MESH_KG_ARGS.get(m, [])]
-             for m in MESH_KG_MODELS}
-    singles = {}
-    for m, argv in argvs.items():
-        t0 = time.perf_counter()
-        tr = port_main.main(argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/mesh_kg_single"])
-        singles[m] = {"best_state": {k: v.cpu() for k, v in tr.best_state.items()},
-                      "test_results": tr.test_results, "epochs": tr.recorder.epochs,
-                      "n_batches": tr.n_batches, "n_users": tr.data.user_num,
-                      "n_side": tr.model.n_entities if m == "kgin" else tr.data.item_num,
-                      "n_train": tr.data.n_train, "k": list(tr.cfg.test.k),
-                      "s": time.perf_counter() - t0}
-        del tr
-    n = {(s["n_users"], s["n_train"]) for s in singles.values()}
-    log(f"  {MESH_KG_DATASET}: {split['train_pairs']} of the synthetic KG's {split['of']} "
-        f"train pairs (users, train pairs: {n}); single runs "
-        f"{ {m: round(s['s'], 1) for m, s in singles.items()} } s")
+    together by :func:`mesh_kg_check`; with ``"mb"`` in ``families``, phase
+    37(e)'s HMGCR, SMBRec, CML and KMCLR on ``MESH_MB_DATASET``
+    (:func:`write_mesh_mb_split`) too, their mesh runs in the same spawn;
+    ``device`` "cpu" runs it all on the CPU (a call there counts where the
+    card counts a launch).  Returns each family's results by its name
+    (``"kg"``, ``"mb"``)."""
+    datasets = {"kg": (MESH_KG_MODELS, SMOKE_RESULTS, MESH_KG_DATASET, write_mesh_kg_split),
+                "mb": (MESH_MB_MODELS, MESH_MB_DIR, MB_DATASET, write_mesh_mb_split)}
+    argvs, singles, splits = {}, {}, {}
+    for fam in families:
+        models, root, dataset, write = datasets[fam]
+        splits[fam] = write()
+        for m in models:
+            argvs[m] = ["--model", m, "--data_dir", root, "--dataset", dataset,
+                        "--epoch", str(MESH_EPOCHS), "--device", device,
+                        "--set", "train.test_step=1", "--set", "tune.enable=false",
+                        *MESH_KG_ARGS.get(m, [])]
+            singles[m] = mesh_single(m, argvs[m], f"mesh_{fam}")
+        n = {(singles[m]["n_users"], singles[m]["n_train"]) for m in models}
+        log(f"  {root}/{dataset}: users, train pairs {n}; single runs "
+            f"{ {m: round(singles[m]['s'], 1) for m in models} } s")
     t0 = time.perf_counter()
     runs = mesh_spawn([argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/mesh_kg"]
                        for argv in argvs.values()], MESH_KG_RUN, probe=True,
                       device="cuda:0" if device == "cuda" else device)
     mesh_s = time.perf_counter() - t0
-    out = {"mesh_s": mesh_s, "single_s": {m: s["s"] for m, s in singles.items()},
-           "split": split}
-    for m, run in zip(MESH_KG_MODELS, runs):
-        out[m] = r = mesh_kg_check(m, singles[m], run)
+    out = {fam: {"mesh_s": mesh_s, "split": splits[fam],
+                 "single_s": {m: singles[m]["s"] for m in datasets[fam][0]}}
+           for fam in families}
+    for m, run in zip(argvs, runs):
+        fam = "kg" if m in MESH_KG_MODELS else "mb"
+        out[fam][m] = r = mesh_kg_check(m, singles[m], run)
         use = {k: round(v, 3) for k, v in r["param_tol_use"].items()}
         log(f"  {m}: losses {r['losses']}; whole tables' max abs diff {r['param_diff']} "
             f"(share of MESH_PARAM_TOL used: {use}); test "
@@ -3526,17 +3668,154 @@ def mesh_kg_run(device: str = "cuda") -> dict:
             f"{r['test_recall20']:.5f}; launches in each rank {r['want_by_layout']} over "
             f"{r['steps']} steps; in each rank B1 on its shards within "
             f"{r['probe_b1_max_rel_err']:.3g} of plain, B2 exact on {r['probe_b2_layouts']}")
-    log(f"  the {MESH_KG_RUN} mesh of 2 gloo processes ran {', '.join(MESH_KG_MODELS)} in "
+    log(f"  the {MESH_KG_RUN} mesh of 2 gloo processes ran {', '.join(argvs)} in "
         f"{mesh_s:.1f} s (processes, data, {MESH_EPOCHS} epoch each, evaluations, probes)")
+    return out
+
+
+MESH_MB_RUN = MESH_KG_RUN       # phase 37(e): its runs ride 37(d)'s spawn of two gloo ranks
+# Phase 37(e)'s depth cut: phase 29's Tmall-shaped split (the same users,
+# items, behaviors and held-out buys) with a seeded share of each behavior's
+# train pairs, so fewer steps an epoch and fewer KMCLR contrast steps;
+# widths, the real Tmall KG and the rule for CML's meta users stay.
+MESH_MB_DIR = os.path.join(SMOKE_RESULTS, "mesh_mb")   # its split: <dir>/multi_behavior/tmall/
+MESH_MB_TRAIN_SHARE = 0.0625
+MESH_MB_B1_TOL = 1e-6       # B1 on a rank's own shard layouts (its probe): max |kernel - plain| /
+                            # max |plain|; the whole split's, with rows up to 8x longer, TOL
+# the shard layouts phase 37(e) times, by graph and width (each graph's are
+# all checked against plain): pv's bidirectional hop, the largest, at
+# CML's width
+MESH_MB_TIMED = (("beh_pv", 16),)
+# and the others too (``chip_kg_mesh.py phase-mb``)
+MESH_MB_TIMED_ALL = MESH_MB_TIMED + (("rect_pv_buy.a", 16), ("rect_pv_buy.at", 16),
+                                     ("kmclr_buy", 32), ("rect_pv.a", 32), ("rect_pv.at", 32))
+
+
+def write_mesh_mb_split() -> dict:
+    """Phase 37(e)'s split (``MB_DATASET`` under ``MESH_MB_DIR``, the handler
+    reading Tmall's behaviors by the name): phase 29's with a seeded
+    ``MESH_MB_TRAIN_SHARE`` of each behavior's train pairs, the pairs of the
+    last user and the last item among them, its meta paths their
+    intersections, the same test pairs; then CML's meta users and the real
+    Tmall ``kg.txt`` beside it (:func:`write_mb_extras`)."""
+    t0 = time.perf_counter()
+    mats, tst = read_mb_split(MB_DATASET)
+    rng = np.random.default_rng(37)
+    cut = {}
+    for b, m in mats.items():
+        m = m.tocoo()
+        keep = rng.choice(m.nnz, round(m.nnz * MESH_MB_TRAIN_SHARE), replace=False)
+        last = np.flatnonzero((m.row == m.shape[0] - 1) | (m.col == m.shape[1] - 1))
+        keep = np.union1d(keep, last)
+        cut[b] = sp.csr_matrix((m.data[keep], (m.row[keep], m.col[keep])), shape=m.shape)
+    sizes = write_mb_files(MB_DATASET, cut, meta_path_mats(cut), tst, t0, MESH_MB_DIR)
+    sizes.update(write_mb_extras(MB_DATASET, MESH_MB_DIR),
+                 of={b: int(m.nnz) for b, m in mats.items()})
+    return sizes
+
+
+def mesh_mb_partitions(dev) -> dict:
+    """The graphs phase 37(e)'s models partition for a model axis of 2, at
+    phase 29's whole split: each behavior's A and AT as one bidirectional
+    graph (CML's and KMCLR's, ``beh_<b>``), each behavior's and meta path's
+    chained pair apart (SMBRec's and HMGCR's, ``rect_<b>.a`` users ← items,
+    ``rect_<b>.at`` items ← users), and KMCLR's buy bi-adjacency
+    (``kmclr_buy``), each a ``ShardedGraph`` with its shards' layouts on
+    ``dev``, as the models partition them."""
+    from sslrec_tpu_torch.data.multi_behavior import behavior_graphs
+    mats, _ = read_mb_split(MB_DATASET)
+    u, i = mats["buy"].shape
+    n_model = MESH_MB_RUN["model"]
+
+    def part(rows, cols, vals):
+        g = CooGraph(np.asarray(rows, np.int64), np.asarray(cols, np.int64),
+                     np.asarray(vals, np.float32), u + i, u + i)
+        return dist_train.partition_graph(g, u, i, n_model)
+
+    sgs = {}
+    metas = {k: m for k, m in meta_path_mats(mats).items() if k != "buy"}
+    for b, m in {**mats, **metas}.items():
+        a, at = (tuple(t.numpy().astype(np.float64 if t.is_floating_point() else np.int64)
+                       for t in (g.rows, g.cols, g.vals)) for g in behavior_graphs(m, "cpu"))
+        if b in mats:
+            sgs[f"beh_{b}"] = part(np.concatenate([a[0], u + at[0]]),
+                                   np.concatenate([u + a[1], at[1]]),
+                                   np.concatenate([a[2], at[2]]))
+        sgs[f"rect_{b}.a"] = part(a[0], u + a[1], a[2])
+        sgs[f"rect_{b}.at"] = part(u + at[0], at[1], at[2])
+    g = kg_data.MaskableBiAdj(mats["buy"].tocoo(), u, i, "cpu").graph
+    sgs["kmclr_buy"] = part(g.rows.numpy(), g.cols.numpy(), np.ones(g.nnz))
+    return {k: {"sg": sg, "shards": [dist_train.shard_graph(sg, p, dev) for p in range(n_model)]}
+            for k, sg in sgs.items()}
+
+
+def mesh_mb_hops(errs: ErrTrack, gen, dev) -> dict:
+    """Phase 37(e)'s kernels at the whole split's shapes: B1 on each shard of
+    :func:`mesh_mb_partitions`, forward and transposed, at widths 16 and 32
+    (KMCLR's buy bi-adjacency under seeded values in the original edge
+    order, through ``view_vals_partitioned``), against its plain version
+    (within ``TOL``, as 37(d)'s whole-split shards; the ranks' own layouts
+    are held to ``MESH_MB_B1_TOL`` by their probe) and itself again bit for
+    bit; then the
+    shards of ``MESH_MB_TIMED`` timed beside their bound (x counted as the
+    rows the edges reference), plain version and ``torch.sparse.mm``."""
+    parts = mesh_mb_partitions(dev)
+    out = {"t": {}, "bound": {}, "shape": {}, "checked": 0}
+    mb_errs = ErrTrack()
+    timed = dict(MESH_MB_TIMED)
+    for name, part in parts.items():
+        sg = part["sg"]
+        pv = None
+        if name == "kmclr_buy":
+            pv = dist_train.view_vals_partitioned(
+                sg, torch.rand(sg.n_edges, generator=gen, device=dev))
+        for p, sh in enumerate(part["shards"]):
+            g = sh.graph if pv is None else sh.with_vals(pv[p])
+            for tag, lay in (("", g.fwd), ("_t", g.bwd)):
+                for d in (16, 32):
+                    x = torch.randn(lay.n_cols, d, generator=gen, device=dev)
+                    what = f"mesh_mb.{name}.P2.shard{p}{tag}.d{d}"
+                    got = sk.csr_spmm(lay, x)
+                    check_exact(f"{what}.repeat", sk.csr_spmm(lay, x), got)
+                    mb_errs.check(what, got, sk.csr_spmm_plain(lay, x))
+                    out["checked"] += 1
+                    if timed.get(name) != d:
+                        continue
+                    k = f"mesh_mb_{name.replace('.', '_')}_P2_shard{p}{tag}_d{d}"
+                    x_rows = int(torch.unique(lay.cols).numel())
+                    bound = bound_ms(lay, d, x_rows=x_rows)
+                    csr = csr_tensor(lay)
+                    out["t"][k] = timing(lambda lay=lay, x=x: sk.csr_spmm(lay, x),
+                                         lambda lay=lay, x=x: sk.csr_spmm_plain(lay, x),
+                                         lambda csr=csr, x=x: torch.sparse.mm(csr, x), bound[0])
+                    out["bound"][k] = bound
+                    group, t_pick = schedule(lay, d)
+                    out["shape"][k] = {"n_rows": lay.n_rows, "n_cols": lay.n_cols,
+                                       "x_rows_read": x_rows, "nnz": int(lay.cols.shape[0]),
+                                       "d": d, "shards": sg.n_model, "shard": p, "graph": name,
+                                       "layout": "transposed" if tag else "forward",
+                                       "lane_group": group, "split_threshold": t_pick}
+                    log_timing(f"{name} shard {p} of 2{' (transposed)' if tag else ''}, d {d}",
+                               out["t"][k], bound)
+    if mb_errs.rel > TOL:
+        raise AssertionError(f"B1 on the multi-behavior shards: max rel err {mb_errs.rel:.3g} "
+                             f"beyond {TOL}")
+    errs.abs, errs.rel = max(errs.abs, mb_errs.abs), max(errs.rel, mb_errs.rel)
+    sg = parts["beh_pv"]["sg"]
+    log(f"  B1 on {out['checked']} shard layouts of {len(parts)} graphs (U_loc {sg.u_loc}, "
+        f"I_loc {sg.i_loc}): max abs err {mb_errs.abs:.3g}, max rel err {mb_errs.rel:.3g} "
+        f"(tolerance {TOL})")
+    out["errs"] = mb_errs
     return out
 
 
 def mesh_phases(gen, data, cfg, dev) -> dict:
     """Phase 37: the device mesh, (a) the partitioned hop at full width, (b)
     LightGCN and SGL on a mesh of four gloo ranks on the one card, (c)
-    NCCL, (d) the KG family on a mesh of two gloo ranks."""
+    NCCL, (d) the KG family and (e) the multi-behavior family on a mesh of
+    two gloo ranks."""
     log("== 37. the device mesh: partitioned hops, a 2x2 mesh on the card, NCCL, the KG "
-        "family on a 1x2 mesh")
+        "and multi-behavior families on a 1x2 mesh")
     t0 = time.perf_counter()
     errs = ErrTrack()
     hops = mesh_hops(errs, gen, data, int(cfg.model.embedding_size), dev)
@@ -3547,16 +3826,54 @@ def mesh_phases(gen, data, cfg, dev) -> dict:
     return {"errs": errs, "hops": hops, "run": run, "nccl": nccl, "kg": kg}
 
 
-def mesh_kg_phase(gen, dev) -> dict:
-    """Phase 37(d): :func:`mesh_kg_hops`, then :func:`mesh_kg_run`."""
-    log("  (d) the KG family on the mesh")
+def mesh_kg_phase(gen, dev, families=("kg", "mb")) -> dict:
+    """Phase 37(d) and (e): :func:`mesh_kg_hops` and :func:`mesh_mb_hops`,
+    then :func:`mesh_kg_run` of both families in one spawn."""
+    log("  (d) the KG family and (e) the multi-behavior family on the mesh")
     t0 = time.perf_counter()
     errs = ErrTrack()
-    hops = mesh_kg_hops(errs, gen, dev)
-    run = mesh_kg_run()
+    hops = mesh_kg_hops(errs, gen, dev) if "kg" in families else None
+    mb_hops = mesh_mb_hops(errs, gen, dev) if "mb" in families else None
+    run = mesh_kg_run(dev.type, families)
     s = time.perf_counter() - t0
-    log(f"  phase 37(d) took {s:.1f} s")
-    return {"errs": errs, "hops": hops, "run": run, "s": s}
+    log(f"  phases 37(d) and (e) took {s:.1f} s")
+    return {"errs": errs, "hops": hops, "run": run.get("kg"), "s": s,
+            "mb": {"hops": mb_hops, "run": run.get("mb")}}
+
+
+def mesh_mb_rows(mm: dict, b1_row) -> list[dict]:
+    """The kernels line's rows of phase 37(e): B1 on each timed shard layout
+    of ``mm["hops"]`` with its launches in the rank holding the shard
+    (``mm["run"]``'s counts by layout of the models that partition that
+    graph), the last row carrying the runs' summary; ``b1_row`` makes a
+    row as ``main`` does."""
+    # the models whose mesh runs hop over each timed graph's partition (all
+    # their shard layouts share one shape, so a row counts them all)
+    graph_models = {"beh_pv": ("cml", "kmclr"), "rect_pv": ("smbrec",),
+                    "rect_pv_buy": ("hmgcr",), "kmclr_buy": ("kmclr",)}
+    rows = []
+    for k, t in mm["hops"]["t"].items():
+        shape = mm["hops"]["shape"][k]
+        graph, p = shape["graph"], shape["shard"]
+        models = graph_models[graph.split(".")[0]]
+        counts = sum(mm["run"][m]["by_layout_by_rank"][p].get(shape["layout"], 0)
+                     for m in models)
+        values = graph == "kmclr_buy"
+        rows.append(b1_row(
+            f"csr_spmm.{k}", t, mm["hops"]["bound"][k], (counts, None), mm["hops"]["errs"],
+            {**shape, "what": f"B1, the Tmall-shaped split's {graph} partition, one of 2 "
+                              f"destination shards" + (", under a view's values" if values
+                                                       else "")},
+            launches_scope=f"the B1 launches on layouts of this shard's {shape['layout']} shape "
+                           f"in rank {p} of the {MESH_MB_RUN} mesh runs of {', '.join(models)} "
+                           f"({MESH_EPOCHS} epoch each on {MESH_MB_DIR}, whose layouts have "
+                           f"this shape and fewer edges; every graph those models partition "
+                           f"shares the shape); combine launches not counted apart",
+            library_call="torch.sparse.mm on a CSR tensor of the shard's layout"
+                         + (", values pre-multiplied" if values else ""),
+            launches_of=[f"{m}'s {MESH_MB_RUN} mesh run, rank {p}" for m in models]))
+    rows[-1]["mesh_mb"] = {"run": dict(mm["run"]), "checked_layouts": mm["hops"]["checked"]}
+    return rows
 
 
 def main() -> int:
@@ -4267,6 +4584,7 @@ def main() -> int:
                          "pre-multiplied",
             launches_of=[f"{m}'s {MESH_KG_RUN} mesh run, rank {p}" for m in models]))
     rows_b1[-1]["mesh_kg"] = {"run": {k: v for k, v in mk["run"].items()}, "s": mk["s"]}
+    rows_b1 += mesh_mb_rows(mk["mb"], b1_row)
     rows_b1[0]["tuner_and_resume_on_card"] = {
         "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
         "resume_bit_equal_tensors": tr["resume_tensors"],

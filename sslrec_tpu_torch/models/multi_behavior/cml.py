@@ -36,8 +36,25 @@ and three rounds of updates a batch (port of
   :func:`cyclic_lr` on the epoch (model: up 5, down 10 epochs; meta: up 2,
   down 3), computed in float32 as the JAX package computes them.
 
-Left out: the ``train.mesh`` branch (graph-partitioned behavior hops,
-``cml.py:121-147``), which :mod:`~sslrec_tpu_torch.parallel.mesh` refuses.
+Under ``train.mesh`` (the JAX package's ``cml.py:121-147``): on a
+``model`` axis of M > 1 the GCN's ``user_emb`` and ``item_emb`` are
+row-sharded (``row_shards``) and its weights and the meta net replicated;
+each behavior's A and AT run as one graph-partitioned bidirectional hop a
+layer (``dist_train.maybe_partition_bi``, A's and AT's values in the
+partition), and the GCN's outputs are read whole
+(``dist_train.whole_table``, a gather with autograd).  Every term of a
+round either crosses the batch (the meta net's batch norm over the whole
+weight vector, the InfoNCE's sampled tenth of the batch and its chunks,
+round 2's meta users, whom the whole batch's draws pick) or costs little
+beside the hops (the BPR rows), so a ``data`` rank gathers the batch's
+users and positives (``dist_train.gather_batch``) and computes the whole
+batch's rounds, with the single run's draws; its slice's share weights its
+backward (``dist_train.mesh_backward``), so that the ``data`` sum is the
+whole batch's gradient.  Each round's gradients are summed
+(``sync_model_grads``: replicated ones over ``model``, all over ``data``)
+before the clip, whose norm is ``dist_train.global_norm`` over the ranks'
+row shards, and the AdamW steps; the clone's tables stay row shards, as do
+both AdamWs' moments of the sharded tables.
 
 Draws by name (:class:`StepDraws`; a test gives them): the sampler's
 ``glob{b}`` (indices into the behavior's items), ``off{b}`` (uniforms, the
@@ -60,10 +77,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from sslrec_tpu_torch.data.sampling import sample_from_rows, sample_negatives
-from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel, apply_linear, linear_layer
+from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
 from sslrec_tpu_torch.ops import sparse as sparse_ops
 from sslrec_tpu_torch.ops.spmm import spmm
+from sslrec_tpu_torch.parallel import dist_train
+from sslrec_tpu_torch.parallel.mesh import mesh_from_config
 from sslrec_tpu_torch.trainer.trainer import clip_grad_global_norm
 from sslrec_tpu_torch.utils.initializers import linear_params, xavier_uniform
 
@@ -78,15 +97,39 @@ def cyclic_lr(epoch: int, base: float, mx: float, up: int = 5, down: int = 10) -
     return float(f32(np.float64(f32(mx - base)) * np.float64(frac) + np.float64(f32(base))))
 
 
+def partition_behaviors(cfg, graphs, n_users: int, n_items: int, device):
+    """The mesh of ``train.mesh`` and, on a model-sharded one, each behavior's
+    A (users ← items) and AT (items ← users) as one bidirectional
+    ``ShardedGraph`` over ``[users; items]`` with their values (else None)."""
+    mesh, sgs = mesh_from_config(cfg, device), None
+    if dist_train.model_sharded(mesh):
+        sgs = []
+        for a, at in graphs:
+            rows = torch.cat([a.rows.long(), n_users + at.rows.long()])
+            cols = torch.cat([n_users + a.cols.long(), at.cols.long()])
+            vals = torch.cat([a.vals, at.vals])
+            sgs.append(dist_train.maybe_partition_bi(cfg, rows, cols, n_users, n_items, vals,
+                                                     device)[1])
+    return mesh, sgs
+
+
 class BehaviorGCN(nn.Module):
     """The multi-behavior GCN of CML and KMCLR: ``forward()`` gives the user
-    and item embeddings and the per-behavior user embeddings ``[n_beh, U, d]``."""
+    and item embeddings and the per-behavior user embeddings ``[n_beh, U, d]``.
 
-    def __init__(self, graphs, n_users: int, n_items: int, d: int, n_layers: int, device):
+    On a model-sharded ``mesh`` (``sgs``: :func:`partition_behaviors`' graphs)
+    the tables are this rank's row shards, each behavior's two hops a layer
+    are one partitioned hop, and ``forward()`` gathers its outputs whole."""
+
+    def __init__(self, graphs, n_users: int, n_items: int, d: int, n_layers: int, device,
+                 mesh=None, sgs=None):
         super().__init__()
         self.graphs = graphs
-        self.user_emb = nn.Parameter(torch.empty(n_users, d, device=device))
-        self.item_emb = nn.Parameter(torch.empty(n_items, d, device=device))
+        self.n_users, self.n_items, self.mesh, self.sgs = n_users, n_items, mesh, sgs
+        self.user_emb = nn.Parameter(torch.empty(dist_train.shard_rows(n_users, mesh), d,
+                                                 device=device))
+        self.item_emb = nn.Parameter(torch.empty(dist_train.shard_rows(n_items, mesh), d,
+                                                 device=device))
         self.u_cat_w = nn.Parameter(torch.empty(n_layers * d, d, device=device))
         self.i_cat_w = nn.Parameter(torch.empty(n_layers * d, d, device=device))
         self.u_w = nn.ParameterList([nn.Parameter(torch.empty(d, d, device=device))
@@ -96,9 +139,12 @@ class BehaviorGCN(nn.Module):
 
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> None:
-        """Xavier everywhere, in the JAX package's order."""
-        for p in (self.user_emb, self.item_emb, self.u_cat_w, self.i_cat_w,
-                  *self.u_w, *self.i_w):
+        """Xavier everywhere, in the JAX package's order (the whole tables
+        drawn, a rank's rows kept)."""
+        for p, n in ((self.user_emb, self.n_users), (self.item_emb, self.n_items)):
+            p.copy_(dist_train.own_rows(xavier_uniform(gen, (n, p.shape[1])), p.shape[0],
+                                        self.mesh))
+        for p in (self.u_cat_w, self.i_cat_w, *self.u_w, *self.i_w):
             p.copy_(xavier_uniform(gen, tuple(p.shape)))
 
     def forward(self):
@@ -106,15 +152,26 @@ class BehaviorGCN(nn.Module):
         n_beh = len(self.graphs)
         cat_u, cat_i, cat_us = [], [], []
         for uw, iw in zip(self.u_w, self.i_w):
-            us = [spmm(a, i) for a, _ in self.graphs]
-            is_ = [spmm(at, u) for _, at in self.graphs]
+            if self.sgs is None:
+                us = [spmm(a, i) for a, _ in self.graphs]
+                is_ = [spmm(at, u) for _, at in self.graphs]
+            else:
+                hops = [dist_train.mesh_partitioned_propagate(self.mesh, sg, u, i, None, 1, "last")
+                        for sg in self.sgs]
+                us, is_ = [h[0] for h in hops], [h[1] for h in hops]
             u = torch.sigmoid(sum(us) / n_beh @ uw)
             i = torch.sigmoid(sum(is_) / n_beh @ iw)
             cat_u.append(u)
             cat_i.append(i)
             cat_us.append(torch.stack([torch.sigmoid(x @ uw) for x in us]))
-        return (torch.cat(cat_u, -1) @ self.u_cat_w, torch.cat(cat_i, -1) @ self.i_cat_w,
-                torch.cat(cat_us, -1) @ self.u_cat_w)
+        ue = torch.cat(cat_u, -1) @ self.u_cat_w
+        ie = torch.cat(cat_i, -1) @ self.i_cat_w
+        ues = torch.cat(cat_us, -1) @ self.u_cat_w
+        if self.sgs is None:
+            return ue, ie, ues
+        whole = dist_train.whole_table
+        return (whole(ue, self.n_users, self.mesh), whole(ie, self.n_items, self.mesh),
+                whole(ues.transpose(0, 1), self.n_users, self.mesh).transpose(0, 1))
 
 
 class BehaviorSampler:
@@ -255,7 +312,7 @@ def adamw_first_step(p, g, lr: float, wd: float, b1=0.9, b2=0.999, eps=1e-8):
 
 
 class CML(RecModel):
-    mesh_todo = MESH_PARTITIONED
+    mesh_todo = None
     step_generator = True
     batch_fields = ("user", "pos")
 
@@ -275,8 +332,11 @@ class CML(RecModel):
         meta_users = data.extras.get("meta_users")
         self.meta_users = (torch.arange(self.user_num, device=dev) if meta_users is None
                            else meta_users.long())
+        self.mesh, sgs = partition_behaviors(cfg, graphs, self.user_num, self.item_num, dev)
+        if sgs is not None:
+            self.row_shards = {"gcn.user_emb": self.user_num, "gcn.item_emb": self.item_num}
         self.gcn = BehaviorGCN(graphs, self.user_num, self.item_num, self.hidden,
-                               int(m.gnn_layer), dev)
+                               int(m.gnn_layer), dev, self.mesh, sgs)
         self.meta_net = MetaWeightNet(self.hidden, self.n_beh, self.ipm, dev)
         self.sampler = BehaviorSampler(data.extras["behavior_mats_scipy"], self.item_num, dev)
         wd = float(o.get("opt_weight_decay", 1e-4) or 1e-4)
@@ -326,14 +386,25 @@ class CML(RecModel):
                + (F.embedding(neg_l[-1], ie) ** 2).sum())
         return (beh_t + self.reg * reg + self.beta * info_t) / self.batch_size, beh_t, info_t
 
+    def _backward(self, loss: torch.Tensor, batch: dict) -> None:
+        """Backpropagate a round's ``loss`` (the whole batch's); on a mesh
+        weighted by this ``data`` rank's share, and the gradients summed
+        (``sync_model_grads``)."""
+        if self.mesh is None:
+            loss.backward()
+            return
+        dist_train.mesh_backward(loss, self.mesh, batch["share"])
+        dist_train.sync_model_grads(self, self.mesh)
+
     def _step(self, opt, lr: float) -> None:
         """Clip the global norm over every parameter (a missing gradient is
-        zero) to 20, then one step of ``opt`` at ``lr``."""
+        zero; over the ranks' row shards on a mesh) to 20, then one step of
+        ``opt`` at ``lr``."""
         params = list(self.parameters())
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        clip_grad_global_norm(params, 20.0)
+        clip_grad_global_norm(params, 20.0, dist_train.global_norm(self, self.mesh))
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
@@ -341,18 +412,22 @@ class CML(RecModel):
     # -- the three rounds -------------------------------------------------------------
     def train_step(self, batch: dict, gen, draws: dict | None = None) -> dict:
         dr = StepDraws(gen, draws, self.device)
-        users, epoch = batch["user"].long(), batch["aux"]["epoch"]
-        pos_l, neg_l, valid_l = self.sampler.sample(dr, "", users, batch["pos"].long())
+        # on a data slice, the whole batch (the rounds cross it: the module's docstring)
+        n = batch.get("n_whole", batch["user"].shape[0])
+        users, pos = (dist_train.gather_batch(batch[k].long(), n, self.mesh)
+                      for k in ("user", "pos"))
+        epoch = batch["aux"]["epoch"]
+        pos_l, neg_l, valid_l = self.sampler.sample(dr, "", users, pos)
         mlr = cyclic_lr(epoch, self.mlr_base, self.mlr_max, up=2, down=3)
 
         # round 1: a clone of the GCN one fresh AdamW step on, then a meta step
         self.zero_grad(set_to_none=True)
         total, _, _ = self._total(dr, "r1", self.gcn(), users, pos_l, neg_l, valid_l)
-        total.backward()
+        self._backward(total, batch)
         with torch.no_grad():
             named = list(self.gcn.named_parameters())
             grads = [p.grad for _, p in named]
-            norm = torch.sqrt(sum((g * g).sum() for g in grads))
+            norm = dist_train.global_norm(self, self.mesh, "gcn.")
             clip = norm >= 20.0
             clone = {k: adamw_first_step(p, torch.where(clip, g / norm * 20.0, g),
                                          self.clone_lr, self.clone_wd)
@@ -369,7 +444,7 @@ class CML(RecModel):
             clone_out = torch.func.functional_call(self.gcn, clone, ())
         self.zero_grad(set_to_none=True)
         total, _, _ = self._total(dr, "r2", clone_out, mu, mpos, mneg, mval)
-        (0.5 * total).backward()
+        self._backward(0.5 * total, batch)
         self._step(self.opt_meta, mlr)
 
         # round 3: the model under the meta net's weights held constant
@@ -377,7 +452,7 @@ class CML(RecModel):
         meta = {k: v.detach() for k, v in self.meta_net.named_parameters()}
         total, beh_t, info_t = self._total(dr, "r3", self.gcn(), users, pos_l, neg_l, valid_l,
                                            meta=meta)
-        total.backward()
+        self._backward(total, batch)
         self._step(self.opt_model, cyclic_lr(epoch, self.lr_base, self.lr_max))
         return {"loss": total.detach(), "bpr_loss": beh_t.detach(),
                 "infonce_loss": info_t.detach()}

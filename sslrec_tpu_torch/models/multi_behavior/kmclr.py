@@ -45,9 +45,28 @@ whose items come from a relation-aware GAT, and KG-guided contrastive views
   has momentum).  The hook updates the KG parameters in place, so the steps
   use them as the JAX ``train_step`` adopts the hook's.
 
-Left out: the ``train.mesh`` branches (``kmclr.py:121-144``, and
-``_bi_propagate``'s ``:248-256``), which
-:mod:`~sslrec_tpu_torch.parallel.mesh` refuses.
+Under ``train.mesh`` (the JAX package's ``kmclr.py:121-144`` and
+``:244-256``), on a ``model`` axis of M > 1: the MB side runs as CML's
+(row-sharded ``mb.user_emb`` and ``mb.item_emb``, one partitioned
+bidirectional hop a behavior and layer, the outputs read whole); the two
+rounds gather the whole batch over ``data`` and run it as CML's rounds do
+(the InfoNCE's sampled users cross the batch), each round's gradients
+summed (``sync_model_grads`` of ``mb.``) before the clip, whose norm is
+``dist_train.global_norm`` over the ranks' row shards; ``kg_user`` is whole
+on every rank.  The KG side's ``user``, ``item`` and ``entity`` tables are
+row-sharded too, the relation tables, ``transR_W``, ``TATEC_W`` and the GAT
+replicated.  The epoch hook runs alike on every rank, with the epoch
+generator's draws, over the whole KG side (:meth:`KMCLR.kg_tables`, a gather
+with autograd): TransR/TATEC, the relation GAT (its entity lists' gather
+whole), the views' ``[U × I]`` softmax; the buy bi-adjacency's LightGCN
+runs graph-partitioned (``dist_train.maybe_partition_bi``, a view's values
+through ``view_vals_partitioned``, ``combine="mean"``) from the rank's
+users and its rows of the GAT's items, which pass ``share_cotangent``
+(every rank computes them alike), and its outputs are read whole.  Each KG
+step backpropagates the loss over ``M`` and sums the replicated
+gradients over ``model`` (``sync_model_grads(..., data=False)``: every
+``data`` rank runs the same steps), so that the KG tables and the KG
+Adam's moments, row shards for the sharded tables, are the single run's.
 
 Draws by name (:class:`StepDraws`; a test gives them): a step's sampler
 draws as CML's and ``perm``; the hook's ``trip{s}`` and ``trip_neg{s}``
@@ -68,14 +87,16 @@ from torch import nn
 
 from sslrec_tpu_torch.data.kg import MaskableBiAdj
 from sslrec_tpu_torch.data.sampling import sample_negatives
-from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel, apply_linear, linear_layer
+from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.models.multi_behavior.cml import (BehaviorGCN, BehaviorSampler,
-                                                        ssl_terms, ssl_users)
+                                                        partition_behaviors, ssl_terms,
+                                                        ssl_users)
 from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
 from sslrec_tpu_torch.ops import sparse as sparse_ops
 from sslrec_tpu_torch.ops.spmm import spmm
 from sslrec_tpu_torch.ops.segment_kernel import TakeFn, build_segment_layout
 from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.trainer.trainer import clip_grad_global_norm
 from sslrec_tpu_torch.utils.initializers import linear_params, normal_init, xavier_uniform
 
@@ -106,26 +127,42 @@ def item_entity_lists(trip: np.ndarray, item_num: int, n_entities: int, n_relati
 
 
 class KGParams(nn.Module):
-    """The KG side's parameters under the JAX package's names."""
+    """The KG side's parameters under the JAX package's names (on a
+    model-sharded ``mesh`` this rank's row shards of ``user``, ``item`` and
+    ``entity``)."""
 
-    def __init__(self, n_users, n_items, n_entities, n_relations, d, device):
+    def __init__(self, n_users, n_items, n_entities, n_relations, d, device, mesh=None):
         super().__init__()
+        self.mesh = mesh
+        self.rows = {"user": n_users, "item": n_items, "entity": n_entities + 1}
 
         def table(*shape):
             return nn.Parameter(torch.empty(*shape, device=device))
 
-        self.user = table(n_users, d)
-        self.item = nn.ParameterList([table(n_items, d) for _ in range(2)])
-        self.entity = nn.ParameterList([table(n_entities + 1, d) for _ in range(2)])
+        def shard(n):
+            return table(dist_train.shard_rows(n, mesh), d)
+
+        self.user = shard(n_users)
+        self.item = nn.ParameterList([shard(n_items) for _ in range(2)])
+        self.entity = nn.ParameterList([shard(n_entities + 1) for _ in range(2)])
         self.relation = nn.ParameterList([table(n_relations + 1, d) for _ in range(2)])
         self.transR_W = table(n_relations + 1, d, d)
         self.TATEC_W = table(n_relations + 1, d, d)
         self.gat_fc = linear_layer(3 * d, 1, device)
         self.gat_out = linear_layer(d, d, device)
 
+    def row_shards(self, prefix: str) -> dict:
+        """The sharded tables' whole rows by parameter name under ``prefix``."""
+        return {f"{prefix}user": self.rows["user"],
+                **{f"{prefix}{k}.{i}": self.rows[k] for k in ("item", "entity") for i in range(2)}}
+
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> None:
-        for p in (self.user, *self.item, *self.entity, *self.relation):
+        for k, ps in (("user", [self.user]), ("item", self.item), ("entity", self.entity)):
+            for p in ps:
+                p.copy_(dist_train.own_rows(normal_init(gen, (self.rows[k], p.shape[1]), 0.1),
+                                            p.shape[0], self.mesh))
+        for p in self.relation:
             p.copy_(normal_init(gen, tuple(p.shape), 0.1))
         for p in (self.transR_W, self.TATEC_W):
             p.copy_(xavier_uniform(gen, tuple(p.shape)) * np.sqrt(2.0))
@@ -135,7 +172,7 @@ class KGParams(nn.Module):
 
 
 class KMCLR(RecModel):
-    mesh_todo = MESH_PARTITIONED
+    mesh_todo = None
     step_generator = True
     batch_fields = ("user", "pos")
 
@@ -190,10 +227,19 @@ class KMCLR(RecModel):
         self._ones_vals: dict = {}
         self.buy_edge_set = sparse_ops.build_edge_set(buy, device=dev)
 
+        self.mesh, sgs = partition_behaviors(cfg, graphs, self.user_num, self.item_num, dev)
+        self.sg_bi = None
+        if sgs is not None:
+            g = self.bi.graph
+            self.sg_bi = dist_train.maybe_partition_bi(cfg, g.rows, g.cols, self.user_num,
+                                                       self.item_num, device=dev)[1]
         self.mb = BehaviorGCN(graphs, self.user_num, self.item_num, self.emb,
-                              int(m.layer_num), dev)
+                              int(m.layer_num), dev, self.mesh, sgs)
         self.kg = KGParams(self.user_num, self.item_num, self.n_entities, self.n_relations,
-                           latent, dev)
+                           latent, dev, self.mesh)
+        if sgs is not None:
+            self.row_shards = {"mb.user_emb": self.user_num, "mb.item_emb": self.item_num,
+                               **self.kg.row_shards("kg.")}
         self.sampler = BehaviorSampler(mats, self.item_num, dev)
         self.opt_model = torch.optim.Adam(self.mb.parameters(), lr=float(cfg.optimizer.lr),
                                           betas=(0.9, 0.999), eps=1e-8)
@@ -212,13 +258,29 @@ class KMCLR(RecModel):
         self.opt_kg = None
 
     # -- the KG side ----------------------------------------------------------
-    def rgat_items(self, index: int, ent_mask: torch.Tensor | None = None) -> torch.Tensor:
+    def kg_whole(self, name: str) -> torch.Tensor:
+        """The KG side's table ``name`` (``user``, ``item.0`` … ``entity.1``),
+        whole, with autograd (gathered from the row shards on a model-sharded
+        mesh)."""
+        return dist_train.whole_table(self.kg.get_parameter(name),
+                                      self.kg.rows[name.split(".")[0]], self.mesh)
+
+    def kg_tables(self, *names: str) -> dict:
+        """:meth:`kg_whole` of ``names`` (default every sharded table) by name."""
+        return {n: self.kg_whole(n)
+                for n in names or ("user", "item.0", "item.1", "entity.0", "entity.1")}
+
+    def rgat_items(self, index: int, ent_mask: torch.Tensor | None = None,
+                   tables: dict | None = None) -> torch.Tensor:
         """Items through the relation GAT of table set ``index`` (0 or 1) over
-        their entity lists, ``ent_mask`` [I, cap] dropping entities."""
+        their entity lists, ``ent_mask`` [I, cap] dropping entities;
+        ``tables``: :meth:`kg_tables` where the caller has them."""
         kg = self.kg
-        item_embs = kg.item[index]
+        if tables is None:
+            tables = self.kg_tables(f"item.{index}", f"entity.{index}")
+        item_embs = tables[f"item.{index}"]
         shape = (*self.item_ents.shape, item_embs.shape[1])
-        ents = TakeFn.apply(self.ent_lay, kg.entity[index]).view(shape)    # [I, cap, d]
+        ents = TakeFn.apply(self.ent_lay, tables[f"entity.{index}"]).view(shape)   # [I, cap, d]
         rels = TakeFn.apply(self.rel_lay, kg.relation[index]).view(shape)
         live = self.item_ents != self.n_entities
         if ent_mask is not None:
@@ -230,10 +292,22 @@ class KMCLR(RecModel):
         agg = (att[..., None] * ents).sum(1)
         return F.relu(apply_linear(kg.gat_out, agg + item_embs))
 
-    def bi_propagate(self, user_emb, items, adj_vals):
-        """The mean of LightGCN's layers over the buy bi-adjacency under the
-        constant values ``adj_vals``; returns (users, items)."""
-        acc = [torch.cat([user_emb, items], 0)]
+    def bi_propagate(self, items, adj_vals):
+        """The mean of LightGCN's layers from the KG users and ``items`` over
+        the buy bi-adjacency under the constant values ``adj_vals``; returns
+        (users, items), whole.  On a model-sharded mesh the hops are
+        partitioned, from this rank's users and its rows of ``items`` (which
+        every rank computes alike: ``share_cotangent``), and their outputs
+        gathered."""
+        if self.sg_bi is not None:
+            sg, mesh = self.sg_bi, self.mesh
+            users, its = dist_train.mesh_partitioned_propagate(
+                mesh, sg, self.kg.user,
+                dist_train.own_rows(dist_train.share_cotangent(items, mesh), sg.i_loc, mesh),
+                dist_train.view_vals_partitioned(sg, adj_vals), self.kg_layers, "mean")
+            return (dist_train.whole_table(users, self.user_num, mesh),
+                    dist_train.whole_table(its, self.item_num, mesh))
+        acc = [torch.cat([self.kg.user, items], 0)]
         for _ in range(self.kg_layers):
             acc.append(spmm(self.bi.graph, acc[-1], EdgeMask(adj_vals)))
         out = sum(acc) / (self.kg_layers + 1)
@@ -249,18 +323,20 @@ class KMCLR(RecModel):
                     torch.ones(self.bi.nnz_rect, dtype=dtype, device=self.device))
         return self._ones_vals[dtype]
 
-    def kg_computer(self):
-        items = (self.rgat_items(0) + self.rgat_items(1)) / 2.0
-        return self.bi_propagate(self.kg.user, items, self.ones_vals())
+    def kg_computer(self, tables: dict | None = None):
+        tables = self.kg_tables() if tables is None else tables
+        items = (self.rgat_items(0, tables=tables) + self.rgat_items(1, tables=tables)) / 2.0
+        return self.bi_propagate(items, self.ones_vals())
 
     def trans_loss(self, h, r, pos_t, neg_t, index: int, mode: str):
         """TransR (``mode == "transR"``) or TATEC on one batch of triplets with
         negative tails, with table set ``index``, + 1e-3·L2."""
         kg = self.kg
+        items, ents = self.kg_whole(f"item.{index}"), self.kg_whole(f"entity.{index}")
         r_e = F.embedding(r, kg.relation[index])[:, :, None]
-        h_e = F.embedding(h.clamp(0, self.item_num - 1), kg.item[index])[:, :, None]
-        p_e = F.embedding(pos_t, kg.entity[index])[:, :, None]
-        n_e = F.embedding(neg_t, kg.entity[index])[:, :, None]
+        h_e = F.embedding(h.clamp(0, self.item_num - 1), items)[:, :, None]
+        p_e = F.embedding(pos_t, ents)[:, :, None]
+        n_e = F.embedding(neg_t, ents)[:, :, None]
         d = r_e.shape[1]
         if mode == "transR":
             w = F.embedding(r, kg.transR_W.view(-1, d * d)).view(-1, d, d)
@@ -280,11 +356,18 @@ class KMCLR(RecModel):
         return kg_l + 1e-3 * l2
 
     def _kg_step(self, loss) -> torch.Tensor:
-        """One KG Adam step on ``loss``; every KG parameter steps."""
+        """One KG Adam step on ``loss``; every KG parameter steps.  On a mesh
+        every rank computes the same ``loss`` (the module's docstring): it is
+        backpropagated over the ``model`` axis, and the replicated
+        parameters' gradients summed over ``model``."""
         params = list(self.kg.parameters())
         for p in params:
             p.grad = None
-        loss.backward()
+        if self.mesh is None:
+            loss.backward()
+        else:
+            dist_train.mesh_backward(loss, self.mesh, 1.0)
+            dist_train.sync_model_grads(self, self.mesh, "kg.", data=False)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -307,11 +390,12 @@ class KMCLR(RecModel):
         views = []
         p_keep = 1 - self.kg_p_drop
         shape = tuple(self.item_ents.shape)
+        tables = self.kg_tables()
         for index in range(2):
-            v1 = self.rgat_items(index, dr.keep(f"view{index}.m1", p_keep, shape))
-            v2 = self.rgat_items(index, dr.keep(f"view{index}.m2", p_keep, shape))
+            v1 = self.rgat_items(index, dr.keep(f"view{index}.m1", p_keep, shape), tables)
+            v2 = self.rgat_items(index, dr.keep(f"view{index}.m2", p_keep, shape), tables)
             stability = (_l2rows(v1) * _l2rows(v2)).sum(-1)
-            sm = torch.softmax(self.kg.user @ self.kg.item[index].T, dim=-1)    # [U, I]
+            sm = torch.softmax(tables["user"] @ tables[f"item.{index}"].T, dim=-1)    # [U, I]
             w = sm[self.buy_rows, self.buy_cols] * stability[self.buy_cols]
             del sm
             k = (1 - 0.6) / (w.max() - w.min() + 1e-12)
@@ -322,18 +406,19 @@ class KMCLR(RecModel):
         return views
 
     def contrast_loss(self, users, poss, negs, views):
-        au, ai = self.kg_computer()
+        kg = self.kg_tables()
+        au, ai = self.kg_computer(kg)
         pos_s = (F.embedding(users, au) * F.embedding(poss, ai)).sum(1)
         neg_s = (F.embedding(users, au) * F.embedding(negs, ai)).sum(1)
         main = F.softplus(-(pos_s - neg_s)).sum()
-        kg = self.kg
-        reg = 0.5 * ((F.embedding(users, kg.user) ** 2).sum()
-                     + (F.embedding(poss, kg.item[0]) ** 2).sum()
-                     + (F.embedding(poss, kg.item[1]) ** 2).sum()
-                     + (F.embedding(negs, kg.item[0]) ** 2).sum()
-                     + (F.embedding(negs, kg.item[1]) ** 2).sum()) / users.shape[0] * self.kg_decay
-        u1, i1 = self.bi_propagate(kg.user, self.rgat_items(0), views[0])
-        u2, i2 = self.bi_propagate(kg.user, self.rgat_items(1), views[1])
+        reg = 0.5 * ((F.embedding(users, kg["user"]) ** 2).sum()
+                     + (F.embedding(poss, kg["item.0"]) ** 2).sum()
+                     + (F.embedding(poss, kg["item.1"]) ** 2).sum()
+                     + (F.embedding(negs, kg["item.0"]) ** 2).sum()
+                     + (F.embedding(negs, kg["item.1"]) ** 2).sum()) \
+            / users.shape[0] * self.kg_decay
+        u1, i1 = self.bi_propagate(self.rgat_items(0, tables=kg), views[0])
+        u2, i2 = self.bi_propagate(self.rgat_items(1, tables=kg), views[1])
 
         def semi(z1, z2):
             f = torch.exp(_l2rows(z1) @ _l2rows(z2).T / self.kgc_temp)
@@ -401,15 +486,23 @@ class KMCLR(RecModel):
 
     def train_step(self, batch: dict, gen, draws: dict | None = None) -> dict:
         dr = StepDraws(gen, draws, self.device)
-        users = batch["user"].long()
-        pos_l, neg_l, valid_l = self.sampler.sample(dr, "", users, batch["pos"].long())
+        # on a data slice, the whole batch (the module's docstring)
+        n = batch.get("n_whole", batch["user"].shape[0])
+        users, pos = (dist_train.gather_batch(batch[k].long(), n, self.mesh)
+                      for k in ("user", "pos"))
+        pos_l, neg_l, valid_l = self.sampler.sample(dr, "", users, pos)
         perm = dr.permutation("perm", users.shape[0])
         out = []
         for mix in (None, batch["aux"]["kg_user"]):
             self.opt_model.zero_grad(set_to_none=True)
             loss, bpr, nce = self._round(users, pos_l, neg_l, valid_l, perm, mix)
-            loss.backward()
-            clip_grad_global_norm(self.mb.parameters(), 20.0)
+            if self.mesh is None:
+                loss.backward()
+            else:
+                dist_train.mesh_backward(loss, self.mesh, batch["share"])
+                dist_train.sync_model_grads(self, self.mesh, "mb.")
+            clip_grad_global_norm(self.mb.parameters(), 20.0,
+                                  dist_train.global_norm(self, self.mesh, "mb."))
             self.opt_model.step()
             out.append((loss.detach(), bpr.detach(), nce.detach()))
         (l1, b1, n1), (l2, b2, n2) = out

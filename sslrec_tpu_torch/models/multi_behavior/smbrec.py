@@ -17,6 +17,24 @@
 
 Draws by name (:class:`StepDraws`): per behavior ``b`` ``co_u{b}`` [users
 padded to 128, sample_num_pos] uniforms, the offsets into the co-rows.
+
+Under ``train.mesh`` with a ``model`` axis of M > 1 the towers run as
+HMGCR's (row-sharded tables, graph-partitioned chained pairs, outputs read
+whole through ``dist_train.whole_table``); the fusion runs on this rank's
+rows (``user_trans``, ``cat_trans`` and ``beh_weights`` are replicated), and
+the prediction tables are read whole.  Every rank computes each
+behavior's contrast whole, alike, with the single run's co-user draws: it
+sums some 10^7 terms of either sign to a total thousands of times smaller,
+so that splitting its blocks over the ``model`` group, whose ranks' parts
+then meet in other float sums, moved an item table by twice Adam's step
+after one epoch of a small Tmall-shaped split (a near-zero gradient entry
+flipping its sign), where the alike computation stays within the single
+run's float rounding; its
+backward reaches the gathered tables whole on every rank, and
+``mesh_backward``'s division by ``M`` undoes the gather's sum of their
+cotangents.  BPR and the L2 of the picked rows are sums over the batch,
+scaled on a ``data`` slice to the whole batch (the share cancels it); every
+``data`` rank computes the whole contrast, weighted by its share.
 """
 
 from __future__ import annotations
@@ -26,16 +44,17 @@ from torch import nn
 
 from sslrec_tpu_torch.data.sampling import sample_from_rows
 from sslrec_tpu_torch.models import losses
-from sslrec_tpu_torch.models.base import MESH_PARTITIONED, RecModel, apply_linear, linear_layer
-from sslrec_tpu_torch.models.multi_behavior.hmgcr import GCNTower
+from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
+from sslrec_tpu_torch.models.multi_behavior.hmgcr import GCNTower, mesh_towers, tower_shards
 from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.utils.initializers import linear_params
 
 BLOCK = 128
 
 
 class SMBRec(RecModel):
-    mesh_todo = MESH_PARTITIONED
+    mesh_todo = None
     step_generator = True
 
     def __init__(self, cfg, data):
@@ -49,11 +68,17 @@ class SMBRec(RecModel):
         self.cl_weight = float(m.cl_weight)
         self.reg_weight = float(m.reg_weight)
         self.samp_pos = int(m.sample_num_pos)
-        self.beh_degrees = ex["beh_degrees"]                 # [n_beh, n_users]
         self.co_indptr = ex["co_user_indptr"].long()
         self.co_indices = ex["co_user_indices"].long()
+        self.mesh, self.sgs = mesh_towers(cfg, self.graphs, self.user_num, self.item_num, dev)
+        if self.sgs is not None:
+            self.row_shards = tower_shards(self.n_beh, self.user_num, self.item_num)
+        # [n_beh, users]: this rank's users on a model-sharded mesh
+        self.beh_degrees = dist_train.own_rows(
+            ex["beh_degrees"].T, dist_train.shard_rows(self.user_num, self.mesh), self.mesh).T
         d = self.embedding_size
-        self.towers = nn.ModuleList([GCNTower(self.user_num, self.item_num, d, self.layer_num, dev)
+        self.towers = nn.ModuleList([GCNTower(self.user_num, self.item_num, d, self.layer_num, dev,
+                                              self.mesh)
                                      for _ in self.graphs])
         self.cat_trans = linear_layer(self.n_beh * d, d, dev)
         self.user_trans = linear_layer(d, d, dev)
@@ -71,12 +96,19 @@ class SMBRec(RecModel):
         self.beh_weights.fill_(1.0)
 
     def forward(self):
-        embeds = [tower(a, at) for tower, (a, at) in zip(self.towers, self.graphs)]
+        """The prediction tables and each behavior's users, whole (gathered
+        with autograd from this rank's rows on a model-sharded mesh)."""
+        sgs = self.sgs or [None] * self.n_beh
+        embeds = [tower(a, at, sg) for tower, (a, at), sg in zip(self.towers, self.graphs, sgs)]
         users = torch.stack([u for u, _ in embeds])         # [n_beh, U, d]
         items = torch.cat([i for _, i in embeds], 1)
         w = torch.softmax(self.beh_weights[:, None, None] * self.beh_degrees[:, :, None], 0)
         user_emb = apply_linear(self.user_trans, (w * users).sum(0))
-        return user_emb, apply_linear(self.cat_trans, items), [u for u, _ in embeds]
+        item_emb = apply_linear(self.cat_trans, items)
+        whole = [dist_train.whole_table(t, n, self.mesh) for t, n in
+                 ((user_emb, self.user_num), (item_emb, self.item_num),
+                  *((u, self.user_num) for u, _ in embeds))]
+        return whole[0], whole[1], whole[2:]
 
     def sample_co_users(self, u: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
         """Each anchor's co-users at the uniform offsets ``u`` [n, S]; an
@@ -109,8 +141,10 @@ class SMBRec(RecModel):
         ancs, poss, negs = batch["user"].long(), batch["pos"].long(), batch["neg"].long()
         user_emb, item_emb, beh_users = self.forward()
         anc_e, pos_e, neg_e = user_emb[ancs], item_emb[poss], item_emb[negs]
-        bpr = losses.bpr_loss(anc_e, pos_e, neg_e)
-        reg = losses.reg_pick_embeds([anc_e, pos_e, neg_e])
+        # sums over the batch: on a data slice, scaled to the whole batch
+        scale = batch.get("n_whole", ancs.shape[0]) / ancs.shape[0]
+        bpr = losses.bpr_loss(anc_e, pos_e, neg_e) * scale
+        reg = losses.reg_pick_embeds([anc_e, pos_e, neg_e]) * scale
         n_pad = self.user_num + (-self.user_num) % BLOCK
         cl = sum(self.contrast(dr.uniform(f"co_u{b}", (n_pad, self.samp_pos)), u)
                  for b, u in enumerate(beh_users))

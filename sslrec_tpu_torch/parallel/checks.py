@@ -126,8 +126,18 @@ def rect_pair(inp: dict) -> dict:
 def _bundle(inp: dict, device, cfg=None):
     """The data of ``inp``: a KG split (``inp["kg"]``: ``train_cf``,
     ``test_cf``, ``triplets``, ``n_entities``, ``n_relations``, as the KG
-    handler's ``bundle_from_kg`` takes them, under ``cfg``), else a general_cf
-    one from the ``trn`` / ``val`` / ``tst`` matrices."""
+    handler's ``bundle_from_kg`` takes them, under ``cfg``), a multi-behavior
+    one (``inp["mb"]``: ``behaviors``, their ``mats``, ``tst`` and the
+    optional ``meta_mats``, ``meta_users``, ``kg_triplets``, as
+    ``bundle_from_behaviors`` takes them), else a general_cf one from the
+    ``trn`` / ``val`` / ``tst`` matrices."""
+    if inp.get("mb") is not None:
+        from sslrec_tpu_torch.data.multi_behavior import bundle_from_behaviors
+        mb = inp["mb"]
+        return bundle_from_behaviors(cfg, list(mb["behaviors"]), mb["mats"], mb["tst"],
+                                     meta_mats=mb.get("meta_mats"),
+                                     meta_users=mb.get("meta_users"),
+                                     kg_triplets=mb.get("kg_triplets"), device=device)
     if inp.get("kg") is not None:
         from sslrec_tpu_torch.data.kg import bundle_from_kg
         kg = inp["kg"]
@@ -140,11 +150,13 @@ def _bundle(inp: dict, device, cfg=None):
 
 def _tensors(x, device):
     """numpy arrays (in dicts, lists and tuples, kept as such) as tensors on
-    ``device``."""
+    ``device``; Python numbers stay."""
     if isinstance(x, dict):
         return {k: _tensors(v, device) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return type(x)(_tensors(v, device) for v in x)
+    if isinstance(x, (int, float)):     # a scalar the model reads as such (CML's epoch)
+        return x
     return torch.from_numpy(np.asarray(x)).to(device)
 
 
@@ -190,26 +202,54 @@ def _whole_params(model, attr: str = "data") -> dict:
     return out
 
 
-def model_step(inp: dict) -> dict:
-    """One step of the port's model ``inp["model"]`` (a config name, with
-    ``overrides``) under the config's mesh, from whole parameters ``params``
-    and the whole batch ``user``/``pos``/``neg``: this rank's ``data`` slice
-    of the batch (with its ``share`` and ``n_whole``, as the Trainer makes
-    it), ``loss(batch, key, draws=...)`` (``key`` a PRF key; ``aux`` and
-    ``draws`` where given), :func:`~.dist_train.mesh_backward` and the
-    gradients summed over ``data``: the whole batch's loss terms and the
-    whole gradients."""
+def _model(inp: dict):
+    """The port's model ``inp["model"]`` (a config name, with ``overrides``)
+    under the config's mesh, on ``_bundle``'s data, loaded with the whole
+    parameters ``params`` (in float64 where ``inp["f64"]``), and its config."""
     from sslrec_tpu_torch.models.registry import build_model
 
     cfg = _cfg(inp["model"], inp)
     dev = _dev(inp)
     model = build_model(cfg, _bundle(inp, dev, cfg))
-    mesh = model.mesh
+    if inp.get("f64"):
+        model.double()
     params = {k: torch.from_numpy(v).to(dev) for k, v in inp["params"].items()}
-    model.load_state_dict(dist_train.local_state(model, params, mesh))
+    model.load_state_dict(dist_train.local_state(model, params, getattr(model, "mesh", None)))
+    return model, cfg
+
+
+def _whole_moments(model, opts: dict | None = None) -> dict:
+    """The Adam moments of each of ``opts`` (default ``model.optimizers()``)
+    as whole tables, by ``<optimizer>.<parameter>.exp_avg`` / ``exp_avg_sq``."""
+    shards, names = model.row_shards, {id(p): n for n, p in model.named_parameters()}
+    out = {}
+    for opt_name, opt in (model.optimizers() if opts is None else opts).items():
+        for p, st in opt.state.items():
+            name = names[id(p)]
+            for k in ("exp_avg", "exp_avg_sq"):
+                t = st[k]
+                out[f"{opt_name}.{name}.{k}"] = _np(
+                    dist_train.whole_rows(t, shards[name], model.mesh) if name in shards else t)
+    return out
+
+
+def model_step(inp: dict) -> dict:
+    """One step of the port's model (:func:`_model`) under the config's mesh
+    from the whole batch ``user``/``pos`` (and ``neg`` where the model's
+    ``batch_fields`` have it): this rank's ``data`` slice of the batch (with
+    its ``share`` and ``n_whole``, as the Trainer makes it), ``aux`` and
+    ``draws`` where given.  A model with its own ``train_step`` (CML,
+    KMCLR) takes it: the whole batch's loss terms (reduced as the Trainer
+    reduces them), the whole parameters after it and its optimizers' whole
+    moments.  Any other: ``loss(batch, key, draws=...)`` (``key`` a PRF key),
+    :func:`~.dist_train.mesh_backward` and the gradients summed over
+    ``data``: the whole batch's loss terms and the whole gradients."""
+    model, cfg = _model(inp)
+    dev = _dev(inp)
+    mesh = model.mesh
     n = inp["user"].shape[0]
     sl = dist_train.batch_slice(n, mesh)
-    batch = {k: torch.from_numpy(inp[k][sl]).to(dev) for k in ("user", "pos", "neg")}
+    batch = {k: torch.from_numpy(inp[k][sl]).to(dev) for k in model.batch_fields}
     share = batch["user"].shape[0] / n
     batch.update(share=share, n_whole=n, step=0)
     if inp.get("aux") is not None:
@@ -220,12 +260,16 @@ def model_step(inp: dict) -> dict:
     if inp.get("draws") is not None:
         kw["draws"] = _tensors(inp["draws"], dev)
     key = None if inp.get("key") is None else torch.from_numpy(inp["key"]).to(dev)
+    shapes = {k: tuple(model.state_dict()[k].shape) for k in model.row_shards}
+    if hasattr(model, "train_step"):
+        terms = dist_train.reduce_terms(model.train_step(batch, key, **kw), mesh, share)
+        return {"terms": {k: float(v) for k, v in terms.items()},
+                "params": _whole_params(model), "moments": _whole_moments(model),
+                "local_shapes": shapes}
     loss, terms = model.loss(batch, key, **kw)
     dist_train.mesh_backward(loss, mesh, share)
     dist_train.sync_model_grads(model, mesh)
     terms = dist_train.reduce_terms({**terms, "loss": loss.detach()}, mesh, share)
-    own = model.state_dict()
-    shapes = {k: tuple(own[k].shape) for k in model.row_shards}
     return {"terms": {k: float(v) for k, v in terms.items()},
             "grads": _whole_params(model, "grad"), "local_shapes": shapes,
             "local_rows": next(iter(shapes.values()))[0]}
@@ -251,6 +295,54 @@ def trainer_step(inp: dict) -> dict:
             **_whole_params(model), **{k + ".grad": v for k, v in
                                        _whole_params(model, "grad").items()},
             **_model_state(model)}
+
+
+def kmclr_hook(inp: dict) -> dict:
+    """KMCLR's epoch hook (:func:`_model`, ``epoch_state(None, 0,
+    draws=inp["draws"])``) under the config's mesh, or on one device for a
+    1×1 mesh: the whole KG tables after it, the KG Adam's whole moments, both
+    views' values and the KG users it returns."""
+    model, _ = _model(inp)
+    views = []
+    make_views = model.make_views
+
+    def keep(dr):
+        out = make_views(dr)
+        views.extend(out)
+        return out
+
+    model.make_views = keep
+    aux = model.epoch_state(None, 0, draws=_tensors(inp["draws"], _dev(inp)))
+    return {"params": {k: v for k, v in _whole_params(model).items() if k.startswith("kg.")},
+            "moments": _whole_moments(model, {"kg": model.opt_kg}),
+            "views": [_np(v) for v in views],
+            "kg_user": _np(aux["kg_user"])}
+
+
+def global_norm(inp: dict) -> dict:
+    """``dist_train.global_norm`` and the clip of ``trainer.clip_grad_global_norm``
+    on a module of one row-sharded table (``table``, ``[n, d]``) and one
+    replicated weight (``weight``), their whole gradients given (``grads``):
+    this rank's rows of the table's, the weight's whole, as they stand after
+    the mesh's sums.  Returns the norm, whether the clip fired, and the
+    clipped gradients whole."""
+    from sslrec_tpu_torch.trainer.trainer import clip_grad_global_norm
+
+    mesh = make_mesh(int(inp["n_data"]), int(inp["n_model"]))
+    n = inp["table"].shape[0]
+    model = torch.nn.Module()
+    model.row_shards = {"table": n}
+    model.table = torch.nn.Parameter(dist_train.own_rows(
+        torch.from_numpy(inp["table"]), dist_train.shard_rows(n, mesh), mesh))
+    model.weight = torch.nn.Parameter(torch.from_numpy(inp["weight"]))
+    model.table.grad = dist_train.own_rows(torch.from_numpy(inp["grads"]["table"]),
+                                           model.table.shape[0], mesh)
+    model.weight.grad = torch.from_numpy(inp["grads"]["weight"]).clone()
+    norm = dist_train.global_norm(model, mesh)
+    clip_grad_global_norm(model.parameters(), float(inp["max_norm"]), norm)
+    return {"norm": float(norm), "clipped": bool(norm >= float(inp["max_norm"])),
+            "table": _np(dist_train.whole_rows(model.table.grad, n, mesh)),
+            "weight": _np(model.weight.grad)}
 
 
 def _model_state(model) -> dict:
@@ -324,24 +416,44 @@ B2_LAYOUTS = {"KGCL": lambda m: {"kg_heads": m.seg_h.layout},
               "DiffKG": lambda m: {"kg_heads": m.kg.h, "dkg_heads": m._last_dkg.h}}
 
 
+def mesh_graphs(model) -> dict:
+    """The ``ShardedGraph`` s a model partitions on a model-sharded mesh, by
+    name: one (``""``) for LightGCN's and the KG models' ``sg``; each tower's
+    pair for HMGCR and SMBRec (``t<i>.a``, ``t<i>.at``); each behavior's
+    bidirectional hop for CML and KMCLR (``beh<b>``) and KMCLR's buy
+    bi-adjacency (``buy``)."""
+    if getattr(model, "sg", None) is not None:
+        return {"": model.sg}
+    out = {}
+    for t, (sg_a, sg_at) in enumerate(getattr(model, "sgs", None) or []):
+        out[f"t{t}.a"], out[f"t{t}.at"] = sg_a, sg_at
+    gcn = getattr(model, "gcn", None) or getattr(model, "mb", None)
+    for b, sg in enumerate(getattr(gcn, "sgs", None) or []):
+        out[f"beh{b}"] = sg
+    if getattr(model, "sg_bi", None) is not None:
+        out["buy"] = model.sg_bi
+    return out
+
+
 def layout_probe(trainer) -> dict:
     """The kernels on a trained model's layouts in this rank, each against its
-    plain version on seeded random inputs at the model's width: B1 on the
-    rank's shard layouts of the model's partitioned graph (``sg``), forward
-    and transposed, without a multiplier and under random values in the
-    original edge order (a view's, through ``view_vals_partitioned``), the
-    largest error relative to the plain output's largest entry; B2 on the
-    model's head layouts over the whole KG (``B2_LAYOUTS``), whether it equals
-    the plain version bit for bit."""
+    plain version on seeded random inputs at the width of the model's first
+    row-sharded table: B1 on the rank's shard layouts of each graph the
+    model partitions (:func:`mesh_graphs`; keys ``<graph>:forward`` …, the
+    bare layout's name for a model of one graph), forward and transposed,
+    without a multiplier and under random values in the original edge order
+    (a view's, through ``view_vals_partitioned``), the largest error relative
+    to the plain output's largest entry; B2 on the model's head layouts over
+    the whole KG (``B2_LAYOUTS``), whether it equals the plain version bit
+    for bit."""
     from sslrec_tpu_torch.ops import segment_kernel, spmm_kernel
 
     model, dev = trainer.model, trainer.device
     gen = torch.Generator(device=dev).manual_seed(17 + model.mesh.rank)
-    d = model.embedding_size
+    d = model.state_dict()[next(iter(model.row_shards))].shape[1]
     out = {"b1": {}, "b2": {}}
-    sg = getattr(model, "sg", None)
-    if sg is not None:
-        p = model.mesh.model_index
+    p = model.mesh.model_index
+    for gname, sg in mesh_graphs(model).items():
         shard = dist_train.shard_graph(sg, p, dev)
         vals = torch.rand(sg.n_edges, generator=gen, device=dev)
         graphs = {"": shard.graph,
@@ -351,7 +463,7 @@ def layout_probe(trainer) -> dict:
                 x = torch.randn(lay.n_cols, d, generator=gen, device=dev)
                 ref = spmm_kernel.csr_spmm_plain(lay, x)
                 err = (spmm_kernel.csr_spmm(lay, x) - ref).abs().max() / ref.abs().max()
-                out["b1"][name + tag] = float(err)
+                out["b1"][f"{gname}:{name}{tag}" if gname else name + tag] = float(err)
     for name, lay in B2_LAYOUTS.get(type(model).__name__, lambda m: {})(model).items():
         logits = torch.randn(lay.n, generator=gen, device=dev) * 5
         out["b2"][name] = bool(torch.equal(segment_kernel.segment_max(lay, logits),
@@ -394,7 +506,8 @@ def cli_runs(inp: dict) -> dict:
 CHECKS = {"mesh_shape": mesh_shape, "owned_lookup": owned_lookup, "topk": topk,
           "sharded_step": sharded_step, "propagate": propagate, "rect_pair": rect_pair,
           "lightgcn": lightgcn, "trainer_step": trainer_step, "propagate_grad": propagate_grad,
-          "model_step": model_step, "cli_runs": cli_runs}
+          "model_step": model_step, "cli_runs": cli_runs, "kmclr_hook": kmclr_hook,
+          "global_norm": global_norm}
 
 
 def run(checks: list[tuple[str, str, dict]]) -> dict:

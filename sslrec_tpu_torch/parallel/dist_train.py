@@ -39,7 +39,9 @@ cotangent on every rank, as one device's does.
 A parameter outside ``row_shards`` is replicated: every rank of a ``model``
 group holds all of it and reads it directly, with no collective whose
 backward would sum the ranks' cotangents, so :func:`sync_model_grads` sums
-its gradient over the ``model`` group.
+its gradient over the ``model`` group.  A gradient clip then takes
+:func:`global_norm`, whose squares of the row shards' gradients are summed
+over the ``model`` group, as one device's norm is over the whole tables.
 
 The JAX package runs all of it in one process under ``shard_map``; here a
 process is a rank of the mesh (:mod:`~sslrec_tpu_torch.parallel.mesh`), and
@@ -147,8 +149,10 @@ class Shard(NamedTuple):
     def with_vals(self, vals_row: torch.Tensor) -> CsrGraph:
         """The operator under a view's values ``vals_row`` (the shard's
         ``[E_pad]`` row of :func:`view_vals_partitioned`), in place of the
-        partition's own."""
-        v = vals_row.to(self.graph.vals.device, torch.float32)[self.live].contiguous()
+        partition's own (float32, float64 values kept as such for a model run
+        in float64 on the CPU)."""
+        dtype = torch.promote_types(vals_row.dtype, torch.float32)
+        v = vals_row.to(self.graph.vals.device, dtype)[self.live].contiguous()
         g = self.graph
         fwd = g.fwd._replace(vals=v, vals_ones=False)
         bwd = g.bwd._replace(vals=v[self.order].contiguous(), vals_ones=False)
@@ -526,14 +530,41 @@ def sync_grads(params, mesh: Mesh, replicated=()) -> None:
     _all_reduce_grads([p.grad for p in params if p.grad is not None], mesh.data_group)
 
 
-def sync_model_grads(model, mesh: Mesh) -> None:
-    """:func:`sync_grads` of every parameter of ``model``; on a model-sharded
-    mesh those outside its ``row_shards`` are replicated, summed over the
-    ``model`` group first."""
+def sync_model_grads(model, mesh: Mesh, prefix: str = "", data: bool = True) -> None:
+    """:func:`sync_grads` of the parameters of ``model`` whose names start with
+    ``prefix`` (all by default); on a model-sharded mesh those outside its
+    ``row_shards`` are replicated, summed over the ``model`` group first.
+    ``data`` False leaves out the ``data`` sum, for a computation that every
+    ``data`` rank runs alike on the same inputs (KMCLR's epoch hook)."""
     shards = getattr(model, "row_shards", {})
-    replicated = [p for name, p in model.named_parameters()
-                  if name not in shards] if model_sharded(mesh) else []
-    sync_grads(model.parameters(), mesh, replicated)
+    named = [(name, p) for name, p in model.named_parameters() if name.startswith(prefix)]
+    replicated = [p for name, p in named if name not in shards] if model_sharded(mesh) else []
+    sync_grads([p for _, p in named] if data else [], mesh, replicated)
+
+
+@torch.no_grad()
+def global_norm(model, mesh: Mesh | None, prefix: str = "") -> torch.Tensor:
+    """The global L2 norm of the gradients of ``model``'s parameters whose
+    names start with ``prefix`` (one without a gradient counts as zero), as
+    one device computes it, for ``optax.clip_by_global_norm`` after
+    :func:`sync_model_grads`.
+
+    On a model-sharded mesh a rank holds a row shard of each table in
+    ``row_shards`` (padding rows with a zero gradient), so the squares of
+    those gradients are summed over the ``model`` group; a replicated
+    parameter's gradient, the same on every rank after the sums, is counted
+    once.  The ``data`` group needs no sum: its ranks hold the same
+    gradients after :func:`sync_grads`.  Elsewhere the squares are summed in
+    parameter order, as on one device."""
+    named = [(n, p.grad) for n, p in model.named_parameters()
+             if n.startswith(prefix) and p.grad is not None]
+    if not model_sharded(mesh):
+        return torch.sqrt(sum((g * g).sum() for _, g in named))
+    shards = model.row_shards
+    rows, rep = (sum(((g * g).sum() for n, g in named if (n in shards) == own),
+                     named[0][1].new_zeros(())) for own in (True, False))
+    dist.all_reduce(rows, group=mesh.model_group)
+    return torch.sqrt(rows + rep)
 
 
 @torch.no_grad()

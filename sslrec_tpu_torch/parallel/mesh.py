@@ -134,7 +134,7 @@ def check_model(model_cls, shape) -> None:
         raise NotImplementedError(
             f"train.mesh {shape[0]}x{shape[1]}: {model_cls.__name__} does not run on a "
             f"device mesh yet ({todo}); LightGCN, SGL, SimGCL, NCL, DirectAU, KGCL, KGIN, "
-            f"KGRec and DiffKG do")
+            f"KGRec, DiffKG, HMGCR, SMBRec, CML and KMCLR do")
 
 
 _MESHES: dict = {}

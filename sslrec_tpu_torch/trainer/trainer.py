@@ -55,10 +55,13 @@ each rank draws the epoch's batches as every other rank does, takes its
 ``data`` slice of each, and backpropagates its loss scaled by
 :func:`~sslrec_tpu_torch.parallel.dist_train.mesh_backward`; the ``data``
 group then sums the gradients (weighted by each slice's share of the batch,
-their mean for equal slices) before the clip, weight decay and Adam; the
-gradients of a model's replicated parameters (those outside its
+their mean for equal slices) before the clip (its norm
+``dist_train.global_norm``, over the ranks' row shards), weight decay and
+Adam; the gradients of a model's replicated parameters (those outside its
 ``row_shards``) are first summed over the ``model`` group.  The TransE
-sub-loop splits its batches over ``data`` the same way.  A
+sub-loop splits its batches over ``data`` the same way.  A model with its
+own ``train_step`` gets its slice the same way and does its own sums; the
+trainer reduces the terms it returns over ``data``.  A
 model sharded over ``model`` holds its own rows and their Adam moments; the
 best snapshot, the returned parameters and every checkpoint are whole
 tables, so that a checkpoint moves between a mesh run and a single-device
@@ -104,12 +107,15 @@ def build_optimizer(cfg, params) -> torch.optim.Optimizer:
                             weight_decay=wd)
 
 
-def clip_grad_global_norm(params, max_norm: float) -> None:
+def clip_grad_global_norm(params, max_norm: float, norm: torch.Tensor | None = None) -> None:
     """``optax.clip_by_global_norm``: where the gradients' global L2 norm is at
     least ``max_norm``, scale each by ``max_norm / norm`` (divided, then
-    multiplied, as optax does), in place."""
+    multiplied, as optax does), in place.  ``norm``: the norm where the
+    caller has it (on a mesh, :func:`~sslrec_tpu_torch.parallel.dist_train.
+    global_norm`'s, over the ranks' row shards), else that of ``params``."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    if norm is None:
+        norm = torch.sqrt(sum((g * g).sum() for g in grads))
     clip = norm >= max_norm
     for g in grads:
         g.copy_(torch.where(clip, g / norm * max_norm, g))
@@ -175,6 +181,8 @@ class Trainer:
         if self.optimizer is None:
             aux = self.model.train_step(batch, key)
             self._check_finite(aux["loss"], batch)
+            if self.mesh is not None:
+                aux = dist_train.reduce_terms(aux, self.mesh, batch["share"])
             return aux
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.model.loss(batch, key)
@@ -188,7 +196,8 @@ class Trainer:
             dist_train.sync_model_grads(self.model, self.mesh)
             terms = dist_train.reduce_terms(terms, self.mesh, share)
         if self.grad_clip:
-            clip_grad_global_norm(self.model.parameters(), self.grad_clip)
+            clip_grad_global_norm(self.model.parameters(), self.grad_clip,
+                                  dist_train.global_norm(self.model, self.mesh))
         self.optimizer.step()
         return terms
 

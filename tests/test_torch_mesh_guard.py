@@ -4,9 +4,9 @@ single-device run (absent, empty, 1×1, and ``{model: 1}``, whose data axis
 fills the CPU's one device); LightGCN trains on a mesh of gloo processes; a
 mesh that cannot be laid out raises ``ValueError`` as ``make_mesh`` does, and
 a model whose mesh branch is not ported ``NotImplementedError`` naming its
-ROADMAP item (8b for the graph-partitioned multi-behavior models, 9 for
-the rest; LightGCN, SGL, SimGCL, NCL, DirectAU, KGCL, KGIN, KGRec and
-DiffKG train), both before
+ROADMAP item (9, the models that the JAX package shards only through
+GSPMD's generic rule; LightGCN, SGL, SimGCL, NCL, DirectAU, KGCL, KGIN,
+KGRec, DiffKG, HMGCR, SMBRec, CML and KMCLR train), both before
 any data is read; ``train.distributed`` and the variables of a
 multi-process run reach ``init_process_group``."""
 
@@ -70,7 +70,8 @@ TRAINS, CANNOT, NOT_PORTED, FORWARDED = "trains", "cannot", "not ported", "forwa
     ("lightgcn", ("train.mesh.data=2", "train.mesh.model=1"), TRAINS),
     ("lightgcn", ("train.mesh.model=2",), CANNOT),
     ("dccf", ("train.mesh.data=2", "train.mesh.model=1"), NOT_PORTED),
-    ("hmgcr", ("train.mesh.data=2", "train.mesh.model=2"), NOT_PORTED),
+    ("mbgmn", ("train.mesh.data=2", "train.mesh.model=2"), NOT_PORTED),
+    ("dsl", ("train.mesh.data=1", "train.mesh.model=2"), NOT_PORTED),
     ("lightgcn", ("train.distributed.coordinator=localhost:1234",
                   "train.distributed.num_processes=2",
                   "train.distributed.process_id=0"), FORWARDED),
@@ -80,16 +81,17 @@ def test_more_than_one_device_raises(toy, init_calls, model, sets, expect):
     processes) or raises before any data is read: ``ValueError`` for a mesh
     that cannot be laid out on the CPU's one device (the data axis left out
     fills 1 // 2 = 0 devices), ``NotImplementedError`` naming ROADMAP Queue A
-    item 9 for DCCF and item 8 for HMGCR; ``train.distributed`` is forwarded to
-    ``init_process_group`` (a stand-in that stops the run there)."""
+    item 9 for DCCF, MBGMN (the multi-behavior model without a partitioned
+    branch) and DSL (on a mesh of the model axis alone); ``train.distributed``
+    is forwarded to ``init_process_group`` (a stand-in that stops the run
+    there)."""
     if expect == TRAINS:
         run = _run(toy, *sets, model=model)
         assert run.mesh == {"data": 2, "model": 1} and len(run.ranks) == 2
         assert np.isfinite(run.epochs[0]["loss"]["loss"])
         return
-    item = "Queue A item 8" if model == "hmgcr" else "Queue A item 9"
     want = {CANNOT: (ValueError, "needs more than 1 devices"),
-            NOT_PORTED: (NotImplementedError, item), FORWARDED: (Stop, None)}
+            NOT_PORTED: (NotImplementedError, "Queue A item 9"), FORWARDED: (Stop, None)}
     with pytest.raises(want[expect][0], match=want[expect][1]):
         _run(toy, *sets, model=model)
     assert not (toy / "res").exists()
@@ -98,25 +100,25 @@ def test_more_than_one_device_raises(toy, init_calls, model, sets, expect):
         assert [c[1]["init_method"] for c in init_calls] == [method]
 
 
-MESH_MODELS = {"lightgcn", "sgl", "simgcl", "ncl", "directau", "kgcl", "kgin", "kgrec", "diffkg"}
-PARTITIONED = {"hmgcr", "smbrec", "cml", "kmclr"}
+MESH_MODELS = {"lightgcn", "sgl", "simgcl", "ncl", "directau", "kgcl", "kgin", "kgrec", "diffkg",
+               "hmgcr", "smbrec", "cml", "kmclr"}
 
 
 @pytest.mark.parametrize("model", registry.available_models())
 def test_which_models_a_mesh_takes(model):
     """On a mesh of more than one device LightGCN, the four models of ROADMAP
-    Queue A item 7 and the four KG models of item 8a pass ``check_model``;
-    every other model raises ``NotImplementedError`` naming item 8b (the
-    multi-behavior models' graph-partitioned branches) or item 9 (GSPMD's
-    generic rule)."""
+    Queue A item 7, the four KG models of item 8a and the four
+    multi-behavior models of item 8b pass ``check_model``; every other model
+    raises ``NotImplementedError`` naming item 9 (GSPMD's generic rule), and
+    the message names the 13 that run."""
     cls = registry.model_class(model)
     mesh.check_model(cls, None)
     if model in MESH_MODELS:
         mesh.check_model(cls, (2, 2))
         return
-    item = "item 8b" if model in PARTITIONED else "item 9"
-    with pytest.raises(NotImplementedError, match=f"Queue A {item}"):
+    with pytest.raises(NotImplementedError, match="Queue A item 9") as e:
         mesh.check_model(cls, (2, 1))
+    assert all(registry.model_class(m).__name__ in str(e.value) for m in MESH_MODELS)
 
 
 @pytest.mark.parametrize("var,value", [("SSLREC_COORDINATOR", "localhost:1234"),

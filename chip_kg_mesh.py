@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Measurements behind ``chip_smoke.py`` phases 37(d) and 37(e) (the KG and
-the multi-behavior families on a ``{data: 1, model: 2}`` mesh), each on one
-CUDA card:
+"""Measurements behind ``chip_smoke.py`` phases 37(d), 37(e) and 37(f) (the
+KG and the multi-behavior families and ROADMAP Queue A item 9a's seven
+models on a ``{data: 1, model: 2}`` mesh), each on one CUDA card:
 
     python3 chip_kg_mesh.py phase      # phases 37(d) and (e) alone, one spawn; a table beyond
                                        # the tolerance is printed with every table's share of
                                        # it, then raised
     python3 chip_kg_mesh.py phase-mb   # phase 37(e) alone (phase 29's split written first)
+    python3 chip_kg_mesh.py phase-gcf  # phase 37(f) alone (phase 29's split written first;
+                                       # a missed table is held to its single run's own
+                                       # move under cuBLASLt)
     python3 chip_kg_mesh.py control    # KGCL's and DiffKG's single runs on the phase's split:
                                        # again, under cuBLASLt, and twice with torch's
                                        # deterministic algorithms
@@ -17,8 +20,8 @@ CUDA card:
 
 Each builds the kernels, writes the synthetic KG and the phase's split
 (``chip_smoke.write_mesh_kg_split``; the multi-behavior ones phase 29's
-Tmall-shaped split and ``chip_smoke.write_mesh_mb_split``'s) and prints one
-JSON line last.
+Tmall-shaped split and ``chip_smoke.write_mesh_mb_split``'s; 37(f) also
+``write_mesh_cf_split``'s) and prints one JSON line last.
 """
 
 from __future__ import annotations
@@ -50,13 +53,13 @@ def single(model: str, *sets: str) -> dict:
 
 
 def phase(families=("kg", "mb")) -> dict:
-    """Phases 37(d) and (e) (``families``), their table misses recorded with
-    every table's share of ``MESH_PARAM_TOL`` before they raise."""
+    """Phases 37(d), (e) and (f) (``families``), their table misses recorded
+    with every table's share of ``MESH_PARAM_TOL`` before they raise."""
     check, missed = cs.mesh_kg_check, []
 
-    def lenient(model, one, run):
+    def lenient(model, one, run, control=None):
         try:
-            return check(model, one, run)
+            return check(model, one, run, control)
         except AssertionError as e:
             missed.append(f"{model}: {e}")
             return {"param_diff": cs.table_diff(run.best_state, one["best_state"]),
@@ -69,11 +72,13 @@ def phase(families=("kg", "mb")) -> dict:
     out = cs.mesh_kg_phase(torch.Generator(device=dev).manual_seed(0), dev, families)
     res = {"s": out["s"], "missed": missed}
     for fam, run, models in (("kg", out["run"], cs.MESH_KG_MODELS),
-                             ("mb", out["mb"]["run"], cs.MESH_MB_MODELS)):
+                             ("mb", out["mb"]["run"], cs.MESH_MB_MODELS),
+                             ("gcf", out["gcf"]["run"], cs.MESH_GCF_MODELS)):
         if run:
             res[fam] = {"mesh_s": run["mesh_s"], "single_s": run["single_s"],
                         "split": run["split"],
-                        **{m: {k: run[m][k] for k in ("param_diff", "param_tol_use", "losses")}
+                        **{m: {k: run[m].get(k) for k in ("param_diff", "param_tol_use",
+                                                          "losses", "control_param_diff")}
                            for m in models}}
     if out["mb"]["hops"]:
         res["mb_hops"] = {k: {"ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -140,7 +145,8 @@ def regions() -> dict:
 def main() -> int:
     what = sys.argv[1] if len(sys.argv) > 1 else "phase"
     cs.MESH_MB_TIMED = cs.MESH_MB_TIMED_ALL
-    runs = {"phase": phase, "phase-mb": lambda: phase(("mb",)), "control": control,
+    runs = {"phase": phase, "phase-mb": lambda: phase(("mb",)),
+            "phase-gcf": lambda: phase(("gcf",)), "control": control,
             "control-mb": lambda: control(cs.MESH_MB_MODELS), "regions": regions}
     if what not in runs:
         raise SystemExit(f"chip_kg_mesh: {what!r}: one of {', '.join(runs)}")
@@ -153,7 +159,7 @@ def main() -> int:
     cuda_build.build_libraries(force=True)
     if what in ("phase", "control", "regions"):
         cs.write_kg_dataset(cs.KG_DATASET, *cs.synthetic_kg())
-    if what in ("phase", "phase-mb", "control-mb"):
+    if what in ("phase", "phase-mb", "phase-gcf", "control-mb"):
         cs.write_mb_dataset(cs.MB_DATASET)
     out = runs[what]()
     print(json.dumps({what: out, "total_s": time.perf_counter() - t0}), flush=True)

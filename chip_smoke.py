@@ -237,7 +237,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    the card and once on the ``{data: 1, model: 2}`` mesh, in 37(d)'s
    spawn, held as 37(d)'s runs, their launches against ``MESH_MB`` and B1
    in each rank on the shard layouts of every graph it partitions within
-   ``MESH_MB_B1_TOL``;
+   ``MESH_MB_B1_TOL``; (f) the models that partition no graph
+   (``MESH_GCF_MODELS``: LightGCL, HCCF, DCCF, AutoCF, GFormer and AdaGCL
+   on ``MESH_CF_DATASET``, MBGMN on 37(e)'s split) ``MESH_EPOCHS`` epoch
+   each at their published configs, once on the card and once on the
+   ``{data: 1, model: 2}`` mesh in 37(d)'s spawn (with (b)'s SGL
+   ``MESH_SPLIT_REF`` run), held as 37(d)'s runs (a table that misses
+   ``MESH_PARAM_TOL`` then against its single run's own move under
+   cuBLASLt), their launches against ``MESH_GSPMD_A`` and B1 in each rank
+   on its whole layouts within ``TOL``;
 38. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -255,7 +263,11 @@ the multi-behavior models' mesh runs, phase 23 holds 2048 test sequences
 against the CPU (was 4096) and trains those four at batch 2048 (was 1024),
 phase 37(b) trains on ``MESH_CF_DATASET`` (was the whole alibaba-fashion
 split), 37(d)'s KGCL runs its TransE sub-loop at batch 16384 (was 4096)
-and phase 36 times 3 lanes steps (was 5).
+and phase 36 times 3 lanes steps (was 5); for 37(f), 37(b)'s SGL
+``MESH_SPLIT_REF`` run rides 37(d)'s spawn (was a spawn of its own), the
+resume checks of phase 18 resume from the straight run's own state (was a
+third run), and phases 17, 19, 23, 29 and 32 hold ``generate()`` on a CPU
+copy of the run's data (``CPU_FROM_CARD``; was a second load).
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
 ``social_operands`` build the paths' operands (``kcgn_smin_operands`` and
@@ -271,6 +283,7 @@ script.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -303,7 +316,7 @@ from sslrec_tpu_torch.ops import cuda_build
 from sslrec_tpu_torch.ops import segment as plain_seg
 from sslrec_tpu_torch.ops import segment_kernel as skn
 from sslrec_tpu_torch.ops import spmm_kernel as sk
-from sslrec_tpu_torch.ops.sparse import CooGraph, from_scipy
+from sslrec_tpu_torch.ops.sparse import CooGraph, EdgeSet, from_scipy
 from sslrec_tpu_torch.ops.spmm import spmm as sk_spmm
 from sslrec_tpu_torch.profile_epoch import device_us
 from sslrec_tpu_torch.trainer.lanes import Lanes
@@ -597,6 +610,12 @@ LAST_LANE_GRIDS = {
 # sums by 1.0e-4 of the largest entry on the card, ten times the float32
 # limit; in float64 the same step agrees to rounding, so a fault of the
 # lanes' path cannot hide under that limit.
+# The models whose path (phases 17, 19, 23, 29 and 32) holds generate() to
+# the CPU's plain forward on a copy of the run's own data (on_device), not on
+# a second load on the host: a depth cut of the loads (KCGN's and SMIN's
+# handler samples on the host for ~12 s each) that keeps the check; the KG
+# handler's bundles hold a class that keeps its device, and still reload
+CPU_FROM_CARD = (*SOCIAL_MODELS, *KCGN_SMIN, *SEQ_MODELS, *MB_MODELS, *MB_NEW)
 LANE_STEP_MODELS = ("hmgcr", "cl4srec", "duorec")
 LANE_F64 = ("hmgcr",)
 LANE_K = 2
@@ -1329,9 +1348,10 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
     ``generate()`` against the same forward on the CPU's plain versions
     (LightGCL with the card's SVD factors; in float64 for the models in
     ``ref64``, whose RGAT's row normalisation magnifies float32 rounding, as
-    phase 8 holds KGCL).  ``extra_args`` adds a model's CLI arguments.  Each
-    trained model goes into ``keep`` where it is given, so later phases take
-    its layouts."""
+    phase 8 holds KGCL).  ``extra_args`` adds a model's CLI arguments.  The
+    CPU's data are loaded anew, or, for the models in ``CPU_FROM_CARD``,
+    copied from the run's (:func:`on_device`).  Each trained model goes into
+    ``keep`` where it is given, so later phases take its layouts."""
     cpu_data, cpu_key, out = None, None, {}
     for name in models:
         argv = ["--model", name, "--data_dir", data_dir, "--dataset", dataset,
@@ -1366,7 +1386,9 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
                 f"eval {r['eval_s']:.3f} s")
         model = trainer.model
         key = cpu_data_key(trainer.cfg)
-        if cpu_data is None or key is None or key != cpu_key:
+        if name in CPU_FROM_CARD:
+            cpu_data, cpu_key = on_device(trainer.data, torch.device("cpu")), None
+        elif cpu_data is None or key is None or key != cpu_key:
             cpu_data, cpu_key = load_data(trainer.cfg, "cpu"), key
         cpu_model = build_model(trainer.cfg, cpu_data)
         cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
@@ -1403,6 +1425,26 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
                      "train_rows": trainer.data.n_train, "n_batches": trainer.n_batches}
         del trainer, model, cpu_model
     return out
+
+
+def on_device(x, device: torch.device):
+    """``x`` (a ``DataBundle`` and what it holds: dataclasses, named tuples,
+    dicts, lists, tuples) with every tensor on ``device``; anything else as
+    it is."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, EdgeSet):
+        return EdgeSet(x.codes.to(device), x.n_cols)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: on_device(getattr(x, f.name), device)
+                                         for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(on_device(v, device) for v in x))
+    if isinstance(x, dict):
+        return {k: on_device(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(on_device(v, device) for v in x)
+    return x
 
 
 def cpu_data_key(cfg):
@@ -1580,7 +1622,8 @@ def time_view_shapes(ops: dict, gen) -> tuple[dict[str, dict], dict[str, tuple[f
     AutoCF's decoder as the attention's segment sums (d 32, d 4) and the
     gathers' backward (d 32, also beside ``index_put_``); GFormer's augmented
     hop with the view's encoder values both ways, and its decoder's segment
-    sum and gathers' backward at d 32."""
+    sum and gathers' backward at d 32; AdaGCL's gate degree sum over the
+    bi-adjacency's rows (d 1)."""
     dev = torch.device("cuda", 0)
     t, b = {}, {}
     ac, gf = ops["autocf"]["view"], ops["gformer"]["view"]
@@ -1615,6 +1658,7 @@ def time_view_shapes(ops: dict, gen) -> tuple[dict[str, dict], dict[str, tuple[f
         t[key]["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay, x, ew), floor)
     seg_sum("gformer_dec_sum_d32", gf["dec_seg"][0], 32)
     take_bwd("gformer_dec_take_bwd_d32", gf["dec_seg"][1], 32)
+    seg_sum("adagcl_gate_deg_d1", ops["adagcl"]["gate_rows"], 1)
     return t, b
 
 def social_operands(dev) -> dict:
@@ -1857,15 +1901,25 @@ def resume_check(model: str, data_dir: str, dataset: str, extra=(), device: str 
     ``half`` through the CLI, a state saved every ``half`` epochs: the train
     states after the last epoch (every tensor: parameters, optimizer states,
     best snapshot, the model's own extra state) must be bit-equal, and the
-    bookkeeping equal.  Returns the number of tensors held."""
+    bookkeeping equal.  The resumed run starts from the state the straight
+    run saved after epoch ``half - 1``, which a run of ``half`` epochs saves
+    alike (a depth cut: one run fewer, ~15 s of MAERec's loads and graph
+    build).  Returns the number of tensors held."""
     base = ["--model", model, "--data_dir", data_dir, "--dataset", dataset, "--device", device,
             "--set", "train.test_step=1", "--set", "train.early_stop=false",
             "--set", f"train.save_state_every={half}", "--set", "train.results_dir=", *extra]
     t0 = time.perf_counter()
+    state_dir = os.path.join(ckpt.CHECKPOINT_DIR, model)
+    before = set(os.listdir(state_dir)) if os.path.isdir(state_dir) else set()
     straight = port_main.main(base + ["--epoch", str(2 * half)])
-    first = port_main.main(base + ["--epoch", str(half)])
+    saved = sorted((os.path.join(state_dir, f) for f in os.listdir(state_dir)
+                    if f.endswith(".ckpt.state") and f not in before), key=os.path.getmtime)
+    first_state = saved[0]
+    if ckpt.load(first_state, straight._state_template())["epoch"] != half - 1:
+        raise AssertionError(f"resume.{model}: {first_state} is not the state after epoch "
+                             f"{half - 1}")
     resumed = port_main.main(base + ["--epoch", str(2 * half), "--set",
-                                     f"train.resume_path={first.state_path}"])
+                                     f"train.resume_path={first_state}"])
     template = straight._state_template()
     a = ckpt.load(straight.state_path, template)
     b = ckpt.load(resumed.state_path, template)
@@ -3045,7 +3099,8 @@ MESH_MODELS = ("lightgcn", "sgl")       # phase 37(b): trained on MESH_RUN, in o
 # own data split, which isolates the model axis, and their deviation from
 # the single run is recorded beside the single run's own under the other
 # GEMM order (``gemm_order_control``); losses and metrics are held to the
-# single run.
+# single run.  The run rides phase 37(d)'s spawn of two gloo ranks (the same
+# world size; a depth cut that saves a spawn and keeps the check).
 MESH_SPLIT_REF = {"data": 2, "model": 1}
 # Phase 37(b)'s depth cut, which makes room for 37(e): LightGCN and SGL
 # train on alibaba-fashion with a seeded share of its train pairs (the same
@@ -3140,12 +3195,47 @@ MESH_MB = {"hmgcr": {"step": {"forward": 24, "transposed": 24}, "gen": {"forward
 MESH_MB_MODELS = ("hmgcr", "smbrec", "cml", "kmclr")
 
 
+# B1 launches in each rank of a run on a mesh with a model axis > 1 of the
+# models that partition no graph (ROADMAP Queue A item 9a), counted from the
+# code at the published configs, by layout as in MESH_KG, per training step,
+# per generate(), at construction, per view of AutoCF's and GFormer's banks
+# and per step where those regenerate.  Each rank holds a row shard of the
+# tables and reads them whole (dist_train.whole_nodes), so every hop runs on
+# the whole graph in every rank, and each rank launches what one device
+# launches (SSL_B1, VIEW_B1, MB_B1; their comments count them); no layout
+# has a shard's shape:
+# - DCCF: per layer the GNN hop, two adaptive-mask hops and two degree sums
+#   (d 1), backward 3 dx, 2 layers: 16; generate 10.
+# - HCCF: one rescaled-dropout hop a layer and its dx, 2 layers: 4;
+#   generate 2.
+# - LightGCL: A·E_i and Aᵀ·E_u a layer with their dx, 2 layers: 8; generate
+#   4; its SVD at construction in every rank: 10.
+# - AutoCF: 2 encoder hops with dx and a GT layer over the decoder: 9; a
+#   regenerating step's infomax hops with dx: 4; a view: 4; generate 4.
+# - GFormer: 27 a step; a view's three degree sums: 3; generate 2.
+# - AdaGCL: the four phases' hops, degree sums and gathers' backward: 39;
+#   generate 2.
+# - MBGMN (4 behaviors, 2 layers): 48 forward, the final tower's 24 dx: 72;
+#   generate 48.
+MESH_GSPMD_A = {"dccf": {"step": {"whole": 16}, "gen": {"whole": 10}},
+                "hccf": {"step": {"whole": 4}, "gen": {"whole": 2}},
+                "lightgcl": {"step": {"whole": 8}, "gen": {"whole": 4}, "build": {"whole": 10}},
+                "autocf": {"step": {"whole": 9}, "regen": {"whole": 4}, "view": {"whole": 4},
+                           "gen": {"whole": 4}},
+                "gformer": {"step": {"whole": 27}, "view": {"whole": 3}, "gen": {"whole": 2}},
+                "adagcl": {"step": {"whole": 39}, "gen": {"whole": 2}},
+                "mbgmn": {"step": {"whole": 72}, "gen": {"whole": 48}}}
+MESH_GCF_MODELS = ("lightgcl", "hccf", "dccf", "autocf", "gformer", "adagcl", "mbgmn")
+
+
 def mesh_table_want(table: dict, model: str, steps: int, evals: int, epochs: int,
-                    contrast: int = 0) -> dict[str, int]:
-    """``table[model]``'s count (``MESH_KG`` or ``MESH_MB``), by layout and
-    B2, for ``steps`` steps, ``evals`` evaluations, ``epochs`` epochs and
-    ``contrast`` KMCLR contrast steps of one construction."""
-    times = {"step": steps, "gen": evals, "epoch": epochs, "build": 1, "contrast": contrast}
+                    contrast: int = 0, views: int = 0) -> dict[str, int]:
+    """``table[model]``'s count (``MESH_KG``, ``MESH_MB`` or ``MESH_GSPMD_A``),
+    by layout and B2, for ``steps`` steps, ``evals`` evaluations, ``epochs``
+    epochs, ``contrast`` KMCLR contrast steps and ``views`` views (AutoCF's
+    and GFormer's, one regenerating step each) of one construction."""
+    times = {"step": steps, "gen": evals, "epoch": epochs, "build": 1, "contrast": contrast,
+             "view": views, "regen": views}
     out = {}
     for part, counts in table[model].items():
         for k, c in counts.items():
@@ -3346,15 +3436,21 @@ def mesh_check(model: str, single, run, n_users: int, n_items: int, split_ref=No
                                                                .index(20)])}
 
 
-def mesh_spawn(argvs: list, shape: dict, probe: bool = False, device: str = "cuda:0") -> list:
-    """``argvs`` run in turn on a ``shape`` mesh of gloo processes sharing
-    card 0 (``parallel.checks.cli_runs``, with its layout probe after each
-    run where ``probe``): a ``launch.MeshRun`` each."""
-    sets = [f"train.mesh.data={shape['data']}", f"train.mesh.model={shape['model']}"]
-    argvs = [argv + [a for x in sets for a in ("--set", x)] for argv in argvs]
+def mesh_spawn(argvs: list, shape, probe=False, device: str = "cuda:0") -> list:
+    """``argvs`` run in turn on a mesh of gloo processes sharing card 0
+    (``parallel.checks.cli_runs``, with its layout probe after each run
+    where ``probe``): a ``launch.MeshRun`` each.  ``shape`` (and ``probe``)
+    may be a list, one an argv: runs on meshes of one world size share the
+    spawn."""
+    shapes = shape if isinstance(shape, list) else [shape] * len(argvs)
+    worlds = {s["data"] * s["model"] for s in shapes}
+    if len(worlds) != 1:
+        raise ValueError(f"mesh_spawn: one spawn takes one world size, not {sorted(worlds)}")
+    argvs = [argv + ["--set", f"train.mesh.data={s['data']}", "--set",
+                     f"train.mesh.model={s['model']}"] for argv, s in zip(argvs, shapes)]
     inp = {"argvs": argvs, "device": device, "probe": probe}
-    ranks = launch.spawn(mesh_checks.run, ([("cli", "cli_runs", inp)],),
-                         shape["data"] * shape["model"], device=device, backend="gloo")
+    ranks = launch.spawn(mesh_checks.run, ([("cli", "cli_runs", inp)],), worlds.pop(),
+                         device=device, backend="gloo")
     return [launch.MeshRun([r["cli"]["runs"][k] for r in ranks]) for k in range(len(argvs))]
 
 
@@ -3380,13 +3476,13 @@ def write_mesh_cf_split() -> dict:
 
 
 def mesh_run(data) -> dict:
-    """Phase 37(b): each of ``MESH_MODELS`` at its shipped config,
+    """Phase 37(b), its runs: each of ``MESH_MODELS`` at its shipped config,
     ``MESH_EPOCHS`` epoch on ``MESH_CF_DATASET`` (:func:`write_mesh_cf_split`)
-    on a ``MESH_RUN`` mesh of gloo processes sharing
-    card 0 (one spawn for all, each rank running the CLIs in turn), held
-    against the single-device run of the same arguments by
-    :func:`mesh_check`; SGL's tables against its ``MESH_SPLIT_REF`` run and
-    its single run under :func:`gemm_order_control`."""
+    once on the card and once on a ``MESH_RUN`` mesh of gloo processes
+    sharing card 0 (one spawn for all, each rank running the CLIs in turn),
+    and SGL's single run under :func:`gemm_order_control`.  SGL's
+    ``MESH_SPLIT_REF`` run rides 37(d)'s spawn (``"split_ref_argv"``), and
+    :func:`mesh_run_check` holds the runs together."""
     split = write_mesh_cf_split()
     argvs = {m: ["--model", m, "--data_dir", SMOKE_RESULTS, "--dataset", MESH_CF_DATASET,
                  "--epoch", str(MESH_EPOCHS), "--device", "cuda", "--set", "train.test_step=1"]
@@ -3407,23 +3503,33 @@ def mesh_run(data) -> dict:
     t0 = time.perf_counter()
     runs = dict(zip(MESH_MODELS, mesh_spawn(mesh_argvs, MESH_RUN)))
     mesh_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    (split_ref,) = mesh_spawn([mesh_argvs[MESH_MODELS.index("sgl")]], MESH_SPLIT_REF)
-    split_s = time.perf_counter() - t0
-    out = {"mesh_s": mesh_s, "split_ref_s": split_s, "single_s": single_s, "split": split}
     log(f"  {MESH_CF_DATASET}: {split['train_pairs']} of alibaba-fashion's {split['of']} train "
-        f"pairs")
+        f"pairs; the {MESH_RUN} mesh of 4 gloo processes ran {' and '.join(MESH_MODELS)} in "
+        f"{mesh_s:.1f} s")
+    return {"split": split, "singles": singles, "single_s": single_s, "control": control,
+            "runs": runs, "mesh_s": mesh_s,
+            "split_ref_argv": mesh_argvs[MESH_MODELS.index("sgl")]}
+
+
+def mesh_run_check(data, part: dict, split_ref) -> dict:
+    """Phase 37(b), its checks: each of :func:`mesh_run`'s ``MESH_RUN`` runs
+    held against its single-device run by :func:`mesh_check`; SGL's tables
+    against ``split_ref``, its ``MESH_SPLIT_REF`` run (made in 37(d)'s
+    spawn), and its single run under :func:`gemm_order_control`."""
+    singles, single_s, mesh_s = part["singles"], part["single_s"], part["mesh_s"]
+    out = {"mesh_s": mesh_s, "single_s": single_s, "split": part["split"]}
     for m in MESH_MODELS:
-        refs = {"split_ref": split_ref, "control": control} if m == "sgl" else {}
-        out[m] = r = mesh_check(m, singles[m], runs[m], data.user_num, data.item_num, **refs)
+        refs = {"split_ref": split_ref, "control": part["control"]} if m == "sgl" else {}
+        out[m] = r = mesh_check(m, singles[m], part["runs"][m], data.user_num, data.item_num,
+                                **refs)
         log(f"  {m}: single run {single_s[m]:.1f} s; losses {r['losses']}; whole tables' max "
             f"abs diff {r['param_diff']}; test metrics' max abs diff {r['metric_diff']}; test "
             f"recall@20 {r['test_recall20']:.5f}; B1 launches in each rank by layout "
             f"{r['want_by_layout']} over {r['steps']} steps and {MESH_EPOCHS + 2} evaluations")
     r = out["sgl"]
-    log(f"  sgl's tables: {r['param_diff_split_ref']} from its {MESH_SPLIT_REF} run "
-        f"({split_s:.1f} s), which is {r['split_ref_param_diff']} from the single run; the "
-        f"single run under another GEMM order {r['control_param_diff']} from it")
+    log(f"  sgl's tables: {r['param_diff_split_ref']} from its {MESH_SPLIT_REF} run (in 37(d)'s "
+        f"spawn), which is {r['split_ref_param_diff']} from the single run; the single run "
+        f"under another GEMM order {r['control_param_diff']} from it")
     log(f"  the {MESH_RUN} mesh of 4 gloo processes ran {' and '.join(MESH_MODELS)} in "
         f"{mesh_s:.1f} s (processes, data, {MESH_EPOCHS} epoch each, evaluations); four "
         f"processes sharing one card give no speed figure for a mesh")
@@ -3556,15 +3662,19 @@ def mesh_kg_hops(errs: ErrTrack, gen, dev) -> dict:
     return out
 
 
-def mesh_kg_check(model: str, single: dict, run) -> dict:
-    """One KG (phase 37(d)) or multi-behavior (37(e)) model's ``MESH_KG_RUN``
-    run held against its single-device run: each epoch's loss terms and the
-    test metrics within ``MESH_METRIC_TOL``, the whole tables within
-    ``MESH_PARAM_TOL``, each rank's B1 launches by layout and B2 launches
-    against ``mesh_kg_want`` or ``MESH_MB``'s count, and each rank's
-    ``layout_probe`` (B1 on its shards within ``TOL`` of plain, within
+def mesh_kg_check(model: str, single: dict, run, control=None) -> dict:
+    """One KG (phase 37(d)), multi-behavior (37(e)) or item 9a (37(f))
+    model's ``MESH_KG_RUN`` run held against its single-device run: each
+    epoch's loss terms and the test metrics within ``MESH_METRIC_TOL``, the
+    whole tables within ``MESH_PARAM_TOL``, each rank's B1 launches by layout
+    and B2 launches against ``mesh_kg_want``'s, ``MESH_MB``'s or
+    ``MESH_GSPMD_A``'s count, and each rank's ``layout_probe`` (B1 on its
+    shards, or 37(f)'s on its whole graphs, within ``TOL`` of plain, within
     ``MESH_MB_B1_TOL`` for 37(e); B2 on its whole-KG head layouts bit for
-    bit).  Returns the deviations and counts."""
+    bit).  Where a table misses and ``control(model)`` is given (37(f)), that
+    single run under :func:`gemm_order_control` is made and its own move
+    recorded: a missed table passes within that move, and fails beyond it.
+    Returns the deviations and counts."""
     if run.mesh != MESH_KG_RUN:
         raise AssertionError(f"{model}: mesh run on {run.mesh}, want {MESH_KG_RUN}")
     param_diff = table_diff(run.best_state, single["best_state"])
@@ -3586,23 +3696,38 @@ def mesh_kg_check(model: str, single: dict, run) -> dict:
             np.testing.assert_allclose(b["loss"][term], v, **MESH_METRIC_TOL,
                                        err_msg=f"{model} mesh run {term}")
     steps = single["n_batches"] * MESH_EPOCHS
-    want = (mesh_table_want(MESH_MB, model, steps, MESH_EPOCHS + 2, MESH_EPOCHS,
-                            single["n_bpr"] * MESH_EPOCHS) if model in MESH_MB
-            else mesh_kg_want(model, steps, MESH_EPOCHS + 2, MESH_EPOCHS))
+    if model in MESH_MB:
+        want = mesh_table_want(MESH_MB, model, steps, MESH_EPOCHS + 2, MESH_EPOCHS,
+                               single["n_bpr"] * MESH_EPOCHS)
+    elif model in MESH_GSPMD_A:
+        views = MESH_EPOCHS * -(-single["n_batches"] // single["fix_steps"])
+        want = mesh_table_want(MESH_GSPMD_A, model, steps, MESH_EPOCHS + 2, MESH_EPOCHS,
+                               views=views)
+    else:
+        want = mesh_kg_want(model, steps, MESH_EPOCHS + 2, MESH_EPOCHS)
     got = mesh_kg_launches(run, single["n_users"], single["n_side"])
     if got != [want] * len(run.ranks):
         raise AssertionError(f"{model} mesh run launches by rank and layout {got}, want {want} "
                              f"in each rank")
     probes = [r["probe"] for r in run.ranks]
     b1_err = max(v for pr in probes for v in pr["b1"].values()) if probes[0]["b1"] else None
-    b1_tol = MESH_MB_B1_TOL if model in MESH_MB else TOL
+    b1_tol = MESH_MB_B1_TOL if model in MESH_MB else TOL     # 37(d) and 37(f): TOL
     if b1_err is None or b1_err > b1_tol or not all(all(pr["b2"].values()) for pr in probes):
         raise AssertionError(f"{model}: the ranks' kernels against plain: {probes}")
+    control_diff = None
+    if misses and control is not None:
+        control_diff = table_diff(control(model), single["best_state"])
+        log(f"  {model}: tables {misses} beyond MESH_PARAM_TOL, {param_diff} from the single "
+            f"run, which under cuBLASLt moves {control_diff}")
+        misses = [k for k in misses if param_diff[k] > control_diff[k]]
     if misses:
         raise AssertionError(f"{model} mesh run tables {misses}: max abs diff "
                              f"{ {k: param_diff[k] for k in misses} } from the single run "
-                             f"beyond {MESH_PARAM_TOL}")
+                             f"beyond {MESH_PARAM_TOL}"
+                             + (f" and the single run's own move under cuBLASLt {control_diff}"
+                                if control_diff is not None else ""))
     return {"param_diff": param_diff, "param_tol_use": tol_use, "metric_diff": metric_diff,
+            "control_param_diff": control_diff,
             "losses": losses,
             "by_layout_by_rank": got, "want_by_layout": want, "steps": steps,
             "probe_b1_max_rel_err": b1_err,
@@ -3611,7 +3736,7 @@ def mesh_kg_check(model: str, single: dict, run) -> dict:
 
 
 def mesh_single(model: str, argv: list, results: str) -> dict:
-    """A phase 37(d)/(e) model's single-device run (``argv``): what
+    """A phase 37(d), (e) or (f) model's single-device run (``argv``): what
     :func:`mesh_kg_check` holds the mesh run to."""
     t0 = time.perf_counter()
     tr = port_main.main(argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/{results}_single"])
@@ -3620,10 +3745,27 @@ def mesh_single(model: str, argv: list, results: str) -> dict:
             "n_batches": tr.n_batches, "n_users": tr.data.user_num,
             "n_side": tr.model.n_entities if model == "kgin" else tr.data.item_num,
             "n_train": tr.data.n_train, "k": list(tr.cfg.test.k),
-            "n_bpr": int(getattr(tr.model, "n_bpr", 0)), "s": time.perf_counter() - t0}
+            "n_bpr": int(getattr(tr.model, "n_bpr", 0)),
+            "fix_steps": int(getattr(tr.model, "fix_steps", 1)), "s": time.perf_counter() - t0}
 
 
-def mesh_kg_run(device: str = "cuda", families=("kg",)) -> dict:
+def mesh_gcf_root(model: str) -> tuple[str, str]:
+    """Phase 37(f)'s split for ``model``: the general_cf six's
+    ``MESH_CF_DATASET``, MBGMN's 37(e) split."""
+    return (MESH_MB_DIR, MB_DATASET) if model == "mbgmn" else (SMOKE_RESULTS, MESH_CF_DATASET)
+
+
+def write_mesh_gcf_splits(families=("gcf",)) -> dict:
+    """Phase 37(f)'s splits: 37(b)'s ``MESH_CF_DATASET`` (written anew: it
+    is seeded) and, where 37(e) does not run with it, 37(e)'s split for
+    MBGMN (after phase 29's whole one)."""
+    out = {"cf": write_mesh_cf_split()}
+    if "mb" not in families:
+        out["mb"] = write_mesh_mb_split()
+    return out
+
+
+def mesh_kg_run(device: str = "cuda", families=("kg",), extra=()) -> dict:
     """Phase 37(d): KGCL (with ``train_trans``), KGIN, KGRec and DiffKG at
     their published configs, ``MESH_EPOCHS`` epoch each on the
     ``MESH_KG_DATASET`` split, once on one device and once on a
@@ -3631,45 +3773,65 @@ def mesh_kg_run(device: str = "cuda", families=("kg",)) -> dict:
     rank running the CLIs in turn and probing its kernels after each), held
     together by :func:`mesh_kg_check`; with ``"mb"`` in ``families``, phase
     37(e)'s HMGCR, SMBRec, CML and KMCLR on ``MESH_MB_DATASET``
-    (:func:`write_mesh_mb_split`) too, their mesh runs in the same spawn;
-    ``device`` "cpu" runs it all on the CPU (a call there counts where the
-    card counts a launch).  Returns each family's results by its name
-    (``"kg"``, ``"mb"``)."""
-    datasets = {"kg": (MESH_KG_MODELS, SMOKE_RESULTS, MESH_KG_DATASET, write_mesh_kg_split),
-                "mb": (MESH_MB_MODELS, MESH_MB_DIR, MB_DATASET, write_mesh_mb_split)}
+    (:func:`write_mesh_mb_split`) too, and with ``"gcf"`` phase 37(f)'s
+    ``MESH_GCF_MODELS`` (:func:`mesh_gcf_root`; a table that misses is held
+    to its single run's own move under cuBLASLt), their mesh runs in the
+    same spawn; ``extra`` (``(argv, shape)`` pairs of the spawn's world
+    size: 37(b)'s SGL ``MESH_SPLIT_REF`` run) join the spawn, unprobed, and
+    come back under ``"extra"``.  ``device`` "cpu" runs it all on the CPU (a
+    call there counts where the card counts a launch).  Returns each
+    family's results by its name (``"kg"``, ``"mb"``, ``"gcf"``)."""
+    datasets = {"kg": (MESH_KG_MODELS, lambda m: (SMOKE_RESULTS, MESH_KG_DATASET),
+                       write_mesh_kg_split),
+                "mb": (MESH_MB_MODELS, lambda m: (MESH_MB_DIR, MB_DATASET), write_mesh_mb_split),
+                "gcf": (MESH_GCF_MODELS, mesh_gcf_root,
+                        lambda: write_mesh_gcf_splits(families))}
     argvs, singles, splits = {}, {}, {}
     for fam in families:
-        models, root, dataset, write = datasets[fam]
+        models, root_of, write = datasets[fam]
         splits[fam] = write()
         for m in models:
+            root, dataset = root_of(m)
             argvs[m] = ["--model", m, "--data_dir", root, "--dataset", dataset,
                         "--epoch", str(MESH_EPOCHS), "--device", device,
                         "--set", "train.test_step=1", "--set", "tune.enable=false",
                         *MESH_KG_ARGS.get(m, [])]
             singles[m] = mesh_single(m, argvs[m], f"mesh_{fam}")
         n = {(singles[m]["n_users"], singles[m]["n_train"]) for m in models}
-        log(f"  {root}/{dataset}: users, train pairs {n}; single runs "
+        log(f"  {fam}: users, train pairs {n}; single runs "
             f"{ {m: round(singles[m]['s'], 1) for m in models} } s")
     t0 = time.perf_counter()
     runs = mesh_spawn([argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/mesh_kg"]
-                       for argv in argvs.values()], MESH_KG_RUN, probe=True,
+                       for argv in argvs.values()] + [argv for argv, _ in extra],
+                      [MESH_KG_RUN] * len(argvs) + [shape for _, shape in extra],
+                      probe=[True] * len(argvs) + [False] * len(extra),
                       device="cuda:0" if device == "cuda" else device)
     mesh_s = time.perf_counter() - t0
+    fams = {m: fam for fam in families for m in datasets[fam][0]}
     out = {fam: {"mesh_s": mesh_s, "split": splits[fam],
                  "single_s": {m: singles[m]["s"] for m in datasets[fam][0]}}
            for fam in families}
+    out["extra"] = runs[len(argvs):]
+
+    def control(model):
+        with gemm_order_control():
+            return mesh_single(model, argvs[model], "mesh_ctrl")["best_state"]
+
     for m, run in zip(argvs, runs):
-        fam = "kg" if m in MESH_KG_MODELS else "mb"
-        out[fam][m] = r = mesh_kg_check(m, singles[m], run)
+        fam = fams[m]
+        out[fam][m] = r = mesh_kg_check(m, singles[m], run,
+                                        control if fam == "gcf" else None)
         use = {k: round(v, 3) for k, v in r["param_tol_use"].items()}
         log(f"  {m}: losses {r['losses']}; whole tables' max abs diff {r['param_diff']} "
             f"(share of MESH_PARAM_TOL used: {use}); test "
             f"metrics' max abs diff {r['metric_diff']}; test recall@20 "
             f"{r['test_recall20']:.5f}; launches in each rank {r['want_by_layout']} over "
-            f"{r['steps']} steps; in each rank B1 on its shards within "
+            f"{r['steps']} steps; in each rank B1 on its "
+            f"{'whole graphs' if fam == 'gcf' else 'shards'} within "
             f"{r['probe_b1_max_rel_err']:.3g} of plain, B2 exact on {r['probe_b2_layouts']}")
-    log(f"  the {MESH_KG_RUN} mesh of 2 gloo processes ran {', '.join(argvs)} in "
-        f"{mesh_s:.1f} s (processes, data, {MESH_EPOCHS} epoch each, evaluations, probes)")
+    log(f"  the {MESH_KG_RUN} mesh of 2 gloo processes ran {', '.join(argvs)}"
+        + (f" and {len(extra)} other run(s)" if extra else "")
+        + f" in {mesh_s:.1f} s (processes, data, {MESH_EPOCHS} epoch each, evaluations, probes)")
     return out
 
 
@@ -3812,33 +3974,38 @@ def mesh_mb_hops(errs: ErrTrack, gen, dev) -> dict:
 def mesh_phases(gen, data, cfg, dev) -> dict:
     """Phase 37: the device mesh, (a) the partitioned hop at full width, (b)
     LightGCN and SGL on a mesh of four gloo ranks on the one card, (c)
-    NCCL, (d) the KG family and (e) the multi-behavior family on a mesh of
-    two gloo ranks."""
+    NCCL, (d) the KG family, (e) the multi-behavior family and (f) the
+    models of ROADMAP Queue A item 9a on a mesh of two gloo ranks, in one
+    spawn with (b)'s SGL reference."""
     log("== 37. the device mesh: partitioned hops, a 2x2 mesh on the card, NCCL, the KG "
-        "and multi-behavior families on a 1x2 mesh")
+        "and multi-behavior families and item 9a's seven on a 1x2 mesh")
     t0 = time.perf_counter()
     errs = ErrTrack()
     hops = mesh_hops(errs, gen, data, int(cfg.model.embedding_size), dev)
-    run = mesh_run(data)
+    part = mesh_run(data)
     nccl = mesh_nccl(data, dev)
-    kg = mesh_kg_phase(gen, dev)
+    kg = mesh_kg_phase(gen, dev, extra=[(part["split_ref_argv"], MESH_SPLIT_REF)])
+    run = mesh_run_check(data, part, kg.pop("extra")[0])
     log(f"  phase 37 took {time.perf_counter() - t0:.1f} s")
     return {"errs": errs, "hops": hops, "run": run, "nccl": nccl, "kg": kg}
 
 
-def mesh_kg_phase(gen, dev, families=("kg", "mb")) -> dict:
-    """Phase 37(d) and (e): :func:`mesh_kg_hops` and :func:`mesh_mb_hops`,
-    then :func:`mesh_kg_run` of both families in one spawn."""
-    log("  (d) the KG family and (e) the multi-behavior family on the mesh")
+def mesh_kg_phase(gen, dev, families=("kg", "mb", "gcf"), extra=()) -> dict:
+    """Phases 37(d), (e) and (f): :func:`mesh_kg_hops` and
+    :func:`mesh_mb_hops`, then :func:`mesh_kg_run` of the ``families`` (and
+    the ``extra`` runs) in one spawn."""
+    log("  (d) the KG family, (e) the multi-behavior family and (f) item 9a's seven on the "
+        "mesh")
     t0 = time.perf_counter()
     errs = ErrTrack()
     hops = mesh_kg_hops(errs, gen, dev) if "kg" in families else None
     mb_hops = mesh_mb_hops(errs, gen, dev) if "mb" in families else None
-    run = mesh_kg_run(dev.type, families)
+    run = mesh_kg_run(dev.type, families, extra)
     s = time.perf_counter() - t0
-    log(f"  phases 37(d) and (e) took {s:.1f} s")
+    log(f"  phases 37(d), (e) and (f) took {s:.1f} s")
     return {"errs": errs, "hops": hops, "run": run.get("kg"), "s": s,
-            "mb": {"hops": mb_hops, "run": run.get("mb")}}
+            "mb": {"hops": mb_hops, "run": run.get("mb")}, "gcf": {"run": run.get("gcf")},
+            "extra": run["extra"]}
 
 
 def mesh_mb_rows(mm: dict, b1_row) -> list[dict]:
@@ -4139,6 +4306,10 @@ def main() -> int:
     check_segment_b1(view_errs, "gformer_aug_cols", gf["aug_seg"][1], (32,), gen)
     check_segment_b1(view_errs, "gformer_dec_rows", gf["dec_seg"][0], (32, 4), gen)
     check_segment_b1(view_errs, "gformer_dec_cols", gf["dec_seg"][1], (32,), gen)
+    # AdaGCL's gate degrees: a d 1 segment sum over the bi-adjacency's rows
+    bi = data.extras["bi_adj"]
+    ops["adagcl"] = {"gate_rows": skn.build_segment_layout(bi.rows, bi.n_rows, dev)}
+    check_segment_b1(view_errs, "adagcl_gate_rows", ops["adagcl"]["gate_rows"], (1,), gen)
     check_graph(view_errs, "gformer_aug", gf["aug"], (32, 1), gen, with_grads=True)
     xv = torch.randn(gf["aug"].n_cols, 32, generator=gen, device=dev)
     xk, xp = xv.clone().requires_grad_(), xv.clone().requires_grad_()
@@ -4159,6 +4330,7 @@ def main() -> int:
     for k, r in builds.items():
         log(f"  {k} layouts ({r['layouts']}): built on the card {r['device_ms']:.2f} ms, "
             f"on the host {r['host_ms']:.2f} ms (host clock, median of 5)")
+    ops_gate = ops["adagcl"]["gate_rows"]
     del ops
 
     log("== 14. AutoCF, GFormer and AdaGCL paths")
@@ -4352,6 +4524,14 @@ def main() -> int:
             {"n_rows": lay.n_rows, "n_cols": lay.n_cols, "nnz": lay.cols.shape[0], "d": d,
              "built_on": "the card"}, library_call=call))
     rows_b1[-7]["layout_build"] = builds
+    gate = ops_gate.csr
+    rows_b1.append(b1_row(
+        "csr_spmm.adagcl_gate_deg_d1", view_t["adagcl_gate_deg_d1"],
+        view_bound["adagcl_gate_deg_d1"],
+        tuple(view_runs["adagcl"][k] for k in ("launches", "combine_launches")), view_errs,
+        {"n_rows": gate.n_rows, "n_cols": gate.n_cols, "nnz": gate.cols.shape[0], "d": 1,
+         "what": "AdaGCL's gate degrees: the denoise net's gates summed over each row of the "
+                 "bi-adjacency"}, library_call=sparse_mm))
     soc_rows = {  # key: (operand, width, the paths whose runs launch B1 there, library call)
         "yelp_bi_hop_d64": ("bi", 64, ("dcrec", "dsl"), sparse_mm),
         "dcrec_trust_hop_t_d64": ("trust", 64, ("dcrec",), "torch.sparse.mm on a CSR tensor "
@@ -4585,6 +4765,40 @@ def main() -> int:
             launches_of=[f"{m}'s {MESH_KG_RUN} mesh run, rank {p}" for m in models]))
     rows_b1[-1]["mesh_kg"] = {"run": {k: v for k, v in mk["run"].items()}, "s": mk["s"]}
     rows_b1 += mesh_mb_rows(mk["mb"], b1_row)
+    mg = mk["gcf"]["run"]
+    # phase 37(f): every rank runs each hop of item 9a's models on the whole
+    # graph, so each row times one of those graphs at the whole split (in
+    # phases 10 and 31) and counts the B1 launches of the models that hop
+    # over it in both ranks of their mesh runs (all their layouts: the
+    # bi-adjacency's, the views' and decoders', LightGCL's rectangle)
+    gcf_rows = (
+        ("mesh_gcf_bi_adj_values", ssl_t["dccf_hop"], ssl_bound["dccf_hop"],
+         {"n_rows": plain.n_rows, "nnz": plain.nnz, "d": 32, "layout": "forward"},
+         ("dccf", "hccf", "autocf", "gformer", "adagcl"),
+         "the whole bi-adjacency under per-edge values (DCCF's learned weight timed)",
+         "torch.sparse.mm on a CSR tensor whose values already carry the weight"),
+        ("mesh_gcf_lightgcl_rect", ssl_t["lightgcl_d32"], ssl_bound["lightgcl_d32"],
+         {"n_rows": lgcl.n_rows, "n_cols": lgcl.n_cols, "nnz": lgcl.nnz, "d": 32,
+          "layout": "forward"},
+         ("lightgcl",), "LightGCL's whole rectangular adjacency",
+         "torch.sparse.mm on a CSR tensor of the layout"),
+        ("mesh_gcf_mbgmn_pv_a", newt["t"]["mb_pv_a_d32"], newt["bound"]["mb_pv_a_d32"],
+         {"graph": "pv A", "d": 32, "layout": "forward"}, ("mbgmn",),
+         "MBGMN's behavior graphs (the whole Tmall-shaped pv A timed)",
+         "torch.sparse.mm on a CSR tensor of the layout"))
+    for key, t, bound, shape, models, what, library in gcf_rows:
+        counts = sum(c.get("whole", 0) for m in models for c in mg[m]["by_layout_by_rank"])
+        rows_b1.append(b1_row(
+            f"csr_spmm.{key}", t, bound, (counts, None), ssl_errs if key != "mesh_gcf_mbgmn_pv_a"
+            else mbp["errs"],
+            {**shape, "what": f"B1 on {what} inside every rank of the {MESH_KG_RUN} mesh runs"},
+            launches_scope=f"every B1 launch of {', '.join(models)} in both ranks of their "
+                           f"{MESH_KG_RUN} mesh runs ({MESH_EPOCHS} epoch each; all whole-graph "
+                           f"layouts, at the depth-cut split); combine launches not counted "
+                           f"apart",
+            library_call=library,
+            launches_of=[f"{m}'s {MESH_KG_RUN} mesh run, both ranks" for m in models]))
+    rows_b1[-1]["mesh_gcf"] = {"run": dict(mg)}
     rows_b1[0]["tuner_and_resume_on_card"] = {
         "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
         "resume_bit_equal_tensors": tr["resume_tensors"],

@@ -22,7 +22,7 @@ Optional
                                      has ``optimizers() -> {name: optimizer}``, whose state
                                      checkpoints save and restore; on a mesh it gets its
                                      ``data`` slice (``share``, ``n_whole``) and does the
-                                     mesh's gradient sums itself (CML, KMCLR)
+                                     mesh's gradient sums itself (CML, KMCLR, AdaGCL)
 ``extra_negatives(gen, arrays)``     full-epoch auxiliary streams ({name: [n] tensor}) drawn from
                                      the epoch's generator, sliced per batch (DSL's social negatives)
 ``grad_clip``                        a float: the trainer clips the gradients' global norm to it
@@ -40,8 +40,8 @@ Optional
 The device mesh (:mod:`~sslrec_tpu_torch.parallel.mesh`): ``mesh_todo``
 names the ROADMAP item that will port a model's mesh branch, and a mesh of
 more than one device refuses the model while it is set (LightGCN, SGL,
-SimGCL, NCL, DirectAU, KGCL, KGIN, KGRec, DiffKG, HMGCR, SMBRec, CML and
-KMCLR clear it).  A model
+SimGCL, NCL, DirectAU, LightGCL, HCCF, DCCF, AutoCF, GFormer, AdaGCL, KGCL,
+KGIN, KGRec, DiffKG, MBGMN, HMGCR, SMBRec, CML and KMCLR clear it).  A model
 that trains on a mesh lists in ``row_shards`` (``{name: whole rows}``) the
 tables of which each rank holds a row shard (the JAX package's rule: a
 table whose leading dimension counts users, items, nodes or entities), so

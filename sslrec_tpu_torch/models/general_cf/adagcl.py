@@ -38,8 +38,9 @@ from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.ops.segment_kernel import SegmentSumFn, TakeFn, build_segment_layout
 from sslrec_tpu_torch.ops.spmm import spmm
 from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask, csr_graph_from_edges
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.trainer.trainer import build_optimizer
-from sslrec_tpu_torch.utils.initializers import linear_params, xavier_uniform
+from sslrec_tpu_torch.utils.initializers import linear_params
 
 
 def _mlp(layers, x, acts):
@@ -53,7 +54,9 @@ def _mlp(layers, x, acts):
 
 
 class AdaGCL(RecModel):
+    mesh_todo = None
     step_generator = True       # train_step gets the epoch's device generator
+    TABLES = ("user_embeds", "item_embeds")
 
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
@@ -79,8 +82,7 @@ class AdaGCL(RecModel):
         def linears(*shapes):
             return nn.ModuleList([linear_layer(i, o, device) for i, o in shapes])
 
-        self.user_embeds = nn.Parameter(torch.empty(self.user_num, d, device=device))
-        self.item_embeds = nn.Parameter(torch.empty(self.item_num, d, device=device))
+        dist_train.ui_tables(self, cfg, d, device)
         self.vgae = nn.ModuleDict({"enc_mean": linears((d, d), (d, d)),
                                    "enc_std": linears((d, d), (d, d)),
                                    "dec": linears((d, d), (d, 1))})
@@ -97,9 +99,9 @@ class AdaGCL(RecModel):
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
-        """Xavier tables and ``nn.Linear``-default layers, drawn from ``gen``."""
-        for p in (self.user_embeds, self.item_embeds):
-            p.copy_(xavier_uniform(gen, tuple(p.shape)))
+        """Xavier tables and ``nn.Linear``-default layers, drawn from ``gen``
+        (whole tables on every rank of a mesh, each keeping its own rows)."""
+        dist_train.init_ui_tables(self, gen)
         for part in (self.vgae, self.dn):
             for layers in part.values():
                 for lin in layers:
@@ -119,7 +121,8 @@ class AdaGCL(RecModel):
 
     # -- propagation over a value vector ---------------------------------------
     def _embeds(self):
-        return torch.cat([self.user_embeds, self.item_embeds], dim=0)
+        """``[users; items]``, whole (gathered from the row shards on a mesh)."""
+        return dist_train.ui_nodes(self)
 
     def _forward(self, vals):
         embeds = self._embeds()
@@ -230,26 +233,37 @@ class AdaGCL(RecModel):
         ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
         temperature = batch["aux"]["temperature"]
         vgae_vals = self._vgae_view(draws["view_noise"])
+        mesh = self.mesh
+        # the graphcl phases' rows: the whole batch's (they compare its rows)
+        cl_u, cl_i = ((dist_train.gather_batch(x, batch["n_whole"], mesh) for x in (ancs, poss))
+                      if mesh is not None else (ancs, poss))
 
-        def update(opt, loss):
+        def update(opt, loss, owner):
+            """One update of ``opt`` by ``loss``; ``owner``: the names of the
+            parameters it owns (their gradients' mesh sums)."""
             opt.zero_grad(set_to_none=True)
-            loss.backward()
+            if mesh is None:
+                loss.backward()
+            else:
+                dist_train.mesh_backward(loss, mesh, batch["share"])
+                dist_train.sync_model_grads(self, mesh, owner)
             opt.step()
             return loss.detach()
 
         out1, out2 = self._forward(vgae_vals), self._dn_view_forward()
-        cl = update(self.opt_rec, self._graphcl(out1, out2, ancs, poss).mean() * self.cl_weight)
+        cl = update(self.opt_rec, self._graphcl(out1, out2, cl_u, cl_i).mean() * self.cl_weight,
+                    self.TABLES)
         out1, out2 = out1.detach(), out2.detach()
-        ib = update(self.opt_rec, (self._graphcl(self._forward(vgae_vals), out1, ancs, poss)
-                                   + self._graphcl(self._dn_view_forward(), out2, ancs, poss)
-                                   ).mean() * self.ib_weight)
+        ib = update(self.opt_rec, (self._graphcl(self._forward(vgae_vals), out1, cl_u, cl_i)
+                                   + self._graphcl(self._dn_view_forward(), out2, cl_u, cl_i)
+                                   ).mean() * self.ib_weight, self.TABLES)
         bpr = self._bpr(self._forward(self.norm_vals), ancs, poss, negs)
-        reg = self.reg_weight * losses.reg_params(
-            {"user_embeds": self.user_embeds, "item_embeds": self.item_embeds})
-        main = update(self.opt_rec, bpr + reg)
-        vg = update(self.opt_vgae, self._vgae_loss(draws["vgae_noise"], ancs, poss, negs))
+        reg = self.reg_weight * dist_train.reg_params(self, mesh, self.TABLES)
+        main = update(self.opt_rec, bpr + reg, self.TABLES)
+        vg = update(self.opt_vgae, self._vgae_loss(draws["vgae_noise"], ancs, poss, negs),
+                    "vgae.")
         x, l0 = self._dn_forward(draws["gate_u"], temperature)
-        dn = update(self.opt_dn, self._bpr(x, ancs, poss, negs) + l0 * self.lambda0)
+        dn = update(self.opt_dn, self._bpr(x, ancs, poss, negs) + l0 * self.lambda0, "dn.")
         return {"loss": cl + ib + main + vg + dn, "cl_loss": cl, "ib_loss": ib,
                 "bpr_loss": bpr.detach(), "reg_loss": reg.detach(), "generate_loss": vg,
                 "denoise_loss": dn}

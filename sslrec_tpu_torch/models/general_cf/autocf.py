@@ -25,6 +25,16 @@ normalises with a 1e-8 floor and no max shift, as the JAX model does.
 Draws: :meth:`view_draws` takes one view's draws from the epoch's device
 generator (the seed noise, the node sample's uniforms, the pair draws'
 uniforms), which a test injects through ``epoch_state``'s ``draws``.
+
+On a device mesh with a ``model`` axis > 1 each rank holds a row shard of
+both tables (``row_shards``) and reads them whole (``dist_train.whole_nodes``:
+with autograd in the loss, without in ``epoch_state``), so every rank
+builds the single run's view bank from the same generator, its layouts on
+the card, and runs every hop and the decoder on the whole graph; the
+attention matrices are replicated.  The reconstruction and the contrasts
+are means of per-row terms (their ``logsumexp`` over the whole tables),
+taken over a ``data`` rank's slice; the infomax term is whole and alike on
+every rank; the L2 of the row shards is summed over ``model``.
 """
 
 from __future__ import annotations
@@ -33,11 +43,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from sslrec_tpu_torch.models import losses
 from sslrec_tpu_torch.models.base import RecModel
 from sslrec_tpu_torch.ops.segment_kernel import SegmentSumFn, TakeFn, segment_layout_from_ids
 from sslrec_tpu_torch.ops.spmm import spmm
 from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask, csr_graph_from_edges
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
 
@@ -61,6 +71,7 @@ def gt_attention(p, lay_r, lay_c, valid, embeds, heads: int) -> torch.Tensor:
 
 
 class AutoCF(RecModel):
+    mesh_todo = None
     batch_fields = ("user", "pos")      # no negatives
 
     def __init__(self, cfg, data):
@@ -93,23 +104,22 @@ class AutoCF(RecModel):
         self.fixed_dec = (segment_layout_from_ids(bi.rows, n), segment_layout_from_ids(bi.cols, n),
                           torch.ones(self.nnz, device=device))
 
-        def param(*shape):
-            return nn.Parameter(torch.empty(*shape, device=device))
-
-        self.user_embeds = param(self.user_num, d)
-        self.item_embeds = param(self.item_num, d)
-        self.gt = nn.ModuleList([nn.ParameterDict({k: param(d, d) for k in ("q", "k", "v")})
-                                 for _ in range(self.gt_layer)])
+        dist_train.ui_tables(self, cfg, d, device)
+        self.gt = nn.ModuleList([nn.ParameterDict({
+            k: nn.Parameter(torch.empty(d, d, device=device)) for k in ("q", "k", "v")})
+            for _ in range(self.gt_layer)])
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
-        """Xavier-uniform tables and attention matrices, drawn from ``gen``."""
-        for p in (self.user_embeds, self.item_embeds,
-                  *(lay[k] for lay in self.gt for k in ("q", "k", "v"))):
+        """Xavier-uniform tables and attention matrices, drawn from ``gen``
+        (whole tables on every rank of a mesh, each keeping its own rows)."""
+        dist_train.init_ui_tables(self, gen)
+        for p in (lay[k] for lay in self.gt for k in ("q", "k", "v")):
             p.copy_(xavier_uniform(gen, tuple(p.shape)))
 
     def _embeds(self):
-        return torch.cat([self.user_embeds, self.item_embeds], dim=0)
+        """``[users; items]``, whole (gathered from the row shards on a mesh)."""
+        return dist_train.ui_nodes(self)
 
     # -- seed scores (differentiable) ------------------------------------------
     def _seed_scores(self) -> torch.Tensor:
@@ -142,7 +152,7 @@ class AutoCF(RecModel):
         closure[torch.topk(noisy, self.seed_num).indices] = 1.0
         for _ in range(self.mask_depth - 1):
             closure = torch.clamp(closure + spmm(self.adj, closure[:, None])[:, 0], 0.0, 1.0)
-        keep = ((closure[self.rows] == 0) & (closure[self.cols] == 0)).float()
+        keep = ((closure[self.rows] == 0) & (closure[self.cols] == 0)).to(self.user_embeds.dtype)
         mask_nodes = torch.clamp(closure + (draws["sample_u"] < self.keep_rate).float(),
                                  0.0, 1.0)
         cdf = torch.cumsum(mask_nodes, 0)
@@ -151,7 +161,7 @@ class AutoCF(RecModel):
             return torch.clamp(torch.searchsorted(cdf, u * cdf[-1]), 0, n - 1)
 
         rand_rows, rand_cols = draw(draws["rows_u"]), draw(draws["cols_u"])
-        deg = spmm(self.adj, torch.ones(n, 1, device=dev), keep)[:, 0]
+        deg = spmm(self.adj, torch.ones(n, 1, device=dev, dtype=keep.dtype), keep)[:, 0]
         dinv = (deg + 1e-12) ** -0.5
         loops = torch.arange(n, device=dev)
         dec_rows = torch.cat([rand_rows, rand_cols, loops, self.rows.long()])
@@ -160,7 +170,8 @@ class AutoCF(RecModel):
                 "rand_rows": rand_rows, "rand_cols": rand_cols,
                 "dec": (segment_layout_from_ids(dec_rows, n),
                         segment_layout_from_ids(dec_cols, n),
-                        torch.cat([torch.ones(2 * self.nnz + n, device=dev), keep]))}
+                        torch.cat([torch.ones(2 * self.nnz + n, device=dev, dtype=keep.dtype),
+                                   keep]))}
 
     @torch.no_grad()
     def epoch_state(self, gen: torch.Generator | None, epoch: int,
@@ -195,7 +206,7 @@ class AutoCF(RecModel):
         user_embeds, item_embeds = self.forward(view["enc_vals"], view["dec"])
         ancs, poss = batch["user"], batch["pos"]
         rec = -(user_embeds[ancs] * item_embeds[poss]).sum(-1).mean()
-        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        reg = self.reg_weight * dist_train.reg_params(self, self.mesh)
         cl = ((self._contrast(ancs, user_embeds) + self._contrast(poss, item_embeds))
               * self.ssl_reg + self._contrast(ancs, user_embeds, item_embeds))
         # the infomax term only where the views regenerate: elsewhere JAX's

@@ -15,6 +15,17 @@ re-weighting, with a six-way layer-wise InfoNCE (port of
   rows; every term divided by the batch size.
 
 No random draws.
+
+On a device mesh with a ``model`` axis > 1 each rank holds a row shard of
+both tables (``row_shards``) and reads them whole with autograd
+(``dist_train.whole_nodes``): every layer, the learned weights' ``dew``
+included, runs on the whole graph in every rank; the intents are
+replicated.  BPR is a mean over the batch's rows, taken over a ``data``
+rank's slice; the CL crosses the batch (``infonce_loss(a, b, b, t)``: the
+negatives are the batch's own rows, and each term is divided by the batch
+size), so every ``data`` rank gathers the batch's ids
+(``dist_train.gather_batch``) and computes the whole batch's term; the L2
+of the row shards is summed over ``model``.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ from sslrec_tpu_torch.models.base import RecModel
 from sslrec_tpu_torch.ops.sparse import from_scipy, normalize_adj_sym
 from sslrec_tpu_torch.ops.spmm import spmm
 from sslrec_tpu_torch.ops.spmm_kernel import CsrGraph, build_csr_graph
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
 
@@ -49,6 +61,8 @@ def plain_and_norm_adj(train_mat: sp.spmatrix, n_users: int, n_items: int,
 
 
 class DCCF(RecModel):
+    mesh_todo = None
+
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         m = cfg.model
@@ -61,27 +75,24 @@ class DCCF(RecModel):
         self.plain_adj, self.norm_adj = plain_and_norm_adj(
             data.extras["train_mat_scipy"], self.user_num, self.item_num, device)
         d = self.embedding_size
-
-        def param(*shape):
-            return nn.Parameter(torch.empty(*shape, device=device))
-
-        self.user_embeds = param(self.user_num, d)
-        self.item_embeds = param(self.item_num, d)
-        self.user_intent = param(d, self.intent_num)
-        self.item_intent = param(d, self.intent_num)
+        dist_train.ui_tables(self, cfg, d, device)
+        self.user_intent = nn.Parameter(torch.empty(d, self.intent_num, device=device))
+        self.item_intent = nn.Parameter(torch.empty(d, self.intent_num, device=device))
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
         """Xavier-uniform tables and intents, drawn in the JAX model's order
-        from ``gen``."""
-        for p in (self.user_embeds, self.item_embeds, self.user_intent, self.item_intent):
+        from ``gen`` (whole tables on every rank of a mesh, each keeping its
+        own rows)."""
+        dist_train.init_ui_tables(self, gen)
+        for p in (self.user_intent, self.item_intent):
             p.copy_(xavier_uniform(gen, tuple(p.shape)))
 
     def forward(self):
         """(user and item sums of every layer's state, then per layer the
         GNN, intent, GNN-masked and intent-masked views ``[U+I, d]``)."""
         u = self.user_num
-        prev = torch.cat([self.user_embeds, self.item_embeds], dim=0)
+        prev = dist_train.ui_nodes(self)
         final, views = prev, ([], [], [], [])
         for _ in range(self.layer_num):
             gnn = spmm(self.norm_adj, prev)
@@ -120,7 +131,11 @@ class DCCF(RecModel):
         ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
         u_emb, i_emb, views = self.forward()
         bpr = losses.bpr_loss(u_emb[ancs], i_emb[poss], i_emb[negs]) / ancs.shape[0]
-        reg = reg_w * losses.reg_params(dict(self.named_parameters()))
+        reg = reg_w * dist_train.reg_params(self, self.mesh)
+        if self.mesh is not None:       # the CL's negatives are the whole batch's rows
+            n = batch["n_whole"]
+            ancs, poss, negs = (dist_train.gather_batch(x, n, self.mesh)
+                                for x in (ancs, poss, negs))
         cl = cl_w * self._cl_loss(ancs, torch.cat([poss, negs]), views, t)
         return bpr + reg + cl, {"bpr_loss": bpr, "reg_loss": reg, "cl_loss": cl}
 

@@ -19,14 +19,11 @@ pairs of the batch's rows, is the one term that crosses the batch: every
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from sslrec_tpu_torch.models import losses
 from sslrec_tpu_torch.models.base import RecModel
 from sslrec_tpu_torch.ops.spmm import spmm_layers
 from sslrec_tpu_torch.parallel import dist_train
-from sslrec_tpu_torch.parallel.mesh import mesh_from_config
-from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
 
 class DirectAU(RecModel):
@@ -37,26 +34,15 @@ class DirectAU(RecModel):
         self.adj = data.extras["bi_adj"]
         self.layer_num = int(cfg.model.layer_num)
         self.gamma = float(cfg.model.gamma)
-        d, device = self.embedding_size, data.device
-        self.mesh = mesh_from_config(cfg, device)
-        if dist_train.model_sharded(self.mesh):
-            self.row_shards = {"user_embeds": self.user_num, "item_embeds": self.item_num}
-        self.user_embeds = nn.Parameter(
-            torch.empty(dist_train.shard_rows(self.user_num, self.mesh), d, device=device))
-        self.item_embeds = nn.Parameter(
-            torch.empty(dist_train.shard_rows(self.item_num, self.mesh), d, device=device))
+        dist_train.ui_tables(self, cfg, self.embedding_size, data.device)
 
-    @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
         """Xavier-uniform tables, drawn user table first from ``gen`` (whole
         tables on every rank of a mesh, each keeping its own rows)."""
-        for p, n in ((self.user_embeds, self.user_num), (self.item_embeds, self.item_num)):
-            p.copy_(dist_train.own_rows(xavier_uniform(gen, (n, p.shape[1])), p.shape[0],
-                                        self.mesh))
+        dist_train.init_ui_tables(self, gen)
 
     def propagate(self):
-        embeds = dist_train.whole_nodes(self.user_embeds, self.item_embeds, self.user_num,
-                                        self.item_num, self.mesh)
+        embeds = dist_train.ui_nodes(self)
         acc = (embeds + spmm_layers(self.adj, embeds, self.layer_num).sum(dim=0)) \
             / (self.layer_num + 1)
         return acc[: self.user_num], acc[self.user_num:]

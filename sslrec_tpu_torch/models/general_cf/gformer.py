@@ -30,6 +30,17 @@ device-built segment layouts of the augmented and the decoder edges.
 Draws: :meth:`view_draws` takes one view's draws from the epoch's device
 generator (anchors, the random edges, three Gumbel uniforms, the decoder's
 uniforms), which a test injects through ``epoch_state``'s ``draws``.
+
+On a device mesh with a ``model`` axis > 1 each rank holds a row shard of
+both tables (``row_shards``) and reads them whole (``dist_train.whole_nodes``:
+with autograd in the loss, without in ``epoch_state``), so every rank
+builds the single run's view bank (anchors, PNN, masks, decoder) from the
+same generator and runs every hop on the whole graph; the attention and
+PNN layers are replicated.  The BPR terms, the contrasts and ``nce`` are
+per-row terms over the batch (the second BPR a sum over the configured
+batch size, which a ``data`` slice scales by ``n_whole / b`` so that its
+share makes it whole again); the L2 of the row shards is summed over
+``model``.
 """
 
 from __future__ import annotations
@@ -37,18 +48,20 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sslrec_tpu_torch.models import losses
 from sslrec_tpu_torch.models.base import RecModel, linear_layer
 from sslrec_tpu_torch.models.general_cf.autocf import gt_attention
 from sslrec_tpu_torch.ops.segment_kernel import segment_layout_from_ids
 from sslrec_tpu_torch.ops.spmm import spmm
 from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask, csr_graph_from_edges
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.utils.initializers import linear_params, xavier_uniform
 
 ANCHOR_ITERS = 8    # min-plus relaxations: hop distances up to 8
 
 
 class GFormer(RecModel):
+    mesh_todo = None
+
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         m = cfg.model
@@ -79,12 +92,9 @@ class GFormer(RecModel):
         self.k_sub = int(self.nnz_aug * self.sub_rate)
         self.n_re = int(self.nnz * self.re_rate)
 
-        def param(*shape):
-            return nn.Parameter(torch.empty(*shape, device=device))
-
-        self.user_embeds = param(self.user_num, d)
-        self.item_embeds = param(self.item_num, d)
-        self.gt = nn.ParameterDict({k: param(d, d) for k in ("q", "k", "v")})
+        dist_train.ui_tables(self, cfg, d, device)
+        self.gt = nn.ParameterDict({k: nn.Parameter(torch.empty(d, d, device=device))
+                                    for k in ("q", "k", "v")})
         self.pnn_hidden = linear_layer(2 * d, d, device)
         # never applied (as in the JAX model), but a parameter under L2
         self.pnn_out = linear_layer(d, d, device)
@@ -92,22 +102,26 @@ class GFormer(RecModel):
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
         """Xavier tables and attention matrices, ``nn.Linear``-default PNN
-        layers, drawn from ``gen``."""
-        for p in (self.user_embeds, self.item_embeds, *self.gt.values()):
+        layers, drawn from ``gen`` (whole tables on every rank of a mesh, each
+        keeping its own rows)."""
+        dist_train.init_ui_tables(self, gen)
+        for p in self.gt.values():
             p.copy_(xavier_uniform(gen, tuple(p.shape)))
         for lin in (self.pnn_hidden, self.pnn_out):
             for k, v in linear_params(gen, *lin["w"].shape).items():
                 lin[k].copy_(v)
 
     def _embeds(self):
-        return torch.cat([self.user_embeds, self.item_embeds], dim=0)
+        """``[users; items]``, whole (gathered from the row shards on a mesh)."""
+        return dist_train.ui_nodes(self)
 
     # -- anchors and the PNN -----------------------------------------------------
     def _anchor_dists(self, anchors: torch.Tensor) -> torch.Tensor:
         """``[N, A]`` weights ``1/(d+1)`` of each node's hop distance ``d`` to
         each anchor, 0 where it is not reached within 8 hops."""
         a = self.anchor_num
-        dist = torch.full((self.n_nodes, a), 1e9, device=anchors.device)
+        dist = torch.full((self.n_nodes, a), 1e9, device=anchors.device,
+                          dtype=self.user_embeds.dtype)
         dist[anchors, torch.arange(a, device=anchors.device)] = 0.0
         idx = self.rows.long()[:, None].expand(-1, a).contiguous()
         cols = self.cols.long()
@@ -165,7 +179,8 @@ class GFormer(RecModel):
 
     def _norm_vals(self, view, mask):
         live = torch.clamp(mask + (view["aug_rows"] == view["aug_cols"]).float(), 0.0, 1.0)
-        deg = spmm(view["aug"], torch.ones(self.n_nodes, 1, device=mask.device), live)[:, 0]
+        deg = spmm(view["aug"], torch.ones(self.n_nodes, 1, device=mask.device, dtype=mask.dtype),
+                   live)[:, 0]
         dinv = torch.where(deg > 0, deg ** -0.5, 0.0)
         return live * dinv[view["aug_rows"]] * dinv[view["aug_cols"]]
 
@@ -243,7 +258,9 @@ class GFormer(RecModel):
         su, si = s_all[: self.user_num], s_all[self.user_num:]
         diff = (su[ancs] * si[poss]).sum(-1) - (su[ancs] * i_emb[negs]).sum(-1)
         bpr2 = -torch.log(torch.sigmoid(diff) + 1e-12).sum() / self.batch_train
-        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        if self.mesh is not None:       # a data slice's sum, scaled to the whole batch's
+            bpr2 = bpr2 * (batch["n_whole"] / ancs.shape[0])
+        reg = self.reg_weight * dist_train.reg_params(self, self.mesh)
         nce = torch.log(torch.exp(s_all[ancs] * c_all[ancs]).sum(-1) + 1e-12).mean()
         cl = ((self._contrast(ancs, u_emb) + self._contrast(poss, i_emb)) * self.ssl_reg
               + self._contrast(ancs, u_emb, i_emb) + self.ctra * nce)

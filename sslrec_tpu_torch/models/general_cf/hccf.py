@@ -15,6 +15,15 @@ draw of a step from the epoch's device generator: the dropout masks of the
 hyper tables and, from the same generator, one PRF key per layer for the
 edge dropout (the JAX model splits the step key per layer instead; a test
 injects those split keys to hold the two alike).
+
+On a device mesh with a ``model`` axis > 1 each rank holds a row shard of
+both tables (``row_shards``) and reads them whole with autograd
+(``dist_train.whole_nodes``), so the GCN hops and the hypergraph layers run
+whole in every rank with the single run's draws (every rank's generator
+is the epoch's); the hyperedge weights are replicated.  BPR and the CL
+(``infonce_loss_spec_nodes``: a mean over the batch's rows, its
+denominators over the whole tables) are per-row terms, taken over a
+``data`` rank's slice; the L2 of the row shards is summed over ``model``.
 """
 
 from __future__ import annotations
@@ -26,10 +35,12 @@ from torch import nn
 from sslrec_tpu_torch.models import augment, losses
 from sslrec_tpu_torch.models.base import RecModel
 from sslrec_tpu_torch.ops.spmm import spmm
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
 
 class HCCF(RecModel):
+    mesh_todo = None
     step_generator = True       # the trainer hands loss() a device generator
 
     def __init__(self, cfg, data):
@@ -46,18 +57,16 @@ class HCCF(RecModel):
         self.leaky = float(m.leaky)
         d, h, device = self.embedding_size, self.hyper_num, data.device
 
-        def param(*shape):
-            return nn.Parameter(torch.empty(*shape, device=device))
-
-        self.user_embeds = param(self.user_num, d)
-        self.item_embeds = param(self.item_num, d)
-        self.user_hyper = param(d, h)
-        self.item_hyper = param(d, h)
+        dist_train.ui_tables(self, cfg, d, device)
+        self.user_hyper = nn.Parameter(torch.empty(d, h, device=device))
+        self.item_hyper = nn.Parameter(torch.empty(d, h, device=device))
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
-        """Xavier-uniform tables, drawn in the JAX model's order from ``gen``."""
-        for p in (self.user_embeds, self.item_embeds, self.user_hyper, self.item_hyper):
+        """Xavier-uniform tables, drawn in the JAX model's order from ``gen``
+        (whole tables on every rank of a mesh, each keeping its own rows)."""
+        dist_train.init_ui_tables(self, gen)
+        for p in (self.user_hyper, self.item_hyper):
             p.copy_(xavier_uniform(gen, tuple(p.shape)))
 
     def step_draws(self, gen: torch.Generator) -> dict:
@@ -83,9 +92,9 @@ class HCCF(RecModel):
         :meth:`step_draws` returns them, none for the evaluation forward."""
         draws = draws or {}
         rate = 1.0 - self.keep_rate
-        embeds = torch.cat([self.user_embeds, self.item_embeds], dim=0)
-        uu_hyper = self.user_embeds @ self.user_hyper * self.mult
-        ii_hyper = self.item_embeds @ self.item_hyper * self.mult
+        embeds = dist_train.ui_nodes(self)
+        uu_hyper = embeds[: self.user_num] @ self.user_hyper * self.mult
+        ii_hyper = embeds[self.user_num:] @ self.item_hyper * self.mult
         prev, gcn, hyper = embeds, [], []
         for layer in range(self.layer_num):
             ew, hu, hi = None, uu_hyper, ii_hyper
@@ -126,7 +135,7 @@ class HCCF(RecModel):
             cl = cl + losses.infonce_loss_spec_nodes(e1[:u], e2[:u], ancs, t)
             cl = cl + losses.infonce_loss_spec_nodes(e1[u:], e2[u:], poss, t)
         cl = cl * cl_w
-        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        reg = self.reg_weight * dist_train.reg_params(self, self.mesh)
         return bpr + cl + reg, {"bpr_loss": bpr, "reg_loss": reg, "cl_loss": cl}
 
     def generate(self):

@@ -15,6 +15,15 @@
   ``logsumexp`` of the negatives minus the clamped positives.
 - ``ws`` are unused by the forward, as in the reference; they count in the
   L2 term.
+
+On a device mesh with a ``model`` axis > 1 each rank holds a row shard of
+both tables (``row_shards``) and reads them whole with autograd
+(``dist_train.whole_nodes``): every hop runs on the whole graph in every
+rank, with the single run's dropout draws, and the SVD factors are
+constants every rank holds whole.  ``ws`` are replicated.  BPR and both CL
+terms are means of per-row terms (the CL's ``logsumexp`` reads the whole
+tables), so a ``data`` rank takes them over its slice; the L2 of the row
+shards is summed over the ``model`` group (``dist_train.reg_params``).
 """
 
 from __future__ import annotations
@@ -24,11 +33,12 @@ import scipy.sparse as sp
 import torch
 from torch import nn
 
-from sslrec_tpu_torch.models import augment, losses
+from sslrec_tpu_torch.models import augment
 from sslrec_tpu_torch.models.base import RecModel
 from sslrec_tpu_torch.ops.sparse import from_scipy
 from sslrec_tpu_torch.ops.spmm import spmm
 from sslrec_tpu_torch.ops.spmm_kernel import CsrGraph, build_csr_graph, split
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
 SVD_SEED = 2023     # the JAX model's PRNGKey for its SVD start
@@ -46,6 +56,8 @@ def rect_norm_adj(train_mat: sp.spmatrix, device) -> CsrGraph:
 
 
 class LightGCL(RecModel):
+    mesh_todo = None
+
     def __init__(self, cfg, data):
         super().__init__(cfg, data)
         m = cfg.model
@@ -62,22 +74,25 @@ class LightGCL(RecModel):
             self.ut, self.vt, self.u_mul_s, self.v_mul_s = augment.svd_decompose(
                 self.adj, self.svd_q, gen=torch.Generator().manual_seed(SVD_SEED))
         d = self.embedding_size
-        self.user_embeds = nn.Parameter(torch.empty(self.user_num, d, device=device))
-        self.item_embeds = nn.Parameter(torch.empty(self.item_num, d, device=device))
+        dist_train.ui_tables(self, cfg, d, device)
         self.ws = nn.ParameterList([nn.Parameter(torch.empty(d, d, device=device))
                                     for _ in range(self.layer_num)])
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
-        """Xavier-uniform tables and ``ws``, drawn in that order from ``gen``."""
-        for p in (self.user_embeds, self.item_embeds, *self.ws):
+        """Xavier-uniform tables and ``ws``, drawn in that order from ``gen``
+        (whole tables on every rank of a mesh, each keeping its own rows)."""
+        dist_train.init_ui_tables(self, gen)
+        for p in self.ws:
             p.copy_(xavier_uniform(gen, tuple(p.shape)))
 
     def forward(self, key=None):
         """(E_u, E_i, G_u, G_i); edge dropout under the step ``key`` when
         given and ``dropout > 0``."""
         keys = split(key, self.layer_num) if key is not None and self.dropout > 0 else None
-        pu, pi = self.user_embeds, self.item_embeds
+        embeds = dist_train.ui_nodes(self)
+        eu, ei = embeds[: self.user_num], embeds[self.user_num:]
+        pu, pi = eu, ei
         zu, zi, gu, gi = [], [], [], []
         for layer in range(self.layer_num):
             ew_u = ew_i = None
@@ -91,8 +106,8 @@ class LightGCL(RecModel):
             zu.append(z_u)
             zi.append(z_i)
             pu, pi = z_u, z_i
-        return (self.user_embeds + torch.stack(zu).sum(0), self.item_embeds + torch.stack(zi).sum(0),
-                self.user_embeds + torch.stack(gu).sum(0), self.item_embeds + torch.stack(gi).sum(0))
+        return (eu + torch.stack(zu).sum(0), ei + torch.stack(zi).sum(0),
+                eu + torch.stack(gu).sum(0), ei + torch.stack(gi).sum(0))
 
     def loss(self, batch: dict, key):
         ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
@@ -108,7 +123,7 @@ class LightGCL(RecModel):
         pos_score = pos_score + ((gi[poss] * ei[poss]).sum(1) / t).clamp(-5.0, 5.0).mean()
         cl = self.cl_weight * (neg_score - pos_score)
 
-        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        reg = self.reg_weight * dist_train.reg_params(self, self.mesh)
         return bpr + cl + reg, {"bpr_loss": bpr, "reg_loss": reg, "cl_loss": cl}
 
     def generate(self):

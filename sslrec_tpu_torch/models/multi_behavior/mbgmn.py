@@ -20,6 +20,16 @@
 Draws by name (:class:`StepDraws`): ``users`` [B], per behavior ``b``
 ``pos_u{b}`` [B, sampNum] uniforms, ``neg{b}`` [B, sampNum] negatives,
 ``fallback{b}`` [B, 1]; a test gives them.
+
+On a device mesh with a ``model`` axis > 1 each rank holds a row shard of
+the user and item tables (``row_shards``) and reads them whole with
+autograd (``dist_train.whole_nodes``), so every tower runs on the whole
+behavior graphs in every rank; the behavior embeddings, the dense layers
+and ``q`` are replicated.  A ``data`` rank draws the hinge's users and items
+for the whole batch (``n_whole``), as the single run does, so that every
+rank takes the generator's draws alike, and keeps its slice's rows
+(``dist_train.batch_slice``); the hinge is a mean over them, and the L2 of
+the final tower's whole latents a whole term, alike on every rank.
 """
 
 from __future__ import annotations
@@ -36,14 +46,17 @@ from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
 from sslrec_tpu_torch.ops import sparse as sparse_ops
 from sslrec_tpu_torch.ops.spmm import spmm
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.utils.initializers import linear_params, xavier_uniform
 
+TABLES = ("u_embed", "i_embed")      # the user and item tables (half width)
 # the dense layers, in the JAX package's init order
 _LINEARS = ("spec_u", "spec_i", "spec_u1", "spec_i1", "spec_u2", "spec_i2",
             "pred_fc1", "pred_fc2", "pred_fc3", "pred_fc4", "pred_fc5")
 
 
 class MBGMN(RecModel):
+    mesh_todo = None
     step_generator = True
     batch_fields = ("user", "pos")      # the loss samples its own users and items
 
@@ -76,8 +89,7 @@ class MBGMN(RecModel):
                   "pred_fc1": (3 * d, d), "pred_fc2": (3 * d, 3 * d),
                   "pred_fc3": (3 * d, 3 * d * d), "pred_fc4": (3 * d, d),
                   "pred_fc5": (3 * d, d)}
-        self.u_embed = nn.Parameter(torch.empty(self.user_num, h, device=dev))
-        self.i_embed = nn.Parameter(torch.empty(self.item_num, h, device=dev))
+        dist_train.ui_tables(self, cfg, h, dev, TABLES)
         self.beh_embeds = nn.Parameter(torch.empty(self.n_beh + 1, h, device=dev))
         for name in _LINEARS:
             setattr(self, name, linear_layer(*shapes[name], dev))
@@ -86,9 +98,10 @@ class MBGMN(RecModel):
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
         """Xavier tables and ``q``, ``nn.Linear``-default dense layers, in the
-        JAX package's order."""
-        for p in (self.u_embed, self.i_embed, self.beh_embeds):
-            p.copy_(xavier_uniform(gen, tuple(p.shape)))
+        JAX package's order (whole tables on every rank of a mesh, each
+        keeping its own rows)."""
+        dist_train.init_ui_tables(self, gen, TABLES)
+        self.beh_embeds.copy_(xavier_uniform(gen, tuple(self.beh_embeds.shape)))
         for name in _LINEARS:
             lin = getattr(self, name)
             for k, v in linear_params(gen, *lin["w"].shape).items():
@@ -106,9 +119,8 @@ class MBGMN(RecModel):
         return F.leaky_relu(x, self.slope)
 
     # -- towers ---------------------------------------------------------------
-    def _specialize(self, beh_embed, adjs):
+    def _specialize(self, beh_embed, adjs, u0, i0):
         h = self.embedding_size // 2
-        u0, i0 = self.u_embed, self.i_embed
         u_nb = sum(spmm(a, i0) for a, _ in adjs)
         i_nb = sum(spmm(at, u0) for _, at in adjs)
         u_meta = self._act(apply_linear(self.spec_u, torch.cat(
@@ -135,9 +147,11 @@ class MBGMN(RecModel):
         return [attval[:, i] + reps[i] for i in range(n)]
 
     def forward(self):
+        tables = dist_train.ui_nodes(self, TABLES)
+        u0, i0 = tables[: self.user_num], tables[self.user_num:]
         ulat, ilat = [], []
         for b, (a, at) in enumerate(self.graphs):
-            bu, bi = self._specialize(self.beh_embeds[b], [(a, at)])
+            bu, bi = self._specialize(self.beh_embeds[b], [(a, at)], u0, i0)
             us, is_ = [bu], [bi]
             for _ in range(self.layer_num):
                 u = self._act(spmm(a, is_[-1]))
@@ -146,7 +160,7 @@ class MBGMN(RecModel):
                 is_.append(i + is_[-1])
             ulat.append(sum(us))
             ilat.append(sum(is_))
-        bu, bi = self._specialize(self.beh_embeds[-1], self.graphs)
+        bu, bi = self._specialize(self.beh_embeds[-1], self.graphs, u0, i0)
         us, is_ = [bu], [bi]
         for _ in range(self.layer_num):
             ub = [self._act(spmm(a, is_[-1])) for a, _ in self.graphs]
@@ -170,9 +184,11 @@ class MBGMN(RecModel):
         pe = torch.cat([su * si, su, si], -1)[:, None, :]
         return (self._act(pe @ w1 + b1) @ w2).reshape(-1)
 
-    def sample(self, dr: StepDraws, b: int):
+    def sample(self, dr: StepDraws, b: int, rows: slice = slice(None)):
         """Per behavior the (user, item) ids of the hinge: ``sampNum``
-        positives then as many negatives for each of ``b`` random users."""
+        positives then as many negatives for each of ``b`` random users,
+        drawn for all ``b`` and kept for the users ``rows`` (a ``data``
+        rank's slice of the batch)."""
         users = dr.randint("users", 0, self.user_num, (b,)).long()
         uids, iids = [], []
         for beh, ((indptr, indices), edges) in enumerate(zip(self._beh_csr, self._beh_edges)):
@@ -184,8 +200,8 @@ class MBGMN(RecModel):
             fallback = dr.randint(f"fallback{beh}", 0, self.item_num, (b, 1)).long()
             has = (deg > 0)[:, None]
             pos, negs = torch.where(has, pos, fallback), torch.where(has, negs, fallback)
-            uids.append(rep.repeat(2))
-            iids.append(torch.cat([pos.reshape(-1), negs.reshape(-1)]))
+            uids.append(users[rows].repeat_interleave(self.samp_num).repeat(2))
+            iids.append(torch.cat([pos[rows].reshape(-1), negs[rows].reshape(-1)]))
         return uids, iids
 
     def hparams(self) -> dict:
@@ -198,7 +214,11 @@ class MBGMN(RecModel):
 
     def loss(self, batch: dict, gen, draws: dict | None = None):
         dr = StepDraws(gen, draws, self.device)
-        uids, iids = self.sample(dr, batch["user"].shape[0])
+        if self.mesh is None:
+            uids, iids = self.sample(dr, batch["user"].shape[0])
+        else:       # the whole batch's draws, this rank's rows
+            n = batch["n_whole"]
+            uids, iids = self.sample(dr, n, dist_train.batch_slice(n, self.mesh))
         ulat, ilat = self.forward()
         with torch.set_grad_enabled(torch.is_grad_enabled() and not self.detach_pre):
             pre_loss = 0.0

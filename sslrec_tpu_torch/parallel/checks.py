@@ -16,7 +16,7 @@ import scipy.sparse as sp
 import torch
 
 from sslrec_tpu_torch.ops.sparse import CooGraph
-from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask
+from sslrec_tpu_torch.ops.spmm_kernel import CsrGraph, EdgeMask
 from sslrec_tpu_torch.ops.topk import sharded_topk
 from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.parallel.mesh import make_mesh
@@ -205,7 +205,9 @@ def _whole_params(model, attr: str = "data") -> dict:
 def _model(inp: dict):
     """The port's model ``inp["model"]`` (a config name, with ``overrides``)
     under the config's mesh, on ``_bundle``'s data, loaded with the whole
-    parameters ``params`` (in float64 where ``inp["f64"]``), and its config."""
+    parameters ``params`` (in float64 where ``inp["f64"]``), with the
+    constants ``attrs`` set in place of its own (LightGCL's SVD factors; in
+    the parameters' precision), and its config."""
     from sslrec_tpu_torch.models.registry import build_model
 
     cfg = _cfg(inp["model"], inp)
@@ -213,6 +215,9 @@ def _model(inp: dict):
     model = build_model(cfg, _bundle(inp, dev, cfg))
     if inp.get("f64"):
         model.double()
+    for k, v in (inp.get("attrs") or {}).items():
+        setattr(model, k, torch.from_numpy(np.asarray(
+            v, np.float64 if inp.get("f64") else np.float32)).to(dev))
     params = {k: torch.from_numpy(v).to(dev) for k, v in inp["params"].items()}
     model.load_state_dict(dist_train.local_state(model, params, getattr(model, "mesh", None)))
     return model, cfg
@@ -238,10 +243,13 @@ def model_step(inp: dict) -> dict:
     from the whole batch ``user``/``pos`` (and ``neg`` where the model's
     ``batch_fields`` have it): this rank's ``data`` slice of the batch (with
     its ``share`` and ``n_whole``, as the Trainer makes it), ``aux`` and
-    ``draws`` where given.  A model with its own ``train_step`` (CML,
-    KMCLR) takes it: the whole batch's loss terms (reduced as the Trainer
-    reduces them), the whole parameters after it and its optimizers' whole
-    moments.  Any other: ``loss(batch, key, draws=...)`` (``key`` a PRF key),
+    ``draws`` where given, or the view bank of ``epoch_state(None, 0,
+    draws=inp["epoch_draws"])`` from the loaded parameters (AutoCF's and
+    GFormer's, over ``n_batches`` steps), at step ``step`` (default 0).  A
+    model with its own ``train_step`` (CML, KMCLR, AdaGCL) takes it: the
+    whole batch's loss terms (reduced as the Trainer reduces them), the
+    whole parameters after it and its optimizers' whole moments.  Any
+    other: ``loss(batch, key, draws=...)`` (``key`` a PRF key),
     :func:`~.dist_train.mesh_backward` and the gradients summed over
     ``data``: the whole batch's loss terms and the whole gradients."""
     model, cfg = _model(inp)
@@ -251,11 +259,14 @@ def model_step(inp: dict) -> dict:
     sl = dist_train.batch_slice(n, mesh)
     batch = {k: torch.from_numpy(inp[k][sl]).to(dev) for k in model.batch_fields}
     share = batch["user"].shape[0] / n
-    batch.update(share=share, n_whole=n, step=0)
+    batch.update(share=share, n_whole=n, step=int(inp.get("step", 0)))
     if inp.get("aux") is not None:
         batch["aux"] = _tensors(inp["aux"], dev)
         if "dkg" in batch["aux"]:       # DiffKG's denoised KG: heads, tails, relations, validity
             batch["aux"]["dkg"] = model.kg_edges(*batch["aux"]["dkg"])
+    if inp.get("epoch_draws") is not None:      # a view bank made here from the parameters
+        model._n_batches_hint = int(inp["n_batches"])
+        batch["aux"] = model.epoch_state(None, 0, draws=_tensors(inp["epoch_draws"], dev))
     kw = {}
     if inp.get("draws") is not None:
         kw["draws"] = _tensors(inp["draws"], dev)
@@ -416,6 +427,29 @@ B2_LAYOUTS = {"KGCL": lambda m: {"kg_heads": m.seg_h.layout},
               "DiffKG": lambda m: {"kg_heads": m.kg.h, "dkg_heads": m._last_dkg.h}}
 
 
+def whole_layouts(model) -> dict:
+    """The B1 layouts of the whole graphs a model holds as attributes (a
+    ``CsrGraph``, or one in a list or tuple: MBGMN's behavior pairs), each
+    once, by ``<attribute>[.<index>…]:forward`` / ``:transposed``: the
+    layouts on which a model that partitions no graph runs every hop in
+    every rank (DCCF, HCCF, LightGCL, AutoCF, GFormer, AdaGCL, MBGMN)."""
+    out, seen = {}, set()
+
+    def visit(name, x):
+        if isinstance(x, CsrGraph):
+            for tag, lay in (("forward", x.fwd), ("transposed", x.bwd)):
+                if id(lay) not in seen:
+                    seen.add(id(lay))
+                    out[f"{name}:{tag}"] = lay
+        elif isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+            for i, v in enumerate(x):
+                visit(f"{name}.{i}", v)
+
+    for name, x in vars(model).items():
+        visit(name, x)
+    return out
+
+
 def mesh_graphs(model) -> dict:
     """The ``ShardedGraph`` s a model partitions on a model-sharded mesh, by
     name: one (``""``) for LightGCN's and the KG models' ``sg``; each tower's
@@ -442,10 +476,12 @@ def layout_probe(trainer) -> dict:
     model partitions (:func:`mesh_graphs`; keys ``<graph>:forward`` …, the
     bare layout's name for a model of one graph), forward and transposed,
     without a multiplier and under random values in the original edge order
-    (a view's, through ``view_vals_partitioned``), the largest error relative
-    to the plain output's largest entry; B2 on the model's head layouts over
-    the whole KG (``B2_LAYOUTS``), whether it equals the plain version bit
-    for bit."""
+    (a view's, through ``view_vals_partitioned``), or, for a model that
+    partitions none, on the whole graphs' layouts it holds
+    (:func:`whole_layouts`; without a multiplier and under random values), the
+    largest error relative to the plain output's largest entry; B2 on the
+    model's head layouts over the whole KG (``B2_LAYOUTS``), whether it
+    equals the plain version bit for bit."""
     from sslrec_tpu_torch.ops import segment_kernel, spmm_kernel
 
     model, dev = trainer.model, trainer.device
@@ -464,6 +500,14 @@ def layout_probe(trainer) -> dict:
                 ref = spmm_kernel.csr_spmm_plain(lay, x)
                 err = (spmm_kernel.csr_spmm(lay, x) - ref).abs().max() / ref.abs().max()
                 out["b1"][f"{gname}:{name}{tag}" if gname else name + tag] = float(err)
+    if not mesh_graphs(model):
+        for name, lay in whole_layouts(model).items():
+            x = torch.randn(lay.n_cols, d, generator=gen, device=dev)
+            for tag, w in (("", None), (".vals", torch.rand(
+                    lay.n_ids or lay.cols.shape[0], generator=gen, device=dev))):
+                ref = spmm_kernel.csr_spmm_plain(lay, x, w)
+                err = (spmm_kernel.csr_spmm(lay, x, w) - ref).abs().max() / ref.abs().max()
+                out["b1"][name + tag] = float(err)
     for name, lay in B2_LAYOUTS.get(type(model).__name__, lambda m: {})(model).items():
         logits = torch.randn(lay.n, generator=gen, device=dev) * 5
         out["b2"][name] = bool(torch.equal(segment_kernel.segment_max(lay, logits),
@@ -478,7 +522,8 @@ def cli_runs(inp: dict) -> dict:
     counts a launch (``spmm_kernel.csr_spmm``'s counters, by layout shape,
     also where ``segment_kernel`` calls it, and ``segment_max.launches``),
     so that a path's launch count can be held before it meets the card.
-    ``inp["probe"]`` set: each run ends with :func:`layout_probe`."""
+    ``inp["probe"]`` set (or, a list, set for a run): each run (that run)
+    ends with :func:`layout_probe`."""
     from sslrec_tpu_torch.ops import segment_kernel, spmm_kernel
     from sslrec_tpu_torch.parallel import launch
 
@@ -496,8 +541,11 @@ def cli_runs(inp: dict) -> dict:
         spmm_kernel.csr_spmm = segment_kernel.csr_spmm = counted
         segment_kernel.segment_max = counted_max
     try:
-        probe = layout_probe if inp.get("probe") else None
-        return {"runs": [launch.cli_rank(list(argv), probe) for argv in inp["argvs"]]}
+        probes = inp.get("probe")
+        if not isinstance(probes, (list, tuple)):
+            probes = [probes] * len(inp["argvs"])
+        return {"runs": [launch.cli_rank(list(argv), layout_probe if probe else None)
+                         for argv, probe in zip(inp["argvs"], probes)]}
     finally:
         spmm_kernel.csr_spmm = segment_kernel.csr_spmm = kernel
         segment_kernel.segment_max = segmax

@@ -20,10 +20,14 @@ reduce-scatter.  A batch's rows come from the shards through
 :func:`owned_lookup` (a masked lookup and an all-reduce).
 
 Hops that run on the whole graph (SGL's and SimGCL's augmented views, NCL's
-and DirectAU's hops) read the tables whole through :func:`whole_nodes`, one
-gather whose adjoint is again the reduce-scatter; a term that crosses the
-batch gathers the batch's rows over the ``data`` group
-(:func:`gather_batch`).
+and DirectAU's hops, and every hop of the models that partition no graph:
+LightGCL, HCCF, DCCF, AutoCF, GFormer, AdaGCL, MBGMN) read the tables whole
+through :func:`whole_nodes`, one gather whose adjoint is again the
+reduce-scatter (:func:`ui_tables`, :func:`init_ui_tables` and
+:func:`ui_nodes` hold, draw and read such a model's user and item tables);
+a term that crosses the batch gathers the batch's rows over the ``data``
+group (:func:`gather_batch`), and :func:`reg_params` sums the row shards'
+L2 over ``model``.
 
 A model whose user and item rows live in one fused table (the KG models'
 ``all_embed [users; entities]``) row-shards that table contiguously: rank
@@ -64,6 +68,7 @@ from sslrec_tpu_torch.ops.spmm import spmm
 from sslrec_tpu_torch.ops.spmm_kernel import CsrGraph, csr_layout, prf_mask
 from sslrec_tpu_torch.ops.spmm_kernel import _threefry2x32
 from sslrec_tpu_torch.parallel.mesh import Mesh, mesh_from_config, pad_to_multiple
+from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
 
 class ShardedGraph(NamedTuple):
@@ -399,6 +404,58 @@ def gather_whole(local: torch.Tensor, n_rows: int, mesh: Mesh) -> torch.Tensor:
     return gather_rows(local, mesh.model_group)[:n_rows]
 
 
+UI_TABLES = ("user_embeds", "item_embeds")
+
+
+def ui_tables(model, cfg, width: int, device, names=UI_TABLES) -> None:
+    """Give ``model`` its user and item tables (``names``, ``[n, width]``,
+    uninitialised) as a model that reads them whole holds them: its
+    ``mesh`` (``train.mesh`` of ``cfg``) and, on a model-sharded mesh, a row
+    shard of each, listed in its ``row_shards``."""
+    model.mesh = mesh_from_config(cfg, device)
+    counts = dict(zip(names, (model.user_num, model.item_num)))
+    if model_sharded(model.mesh):
+        model.row_shards = counts
+    for name, n in counts.items():
+        setattr(model, name, torch.nn.Parameter(
+            torch.empty(shard_rows(n, model.mesh), width, device=device)))
+
+
+@torch.no_grad()
+def init_ui_tables(model, gen: torch.Generator, names=UI_TABLES) -> None:
+    """Xavier-uniform user and item tables of :func:`ui_tables`, drawn user
+    table first from ``gen``: whole on every rank of a mesh, as one device
+    draws them, each rank keeping its own rows."""
+    for name, n in zip(names, (model.user_num, model.item_num)):
+        p = getattr(model, name)
+        p.copy_(own_rows(xavier_uniform(gen, (n, p.shape[1])), p.shape[0], model.mesh))
+
+
+def ui_nodes(model, names=UI_TABLES) -> torch.Tensor:
+    """``[users; items]`` of :func:`ui_tables`, whole, with autograd
+    (:func:`whole_nodes`)."""
+    u, i = (getattr(model, name) for name in names)
+    return whole_nodes(u, i, model.user_num, model.item_num, model.mesh)
+
+
+def reg_params(model, mesh: Mesh | None, names=None) -> torch.Tensor:
+    """L2² of ``model``'s parameters (those of ``names``; default every one),
+    as ``losses.reg_params`` sums them on one device: on a model-sharded
+    mesh the squares of the row shards (``row_shards``) are summed over the
+    ``model`` group with autograd, and a replicated parameter, whole on every
+    rank, is counted once."""
+    params = dict(model.named_parameters())
+    if names is not None:
+        params = {k: params[k] for k in names}
+    if not model_sharded(mesh):
+        return losses.reg_params(params)
+    shards = model.row_shards
+    rows = all_reduce_sum(losses.reg_params({k: v for k, v in params.items() if k in shards}),
+                          mesh.model_group)
+    rep = {k: v for k, v in params.items() if k not in shards}
+    return rows + losses.reg_params(rep) if rep else rows
+
+
 def whole_nodes(u_local: torch.Tensor, i_local: torch.Tensor, n_users: int, n_items: int,
                 mesh: Mesh | None) -> torch.Tensor:
     """The differentiable whole-table path: ``[users; items]`` at the unpadded
@@ -530,9 +587,10 @@ def sync_grads(params, mesh: Mesh, replicated=()) -> None:
     _all_reduce_grads([p.grad for p in params if p.grad is not None], mesh.data_group)
 
 
-def sync_model_grads(model, mesh: Mesh, prefix: str = "", data: bool = True) -> None:
+def sync_model_grads(model, mesh: Mesh, prefix: str | tuple = "", data: bool = True) -> None:
     """:func:`sync_grads` of the parameters of ``model`` whose names start with
-    ``prefix`` (all by default); on a model-sharded mesh those outside its
+    ``prefix`` (a string or a tuple of them, as ``str.startswith`` takes it;
+    all by default); on a model-sharded mesh those outside its
     ``row_shards`` are replicated, summed over the ``model`` group first.
     ``data`` False leaves out the ``data`` sum, for a computation that every
     ``data`` rank runs alike on the same inputs (KMCLR's epoch hook)."""

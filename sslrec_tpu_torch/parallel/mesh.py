@@ -133,8 +133,9 @@ def check_model(model_cls, shape) -> None:
     if shape is not None and todo is not None:
         raise NotImplementedError(
             f"train.mesh {shape[0]}x{shape[1]}: {model_cls.__name__} does not run on a "
-            f"device mesh yet ({todo}); LightGCN, SGL, SimGCL, NCL, DirectAU, KGCL, KGIN, "
-            f"KGRec, DiffKG, HMGCR, SMBRec, CML and KMCLR do")
+            f"device mesh yet ({todo}); LightGCN, SGL, SimGCL, NCL, DirectAU, LightGCL, HCCF, "
+            f"DCCF, AutoCF, GFormer, AdaGCL, KGCL, KGIN, KGRec, DiffKG, MBGMN, HMGCR, SMBRec, "
+            f"CML and KMCLR do")
 
 
 _MESHES: dict = {}

@@ -420,14 +420,18 @@ class Trainer:
 
     def _whole_optim(self, state: dict, template: bool = False, local: bool = False) -> dict:
         """The optimizers' per-parameter state with the moments of row-sharded
-        parameters whole (``local``: the inverse, this rank's rows)."""
+        parameters whole (``local``: the inverse, this rank's rows).  An
+        optimizer's state is keyed by the parameter's index in that
+        optimizer's own groups (AdaGCL's three Adams each own a part)."""
         shards = self._shards()
         if not shards:
             return state
-        names = [n for n, _ in self.model.named_parameters()]
+        by_id = {id(p): n for n, p in self.model.named_parameters()}
+        opts = self.optimizers()
         own = dict(self.model.named_parameters())
         out = {}
         for opt, per in state.items():
+            names = [by_id[id(p)] for g in opts[opt].param_groups for p in g["params"]]
             out[opt] = type(per)()
             for i, st in per.items():
                 name = names[i]

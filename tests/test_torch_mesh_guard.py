@@ -1,14 +1,15 @@
 """``train.mesh`` and ``train.distributed`` at the port's CLI
 (``sslrec_tpu_torch/parallel/mesh.py``): a mesh of one device is the
 single-device run (absent, empty, 1×1, and ``{model: 1}``, whose data axis
-fills the CPU's one device); LightGCN trains on a mesh of gloo processes; a
-mesh that cannot be laid out raises ``ValueError`` as ``make_mesh`` does, and
-a model whose mesh branch is not ported ``NotImplementedError`` naming its
-ROADMAP item (9, the models that the JAX package shards only through
-GSPMD's generic rule; LightGCN, SGL, SimGCL, NCL, DirectAU, KGCL, KGIN,
-KGRec, DiffKG, HMGCR, SMBRec, CML and KMCLR train), both before
-any data is read; ``train.distributed`` and the variables of a
-multi-process run reach ``init_process_group``."""
+fills the CPU's one device); LightGCN, DCCF and MBGMN train on a mesh of
+gloo processes; a mesh that cannot be laid out raises ``ValueError`` as
+``make_mesh`` does, and a model whose mesh branch is not ported
+``NotImplementedError`` naming its ROADMAP item (9, the models that the JAX
+package shards only through GSPMD's generic rule; LightGCN, SGL, SimGCL,
+NCL, DirectAU, LightGCL, HCCF, DCCF, AutoCF, GFormer, AdaGCL, KGCL, KGIN,
+KGRec, DiffKG, MBGMN, HMGCR, SMBRec, CML and KMCLR train), both before any
+data is read; ``train.distributed`` and the variables of a multi-process
+run reach ``init_process_group``."""
 
 import numpy as np
 import pytest
@@ -18,13 +19,20 @@ from sslrec_tpu_torch.config import load_config
 from sslrec_tpu_torch.models import registry
 from sslrec_tpu_torch.parallel import mesh
 from test_torch_main import _toy_split
+from test_torch_mb_data import write_mb_dir
+
+
+# the models that train on the Tmall-named multi-behavior split (the rest on the toy)
+MB_SETS = {"mbgmn": ("model.embedding_size=8", "model.sampNum=8", "test.k=[3,5]",
+                     "test.batch_size=64")}
 
 
 def _run(root, *sets, model="lightgcn"):
-    return tmain.main(["--model", model, "--data_dir", str(root), "--dataset", "toy",
+    dataset = "tmall" if model in MB_SETS else "toy"
+    return tmain.main(["--model", model, "--data_dir", str(root), "--dataset", dataset,
                        "--device", "cpu", "--epoch", "1", "--set", "train.batch_size=128",
                        "--set", f"train.results_dir={root / 'res'}",
-                       *[a for s in sets for a in ("--set", s)]])
+                       *[a for s in (*MB_SETS.get(model, ()), *sets) for a in ("--set", s)]])
 
 
 class Stop(Exception):
@@ -34,6 +42,7 @@ class Stop(Exception):
 @pytest.fixture
 def toy(tmp_path, monkeypatch):
     _toy_split(tmp_path)
+    write_mb_dir(tmp_path)
     monkeypatch.chdir(tmp_path)
     for var in ("SSLREC_COORDINATOR", "SSLREC_NUM_PROCESSES", "SSLREC_PROCESS_ID",
                 "SSLREC_DISTRIBUTED"):
@@ -69,25 +78,28 @@ TRAINS, CANNOT, NOT_PORTED, FORWARDED = "trains", "cannot", "not ported", "forwa
 @pytest.mark.parametrize("model,sets,expect", [
     ("lightgcn", ("train.mesh.data=2", "train.mesh.model=1"), TRAINS),
     ("lightgcn", ("train.mesh.model=2",), CANNOT),
-    ("dccf", ("train.mesh.data=2", "train.mesh.model=1"), NOT_PORTED),
-    ("mbgmn", ("train.mesh.data=2", "train.mesh.model=2"), NOT_PORTED),
+    ("dccf", ("train.mesh.data=2", "train.mesh.model=1"), TRAINS),
+    ("mbgmn", ("train.mesh.data=2", "train.mesh.model=2"), TRAINS),
     ("dsl", ("train.mesh.data=1", "train.mesh.model=2"), NOT_PORTED),
+    ("mhcn", ("train.mesh.data=2", "train.mesh.model=2"), NOT_PORTED),
+    ("bert4rec", ("train.mesh.data=2", "train.mesh.model=1"), NOT_PORTED),
     ("lightgcn", ("train.distributed.coordinator=localhost:1234",
                   "train.distributed.num_processes=2",
                   "train.distributed.process_id=0"), FORWARDED),
     ("lightgcn", ("train.distributed.enable=true",), FORWARDED)])
 def test_more_than_one_device_raises(toy, init_calls, model, sets, expect):
-    """A mesh of more than one device trains (LightGCN's, on two gloo
-    processes) or raises before any data is read: ``ValueError`` for a mesh
-    that cannot be laid out on the CPU's one device (the data axis left out
-    fills 1 // 2 = 0 devices), ``NotImplementedError`` naming ROADMAP Queue A
-    item 9 for DCCF, MBGMN (the multi-behavior model without a partitioned
-    branch) and DSL (on a mesh of the model axis alone); ``train.distributed``
-    is forwarded to ``init_process_group`` (a stand-in that stops the run
-    there)."""
+    """A mesh of more than one device trains (LightGCN's and DCCF's on two gloo
+    processes, MBGMN's, of item 9a, on four) or raises before any data is
+    read: ``ValueError`` for a mesh that cannot be laid out on the CPU's one
+    device (the data axis left out fills 1 // 2 = 0 devices),
+    ``NotImplementedError`` naming ROADMAP Queue A item 9 for DSL (on a mesh
+    of the model axis alone) and MHCN (item 9b) and BERT4Rec (item 9c);
+    ``train.distributed`` is forwarded to ``init_process_group`` (a stand-in
+    that stops the run there)."""
     if expect == TRAINS:
         run = _run(toy, *sets, model=model)
-        assert run.mesh == {"data": 2, "model": 1} and len(run.ranks) == 2
+        shape = {k.split(".")[-1]: int(v) for k, v in (x.split("=") for x in sets)}
+        assert run.mesh == shape and len(run.ranks) == shape["data"] * shape["model"]
         assert np.isfinite(run.epochs[0]["loss"]["loss"])
         return
     want = {CANNOT: (ValueError, "needs more than 1 devices"),
@@ -101,16 +113,17 @@ def test_more_than_one_device_raises(toy, init_calls, model, sets, expect):
 
 
 MESH_MODELS = {"lightgcn", "sgl", "simgcl", "ncl", "directau", "kgcl", "kgin", "kgrec", "diffkg",
-               "hmgcr", "smbrec", "cml", "kmclr"}
+               "hmgcr", "smbrec", "cml", "kmclr", "dccf", "hccf", "lightgcl", "autocf", "gformer",
+               "adagcl", "mbgmn"}
 
 
 @pytest.mark.parametrize("model", registry.available_models())
 def test_which_models_a_mesh_takes(model):
     """On a mesh of more than one device LightGCN, the four models of ROADMAP
-    Queue A item 7, the four KG models of item 8a and the four
-    multi-behavior models of item 8b pass ``check_model``; every other model
-    raises ``NotImplementedError`` naming item 9 (GSPMD's generic rule), and
-    the message names the 13 that run."""
+    Queue A item 7, the four KG models of item 8a, the four multi-behavior
+    models of item 8b and the seven of item 9a pass ``check_model``; every
+    other model (items 9b and 9c) raises ``NotImplementedError`` naming item
+    9 (GSPMD's generic rule), and the message names the 20 that run."""
     cls = registry.model_class(model)
     mesh.check_model(cls, None)
     if model in MESH_MODELS:

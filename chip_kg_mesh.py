@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Measurements behind ``chip_smoke.py`` phases 37(d), 37(e) and 37(f) (the
-KG and the multi-behavior families and ROADMAP Queue A item 9a's seven
-models on a ``{data: 1, model: 2}`` mesh), each on one CUDA card:
+"""Measurements behind ``chip_smoke.py`` phases 37(d) to 37(g) (the KG and
+the multi-behavior families, ROADMAP Queue A item 9a's seven models and
+item 9b's social five on a ``{data: 1, model: 2}`` mesh), each on one CUDA
+card:
 
     python3 chip_kg_mesh.py phase      # phases 37(d) and (e) alone, one spawn; a table beyond
                                        # the tolerance is printed with every table's share of
@@ -10,6 +11,9 @@ models on a ``{data: 1, model: 2}`` mesh), each on one CUDA card:
     python3 chip_kg_mesh.py phase-gcf  # phase 37(f) alone (phase 29's split written first;
                                        # a missed table is held to its single run's own
                                        # move under cuBLASLt)
+    python3 chip_kg_mesh.py phase-social  # phase 37(g) alone (yelp_sub; the single runs
+                                          # made here, where the script reuses phases 17
+                                          # and 19's)
     python3 chip_kg_mesh.py control    # KGCL's and DiffKG's single runs on the phase's split:
                                        # again, under cuBLASLt, and twice with torch's
                                        # deterministic algorithms
@@ -21,7 +25,8 @@ models on a ``{data: 1, model: 2}`` mesh), each on one CUDA card:
 Each builds the kernels, writes the synthetic KG and the phase's split
 (``chip_smoke.write_mesh_kg_split``; the multi-behavior ones phase 29's
 Tmall-shaped split and ``chip_smoke.write_mesh_mb_split``'s; 37(f) also
-``write_mesh_cf_split``'s) and prints one JSON line last.
+``write_mesh_cf_split``'s; 37(g) reads the repo's yelp_sub) and prints one
+JSON line last.
 """
 
 from __future__ import annotations
@@ -73,7 +78,8 @@ def phase(families=("kg", "mb")) -> dict:
     res = {"s": out["s"], "missed": missed}
     for fam, run, models in (("kg", out["run"], cs.MESH_KG_MODELS),
                              ("mb", out["mb"]["run"], cs.MESH_MB_MODELS),
-                             ("gcf", out["gcf"]["run"], cs.MESH_GCF_MODELS)):
+                             ("gcf", out["gcf"]["run"], cs.MESH_GCF_MODELS),
+                             ("social", out["social"]["run"], cs.MESH_SOCIAL_MODELS)):
         if run:
             res[fam] = {"mesh_s": run["mesh_s"], "single_s": run["single_s"],
                         "split": run["split"],
@@ -146,7 +152,8 @@ def main() -> int:
     what = sys.argv[1] if len(sys.argv) > 1 else "phase"
     cs.MESH_MB_TIMED = cs.MESH_MB_TIMED_ALL
     runs = {"phase": phase, "phase-mb": lambda: phase(("mb",)),
-            "phase-gcf": lambda: phase(("gcf",)), "control": control,
+            "phase-gcf": lambda: phase(("gcf",)), "phase-social": lambda: phase(("social",)),
+            "control": control,
             "control-mb": lambda: control(cs.MESH_MB_MODELS), "regions": regions}
     if what not in runs:
         raise SystemExit(f"chip_kg_mesh: {what!r}: one of {', '.join(runs)}")

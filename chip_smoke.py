@@ -85,8 +85,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 18. the tuner and resume on the card: a 2-trial LightGCN grid of 1 epoch
    each (its tune artifact and no run artifact), and LightGCN 4 epochs
    against 2 + a resumed 2, the train states after epoch 3 bit-equal; the
-   sports-shaped split of phase 23 is written here, and MAERec (at batch
-   4096: 47 steps an epoch) is held as 2 epochs against 1 + a resumed 1, its
+   sports-shaped split of phase 23 is written here, with its first
+   ``SEQ_CUT_SHARE`` of users beside it (``SEQ_CUT_DATASET``), on which
+   MAERec (at batch 4096) is held as 2 epochs against 1 + a resumed 1, its
    loss history in the train state;
 19. drive KCGN and SMIN the same way as phase 11 (``PATH_EPOCHS`` at their
    published configs on yelp_sub: the CLI loads the data and builds both
@@ -184,9 +185,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    2 x 32) and DCRec_seq's transition hop (d 2 x 64), value and dx per lane
    within 1e-5, one launch a hop, timed beside its bound, plain version,
    ``torch.sparse.mm`` and the calls a lane at a time; MBGMN's, SMBRec's and
-   DCRec_seq's 2-trial grids (1 epoch, 2 lanes) through the CLI with
-   ``tune.parallel`` and serially, held as phase 35's (DCRec_seq's to
-   within a few swaps at the top-k boundary: ``LAST_LANE_GRIDS``);
+   DCRec_seq's 2-trial grids (1 epoch, 2 lanes; DCRec_seq's on
+   ``SEQ_CUT_DATASET``) through the CLI with ``tune.parallel`` and
+   serially, held as phase 35's (DCRec_seq's to within a few swaps at the
+   top-k boundary: ``LAST_LANE_GRIDS``);
 37. the device mesh (``sslrec_tpu_torch/parallel``): (a) partition the
    alibaba-fashion bi-adjacency for a ``model`` axis of 2 and of 4
    (``MESH_PARTS``) and hold B1 on every shard's layouts (its destination
@@ -245,7 +247,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``MESH_SPLIT_REF`` run), held as 37(d)'s runs (a table that misses
    ``MESH_PARAM_TOL`` then against its single run's own move under
    cuBLASLt), their launches against ``MESH_GSPMD_A`` and B1 in each rank
-   on its whole layouts within ``TOL``;
+   on its whole layouts within ``TOL``; (g) the social five
+   (``MESH_SOCIAL_MODELS``: DcRec, MHCN, DSL, KCGN, SMIN) ``MESH_EPOCHS``
+   epoch each at their published configs on the whole yelp_sub, on the
+   ``{data: 1, model: 2}`` mesh in 37(d)'s spawn, held as 37(d)'s runs to
+   their single runs of phases 17 and 19 (the same arguments; no single
+   run is made again), their launches against ``MESH_SOCIAL`` and B1 in
+   each rank on its whole layouts and segment layouts within ``TOL``;
 38. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -267,7 +275,9 @@ and phase 36 times 3 lanes steps (was 5); for 37(f), 37(b)'s SGL
 ``MESH_SPLIT_REF`` run rides 37(d)'s spawn (was a spawn of its own), the
 resume checks of phase 18 resume from the straight run's own state (was a
 third run), and phases 17, 19, 23, 29 and 32 hold ``generate()`` on a CPU
-copy of the run's data (``CPU_FROM_CARD``; was a second load).
+copy of the run's data (``CPU_FROM_CARD``; was a second load); for 37(g),
+MAERec's resume check (phase 18) and DCRec_seq's grid both ways (phase 36)
+run on ``SEQ_CUT_DATASET`` (was the whole sports-shaped split).
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
 ``social_operands`` build the paths' operands (``kcgn_smin_operands`` and
@@ -482,6 +492,12 @@ TMALL_KG = os.path.join("datasets", "multi_behavior", "tmall", "kg.txt")
 TMALL_SHAPE = {"users": 31_882, "items": 31_232,
                "counts": {"pv": 1_000_000, "fav": 144_000, "cart": 140_000, "buy": 167_219}}
 SEQ_DATASET = "sports_syn"  # written under SMOKE_RESULTS/sequential/sports_syn/
+# The depth cut that pays for phase 37(g): MAERec's resume check (phase 18)
+# and DCRec_seq's grid both ways (phase 36) run on the first quarter of the
+# sports-shaped split's users (the same generator, item ids and sequence
+# shapes; fewer sequences, so fewer steps and smaller graphs to build)
+SEQ_CUT_DATASET = "sports_cut"
+SEQ_CUT_SHARE = 0.25
 SEQ_MODELS = ("bert4rec", "cl4srec", "duorec", "iclrec", "dcrec_seq", "maerec")
 # the sequential paths' depth: one epoch each, so that the script's later
 # phases fit its time (CL4SRec, DuoRec and ICLRec take 12-20 s an epoch)
@@ -592,7 +608,7 @@ LAST_LANE_GRIDS = {
               "grid": {"layer_num": [2], "reg_weight": [1.0e-1, 1.0e-2]}},
     "smbrec": {"data": (SMOKE_RESULTS, MB_DATASET), "epochs": 1, "parallel": 2,
                "grid": {"layer_num": [2], "reg_weight": [1.0e-1, 1.0e-2]}},
-    "dcrec_seq": {"data": (SMOKE_RESULTS, SEQ_DATASET), "epochs": 1, "parallel": 2,
+    "dcrec_seq": {"data": (SMOKE_RESULTS, SEQ_CUT_DATASET), "epochs": 1, "parallel": 2,
                   "grid": {"cl_lambda": [1.0e-4, 1.0e-2], "weight_mean": [0.5]}, "swaps": 4}}
 # HMGCR's, CL4SRec's and DuoRec's epochs (12-14 s) are too long for a grid
 # both ways: one step of LANE_K lanes is held against the lanes' single steps
@@ -1340,7 +1356,7 @@ def time_ssl_shapes(plain: sk.CsrGraph, rect: sk.CsrGraph,
 def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
               dataset: str = DATASET, epochs: int = PATH_EPOCHS, models=SSL_MODELS,
               keep: dict | None = None, extra_args: dict | None = None,
-              ref64=()) -> dict[str, dict]:
+              ref64=(), refs: dict | None = None) -> dict[str, dict]:
     """Each of ``models`` trained ``epochs`` epochs at its published config
     through ``sslrec_tpu_torch.main``, with the launch counts reset just
     before and read just after the run; checks the losses, B1's launches
@@ -1351,7 +1367,9 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
     phase 8 holds KGCL).  ``extra_args`` adds a model's CLI arguments.  The
     CPU's data are loaded anew, or, for the models in ``CPU_FROM_CARD``,
     copied from the run's (:func:`on_device`).  Each trained model goes into
-    ``keep`` where it is given, so later phases take its layouts."""
+    ``keep`` where it is given, so later phases take its layouts, and its
+    run's :func:`mesh_reference` into ``refs``, so that phase 37(g) holds
+    the model's mesh run to it."""
     cpu_data, cpu_key, out = None, None, {}
     for name in models:
         argv = ["--model", name, "--data_dir", data_dir, "--dataset", dataset,
@@ -1416,6 +1434,8 @@ def ssl_paths(errs: ErrTrack, device: str = "cuda", data_dir: str = DATA_DIR,
             + ("" if sub is None else f"; the users of its first {SEQ_CPU_ROWS} test rows"))
         if keep is not None:
             keep[name] = model
+        if refs is not None:
+            refs[name] = mesh_reference(name, trainer, wall)
         out[name] = {"launches": b1, "combine_launches": combine, "b2_launches": b2,
                      "losses": [r["loss"] for r in rows],
                      "steps": steps, "per_step": b1 / steps, "wall_s": wall,
@@ -1806,12 +1826,13 @@ KG_SHAPES = (
     ("kgrec_ie_item_sum_d64", "kgrec_ie_items", 64, "seg"))
 
 
-def kcgn_smin_phases(errs: ErrTrack, gen) -> dict:
-    """Phases 19-21: KCGN and SMIN driven through the CLI on yelp_sub, then
-    B1 held and timed at the trained models' shapes."""
+def kcgn_smin_phases(errs: ErrTrack, gen, refs: dict | None = None) -> dict:
+    """Phases 19-21: KCGN and SMIN driven through the CLI on yelp_sub (their
+    runs' references for phase 37(g) into ``refs``), then B1 held and timed
+    at the trained models' shapes."""
     log("== 19. KCGN and SMIN paths (yelp_sub)")
     trained = {}
-    runs = ssl_paths(errs, dataset=SOCIAL_DATASET, models=KCGN_SMIN, keep=trained)
+    runs = ssl_paths(errs, dataset=SOCIAL_DATASET, models=KCGN_SMIN, keep=trained, refs=refs)
     km, sm = trained["kcgn"], trained["smin"]
     ks = kcgn_smin_operands(km, sm)
     shapes = {k: (g.n_rows, g.n_cols, g.nnz) for k, g in ks["graphs"].items()}
@@ -1949,9 +1970,9 @@ def tune_and_resume(device: str = "cuda", data_dir: str = DATA_DIR,
     """On the card: a 2-trial LightGCN grid of 1 epoch each, which must write
     its tune artifact and no run artifact under a scratch results_dir; a
     LightGCN run of 4 epochs against 2 and a resumed 2 (:func:`resume_check`);
-    and MAERec's, 2 against 1 and a resumed 1, on the sports-shaped split at
-    batch 4096 (47 steps an epoch, one mask step; its loss history rides in
-    the train state)."""
+    and MAERec's, 2 against 1 and a resumed 1, on the depth-cut sports-shaped
+    split (``SEQ_CUT_DATASET``) at batch 4096 (one mask step; its loss
+    history rides in the train state)."""
     base = ["--model", "lightgcn", "--data_dir", data_dir, "--dataset", dataset,
             "--device", device, "--set", "train.test_step=1", "--set", "train.early_stop=false"]
     tune_dir = os.path.join(SMOKE_RESULTS, "tune")
@@ -1966,17 +1987,19 @@ def tune_and_resume(device: str = "cuda", data_dir: str = DATA_DIR,
     log(f"  2-trial grid in {time.perf_counter() - t0:.1f} s: "
         f"{[(t['assignment'], round(t['score'], 5)) for t in doc['trials']]}, best {best}")
     n = resume_check("lightgcn", data_dir, dataset, device=device)
-    n_maerec = resume_check("maerec", SMOKE_RESULTS, SEQ_DATASET, device=device,
+    n_maerec = resume_check("maerec", SMOKE_RESULTS, SEQ_CUT_DATASET, device=device,
                             extra=["--set", "train.batch_size=4096"], tag="(batch 4096) ",
                             half=1)
     return {"tune": doc, "resume_tensors": n, "maerec_resume_tensors": n_maerec}
 
 
 def write_sports_split() -> dict:
-    """The sports-shaped sequential split under SMOKE_RESULTS and its sizes."""
+    """The sports-shaped sequential split under SMOKE_RESULTS and its sizes,
+    and its first ``SEQ_CUT_SHARE`` of users as ``SEQ_CUT_DATASET``."""
     t0 = time.perf_counter()
     seqs = sports_like_seqs()
     write_seq_dataset(SEQ_DATASET, seqs)
+    write_seq_dataset(SEQ_CUT_DATASET, seqs[:round(len(seqs) * SEQ_CUT_SHARE)])
     lens = np.array([len(s) for s in seqs])
     split = {"users": len(seqs), "items": int(max(max(s) for s in seqs)),
              "interactions": int(lens.sum()), "mean_len": float(lens.mean()),
@@ -3032,7 +3055,7 @@ def last_lanes_phases(gen, dev) -> dict:
     (:func:`grids_both_ways`)."""
     log("== 36. the lanes of MBGMN, HMGCR, SMBRec, CL4SRec, DuoRec and DCRec_seq")
     fold_errs = ErrTrack()
-    steps, timed, n_batches, folds, swap_units = {}, {}, {}, {}, {}
+    steps, timed, n_batches, folds = {}, {}, {}, {}
     for name, dataset in LAST_LANES.items():
         t0 = time.perf_counter()
         cfg = port_main.parse_cli(["--model", name, "--data_dir", SMOKE_RESULTS, "--dataset",
@@ -3042,8 +3065,6 @@ def last_lanes_phases(gen, dev) -> dict:
         n_batches[name] = lanes.trainer.n_batches
         hp = lane_hp(cfg, lanes.probe, LANE_K, dev)
         load_s = time.perf_counter() - t0
-        if name in LAST_LANE_GRIDS and LAST_LANE_GRIDS[name].get("swaps"):
-            swap_units[name] = swap_unit(data)
         if name in LANE_F64:
             with plain_b1():
                 steps[name] = lanes_step_check(
@@ -3077,7 +3098,17 @@ def last_lanes_phases(gen, dev) -> dict:
         torch.cuda.empty_cache()
     log(f"  B1 under the lanes' vmap rule at the folded shapes: max abs err {fold_errs.abs:.3g}, "
         f"max rel err {fold_errs.rel:.3g} (tolerance {TOL}), one launch a hop and one a dx")
-    grids = grids_both_ways(LAST_LANE_GRIDS, n_batches, swap_units)
+    grid_batches, swap_units = dict(n_batches), {}
+    for name, spec in LAST_LANE_GRIDS.items():      # the grids' own splits, where they differ
+        if spec["data"] == (SMOKE_RESULTS, LAST_LANES[name]) and not spec.get("swaps"):
+            continue
+        cfg = port_main.parse_cli(["--model", name, "--data_dir", spec["data"][0],
+                                   "--dataset", spec["data"][1], "--device", "cuda"])
+        data = load_data(cfg, dev)
+        grid_batches[name] = Lanes(cfg, build_model(cfg, data), data).trainer.n_batches
+        if spec.get("swaps"):
+            swap_units[name] = swap_unit(data)
+    grids = grids_both_ways(LAST_LANE_GRIDS, grid_batches, swap_units)
     return {"errs": fold_errs, "steps": steps, "timed": timed, "folds": folds,
             "grids": grids, "n_batches": n_batches}
 
@@ -3228,14 +3259,31 @@ MESH_GSPMD_A = {"dccf": {"step": {"whole": 16}, "gen": {"whole": 10}},
 MESH_GCF_MODELS = ("lightgcl", "hccf", "dccf", "autocf", "gformer", "adagcl", "mbgmn")
 
 
+# B1 launches in each rank of the social five's runs on a mesh with a model
+# axis > 1 (ROADMAP Queue A item 9b; phase 37(g)), by layout as in MESH_KG,
+# per training step, per generate() and per DcRec view with added edges
+# ("added_ui", "added_uu": the views the run drew, DcRec.added_views, which
+# every rank draws alike).  Like item 9a's seven, each rank reads its row
+# shards whole and runs every hop on the whole graphs with the single run's
+# draws, so each rank launches what one device launches (SOCIAL_B1 and
+# DCREC_ADDED_B1, whose comment counts them); no layout has a shard's shape.
+MESH_SOCIAL = {m: {"step": {"whole": step}, "gen": {"whole": gen}}
+               for m, (step, gen) in SOCIAL_B1.items()}
+MESH_SOCIAL["dcrec"].update({f"added_{k}": {"whole": c} for k, c in DCREC_ADDED_B1.items()})
+MESH_SOCIAL_MODELS = ("dcrec", "mhcn", "dsl", "kcgn", "smin")
+
+
 def mesh_table_want(table: dict, model: str, steps: int, evals: int, epochs: int,
-                    contrast: int = 0, views: int = 0) -> dict[str, int]:
-    """``table[model]``'s count (``MESH_KG``, ``MESH_MB`` or ``MESH_GSPMD_A``),
-    by layout and B2, for ``steps`` steps, ``evals`` evaluations, ``epochs``
-    epochs, ``contrast`` KMCLR contrast steps and ``views`` views (AutoCF's
-    and GFormer's, one regenerating step each) of one construction."""
+                    contrast: int = 0, views: int = 0, added=None) -> dict[str, int]:
+    """``table[model]``'s count (``MESH_KG``, ``MESH_MB``, ``MESH_GSPMD_A`` or
+    ``MESH_SOCIAL``), by layout and B2, for ``steps`` steps, ``evals``
+    evaluations, ``epochs`` epochs, ``contrast`` KMCLR contrast steps,
+    ``views`` views (AutoCF's and GFormer's, one regenerating step each) and
+    DcRec's ``added`` views (``{"ui": n, "uu": n}``) of one construction."""
+    added = added or {}
     times = {"step": steps, "gen": evals, "epoch": epochs, "build": 1, "contrast": contrast,
-             "view": views, "regen": views}
+             "view": views, "regen": views, "added_ui": added.get("ui", 0),
+             "added_uu": added.get("uu", 0)}
     out = {}
     for part, counts in table[model].items():
         for k, c in counts.items():
@@ -3663,13 +3711,14 @@ def mesh_kg_hops(errs: ErrTrack, gen, dev) -> dict:
 
 
 def mesh_kg_check(model: str, single: dict, run, control=None) -> dict:
-    """One KG (phase 37(d)), multi-behavior (37(e)) or item 9a (37(f))
-    model's ``MESH_KG_RUN`` run held against its single-device run: each
-    epoch's loss terms and the test metrics within ``MESH_METRIC_TOL``, the
-    whole tables within ``MESH_PARAM_TOL``, each rank's B1 launches by layout
-    and B2 launches against ``mesh_kg_want``'s, ``MESH_MB``'s or
-    ``MESH_GSPMD_A``'s count, and each rank's ``layout_probe`` (B1 on its
-    shards, or 37(f)'s on its whole graphs, within ``TOL`` of plain, within
+    """One KG (phase 37(d)), multi-behavior (37(e)), item 9a (37(f)) or
+    social (37(g)) model's ``MESH_KG_RUN`` run held against its
+    single-device run: each epoch's loss terms and the test metrics within
+    ``MESH_METRIC_TOL``, the whole tables within ``MESH_PARAM_TOL``, each
+    rank's B1 launches by layout and B2 launches against ``mesh_kg_want``'s,
+    ``MESH_MB``'s, ``MESH_GSPMD_A``'s or ``MESH_SOCIAL``'s count, and each
+    rank's ``layout_probe`` (B1 on its shards, or 37(f)'s and 37(g)'s on its
+    whole graphs and segment layouts, within ``TOL`` of plain, within
     ``MESH_MB_B1_TOL`` for 37(e); B2 on its whole-KG head layouts bit for
     bit).  Where a table misses and ``control(model)`` is given (37(f)), that
     single run under :func:`gemm_order_control` is made and its own move
@@ -3703,6 +3752,9 @@ def mesh_kg_check(model: str, single: dict, run, control=None) -> dict:
         views = MESH_EPOCHS * -(-single["n_batches"] // single["fix_steps"])
         want = mesh_table_want(MESH_GSPMD_A, model, steps, MESH_EPOCHS + 2, MESH_EPOCHS,
                                views=views)
+    elif model in MESH_SOCIAL:
+        want = mesh_table_want(MESH_SOCIAL, model, steps, MESH_EPOCHS + 2, MESH_EPOCHS,
+                               added=single["added"])
     else:
         want = mesh_kg_want(model, steps, MESH_EPOCHS + 2, MESH_EPOCHS)
     got = mesh_kg_launches(run, single["n_users"], single["n_side"])
@@ -3735,18 +3787,25 @@ def mesh_kg_check(model: str, single: dict, run, control=None) -> dict:
             "test_recall20": float(run.test_results["recall"][single["k"].index(20)])}
 
 
-def mesh_single(model: str, argv: list, results: str) -> dict:
-    """A phase 37(d), (e) or (f) model's single-device run (``argv``): what
-    :func:`mesh_kg_check` holds the mesh run to."""
-    t0 = time.perf_counter()
-    tr = port_main.main(argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/{results}_single"])
+def mesh_reference(model: str, tr, s: float) -> dict:
+    """What :func:`mesh_kg_check` holds a mesh run to: the single-device
+    run ``tr`` (a trainer, ``s`` seconds) of ``model``."""
     return {"best_state": {k: v.cpu() for k, v in tr.best_state.items()},
             "test_results": tr.test_results, "epochs": tr.recorder.epochs,
             "n_batches": tr.n_batches, "n_users": tr.data.user_num,
             "n_side": tr.model.n_entities if model == "kgin" else tr.data.item_num,
             "n_train": tr.data.n_train, "k": list(tr.cfg.test.k),
             "n_bpr": int(getattr(tr.model, "n_bpr", 0)),
-            "fix_steps": int(getattr(tr.model, "fix_steps", 1)), "s": time.perf_counter() - t0}
+            "fix_steps": int(getattr(tr.model, "fix_steps", 1)),
+            "added": dict(getattr(tr.model, "added_views", {})), "s": s}
+
+
+def mesh_single(model: str, argv: list, results: str) -> dict:
+    """A phase 37(d), (e), (f) or (g) model's single-device run (``argv``):
+    :func:`mesh_reference`."""
+    t0 = time.perf_counter()
+    tr = port_main.main(argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/{results}_single"])
+    return mesh_reference(model, tr, time.perf_counter() - t0)
 
 
 def mesh_gcf_root(model: str) -> tuple[str, str]:
@@ -3765,7 +3824,7 @@ def write_mesh_gcf_splits(families=("gcf",)) -> dict:
     return out
 
 
-def mesh_kg_run(device: str = "cuda", families=("kg",), extra=()) -> dict:
+def mesh_kg_run(device: str = "cuda", families=("kg",), extra=(), singles=None) -> dict:
     """Phase 37(d): KGCL (with ``train_trans``), KGIN, KGRec and DiffKG at
     their published configs, ``MESH_EPOCHS`` epoch each on the
     ``MESH_KG_DATASET`` split, once on one device and once on a
@@ -3775,18 +3834,24 @@ def mesh_kg_run(device: str = "cuda", families=("kg",), extra=()) -> dict:
     37(e)'s HMGCR, SMBRec, CML and KMCLR on ``MESH_MB_DATASET``
     (:func:`write_mesh_mb_split`) too, and with ``"gcf"`` phase 37(f)'s
     ``MESH_GCF_MODELS`` (:func:`mesh_gcf_root`; a table that misses is held
-    to its single run's own move under cuBLASLt), their mesh runs in the
-    same spawn; ``extra`` (``(argv, shape)`` pairs of the spawn's world
+    to its single run's own move under cuBLASLt), and with ``"social"``
+    phase 37(g)'s ``MESH_SOCIAL_MODELS`` on yelp_sub, their mesh runs in
+    the same spawn; ``extra`` (``(argv, shape)`` pairs of the spawn's world
     size: 37(b)'s SGL ``MESH_SPLIT_REF`` run) join the spawn, unprobed, and
-    come back under ``"extra"``.  ``device`` "cpu" runs it all on the CPU (a
-    call there counts where the card counts a launch).  Returns each
-    family's results by its name (``"kg"``, ``"mb"``, ``"gcf"``)."""
+    come back under ``"extra"``.  ``singles`` (``{model:``
+    :func:`mesh_reference` ``}``) holds single runs made already with the
+    same arguments (phases 17 and 19's of the social five), which are not
+    made again.  ``device`` "cpu" runs it all on the CPU (a call there
+    counts where the card counts a launch).  Returns each family's results
+    by its name (``"kg"``, ``"mb"``, ``"gcf"``, ``"social"``)."""
     datasets = {"kg": (MESH_KG_MODELS, lambda m: (SMOKE_RESULTS, MESH_KG_DATASET),
                        write_mesh_kg_split),
                 "mb": (MESH_MB_MODELS, lambda m: (MESH_MB_DIR, MB_DATASET), write_mesh_mb_split),
                 "gcf": (MESH_GCF_MODELS, mesh_gcf_root,
-                        lambda: write_mesh_gcf_splits(families))}
-    argvs, singles, splits = {}, {}, {}
+                        lambda: write_mesh_gcf_splits(families)),
+                "social": (MESH_SOCIAL_MODELS, lambda m: (DATA_DIR, SOCIAL_DATASET), dict)}
+    argvs, splits = {}, {}
+    singles = dict(singles or {})
     for fam in families:
         models, root_of, write = datasets[fam]
         splits[fam] = write()
@@ -3796,7 +3861,8 @@ def mesh_kg_run(device: str = "cuda", families=("kg",), extra=()) -> dict:
                         "--epoch", str(MESH_EPOCHS), "--device", device,
                         "--set", "train.test_step=1", "--set", "tune.enable=false",
                         *MESH_KG_ARGS.get(m, [])]
-            singles[m] = mesh_single(m, argvs[m], f"mesh_{fam}")
+            if m not in singles:
+                singles[m] = mesh_single(m, argvs[m], f"mesh_{fam}")
         n = {(singles[m]["n_users"], singles[m]["n_train"]) for m in models}
         log(f"  {fam}: users, train pairs {n}; single runs "
             f"{ {m: round(singles[m]['s'], 1) for m in models} } s")
@@ -3827,7 +3893,7 @@ def mesh_kg_run(device: str = "cuda", families=("kg",), extra=()) -> dict:
             f"metrics' max abs diff {r['metric_diff']}; test recall@20 "
             f"{r['test_recall20']:.5f}; launches in each rank {r['want_by_layout']} over "
             f"{r['steps']} steps; in each rank B1 on its "
-            f"{'whole graphs' if fam == 'gcf' else 'shards'} within "
+            f"{'whole graphs' if fam in ('gcf', 'social') else 'shards'} within "
             f"{r['probe_b1_max_rel_err']:.3g} of plain, B2 exact on {r['probe_b2_layouts']}")
     log(f"  the {MESH_KG_RUN} mesh of 2 gloo processes ran {', '.join(argvs)}"
         + (f" and {len(extra)} other run(s)" if extra else "")
@@ -3971,41 +4037,44 @@ def mesh_mb_hops(errs: ErrTrack, gen, dev) -> dict:
     return out
 
 
-def mesh_phases(gen, data, cfg, dev) -> dict:
+def mesh_phases(gen, data, cfg, dev, social_refs=None) -> dict:
     """Phase 37: the device mesh, (a) the partitioned hop at full width, (b)
     LightGCN and SGL on a mesh of four gloo ranks on the one card, (c)
-    NCCL, (d) the KG family, (e) the multi-behavior family and (f) the
-    models of ROADMAP Queue A item 9a on a mesh of two gloo ranks, in one
-    spawn with (b)'s SGL reference."""
+    NCCL, (d) the KG family, (e) the multi-behavior family, (f) the models
+    of ROADMAP Queue A item 9a and (g) the social five (held to their runs
+    of phases 17 and 19, ``social_refs``) on a mesh of two gloo ranks, in
+    one spawn with (b)'s SGL reference."""
     log("== 37. the device mesh: partitioned hops, a 2x2 mesh on the card, NCCL, the KG "
-        "and multi-behavior families and item 9a's seven on a 1x2 mesh")
+        "and multi-behavior families, item 9a's seven and the social five on a 1x2 mesh")
     t0 = time.perf_counter()
     errs = ErrTrack()
     hops = mesh_hops(errs, gen, data, int(cfg.model.embedding_size), dev)
     part = mesh_run(data)
     nccl = mesh_nccl(data, dev)
-    kg = mesh_kg_phase(gen, dev, extra=[(part["split_ref_argv"], MESH_SPLIT_REF)])
+    kg = mesh_kg_phase(gen, dev, extra=[(part["split_ref_argv"], MESH_SPLIT_REF)],
+                       singles=social_refs)
     run = mesh_run_check(data, part, kg.pop("extra")[0])
     log(f"  phase 37 took {time.perf_counter() - t0:.1f} s")
     return {"errs": errs, "hops": hops, "run": run, "nccl": nccl, "kg": kg}
 
 
-def mesh_kg_phase(gen, dev, families=("kg", "mb", "gcf"), extra=()) -> dict:
-    """Phases 37(d), (e) and (f): :func:`mesh_kg_hops` and
-    :func:`mesh_mb_hops`, then :func:`mesh_kg_run` of the ``families`` (and
-    the ``extra`` runs) in one spawn."""
-    log("  (d) the KG family, (e) the multi-behavior family and (f) item 9a's seven on the "
-        "mesh")
+def mesh_kg_phase(gen, dev, families=("kg", "mb", "gcf", "social"), extra=(),
+                  singles=None) -> dict:
+    """Phases 37(d) to (g): :func:`mesh_kg_hops` and :func:`mesh_mb_hops`,
+    then :func:`mesh_kg_run` of the ``families`` (and the ``extra`` runs,
+    given the ``singles``) in one spawn."""
+    log("  (d) the KG family, (e) the multi-behavior family, (f) item 9a's seven and (g) "
+        "the social five on the mesh")
     t0 = time.perf_counter()
     errs = ErrTrack()
     hops = mesh_kg_hops(errs, gen, dev) if "kg" in families else None
     mb_hops = mesh_mb_hops(errs, gen, dev) if "mb" in families else None
-    run = mesh_kg_run(dev.type, families, extra)
+    run = mesh_kg_run(dev.type, families, extra, singles)
     s = time.perf_counter() - t0
-    log(f"  phases 37(d), (e) and (f) took {s:.1f} s")
+    log(f"  phases 37(d) to (g) took {s:.1f} s")
     return {"errs": errs, "hops": hops, "run": run.get("kg"), "s": s,
             "mb": {"hops": mb_hops, "run": run.get("mb")}, "gcf": {"run": run.get("gcf")},
-            "extra": run["extra"]}
+            "social": {"run": run.get("social")}, "extra": run["extra"]}
 
 
 def mesh_mb_rows(mm: dict, b1_row) -> list[dict]:
@@ -4376,13 +4445,14 @@ def main() -> int:
     del soc, dc, ui_rows, ui_cols, add_rows, add_cols
 
     log("== 17. DcRec, MHCN and DSL paths (yelp_sub)")
-    soc_runs = ssl_paths(errs, dataset=SOCIAL_DATASET, models=SOCIAL_MODELS)
+    social_refs = {}        # the five's single runs, which phase 37(g) holds its mesh runs to
+    soc_runs = ssl_paths(errs, dataset=SOCIAL_DATASET, models=SOCIAL_MODELS, refs=social_refs)
 
     log("== 18. the tuner and resume on the card")
     sports = write_sports_split()
     tr = tune_and_resume()
 
-    ks = kcgn_smin_phases(errs, gen)
+    ks = kcgn_smin_phases(errs, gen, social_refs)
     kgp = kg_phases(errs, gen, dev)
     seq = seq_phases(errs, gen, data.extras["bi_adj"], seg_lay, (launches, lgcn_combine), sports)
     kgn = kg_new_phases(errs, gen, dev)
@@ -4396,7 +4466,7 @@ def main() -> int:
     lp = lanes_phases(errs, gen, data, lanes_steps, dev)
     llp = last_lanes_phases(gen, dev)
 
-    mesh = mesh_phases(gen, data, cfg, dev)
+    mesh = mesh_phases(gen, data, cfg, dev, social_refs)
 
     log("== 38. result")
     common = {"route": "cuda", "source": "sslrec_tpu_torch/csrc/csr_spmm.cu",
@@ -4799,6 +4869,35 @@ def main() -> int:
             library_call=library,
             launches_of=[f"{m}'s {MESH_KG_RUN} mesh run, both ranks" for m in models]))
     rows_b1[-1]["mesh_gcf"] = {"run": dict(mg)}
+    ms = mk["social"]["run"]
+    # phase 37(g): likewise for the social five, each row one of their graphs
+    # timed at yelp_sub (phases 16 and 21), its launches those of the models
+    # that hop over it (all their layouts) in both ranks of their mesh runs
+    social_rows = (
+        ("mesh_social_yelp_bi_hop", soc_t["yelp_bi_hop_d64"], soc_bound["yelp_bi_hop_d64"],
+         soc_shapes["bi"], 64, ("dcrec", "dsl"), soc_errs,
+         "the yelp_sub bi-adjacency (and DcRec's views and trust graph, DSL's trust graph)"),
+        ("mesh_social_mhcn_r", soc_t["mhcn_r_d64"], soc_bound["mhcn_r_d64"], soc_shapes["r"],
+         64, ("mhcn",), soc_errs, "MHCN's R (and its three channels)"),
+        ("mesh_social_kcgn_ii_hop", ks["t"]["kcgn_ii_hop_d128"], ks["bound"]["kcgn_ii_hop_d128"],
+         ks["shapes"]["kcgn_ii"], 128, ("kcgn",), ks["errs"],
+         "KCGN's ii DGI graph (and its expanded graph, uu graph and component sums)"),
+        ("mesh_social_smin_iti_hop", ks["t"]["smin_iti_hop_d64"], ks["bound"]["smin_iti_hop_d64"],
+         ks["shapes"]["smin_iti"], 64, ("smin",), ks["errs"],
+         "SMIN's ITI metapath (and its other metapaths, DGI and subgraph hops)"))
+    for key, t, bound, (n_r, n_c, nnz_k), d_k, models, err, what in social_rows:
+        counts = sum(c.get("whole", 0) for m in models for c in ms[m]["by_layout_by_rank"])
+        rows_b1.append(b1_row(
+            f"csr_spmm.{key}", t, bound, (counts, None), err,
+            {"n_rows": n_r, "n_cols": n_c, "nnz": nnz_k, "d": d_k, "layout": "forward",
+             "what": f"B1 on {what} inside every rank of the {MESH_KG_RUN} mesh runs"},
+            launches_scope=f"every B1 launch of {', '.join(models)} in both ranks of their "
+                           f"{MESH_KG_RUN} mesh runs ({MESH_EPOCHS} epoch each on "
+                           f"{SOCIAL_DATASET}; all whole-graph and segment layouts); combine "
+                           f"launches not counted apart",
+            library_call=sparse_mm,
+            launches_of=[f"{m}'s {MESH_KG_RUN} mesh run, both ranks" for m in models]))
+    rows_b1[-1]["mesh_social"] = {"run": dict(ms)}
     rows_b1[0]["tuner_and_resume_on_card"] = {
         "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
         "resume_bit_equal_tensors": tr["resume_tensors"],

@@ -41,7 +41,8 @@ The device mesh (:mod:`~sslrec_tpu_torch.parallel.mesh`): ``mesh_todo``
 names the ROADMAP item that will port a model's mesh branch, and a mesh of
 more than one device refuses the model while it is set (LightGCN, SGL,
 SimGCL, NCL, DirectAU, LightGCL, HCCF, DCCF, AutoCF, GFormer, AdaGCL, KGCL,
-KGIN, KGRec, DiffKG, MBGMN, HMGCR, SMBRec, CML and KMCLR clear it).  A model
+KGIN, KGRec, DiffKG, DcRec, DSL, KCGN, MHCN, SMIN, MBGMN, HMGCR, SMBRec, CML
+and KMCLR clear it).  A model
 that trains on a mesh lists in ``row_shards`` (``{name: whole rows}``) the
 tables of which each rank holds a row shard (the JAX package's rule: a
 table whose leading dimension counts users, items, nodes or entities), so

@@ -22,20 +22,34 @@ host once a step, and a view whose kind adds no edge builds no layout.
 Draws: the model sets ``step_generator``; :meth:`step_views` draws a step's
 four views from the epoch's device generator, which a test injects through
 ``loss``'s ``views`` (JAX's ``_view`` draws as the port's view dicts).
+
+On a device mesh with a ``model`` axis > 1 each rank holds a row shard of
+the three tables (``row_shards``) and reads them whole with autograd
+(``dist_train.ui_nodes``, ``whole_param``), so the base tower and every
+view run on the whole graphs in every rank, with the views the single run
+draws (every rank draws them alike from the epoch's generator and builds
+their added edges' layouts itself); the heads are replicated.  BPR and the
+picked embeddings' L2 are sums over the batch, which a ``data`` slice
+scales by ``n_whole / b``; the GRACE terms are over the whole views and are
+computed whole, alike on every rank, and counted once (split over the
+``model`` ranks, such a contrast moves the tables by its float sum order:
+HMGCR's GRACE did so beyond the mesh's tolerance on the card).
 """
 
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from sslrec_tpu_torch.models import losses
 from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.ops.spmm import spmm, spmm_layers, spmm_t
 from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask, csr_graph_from_edges
-from sslrec_tpu_torch.utils.initializers import linear_params, xavier_uniform
+from sslrec_tpu_torch.parallel import dist_train
+from sslrec_tpu_torch.utils.initializers import linear_params
 
 EDGE_ADD, EDGE_DROP, NODE_DROP = 0, 1, 2
+UI_TABLES = ("ui_user_embeds", "ui_item_embeds")
+TABLES = ("ui_user_embeds", "uu_user_embeds", "ui_item_embeds")     # the init order
 GRACE_CHUNK = 1024      # rows a chunk of grace_pair_losses (its recomputed unit)
 
 
@@ -44,6 +58,7 @@ def _inv_sqrt(deg):
 
 
 class DcRec(RecModel):
+    mesh_todo = None
     step_generator = True
 
     def __init__(self, cfg, data):
@@ -67,20 +82,16 @@ class DcRec(RecModel):
         self.n_drop_users = int(p * self.user_num)
         self.added_views = {"ui": 0, "uu": 0}         # views with added edges, so far
         d, device = self.embedding_size, data.device
-
-        def table(n):
-            return nn.Parameter(torch.empty(n, d, device=device))
-
-        self.ui_user_embeds, self.uu_user_embeds = table(self.user_num), table(self.user_num)
-        self.ui_item_embeds = table(self.item_num)
+        dist_train.row_tables(self, cfg, device, dict(zip(
+            TABLES, ((self.user_num, d), (self.user_num, d), (self.item_num, d)))))
         self.ui_linear = linear_layer(d, d, device)
         self.uu_linear = linear_layer(d, d, device)
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
-        """Xavier tables and ``nn.Linear``-default heads, drawn from ``gen``."""
-        for p in (self.ui_user_embeds, self.uu_user_embeds, self.ui_item_embeds):
-            p.copy_(xavier_uniform(gen, tuple(p.shape)))
+        """Xavier tables and ``nn.Linear``-default heads, drawn from ``gen``
+        (whole tables on every rank of a mesh, each keeping its own rows)."""
+        dist_train.init_rows(self, gen, TABLES)
         for lin in (self.ui_linear, self.uu_linear):
             for k, v in linear_params(gen, *lin["w"].shape).items():
                 lin[k].copy_(v)
@@ -120,14 +131,17 @@ class DcRec(RecModel):
         return csr_graph_from_edges(*view["add"], n_rows, n_cols)
 
     # -- propagation ---------------------------------------------------------------
-    def _lightgcn_base(self):
-        embeds = torch.cat([self.ui_user_embeds, self.ui_item_embeds], 0)
+    def _lightgcn_base(self, embeds=None):
+        """The base tower over ``[users; items]`` (``embeds``, else the UI
+        tables read whole)."""
+        embeds = dist_train.ui_nodes(self, UI_TABLES) if embeds is None else embeds
         acc = (embeds + spmm_layers(self.adj, embeds, self.layer_num).sum(0)) \
             / (self.layer_num + 1)
         return acc[: self.user_num], acc[self.user_num:]
 
-    def _lightgcn_view(self, view: dict):
-        """LightGCN over an augmented, renormalised UI graph."""
+    def _lightgcn_view(self, view: dict, embeds=None):
+        """LightGCN over an augmented, renormalised UI graph, from ``[users;
+        items]`` (``embeds``, else the UI tables read whole)."""
         w, add = view["w"], self._added(view, self.user_num, self.item_num)
         dev = w.device
         ones_i = torch.ones(self.item_num, 1, device=dev)
@@ -142,7 +156,8 @@ class DcRec(RecModel):
         ev = EdgeMask(w * du[self.ui_rows.long()] * di[self.ui_cols.long()])
         if add is not None:
             ev_add = EdgeMask(du[add.rows.long()] * di[add.cols.long()])
-        u, i = self.ui_user_embeds, self.ui_item_embeds
+        embeds = dist_train.ui_nodes(self, UI_TABLES) if embeds is None else embeds
+        u, i = embeds[: self.user_num], embeds[self.user_num:]
         acc_u, acc_i = u, i
         for _ in range(self.layer_num):
             nu, ni = spmm(self.ui, i, ev), spmm_t(self.ui, u, ev)
@@ -153,8 +168,9 @@ class DcRec(RecModel):
         n = self.layer_num + 1
         return acc_u / n, acc_i / n
 
-    def _gcn_view(self, view: dict):
-        """Weightless relu-GCN over an augmented trust graph, ``D_r^-1/2 Aᵀ D_r^-1/2``."""
+    def _gcn_view(self, view: dict, users=None):
+        """Weightless relu-GCN over an augmented trust graph, ``D_r^-1/2 Aᵀ D_r^-1/2``,
+        from ``users`` (else the trust table read whole)."""
         w, add = view["w"], self._added(view, self.user_num, self.user_num)
         ones = torch.ones(self.user_num, 1, device=w.device)
         deg = spmm(self.trust, ones, EdgeMask(w))[:, 0]
@@ -172,7 +188,7 @@ class DcRec(RecModel):
                 s = s + spmm_t(add, x, ve_add)
             return d[:, None] * s
 
-        x = self.uu_user_embeds
+        x = dist_train.whole_param(self, "uu_user_embeds") if users is None else users
         acc = x
         for _ in range(self.layer_num):
             x = torch.relu(prop(x))
@@ -187,21 +203,26 @@ class DcRec(RecModel):
 
     def loss(self, batch: dict, gen: torch.Generator | None, views: list | None = None):
         """BPR + L2 of the picked embeddings + the domain and cross GRACE
-        terms; ``views`` (else drawn from ``gen``) as :meth:`step_views` gives."""
+        terms; ``views`` (else drawn from ``gen``) as :meth:`step_views` gives.
+        On a mesh the batch is a ``data`` slice, whose BPR and L2 scale by
+        ``n_whole / b``."""
         hp = batch.get("hp", {})
         reg_w = hp.get("reg_weight", self.reg_weight)
         cross_w = hp.get("cross_weight", self.cross_weight)
         domain_w = hp.get("domain_weight", self.domain_weight)
-        user_embeds, item_embeds = self._lightgcn_base()
+        nodes = dist_train.ui_nodes(self, UI_TABLES)
+        trust_users = dist_train.whole_param(self, "uu_user_embeds")
+        user_embeds, item_embeds = self._lightgcn_base(nodes)
         if self.keep_rate >= 1.0:       # no augmentation: every view is the base graph
             uiu1 = uiu2 = user_embeds
             uii1 = uii2 = item_embeds
-            uu1 = uu2 = self._gcn_view({"w": torch.ones_like(self.trust.vals), "add": None})
+            uu1 = uu2 = self._gcn_view({"w": torch.ones_like(self.trust.vals), "add": None},
+                                       trust_users)
         else:
             views = self.step_views(gen) if views is None else views
-            uiu1, uii1 = self._lightgcn_view(views[0])
-            uiu2, uii2 = self._lightgcn_view(views[1])
-            uu1, uu2 = self._gcn_view(views[2]), self._gcn_view(views[3])
+            uiu1, uii1 = self._lightgcn_view(views[0], nodes)
+            uiu2, uii2 = self._lightgcn_view(views[1], nodes)
+            uu1, uu2 = self._gcn_view(views[2], trust_users), self._gcn_view(views[3], trust_users)
 
         def head(lin, x):
             return torch.relu(apply_linear(lin, x))
@@ -222,6 +243,9 @@ class DcRec(RecModel):
         i_loss = gca(2, 3) + 0.5 * (pi[(0, 1)] + pi[(1, 0)])
         domain = domain_w * (i_loss + gca(0, 1))
         reg = reg_w * losses.reg_pick_embeds([anc_e, pos_e, neg_e])
+        if self.mesh is not None:
+            scale = batch["n_whole"] / anc_e.shape[0]
+            bpr, reg = bpr * scale, reg * scale
         loss = bpr + reg + domain + cross
         return loss, {"bpr_loss": bpr, "reg_loss": reg, "domain_loss": domain,
                       "cross_loss": cross}

@@ -13,22 +13,35 @@ rejected against the trust edges.
 Draws: the model sets ``step_generator``; :meth:`step_draws` draws a step's
 random user pairs and the label's two dropout masks from the epoch's device
 generator, which a test injects through ``loss``'s ``draws``.
+
+On a device mesh with a ``model`` axis > 1 each rank holds a row shard of
+the user and item tables (``row_shards``) and reads them whole with
+autograd (``dist_train.ui_nodes``), so both towers run on the whole graphs
+in every rank; the label's layers are replicated.  A ``data`` rank draws
+the self-augmented pairs and masks for the whole batch (``n_whole``), as the
+single run does, so that every rank takes the generator's draws alike, and
+keeps its slice's rows; the UI and social BPR and the hinge are sums over
+the slice's rows (the social stream is sliced with the batch), scaled by
+``n_whole / b``, and the L2 of every parameter
+(``dist_train.reg_params``) is whole.  The trainer's clip then takes the
+norm over the ranks' row shards (``dist_train.global_norm``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from sslrec_tpu_torch.data.sampling import sample_negatives
 from sslrec_tpu_torch.models import losses
 from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.ops.spmm import spmm
-from sslrec_tpu_torch.utils.initializers import linear_params, xavier_uniform
+from sslrec_tpu_torch.parallel import dist_train
+from sslrec_tpu_torch.utils.initializers import linear_params
 
 
 class DSL(RecModel):
+    mesh_todo = None
     step_generator = True
     batch_fields = ("user", "pos", "neg", "suser", "spos", "sneg")
     grad_clip = 10.0
@@ -47,16 +60,15 @@ class DSL(RecModel):
         self.sal_weight = float(m.sal_weight)
         self.dropout_rate = float(m.dropout_rate)
         d, device = self.embedding_size, data.device
-        self.user_embeds = nn.Parameter(torch.empty(self.user_num, d, device=device))
-        self.item_embeds = nn.Parameter(torch.empty(self.item_num, d, device=device))
+        dist_train.ui_tables(self, cfg, d, device)
         self.linear1 = linear_layer(2 * d, d, device)
         self.linear2 = linear_layer(d, 1, device)
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
-        """Xavier tables and ``nn.Linear``-default layers, drawn from ``gen``."""
-        for p in (self.user_embeds, self.item_embeds):
-            p.copy_(xavier_uniform(gen, tuple(p.shape)))
+        """Xavier tables and ``nn.Linear``-default layers, drawn from ``gen``
+        (whole tables on every rank of a mesh, each keeping its own rows)."""
+        dist_train.init_ui_tables(self, gen)
         for lin in (self.linear1, self.linear2):
             for k, v in linear_params(gen, *lin["w"].shape).items():
                 lin[k].copy_(v)
@@ -66,16 +78,15 @@ class DSL(RecModel):
         return {"sneg": sample_negatives(gen, arrays["suser"], self.trust_edge_set,
                                          self.user_num)}
 
-    def _ui_tower(self):
-        embeds = torch.cat([self.user_embeds, self.item_embeds], 0)
+    def _ui_tower(self, embeds):
         acc = embeds
         for _ in range(self.gnn_layer):
             embeds = spmm(self.adj, embeds)
             acc = acc + embeds
         return acc[: self.user_num], acc[self.user_num:]
 
-    def _social_tower(self):
-        u = acc = self.user_embeds
+    def _social_tower(self, users):
+        u = acc = users
         for _ in range(self.uugnn_layer):
             u = spmm(self.uu_adj, u)
             acc = acc + u
@@ -111,14 +122,21 @@ class DSL(RecModel):
     def loss(self, batch: dict, gen: torch.Generator | None, draws: dict | None = None):
         """BPR (summed) on UI triples, L2 of every parameter, the social BPR
         and the self-augmented hinge; ``draws`` (else from ``gen``) as
-        :meth:`step_draws`."""
+        :meth:`step_draws`.  On a mesh the batch is a ``data`` slice: the
+        draws are the whole batch's (``draws`` given so too), its rows kept,
+        and the sums scale by ``n_whole / b``."""
         ancs = batch["user"]
-        draws = self.step_draws(gen, ancs.shape[0]) if draws is None else draws
-        user_embeds, item_embeds = self._ui_tower()
-        user_embeds2 = self._social_tower()
+        n = batch.get("n_whole", ancs.shape[0])
+        draws = self.step_draws(gen, n) if draws is None else draws
+        if self.mesh is not None:
+            sl = dist_train.batch_slice(n, self.mesh)
+            draws = {k: v[sl] for k, v in draws.items()}
+        nodes = dist_train.ui_nodes(self)
+        user_embeds, item_embeds = self._ui_tower(nodes)
+        user_embeds2 = self._social_tower(nodes[: self.user_num])
         rec = losses.bpr_loss(user_embeds[ancs], item_embeds[batch["pos"]],
                               item_embeds[batch["neg"]])
-        reg = self.reg_weight * losses.reg_params(dict(self.named_parameters()))
+        reg = self.reg_weight * dist_train.reg_params(self, self.mesh)
         soc = self.soc_weight * losses.bpr_loss(
             user_embeds2[batch["suser"]], user_embeds2[batch["spos"]],
             user_embeds2[batch["sneg"]])
@@ -126,8 +144,11 @@ class DSL(RecModel):
         scores = self._label(user_embeds[u1], user_embeds[u2], draws)
         preds = (user_embeds2[u1] * user_embeds2[u2]).sum(-1)
         sal = self.sal_weight * torch.clamp(1.0 - scores * preds, min=0.0).sum()
+        if self.mesh is not None:
+            scale = n / ancs.shape[0]
+            rec, soc, sal = rec * scale, soc * scale, sal * scale
         loss = rec + reg + soc + sal
         return loss, {"rec_loss": rec, "reg_loss": reg, "soc_loss": soc, "sal_loss": sal}
 
     def generate(self):
-        return self._ui_tower()
+        return self._ui_tower(dist_train.ui_nodes(self))

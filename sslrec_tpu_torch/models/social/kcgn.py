@@ -21,6 +21,19 @@ summaries' gathers over the component labels.
 Draws: the model sets ``step_generator``; :meth:`step_draws` draws the
 step's two row shuffles from the epoch's device generator, which a test
 injects through ``loss``'s ``draws`` (JAX's permutations).
+
+On a device mesh with a ``model`` axis > 1 each rank holds a row shard of
+the tables whose rows JAX's rule shards (the user table; the item copies'
+table where it has one rating class, so that its rows count items; the
+fusion weights) and reads them whole with autograd
+(``dist_train.whole_param``), so the expanded graph's hops and both DGI
+graphs run whole in every rank; every other parameter is replicated, and
+the host-sampled structures are constants every rank holds whole.  BPR and
+the picked rows' L2 are sums over the batch, which a ``data`` slice scales
+by ``n_whole / b``.  The DGI terms are not: their masks are the union of the
+whole batch's ids, and their denominators count it, so every ``data`` rank
+gathers the batch's ids (``dist_train.gather_batch``) and computes the
+terms whole, alike on every rank, under row shuffles of the whole tables.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from sslrec_tpu_torch.models import losses
 from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.ops.segment_kernel import SegmentOps
 from sslrec_tpu_torch.ops.spmm import spmm
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.utils.initializers import linear_params, xavier_uniform
 
 
@@ -68,6 +82,7 @@ def degree_norms(src: np.ndarray, dst: np.ndarray, n: int) -> tuple[np.ndarray, 
 
 
 class KCGN(RecModel):
+    mesh_todo = None
     step_generator = True
 
     def __init__(self, cfg, data):
@@ -104,26 +119,35 @@ class KCGN(RecModel):
             return nn.Parameter(torch.empty(shape, device=device))
 
         hops = max(self.layer_num - 1, 0)
-        self.user_embeds = param(self.user_num, d)
-        self.item_embeds = param(self.item_num * self.r_class, d)
+        # JAX's row spaces (``sslrec_tpu/models/base.py``'s ``sharded_row_dims``)
+        rows = {self.user_num, self.item_num, self.user_num + self.item_num, self.n_nodes}
+        tables = {"user_embeds": (self.user_num, d),
+                  "item_embeds": (self.item_num * self.r_class, d)}
+        dist_train.row_tables(self, cfg, device, {k: s for k, s in tables.items()
+                                                  if s[0] in rows})
+        for k, s in tables.items():
+            if s[0] not in rows:
+                setattr(self, k, param(*s))
         self.time_lin = linear_layer(2 * d, d, device)
         self.u_w = nn.ParameterList([param(d, d) for _ in range(hops)])
         self.v_w = nn.ParameterList([param(d, d) for _ in range(hops)])
         self.prelu = param()
         if self.fuse == "weight":
-            self.fuse_w = param(self.item_num, self.r_class, 1)
+            dist_train.row_tables(self, cfg, device, {"fuse_w": (self.item_num, self.r_class, 1)})
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
         """Xavier tables and hop weights, an ``nn.Linear``-default time
-        projection, PReLU slope 0.25, from ``gen``."""
-        for p in (self.user_embeds, self.item_embeds, *self.u_w, *self.v_w):
+        projection, PReLU slope 0.25, from ``gen`` (whole tables on every rank
+        of a mesh, each keeping its own rows)."""
+        dist_train.init_rows(self, gen, ("user_embeds", "item_embeds"))
+        for p in (*self.u_w, *self.v_w):
             p.copy_(xavier_uniform(gen, tuple(p.shape)))
         for k, v in linear_params(gen, 2 * self.embedding_size, self.embedding_size).items():
             self.time_lin[k].copy_(v)
         self.prelu.fill_(0.25)
         if self.fuse == "weight":
-            self.fuse_w.copy_(xavier_uniform(gen, tuple(self.fuse_w.shape)))
+            dist_train.init_rows(self, gen, ("fuse_w",))
 
     def _hop(self, layer, u_f, v_f, edge_feat):
         node = torch.cat([u_f @ self.u_w[layer], v_f @ self.v_w[layer]], 0)
@@ -133,8 +157,9 @@ class KCGN(RecModel):
 
     def forward(self):
         edge_feat = apply_linear(self.time_lin, self.edge_time)
-        all_u, all_i = [self.user_embeds], [self.item_embeds]
-        u_f, v_f = self.user_embeds, self.item_embeds
+        users, items = (dist_train.whole_param(self, k) for k in ("user_embeds", "item_embeds"))
+        all_u, all_i = [users], [items]
+        u_f, v_f = users, items
         for layer in range(self.layer_num - 1):
             embeds = self._hop(layer, u_f, v_f, edge_feat)
             u_f, v_f = embeds[: self.user_num], embeds[self.user_num:]
@@ -146,7 +171,8 @@ class KCGN(RecModel):
             return user_embeds, item_embeds.reshape(self.item_num, -1)
         item_embeds = item_embeds.reshape(self.item_num, self.r_class, -1)
         if self.fuse == "weight":
-            return user_embeds, (item_embeds * torch.softmax(self.fuse_w, dim=1)).sum(1)
+            fuse_w = dist_train.whole_param(self, "fuse_w")
+            return user_embeds, (item_embeds * torch.softmax(fuse_w, dim=1)).sum(1)
         return user_embeds, item_embeds.sum(1) / self.r_class
 
     def step_draws(self, gen: torch.Generator) -> dict:
@@ -173,7 +199,9 @@ class KCGN(RecModel):
     def loss(self, batch: dict, gen: torch.Generator | None, draws: dict | None = None):
         """BPR (summed) + reg · L2 of the picked rows + the uu and ii DGI terms
         over the batch's users and items in components of more than
-        ``subnode`` nodes; ``draws`` (else from ``gen``) as :meth:`step_draws`."""
+        ``subnode`` nodes; ``draws`` (else from ``gen``) as :meth:`step_draws`.
+        On a mesh the batch is a ``data`` slice: BPR and L2 scale by ``n_whole
+        / b``, and the DGI masks take the whole batch's ids."""
         reg_w = batch.get("hp", {}).get("reg_weight", self.reg_weight)
         draws = self.step_draws(gen) if draws is None else draws
         ancs, poss, negs = batch["user"], batch["pos"], batch["neg"]
@@ -181,6 +209,11 @@ class KCGN(RecModel):
         anc_e, pos_e, neg_e = user_embeds[ancs], item_embeds[poss], item_embeds[negs]
         bpr = losses.bpr_loss(anc_e, pos_e, neg_e)
         reg = reg_w * losses.reg_pick_embeds([anc_e, pos_e, neg_e])
+        if self.mesh is not None:
+            n = batch["n_whole"]
+            bpr, reg = bpr * (n / ancs.shape[0]), reg * (n / ancs.shape[0])
+            ancs, poss, negs = (dist_train.gather_batch(x, n, self.mesh)
+                                for x in (ancs, poss, negs))
         up, un = self._dgi(self.uu_g, user_embeds, draws["perm_u"], self.uu_sub_adj,
                            self.uu_sub_norm, self.uu_labels)
         umask = user_embeds.new_zeros(self.user_num)

@@ -12,6 +12,16 @@ shuffle and row-and-column shuffles.  Every product is B1, ``R`` both ways.
 Draws: the model sets ``step_generator``; :meth:`ssl_draws` draws a step's
 permutations from the epoch's device generator, which a test injects through
 ``loss``'s ``draws`` (JAX's permutations).
+
+On a device mesh with a ``model`` axis > 1 each rank holds a row shard of
+the user and item tables (``row_shards``) and reads them whole with
+autograd (``dist_train.ui_nodes``), so every channel and ``R`` hop runs on
+the whole graphs in every rank; the gates and the attention are
+replicated.  BPR is a sum over the batch, which a ``data`` slice scales by
+``n_whole / b``; the SSL term is a sum over every user under permutations
+of the whole table, which every rank draws alike from the epoch's
+generator, and the L2 of every parameter (``dist_train.reg_params``) is
+whole too: both are computed alike on every rank and counted once.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from torch import nn
 from sslrec_tpu_torch.models import losses
 from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.ops.spmm import spmm, spmm_t
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.utils.initializers import linear_params, xavier_uniform
 
 
@@ -30,6 +41,7 @@ def _l2norm_rows(x):
 
 
 class MHCN(RecModel):
+    mesh_todo = None
     step_generator = True
 
     def __init__(self, cfg, data):
@@ -42,8 +54,7 @@ class MHCN(RecModel):
         self.h_s, self.h_j, self.h_p, self.r = (ex["mhcn_h_s"], ex["mhcn_h_j"], ex["mhcn_h_p"],
                                                 ex["mhcn_r"])
         d, device = self.embedding_size, data.device
-        self.user_embeds = nn.Parameter(torch.empty(self.user_num, d, device=device))
-        self.item_embeds = nn.Parameter(torch.empty(self.item_num, d, device=device))
+        dist_train.ui_tables(self, cfg, d, device)
         self.gating = nn.ModuleList([linear_layer(d, d, device) for _ in range(4)])
         self.sgating = nn.ModuleList([linear_layer(d, d, device) for _ in range(3)])
         self.attn = nn.Parameter(torch.empty(1, d, device=device))
@@ -51,8 +62,10 @@ class MHCN(RecModel):
 
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
-        """Xavier tables and attention, ``nn.Linear``-default gates, from ``gen``."""
-        for p in (self.user_embeds, self.item_embeds, self.attn, self.attn_mat):
+        """Xavier tables and attention, ``nn.Linear``-default gates, from ``gen``
+        (whole tables on every rank of a mesh, each keeping its own rows)."""
+        dist_train.init_ui_tables(self, gen)
+        for p in (self.attn, self.attn_mat):
             p.copy_(xavier_uniform(gen, tuple(p.shape)))
         for lin in (*self.gating, *self.sgating):
             for k, v in linear_params(gen, *lin["w"].shape).items():
@@ -68,11 +81,12 @@ class MHCN(RecModel):
         return sum(score[:, i:i + 1] * c for i, c in enumerate(channels))
 
     def forward(self):
-        g, u = self.gating, self.user_embeds
+        nodes = dist_train.ui_nodes(self)
+        g, u = self.gating, nodes[: self.user_num]
         uc1, uc2, uc3 = self._gate(g[0], u), self._gate(g[1], u), self._gate(g[2], u)
         simp = self._gate(g[3], u)
         acc1, acc2, acc3, acc_s = [uc1], [uc2], [uc3], [simp]
-        item_embeds = self.item_embeds
+        item_embeds = nodes[self.user_num:]
         acc_i = [item_embeds]
         for _ in range(self.layer_num):
             mixed = self._channel_attention(uc1, uc2, uc3) + simp / 2.0
@@ -125,15 +139,20 @@ class MHCN(RecModel):
 
     def loss(self, batch: dict, gen: torch.Generator | None, draws: list | None = None):
         """BPR (summed) + L2 of every parameter + ``ss_rate`` × the three
-        channels' SSL terms; ``draws`` (else from ``gen``) as :meth:`ssl_draws`."""
+        channels' SSL terms; ``draws`` (else from ``gen``) as :meth:`ssl_draws`.
+        On a mesh the batch is a ``data`` slice, whose BPR scales by
+        ``n_whole / b``."""
         hp = batch.get("hp", {})
         reg_w = hp.get("reg_weight", self.reg_weight)
         ss_rate = hp.get("ss_rate", self.ss_rate)
         draws = self.ssl_draws(gen) if draws is None else draws
         user_embeds, item_embeds = self.forward()
-        bpr = losses.bpr_loss(user_embeds[batch["user"]], item_embeds[batch["pos"]],
+        ancs = batch["user"]
+        bpr = losses.bpr_loss(user_embeds[ancs], item_embeds[batch["pos"]],
                               item_embeds[batch["neg"]])
-        reg = reg_w * losses.reg_params(dict(self.named_parameters()))
+        if self.mesh is not None:
+            bpr = bpr * (batch["n_whole"] / ancs.shape[0])
+        reg = reg_w * dist_train.reg_params(self, self.mesh)
         sg = self.sgating
         ss = sum(self._hierarchical_ssl(self._gate(sg[c], user_embeds), adj, draws[c])
                  for c, adj in enumerate((self.h_s, self.h_j, self.h_p))) * ss_rate

@@ -15,6 +15,19 @@ Every hop is B1, and so is the backward of the endpoint gathers
 Draws: the model sets ``step_generator``; :meth:`step_draws` draws the
 step's row shuffle from the epoch's device generator, which a test injects
 through ``loss``'s ``draws`` (JAX's permutation).
+
+On a device mesh with a ``model`` axis > 1 each rank holds a row shard of
+the user and item tables (``row_shards``) and reads them whole with
+autograd (``dist_train.ui_nodes``), so every metapath tower and Informax
+runs on the whole graphs in every rank; the hop weights, PReLU and the
+attention are replicated, and the host-sampled metapaths are constants
+every rank holds whole.  BPR and the picked rows' L2 are sums over the
+batch, which a ``data`` slice scales by ``n_whole / b``.  Informax is not:
+its mask is the union of the whole batch's nodes and its denominator counts
+it, so every ``data`` rank gathers the batch's ids
+(``dist_train.gather_batch``) and computes it whole, alike on every rank,
+under a row shuffle of the whole node table; its edge reconstruction is
+over every one-hop edge and counted once.
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ from sslrec_tpu_torch.models import losses
 from sslrec_tpu_torch.models.base import RecModel, apply_linear, linear_layer
 from sslrec_tpu_torch.ops.segment_kernel import SegmentOps
 from sslrec_tpu_torch.ops.spmm import spmm
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.utils.initializers import linear_params, xavier_uniform
 
 
@@ -34,6 +48,7 @@ def _l2norm_rows(x):
 
 
 class SMIN(RecModel):
+    mesh_todo = None
     step_generator = True
 
     def __init__(self, cfg, data):
@@ -62,8 +77,7 @@ class SMIN(RecModel):
             return nn.Parameter(torch.empty(shape, device=device))
 
         hops = self.layer_num - 1
-        self.user_embeds = param(self.user_num, d)
-        self.item_embeds = param(self.item_num, d)
+        dist_train.ui_tables(self, cfg, d, device)
         self.u_conv_w = nn.ParameterList([param(d, d) for _ in range(len(self.user_paths) * hops)])
         self.i_conv_w = nn.ParameterList([param(d, d) for _ in range(len(self.item_paths) * hops)])
         self.prelu = param()
@@ -78,8 +92,10 @@ class SMIN(RecModel):
     @torch.no_grad()
     def init_params(self, gen: torch.Generator) -> None:
         """Xavier tables, hop weights and attention outputs, ``nn.Linear``-default
-        attention inputs, PReLU slope 0.25, from ``gen``."""
-        for p in (self.user_embeds, self.item_embeds, *self.u_conv_w, *self.i_conv_w):
+        attention inputs, PReLU slope 0.25, from ``gen`` (whole tables on every
+        rank of a mesh, each keeping its own rows)."""
+        dist_train.init_ui_tables(self, gen)
+        for p in (*self.u_conv_w, *self.i_conv_w):
             p.copy_(xavier_uniform(gen, tuple(p.shape)))
         self.prelu.fill_(0.25)
         for a in (self.attn_u, self.attn_i):
@@ -108,8 +124,9 @@ class SMIN(RecModel):
         return (beta[None] * z).sum(1)
 
     def forward(self):
-        su = self._metapath_tower(self.user_embeds, self.user_paths, self.u_conv_w)
-        si = self._metapath_tower(self.item_embeds, self.item_paths, self.i_conv_w)
+        nodes = dist_train.ui_nodes(self)
+        su = self._metapath_tower(nodes[: self.user_num], self.user_paths, self.u_conv_w)
+        si = self._metapath_tower(nodes[self.user_num:], self.item_paths, self.i_conv_w)
         return self._semantic_attention(self.attn_u, su), self._semantic_attention(self.attn_i, si)
 
     def step_draws(self, gen: torch.Generator) -> dict:
@@ -138,7 +155,9 @@ class SMIN(RecModel):
 
     def loss(self, batch: dict, gen: torch.Generator | None, draws: dict | None = None):
         """BPR (summed) + reg · L2 of the picked rows + Informax over the batch's
-        nodes; ``draws`` (else from ``gen``) as :meth:`step_draws` returns them."""
+        nodes; ``draws`` (else from ``gen``) as :meth:`step_draws` returns them.
+        On a mesh the batch is a ``data`` slice: BPR and L2 scale by ``n_whole
+        / b``, and Informax's mask takes the whole batch's ids."""
         hp = batch.get("hp", {})
         reg_w = hp.get("reg_weight", self.reg_weight)
         lam1 = hp.get("lambda1", self.lambda1)
@@ -149,6 +168,11 @@ class SMIN(RecModel):
         anc_e, pos_e, neg_e = user_embeds[ancs], item_embeds[poss], item_embeds[negs]
         bpr = losses.bpr_loss(anc_e, pos_e, neg_e)
         reg = reg_w * losses.reg_pick_embeds([anc_e, pos_e, neg_e])
+        if self.mesh is not None:
+            n = batch["n_whole"]
+            bpr, reg = bpr * (n / ancs.shape[0]), reg * (n / ancs.shape[0])
+            ancs, poss, negs = (dist_train.gather_batch(x, n, self.mesh)
+                                for x in (ancs, poss, negs))
         feats = torch.cat([user_embeds, item_embeds], 0)
         p_xj, n_xj, p_xi, n_xi, rebuilt = self._informax(feats, draws["perm"])
         mask = feats.new_zeros(feats.shape[0])

@@ -129,8 +129,22 @@ def _bundle(inp: dict, device, cfg=None):
     handler's ``bundle_from_kg`` takes them, under ``cfg``), a multi-behavior
     one (``inp["mb"]``: ``behaviors``, their ``mats``, ``tst`` and the
     optional ``meta_mats``, ``meta_users``, ``kg_triplets``, as
-    ``bundle_from_behaviors`` takes them), else a general_cf one from the
-    ``trn`` / ``val`` / ``tst`` matrices."""
+    ``bundle_from_behaviors`` takes them), a social one (``inp["social"]``:
+    ``trn``, ``tst``, ``trust`` and the optional ``trn_time``, as the social
+    handler's ``bundle_from_matrices`` takes them, and ``metapaths``, SMIN's
+    sampled metapath matrices in place of the handler's own draw), else a
+    general_cf one from the ``trn`` / ``val`` / ``tst`` matrices."""
+    if inp.get("social") is not None:
+        from sslrec_tpu_torch.data import social
+        soc = inp["social"]
+        draw = social.gen_metapaths
+        if soc.get("metapaths") is not None:
+            social.gen_metapaths = lambda *a, **k: dict(soc["metapaths"])
+        try:
+            return social.bundle_from_matrices(cfg, soc["trn"], soc["tst"], soc["trust"],
+                                               device, trn_time=soc.get("trn_time"))
+        finally:
+            social.gen_metapaths = draw
     if inp.get("mb") is not None:
         from sslrec_tpu_torch.data.multi_behavior import bundle_from_behaviors
         mb = inp["mb"]
@@ -155,7 +169,7 @@ def _tensors(x, device):
         return {k: _tensors(v, device) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return type(x)(_tensors(v, device) for v in x)
-    if isinstance(x, (int, float)):     # a scalar the model reads as such (CML's epoch)
+    if x is None or isinstance(x, (int, float)):    # a scalar the model reads as such
         return x
     return torch.from_numpy(np.asarray(x)).to(device)
 
@@ -243,7 +257,7 @@ def model_step(inp: dict) -> dict:
     from the whole batch ``user``/``pos`` (and ``neg`` where the model's
     ``batch_fields`` have it): this rank's ``data`` slice of the batch (with
     its ``share`` and ``n_whole``, as the Trainer makes it), ``aux`` and
-    ``draws`` where given, or the view bank of ``epoch_state(None, 0,
+    ``draws`` (DcRec: ``views``) where given, or the view bank of ``epoch_state(None, 0,
     draws=inp["epoch_draws"])`` from the loaded parameters (AutoCF's and
     GFormer's, over ``n_batches`` steps), at step ``step`` (default 0).  A
     model with its own ``train_step`` (CML, KMCLR, AdaGCL) takes it: the
@@ -251,7 +265,8 @@ def model_step(inp: dict) -> dict:
     whole parameters after it and its optimizers' whole moments.  Any
     other: ``loss(batch, key, draws=...)`` (``key`` a PRF key),
     :func:`~.dist_train.mesh_backward` and the gradients summed over
-    ``data``: the whole batch's loss terms and the whole gradients."""
+    ``data``: the whole batch's loss terms, the whole gradients and their
+    global norm (:func:`~.dist_train.global_norm`)."""
     model, cfg = _model(inp)
     dev = _dev(inp)
     mesh = model.mesh
@@ -267,9 +282,7 @@ def model_step(inp: dict) -> dict:
     if inp.get("epoch_draws") is not None:      # a view bank made here from the parameters
         model._n_batches_hint = int(inp["n_batches"])
         batch["aux"] = model.epoch_state(None, 0, draws=_tensors(inp["epoch_draws"], dev))
-    kw = {}
-    if inp.get("draws") is not None:
-        kw["draws"] = _tensors(inp["draws"], dev)
+    kw = {k: _tensors(inp[k], dev) for k in ("draws", "views") if inp.get(k) is not None}
     key = None if inp.get("key") is None else torch.from_numpy(inp["key"]).to(dev)
     shapes = {k: tuple(model.state_dict()[k].shape) for k in model.row_shards}
     if hasattr(model, "train_step"):
@@ -283,6 +296,7 @@ def model_step(inp: dict) -> dict:
     terms = dist_train.reduce_terms({**terms, "loss": loss.detach()}, mesh, share)
     return {"terms": {k: float(v) for k, v in terms.items()},
             "grads": _whole_params(model, "grad"), "local_shapes": shapes,
+            "norm": float(dist_train.global_norm(model, mesh)),
             "local_rows": next(iter(shapes.values()))[0]}
 
 
@@ -429,21 +443,28 @@ B2_LAYOUTS = {"KGCL": lambda m: {"kg_heads": m.seg_h.layout},
 
 def whole_layouts(model) -> dict:
     """The B1 layouts of the whole graphs a model holds as attributes (a
-    ``CsrGraph``, or one in a list or tuple: MBGMN's behavior pairs), each
-    once, by ``<attribute>[.<index>…]:forward`` / ``:transposed``: the
-    layouts on which a model that partitions no graph runs every hop in
-    every rank (DCCF, HCCF, LightGCL, AutoCF, GFormer, AdaGCL, MBGMN)."""
+    ``CsrGraph``, or one in a list or tuple: MBGMN's behavior pairs, SMIN's
+    metapaths), each once, by ``<attribute>[.<index>…]:forward`` /
+    ``:transposed``, and of its segment ops (``SegmentOps``: KCGN's and
+    SMIN's sums and gathers over constant ids) by ``<attribute>:segments``:
+    the layouts on which a model that partitions no graph runs every hop in
+    every rank (DCCF, HCCF, LightGCL, AutoCF, GFormer, AdaGCL, MBGMN and the
+    social five)."""
+    from sslrec_tpu_torch.ops.segment_kernel import SegmentOps
+
     out, seen = {}, set()
 
     def visit(name, x):
-        if isinstance(x, CsrGraph):
-            for tag, lay in (("forward", x.fwd), ("transposed", x.bwd)):
-                if id(lay) not in seen:
-                    seen.add(id(lay))
-                    out[f"{name}:{tag}"] = lay
-        elif isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
             for i, v in enumerate(x):
                 visit(f"{name}.{i}", v)
+            return
+        lays = ({"segments": x.layout.csr} if isinstance(x, SegmentOps)
+                else {"forward": x.fwd, "transposed": x.bwd} if isinstance(x, CsrGraph) else {})
+        for tag, lay in lays.items():
+            if id(lay) not in seen:
+                seen.add(id(lay))
+                out[f"{name}:{tag}"] = lay
 
     for name, x in vars(model).items():
         visit(name, x)

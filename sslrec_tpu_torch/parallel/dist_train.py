@@ -21,13 +21,15 @@ reduce-scatter.  A batch's rows come from the shards through
 
 Hops that run on the whole graph (SGL's and SimGCL's augmented views, NCL's
 and DirectAU's hops, and every hop of the models that partition no graph:
-LightGCL, HCCF, DCCF, AutoCF, GFormer, AdaGCL, MBGMN) read the tables whole
-through :func:`whole_nodes`, one gather whose adjoint is again the
-reduce-scatter (:func:`ui_tables`, :func:`init_ui_tables` and
-:func:`ui_nodes` hold, draw and read such a model's user and item tables);
-a term that crosses the batch gathers the batch's rows over the ``data``
-group (:func:`gather_batch`), and :func:`reg_params` sums the row shards'
-L2 over ``model``.
+LightGCL, HCCF, DCCF, AutoCF, GFormer, AdaGCL, MBGMN and the social five)
+read the tables whole through :func:`whole_nodes`, one gather whose adjoint
+is again the reduce-scatter (:func:`row_tables` and :func:`init_rows` hold
+and draw such a model's row-sharded tables, :func:`ui_nodes` reads its user
+and item tables as one, :func:`whole_param` any one of them); a term that
+crosses the batch gathers the batch's rows over the ``data`` group
+(:func:`gather_batch`: DirectAU's uniformity, DCCF's in-batch contrast, the
+union of the batch's ids that KCGN's and SMIN's DGI masks take), and
+:func:`reg_params` sums the row shards' L2 over ``model``.
 
 A model whose user and item rows live in one fused table (the KG models'
 ``all_embed [users; entities]``) row-shards that table contiguously: rank
@@ -407,28 +409,45 @@ def gather_whole(local: torch.Tensor, n_rows: int, mesh: Mesh) -> torch.Tensor:
 UI_TABLES = ("user_embeds", "item_embeds")
 
 
-def ui_tables(model, cfg, width: int, device, names=UI_TABLES) -> None:
-    """Give ``model`` its user and item tables (``names``, ``[n, width]``,
-    uninitialised) as a model that reads them whole holds them: its
-    ``mesh`` (``train.mesh`` of ``cfg``) and, on a model-sharded mesh, a row
-    shard of each, listed in its ``row_shards``."""
+def row_tables(model, cfg, device, tables: dict) -> None:
+    """Give ``model`` the tables ``tables`` (``{name: whole shape}``,
+    uninitialised) as a model that reads them whole holds them: its ``mesh``
+    (``train.mesh`` of ``cfg``) and, on a model-sharded mesh, a row shard of
+    each, listed in its ``row_shards``."""
     model.mesh = mesh_from_config(cfg, device)
-    counts = dict(zip(names, (model.user_num, model.item_num)))
     if model_sharded(model.mesh):
-        model.row_shards = counts
-    for name, n in counts.items():
+        model.row_shards = {**model.row_shards, **{k: s[0] for k, s in tables.items()}}
+    for name, (n, *rest) in tables.items():
         setattr(model, name, torch.nn.Parameter(
-            torch.empty(shard_rows(n, model.mesh), width, device=device)))
+            torch.empty(shard_rows(n, model.mesh), *rest, device=device)))
+
+
+def ui_tables(model, cfg, width: int, device, names=UI_TABLES) -> None:
+    """:func:`row_tables` of ``model``'s user and item tables (``names``,
+    ``[n, width]``)."""
+    row_tables(model, cfg, device, dict(zip(names, ((model.user_num, width),
+                                                    (model.item_num, width)))))
 
 
 @torch.no_grad()
-def init_ui_tables(model, gen: torch.Generator, names=UI_TABLES) -> None:
-    """Xavier-uniform user and item tables of :func:`ui_tables`, drawn user
-    table first from ``gen``: whole on every rank of a mesh, as one device
-    draws them, each rank keeping its own rows."""
-    for name, n in zip(names, (model.user_num, model.item_num)):
+def init_rows(model, gen: torch.Generator, names) -> None:
+    """Xavier-uniform parameters ``names``, drawn in that order from ``gen``:
+    a table of :func:`row_tables` whole on every rank of a mesh, as one
+    device draws it, each rank keeping its own rows."""
+    shards = model.row_shards
+    for name in names:
         p = getattr(model, name)
-        p.copy_(own_rows(xavier_uniform(gen, (n, p.shape[1])), p.shape[0], model.mesh))
+        if name in shards:
+            p.copy_(own_rows(xavier_uniform(gen, (shards[name], *p.shape[1:])), p.shape[0],
+                             model.mesh))
+        else:
+            p.copy_(xavier_uniform(gen, tuple(p.shape)))
+
+
+def init_ui_tables(model, gen: torch.Generator, names=UI_TABLES) -> None:
+    """:func:`init_rows` of the user and item tables of :func:`ui_tables`,
+    the user table first."""
+    init_rows(model, gen, names)
 
 
 def ui_nodes(model, names=UI_TABLES) -> torch.Tensor:
@@ -436,6 +455,15 @@ def ui_nodes(model, names=UI_TABLES) -> torch.Tensor:
     (:func:`whole_nodes`)."""
     u, i = (getattr(model, name) for name in names)
     return whole_nodes(u, i, model.user_num, model.item_num, model.mesh)
+
+
+def whole_param(model, name: str) -> torch.Tensor:
+    """``model``'s table ``name`` whole, with autograd: gathered over the
+    ``model`` group where it is one of the row shards of :func:`row_tables`
+    (a user table alone, as MHCN's channels read it), else the parameter."""
+    p = getattr(model, name)
+    n = model.row_shards.get(name) if model_sharded(getattr(model, "mesh", None)) else None
+    return p if n is None else gather_whole(p, n, model.mesh)
 
 
 def reg_params(model, mesh: Mesh | None, names=None) -> torch.Tensor:

@@ -134,8 +134,8 @@ def check_model(model_cls, shape) -> None:
         raise NotImplementedError(
             f"train.mesh {shape[0]}x{shape[1]}: {model_cls.__name__} does not run on a "
             f"device mesh yet ({todo}); LightGCN, SGL, SimGCL, NCL, DirectAU, LightGCL, HCCF, "
-            f"DCCF, AutoCF, GFormer, AdaGCL, KGCL, KGIN, KGRec, DiffKG, MBGMN, HMGCR, SMBRec, "
-            f"CML and KMCLR do")
+            f"DCCF, AutoCF, GFormer, AdaGCL, KGCL, KGIN, KGRec, DiffKG, DcRec, DSL, KCGN, MHCN, "
+            f"SMIN, MBGMN, HMGCR, SMBRec, CML and KMCLR do")
 
 
 _MESHES: dict = {}

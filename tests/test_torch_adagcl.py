@@ -32,6 +32,8 @@ from sslrec_tpu_torch.trainer.trainer import Trainer
 from sslrec_tpu_torch.utils import convert
 from test_torch_lightgcn import _batch, _mats
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, ATOL = 1e-5, 1e-7
 OVERRIDES = {"model.embedding_size": 16}
 

@@ -29,6 +29,8 @@ from sslrec_tpu_torch.models.registry import build_model
 from sslrec_tpu_torch.utils import convert
 from test_torch_lightgcn import _batch, _mats
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, ATOL = 1e-5, 1e-7
 OVERRIDES = {"model.embedding_size": 16, "model.fix_steps": 2, "model.seed_num": 5}
 N_BATCHES = 3                   # two views at fix_steps 2

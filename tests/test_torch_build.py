@@ -7,8 +7,11 @@ import os
 import stat
 
 import pytest
+import torch
 
 from sslrec_tpu_torch.ops import cuda_build
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 FAKE_NVCC = """#!/bin/sh
 # stand-in nvcc: writes the -o target, prints a ptxas line, or fails for a

@@ -20,6 +20,8 @@ from test_torch_main import _toy_split
 from test_torch_seq_cli import PER_MODEL as SEQ_PER_MODEL, SMALL as SEQ_SMALL
 from test_torch_seq_data import write_seq_dir
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 
 def _argv(root, model, *more):
     return ["--model", model, "--data_dir", str(root), "--dataset", "toy", "--device", "cpu",

@@ -22,6 +22,8 @@ from sslrec_tpu_torch.models.registry import build_model  # noqa: E402
 from test_torch_mb_data import write_mb_dir  # noqa: E402
 from test_torch_seq_data import write_seq_dir  # noqa: E402
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 
 @pytest.mark.parametrize("lanes,want", [
     ({"a": 0.5, "b": 0.4}, True),                 # equal

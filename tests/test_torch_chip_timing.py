@@ -15,10 +15,13 @@ import os
 import sys
 
 import pytest
+import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 
 class _Event:

@@ -49,6 +49,8 @@ from sslrec_tpu_torch.ops import spmm_kernel as sk
 from sslrec_tpu_torch.utils import convert
 from test_torch_mb_data import mb_split, write_mb_dir
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, GRAD_RTOL, ATOL = 1e-5, 1e-4, 1e-6
 SMALL = {"model.hidden_dim": 8, "train.batch_size": 64, "train.meta_batch": 32,
          "train.SSL_batch": 2, "test.k": [3, 5], "test.batch_size": 64}

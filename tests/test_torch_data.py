@@ -22,6 +22,8 @@ from sslrec_tpu_torch.data import general_cf as tgcf
 from sslrec_tpu_torch.data import sampling as tsampling
 from sslrec_tpu_torch.ops import sparse as tsparse
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 ALIBABA = os.path.join(os.path.dirname(__file__), "..", "datasets", "kg",
                        "alibaba-fashion_kg")
 

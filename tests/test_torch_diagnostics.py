@@ -19,6 +19,8 @@ from sslrec_tpu_torch.models.general_cf import lightgcn
 from sslrec_tpu_torch.utils import dispatch_trace
 from test_torch_main import _toy_split
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 
 def _run(tmp_path, *sets, epochs=2):
     return tmain.main(["--model", "lightgcn", "--data_dir", str(tmp_path), "--dataset", "toy",

@@ -35,6 +35,8 @@ from sslrec_tpu_torch.models.sequential.base_seq import StepDraws
 from sslrec_tpu_torch.utils.convert import diffkg_denoiser_from_jax, diffkg_params_from_jax
 from test_torch_kg_data import write_kg_dir
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, GRAD_RTOL, ATOL = 1e-5, 1e-4, 1e-6
 SMALL = {"model.embedding_size": 8, "model.triplet_num": 5, "model.dims_list": [32],
          "train.batch_size": 32, "test.k": [3, 5], "test.batch_size": 16}

@@ -33,6 +33,8 @@ from sslrec_tpu_torch.ops.segment_kernel import segment_layout_from_ids
 from sslrec_tpu_torch.utils import convert
 from test_torch_lightgcn import _batch, _mats
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, ATOL = 1e-5, 1e-7
 OVERRIDES = {"model.embedding_size": 16, "model.fix_steps": 2}
 N_BATCHES = 3                   # two views at fix_steps 2

@@ -49,6 +49,8 @@ from sslrec_tpu_torch.utils import convert
 from test_torch_social_data import social_split, write_social_dir
 from test_torch_social_metapaths import rated_split
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, ATOL = 1e-5, 1e-6
 CONVERT = {"kcgn": convert.kcgn_params_from_jax, "smin": convert.smin_params_from_jax}
 # (model, overrides, ratings of the train pairs): None keeps the binary split

@@ -16,6 +16,8 @@ from sslrec_tpu_torch.data import kg as tkg
 from sslrec_tpu_torch.ops.spmm import spmm
 from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 
 def write_kg_dir(root, name="toy", n_users=30, n_items=20, n_ents=35, n_rels=3,
                  n_raw=160, seed=0):

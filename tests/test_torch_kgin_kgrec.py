@@ -42,6 +42,8 @@ from sslrec_tpu_torch.trainer.trainer import Trainer
 from sslrec_tpu_torch.utils import convert
 from test_torch_kg_data import write_kg_dir
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, ATOL = 1e-5, 1e-6
 SMALL = {"model.embedding_size": 8, "train.batch_size": 32, "test.k": [3, 5],
          "test.batch_size": 16}

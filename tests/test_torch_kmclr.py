@@ -54,6 +54,8 @@ from sslrec_tpu_torch.ops import spmm_kernel as sk
 from sslrec_tpu_torch.utils import convert
 from test_torch_mb_data import mb_split, write_mb_dir
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, GRAD_RTOL, ATOL = 1e-5, 1e-4, 1e-6
 SMALL = {"model.embedding_size": 8, "model.latent_dim_rec": 8, "train.batch_size": 64,
          "train.SSL_batch": 2, "model.bpr_batch_size": 900, "test.k": [3, 5],

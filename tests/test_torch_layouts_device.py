@@ -18,6 +18,8 @@ from sslrec_tpu_torch.ops import spmm_kernel as sk
 from sslrec_tpu_torch.ops.sparse import CooGraph
 from sslrec_tpu_torch.ops.spmm import spmm, spmm_dense_ref
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 
 def _equal(a, b, what):
     """Every field of two NamedTuples equal (tensors: values and dtype)."""

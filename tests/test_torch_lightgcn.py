@@ -33,6 +33,8 @@ from sslrec_tpu_torch.trainer.metrics import Evaluator as TEvaluator
 from sslrec_tpu_torch.trainer.trainer import Trainer
 from sslrec_tpu_torch.utils.convert import lightgcn_params_from_jax
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 
 def _mats():
     """The matrices of the ``tiny_bundle`` fixture."""

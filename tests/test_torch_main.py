@@ -11,6 +11,8 @@ import torch
 
 from sslrec_tpu_torch import main as tmain
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -22,6 +22,8 @@ from sslrec_tpu_torch.data import multi_behavior as tmb
 from sslrec_tpu_torch.data.registry import load_data
 from tests.conftest import random_ui_matrix
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 MODELS = ("mbgmn", "hmgcr", "smbrec")
 N_USERS, N_ITEMS = 300, 200
 

@@ -25,6 +25,8 @@ from sslrec_tpu_torch.data.registry import load_data
 from sslrec_tpu_torch.models.registry import build_model
 from test_torch_mb_data import N_USERS, mb_split, write_mb_dir
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 META_FILE = "meta_multi_single_beh_user_index_shuffle"
 
 

@@ -38,6 +38,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 EPOCHS = 2
 COMMON = ("train.batch_size=128", "train.test_step=1", "train.save_model=false",
           "train.results_dir=res", "tune.enable=false")

@@ -48,6 +48,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from conftest import random_ui_matrix
 from sslrec_tpu.config import load_config as jload_config
@@ -61,6 +62,8 @@ from sslrec_tpu_torch.parallel import checks, launch
 from sslrec_tpu_torch.utils import convert
 from test_torch_mesh_mb_step import mb_split
 from test_torch_ssl_models import _draws as ssl_draws
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 N_USERS, N_ITEMS, BATCH, N_BATCHES = 61, 41, 31, 3
 OVERRIDES = {"lightgcl": {"model.embedding_size": 16},

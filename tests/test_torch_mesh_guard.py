@@ -1,18 +1,19 @@
 """``train.mesh`` and ``train.distributed`` at the port's CLI
 (``sslrec_tpu_torch/parallel/mesh.py``): a mesh of one device is the
 single-device run (absent, empty, 1×1, and ``{model: 1}``, whose data axis
-fills the CPU's one device); LightGCN, DCCF and MBGMN train on a mesh of
-gloo processes; a mesh that cannot be laid out raises ``ValueError`` as
-``make_mesh`` does, and a model whose mesh branch is not ported
+fills the CPU's one device); LightGCN, DCCF, MBGMN, DSL and MHCN train on a
+mesh of gloo processes; a mesh that cannot be laid out raises ``ValueError``
+as ``make_mesh`` does, and a model whose mesh branch is not ported
 ``NotImplementedError`` naming its ROADMAP item (9, the models that the JAX
 package shards only through GSPMD's generic rule; LightGCN, SGL, SimGCL,
 NCL, DirectAU, LightGCL, HCCF, DCCF, AutoCF, GFormer, AdaGCL, KGCL, KGIN,
-KGRec, DiffKG, MBGMN, HMGCR, SMBRec, CML and KMCLR train), both before any
-data is read; ``train.distributed`` and the variables of a multi-process
+KGRec, DiffKG, DcRec, DSL, KCGN, MHCN, SMIN, MBGMN, HMGCR, SMBRec, CML and
+KMCLR train), both before any data is read; ``train.distributed`` and the variables of a multi-process
 run reach ``init_process_group``."""
 
 import numpy as np
 import pytest
+import torch
 
 from sslrec_tpu_torch import main as tmain
 from sslrec_tpu_torch.config import load_config
@@ -20,19 +21,25 @@ from sslrec_tpu_torch.models import registry
 from sslrec_tpu_torch.parallel import mesh
 from test_torch_main import _toy_split
 from test_torch_mb_data import write_mb_dir
+from test_torch_social_data import write_social_dir
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 
-# the models that train on the Tmall-named multi-behavior split (the rest on the toy)
+# the models that train on the Tmall-named multi-behavior split, and the
+# social ones on the toy social split (the rest on the toy general_cf split)
 MB_SETS = {"mbgmn": ("model.embedding_size=8", "model.sampNum=8", "test.k=[3,5]",
                      "test.batch_size=64")}
+SOCIAL_SETS = {m: ("model.embedding_size=8", "test.k=[3,5]") for m in ("dsl", "mhcn")}
 
 
 def _run(root, *sets, model="lightgcn"):
     dataset = "tmall" if model in MB_SETS else "toy"
+    own = {**MB_SETS, **SOCIAL_SETS}.get(model, ())
     return tmain.main(["--model", model, "--data_dir", str(root), "--dataset", dataset,
                        "--device", "cpu", "--epoch", "1", "--set", "train.batch_size=128",
                        "--set", f"train.results_dir={root / 'res'}",
-                       *[a for s in (*MB_SETS.get(model, ()), *sets) for a in ("--set", s)]])
+                       *[a for s in (*own, *sets) for a in ("--set", s)]])
 
 
 class Stop(Exception):
@@ -43,6 +50,7 @@ class Stop(Exception):
 def toy(tmp_path, monkeypatch):
     _toy_split(tmp_path)
     write_mb_dir(tmp_path)
+    write_social_dir(tmp_path)
     monkeypatch.chdir(tmp_path)
     for var in ("SSLREC_COORDINATOR", "SSLREC_NUM_PROCESSES", "SSLREC_PROCESS_ID",
                 "SSLREC_DISTRIBUTED"):
@@ -80,8 +88,8 @@ TRAINS, CANNOT, NOT_PORTED, FORWARDED = "trains", "cannot", "not ported", "forwa
     ("lightgcn", ("train.mesh.model=2",), CANNOT),
     ("dccf", ("train.mesh.data=2", "train.mesh.model=1"), TRAINS),
     ("mbgmn", ("train.mesh.data=2", "train.mesh.model=2"), TRAINS),
-    ("dsl", ("train.mesh.data=1", "train.mesh.model=2"), NOT_PORTED),
-    ("mhcn", ("train.mesh.data=2", "train.mesh.model=2"), NOT_PORTED),
+    ("dsl", ("train.mesh.data=1", "train.mesh.model=2"), TRAINS),
+    ("mhcn", ("train.mesh.data=2", "train.mesh.model=2"), TRAINS),
     ("bert4rec", ("train.mesh.data=2", "train.mesh.model=1"), NOT_PORTED),
     ("lightgcn", ("train.distributed.coordinator=localhost:1234",
                   "train.distributed.num_processes=2",
@@ -89,11 +97,12 @@ TRAINS, CANNOT, NOT_PORTED, FORWARDED = "trains", "cannot", "not ported", "forwa
     ("lightgcn", ("train.distributed.enable=true",), FORWARDED)])
 def test_more_than_one_device_raises(toy, init_calls, model, sets, expect):
     """A mesh of more than one device trains (LightGCN's and DCCF's on two gloo
-    processes, MBGMN's, of item 9a, on four) or raises before any data is
-    read: ``ValueError`` for a mesh that cannot be laid out on the CPU's one
-    device (the data axis left out fills 1 // 2 = 0 devices),
-    ``NotImplementedError`` naming ROADMAP Queue A item 9 for DSL (on a mesh
-    of the model axis alone) and MHCN (item 9b) and BERT4Rec (item 9c);
+    processes, MBGMN's, of item 9a, on four; DSL's, of item 9b, on the model
+    axis of two alone, MHCN's on four) or raises before any data is read:
+    ``ValueError`` for a mesh that cannot be laid out on the CPU's one device
+    (the data axis left out fills 1 // 2 = 0 devices),
+    ``NotImplementedError`` naming ROADMAP Queue A item 9 for BERT4Rec (item
+    9c);
     ``train.distributed`` is forwarded to ``init_process_group`` (a stand-in
     that stops the run there)."""
     if expect == TRAINS:
@@ -114,16 +123,17 @@ def test_more_than_one_device_raises(toy, init_calls, model, sets, expect):
 
 MESH_MODELS = {"lightgcn", "sgl", "simgcl", "ncl", "directau", "kgcl", "kgin", "kgrec", "diffkg",
                "hmgcr", "smbrec", "cml", "kmclr", "dccf", "hccf", "lightgcl", "autocf", "gformer",
-               "adagcl", "mbgmn"}
+               "adagcl", "mbgmn", "dcrec", "dsl", "kcgn", "mhcn", "smin"}
 
 
 @pytest.mark.parametrize("model", registry.available_models())
 def test_which_models_a_mesh_takes(model):
     """On a mesh of more than one device LightGCN, the four models of ROADMAP
     Queue A item 7, the four KG models of item 8a, the four multi-behavior
-    models of item 8b and the seven of item 9a pass ``check_model``; every
-    other model (items 9b and 9c) raises ``NotImplementedError`` naming item
-    9 (GSPMD's generic rule), and the message names the 20 that run."""
+    models of item 8b, the seven of item 9a and the social five of item 9b
+    pass ``check_model``; every other model (the sequential six of item 9c)
+    raises ``NotImplementedError`` naming item 9 (GSPMD's generic rule), and
+    the message names the 25 that run."""
     cls = registry.model_class(model)
     mesh.check_model(cls, None)
     if model in MESH_MODELS:

@@ -23,6 +23,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from sslrec_tpu_torch import main as tmain
 from sslrec_tpu_torch.parallel import checks, launch
@@ -31,6 +32,8 @@ from test_torch_kg_data import write_kg_dir
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 EPOCHS = 2
 SMALL = ("model.embedding_size=8", "model.triplet_num=5", "train.batch_size=32",

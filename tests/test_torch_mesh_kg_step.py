@@ -40,6 +40,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from sslrec_tpu.config import load_config as jload_config
 from sslrec_tpu.data import kg as jkg
@@ -48,6 +49,8 @@ from sslrec_tpu_torch.parallel import checks, launch
 from sslrec_tpu_torch.utils import convert
 from test_models_kg import _synthetic_kg
 from test_torch_kgin_kgrec import kgin_draws, kgrec_draws
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 BATCH = 31
 SMALL = {"model.embedding_size": 8, "model.triplet_num": 5}

@@ -43,6 +43,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import torch
 
 from sslrec_tpu.config import load_config as jload_config
 from sslrec_tpu.data import multi_behavior as jmb
@@ -52,6 +53,8 @@ from sslrec_tpu.models.registry import build_model as jbuild
 from sslrec_tpu_torch.parallel import checks, launch
 from sslrec_tpu_torch.utils import convert
 from test_learning import _mb_bundle
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 N_USERS, N_ITEMS, BATCH, META_B, EPOCH, BLOCK = 301, 63, 31, 16, 3, 128
 OVERRIDES = {"hmgcr": {"model.hidden_dim": 8},

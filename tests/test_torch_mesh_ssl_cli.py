@@ -22,6 +22,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from sslrec_tpu_torch import main as tmain
 from sslrec_tpu_torch.parallel import checks, launch
@@ -30,6 +31,8 @@ from test_torch_main import _toy_split
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 EPOCHS = 2
 MODELS = {"sgl": (), "simgcl": (),

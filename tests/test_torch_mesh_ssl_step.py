@@ -28,6 +28,7 @@ through the detached ``propagate()``, or an L2 term left unsummed over the
 import jax
 import numpy as np
 import pytest
+import torch
 
 from sslrec_tpu.data.general_cf import bundle_from_matrices as jbundle
 from sslrec_tpu.config import load_config as jload_config
@@ -36,6 +37,8 @@ from sslrec_tpu_torch.utils import convert
 from test_torch_lightgcn import _batch, _keys, _mats
 from test_torch_parallel import _trainer_inputs
 from test_torch_ssl_models import CASES, _draws, prf_edge_drop  # noqa: F401 (a fixture)
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 STEP_CASES = ("sgl", "sgl_random_walk", "sgl_node_drop", "simgcl", "ncl", "directau")
 TRAINER_MODELS = ("sgl", "simgcl", "ncl", "directau")

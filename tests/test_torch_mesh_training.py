@@ -22,6 +22,8 @@ from sslrec_tpu_torch.config import load_config
 from sslrec_tpu_torch.parallel import mesh as mesh_mod
 from test_torch_main import _toy_split
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 EPOCHS = 2
 
 

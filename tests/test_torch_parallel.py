@@ -23,6 +23,7 @@ import pytest
 import scipy.sparse as sp
 from jax.experimental.shard_map import shard_map
 from jax.sharding import PartitionSpec as P
+import torch
 
 from conftest import random_ui_matrix
 from sslrec_tpu.config import load_config as jload_config
@@ -36,6 +37,8 @@ from sslrec_tpu.trainer.metrics import Evaluator as JEvaluator
 from sslrec_tpu_torch.ops.sparse import CooGraph
 from sslrec_tpu_torch.parallel import checks, dist_train, launch
 from sslrec_tpu_torch.parallel.mesh import mesh_dims
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 PROP = dict(rtol=2e-5, atol=2e-6)
 

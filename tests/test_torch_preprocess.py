@@ -12,9 +12,12 @@ import sys
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import torch
 
 from sslrec_tpu.tools.preprocess import build_cooc_kg as jbuild_cooc_kg
 from sslrec_tpu_torch.tools import preprocess
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -34,6 +34,8 @@ from sslrec_tpu_torch.ops import segment as tseg
 from sslrec_tpu_torch.ops import segment_kernel as skn
 from sslrec_tpu_torch.ops import spmm_kernel as sk
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

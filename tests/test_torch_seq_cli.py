@@ -8,9 +8,12 @@ import json
 import math
 
 import pytest
+import torch
 
 from sslrec_tpu_torch import main as tmain
 from test_torch_seq_data import write_seq_dir
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 SMALL = ["--set", "model.embedding_size=16", "--set", "model.max_seq_len=10",
          "--set", "model.n_layers=1", "--set", "train.batch_size=16",

@@ -25,6 +25,8 @@ from sslrec_tpu_torch.models.sequential import duorec as tduorec
 from sslrec_tpu_torch.models.sequential import maerec as tmaerec
 from sslrec_tpu_torch.utils import convert
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 # the JAX package's sequential test shape: d 16, windows of 10, 1 layer, 2 heads
 SMALL = {"model.embedding_size": 16, "model.max_seq_len": 10, "model.n_layers": 1,
          "model.n_heads": 2, "train.batch_size": 16}

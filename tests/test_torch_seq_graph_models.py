@@ -32,6 +32,8 @@ from test_torch_seq_data import make_pair
 from test_torch_seq_layers import grad_close, t, tower_masks
 from test_torch_seq_models import batches
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

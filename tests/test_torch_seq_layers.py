@@ -29,6 +29,8 @@ from sslrec_tpu_torch.models.sequential.cl4srec import nt_xent as tnt_xent
 from sslrec_tpu_torch.models.sequential.iclrec import nce_loss as tnce_loss
 from sslrec_tpu_torch.utils import convert
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

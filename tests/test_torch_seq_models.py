@@ -29,6 +29,8 @@ from sslrec_tpu_torch.utils import convert
 from test_torch_seq_data import make_pair
 from test_torch_seq_layers import aug_draws, grad_close, t, tower_masks
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, ATOL = 1e-5, 1e-6
 B = 16
 

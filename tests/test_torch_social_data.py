@@ -23,6 +23,8 @@ from sslrec_tpu_torch.data import social as tsocial
 from sslrec_tpu_torch.data.registry import load_data
 from sslrec_tpu_torch.models.registry import build_model
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -27,6 +27,8 @@ from sslrec_tpu_torch.models.social import kcgn as tkcgn
 from sslrec_tpu_torch.ops import sparse as tsparse
 from test_torch_social_data import _dense_j, _dense_t, social_split, write_social_dir
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 
 def _same(a, b, what):
     a, b = sp.csr_matrix(a), sp.csr_matrix(b)

@@ -32,6 +32,8 @@ from sslrec_tpu_torch.models.social.dcrec import EDGE_ADD
 from sslrec_tpu_torch.utils import convert
 from test_torch_social_data import social_split
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, ATOL = 1e-5, 1e-6
 CONVERT = {"dcrec": convert.dcrec_params_from_jax, "mhcn": convert.mhcn_params_from_jax,
            "dsl": convert.dsl_params_from_jax}

@@ -26,6 +26,8 @@ from sslrec_tpu_torch.trainer.trainer import Trainer as TTrainer
 from test_torch_social_data import social_split
 from test_torch_social_models import CONVERT, _batch, _check_loss, _pair
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 
 class _Silent:
     def log(self, *a, **k):

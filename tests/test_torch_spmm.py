@@ -32,6 +32,8 @@ from sslrec_tpu_torch.ops import sparse as tsparse
 from sslrec_tpu_torch.ops import spmm as tspmm
 from sslrec_tpu_torch.ops import spmm_kernel as sk
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

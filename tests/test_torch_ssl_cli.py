@@ -27,6 +27,8 @@ from sslrec_tpu_torch.models.registry import build_model
 from sslrec_tpu_torch.trainer.trainer import generator
 from test_torch_main import _toy_split
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 MODELS = ["sgl", "simgcl", "directau", "ncl", "lightgcl", "hccf", "dccf", "autocf", "gformer",
           "adagcl"]
 

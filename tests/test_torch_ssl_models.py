@@ -46,6 +46,8 @@ from sslrec_tpu_torch.trainer.trainer import Trainer
 from sslrec_tpu_torch.utils import convert
 from test_torch_lightgcn import _batch, _keys, _mats
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 RTOL, ATOL = 1e-5, 1e-7
 
 # case: (config name, JAX class, config overrides, scale of the init weights)

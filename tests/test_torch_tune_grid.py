@@ -26,6 +26,8 @@ from test_torch_kg_data import write_kg_dir
 from test_torch_mb_data import mb_split
 from test_torch_seq_data import synthetic_seqs
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 SCORE_TOL = 1e-4
 
 

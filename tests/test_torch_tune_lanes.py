@@ -63,6 +63,8 @@ from test_torch_mb_data import mb_split
 from test_torch_seq_data import synthetic_seqs
 from test_torch_social_data import social_split
 
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
+
 K = 3
 
 

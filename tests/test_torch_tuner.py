@@ -7,6 +7,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from sslrec_tpu.config import load_config as jload_config
 from sslrec_tpu.trainer import tuner as jtuner
@@ -14,6 +15,8 @@ from sslrec_tpu_torch import main as tmain
 from sslrec_tpu_torch.config import load_config as tload_config
 from sslrec_tpu_torch.trainer import tuner as ttuner
 from test_torch_main import _toy_split
+
+torch.set_num_threads(1)    # one intra-op thread: the suite's test workers share the cores
 
 GRID = ["--set", "tune.enable=true", "--set", "tune.hyperparameters=[layer_num, reg_weight]",
         "--set", "tune.layer_num=[1, 2]", "--set", "tune.reg_weight=[1.0e-7, 1.0e-3]"]

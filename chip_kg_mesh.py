@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Measurements behind ``chip_smoke.py`` phases 37(d) to 37(g) (the KG and
+"""Measurements behind ``chip_smoke.py`` phases 37(d) to 37(h) (the KG and
 the multi-behavior families, ROADMAP Queue A item 9a's seven models and
-item 9b's social five on a ``{data: 1, model: 2}`` mesh), each on one CUDA
-card:
+item 9b's social five on a ``{data: 1, model: 2}`` mesh, item 9c's
+sequential six on a ``{data: 2, model: 1}`` one), each on one CUDA card:
 
     python3 chip_kg_mesh.py phase      # phases 37(d) and (e) alone, one spawn; a table beyond
                                        # the tolerance is printed with every table's share of
@@ -14,6 +14,10 @@ card:
     python3 chip_kg_mesh.py phase-social  # phase 37(g) alone (yelp_sub; the single runs
                                           # made here, where the script reuses phases 17
                                           # and 19's)
+    python3 chip_kg_mesh.py phase-seq  # phase 37(h) alone (phase 18's sports-shaped split
+                                       # written first; MESH_SEQ_DATASET, its first quarter)
+    python3 chip_kg_mesh.py phase-seq-whole  # the same on the whole sports-shaped split at
+                                             # phase 23's settings (the depth cut's yardstick)
     python3 chip_kg_mesh.py control    # KGCL's and DiffKG's single runs on the phase's split:
                                        # again, under cuBLASLt, and twice with torch's
                                        # deterministic algorithms
@@ -25,8 +29,8 @@ card:
 Each builds the kernels, writes the synthetic KG and the phase's split
 (``chip_smoke.write_mesh_kg_split``; the multi-behavior ones phase 29's
 Tmall-shaped split and ``chip_smoke.write_mesh_mb_split``'s; 37(f) also
-``write_mesh_cf_split``'s; 37(g) reads the repo's yelp_sub) and prints one
-JSON line last.
+``write_mesh_cf_split``'s; 37(g) reads the repo's yelp_sub; 37(h) writes
+phase 18's sports-shaped split) and prints one JSON line last.
 """
 
 from __future__ import annotations
@@ -79,7 +83,8 @@ def phase(families=("kg", "mb")) -> dict:
     for fam, run, models in (("kg", out["run"], cs.MESH_KG_MODELS),
                              ("mb", out["mb"]["run"], cs.MESH_MB_MODELS),
                              ("gcf", out["gcf"]["run"], cs.MESH_GCF_MODELS),
-                             ("social", out["social"]["run"], cs.MESH_SOCIAL_MODELS)):
+                             ("social", out["social"]["run"], cs.MESH_SOCIAL_MODELS),
+                             ("seq", out["seq"]["run"], cs.MESH_SEQ_MODELS)):
         if run:
             res[fam] = {"mesh_s": run["mesh_s"], "single_s": run["single_s"],
                         "split": run["split"],
@@ -92,6 +97,13 @@ def phase(families=("kg", "mb")) -> dict:
                               "bound_ms": out["mb"]["hops"]["bound"][k][0]}
                           for k, t in out["mb"]["hops"]["t"].items()}
     return res
+
+
+def phase_seq_whole() -> dict:
+    """Phase 37(h) on the whole sports-shaped split (phase 23's), where the
+    phase runs on ``MESH_SEQ_DATASET``: what the depth cut saves."""
+    cs.MESH_SEQ_DATASET = cs.SEQ_DATASET
+    return phase(("seq",))
 
 
 def control(models=("kgcl", "diffkg")) -> dict:
@@ -153,6 +165,7 @@ def main() -> int:
     cs.MESH_MB_TIMED = cs.MESH_MB_TIMED_ALL
     runs = {"phase": phase, "phase-mb": lambda: phase(("mb",)),
             "phase-gcf": lambda: phase(("gcf",)), "phase-social": lambda: phase(("social",)),
+            "phase-seq": lambda: phase(("seq",)), "phase-seq-whole": phase_seq_whole,
             "control": control,
             "control-mb": lambda: control(cs.MESH_MB_MODELS), "regions": regions}
     if what not in runs:
@@ -168,6 +181,8 @@ def main() -> int:
         cs.write_kg_dataset(cs.KG_DATASET, *cs.synthetic_kg())
     if what in ("phase", "phase-mb", "phase-gcf", "control-mb"):
         cs.write_mb_dataset(cs.MB_DATASET)
+    if what.startswith("phase-seq"):
+        cs.write_sports_split()
     out = runs[what]()
     print(json.dumps({what: out, "total_s": time.perf_counter() - t0}), flush=True)
     return 1 if out.get("missed") else 0

@@ -253,7 +253,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``{data: 1, model: 2}`` mesh in 37(d)'s spawn, held as 37(d)'s runs to
    their single runs of phases 17 and 19 (the same arguments; no single
    run is made again), their launches against ``MESH_SOCIAL`` and B1 in
-   each rank on its whole layouts and segment layouts within ``TOL``;
+   each rank on its whole layouts and segment layouts within ``TOL``; (h)
+   the sequential six (``MESH_SEQ_MODELS``) ``MESH_EPOCHS`` epoch each at
+   their published configs on ``MESH_SEQ_DATASET`` (the first quarter of
+   phase 18's sports-shaped split's users, MAERec at batch 16384: the depth
+   cut, ``MESH_SEQ_ARGS``), once on the card and once on a ``{data: 2,
+   model: 1}`` mesh (``MESH_SEQ_RUN``, the axis these replicated models
+   split) in 37(d)'s spawn, held as 37(f)'s runs, their launches against
+   ``MESH_SEQ`` (B1 on DCRec_seq's and MAERec's item graphs; none for the
+   other four) and B1 in each rank on its whole layouts within ``TOL``;
 38. print the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` last.
 
@@ -277,7 +285,9 @@ resume checks of phase 18 resume from the straight run's own state (was a
 third run), and phases 17, 19, 23, 29 and 32 hold ``generate()`` on a CPU
 copy of the run's data (``CPU_FROM_CARD``; was a second load); for 37(g),
 MAERec's resume check (phase 18) and DCRec_seq's grid both ways (phase 36)
-run on ``SEQ_CUT_DATASET`` (was the whole sports-shaped split).
+run on ``SEQ_CUT_DATASET`` (was the whole sports-shaped split); 37(h)
+trains on ``SEQ_CUT_DATASET`` with its single runs made there (phase 23's
+runs on the whole split are not reused).
 
 ``lightgcn_data``, ``kgcl_shapes``, ``ssl_graphs``, ``view_operands`` and
 ``social_operands`` build the paths' operands (``kcgn_smin_operands`` and
@@ -3273,17 +3283,47 @@ MESH_SOCIAL["dcrec"].update({f"added_{k}": {"whole": c} for k, c in DCREC_ADDED_
 MESH_SOCIAL_MODELS = ("dcrec", "mhcn", "dsl", "kcgn", "smin")
 
 
+# B1 launches in each rank of the sequential six's runs on a mesh (ROADMAP
+# Queue A item 9c; phase 37(h)), by layout as in MESH_KG, per training step,
+# per MAERec mask step, per view of its mask bank and per generate().  Every
+# parameter is replicated and every item-graph hop runs on the whole graph in
+# every rank with the single run's draws, so each rank launches what one
+# device launches (SEQ_B1, whose comment counts them); the four models whose
+# towers are dense products launch none.
+MESH_SEQ = {m: {part: {"whole": c} for part, c in zip(("step", "mask", "view", "gen"), counts)
+                if c}
+            for m, counts in SEQ_B1.items()}
+MESH_SEQ_MODELS = SEQ_MODELS
+MESH_SEQ_RUN = {"data": 2, "model": 1}  # phase 37(h): two gloo ranks on card 0, in 37(d)'s spawn
+# Phase 37(h)'s depth cut: the six train on SEQ_CUT_DATASET (the first
+# quarter of the sports-shaped split's users: the same item ids, widths and
+# sequence shapes), single runs made there in the same call, at phase 23's
+# batch sizes (SEQ_BATCH_ARGS) but MAERec's, which trains 3 steps at batch
+# 16384: its decoder's float32 training turns any rounding-level change
+# into an Adam step of about lr once a ReLU of the decoder flips in one run
+# and not the other (a 1e-7 relative change of a single run's item table
+# moves the decoder 7.5e-4 in an epoch on the CPU, where the float64 mesh
+# run stays within 2.2e-14 of the single run), and over its 24 steps at
+# batch 2048 the {2, 1} run moved the decoder 2.65e-3 from the single run
+# and the single run under cuBLASLt 4.82e-4 (PERF.md section 6, on an NVIDIA
+# H100 80GB HBM3 at 700 W)
+MESH_SEQ_DATASET = SEQ_CUT_DATASET
+MESH_SEQ_ARGS = {**SEQ_BATCH_ARGS, "maerec": ["--set", "train.batch_size=16384"]}
+
+
 def mesh_table_want(table: dict, model: str, steps: int, evals: int, epochs: int,
-                    contrast: int = 0, views: int = 0, added=None) -> dict[str, int]:
-    """``table[model]``'s count (``MESH_KG``, ``MESH_MB``, ``MESH_GSPMD_A`` or
-    ``MESH_SOCIAL``), by layout and B2, for ``steps`` steps, ``evals``
-    evaluations, ``epochs`` epochs, ``contrast`` KMCLR contrast steps,
-    ``views`` views (AutoCF's and GFormer's, one regenerating step each) and
-    DcRec's ``added`` views (``{"ui": n, "uu": n}``) of one construction."""
+                    contrast: int = 0, views: int = 0, added=None,
+                    mask: int = 0) -> dict[str, int]:
+    """``table[model]``'s count (``MESH_KG``, ``MESH_MB``, ``MESH_GSPMD_A``,
+    ``MESH_SOCIAL`` or ``MESH_SEQ``), by layout and B2, for ``steps`` steps,
+    ``evals`` evaluations, ``epochs`` epochs, ``contrast`` KMCLR contrast
+    steps, ``views`` views (AutoCF's and GFormer's, one regenerating step
+    each; MAERec's mask bank), DcRec's ``added`` views (``{"ui": n, "uu":
+    n}``) and ``mask`` MAERec mask steps of one construction."""
     added = added or {}
     times = {"step": steps, "gen": evals, "epoch": epochs, "build": 1, "contrast": contrast,
              "view": views, "regen": views, "added_ui": added.get("ui", 0),
-             "added_uu": added.get("uu", 0)}
+             "added_uu": added.get("uu", 0), "mask": mask}
     out = {}
     for part, counts in table[model].items():
         for k, c in counts.items():
@@ -3712,20 +3752,23 @@ def mesh_kg_hops(errs: ErrTrack, gen, dev) -> dict:
 
 def mesh_kg_check(model: str, single: dict, run, control=None) -> dict:
     """One KG (phase 37(d)), multi-behavior (37(e)), item 9a (37(f)) or
-    social (37(g)) model's ``MESH_KG_RUN`` run held against its
-    single-device run: each epoch's loss terms and the test metrics within
-    ``MESH_METRIC_TOL``, the whole tables within ``MESH_PARAM_TOL``, each
-    rank's B1 launches by layout and B2 launches against ``mesh_kg_want``'s,
-    ``MESH_MB``'s, ``MESH_GSPMD_A``'s or ``MESH_SOCIAL``'s count, and each
-    rank's ``layout_probe`` (B1 on its shards, or 37(f)'s and 37(g)'s on its
-    whole graphs and segment layouts, within ``TOL`` of plain, within
-    ``MESH_MB_B1_TOL`` for 37(e); B2 on its whole-KG head layouts bit for
-    bit).  Where a table misses and ``control(model)`` is given (37(f)), that
-    single run under :func:`gemm_order_control` is made and its own move
-    recorded: a missed table passes within that move, and fails beyond it.
-    Returns the deviations and counts."""
-    if run.mesh != MESH_KG_RUN:
-        raise AssertionError(f"{model}: mesh run on {run.mesh}, want {MESH_KG_RUN}")
+    social (37(g)) model's ``MESH_KG_RUN`` run, or a sequential (37(h))
+    model's ``MESH_SEQ_RUN`` run, held against its single-device run: each
+    epoch's loss terms and the test metrics within ``MESH_METRIC_TOL``, the
+    whole tables within ``MESH_PARAM_TOL``, each rank's B1 launches by
+    layout and B2 launches against ``mesh_kg_want``'s, ``MESH_MB``'s,
+    ``MESH_GSPMD_A``'s, ``MESH_SOCIAL``'s or ``MESH_SEQ``'s count, and each
+    rank's ``layout_probe`` (B1 on its shards, or 37(f)'s, 37(g)'s and
+    37(h)'s on its whole graphs and segment layouts, within ``TOL`` of
+    plain, within ``MESH_MB_B1_TOL`` for 37(e); B2 on its whole-KG head
+    layouts bit for bit; a model without a graph probes none).  Where a
+    table misses and ``control(model)`` is given (37(f), 37(h)), that single
+    run under :func:`gemm_order_control` is made and its own move recorded:
+    a missed table passes within that move, and fails beyond it.  Returns
+    the deviations and counts."""
+    shape = MESH_SEQ_RUN if model in MESH_SEQ else MESH_KG_RUN
+    if run.mesh != shape:
+        raise AssertionError(f"{model}: mesh run on {run.mesh}, want {shape}")
     param_diff = table_diff(run.best_state, single["best_state"])
     misses = [k for k, v in single["best_state"].items()
               if not torch.allclose(run.best_state[k], v, **MESH_PARAM_TOL)]
@@ -3755,6 +3798,10 @@ def mesh_kg_check(model: str, single: dict, run, control=None) -> dict:
     elif model in MESH_SOCIAL:
         want = mesh_table_want(MESH_SOCIAL, model, steps, MESH_EPOCHS + 2, MESH_EPOCHS,
                                added=single["added"])
+    elif model in MESH_SEQ:
+        views = MESH_EPOCHS * -(-single["n_batches"] // single["mask_steps"])
+        want = mesh_table_want(MESH_SEQ, model, steps, MESH_EPOCHS + 2, MESH_EPOCHS,
+                               views=views, mask=views)
     else:
         want = mesh_kg_want(model, steps, MESH_EPOCHS + 2, MESH_EPOCHS)
     got = mesh_kg_launches(run, single["n_users"], single["n_side"])
@@ -3764,7 +3811,10 @@ def mesh_kg_check(model: str, single: dict, run, control=None) -> dict:
     probes = [r["probe"] for r in run.ranks]
     b1_err = max(v for pr in probes for v in pr["b1"].values()) if probes[0]["b1"] else None
     b1_tol = MESH_MB_B1_TOL if model in MESH_MB else TOL     # 37(d) and 37(f): TOL
-    if b1_err is None or b1_err > b1_tol or not all(all(pr["b2"].values()) for pr in probes):
+    # every model with B1 launches probes its layouts (the four sequential
+    # models whose towers are dense products hold none)
+    if (b1_err is None and want) or (b1_err is not None and b1_err > b1_tol) \
+            or not all(all(pr["b2"].values()) for pr in probes):
         raise AssertionError(f"{model}: the ranks' kernels against plain: {probes}")
     control_diff = None
     if misses and control is not None:
@@ -3779,7 +3829,7 @@ def mesh_kg_check(model: str, single: dict, run, control=None) -> dict:
                              + (f" and the single run's own move under cuBLASLt {control_diff}"
                                 if control_diff is not None else ""))
     return {"param_diff": param_diff, "param_tol_use": tol_use, "metric_diff": metric_diff,
-            "control_param_diff": control_diff,
+            "control_param_diff": control_diff, "graph_nnz": single.get("graph_nnz", {}),
             "losses": losses,
             "by_layout_by_rank": got, "want_by_layout": want, "steps": steps,
             "probe_b1_max_rel_err": b1_err,
@@ -3797,11 +3847,16 @@ def mesh_reference(model: str, tr, s: float) -> dict:
             "n_train": tr.data.n_train, "k": list(tr.cfg.test.k),
             "n_bpr": int(getattr(tr.model, "n_bpr", 0)),
             "fix_steps": int(getattr(tr.model, "fix_steps", 1)),
-            "added": dict(getattr(tr.model, "added_views", {})), "s": s}
+            "added": dict(getattr(tr.model, "added_views", {})),
+            "mask_steps": int(getattr(tr.model, "mask_steps", 1)),
+            "graph_nnz": {k.split(":")[0]: int(lay.cols.shape[0])
+                          for k, lay in mesh_checks.whole_layouts(tr.model).items()
+                          if k.endswith(":forward")} if model in MESH_SEQ else {},
+            "s": s}
 
 
 def mesh_single(model: str, argv: list, results: str) -> dict:
-    """A phase 37(d), (e), (f) or (g) model's single-device run (``argv``):
+    """A phase 37(d) to (h) model's single-device run (``argv``):
     :func:`mesh_reference`."""
     t0 = time.perf_counter()
     tr = port_main.main(argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/{results}_single"])
@@ -3834,22 +3889,26 @@ def mesh_kg_run(device: str = "cuda", families=("kg",), extra=(), singles=None) 
     37(e)'s HMGCR, SMBRec, CML and KMCLR on ``MESH_MB_DATASET``
     (:func:`write_mesh_mb_split`) too, and with ``"gcf"`` phase 37(f)'s
     ``MESH_GCF_MODELS`` (:func:`mesh_gcf_root`; a table that misses is held
-    to its single run's own move under cuBLASLt), and with ``"social"``
-    phase 37(g)'s ``MESH_SOCIAL_MODELS`` on yelp_sub, their mesh runs in
-    the same spawn; ``extra`` (``(argv, shape)`` pairs of the spawn's world
+    to its single run's own move under cuBLASLt), with ``"social"`` phase
+    37(g)'s ``MESH_SOCIAL_MODELS`` on yelp_sub, and with ``"seq"`` phase
+    37(h)'s ``MESH_SEQ_MODELS`` on ``MESH_SEQ_DATASET`` (written in phase
+    18, :func:`write_sports_split`) on a ``MESH_SEQ_RUN`` mesh (a missed
+    table held as 37(f)'s), their mesh runs in the same spawn; ``extra``
+    (``(argv, shape)`` pairs of the spawn's world
     size: 37(b)'s SGL ``MESH_SPLIT_REF`` run) join the spawn, unprobed, and
     come back under ``"extra"``.  ``singles`` (``{model:``
     :func:`mesh_reference` ``}``) holds single runs made already with the
     same arguments (phases 17 and 19's of the social five), which are not
     made again.  ``device`` "cpu" runs it all on the CPU (a call there
     counts where the card counts a launch).  Returns each family's results
-    by its name (``"kg"``, ``"mb"``, ``"gcf"``, ``"social"``)."""
+    by its name (``"kg"``, ``"mb"``, ``"gcf"``, ``"social"``, ``"seq"``)."""
     datasets = {"kg": (MESH_KG_MODELS, lambda m: (SMOKE_RESULTS, MESH_KG_DATASET),
                        write_mesh_kg_split),
                 "mb": (MESH_MB_MODELS, lambda m: (MESH_MB_DIR, MB_DATASET), write_mesh_mb_split),
                 "gcf": (MESH_GCF_MODELS, mesh_gcf_root,
                         lambda: write_mesh_gcf_splits(families)),
-                "social": (MESH_SOCIAL_MODELS, lambda m: (DATA_DIR, SOCIAL_DATASET), dict)}
+                "social": (MESH_SOCIAL_MODELS, lambda m: (DATA_DIR, SOCIAL_DATASET), dict),
+                "seq": (MESH_SEQ_MODELS, lambda m: (SMOKE_RESULTS, MESH_SEQ_DATASET), dict)}
     argvs, splits = {}, {}
     singles = dict(singles or {})
     for fam in families:
@@ -3860,20 +3919,21 @@ def mesh_kg_run(device: str = "cuda", families=("kg",), extra=(), singles=None) 
             argvs[m] = ["--model", m, "--data_dir", root, "--dataset", dataset,
                         "--epoch", str(MESH_EPOCHS), "--device", device,
                         "--set", "train.test_step=1", "--set", "tune.enable=false",
-                        *MESH_KG_ARGS.get(m, [])]
+                        *(MESH_SEQ_ARGS if fam == "seq" else MESH_KG_ARGS).get(m, [])]
             if m not in singles:
                 singles[m] = mesh_single(m, argvs[m], f"mesh_{fam}")
         n = {(singles[m]["n_users"], singles[m]["n_train"]) for m in models}
         log(f"  {fam}: users, train pairs {n}; single runs "
             f"{ {m: round(singles[m]['s'], 1) for m in models} } s")
     t0 = time.perf_counter()
+    fams = {m: fam for fam in families for m in datasets[fam][0]}
     runs = mesh_spawn([argv + ["--set", f"train.results_dir={SMOKE_RESULTS}/mesh_kg"]
                        for argv in argvs.values()] + [argv for argv, _ in extra],
-                      [MESH_KG_RUN] * len(argvs) + [shape for _, shape in extra],
+                      [MESH_SEQ_RUN if fams[m] == "seq" else MESH_KG_RUN for m in argvs]
+                      + [shape for _, shape in extra],
                       probe=[True] * len(argvs) + [False] * len(extra),
                       device="cuda:0" if device == "cuda" else device)
     mesh_s = time.perf_counter() - t0
-    fams = {m: fam for fam in families for m in datasets[fam][0]}
     out = {fam: {"mesh_s": mesh_s, "split": splits[fam],
                  "single_s": {m: singles[m]["s"] for m in datasets[fam][0]}}
            for fam in families}
@@ -3886,16 +3946,18 @@ def mesh_kg_run(device: str = "cuda", families=("kg",), extra=(), singles=None) 
     for m, run in zip(argvs, runs):
         fam = fams[m]
         out[fam][m] = r = mesh_kg_check(m, singles[m], run,
-                                        control if fam == "gcf" else None)
+                                        control if fam in ("gcf", "seq") else None)
         use = {k: round(v, 3) for k, v in r["param_tol_use"].items()}
+        probe = ("no graph to probe" if r["probe_b1_max_rel_err"] is None else
+                 f"B1 on its {'shards' if fam in ('kg', 'mb') else 'whole graphs'} within "
+                 f"{r['probe_b1_max_rel_err']:.3g} of plain")
         log(f"  {m}: losses {r['losses']}; whole tables' max abs diff {r['param_diff']} "
             f"(share of MESH_PARAM_TOL used: {use}); test "
             f"metrics' max abs diff {r['metric_diff']}; test recall@20 "
             f"{r['test_recall20']:.5f}; launches in each rank {r['want_by_layout']} over "
-            f"{r['steps']} steps; in each rank B1 on its "
-            f"{'whole graphs' if fam in ('gcf', 'social') else 'shards'} within "
-            f"{r['probe_b1_max_rel_err']:.3g} of plain, B2 exact on {r['probe_b2_layouts']}")
-    log(f"  the {MESH_KG_RUN} mesh of 2 gloo processes ran {', '.join(argvs)}"
+            f"{r['steps']} steps; in each rank {probe}, B2 exact on {r['probe_b2_layouts']}")
+    shapes = sorted({str(MESH_SEQ_RUN if fams[m] == "seq" else MESH_KG_RUN) for m in argvs})
+    log(f"  the {' and '.join(shapes)} meshes of 2 gloo processes ran {', '.join(argvs)}"
         + (f" and {len(extra)} other run(s)" if extra else "")
         + f" in {mesh_s:.1f} s (processes, data, {MESH_EPOCHS} epoch each, evaluations, probes)")
     return out
@@ -4042,10 +4104,12 @@ def mesh_phases(gen, data, cfg, dev, social_refs=None) -> dict:
     LightGCN and SGL on a mesh of four gloo ranks on the one card, (c)
     NCCL, (d) the KG family, (e) the multi-behavior family, (f) the models
     of ROADMAP Queue A item 9a and (g) the social five (held to their runs
-    of phases 17 and 19, ``social_refs``) on a mesh of two gloo ranks, in
-    one spawn with (b)'s SGL reference."""
+    of phases 17 and 19, ``social_refs``) on a mesh of two gloo ranks, and
+    (h) the sequential six on a 2x1 mesh, in one spawn with (b)'s SGL
+    reference."""
     log("== 37. the device mesh: partitioned hops, a 2x2 mesh on the card, NCCL, the KG "
-        "and multi-behavior families, item 9a's seven and the social five on a 1x2 mesh")
+        "and multi-behavior families, item 9a's seven and the social five on a 1x2 mesh, "
+        "the sequential six on a 2x1 mesh")
     t0 = time.perf_counter()
     errs = ErrTrack()
     hops = mesh_hops(errs, gen, data, int(cfg.model.embedding_size), dev)
@@ -4058,23 +4122,24 @@ def mesh_phases(gen, data, cfg, dev, social_refs=None) -> dict:
     return {"errs": errs, "hops": hops, "run": run, "nccl": nccl, "kg": kg}
 
 
-def mesh_kg_phase(gen, dev, families=("kg", "mb", "gcf", "social"), extra=(),
+def mesh_kg_phase(gen, dev, families=("kg", "mb", "gcf", "social", "seq"), extra=(),
                   singles=None) -> dict:
-    """Phases 37(d) to (g): :func:`mesh_kg_hops` and :func:`mesh_mb_hops`,
+    """Phases 37(d) to (h): :func:`mesh_kg_hops` and :func:`mesh_mb_hops`,
     then :func:`mesh_kg_run` of the ``families`` (and the ``extra`` runs,
     given the ``singles``) in one spawn."""
-    log("  (d) the KG family, (e) the multi-behavior family, (f) item 9a's seven and (g) "
-        "the social five on the mesh")
+    log("  (d) the KG family, (e) the multi-behavior family, (f) item 9a's seven, (g) "
+        "the social five and (h) the sequential six on the mesh")
     t0 = time.perf_counter()
     errs = ErrTrack()
     hops = mesh_kg_hops(errs, gen, dev) if "kg" in families else None
     mb_hops = mesh_mb_hops(errs, gen, dev) if "mb" in families else None
     run = mesh_kg_run(dev.type, families, extra, singles)
     s = time.perf_counter() - t0
-    log(f"  phases 37(d) to (g) took {s:.1f} s")
+    log(f"  phases 37(d) to (h) took {s:.1f} s")
     return {"errs": errs, "hops": hops, "run": run.get("kg"), "s": s,
             "mb": {"hops": mb_hops, "run": run.get("mb")}, "gcf": {"run": run.get("gcf")},
-            "social": {"run": run.get("social")}, "extra": run["extra"]}
+            "social": {"run": run.get("social")}, "seq": {"run": run.get("seq")},
+            "extra": run["extra"]}
 
 
 def mesh_mb_rows(mm: dict, b1_row) -> list[dict]:
@@ -4898,6 +4963,36 @@ def main() -> int:
             library_call=sparse_mm,
             launches_of=[f"{m}'s {MESH_KG_RUN} mesh run, both ranks" for m in models]))
     rows_b1[-1]["mesh_social"] = {"run": dict(ms)}
+    mq = mk["seq"]["run"]
+    # phase 37(h): every rank runs DCRec_seq's and MAERec's item-graph hops on
+    # the whole graph; each row times one of those graphs at the whole
+    # sports-shaped split (phase 26; its degree sums and spreads at d 1 beside
+    # it) and counts the launches in both ranks of the model's mesh run, on
+    # MESH_SEQ_DATASET's graph of the same kind (its nnz in the row)
+    seq_rows = (("mesh_seq_dcrec_seq_adj_hop", "dcrec_seq_adj_hop_d64", "dcrec_seq_deg_d1",
+                 "dcrec_seq", "adj", "DCRec_seq's transition graph (and its similarity and "
+                 "test graphs; its degree, readout and count sums)"),
+                ("mesh_seq_maerec_hop", "maerec_hop_d64", "maerec_spread_d1", "maerec", "graph",
+                 "MAERec's distance-3 graph (its encoder hops, path scores, degree sums and "
+                 "closure spreads)"))
+    for key, timed, d1_key, model, graph, what in seq_rows:
+        counts = sum(c.get("whole", 0) for c in mq[model]["by_layout_by_rank"])
+        n_r, n_c, nnz_k, d_k = seq["shapes"][timed]
+        rows_b1.append(b1_row(
+            f"csr_spmm.{key}", seq["t"][timed], seq["bound"][timed], (counts, None), seq["errs"],
+            {"n_rows": n_r, "n_cols": n_c, "nnz": nnz_k, "d": d_k, "layout": "forward",
+             "what": f"B1 on {what} inside every rank of the {MESH_SEQ_RUN} mesh runs",
+             "mesh_split_nnz": mq[model]["graph_nnz"],
+             "d1_ms": seq["t"][d1_key]["ms"], "d1_bound_ms": seq["bound"][d1_key][0],
+             "d1_plain_ms": seq["t"][d1_key]["plain_ms"],
+             "d1_library_ms": seq["t"][d1_key]["library_ms"]},
+            launches_scope=f"every B1 launch of {model} in both ranks of its {MESH_SEQ_RUN} mesh "
+                           f"run ({MESH_EPOCHS} epoch on {MESH_SEQ_DATASET}, whose graph has "
+                           f"the nnz in mesh_split_nnz; all whole-graph layouts); combine "
+                           f"launches not counted apart",
+            library_call=sparse_mm + ", values pre-multiplied",
+            launches_of=[f"{model}'s {MESH_SEQ_RUN} mesh run, both ranks"]))
+    rows_b1[-1]["mesh_seq"] = {"run": dict(mq)}
     rows_b1[0]["tuner_and_resume_on_card"] = {
         "tune_trials": [(t["assignment"], t["score"]) for t in tr["tune"]["trials"]],
         "resume_bit_equal_tensors": tr["resume_tensors"],

@@ -38,11 +38,9 @@ Optional
                                      given: the tuner's ``tune.parallel`` runs a grid of them as lanes
 
 The device mesh (:mod:`~sslrec_tpu_torch.parallel.mesh`): ``mesh_todo``
-names the ROADMAP item that will port a model's mesh branch, and a mesh of
-more than one device refuses the model while it is set (LightGCN, SGL,
-SimGCL, NCL, DirectAU, LightGCL, HCCF, DCCF, AutoCF, GFormer, AdaGCL, KGCL,
-KGIN, KGRec, DiffKG, DcRec, DSL, KCGN, MHCN, SMIN, MBGMN, HMGCR, SMBRec, CML
-and KMCLR clear it).  A model
+says that a model has no mesh branch, and a mesh of more than one device
+refuses the model while it is set; it is set by default, so that no model
+runs replicated in silence, and all 31 models clear it.  A model
 that trains on a mesh lists in ``row_shards`` (``{name: whole rows}``) the
 tables of which each rank holds a row shard (the JAX package's rule: a
 table whose leading dimension counts users, items, nodes or entities), so
@@ -62,14 +60,13 @@ import torch
 from torch import nn
 
 
-MESH_GSPMD = ("ROADMAP Queue A item 9: the models that the JAX package shards only "
-              "through GSPMD's generic rule")
+MESH_NONE = "the model has no mesh branch: its batch and tables would not split"
 
 
 class RecModel(nn.Module):
     step_generator = False
     batch_fields = ("user", "pos", "neg")
-    mesh_todo: str | None = MESH_GSPMD
+    mesh_todo: str | None = MESH_NONE
     row_shards: dict = {}
 
     def __init__(self, cfg, data):

@@ -56,14 +56,19 @@ def dropout_keep(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tens
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-def gen_dropout(gen: torch.Generator, rate: float):
+def gen_dropout(gen: torch.Generator, rate: float, rows: tuple | None = None):
     """Dropout at ``rate`` whose keep masks ``U < 1 - rate`` are drawn from
-    ``gen`` at each call; ``None`` (no dropout) when ``rate`` is 0."""
+    ``gen`` at each call; ``None`` (no dropout) when ``rate`` is 0.  ``rows``
+    ``(n, sl)``: ``x`` is the slice ``sl`` of a batch of ``n`` rows, and each
+    mask is drawn for all ``n`` rows and sliced (a mesh rank's)."""
     if rate <= 0.0:
         return None
 
     def drop(x):
-        u = torch.rand(x.shape, generator=gen, device=gen.device)
+        shape = x.shape if rows is None else (rows[0], *x.shape[1:])
+        u = torch.rand(shape, generator=gen, device=gen.device)
+        if rows is not None:
+            u = u[rows[1]]
         return dropout_keep(x, (u < 1.0 - rate).to(x.device), rate)
 
     return drop

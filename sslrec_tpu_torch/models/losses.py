@@ -173,12 +173,17 @@ def grace_loss(z1, z2, tau: float, chunk: int = 1024):
     return -torch.log(torch.exp(diag / tau) / denom + 1e-8).sum() / n
 
 
-def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 0):
+def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = 0,
+                         total: bool = False):
     """Mean cross entropy over the positions whose label is not
-    ``ignore_index`` (BERT4Rec's masked-item loss); 0 where there is none."""
+    ``ignore_index`` (BERT4Rec's masked-item loss); 0 where there is none.
+    ``total``: the sum, undivided (a mesh rank divides by the whole batch's
+    count)."""
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     valid = (labels != ignore_index).to(logits.dtype)
+    if total:
+        return -(ll * valid).sum()
     return -(ll * valid).sum() / valid.sum().clamp(min=1.0)
 
 

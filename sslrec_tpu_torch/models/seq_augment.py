@@ -12,7 +12,7 @@ Rows are left-padded [B, L]; positions are named by their end-offset ``j``
   ``begin`` is permuted by ranking its uniforms.
 
 Each op takes its draws as arguments; :func:`view_draws` makes them from a
-generator (a test gives the JAX package's).  :func:`cl4srec_two_views`
+model's step draws (a test gives the JAX package's).  :func:`cl4srec_two_views`
 applies two of the three ops, distinct and chosen per row, one to each view;
 rows of length ≤ 1 pass unchanged.
 """
@@ -74,20 +74,19 @@ def reorder(seqs: torch.Tensor, begin: torch.Tensor, u: torch.Tensor,
     return torch.where(in_win, torch.gather(seqs, 1, src), seqs)
 
 
-def view_draws(gen: torch.Generator, seqs: torch.Tensor, eta: float, beta: float,
-               randint) -> dict:
-    """One view's draws for all three ops: ``crop_begin`` [B] in [0, len −
-    crop_len], ``mask_u`` [B, L], ``reorder_begin`` [B] in [0, len −
-    reorder_len], ``reorder_u`` [B, L]; ``randint(low, high, shape)`` draws
-    integers below per-row bounds."""
+def view_draws(dr, seqs: torch.Tensor, eta: float, beta: float) -> dict:
+    """One view's draws for all three ops from a :class:`StepDraws` ``dr``:
+    ``crop_begin`` [B] in [0, len − crop_len], ``mask_u`` [B, L],
+    ``reorder_begin`` [B] in [0, len − reorder_len], ``reorder_u`` [B, L];
+    each a batch-sized draw (on a mesh, the whole batch's, sliced)."""
     b, l = seqs.shape
     lens = lengths(seqs)
-    dev = gen.device
-    return {"crop_begin": randint(0, (lens - crop_len(lens, eta) + 1).clamp(min=1), (b,)),
-            "mask_u": torch.rand(b, l, generator=gen, device=dev),
-            "reorder_begin": randint(0, (lens - reorder_len(lens, beta) + 1).clamp(min=1),
-                                     (b,)),
-            "reorder_u": torch.rand(b, l, generator=gen, device=dev)}
+    return {"crop_begin": dr.randint("", 0, (lens - crop_len(lens, eta) + 1).clamp(min=1),
+                                     (b,), batch=True),
+            "mask_u": dr.uniform("", (b, l), batch=True),
+            "reorder_begin": dr.randint("", 0, (lens - reorder_len(lens, beta) + 1).clamp(min=1),
+                                        (b,), batch=True),
+            "reorder_u": dr.uniform("", (b, l), batch=True)}
 
 
 def apply_view(seqs: torch.Tensor, op: torch.Tensor, draws: dict, mask_token: int,
@@ -114,17 +113,10 @@ def cl4srec_two_views(seqs: torch.Tensor, op_u: torch.Tensor, draws1: dict, draw
 
 def two_view_draws(dr, seqs: torch.Tensor, eta: float, beta: float) -> tuple:
     """``(op_u, draws1, draws2)`` from a :class:`StepDraws` (given by name as
-    ``aug_op_u``, ``aug_view1``, ``aug_view2``)."""
+    ``aug_op_u``, ``aug_view1``, ``aug_view2``), all batch-sized draws."""
     if dr.given is not None:
-        g = dr.given
-        return (g["aug_op_u"].to(dr.device),
-                {k: v.to(dr.device) for k, v in g["aug_view1"].items()},
-                {k: v.to(dr.device) for k, v in g["aug_view2"].items()})
-
-    def randint(low, high, shape):
-        return dr.randint("", low, high, shape)
-
-    b = seqs.shape[0]
-    op_u = torch.rand(b, 3, generator=dr.gen, device=dr.gen.device)
-    return (op_u, view_draws(dr.gen, seqs, eta, beta, randint),
-            view_draws(dr.gen, seqs, eta, beta, randint))
+        g, rows = dr.given, dr.own_rows
+        return (rows(g["aug_op_u"]), {k: rows(v) for k, v in g["aug_view1"].items()},
+                {k: rows(v) for k, v in g["aug_view2"].items()})
+    op_u = dr.uniform("", (seqs.shape[0], 3), batch=True)
+    return op_u, view_draws(dr, seqs, eta, beta), view_draws(dr, seqs, eta, beta)

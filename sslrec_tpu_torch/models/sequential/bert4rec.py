@@ -13,6 +13,11 @@ position.
 
 Draws (:class:`StepDraws`): ``mask_u`` [B, L] uniforms, ``rand_items``
 [B, L] in [1, item_num], ``drop`` the tower's keep masks.
+
+On a mesh the cross entropy's denominator is the whole batch's count of
+masked positions (summed over ``data``, no gradient): a rank's term is its
+slice's sum over that count and its share of the batch, so that the ranks'
+terms weighted by their shares sum to the whole batch's.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from sslrec_tpu_torch.models import layers, losses
 from sslrec_tpu_torch.models.base import apply_linear, linear_layer
 from sslrec_tpu_torch.models.sequential.base_seq import SequentialModel
 from sslrec_tpu_torch.ops.topk import topk_indices
+from sslrec_tpu_torch.parallel import dist_train
 
 
 class BERT4Rec(SequentialModel):
@@ -53,10 +59,10 @@ class BERT4Rec(SequentialModel):
         return torch.where(selected, replacement, seqs), torch.where(selected, seqs, 0)
 
     def loss(self, batch: dict, gen, draws: dict | None = None):
-        dr = self.draws(gen, draws)
         seqs = batch["seq_last"]
-        u = dr.uniform("mask_u", seqs.shape)
-        rand_items = dr.randint("rand_items", 1, self.item_num + 1, seqs.shape)
+        dr = self.step_draws(gen, draws, batch)
+        u = dr.uniform("mask_u", seqs.shape, batch=True)
+        rand_items = dr.randint("rand_items", 1, self.item_num + 1, seqs.shape, batch=True)
         masked, labels = self.mask_train_seq(seqs, u, rand_items)
         h = self._tower(masked, dr.dropout("drop", self.dropout_rate))
         if self.masked_budget > 0:
@@ -64,9 +70,14 @@ class BERT4Rec(SequentialModel):
             idx = topk_indices((labels != 0).float(), k)
             labels = torch.gather(labels, 1, idx)
             h = torch.gather(h, 1, idx[..., None].expand(-1, -1, h.shape[-1]))
-        logits = apply_linear(self.out_fc, h)
-        loss = losses.cross_entropy_ignore(logits.reshape(-1, logits.shape[-1]),
-                                           labels.reshape(-1), 0)
+        logits = apply_linear(self.out_fc, h).reshape(-1, self.item_num + 1)
+        if self.mesh is None:
+            loss = losses.cross_entropy_ignore(logits, labels.reshape(-1), 0)
+        else:
+            count = dist_train.reduce_terms({"count": (labels != 0).sum()}, self.mesh,
+                                            1.0)["count"].clamp(min=1.0)
+            loss = (losses.cross_entropy_ignore(logits, labels.reshape(-1), 0, total=True)
+                    / (count * batch["share"]))
         return loss, {"rec_loss": loss}
 
     def encode_for_predict(self, seqs, ctx):

@@ -8,6 +8,10 @@ in-batch views with raw dot-product similarities.
 
 Draws: ``drop``, ``drop1``, ``drop2`` (the three tower passes' keep masks)
 and the augmentation's ``aug_op_u``, ``aug_view1``, ``aug_view2``.
+
+On a mesh the NT-Xent's negatives are the whole batch's views: both views'
+encodings are gathered over ``data`` and the term is computed whole on
+every rank; the next-item cross entropy is the slice's mean.
 """
 
 from __future__ import annotations
@@ -80,13 +84,13 @@ class CL4SRec(SeqTowerModel):
         hp = batch.get("hp", {})
         lmd = hp.get("lmd", self.lmd)
         tau = hp.get("tau", self.tau)
-        dr = self.draws(gen, draws)
         seqs = batch["seq"]
+        dr = self.step_draws(gen, draws, batch)
         h = self._encode(seqs, dr.dropout("drop", self.dropout_rate))
         rec_loss = losses.next_item_ce(h @ self._items().T, batch["pos"])
         op_u, d1, d2 = seq_augment.two_view_draws(dr, seqs, 0.6, 0.6)
         v1, v2 = seq_augment.cl4srec_two_views(seqs, op_u, d1, d2, self.mask_token)
         h1 = self._encode(v1, dr.dropout("drop1", self.dropout_rate))
         h2 = self._encode(v2, dr.dropout("drop2", self.dropout_rate))
-        cl_loss = lmd * nt_xent(h1, h2, tau)
+        cl_loss = lmd * nt_xent(self.whole(h1, batch), self.whole(h2, batch), tau)
         return rec_loss + cl_loss, {"rec_loss": rec_loss, "cl_loss": cl_loss}

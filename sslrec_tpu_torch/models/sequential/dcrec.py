@@ -25,6 +25,15 @@ mainstream / personalisation weights, and an attention-fused cross entropy.
 Draws: ``{adj,sim,aug}.emb_keep`` [n, d], ``.edge_keep`` [nnz],
 ``.loop_keep`` [n]; ``drop`` and ``drop_aug`` (the two tower passes);
 ``kl_normal`` [B].
+
+On a mesh only the two tower passes run on the rank's slice of the batch.
+The batch's users, last items, targets and lengths, and both passes'
+outputs (with autograd), are gathered over ``data``; the removed edges are
+the whole batch's users', and the three GCN views run on the whole item
+graphs in every rank, so the whole loss (the scaled agreement and its
+mean, the KL term's sort, ``personal``'s max, the in-batch NCE sums, the
+cross entropy) is computed alike on every ``data`` rank, its ``kl_normal``
+drawn whole.
 """
 
 from __future__ import annotations
@@ -232,11 +241,14 @@ class DCRecSeq(SequentialModel):
         hp = batch.get("hp", {})
         cl_lambda = hp.get("cl_lambda", self.cl_lambda)
         weight_mean = hp.get("weight_mean", self.weight_mean)
-        dr = self.draws(gen, draws)
-        seqs, uids = batch["seq"], batch["user"]
-        last = seqs[:, -1].long()
+        seqs = batch["seq"]
+        dr = self.step_draws(gen, draws, batch)
+        # the whole batch's users, last items, targets and lengths
+        cols = torch.stack([batch["user"].long(), seqs[:, -1].long(), batch["pos"].long(),
+                            (seqs > 0).sum(1).long()], 1)
+        uids, last, pos, lens = self.whole(cols, batch).unbind(1)
 
-        srow = self.row_of_uid[uids.long()]
+        srow = self.row_of_uid[uids]
         removed = torch.zeros(self.adj.nnz, device=seqs.device).scatter_reduce(
             0, self.user_eids[srow].reshape(-1), self.user_emask[srow].reshape(-1).float(),
             "amax")
@@ -244,8 +256,9 @@ class DCRecSeq(SequentialModel):
         sim_emb = self.gcn(self.sim, None, dr, "sim")
         aug_emb = self.gcn(self.adj, 1.0 - removed, dr, "aug")
         adj_last, sim_last = layers.take_rows(adj_emb, last), layers.take_rows(sim_emb, last)
-        h = self._tower_last(seqs, dr.dropout("drop", self.dropout_rate))
-        h_aug = self._tower_last(seqs, dr.dropout("drop_aug", self.dropout_rate))
+        h = self.whole(self._tower_last(seqs, dr.dropout("drop", self.dropout_rate)), batch)
+        h_aug = self.whole(self._tower_last(seqs, dr.dropout("drop_aug", self.dropout_rate)),
+                           batch)
 
         # neighbour readouts of the last items over the transition graph
         own = torch.zeros(self.n_items1, device=seqs.device)
@@ -268,7 +281,7 @@ class DCRecSeq(SequentialModel):
         agreement = (agreement - agreement.amin()) / (agreement.amax() - agreement.amin()
                                                       + 1e-12)
         agreement = (weight_mean / (agreement.mean() + 1e-12)) * agreement
-        mainstream = torch.where((seqs > 0).sum(1) == 1, 0.5, agreement)
+        mainstream = torch.where(lens == 1, 0.5, agreement)
 
         expected = weight_mean + 0.1 * dr.normal("kl_normal", tuple(mainstream.shape))
         tgt = torch.log(torch.sort(expected).values.clamp(min=1e-8) + 1e-8)
@@ -281,7 +294,7 @@ class DCRecSeq(SequentialModel):
 
         logits = self._fuse(h, adj_last, sim_last) @ self.emb["token"].T
         logp = torch.log_softmax(logits + 1e-8, -1)
-        ce = -torch.gather(logp, 1, batch["pos"].long()[:, None])[:, 0].mean()
+        ce = -torch.gather(logp, 1, pos[:, None])[:, 0].mean()
         return ce + cl + kl, {"loss": ce, "cl_loss": cl, "kl_loss": kl}
 
     # -- evaluation ------------------------------------------------------------------

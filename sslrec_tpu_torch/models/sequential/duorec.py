@@ -10,7 +10,8 @@ the target has none); NT-Xent between a second dropout pass of the batch
 and the pass over those sequences.
 
 Draws: ``drop``, ``drop1``, ``drop2`` and ``sem_j`` [B], the candidate's
-slot.
+slot.  On a mesh, as CL4SRec: the NT-Xent over the whole batch's gathered
+encodings, the cross entropy the slice's mean.
 """
 
 from __future__ import annotations
@@ -67,13 +68,14 @@ class DuoRec(SeqTowerModel):
         hp = batch.get("hp", {})
         lmd_sem = hp.get("lmd_sem", self.lmd_sem)
         tau = hp.get("tau", self.tau)
-        dr = self.draws(gen, draws)
         seqs, lasts = batch["seq"], batch["pos"]
+        dr = self.step_draws(gen, draws, batch)
         h = self._encode(seqs, dr.dropout("drop", self.dropout_rate))
         rec_loss = losses.next_item_ce(h @ self._items().T, lasts)
         h1 = self._encode(seqs, dr.dropout("drop1", self.dropout_rate))
-        j = dr.randint("sem_j", 0, self.cand_count[lasts.long()].clamp(min=1), lasts.shape)
+        j = dr.randint("sem_j", 0, self.cand_count[lasts.long()].clamp(min=1), lasts.shape,
+                       batch=True)
         h2 = self._encode(self.semantic_views(seqs, lasts, j),
                           dr.dropout("drop2", self.dropout_rate))
-        cl_loss = lmd_sem * nt_xent(h1, h2, tau)
+        cl_loss = lmd_sem * nt_xent(self.whole(h1, batch), self.whole(h2, batch), tau)
         return rec_loss + cl_loss, {"rec_loss": rec_loss, "cl_loss": cl_loss}

@@ -12,6 +12,12 @@ to the row's clean mean encoding.
 
 Draws: ``drop``, ``drop1``, ``drop2`` and the augmentation's; the epoch's
 k-means pick comes from the epoch generator, or ``epoch_state``'s ``pick``.
+
+On a mesh the clusters are made alike on every rank (the same rows, the
+same generator); both NCE terms take the whole batch's rows as negatives,
+so both views' encodings (with autograd) and the intents (without) are
+gathered over ``data`` and the terms computed whole on every rank; the
+binary cross entropy is the slice's mean.
 """
 
 from __future__ import annotations
@@ -60,8 +66,8 @@ class ICLRec(SeqTowerModel):
         return {"centroids": cents_n, "centroids_raw": cents}
 
     def loss(self, batch: dict, gen, draws: dict | None = None):
-        dr = self.draws(gen, draws)
         seqs = batch["seq"]
+        dr = self.step_draws(gen, draws, batch)
         h = self._encode(seqs, dr.dropout("drop", self.dropout_rate))
         tok = self.emb["token"]
         pos_logits = (layers.take_rows(tok, batch["pos"]) * h).sum(-1)
@@ -74,6 +80,7 @@ class ICLRec(SeqTowerModel):
                                                eta=0.2, gamma=0.7, beta=0.2)
         h1 = self._encode(v1, dr.dropout("drop1", self.dropout_rate), mean=True)
         h2 = self._encode(v2, dr.dropout("drop2", self.dropout_rate), mean=True)
+        h1, h2 = self.whole(h1, batch), self.whole(h2, batch)
         cl = self.cl_weight * nce_loss(h1, h2, self.tau)
 
         cents, raw = batch["aux"]["centroids"], batch["aux"]["centroids_raw"]
@@ -81,7 +88,7 @@ class ICLRec(SeqTowerModel):
             h_mean = self._encode(seqs, mean=True)
             d2_ = ((h_mean ** 2).sum(1, keepdim=True) - 2 * h_mean @ raw.T
                    + (raw ** 2).sum(1)[None, :])
-            intent = cents[torch.argmin(d2_, dim=1)]
+            intent = self.whole(cents[torch.argmin(d2_, dim=1)], batch)
         intent_cl = self.intent_cl_weight * 0.5 * (nce_loss(h1, intent, self.tau)
                                                    + nce_loss(h2, intent, self.tau))
         return rec + cl + intent_cl, {"rec_loss": rec, "cl_loss": cl,

@@ -22,6 +22,15 @@ drives a sequential transformer (port of
   (weight decay first where set, as ``optax.chain`` orders it).  The path
   scores' term is 0 off the mask steps, so it is computed only on them.
 
+On a mesh the step's batch is a ``data`` slice: the tower runs on it (its
+dropout masks the whole batch's, sliced) and ``loss_main`` is its mean; the
+decoder's contrast, the L2 and the mask step's path-score term read no
+batch and are computed alike on every rank, so under ``mesh_backward``'s
+shares (summing to 1) they count once.  The step sums the gradients over
+the mesh (``sync_model_grads``) before its Adam, and records the whole
+batch's ``loss_main`` (its shares summed over ``data``) in the history, so
+that the reward and ``extra_state()`` are the single run's on every rank.
+
 Draws (:class:`StepDraws`): per view ``path_keep<i>`` [nnz] for i <
 mask_depth, ``path_u`` [n] and ``thin<i>`` [n] for i < mask_depth − 1; per
 step ``edge_u`` [con_batch], ``vneg`` / ``uneg`` candidate rounds [6,
@@ -45,6 +54,7 @@ from sslrec_tpu_torch.ops.sparse import CooGraph
 from sslrec_tpu_torch.ops.spmm import spmm
 from sslrec_tpu_torch.ops.spmm_kernel import EdgeMask, build_csr_graph
 from sslrec_tpu_torch.ops.topk import topk_indices
+from sslrec_tpu_torch.parallel import dist_train
 from sslrec_tpu_torch.trainer.trainer import build_optimizer
 from sslrec_tpu_torch.utils.initializers import xavier_uniform
 
@@ -225,7 +235,7 @@ class MAERec(SequentialModel):
 
     # -- the model's own step ---------------------------------------------------------
     def train_step(self, batch: dict, gen, draws: dict | None = None) -> dict:
-        dr = self.draws(gen, draws)
+        dr = self.step_draws(gen, draws, batch)
         step = int(batch["step"])
         mask_step = step % self.mask_steps == 0
         view = {k: v[step // self.mask_steps] for k, v in batch["aux"].items()}
@@ -257,13 +267,19 @@ class MAERec(SequentialModel):
             loss_mask = torch.zeros((), device=hist.device)
         total = loss_main + loss_reco + loss_regu + loss_mask
         self.opt.zero_grad(set_to_none=True)
-        total.backward()
+        lm = loss_main.detach()
+        if self.mesh is None:
+            total.backward()
+        else:
+            dist_train.mesh_backward(total, self.mesh, batch["share"])
+            dist_train.sync_model_grads(self, self.mesh)
+            lm = dist_train.reduce_terms({"lm": lm}, self.mesh, batch["share"])["lm"]
         self.opt.step()
 
-        lm = loss_main.detach()
         self.loss_hist = torch.stack([hist[2] if mask_step else hist[1], hist[2], lm])
         self.hist_len = min(self.hist_len + 1, 3)
-        return {"loss": total.detach(), "loss_main": lm, "loss_reco": loss_reco.detach(),
+        return {"loss": total.detach(), "loss_main": loss_main.detach(),
+                "loss_reco": loss_reco.detach(),
                 "loss_regu": loss_regu.detach(), "loss_mask": loss_mask.detach()}
 
     # -- evaluation -----------------------------------------------------------------

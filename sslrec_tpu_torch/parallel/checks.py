@@ -124,7 +124,9 @@ def rect_pair(inp: dict) -> dict:
 
 
 def _bundle(inp: dict, device, cfg=None):
-    """The data of ``inp``: a KG split (``inp["kg"]``: ``train_cf``,
+    """The data of ``inp``: a sequential split (``inp["seq_split"]``: ``train`` and
+    ``test``, each ``(uids, sequences, targets)`` as ``bundle_from_seqs``
+    takes them, under ``cfg``), a KG split (``inp["kg"]``: ``train_cf``,
     ``test_cf``, ``triplets``, ``n_entities``, ``n_relations``, as the KG
     handler's ``bundle_from_kg`` takes them, under ``cfg``), a multi-behavior
     one (``inp["mb"]``: ``behaviors``, their ``mats``, ``tst`` and the
@@ -134,6 +136,10 @@ def _bundle(inp: dict, device, cfg=None):
     handler's ``bundle_from_matrices`` takes them, and ``metapaths``, SMIN's
     sampled metapath matrices in place of the handler's own draw), else a
     general_cf one from the ``trn`` / ``val`` / ``tst`` matrices."""
+    if inp.get("seq_split") is not None:
+        from sslrec_tpu_torch.data.sequential import bundle_from_seqs
+        split = inp["seq_split"]
+        return bundle_from_seqs(cfg, split["train"], split["test"], device)
     if inp.get("social") is not None:
         from sslrec_tpu_torch.data import social
         soc = inp["social"]
@@ -260,9 +266,11 @@ def model_step(inp: dict) -> dict:
     ``draws`` (DcRec: ``views``) where given, or the view bank of ``epoch_state(None, 0,
     draws=inp["epoch_draws"])`` from the loaded parameters (AutoCF's and
     GFormer's, over ``n_batches`` steps), at step ``step`` (default 0).  A
-    model with its own ``train_step`` (CML, KMCLR, AdaGCL) takes it: the
-    whole batch's loss terms (reduced as the Trainer reduces them), the
-    whole parameters after it and its optimizers' whole moments.  Any
+    model with its own ``train_step`` (CML, KMCLR, AdaGCL, MAERec) takes it:
+    the whole batch's loss terms (reduced as the Trainer reduces them), the
+    whole parameters after it, the whole gradients its optimizer took, its
+    optimizers' whole moments and its ``extra_state()`` where it has one
+    (MAERec's loss history).  Any
     other: ``loss(batch, key, draws=...)`` (``key`` a PRF key),
     :func:`~.dist_train.mesh_backward` and the gradients summed over
     ``data``: the whole batch's loss terms, the whole gradients and their
@@ -287,9 +295,12 @@ def model_step(inp: dict) -> dict:
     shapes = {k: tuple(model.state_dict()[k].shape) for k in model.row_shards}
     if hasattr(model, "train_step"):
         terms = dist_train.reduce_terms(model.train_step(batch, key, **kw), mesh, share)
+        extra = model.extra_state() if hasattr(model, "extra_state") else {}
         return {"terms": {k: float(v) for k, v in terms.items()},
-                "params": _whole_params(model), "moments": _whole_moments(model),
-                "local_shapes": shapes}
+                "params": _whole_params(model), "grads": _whole_params(model, "grad"),
+                "moments": _whole_moments(model), "local_shapes": shapes,
+                "extra_state": {k: _np(v) if torch.is_tensor(v) else v
+                                for k, v in extra.items()}}
     loss, terms = model.loss(batch, key, **kw)
     dist_train.mesh_backward(loss, mesh, share)
     dist_train.sync_model_grads(model, mesh)
@@ -297,7 +308,7 @@ def model_step(inp: dict) -> dict:
     return {"terms": {k: float(v) for k, v in terms.items()},
             "grads": _whole_params(model, "grad"), "local_shapes": shapes,
             "norm": float(dist_train.global_norm(model, mesh)),
-            "local_rows": next(iter(shapes.values()))[0]}
+            "local_rows": next(iter(shapes.values()), (None,))[0]}
 
 
 def trainer_step(inp: dict) -> dict:
@@ -443,13 +454,14 @@ B2_LAYOUTS = {"KGCL": lambda m: {"kg_heads": m.seg_h.layout},
 
 def whole_layouts(model) -> dict:
     """The B1 layouts of the whole graphs a model holds as attributes (a
-    ``CsrGraph``, or one in a list or tuple: MBGMN's behavior pairs, SMIN's
-    metapaths), each once, by ``<attribute>[.<index>…]:forward`` /
-    ``:transposed``, and of its segment ops (``SegmentOps``: KCGN's and
+    ``CsrGraph``, one in a list or tuple: MBGMN's behavior pairs, SMIN's
+    metapaths, or one held as the attribute ``g`` of an attribute:
+    DCRec_seq's item graphs), each once, by ``<attribute>[.<index>…]:forward``
+    / ``:transposed``, and of its segment ops (``SegmentOps``: KCGN's and
     SMIN's sums and gathers over constant ids) by ``<attribute>:segments``:
     the layouts on which a model that partitions no graph runs every hop in
-    every rank (DCCF, HCCF, LightGCL, AutoCF, GFormer, AdaGCL, MBGMN and the
-    social five)."""
+    every rank (DCCF, HCCF, LightGCL, AutoCF, GFormer, AdaGCL, MBGMN, the
+    social five, DCRec_seq and MAERec)."""
     from sslrec_tpu_torch.ops.segment_kernel import SegmentOps
 
     out, seen = {}, set()
@@ -459,6 +471,8 @@ def whole_layouts(model) -> dict:
             for i, v in enumerate(x):
                 visit(f"{name}.{i}", v)
             return
+        if isinstance(getattr(x, "g", None), CsrGraph):
+            x = x.g
         lays = ({"segments": x.layout.csr} if isinstance(x, SegmentOps)
                 else {"forward": x.fwd, "transposed": x.bwd} if isinstance(x, CsrGraph) else {})
         for tag, lay in lays.items():
@@ -490,24 +504,60 @@ def mesh_graphs(model) -> dict:
     return out
 
 
+LONG_ROW = 4096     # a layout with a longer row is probed against a float64 plain version
+
+
+def _probe_b1(lay, gen, d: int, values: bool = False) -> float:
+    """B1 on ``lay`` against its plain version at width ``d`` (under seeded
+    values in the original edge order where ``values``): the largest error
+    relative to the plain output's largest entry.  Where a row is longer
+    than ``LONG_ROW`` the plain version runs in float64 on small integers
+    and values in {0, 0.5, 1, 2} (a float32 sum of so many terms in another
+    order alone nears ``TOL``), as ``chip_smoke.check_graph`` holds its long
+    rows."""
+    from sslrec_tpu_torch.ops import spmm_kernel
+
+    dev = lay.cols.device
+    n_ids = lay.n_ids or lay.cols.shape[0]
+    long_rows = lay.n_rows > 0 and int((lay.indptr[1:] - lay.indptr[:-1]).max()) > LONG_ROW
+    w = None
+    if long_rows:
+        x = torch.randint(-8, 9, (lay.n_cols, d), generator=gen, device=dev).float()
+        if values:
+            w = torch.tensor([0.0, 0.5, 1.0, 2.0], device=dev)[
+                torch.randint(0, 4, (n_ids,), generator=gen, device=dev)]
+        ref = spmm_kernel.csr_spmm_plain(lay, x.double(), None if w is None else w.double())
+    else:
+        x = torch.randn(lay.n_cols, d, generator=gen, device=dev)
+        if values:
+            w = torch.rand(n_ids, generator=gen, device=dev)
+        ref = spmm_kernel.csr_spmm_plain(lay, x, w)
+    got = spmm_kernel.csr_spmm(lay, x, w).to(ref.dtype)
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
 def layout_probe(trainer) -> dict:
     """The kernels on a trained model's layouts in this rank, each against its
     plain version on seeded random inputs at the width of the model's first
-    row-sharded table: B1 on the rank's shard layouts of each graph the
+    row-sharded table (its embedding size where it has none: the sequential
+    models): B1 on the rank's shard layouts of each graph the
     model partitions (:func:`mesh_graphs`; keys ``<graph>:forward`` …, the
     bare layout's name for a model of one graph), forward and transposed,
     without a multiplier and under random values in the original edge order
     (a view's, through ``view_vals_partitioned``), or, for a model that
     partitions none, on the whole graphs' layouts it holds
     (:func:`whole_layouts`; without a multiplier and under random values), the
-    largest error relative to the plain output's largest entry; B2 on the
+    largest error relative to the plain output's largest entry (a layout
+    with a row longer than ``LONG_ROW`` against a float64 plain version,
+    :func:`_probe_b1`); B2 on the
     model's head layouts over the whole KG (``B2_LAYOUTS``), whether it
     equals the plain version bit for bit."""
-    from sslrec_tpu_torch.ops import segment_kernel, spmm_kernel
+    from sslrec_tpu_torch.ops import segment_kernel
 
     model, dev = trainer.model, trainer.device
     gen = torch.Generator(device=dev).manual_seed(17 + model.mesh.rank)
-    d = model.state_dict()[next(iter(model.row_shards))].shape[1]
+    d = (model.state_dict()[next(iter(model.row_shards))].shape[1] if model.row_shards
+         else int(model.embedding_size))
     out = {"b1": {}, "b2": {}}
     p = model.mesh.model_index
     for gname, sg in mesh_graphs(model).items():
@@ -517,18 +567,12 @@ def layout_probe(trainer) -> dict:
                   ".vals": shard.with_vals(dist_train.view_vals_partitioned(sg, vals)[p])}
         for tag, g in graphs.items():
             for name, lay in (("forward", g.fwd), ("transposed", g.bwd)):
-                x = torch.randn(lay.n_cols, d, generator=gen, device=dev)
-                ref = spmm_kernel.csr_spmm_plain(lay, x)
-                err = (spmm_kernel.csr_spmm(lay, x) - ref).abs().max() / ref.abs().max()
-                out["b1"][f"{gname}:{name}{tag}" if gname else name + tag] = float(err)
+                out["b1"][f"{gname}:{name}{tag}" if gname else name + tag] = _probe_b1(
+                    lay, gen, d)
     if not mesh_graphs(model):
         for name, lay in whole_layouts(model).items():
-            x = torch.randn(lay.n_cols, d, generator=gen, device=dev)
-            for tag, w in (("", None), (".vals", torch.rand(
-                    lay.n_ids or lay.cols.shape[0], generator=gen, device=dev))):
-                ref = spmm_kernel.csr_spmm_plain(lay, x, w)
-                err = (spmm_kernel.csr_spmm(lay, x, w) - ref).abs().max() / ref.abs().max()
-                out["b1"][name + tag] = float(err)
+            for tag, values in (("", False), (".vals", True)):
+                out["b1"][name + tag] = _probe_b1(lay, gen, d, values)
     for name, lay in B2_LAYOUTS.get(type(model).__name__, lambda m: {})(model).items():
         logits = torch.randn(lay.n, generator=gen, device=dev) * 5
         out["b2"][name] = bool(torch.equal(segment_kernel.segment_max(lay, logits),

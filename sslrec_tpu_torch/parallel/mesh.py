@@ -127,15 +127,14 @@ def config_shape(cfg, device) -> tuple[int, int] | None:
 
 def check_model(model_cls, shape) -> None:
     """``NotImplementedError`` where a mesh of more than one device asks for
-    a model whose mesh branch is not ported yet (its ``mesh_todo`` names the
-    ROADMAP item); no model runs replicated in silence."""
+    a model class that still sets ``mesh_todo`` (it has no mesh branch); no
+    model runs replicated in silence.  All 31 models of the registry train
+    on a mesh."""
     todo = getattr(model_cls, "mesh_todo", None)
     if shape is not None and todo is not None:
         raise NotImplementedError(
             f"train.mesh {shape[0]}x{shape[1]}: {model_cls.__name__} does not run on a "
-            f"device mesh yet ({todo}); LightGCN, SGL, SimGCL, NCL, DirectAU, LightGCL, HCCF, "
-            f"DCCF, AutoCF, GFormer, AdaGCL, KGCL, KGIN, KGRec, DiffKG, DcRec, DSL, KCGN, MHCN, "
-            f"SMIN, MBGMN, HMGCR, SMBRec, CML and KMCLR do")
+            f"device mesh ({todo}); all 31 models of the registry do")
 
 
 _MESHES: dict = {}

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """B1 and B2 device times at the main paths' shapes, for several checkouts of
 this repo on one card, so that a kernel's earlier and current versions are
-compared within one run.
+compared within one run; and a sweep of B1's schedule in this checkout.
 
     python3 chip_compare.py <checkout> [<checkout> ...]    # e.g. parent . . parent
+    python3 chip_compare.py --sweep
 
 Needs one CUDA card and ``nvcc``.  Each checkout runs in its own process, in
 the order given, and builds its own kernels into its own ``build/``.  The
-operands are this checkout's ``chip_smoke.lightgcn_data`` and
-``chip_smoke.kgcl_shapes``; each is timed (``chip_smoke.device_ms``) through
+operands are this checkout's: ``chip_smoke.lightgcn_data`` and
+``chip_smoke.kgcl_shapes``, each timed (``chip_smoke.device_ms``) through
 the call the models make, so every checkout runs its own version of it:
 
 - the LightGCN hop (d 32) through ``ops.spmm.spmm`` / ``spmm_t``: no
@@ -19,8 +20,21 @@ the call the models make, so every checkout runs its own version of it:
   a view's values (both layouts), through ``csr_spmm``; the relation take's
   forward and backward as the model runs them (``KGCL.rel_take``); and B2.
 
+and :data:`LAYOUT_SHAPES`, B1 layouts that this checkout's models build
+(:func:`build_operands`, once, before any checkout runs; KMCLR's per-item
+lists, DiffKG's denoised KG, KCGN's components, AdaGCL's gate rows,
+DCRec_seq's and MAERec's item graphs, AutoCF's decoder, the LightGCN hop
+under the 3-lane fold), handed to every checkout as their arrays and timed
+through ``csr_spmm``, the call every Function of the models makes for them
+(a segment sum's forward, a gather's backward, a hop), beside
+``torch.sparse.mm`` on the same operands.
+
 A checkout needs those entry points and the ones the two builders call.
-Prints one JSON line per checkout, then the card line.
+Prints one JSON line per checkout, then the card line.  ``--sweep`` times
+this checkout's kernel at every narrow shape (d <= 4) over lane groups and
+split thresholds, and at the long-row shapes over split thresholds and the
+combine tree's fan-in, each call held against the plain version; it prints
+one JSON line.
 """
 
 from __future__ import annotations
@@ -32,6 +46,34 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+OPERANDS = os.path.join(HERE, "build", "chip_compare_operands.pt")
+
+# (name, operand, layout, d, multiplier): operand keys of build_operands;
+# layout "fwd"/"bwd" of a graph or "seg" (a segment layout's csr); the
+# multiplier "w" (the operand's own values) or None
+LAYOUT_SHAPES = (
+    ("kmclr_ent_lists_take_bwd_d32", "kmclr_ent", "seg", 32, None),
+    ("kmclr_rel_lists_take_bwd_d32", "kmclr_rel", "seg", 32, None),
+    ("diffkg_dkg_rels_take_bwd_d64", "diffkg_dkg_rels", "seg", 64, None),
+    ("diffkg_dkg_heads_softmax_sum_d1", "diffkg_dkg_heads", "seg", 1, None),
+    ("kcgn_ii_comp_sum_d128", "kcgn_ii_comp", "fwd", 128, None),
+    ("kcgn_ii_label_take_bwd_d128", "kcgn_ii_labels", "seg", 128, None),
+    ("kcgn_ii_hop_d128", "kcgn_ii", "fwd", 128, None),
+    ("adagcl_gate_deg_d1", "adagcl_gate", "seg", 1, None),
+    ("maerec_spread_d1", "maerec", "fwd", 1, None),
+    ("maerec_hop_d64", "maerec", "fwd", 64, "w"),
+    ("dcrec_seq_deg_d1", "dcrec_seq_adj", "fwd", 1, "w"),
+    ("dcrec_seq_deg_t_d1", "dcrec_seq_adj", "bwd", 1, "w"),
+    ("dcrec_seq_adj_hop_d64", "dcrec_seq_adj", "fwd", 64, "w"),
+    ("kgcl_deg_d1", "kgcl_deg", "seg", 1, None),
+    ("autocf_dec_sum_d4", "autocf_dec", "seg", 4, None),
+    ("autocf_dec_sum_d32", "autocf_dec", "seg", 32, None),
+    ("lightgcn_hop_fold3_d96", "lightgcn", "fwd", 96, None))
+LAYOUT_FIELDS = ("indptr", "rows", "cols", "vals", "edge_ids", "n_rows", "n_cols",
+                 "ids_identity", "vals_ones", "n_ids")
+SWEEP_GROUPS = (1, 2, 4, 8, 16)
+SWEEP_T = (16, 32, 64, 128, 256)
+SWEEP_FAN_IN = (8, 16, 32, 64)
 
 
 def _chip_smoke():
@@ -42,6 +84,77 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def build_operands(path: str = OPERANDS) -> None:
+    """The layouts of :data:`LAYOUT_SHAPES` as this checkout's models build
+    them at their published configs (the synthetic KG, yelp_sub, the
+    sports- and Tmall-shaped splits written as ``chip_smoke.py`` writes
+    them; seeded weights and draws, no training), saved to ``path`` as CPU
+    arrays with each multiplier and its bound."""
+    import torch
+
+    cs = _chip_smoke()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def model(name, dataset, data_dir):
+        cfg = cs.load_config(name, dataset=dataset, overrides={"data.dir": data_dir})
+        m = cs.build_model(cfg, cs.load_data(cfg, dev))
+        m.init_params(cs.generator(7, 2))
+        return m
+
+    _, data = cs.lightgcn_data(dev)
+    bi = data.extras["bi_adj"]
+    ops = {"lightgcn": (bi, None),
+           "adagcl_gate": (cs.skn.build_segment_layout(bi.rows, bi.n_rows, dev), None)}
+    kg = cs.kgcl_shapes(dev)
+    ops["kgcl_deg"] = (kg["deg"], None)
+    dk = model("diffkg", cs.KG_DATASET, cs.SMOKE_RESULTS)
+    with torch.no_grad():
+        dkg = dk.epoch_state(gen)["dkg"]
+    ops["diffkg_dkg_rels"], ops["diffkg_dkg_heads"] = (dkg.r, None), (dkg.h, None)
+    kc = model("kcgn", cs.SOCIAL_DATASET, cs.DATA_DIR)
+    ops["kcgn_ii_comp"], ops["kcgn_ii"] = (kc.ii_sub_adj, None), (kc.ii_g, None)
+    ops["kcgn_ii_labels"] = (kc.ii_labels.layout, None)
+    cs.write_sports_split()
+    dm = model("dcrec_seq", cs.SEQ_DATASET, cs.SMOKE_RESULTS)
+    ops["dcrec_seq_adj"] = (dm.adj.g, torch.rand(dm.adj.nnz, generator=gen, device=dev))
+    mm = model("maerec", cs.SEQ_DATASET, cs.SMOKE_RESULTS)
+    ops["maerec"] = (mm.graph, mm.one_view(mm.draws(gen))["enc_vals"])
+    cs.write_mb_dataset(cs.MB_DATASET)
+    cs.write_mb_extras(cs.MB_DATASET)
+    km = model("kmclr", cs.MB_DATASET, cs.SMOKE_RESULTS)
+    ops["kmclr_ent"], ops["kmclr_rel"] = (km.ent_lay, None), (km.rel_lay, None)
+    ac = model("autocf", cs.DATASET, cs.DATA_DIR)
+    with torch.no_grad():
+        view = ac.one_view(ac.view_draws(gen))
+    ops["autocf_dec"] = (view["dec"][0], None)
+    saved = {}
+    for name, op, layout, d, w in LAYOUT_SHAPES:
+        g, vals = ops[op]
+        lay = g.csr if layout == "seg" else getattr(g, layout)
+        saved[name] = {"layout": {f: (getattr(lay, f).cpu() if torch.is_tensor(getattr(lay, f))
+                                      else getattr(lay, f)) for f in LAYOUT_FIELDS},
+                       "w": None if w is None else vals.cpu(), "d": d,
+                       "bound": cs.bound_ms(lay, d, "none" if w is None else "mask")}
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(saved, path)
+
+
+def load_operands(sk, dev, path: str = OPERANDS) -> dict:
+    """``{name: (layout, multiplier, d, bound)}`` of :func:`build_operands`'s
+    file, each layout rebuilt by ``sk`` (a checkout's ``spmm_kernel``) on
+    ``dev``."""
+    import torch
+
+    out = {}
+    for name, rec in torch.load(path).items():
+        f = {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in rec["layout"].items()}
+        lay = sk.CsrLayout(plans=sk.PlanCache(), **f)
+        w = None if rec["w"] is None else rec["w"].to(dev)
+        out[name] = (lay, w, rec["d"], tuple(rec["bound"]))
+    return out
 
 
 def run_one(root: str) -> dict:
@@ -94,7 +207,58 @@ def run_one(root: str) -> dict:
         "relation_take_fwd_bwd": lambda: torch.autograd.grad(
             model.rel_take.take(table), table, g_rel),
         "b2": lambda: skn.segment_max(seg, logits)}
-    return {"root": root, "ms": {name: cs.device_ms(fn) for name, fn in calls.items()}}
+    library, bound, err = {}, {}, {}
+    if os.path.exists(OPERANDS):
+        for name, (lay, w, d, b) in load_operands(sk, dev).items():
+            xs = torch.randn(lay.n_cols, d, generator=gen, device=dev)
+            calls[name] = lambda lay=lay, xs=xs, w=w: sk.csr_spmm(lay, xs, w)
+            err[name] = cs.rel_err(sk.csr_spmm(lay, xs, w),
+                                   sk.csr_spmm_plain(lay, xs.double(), w).float())
+            csr = cs.csr_tensor(lay, None if w is None else lay.vals * w[lay.edge_ids.long()])
+            library[name] = cs.device_ms(lambda csr=csr, xs=xs: torch.sparse.mm(csr, xs), b[0])
+            bound[name] = b
+    ms = {name: cs.device_ms(fn, bound.get(name, (0.0,))[0]) for name, fn in calls.items()}
+    return {"root": root, "ms": ms, "library_ms": library, "bound_ms": bound,
+            "rel_err": err}
+
+
+def sweep() -> dict:
+    """This checkout's B1 at every narrow shape of :data:`LAYOUT_SHAPES`
+    over lane groups (``SWEEP_GROUPS``) and split thresholds
+    (``SWEEP_T``), and at the long-row shapes over split thresholds and the
+    combine tree's fan-in (``SWEEP_FAN_IN``), at the lane group the host
+    picks; each call within ``chip_smoke.TOL`` of the plain version."""
+    import torch
+
+    cs = _chip_smoke()
+    from sslrec_tpu_torch.ops import cuda_build
+    from sslrec_tpu_torch.ops import spmm_kernel as sk
+
+    cuda_build.build_libraries(force=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ops = load_operands(sk, dev)
+    out = {}
+    for name, (lay, w, d, b) in ops.items():
+        xs = torch.randn(lay.n_cols, d, generator=gen, device=dev)
+        ref = sk.csr_spmm_plain(lay, xs.double(), w).float()    # rows up to 961,308 long
+        group, t_pick = cs.schedule(lay, d)
+        if d <= sk.NARROW_D:
+            grid = [(gr, t, sk.FAN_IN) for gr in SWEEP_GROUPS for t in SWEEP_T]
+        elif "take_bwd" in name or "comp_sum" in name:
+            grid = [(group, t, r) for t in SWEEP_T for r in SWEEP_FAN_IN]
+        else:
+            continue
+        row = {"picked": [group, t_pick], "bound_ms": b[0]}
+        for gr, t, r in grid:
+            plan = sk.device_split_plan(lay.indptr, t, r)
+            got = sk.csr_spmm_at(lay, xs, w, gr, plan)
+            cs.ErrTrack().check(f"{name} G{gr} T{t} R{r}", got, ref)
+            row[f"G{gr}_T{t}_R{r}"] = cs.device_ms(
+                lambda: sk.csr_spmm_at(lay, xs, w, gr, plan), b[0])
+        out[name] = row
+        print(json.dumps({name: row}), flush=True)
+    return out
 
 
 def main(argv: list[str]) -> int:
@@ -107,12 +271,21 @@ def main(argv: list[str]) -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_compare: torch.cuda.is_available() is False; needs a CUDA card")
+    build_operands()
+    if argv == ["--sweep"]:
+        print(json.dumps({"sweep": sweep()}), flush=True)
+        print(_chip_smoke().card_line(), flush=True)
+        return 0
     for root in argv:
         root = os.path.abspath(root)
+        # this file, loaded by path: the package comes from `root`
         out = subprocess.run([sys.executable, "-c",
-                              "import sys; sys.path.insert(0, sys.argv[1]); "
-                              f"sys.path.insert(1, {HERE!r}); import chip_compare; "
-                              "sys.exit(chip_compare.main(['--one'] + sys.argv[1:]))",
+                              "import importlib.util, sys; sys.path.insert(0, sys.argv[1]); "
+                              "spec = importlib.util.spec_from_file_location('chip_compare', "
+                              f"{os.path.abspath(__file__)!r}); "
+                              "m = importlib.util.module_from_spec(spec); "
+                              "spec.loader.exec_module(m); "
+                              "sys.exit(m.main(['--one'] + sys.argv[1:]))",
                               root],
                              cwd=HERE, capture_output=True, text=True, timeout=900)
         sys.stderr.write(out.stderr[-4000:])

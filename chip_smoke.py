@@ -750,8 +750,8 @@ def check_graph(errs: ErrTrack, name: str, g: sk.CsrGraph, widths, gen, with_gra
     materialised PRF dropout masks (keep 0.5; keep 0.6 rescaled), the same
     two as in-kernel :class:`PrfMask`s, which must equal the kernel fed the
     materialised mask bit for bit, and (``with_grads``) a learned weight with
-    dx and dew and both constant multipliers' dx.  Every plain kernel call is
-    made twice and must repeat bit for bit.  ``ref64``: the plain version
+    dx and dew and both constant multipliers' dx.  Every kernel call with no
+    weight, a mask or the PRF is made twice and must repeat bit for bit.  ``ref64``: the plain version
     runs in float64, for rows so long that float32 rounding in another sum
     order alone would reach the tolerance; inputs are then small integers
     and the learned weight takes values in {0, 0.5, 1, 2}."""
@@ -778,10 +778,14 @@ def check_graph(errs: ErrTrack, name: str, g: sk.CsrGraph, widths, gen, with_gra
             got = sk.csr_spmm(lay, x)
             check_exact(f"{tag}.repeat", sk.csr_spmm(lay, x), got)
             errs.check(f"{tag}.plain", got, plain(lay, x))
+            if ref64:       # small integers: every sum is exact in float32
+                check_exact(f"{tag}.exact", got, plain(lay, x))
             for mtag, mask, prf in masks:
                 km = sk.csr_spmm(lay, x, mask)
+                check_exact(f"{tag}.mask{mtag}.repeat", sk.csr_spmm(lay, x, mask), km)
                 errs.check(f"{tag}.mask{mtag}", km, plain(lay, x, mask))
                 kp = sk.csr_spmm(lay, x, prf)
+                check_exact(f"{tag}.prf{mtag}.repeat", sk.csr_spmm(lay, x, prf), kp)
                 check_exact(f"{tag}.prf{mtag}=mask", kp, km)
                 errs.check(f"{tag}.prf{mtag}", kp, plain(lay, x, prf))
             if not with_grads:
@@ -813,12 +817,17 @@ def check_graph(errs: ErrTrack, name: str, g: sk.CsrGraph, widths, gen, with_gra
     log(f"  {name}: {g.n_rows}x{g.n_cols}, nnz {g.nnz}, widths {list(widths)}: ok")
 
 
+STRESS_LONG_ROW = 961_308      # KMCLR's pad row: its lists' gather backward
+
+
 def stress_graph(dev) -> sk.CsrGraph:
-    """One row of 100,000 edges, rows of T-1, T, T+1 and 2T+1 edges around
-    every split threshold B1 picks here (32 and 64), single-edge rows and
-    empty rows, over 60,000 columns, edge values in {0.5, 1, 2}."""
+    """A row of ``STRESS_LONG_ROW`` edges and one of 100,000, rows of T-1, T,
+    T+1 and 2T+1 edges around every split threshold B1 picks here (32 to
+    128), single-edge rows and empty rows, over 60,000 columns, edge values
+    in {0.5, 1, 2}."""
     rng = np.random.default_rng(21)
-    deg = np.concatenate([[100_000], np.tile([31, 32, 33, 65, 0, 63, 64, 1, 0, 129], 300),
+    deg = np.concatenate([[STRESS_LONG_ROW, 100_000],
+                          np.tile([31, 32, 33, 65, 0, 63, 64, 1, 0, 129, 127, 128], 300),
                           np.zeros(500, np.int64)])
     rows = np.repeat(np.arange(deg.size), deg)
     cols = rng.integers(0, 60_000, rows.size)
@@ -827,6 +836,17 @@ def stress_graph(dev) -> sk.CsrGraph:
     rows, cols = (torch.from_numpy(a[order].astype(np.int32)) for a in (rows, cols))
     return sk.build_csr_graph(CooGraph(rows=rows, cols=cols, vals=torch.from_numpy(vals),
                                        n_rows=deg.size, n_cols=60_000), dev)
+
+
+def tree_shape(plan: sk.SplitPlan) -> str:
+    """The nodes of each level of ``plan``'s combine tree, as a string."""
+    ptr, dst = plan.node_ptr.cpu(), plan.node_dst.cpu()
+    levels, j, ready = [], 0, plan.n_slots
+    while j < dst.shape[0]:
+        j1 = int(torch.searchsorted(ptr, ready))
+        levels.append(j1 - j)
+        j, ready = j1, ready + int((dst[j:j1] < 0).sum())
+    return f"{'/'.join(map(str, levels)) or 'none'} nodes (fan-in {plan.fan_in})"
 
 
 def device_ms(fn, floor: float = 0.0, iters: int = 50, warmup: int = 5,
@@ -962,7 +982,7 @@ def timing(kernel, plain, library=None, floor: float = 0.0, **extra) -> dict:
 def schedule(lay: sk.CsrLayout, d: int) -> tuple[int, int]:
     """The lane group and split threshold B1 picks for ``lay`` at width ``d``
     on card 0."""
-    group = sk.lane_group(d)
+    group = sk.lane_group(d, sk.mean_degree(lay))
     return group, sk.split_threshold(lay.cols.shape[0], group, sk.resident_threads(0))
 
 
@@ -4228,12 +4248,18 @@ def main() -> int:
         f"main-path shape: abs {main_abs:.3g}, rel {main_rel:.3g}")
     stress = stress_graph(dev)
     stress_errs = ErrTrack()
-    check_graph(stress_errs, "stress", stress, (1, 32, 64, 65), gen, with_grads=True,
+    check_graph(stress_errs, "stress", stress, (1, 2, 3, 4, 32, 64, 65), gen, with_grads=True,
                 ref64=True)
-    splan = sk.layout_plan(stress.fwd, schedule(stress.fwd, 32)[1])
-    log(f"stress graph (float64 plain): max abs err {stress_errs.abs:.3g}, max rel err "
-        f"{stress_errs.rel:.3g}; at d 32 {splan.n_chunks} chunks of <= {splan.t} edges, "
-        f"{splan.split_rows.numel()} split rows, {splan.empty_rows.numel()} empty")
+    set_precision(True)         # the narrow widths in bf16 mode, against the bf16 plain
+    check_graph(stress_errs, "stress.bf16", stress, (1, 2, 3, 4), gen, with_grads=False,
+                ref64=True)
+    set_precision(False)
+    for sd in (32, 1):
+        splan = sk.layout_plan(stress.fwd, schedule(stress.fwd, sd)[1])
+        log(f"stress graph (float64 plain): max abs err {stress_errs.abs:.3g}, max rel err "
+            f"{stress_errs.rel:.3g}; at d {sd} {splan.n_chunks} chunks of <= {splan.t} edges, "
+            f"{splan.split_rows.numel()} split rows, {splan.empty_rows.numel()} empty; "
+            f"combine tree {tree_shape(splan)}")
 
     log("== 4. B1 timing, LightGCN hop")
     d = int(cfg.model.embedding_size)
@@ -4541,9 +4567,11 @@ def main() -> int:
     def b1_row(name, r, bound, path_launches, err, shape, **more):
         return {"name": name, **common, "launches": path_launches[0],
                 "combine_launches": path_launches[1],
-                "launches_scope": "launches of spmm_chunks (one per B1 call) and of "
-                                  "combine_chunks (combine_launches: one per call over a "
-                                  "layout with split rows) in the path's 2-epoch run",
+                "launches_scope": "launches of B1's chunk kernel (spmm_chunks, or "
+                                  "spmm_narrow at d <= 4; one per B1 call) and of "
+                                  "combine_tree (combine_launches: one per call over a "
+                                  "layout with split rows at d > 4; spmm_narrow sums its "
+                                  "own tree) in the path's 2-epoch run",
                 "max_abs_err": err.abs, "max_rel_err": err.rel, "shape": shape,
                 **r, "bound_ms": bound[0], "bound_by": bound[1], **more}
 

@@ -28,30 +28,64 @@
 //
 // 1. Work split by edges.  The host (spmm_kernel.split_plan, once per layout
 //    and threshold T) cuts every row into chunks of at most T edges.  A row of
-//    more than T edges becomes several chunks; each chunk's sum goes to a
-//    partials buffer and a second kernel adds a row's partials in chunk order.
-//    T follows from nnz and the lane-group width, so a 502-edge row or a
-//    41-row relation take with ~7,250 edges per row keeps the card busy.
-// 2. Lanes over edges and features together.  A chunk belongs to a group of
-//    G lanes, 32/G chunks to a warp; G comes from d (spmm_kernel.lane_group:
-//    one lane per two float4s of a row, or per two floats when d % 4, as
-//    sweeps on the card chose).  Per batch the group's lanes load G edges'
-//    (col, val, w) at once and hand them round with shuffles; the x loads
-//    of up to U edges are issued before their FMAs, so several independent
-//    16-byte gathers are in flight per lane.
-// 3. Any d >= 1 in one pass over the edges: a lane holds NV <= 4 vectors
-//    (features (k*G + lane)*VEC), so d = 65 or d = 1 wastes no whole pass;
-//    only d > 4*G*VEC takes a second pass.
-// 4. The dropout PRF inside the kernel: no mask tensor is built or read, and
+//    more than T edges becomes several chunks, each chunk's sum a partial,
+//    added up by the combine tree below.  T follows from nnz and the
+//    lane-group width, so a 502-edge row or a 41-row relation take with
+//    ~7,250 edges per row keeps the card busy.
+// 2. Lanes over edges and features together (d > 4, spmm_chunks).  A chunk
+//    belongs to a group of G lanes, 32/G chunks to a warp; G comes from d
+//    (spmm_kernel.lane_group: one lane per two float4s of a row, or per two
+//    floats when d % 4, as sweeps on the card chose).  Per batch the group's
+//    lanes load G edges' (col, val, w) at once and hand them round with
+//    shuffles; the x loads of up to U edges are issued before their FMAs, so
+//    several independent 16-byte gathers are in flight per lane.
+// 3. Any d > 4 in one pass over the edges: a lane holds NV <= 4 vectors
+//    (features (k*G + lane)*VEC), so d = 65 wastes no whole pass; only
+//    d > 4*G*VEC takes a second pass.
+// 4. Narrow rows, d <= 4 (spmm_narrow).  There a row is one vector or less,
+//    so lanes over features would leave all lanes but one of a group without
+//    a gather.  Instead each of the group's G lanes takes the chunk's edges
+//    e = start + lane + k*G, sums them for all d features in order of k with
+//    U independent x loads in flight, and the group adds its lanes' sums by
+//    a fixed __shfl_xor_sync butterfly (log2 G steps; a + b is commutative
+//    in IEEE arithmetic, so every lane ends with the same bits); lane 0
+//    writes.  G and T for this mode come from d (spmm_kernel.lane_group,
+//    split_threshold).
+// 5. The split rows' combine is a fixed tree.  The plan
+//    (spmm_kernel.split_plan) cuts a split row's partials into runs of at
+//    most R consecutive ones (R = spmm_kernel.FAN_IN); each run is a tree
+//    node whose sum is a partial of the next level, until a row has one
+//    node, its root, which writes the row.  A group that has written a
+//    partial counts itself in at the partial's node (an integer atomicAdd
+//    after a __threadfence); the group that arrives last sums the node's
+//    partials in slot order, writes the result and climbs on, so a node is
+//    summed by one group, once, in an order fixed by the plan alone.  At
+//    d <= 4 the chunks' groups climb inside spmm_narrow (lane-strided over
+//    the node's partials with the butterfly), so a call is one launch.  At
+//    d > 4 spmm_chunks stays as it was (a climb there cost every chunk of
+//    the balanced hops registers and a fence, and slowed LightGCN's hop on
+//    an H100), and a second launch, combine_tree, gives each
+//    first-level node a group of lanes over features, one 4-vector a lane
+//    where 32 lanes allow, which climbs from there.  The serial
+//    combine it replaces gave one thread to each (row, feature) and walked
+//    all of a row's partials: KMCLR's pad row, 961,308 slots in 30,041 chunks
+//    at d 32, took ~1.5 ms in 32 threads; a tree's depth grows with log_R of
+//    the partials.  A row of at most R chunks (every row of LightGCN's hop)
+//    is one node, summed in the serial combine's order.  The last arriver
+//    resets its node's counter to 0, so the counters (the plan's `arrivals`)
+//    are zero between calls; two calls on one plan must not run at once.
+// 6. The dropout PRF inside the kernel: no mask tensor is built or read, and
 //    the forward layout (identity ids) reads no edge ids either, and the
 //    Threefry rounds run while the batch's x loads are in flight.  The
 //    multiply and the PRF's float steps use __fmul_rn / __fadd_rn /
 //    __fdiv_rn, so nvcc contracts nothing and the multiplier equals the
 //    materialised mask bit for bit.
 //
-// Deterministic, no atomics: a chunk's edges are summed in order by one f32
-// accumulator per feature, and partials in chunk order, so two calls give
-// bit-identical output.  An empty row writes 0.
+// Deterministic, no float atomics: every sum is taken in an order fixed by
+// the plan (a chunk's edges in order, or lane-strided and the butterfly at
+// d <= 4; a node's partials in slot order), so two calls give bit-identical
+// output.  An empty row writes 0.  A partial that a group of the same launch
+// reads is written and read through L2 (__stcg / __ldcg).
 //
 // bf16 mode (the JAX package's SSLREC_PALLAS_PRECISION=default, which halves
 // the gathered bytes): x arrives as bf16 rows (the host casts it once a
@@ -63,8 +97,8 @@
 // mantissa bits) and rounded once, which is the JAX package's bf16 multiply.
 // The f32 mode is untouched by it.
 //
-// Not done here (later work): TMA / cp.async staging of the edge arrays;
-// fusing the split rows' combine into the last-arriving chunk.
+// Later work: TMA / cp.async staging of the edge arrays; the bf16 mode's
+// gathers, slower than torch.sparse.mm on a bf16 CSR tensor at MAERec's hop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +107,10 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTreeThreads = 64;  // combine_tree's blocks
 constexpr int kMaxNv = 4;
+constexpr int kNarrowD = 4;      // widths up to this take spmm_narrow
+constexpr int kNarrowU = 4;      // edges (or partials) a lane has in flight there
 enum Mode { kNone = 0, kTensor = 1, kPrf = 2 };
 
 struct Params {
@@ -95,6 +132,16 @@ struct Params {
   float* partials;
   int d;
   int log2g;
+};
+
+// The split rows' combine tree, apart from Params: spmm_chunks takes Params
+// alone, as it was (with the tree's fields in Params, nvcc 12.9 gave its
+// LightGCN instance 88 registers instead of 78: two blocks an SM, not three).
+struct Tree {
+  const int* node_ptr;     // [n_nodes + 1] each tree node's partial slots
+  const int* node_dst;     // [n_nodes] out row (a root), or -1 - partial slot
+  const int* slot_node;    // [n_partials] the node each partial belongs to
+  int* arrivals;           // [n_nodes] arrival counters, 0 between calls
 };
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t v, int r) {
@@ -148,6 +195,17 @@ __device__ __forceinline__ void load_vec(float (&dst)[VEC], const __nv_bfloat16*
   }
 }
 
+// A partial written by another SM: read through L2.
+template <int VEC>
+__device__ __forceinline__ void load_partial(float (&dst)[VEC], const float* src) {
+  if constexpr (VEC == 4) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(src));
+    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+  } else {
+    dst[0] = __ldcg(src);
+  }
+}
+
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -158,6 +216,105 @@ __device__ __forceinline__ void store_vec(float* dst, const float (&src)[VEC]) {
     *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
   } else {
     dst[0] = src[0];
+  }
+}
+
+// `cg`: a tree node's partial, stored to L2 for the group that sums its
+// parent.
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* dst, const float (&src)[VEC], bool cg) {
+  if (!cg) return store_vec<VEC>(dst, src);
+  if constexpr (VEC == 4)
+    __stcg(reinterpret_cast<float4*>(dst), make_float4(src[0], src[1], src[2], src[3]));
+  else
+    __stcg(dst, src[0]);
+}
+
+// The group has written partial `slot`; count it in at the slot's node.
+// True for the group that arrives last, which then sums the node (`node`).
+__device__ __forceinline__ bool arrive(const Tree& tr, int slot, int sub, int G,
+                                       unsigned gmask, int& node) {
+  __threadfence();
+  __syncwarp(gmask);
+  node = __ldg(tr.slot_node + slot);
+  int last = 0;
+  if (sub == 0) {
+    const int n = __ldg(tr.node_ptr + node + 1) - __ldg(tr.node_ptr + node);
+    last = atomicAdd(tr.arrivals + node, 1) == n - 1;
+    if (last) tr.arrivals[node] = 0;           // ready for the next call
+  }
+  last = __shfl_sync(gmask, last, 0, G);
+  if (last) __threadfence();
+  return last != 0;
+}
+
+// out, or a partial, of a chunk or node whose dst is `dst`.
+__device__ __forceinline__ float* dst_row(const Params& p, int dst) {
+  return dst >= 0 ? p.out + static_cast<int64_t>(dst) * p.d
+                  : p.partials + static_cast<int64_t>(-1 - dst) * p.d;
+}
+
+// Lanes over features (d > 4): tree node `node`'s partials summed in slot
+// order, U of them in flight, written to the node's dst; returns the dst.
+template <int VEC, int NV>
+__device__ __forceinline__ int sum_node_wide(const Params& p, const Tree& tr, int node,
+                                             int sub, int G) {
+  constexpr int U = 16 / NV;
+  const int d = p.d;
+  const int lo = __ldg(tr.node_ptr + node), hi = __ldg(tr.node_ptr + node + 1);
+  const int dst = __ldg(tr.node_dst + node);
+  float* o = dst_row(p, dst);
+  for (int f0 = 0; f0 < d; f0 += G * VEC * NV) {
+    float acc[NV][VEC] = {};
+    for (int c0 = lo; c0 < hi; c0 += U) {
+      float pv[U][NV][VEC];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int k = 0; k < NV; ++k) {
+          const int f = f0 + (k * G + sub) * VEC;
+          if (c0 + u < hi && f < d)
+            load_partial<VEC>(pv[u][k], p.partials + static_cast<int64_t>(c0 + u) * d + f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int k = 0; k < NV; ++k) {
+          const int f = f0 + (k * G + sub) * VEC;
+          if (c0 + u < hi && f < d) {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) acc[k][i] = __fadd_rn(acc[k][i], pv[u][k][i]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int f = f0 + (k * G + sub) * VEC;
+      if (f < d) store_vec<VEC>(o + f, acc[k], dst < 0);
+    }
+  }
+  return dst;
+}
+
+// The split rows' combine tree after spmm_chunks (d > 4), in one launch: a
+// group of G = 2^log2g lanes per first-level node (the first n_first nodes,
+// whose partials spmm_chunks wrote), one vector of a row a lane where G = 32
+// allows, then up the tree by arrival.  Small blocks spread the few nodes
+// over many SMs.
+template <int VEC, int NV>
+__global__ void __launch_bounds__(kTreeThreads) combine_tree(const Params p, const Tree tr,
+                                                             int n_first, int log2g) {
+  const int G = 1 << log2g;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);
+  int node = (blockIdx.x * kTreeThreads + threadIdx.x) >> log2g;
+  if (node >= n_first) return;
+  const unsigned gmask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
+  for (int dst = sum_node_wide<VEC, NV>(p, tr, node, sub, G);
+       dst < 0 && arrive(tr, -1 - dst, sub, G, gmask, node);
+       dst = sum_node_wide<VEC, NV>(p, tr, node, sub, G)) {
   }
 }
 
@@ -259,29 +416,165 @@ __global__ void __launch_bounds__(kThreads) spmm_chunks(const Params p) {
   }
 }
 
-// out[split_rows[i], f] = sum of the row's partials, in chunk order; one
-// thread per (split row, feature).
-__global__ void __launch_bounds__(kThreads)
-combine_chunks(const int* __restrict__ split_ptr, const int* __restrict__ split_rows,
-               int n_split, const float* __restrict__ partials, float* __restrict__ out,
-               int d) {
-  constexpr int U = 8;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= static_cast<int64_t>(n_split) * d) return;
-  const int i = static_cast<int>(t / d);
-  const int f = static_cast<int>(t % d);
-  const int s1 = split_ptr[i + 1];
-  float acc = 0.0f;
-  for (int s = split_ptr[i]; s < s1; s += U) {
-    float v[U];
+// The group's lanes' sums added by a fixed butterfly; every lane ends with
+// the same bits.
+template <int D>
+__device__ __forceinline__ void butterfly(float (&acc)[D], int G, unsigned gmask) {
+  for (int off = G >> 1; off > 0; off >>= 1) {
 #pragma unroll
-    for (int u = 0; u < U; ++u)
-      v[u] = s + u < s1 ? __ldg(partials + static_cast<int64_t>(s + u) * d + f) : 0.0f;
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      if (s + u < s1) acc = __fadd_rn(acc, v[u]);
+    for (int i = 0; i < D; ++i)
+      acc[i] = __fadd_rn(acc[i], __shfl_xor_sync(gmask, acc[i], off, G));
   }
-  out[static_cast<int64_t>(split_rows[i]) * d + f] = acc;
+}
+
+template <int D>
+__device__ __forceinline__ void store_row(float* o, const float (&acc)[D], bool cg) {
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    if (cg) __stcg(o + i, acc[i]);
+    else o[i] = acc[i];
+  }
+}
+
+// One row of x at width D <= 4: one 4-vector where aligned, else D loads.
+template <int D>
+__device__ __forceinline__ void load_row(float (&dst)[D], const float* src, int vec4) {
+  if constexpr (D == 4) {
+    if (vec4) {
+      load_vec<4>(dst, src);
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) dst[i] = __ldg(src + i);
+}
+
+template <int D>
+__device__ __forceinline__ void load_row(float (&dst)[D], const __nv_bfloat16* src, int vec4) {
+  if constexpr (D == 4) {
+    if (vec4) {
+      load_vec<4>(dst, src);
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < D; ++i) dst[i] = __bfloat162float(src[i]);
+}
+
+// Lane-strided over a node's partials, then the butterfly: the nodes above
+// partial `slot` at width D <= 4.
+template <int D>
+__device__ void climb_narrow(const Params& p, const Tree& tr, int slot, int sub, int G,
+                             unsigned gmask) {
+  constexpr int U = kNarrowU;
+  int node;
+  while (slot >= 0 && arrive(tr, slot, sub, G, gmask, node)) {
+    const int lo = __ldg(tr.node_ptr + node), hi = __ldg(tr.node_ptr + node + 1);
+    const int dst = __ldg(tr.node_dst + node);
+    float acc[D] = {};
+    for (int c0 = lo + sub; c0 < hi; c0 += G * U) {
+      float pv[U][D];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (c0 + u * G < hi) {
+#pragma unroll
+          for (int i = 0; i < D; ++i)
+            pv[u][i] = __ldcg(p.partials + static_cast<int64_t>(c0 + u * G) * D + i);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (c0 + u * G < hi) {
+#pragma unroll
+          for (int i = 0; i < D; ++i) acc[i] = __fadd_rn(acc[i], pv[u][i]);
+        }
+      }
+    }
+    butterfly<D>(acc, G, gmask);
+    if (sub == 0) store_row<D>(dst_row(p, dst), acc, dst < 0);
+    slot = dst >= 0 ? -1 : -1 - dst;
+  }
+}
+
+// d = D <= 4: one group of G lanes per item, each lane over its own edges
+// e = start + sub + k*G with U edges' loads in flight, then the butterfly.
+template <typename T, int D, int MODE>
+__global__ void __launch_bounds__(kThreads) spmm_narrow(const Params p, const Tree tr,
+                                                        int vec4) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  constexpr int U = kNarrowU;
+  const T* __restrict__ x = static_cast<const T*>(p.x);
+  const int G = 1 << p.log2g;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);
+  const int item = (blockIdx.x * kThreads + threadIdx.x) >> p.log2g;
+  if (item >= p.n_chunks + p.n_empty) return;
+  if (item >= p.n_chunks) {
+    float* o = p.out + static_cast<int64_t>(p.empty_rows[item - p.n_chunks]) * D;
+    for (int f = sub; f < D; f += G) o[f] = 0.0f;
+    return;
+  }
+  const unsigned gmask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
+  const int start = p.chunk_ptr[item];
+  const int end = p.chunk_ptr[item + 1];
+  const int dst = p.chunk_dst[item];
+  uint32_t k0 = 0, k1 = 0;
+  if (MODE == kPrf) {
+    k0 = static_cast<uint32_t>(p.key[0]);
+    k1 = static_cast<uint32_t>(p.key[1]);
+  }
+  float acc[D] = {};
+  for (int base = start + sub; base < end; base += G * U) {
+    int cj[U], idj[U];
+    float vj[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = base + u * G;
+      cj[u] = idj[u] = 0;
+      vj[u] = 0.0f;
+      if (e < end) {
+        cj[u] = __ldg(p.cols + e);
+        vj[u] = p.vals != nullptr ? __ldg(p.vals + e) : 1.0f;
+        if (MODE != kNone) idj[u] = p.edge_ids != nullptr ? __ldg(p.edge_ids + e) : e;
+      }
+    }
+    float xv[U][D];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (base + u * G < end) load_row<D>(xv[u], x + static_cast<int64_t>(cj[u]) * D, vec4);
+    if constexpr (MODE == kTensor) {
+      // the weights' loads go out behind the x loads, not before them
+      float wj[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) wj[u] = base + u * G < end ? __ldg(p.ew + idj[u]) : 0.0f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) vj[u] = __fmul_rn(vj[u], wj[u]);
+    }
+    if constexpr (MODE == kPrf) {
+      // the PRF runs while the x loads are in flight
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (base + u * G < end)
+          vj[u] = __fmul_rn(vj[u], dropout_keep(k0, k1, static_cast<uint32_t>(idj[u]), p.salt,
+                                                p.keep_rate, p.resize_val));
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (base + u * G < end) {
+        const float vu = kBf16 ? round_bf16(vj[u]) : vj[u];
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          if constexpr (kBf16)
+            acc[i] = __fadd_rn(acc[i], round_bf16(__fmul_rn(vu, xv[u][i])));
+          else
+            acc[i] = fmaf(vu, xv[u][i], acc[i]);
+        }
+      }
+    }
+  }
+  butterfly<D>(acc, G, gmask);
+  if (sub == 0) store_row<D>(dst_row(p, dst), acc, dst < 0);
+  if (dst < 0) climb_narrow<D>(p, tr, -1 - dst, sub, G, gmask);
 }
 
 template <typename T, int VEC, int NV>
@@ -303,25 +596,70 @@ void launch_nv(int nv, int mode, int blocks, cudaStream_t s, const Params& p) {
   }
 }
 
+template <int VEC>
+void launch_tree(int nvec, int n_first, cudaStream_t s, const Params& p, const Tree& tr) {
+  int log2g = 0;
+  while (log2g < 5 && (1 << log2g) < nvec) ++log2g;
+  const int nv = min(kMaxNv, (nvec + (1 << log2g) - 1) >> log2g);
+  const int blocks = static_cast<int>(
+      ((static_cast<int64_t>(n_first) << log2g) + kTreeThreads - 1) / kTreeThreads);
+  switch (nv) {
+    case 1: combine_tree<VEC, 1><<<blocks, kTreeThreads, 0, s>>>(p, tr, n_first, log2g); break;
+    case 2: combine_tree<VEC, 2><<<blocks, kTreeThreads, 0, s>>>(p, tr, n_first, log2g); break;
+    case 3: combine_tree<VEC, 3><<<blocks, kTreeThreads, 0, s>>>(p, tr, n_first, log2g); break;
+    default:
+      combine_tree<VEC, kMaxNv><<<blocks, kTreeThreads, 0, s>>>(p, tr, n_first, log2g);
+      break;
+  }
+}
+
+template <typename T, int D>
+void launch_narrow_mode(int mode, int blocks, cudaStream_t s, const Params& p,
+                        const Tree& tr, int vec4) {
+  switch (mode) {
+    case kNone: spmm_narrow<T, D, kNone><<<blocks, kThreads, 0, s>>>(p, tr, vec4); break;
+    case kTensor: spmm_narrow<T, D, kTensor><<<blocks, kThreads, 0, s>>>(p, tr, vec4); break;
+    default: spmm_narrow<T, D, kPrf><<<blocks, kThreads, 0, s>>>(p, tr, vec4); break;
+  }
+}
+
+template <typename T>
+void launch_narrow(int d, int mode, int blocks, cudaStream_t s, const Params& p,
+                   const Tree& tr, int vec4) {
+  switch (d) {
+    case 1: launch_narrow_mode<T, 1>(mode, blocks, s, p, tr, vec4); break;
+    case 2: launch_narrow_mode<T, 2>(mode, blocks, s, p, tr, vec4); break;
+    case 3: launch_narrow_mode<T, 3>(mode, blocks, s, p, tr, vec4); break;
+    default: launch_narrow_mode<T, kNarrowD>(mode, blocks, s, p, tr, vec4); break;
+  }
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes.  Pointers are device pointers.  The plan
-// arrays come from spmm_kernel.split_plan; edge_ids is null on a layout whose
-// ids are the identity, vals on one whose values are all ones; at most one of
-// ew (a [nnz] multiplier in the original edge order) and key (the dropout
-// PRF's int64 [2] key) is set; partials holds one d-row per chunk of a split
-// row; x holds bf16 rows where x_bf16 is set (the bf16 mode), else float.
-// Launches on `stream` and returns the first cudaGetLastError() that is not 0
-// (0 on success); it does not synchronise.
+// arrays come from spmm_kernel.split_plan (its combine tree: node_ptr,
+// node_dst, slot_node, the zeroed arrivals counters, which a call leaves
+// zeroed, and n_first, the first level's nodes); edge_ids is null on a
+// layout whose ids are the identity, vals on one whose values are all ones;
+// at most one of ew (a [nnz] multiplier in the original edge order) and key
+// (the dropout PRF's int64 [2] key) is set; partials holds one d-row per
+// partial of the plan; x holds bf16 rows where x_bf16 is set (the bf16
+// mode), else float.  d <= 4 takes spmm_narrow, one launch; d > 4
+// spmm_chunks, then combine_tree where the plan has split rows.  Launches on
+// `stream` and returns the first cudaGetLastError() that is not 0 (0 on
+// success); it does not synchronise.
 extern "C" int csr_spmm_f32(const void* chunk_ptr, const void* chunk_dst, int n_chunks,
-                            const void* empty_rows, int n_empty, const void* split_ptr,
-                            const void* split_rows, int n_split, const void* cols,
-                            const void* vals, const void* edge_ids, const void* ew,
-                            const void* key, unsigned salt, float keep_rate, int resize_val,
-                            const void* x, void* out, void* partials, int d, int log2g,
-                            int x_bf16, void* stream) {
+                            const void* empty_rows, int n_empty, const void* node_ptr,
+                            const void* node_dst, const void* slot_node, void* arrivals,
+                            int n_first, const void* cols, const void* vals,
+                            const void* edge_ids, const void* ew, const void* key,
+                            unsigned salt, float keep_rate, int resize_val, const void* x,
+                            void* out, void* partials, int d, int log2g, int x_bf16,
+                            void* stream) {
   if (d <= 0 || n_chunks + n_empty <= 0) return 0;
   if (log2g < 0 || log2g > 5) return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t align = x_bf16 ? 7 : 15;     // a 4-vector's bytes, less one
+  const bool vec4 = d % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & align) == 0;
   const Params p{static_cast<const int*>(chunk_ptr), static_cast<const int*>(chunk_dst),
                  n_chunks, static_cast<const int*>(empty_rows), n_empty,
                  static_cast<const int*>(cols), static_cast<const float*>(vals),
@@ -329,16 +667,23 @@ extern "C" int csr_spmm_f32(const void* chunk_ptr, const void* chunk_dst, int n_
                  static_cast<const long long*>(key), salt, keep_rate, resize_val,
                  x, static_cast<float*>(out),
                  static_cast<float*>(partials), d, log2g};
-  const uintptr_t align = x_bf16 ? 7 : 15;     // a 4-vector's bytes, less one
-  const bool vec4 = d % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & align) == 0;
-  const int vec = vec4 ? 4 : 1;
-  const int nvec = (d + vec - 1) / vec;
-  const int g = 1 << log2g;
-  const int nv = min(kMaxNv, (nvec + g - 1) / g);
+  const Tree tr{static_cast<const int*>(node_ptr), static_cast<const int*>(node_dst),
+                static_cast<const int*>(slot_node), static_cast<int*>(arrivals)};
   const int mode = ew != nullptr ? kTensor : key != nullptr ? kPrf : kNone;
   const int64_t threads = static_cast<int64_t>(n_chunks + n_empty) << log2g;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= kNarrowD) {
+    if (x_bf16)
+      launch_narrow<__nv_bfloat16>(d, mode, blocks, s, p, tr, vec4);
+    else
+      launch_narrow<float>(d, mode, blocks, s, p, tr, vec4);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int vec = vec4 ? 4 : 1;
+  const int nvec = (d + vec - 1) / vec;
+  const int g = 1 << log2g;
+  const int nv = min(kMaxNv, (nvec + g - 1) / g);
   if (x_bf16) {
     if (vec4)
       launch_nv<__nv_bfloat16, 4>(nv, mode, blocks, s, p);
@@ -350,10 +695,10 @@ extern "C" int csr_spmm_f32(const void* chunk_ptr, const void* chunk_dst, int n_
     launch_nv<float, 1>(nv, mode, blocks, s, p);
   }
   int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || n_split <= 0) return err;
-  const int64_t cthreads = static_cast<int64_t>(n_split) * d;
-  combine_chunks<<<static_cast<int>((cthreads + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      static_cast<const int*>(split_ptr), static_cast<const int*>(split_rows), n_split,
-      static_cast<const float*>(partials), static_cast<float*>(out), d);
+  if (err != 0 || n_first <= 0) return err;
+  if (vec4)
+    launch_tree<4>(nvec, n_first, s, p, tr);
+  else
+    launch_tree<1>(nvec, n_first, s, p, tr);
   return static_cast<int>(cudaGetLastError());
 }

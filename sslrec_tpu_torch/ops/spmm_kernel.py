@@ -7,7 +7,8 @@ tiling is the TPU's and is dropped.  Here each propagation direction is a
 plain CSR layout (:class:`CsrLayout`), and ``csrc/csr_spmm.cu`` computes the
 whole operator ``out[r] = Σ_e vals[e]·w(e)·x[cols[e]]`` in one call: rows cut
 into chunks of at most T edges by :func:`split_plan`, a row of more than T
-edges summed as several chunks and combined in chunk order.
+edges summed as several chunks, whose partials a fixed tree in the plan adds
+up inside the same launch.
 
 Dispatch: a tensor on the CPU goes to :func:`csr_spmm_plain`; a CUDA tensor
 launches the kernel or raises.  Both follow the precision mode
@@ -210,17 +211,37 @@ def csr_graph_from_edges(rows: torch.Tensor, cols: torch.Tensor, n_rows: int,
 # Split plan: rows cut into chunks of at most T edges
 # ---------------------------------------------------------------------------
 
+FAN_IN = 16
+"""R: the most partials one node of a split row's combine tree sums (see
+:class:`SplitPlan`).  A row of up to R chunks is summed by one node, in
+chunk order (every row of LightGCN's hop at d 32: at most 502 edges in
+chunks of 32); KMCLR's pad row, 30,041 chunks at d 32, by a tree of depth 4.
+PERF.md has the sweep (``chip_compare.py --sweep``) that chose it."""
+
+
 class SplitPlan(NamedTuple):
     """The kernel's work list for one layout and threshold ``t``.
 
     Chunk ``c`` sums the edges ``[chunk_ptr[c], chunk_ptr[c+1])``, all of row
     ``chunk_row[c]``; a row of ``n > t`` edges has ``⌈n/t⌉`` chunks, in edge
     order, the others one, an empty row none.  ``chunk_dst[c]`` is the row
-    for a whole row's chunk, else ``-1 - slot`` with ``slot`` its row in the
-    partials buffer; ``split_rows`` [n_split] are the rows with several chunks,
-    whose slots are ``[split_ptr[i], split_ptr[i+1])`` in chunk order;
-    ``empty_rows`` are written 0.  All int32; ``n_slots`` is the number of
-    partials.
+    for a whole row's chunk, else ``-1 - slot`` with ``slot`` its partial,
+    a row's chunks taking consecutive slots in chunk order; ``split_rows``
+    [n_split] are the rows with several chunks; ``empty_rows`` are written 0.
+    ``n_slots`` is the number of chunk partials.
+
+    The split rows' combine tree: a node sums at most ``fan_in`` consecutive
+    partials of one row, those in ``[node_ptr[j], node_ptr[j+1])``, in slot
+    order, and writes ``node_dst[j]``: the row for a row's last node (its
+    root), else ``-1 - slot`` with ``slot`` a partial of the next level.  A
+    row's partials of one level are cut into runs of ``fan_in`` from its
+    first; nodes are ordered by level, then row, and the partials they write
+    follow the chunk partials in that order, so each level's nodes cover the
+    previous level's partials in order and ``node_ptr`` rises from 0 to
+    ``n_partials``; the first ``n_first`` nodes are the first level's, over
+    the chunk partials.  ``slot_node`` [n_partials] is each partial's node;
+    ``arrivals`` [n_nodes] are the kernel's arrival counters, zero between
+    calls.  All tensors int32.
     """
 
     t: int
@@ -229,20 +250,56 @@ class SplitPlan(NamedTuple):
     chunk_dst: torch.Tensor
     empty_rows: torch.Tensor
     split_rows: torch.Tensor
-    split_ptr: torch.Tensor
     n_slots: int
+    fan_in: int
+    n_first: int
+    node_ptr: torch.Tensor
+    node_dst: torch.Tensor
+    slot_node: torch.Tensor
+    arrivals: torch.Tensor
 
     @property
     def n_chunks(self) -> int:
         return self.chunk_row.shape[0]
 
+    @property
+    def n_partials(self) -> int:
+        return self.slot_node.shape[0]
 
-def split_plan(indptr_t: torch.Tensor, t: int) -> SplitPlan:
-    """The chunks of the rows of ``indptr_t`` under threshold ``t``, built on
-    the host and placed on ``indptr_t``'s device; see :class:`SplitPlan`.
-    The reference for :func:`device_split_plan`, which B1 uses."""
-    if t < 1:
-        raise ValueError(f"split threshold must be >= 1, got {t}")
+
+def _host_tree(n_split: np.ndarray, rows: np.ndarray, r: int):
+    """``(node_ptr, node_dst, slot_node, n_first)`` of the combine tree over
+    split rows ``rows`` of ``n_split`` chunk partials each (numpy, int64)."""
+    counts, lo = n_split, 0          # partials per live row at this level; its first slot
+    ptr, dst, owner, n_nodes = [], [], [], 0
+    while counts.size:
+        nodes = -(-counts // r)
+        first = lo + np.cumsum(counts) - counts              # each row's first partial
+        first_node = n_nodes + np.cumsum(nodes) - nodes
+        node_row = np.repeat(np.arange(rows.size), nodes)
+        k = np.arange(nodes.sum()) - np.repeat(first_node - n_nodes, nodes)
+        ptr.append(first[node_row] + k * r)
+        root = nodes[node_row] == 1
+        nxt = lo + counts.sum()                              # this level's first new partial
+        dst.append(np.where(root, rows[node_row], -1 - (nxt + np.cumsum(~root) - 1)))
+        slot_row = np.repeat(np.arange(rows.size), counts)
+        pos = np.arange(counts.sum()) - np.repeat(first - lo, counts)
+        owner.append(first_node[slot_row] + pos // r)
+        n_nodes += int(nodes.sum())
+        lo = nxt
+        counts, rows = nodes[nodes > 1], rows[nodes > 1]
+    empty = np.zeros(0, np.int64)
+    return (np.concatenate(ptr + [[lo]]), np.concatenate(dst or [empty]),
+            np.concatenate(owner or [empty]), ptr[0].size if ptr else 0)
+
+
+def split_plan(indptr_t: torch.Tensor, t: int, fan_in: int = FAN_IN) -> SplitPlan:
+    """The chunks of the rows of ``indptr_t`` under threshold ``t`` and their
+    combine tree of fan-in ``fan_in``, built on the host and placed on
+    ``indptr_t``'s device; see :class:`SplitPlan`.  The reference for
+    :func:`device_split_plan`, which B1 uses."""
+    if t < 1 or fan_in < 2:
+        raise ValueError(f"split threshold must be >= 1 and fan-in >= 2, got {t}, {fan_in}")
     device = indptr_t.device
     indptr = indptr_t.cpu().numpy().astype(np.int64)
     deg = np.diff(indptr)
@@ -256,30 +313,54 @@ def split_plan(indptr_t: torch.Tensor, t: int) -> SplitPlan:
     in_split = np.repeat(split, per_row)
     slot = np.cumsum(in_split) - 1
     chunk_dst = np.where(in_split, -1 - slot, chunk_row)
-    split_ptr = np.concatenate([[0], np.cumsum(per_row[split])])
+    node_ptr, node_dst, slot_node, n_first = _host_tree(per_row[split], live[split], fan_in)
 
     def t32(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
     return SplitPlan(t=int(t), chunk_ptr=t32(chunk_ptr), chunk_row=t32(chunk_row),
                      chunk_dst=t32(chunk_dst), empty_rows=t32(np.flatnonzero(deg == 0)),
-                     split_rows=t32(live[split]), split_ptr=t32(split_ptr),
-                     n_slots=int(split_ptr[-1]))
+                     split_rows=t32(live[split]), n_slots=int(in_split.sum()),
+                     fan_in=int(fan_in), n_first=int(n_first),
+                     node_ptr=t32(node_ptr),
+                     node_dst=t32(node_dst), slot_node=t32(slot_node),
+                     arrivals=t32(np.zeros(node_dst.size)))
 
 
-def device_split_plan(indptr_t: torch.Tensor, t: int) -> SplitPlan:
+def _tree_levels(fan_in: int) -> int:
+    """Levels enough for any row of fewer than 2**31 chunks."""
+    levels = 1
+    while fan_in ** levels < 2 ** 31:
+        levels += 1
+    return levels
+
+
+def device_split_plan(indptr_t: torch.Tensor, t: int, fan_in: int = FAN_IN) -> SplitPlan:
     """:func:`split_plan` built on ``indptr_t``'s own device, field for field
     equal to it, with one host read (the numbers of chunks, split rows,
-    partials and empty rows) and no copy of the layout to the host."""
-    if t < 1:
-        raise ValueError(f"split threshold must be >= 1, got {t}")
+    partials and empty rows, and the tree's rows, partials and nodes a
+    level) and no copy of the layout to the host.  A split row of ``n``
+    chunks is live at level ``k`` (from 0) while ``n > R^k`` (``R`` the
+    fan-in): it then has ``⌈n / R^k⌉`` partials and ``⌈n / R^(k+1)⌉`` nodes
+    there."""
+    if t < 1 or fan_in < 2:
+        raise ValueError(f"split threshold must be >= 1 and fan-in >= 2, got {t}, {fan_in}")
     dev = indptr_t.device
     indptr = indptr_t.long()
     deg = indptr[1:] - indptr[:-1]
     per_row = (deg + (t - 1)) // t                       # 0 for an empty row
     split, empty = per_row > 1, deg == 0
-    n_chunks, n_split, n_slots, n_empty = torch.stack(
-        [per_row.sum(), split.sum(), (per_row * split).sum(), empty.sum()]).tolist()
+    leaves = per_row * split                             # a split row's chunk partials
+    power = fan_in ** torch.arange(_tree_levels(fan_in) + 1, device=dev)
+    ceil_at = (leaves[None, :] + power[:, None] - 1) // power[:, None]
+    live = leaves[None, :] > power[:-1, None]            # [level, row]
+    sizes = torch.cat([torch.stack([per_row.sum(), split.sum(), empty.sum()]),
+                       live.sum(1), (ceil_at[:-1] * live).sum(1),
+                       (ceil_at[1:] * live).sum(1)]).tolist()
+    n_chunks, n_split, n_empty = sizes[:3]
+    n_levels = power.shape[0] - 1
+    live_at, items_at, nodes_at = (sizes[3 + i * n_levels:3 + (i + 1) * n_levels]
+                                   for i in range(3))
     row_ids = torch.arange(deg.shape[0], device=dev)
     chunk_row = torch.repeat_interleave(row_ids, per_row, output_size=n_chunks)
     first = torch.cumsum(per_row, 0) - per_row           # each row's first chunk
@@ -288,23 +369,68 @@ def device_split_plan(indptr_t: torch.Tensor, t: int) -> SplitPlan:
     in_split = split[chunk_row]
     slot = torch.cumsum(in_split, 0) - 1
     chunk_dst = torch.where(in_split, -1 - slot, chunk_row)
-    split_ptr = torch.cat([indptr.new_zeros(1),
-                           torch.cumsum(compact(split, per_row, n_split), 0)])
+    ptr, dst, owner = [], [], []
+    lo = n_nodes = 0                                     # the level's first partial; nodes so far
+    for level in range(n_levels):
+        n_live, n_items, n_new = live_at[level], items_at[level], nodes_at[level]
+        if n_live == 0:
+            break
+        rows = compact(live[level], row_ids, n_live)
+        counts, nodes = ceil_at[level, rows], ceil_at[level + 1, rows]
+        first_p = lo + torch.cumsum(counts, 0) - counts  # each row's first partial
+        first_node = n_nodes + torch.cumsum(nodes, 0) - nodes
+        local = torch.arange(n_live, device=dev)
+        node_row = torch.repeat_interleave(local, nodes, output_size=n_new)
+        j = torch.arange(n_new, device=dev) - (first_node - n_nodes)[node_row]
+        ptr.append(first_p[node_row] + j * fan_in)
+        root = nodes[node_row] == 1
+        nxt = lo + n_items                               # this level's first new partial
+        dst.append(torch.where(root, rows[node_row], -1 - (nxt + torch.cumsum(~root, 0) - 1)))
+        slot_row = torch.repeat_interleave(local, counts, output_size=n_items)
+        pos = torch.arange(n_items, device=dev) - (first_p - lo)[slot_row]
+        owner.append(first_node[slot_row] + pos // fan_in)
+        n_nodes += n_new
+        lo = nxt
+    none = indptr.new_zeros(0)
     return SplitPlan(t=int(t), chunk_ptr=chunk_ptr.int(), chunk_row=chunk_row.int(),
                      chunk_dst=chunk_dst.int(), empty_rows=compact(empty, row_ids, n_empty).int(),
                      split_rows=compact(split, row_ids, n_split).int(),
-                     split_ptr=split_ptr.int(), n_slots=int(n_slots))
+                     n_slots=int(items_at[0]), fan_in=int(fan_in), n_first=int(nodes_at[0]),
+                     node_ptr=torch.cat(ptr + [indptr.new_full((1,), lo)]).int(),
+                     node_dst=torch.cat(dst or [none]).int(),
+                     slot_node=torch.cat(owner or [none]).int(),
+                     arrivals=torch.zeros(n_nodes, dtype=torch.int32, device=dev))
 
 
-def lane_group(d: int) -> int:
+NARROW_D = 4
+"""Widths up to this take the kernel's narrow mode: each lane of a chunk's
+group sums its own edges for all features, the group adds them by a
+butterfly."""
+
+
+def lane_group(d: int, mean_degree: float = 0.0) -> int:
     """Lanes per chunk at width ``d``: one per two 16-byte vectors of a row,
     a power of two from 4 to 32; where ``d % 4`` (4-byte loads), one per two
     floats and at least 8.  Two vectors a lane keep more gathers in flight
     than one, and more chunks share a warp; PERF.md has the sweep over
-    widths that chose this."""
+    widths that chose this.  At ``d <= NARROW_D`` (the narrow mode, where
+    the lanes take edges, four in flight each) a power of two from 4 to 16
+    near a quarter of the layout's mean row length ``mean_degree``: no one
+    width fits both AdaGCL's gate rows (3.5 edges a row, fastest at 2-4
+    lanes) and DCRec_seq's and MAERec's item graphs (17 and 40 a row,
+    fastest at 16 with longer chunks), as PERF.md's sweep
+    (``chip_compare.py --sweep``) shows."""
+    if d <= NARROW_D:
+        want = max(1, int(np.ceil(mean_degree / 4)))
+        return min(16, max(4, 1 << (want - 1).bit_length()))
     if d % 4 == 0:
         return min(32, max(4, 1 << (-(-d // 8) - 1).bit_length()))
     return min(32, max(8, 1 << (-(-d // 2) - 1).bit_length()))
+
+
+def mean_degree(layout: CsrLayout) -> float:
+    """Edges a row of ``layout``, on average: :func:`lane_group` takes it."""
+    return layout.cols.shape[0] / max(layout.n_rows, 1)
 
 
 @functools.cache
@@ -331,27 +457,53 @@ def layout_plan(layout: CsrLayout, t: int) -> SplitPlan:
     return layout.plans[t]
 
 
+def _ordered_sums(items: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
+                  lanes: int) -> torch.Tensor:
+    """Each run ``items[starts[i]:starts[i] + lengths[i]]`` summed as a group
+    of ``lanes`` lanes of the kernel sums it: lane ``l`` adds the items
+    ``l, l + lanes, …`` in order, then the butterfly adds lane ``l ^ off``'s
+    sum for ``off = lanes/2, …, 1``, and lane 0's is the result (one lane:
+    the items in order)."""
+    acc = items.new_zeros(starts.shape[0], lanes, items.shape[1])
+    lane = torch.arange(lanes, device=items.device)
+    for k in range(-(-int(lengths.max()) // lanes) if lengths.numel() else 0):
+        pos = k * lanes + lane
+        live = pos[None, :] < lengths[:, None]
+        at = torch.where(live, starts[:, None] + pos[None, :], 0)
+        acc = torch.where(live[..., None], acc + items[at], acc)
+    off = lanes // 2
+    while off:
+        acc = acc + acc[:, lane ^ off]
+        off //= 2
+    return acc[:, 0]
+
+
 def csr_spmm_split_plain(layout: CsrLayout, plan: SplitPlan, x: torch.Tensor,
-                         ew=None) -> torch.Tensor:
+                         ew=None, group: int | None = None) -> torch.Tensor:
     """Plain PyTorch emulation of the kernel's schedule, for tests: each
-    chunk's sum, then every split row's partials added in chunk order."""
+    chunk's sum, then the combine tree's nodes level by level, each sum in
+    the kernel's order: in order where the lanes hold features (d >
+    ``NARROW_D``), else lane-strided over ``group`` lanes (default
+    :func:`lane_group`) with the butterfly."""
+    d = x.shape[1]
+    lanes = (group or lane_group(d)) if d <= NARROW_D else 1
     contrib = _contributions(layout, x, ew)
-    sizes = torch.diff(plan.chunk_ptr.long())
-    chunk_of_edge = torch.repeat_interleave(torch.arange(plan.n_chunks, device=x.device),
-                                            sizes)
-    part = torch.zeros(plan.n_chunks, x.shape[1], dtype=x.dtype, device=x.device)
-    part.index_add_(0, chunk_of_edge, contrib)
-    out = torch.zeros(layout.n_rows, x.shape[1], dtype=x.dtype, device=x.device)
-    whole = plan.chunk_dst >= 0
-    out[plan.chunk_dst[whole].long()] = part[whole]
-    slots = part[~whole]                      # slot order is chunk order
-    n_per = torch.diff(plan.split_ptr.long())
-    if n_per.numel():
-        acc = torch.zeros(n_per.numel(), x.shape[1], dtype=x.dtype, device=x.device)
-        for k in range(int(n_per.max())):
-            live = n_per > k
-            acc[live] += slots[plan.split_ptr[:-1].long()[live] + k]
-        out[plan.split_rows.long()] = acc
+    ptr = plan.chunk_ptr.long()
+    sums = _ordered_sums(contrib, ptr[:-1], torch.diff(ptr), lanes)
+    out = torch.zeros(layout.n_rows, d, dtype=x.dtype, device=x.device)
+    part = torch.zeros(plan.n_partials, d, dtype=x.dtype, device=x.device)
+    dst = plan.chunk_dst.long()
+    out[dst[dst >= 0]] = sums[dst >= 0]
+    part[-1 - dst[dst < 0]] = sums[dst < 0]
+    node_ptr, node_dst = plan.node_ptr.long(), plan.node_dst.long()
+    j, ready = 0, plan.n_slots               # a level's nodes read the partials below `ready`
+    while j < node_dst.shape[0]:
+        j1 = int(torch.searchsorted(node_ptr, ready))
+        sums = _ordered_sums(part, node_ptr[j:j1], torch.diff(node_ptr[j:j1 + 1]), lanes)
+        nd = node_dst[j:j1]
+        out[nd[nd >= 0]] = sums[nd >= 0]
+        part[-1 - nd[nd < 0]] = sums[nd < 0]
+        j, ready = j1, ready + int((nd < 0).sum())
     return out
 
 
@@ -363,8 +515,8 @@ def csr_spmm_split_plain(layout: CsrLayout, plan: SplitPlan, x: torch.Tensor,
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
     return load_kernel("csr_spmm", "csr_spmm_f32",
-                       [p, p, i, p, i, p, p, i, p, p, p, p, p, ctypes.c_uint, ctypes.c_float,
-                        i, p, p, p, i, i, i, p])
+                       [p, p, i, p, i, p, p, p, p, i, p, p, p, p, p, ctypes.c_uint,
+                        ctypes.c_float, i, p, p, p, i, i, i, p])
 
 
 @functools.lru_cache(maxsize=1)
@@ -451,25 +603,34 @@ def csr_spmm(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
     (in bf16 mode on a bf16 copy of ``x``, made here) on the current stream
     with the lane group and split threshold that
     :func:`lane_group` and :func:`split_threshold` pick for ``d``, the layout
-    and the card, or raises.  ``csr_spmm.launches`` counts the launches of the
-    chunk kernel, one a call; ``csr_spmm.combine_launches`` those of the
-    second kernel that adds split rows' partials, one a call over a layout
-    with split rows; ``csr_spmm.by_shape[(n_rows, n_cols)]`` both counts,
-    ``[launches, combine_launches]``, of the layouts of that shape.
+    and the card, or raises.  ``csr_spmm.launches`` counts the launches of
+    the chunk kernel, one a call; ``csr_spmm.combine_launches`` those of the
+    second kernel that adds the split rows' partials by the plan's tree, one
+    a call over a layout with split rows at ``d > NARROW_D`` (at ``d <=
+    NARROW_D`` the chunk kernel's groups add them);
+    ``csr_spmm.by_shape[(n_rows, n_cols)]`` both counts, ``[launches,
+    combine_launches]``, of the layouts of that shape.
     """
     if x.device.type == "cpu":
         return csr_spmm_plain(layout, x, ew)
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmm: no kernel for device {x.device}")
     _check(layout, x, ew)
-    d = x.shape[1]
-    group = lane_group(d)
+    group = lane_group(x.shape[1], mean_degree(layout))
     t = split_threshold(layout.cols.shape[0], group, resident_threads(x.device.index))
+    return csr_spmm_at(layout, x, ew, group, layout_plan(layout, t))
+
+
+def csr_spmm_at(layout: CsrLayout, x: torch.Tensor, ew, group: int,
+                plan: SplitPlan) -> torch.Tensor:
+    """The kernel launch of :func:`csr_spmm`, on operands it has checked, at
+    lane group ``group`` and split plan ``plan`` (of ``layout``), which a
+    schedule sweep may set; counted as :func:`csr_spmm` counts."""
+    d = x.shape[1]
     out = torch.empty(layout.n_rows, d, dtype=torch.float32, device=x.device)
     if layout.n_rows == 0 or d == 0:
         return out
-    plan = layout_plan(layout, t)
-    partials = torch.empty(plan.n_slots, d, dtype=torch.float32, device=x.device)
+    partials = torch.empty(plan.n_partials, d, dtype=torch.float32, device=x.device)
     prf = ew if isinstance(ew, PrfMask) else None
     tensor_ew = None if prf is not None else ew
     bf16 = bf16_mode()
@@ -477,7 +638,8 @@ def csr_spmm(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
     err = _kernel()(
         plan.chunk_ptr.data_ptr(), plan.chunk_dst.data_ptr(), plan.n_chunks,
         plan.empty_rows.data_ptr(), plan.empty_rows.shape[0],
-        plan.split_ptr.data_ptr(), plan.split_rows.data_ptr(), plan.split_rows.shape[0],
+        plan.node_ptr.data_ptr(), plan.node_dst.data_ptr(), plan.slot_node.data_ptr(),
+        plan.arrivals.data_ptr(), plan.n_first,
         layout.cols.data_ptr(), None if layout.vals_ones else layout.vals.data_ptr(),
         None if layout.ids_identity or ew is None else layout.edge_ids.data_ptr(),
         None if tensor_ew is None else tensor_ew.data_ptr(),
@@ -493,7 +655,7 @@ def csr_spmm(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
     counts = csr_spmm.by_shape.setdefault((layout.n_rows, layout.n_cols), [0, 0])
     csr_spmm.launches += 1
     counts[0] += 1
-    if plan.split_rows.shape[0]:
+    if plan.n_first and d > NARROW_D:
         csr_spmm.combine_launches += 1
         counts[1] += 1
     return out

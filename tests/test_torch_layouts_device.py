@@ -3,10 +3,10 @@
 functions they stand in for (``csr_layout``, ``build_csr_graph``,
 ``split_plan``, ``build_segment_layout``): every field equal, dtypes
 included, on unsorted ids with duplicates, self loops and empty rows, at
-several split thresholds.  B1's plain version on a device-built graph equals
-the dense product within 1e-6 of the largest entry (float32 sums of up to
-280 terms in another order; gradients against float64); a card
-test holds the kernel on them to 1e-5 of the plain version.
+several split thresholds and combine-tree fan-ins.  B1's plain version on a
+device-built graph equals the dense product within 1e-6 of the largest
+entry (float32 sums of up to 280 terms in another order; gradients against
+float64); a card test holds the kernel on them to 1e-5 of the plain version.
 """
 
 import numpy as np
@@ -68,6 +68,24 @@ def test_csr_graph_from_edges_equals_host_build(seed):
         for t in (1, 2, 3, 32, 64, 1024):
             _equal(sk.device_split_plan(lay.indptr, t), sk.split_plan(lay.indptr, t),
                    f"plan t={t}")
+
+
+@pytest.mark.parametrize("fan_in", [2, 3, sk.FAN_IN])
+def test_device_split_plan_tree_equals_host(fan_in):
+    """The combine tree's fields (``n_first``, ``node_ptr``, ``node_dst``,
+    ``slot_node``, ``arrivals``) of the device build equal the host build's,
+    on rows from 0 to 3,000 entries, so that trees of several levels meet
+    rows of one node and rows with no split."""
+    rng = np.random.default_rng(fan_in)
+    deg = np.concatenate([[3000, 0, 1], rng.integers(0, 70, 40), [257, 0]])
+    indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32))
+    depths = set()
+    for t in (1, 3, 32, 64):
+        got, want = sk.device_split_plan(indptr, t, fan_in), sk.split_plan(indptr, t, fan_in)
+        _equal(got, want, f"plan t={t} fan_in={fan_in}")
+        assert got.n_partials == got.node_ptr[-1] and got.fan_in == fan_in
+        depths.add(int(np.ceil(np.log(-(-3000 // t)) / np.log(fan_in) - 1e-9)))
+    assert max(depths) >= 3
 
 
 def test_csr_graph_from_sorted_edges_equals_build_csr_graph():

@@ -282,20 +282,24 @@ def test_split_plan_covers_every_edge_once_in_order(t):
     np.testing.assert_array_equal(plan.empty_rows.numpy(), np.flatnonzero(deg == 0))
     split = np.flatnonzero(deg > t)
     np.testing.assert_array_equal(plan.split_rows.numpy(), split)
-    np.testing.assert_array_equal(np.diff(plan.split_ptr.numpy()), -(-deg[split] // t))
     # a whole row's chunk writes its row; a split row's chunks take slots in order
     whole = dst >= 0
     np.testing.assert_array_equal(dst[whole], row[whole])
     assert np.array_equal(np.unique(row[whole]), np.flatnonzero((deg > 0) & (deg <= t)))
     np.testing.assert_array_equal(-1 - dst[~whole], np.arange(plan.n_slots))
     np.testing.assert_array_equal(row[~whole], np.repeat(split, -(-deg[split] // t)))
-    assert plan.n_slots == int(plan.split_ptr[-1])
+    assert plan.n_slots == int((-(-deg[split] // t)).sum())
 
 
 def test_split_threshold_and_lane_group():
-    for d, g in ((1, 8), (8, 4), (17, 16), (32, 4), (33, 32), (64, 8), (65, 32), (68, 16),
+    for d, g in ((1, 4), (8, 4), (17, 16), (32, 4), (33, 32), (64, 8), (65, 32), (68, 16),
                  (128, 16), (256, 32)):
         assert sk.lane_group(d) == g
+    # the narrow mode (d <= 4) by mean row length: AdaGCL's gate rows, KGCL's
+    # degrees, DCRec_seq's and MAERec's item graphs
+    for d, mean, g in ((1, 3.47, 4), (1, 12.6, 4), (4, 11.4, 4), (1, 17.3, 8), (3, 40.3, 16),
+                       (2, 1e6, 16), (64, 40.3, 8)):
+        assert sk.lane_group(d, mean) == g
     for resident in (H100_SXM_THREADS, H100_PCIE_THREADS):
         for nnz in (0, 10, 502_048, 297_404, 10**8):
             for group in (4, 8, 16, 32):

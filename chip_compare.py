@@ -23,18 +23,23 @@ the call the models make, so every checkout runs its own version of it:
 and :data:`LAYOUT_SHAPES`, B1 layouts that this checkout's models build
 (:func:`build_operands`, once, before any checkout runs; KMCLR's per-item
 lists, DiffKG's denoised KG, KCGN's components, AdaGCL's gate rows,
-DCRec_seq's and MAERec's item graphs, AutoCF's decoder, the LightGCN hop
-under the 3-lane fold), handed to every checkout as their arrays and timed
-through ``csr_spmm``, the call every Function of the models makes for them
-(a segment sum's forward, a gather's backward, a hop), beside
-``torch.sparse.mm`` on the same operands.
+DCRec_seq's and MAERec's item graphs, AutoCF's decoder, KGCL's segment sum,
+the LightGCN hop, also under the 3-lane fold), handed to every checkout as
+their arrays and timed through ``csr_spmm``, the call every Function of the
+models makes for them (a segment sum's forward, a gather's backward, a
+hop), beside ``torch.sparse.mm`` on the same operands (under a multiplier
+also with the values' gather inside the timed call); then the bf16 pass:
+:data:`BF16_SHAPES` again under ``SSLREC_PALLAS_PRECISION=default`` (the
+call's cast of x included), the cast alone, and ``torch.sparse.mm`` on a
+bfloat16 CSR tensor.
 
 A checkout needs those entry points and the ones the two builders call.
 Prints one JSON line per checkout, then the card line.  ``--sweep`` times
 this checkout's kernel at every narrow shape (d <= 4) over lane groups and
-split thresholds, and at the long-row shapes over split thresholds and the
-combine tree's fan-in, each call held against the plain version; it prints
-one JSON line.
+split thresholds, at the long-row shapes over split thresholds and the
+combine tree's fan-in, and in the bf16 mode at :data:`BF16_SHAPES` over lane
+groups and split thresholds, each call held against the plain version; it
+prints a JSON line a shape and one for all.
 """
 
 from __future__ import annotations
@@ -68,12 +73,24 @@ LAYOUT_SHAPES = (
     ("kgcl_deg_d1", "kgcl_deg", "seg", 1, None),
     ("autocf_dec_sum_d4", "autocf_dec", "seg", 4, None),
     ("autocf_dec_sum_d32", "autocf_dec", "seg", 32, None),
-    ("lightgcn_hop_fold3_d96", "lightgcn", "fwd", 96, None))
+    ("lightgcn_hop_fold3_d96", "lightgcn", "fwd", 96, None),
+    ("lightgcn_hop_d32", "lightgcn", "fwd", 32, None),
+    ("lightgcn_hop_t_d32", "lightgcn", "bwd", 32, None),
+    ("kgcl_seg_sum_d64", "kgcl_seg", "seg", 64, None),
+    ("maerec_hop_t_d64", "maerec", "bwd", 64, "w"))
+# the bf16 mode's timed shapes (names of LAYOUT_SHAPES): its pass in every
+# checkout and, with two more (x rows gathered 17 and 117 times each), its
+# sweep
+BF16_SHAPES = ("lightgcn_hop_d32", "lightgcn_hop_t_d32", "kgcl_seg_sum_d64", "maerec_hop_d64",
+               "maerec_hop_t_d64")
+BF16_SWEPT = BF16_SHAPES + ("dcrec_seq_adj_hop_d64", "kcgn_ii_hop_d128")
 LAYOUT_FIELDS = ("indptr", "rows", "cols", "vals", "edge_ids", "n_rows", "n_cols",
                  "ids_identity", "vals_ones", "n_ids")
 SWEEP_GROUPS = (1, 2, 4, 8, 16)
 SWEEP_T = (16, 32, 64, 128, 256)
 SWEEP_FAN_IN = (8, 16, 32, 64)
+SWEEP_BF16_GROUPS = (2, 4, 8, 16)
+SWEEP_BF16_T = (16, 32, 64, 128)
 
 
 def _chip_smoke():
@@ -109,7 +126,7 @@ def build_operands(path: str = OPERANDS) -> None:
     ops = {"lightgcn": (bi, None),
            "adagcl_gate": (cs.skn.build_segment_layout(bi.rows, bi.n_rows, dev), None)}
     kg = cs.kgcl_shapes(dev)
-    ops["kgcl_deg"] = (kg["deg"], None)
+    ops["kgcl_deg"], ops["kgcl_seg"] = (kg["deg"], None), (kg["seg"], None)
     dk = model("diffkg", cs.KG_DATASET, cs.SMOKE_RESULTS)
     with torch.no_grad():
         dkg = dk.epoch_state(gen)["dkg"]
@@ -207,19 +224,52 @@ def run_one(root: str) -> dict:
         "relation_take_fwd_bwd": lambda: torch.autograd.grad(
             model.rel_take.take(table), table, g_rel),
         "b2": lambda: skn.segment_max(seg, logits)}
-    library, bound, err = {}, {}, {}
-    if os.path.exists(OPERANDS):
-        for name, (lay, w, d, b) in load_operands(sk, dev).items():
-            xs = torch.randn(lay.n_cols, d, generator=gen, device=dev)
-            calls[name] = lambda lay=lay, xs=xs, w=w: sk.csr_spmm(lay, xs, w)
-            err[name] = cs.rel_err(sk.csr_spmm(lay, xs, w),
-                                   sk.csr_spmm_plain(lay, xs.double(), w).float())
-            csr = cs.csr_tensor(lay, None if w is None else lay.vals * w[lay.edge_ids.long()])
-            library[name] = cs.device_ms(lambda csr=csr, xs=xs: torch.sparse.mm(csr, xs), b[0])
-            bound[name] = b
+    library, gathered, bound, err = {}, {}, {}, {}
+    layouts = load_operands(sk, dev) if os.path.exists(OPERANDS) else {}
+    xs_of = {}
+    for name, (lay, w, d, b) in layouts.items():
+        xs = xs_of[name] = torch.randn(lay.n_cols, d, generator=gen, device=dev)
+        calls[name] = lambda lay=lay, xs=xs, w=w: sk.csr_spmm(lay, xs, w)
+        err[name] = cs.rel_err(sk.csr_spmm(lay, xs, w),
+                               sk.csr_spmm_plain(lay, xs.double(), w).float())
+        csr = cs.csr_tensor(lay, None if w is None else lay.vals * w[lay.edge_ids.long()])
+        library[name] = cs.device_ms(lambda csr=csr, xs=xs: torch.sparse.mm(csr, xs), b[0])
+        if w is not None:       # the values' gather made in the call
+            gathered[name] = cs.device_ms(cs.library_gather(lay, xs, w), b[0])
+        bound[name] = b
     ms = {name: cs.device_ms(fn, bound.get(name, (0.0,))[0]) for name, fn in calls.items()}
-    return {"root": root, "ms": ms, "library_ms": library, "bound_ms": bound,
-            "rel_err": err}
+    return {"root": root, "ms": ms, "library_ms": library, "library_gather_ms": gathered,
+            "bound_ms": bound, "rel_err": err,
+            "bf16": bf16_pass(sk, cs, layouts, xs_of) if layouts else {}}
+
+
+def bf16_pass(sk, cs, layouts: dict, xs_of: dict) -> dict:
+    """The bf16 mode at :data:`BF16_SHAPES` in this checkout: each call's
+    device time (its cast of x included), its error against the bf16 plain
+    version, the cast of x alone, and ``torch.sparse.mm`` on a bfloat16 CSR
+    tensor (values pre-multiplied) and bfloat16 x, cast before the call and
+    in it."""
+    import torch
+
+    out = {}
+    cs.set_precision(True)
+    try:
+        for name in BF16_SHAPES:
+            lay, w, _, b = layouts[name]
+            xs = xs_of[name]
+            got = sk.csr_spmm(lay, xs, w)
+            out[name] = {
+                "ms": cs.device_ms(lambda: sk.csr_spmm(lay, xs, w), b[0]),
+                "cast_ms": cs.device_ms(lambda: xs.to(torch.bfloat16)),
+                "rel_err": cs.rel_err(got, sk.csr_spmm_plain(lay, xs, w)),
+                "repeat_equal": bool(torch.equal(got, sk.csr_spmm(lay, xs, w)))}
+    finally:
+        cs.set_precision(False)
+    for name in BF16_SHAPES:
+        lay, w, _, _ = layouts[name]
+        lib = cs.bf16_library_ms(lay, xs_of[name], w)
+        out[name].update(library_ms=lib["library_ms"], library_cast_ms=lib["library_cast_ms"])
+    return out
 
 
 def sweep() -> dict:
@@ -258,6 +308,45 @@ def sweep() -> dict:
                 lambda: sk.csr_spmm_at(lay, xs, w, gr, plan), b[0])
         out[name] = row
         print(json.dumps({name: row}), flush=True)
+    out.update(sweep_bf16(sk, cs, ops, gen))
+    return out
+
+
+def sweep_bf16(sk, cs, ops: dict, gen) -> dict:
+    """The bf16 mode at :data:`BF16_SWEPT` over its two row types (bf16 rows
+    cast before the kernel, float32 rows rounded on load), lane groups
+    (``SWEEP_BF16_GROUPS``) and split thresholds (``SWEEP_BF16_T``), each
+    call within ``chip_smoke.TOL`` of the bf16 plain version, beside the
+    float32 mode and the bf16 mode at the schedules the host picks and the
+    cast of x alone (every bf16 time includes the call's cast, if any)."""
+    import torch
+
+    out = {}
+    for name in BF16_SWEPT:
+        lay, w, d, b = ops[name]
+        xs = torch.randn(lay.n_cols, d, generator=gen, device=lay.indptr.device)
+        row = {"bound_ms": b[0], "reads_per_row": lay.cols.shape[0] / lay.n_cols,
+               "f32_picked": cs.schedule(lay, d),
+               "f32_ms": cs.device_ms(lambda: sk.csr_spmm(lay, xs, w), b[0]),
+               "cast_ms": cs.device_ms(lambda: xs.to(torch.bfloat16))}
+        cs.set_precision(True)
+        try:
+            ref = sk.csr_spmm_plain(lay, xs, w)
+            row["picked"] = cs.schedule(lay, d) + (sk.bf16_rows(lay, d),)
+            row["bf16_ms"] = cs.device_ms(lambda: sk.csr_spmm(lay, xs, w), b[0])
+            for cast in (True, False):
+                for gr in SWEEP_BF16_GROUPS:
+                    for t in SWEEP_BF16_T:
+                        plan = sk.device_split_plan(lay.indptr, t)
+                        got = sk.csr_spmm_at(lay, xs, w, gr, plan, cast)
+                        key = f"{'cast' if cast else 'load'}_G{gr}_T{t}"
+                        cs.ErrTrack().check(f"{name} bf16 {key}", got, ref)
+                        row[key] = cs.device_ms(
+                            lambda: sk.csr_spmm_at(lay, xs, w, gr, plan, cast), b[0])
+        finally:
+            cs.set_precision(False)
+        out[f"bf16.{name}"] = row
+        print(json.dumps({f"bf16.{name}": row}), flush=True)
     return out
 
 

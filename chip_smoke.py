@@ -13,9 +13,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the alibaba-fashion bipartite adjacency, both layouts, no weight /
    materialised dropout mask / in-kernel dropout PRF / learned weight with
    dx and dew) and on edge cases (widths 1..128, so every lane group the
-   host picks; empty rows, a rectangular graph, a stress graph with one row
-   of 100,000 edges and rows around the split threshold, held against the
-   plain version in float64): max |k - p| / max |p| <= 1e-5; every kernel
+   host picks; empty rows, a rectangular graph, a stress graph with rows of
+   961,308 and 100,000 edges and rows around the split threshold, held
+   against the plain version in float64, also in the bf16 mode at d 1-4,
+   32, 36, 64 and 65): max |k - p| / max |p| <= 1e-5; every kernel
    call repeated bit for bit, and the PRF mode equal (``torch.equal``) to
    the kernel fed the mask;
 4. time B1 at the LightGCN hop (no multiplier, mask, PRF; both layouts), its
@@ -123,11 +124,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version within 1e-5 and the float32 plain version within 3.8e-3
    at the LightGCN hop (both layouts, with and without the dropout PRF),
    KGCL's segment sum (d 64) and MAERec's encoder hop, every call repeated
-   bit for bit, the float32 mode bit for bit as before the switch; then
-   LightGCN 2 epochs in bf16 mode, B1's launches equal to the float32 run's;
-26. time DCRec_seq's hops and degree sums and MAERec's hop and d 1 spread,
-   and the bf16 mode beside the float32 mode at the LightGCN and MAERec
-   hops, each beside its bound, its plain version and ``torch.sparse.mm``;
+   bit for bit; bit for bit on a case of exact halfway, subnormal,
+   underflowing and overflowing products, inf, NaN and signed zeros at d 64,
+   36 and 65 (``bf16_tie_case``); the float32 mode bit for bit as before the
+   switch; then LightGCN 2 epochs in bf16 mode, B1's launches equal to the
+   float32 run's;
+26. time DCRec_seq's hops and degree sums and MAERec's hop and d 1 spread
+   (under a multiplier also ``torch.sparse.mm`` with the values' gather
+   inside the call), and the bf16 mode beside the float32 mode, the cast of
+   x alone and ``torch.sparse.mm`` on a bfloat16 CSR tensor at the LightGCN
+   and MAERec hops, both layouts, and KGCL's d-64 segment sum, each beside
+   its bound, its plain version and ``torch.sparse.mm``;
 27. drive DiffKG and KGCL with ``model.train_trans`` (its TransE sub-loop)
    ``PATH_EPOCHS`` each through the CLI on the synthetic KG of phase 6, B1's and
    B2's launches equal to ``KG_COUNTS`` (DiffKG 30 B1 + 4 B2 a step, one
@@ -981,9 +988,8 @@ def timing(kernel, plain, library=None, floor: float = 0.0, **extra) -> dict:
 
 def schedule(lay: sk.CsrLayout, d: int) -> tuple[int, int]:
     """The lane group and split threshold B1 picks for ``lay`` at width ``d``
-    on card 0."""
-    group = sk.lane_group(d, sk.mean_degree(lay))
-    return group, sk.split_threshold(lay.cols.shape[0], group, sk.resident_threads(0))
+    on card 0, in the precision mode in force."""
+    return sk.schedule(lay, d, sk.resident_threads(0))
 
 
 def log_timing(name: str, r: dict, bound: tuple[float, str]) -> None:
@@ -2127,6 +2133,144 @@ def bf16_cases(lgcn: sk.CsrGraph, seg_lay: skn.SegmentLayout, maerec, gen) -> di
             "maerec_hop_t_d64": (mg.bwd, x(mg.bwd, 64), view["enc_vals"])}
 
 
+# The bf16 mode's shapes timed in phase 26 (keys of bf16_cases), each beside
+# the float32 mode, the cast of x alone and torch.sparse.mm in bfloat16
+BF16_TIMED = ("lightgcn_hop", "lightgcn_hop_t", "kgcl_segment_sum_d64", "maerec_hop_d64",
+              "maerec_hop_t_d64")
+# The bf16 mode's bit-for-bit case: widths over the bf16 kernel's three row
+# vectors (bf16 rows: 8 values a load; float32 rows: 4 and one)
+BF16_TIE_WIDTHS = (64, 36, 65)
+BF16_TIE_LONG = 300         # edges of each of its two long rows (split, combined)
+
+
+def bf16_floats(mant: np.ndarray, exp: np.ndarray, sign: np.ndarray) -> np.ndarray:
+    """Float32 values that are bf16 values: ``±(1 + mant/128)·2^exp`` for
+    ``mant`` in [0, 128), ``exp`` in bf16's normal range."""
+    return (np.where(sign, -1.0, 1.0) * (1 + mant / 128.0) * np.exp2(exp)).astype(np.float32)
+
+
+def bf16_tie_case(dev, seed: int = 23):
+    """A graph and x whose bf16-mode contributions hold exact halfway
+    products (to be rounded to even), subnormal products (bf16's are below
+    2^-126), products below 2^-134 that round to ±0, products that round to
+    the largest bf16 value or overflow to inf, inf and NaN inputs, signed
+    zeros and negative values, in rows whose float32 sums are exact in any
+    order, so that the kernel must equal the plain version bit for bit.
+    Each edge's value is a bf16 value and each row of x its own column.
+    Single-edge rows, each in one regime: a product near 1 (x and the
+    value within a few binades), a subnormal product, one under 2^-134, one
+    near the top of the range, special inputs; and two rows of
+    ``BF16_TIE_LONG`` edges (split into chunks, summed by the combine tree):
+    one of subnormal products (multiples of 2^-133 summing under 2^-117),
+    one of products in [1, 64) (multiples of 2^-7 summing under 2^15).
+    Returns (layout, x [n, max width], counts of each kind of product)."""
+    rng = np.random.default_rng(seed)
+    d = max(BF16_TIE_WIDTHS)
+    n_single = 2048
+    regimes = rng.integers(0, 5, n_single)
+    n_edges = n_single + 2 * BF16_TIE_LONG
+    row_exp = np.zeros(n_edges, np.int64)       # each edge's x row exponent offset
+    val_exp = np.zeros(n_edges, np.int64)
+    # single-edge rows: (x exponent, value exponent) by regime
+    lo_hi = {0: ((-3, 3), (-3, 3)),                # near 1: ties at every binade
+             1: ((-70, -60), (-72, -62)),          # 2^-134 ... 2^-126: subnormal products
+             2: ((-75, -70), (-70, -65)),          # under 2^-134 (and around it)
+             3: ((60, 63), (63, 64)),              # 2^123 ... 2^128: bf16's top, inf
+             4: ((-3, 3), (-3, 3))}                # special inputs, below
+    for r, ((xl, xh), (vl, vh)) in lo_hi.items():
+        at = np.flatnonzero(regimes == r)
+        row_exp[at] = rng.integers(xl, xh + 1, at.size)
+        val_exp[at] = rng.integers(vl, vh + 1, at.size)
+    sub = slice(n_single, n_single + BF16_TIE_LONG)
+    big = slice(n_single + BF16_TIE_LONG, n_edges)
+    row_exp[sub], val_exp[sub] = rng.integers(-66, -63, BF16_TIE_LONG), -66
+    row_exp[big], val_exp[big] = (rng.integers(0, 3, BF16_TIE_LONG),
+                                  rng.integers(0, 2, BF16_TIE_LONG))
+    x_exp = row_exp[:, None] + rng.integers(0, 2, (n_edges, d))
+    x = bf16_floats(rng.integers(0, 128, (n_edges, d)), x_exp, rng.random((n_edges, d)) < 0.5)
+    vals = bf16_floats(rng.integers(0, 128, n_edges), val_exp, rng.random(n_edges) < 0.5)
+    special = np.flatnonzero(regimes == 4)
+    kinds = np.float32([0.0, -0.0, np.inf, -np.inf, np.nan])
+    pick = rng.integers(0, 2 * kinds.size, (special.size, d))    # half keep their value
+    block = x[special]
+    block[pick < kinds.size] = kinds[pick[pick < kinds.size]]
+    x[special] = block
+    vals[special[: special.size // 4]] = -0.0
+    rows = np.concatenate([np.arange(n_single), np.full(BF16_TIE_LONG, n_single),
+                           np.full(BF16_TIE_LONG, n_single + 1)])
+    g = sk.build_csr_graph(CooGraph(rows=torch.from_numpy(rows.astype(np.int32)),
+                                    cols=torch.arange(n_edges, dtype=torch.int32),
+                                    vals=torch.from_numpy(vals), n_rows=n_single + 2,
+                                    n_cols=n_edges), dev)
+    xt = torch.from_numpy(x)
+    prod = xt * torch.from_numpy(vals)[:, None]     # bf16 values: exact where it matters
+    bits = prod.view(torch.int32)
+    finite = torch.isfinite(prod)
+    rounded = prod.to(torch.bfloat16).float()
+    counts = {"products": int(prod.numel()),
+              "ties": int((finite & ((bits & 0xFFFF) == 0x8000)).sum()),
+              "subnormal": int(((rounded != 0) & (rounded.abs() < 2.0**-126)).sum()),
+              "to_zero": int(((prod != 0) & (rounded == 0)).sum()),
+              "to_inf": int((finite & torch.isinf(rounded)).sum()),
+              "nan": int(torch.isnan(prod).sum()), "signed_zero": int((prod == 0).sum())}
+    return g.fwd, xt.to(dev), counts
+
+
+def equal_bits(got: torch.Tensor, ref: torch.Tensor) -> bool:
+    """``got`` and ``ref`` equal bit for bit, zeros' signs included, and NaN
+    where the other is NaN (whatever the NaN's bits)."""
+    nan = torch.isnan(ref)
+    return bool(torch.equal(torch.isnan(got), nan) and torch.equal(
+        torch.where(nan, 0.0, got).view(torch.int32), torch.where(nan, 0.0, ref).view(torch.int32)))
+
+
+def layout_on(lay: sk.CsrLayout, device) -> sk.CsrLayout:
+    """``lay``'s arrays on ``device``, with a plan cache of its own."""
+    return lay._replace(**{f: getattr(lay, f).to(device) for f in
+                           ("indptr", "rows", "cols", "vals", "edge_ids")},
+                        plans=sk.PlanCache())
+
+
+def bf16_tie_check(dev) -> dict:
+    """The bf16 mode's kernel equal to its plain version bit for bit at
+    :func:`bf16_tie_case`, at each of ``BF16_TIE_WIDTHS``, on float32 rows
+    rounded on load and, where ``d % 8 == 0``, on bf16 rows cast before the
+    kernel, twice.  The plain
+    version runs on the CPU: on the card its ``index_add_`` adds with float
+    atomics, which flush subnormal values to zero (PTX's ``atom.add.f32``),
+    where IEEE arithmetic, the CPU's and the kernel's, keeps them (the
+    card's plain version differs from both at the case's subnormal
+    products; that count is returned as ``card_plain_flushed``)."""
+    lay, x, counts = bf16_tie_case(dev)
+    if min(counts.values()) == 0:
+        raise AssertionError(f"bf16 tie case: a kind of product is missing: {counts}")
+    cpu_lay = layout_on(lay, "cpu")
+    flushed = 0
+    for d in BF16_TIE_WIDTHS:
+        xd = x[:, :d].contiguous()
+        want = sk.csr_spmm_plain(cpu_lay, xd.cpu())
+        for cast in (True, False) if d % 8 == 0 else (False,):
+            group = sk.lane_group(d, sk.mean_degree(lay))
+            plan = sk.layout_plan(lay, sk.split_threshold(
+                lay.cols.shape[0], group, sk.resident_threads(0), 2 if cast else 4))
+            got = sk.csr_spmm_at(lay, xd, None, group, plan, cast)
+            again = sk.csr_spmm_at(lay, xd, None, group, plan, cast)
+            if not equal_bits(got.cpu(), want) or not equal_bits(again, got):
+                bad = int((got.cpu().view(torch.int32) != want.view(torch.int32)).sum())
+                raise AssertionError(f"bf16 tie case d {d}, {'bf16' if cast else 'float32'} "
+                                     f"rows: not equal bit for bit to the plain version "
+                                     f"({bad} entries' bits differ)")
+        card = sk.csr_spmm_plain(lay, xd).cpu()
+        same = (card.view(torch.int32) == want.view(torch.int32)) | (
+            torch.isnan(card) & torch.isnan(want))
+        flushed = max(flushed, int((~same).sum()))
+    log(f"  bf16 tie case: equal bit for bit to its plain version (on the CPU) at d "
+        f"{list(BF16_TIE_WIDTHS)}, float32 rows (and bf16 rows at d % 8 == 0) ({counts}); "
+        f"the card's plain "
+        f"version differs at {flushed} entries (its atomics flush subnormals)")
+    return {**counts, "card_plain_flushed": flushed}
+
+
 def bf16_checks(cases: dict) -> dict:
     """The bf16 mode against its plain version (within 1e-5 relative) and
     against the float32 plain version: every output within the rounding
@@ -2135,8 +2279,9 @@ def bf16_checks(cases: dict) -> dict:
     one input's reading, not a bound: the JAX mode's own formula reads
     3.2e-3 to 4.5e-3 at the LightGCN hop on seeded normals,
     ``tests/test_torch_spmm_bf16.py``); every call repeated bit for bit;
-    then the float32 mode again, equal bit for bit to its output before the
-    switch.  Returns the errors by case."""
+    the tie case bit for bit (:func:`bf16_tie_check`); then the float32 mode
+    again, equal bit for bit to its output before the switch.  Returns the
+    errors by case, and the tie case's counts under ``"tie_case"``."""
     f32 = {}
     for k, (lay, x, w) in cases.items():
         # every case's values and multiplier are non-negative
@@ -2167,13 +2312,14 @@ def bf16_checks(cases: dict) -> dict:
                 f"float32 plain version {e_f32:.3g} of the largest output (the JAX mode's "
                 f"reading: 3.76e-3), at most {share:.3g} of an output's magnitude (bound "
                 f"{BF16_ROUNDING:.4g})")
+        ties = bf16_tie_check(next(iter(cases.values()))[1].device)
     finally:
         set_precision(False)
     for k, (lay, x, w) in cases.items():
         check_exact(f"f32.{k}.after_bf16", sk.csr_spmm(lay, x, w), f32[k][0])
     log("  float32 mode after the switch back: every case equal bit for bit to its output "
         "before it")
-    return out
+    return out, ties
 
 
 def bf16_lightgcn_path(want: tuple[int, int]) -> dict:
@@ -2203,17 +2349,23 @@ def bf16_lightgcn_path(want: tuple[int, int]) -> dict:
             "valid_recall20": r20, "train_s": [r["train_s"] for r in rows]}
 
 
-def time_b1(lay: sk.CsrLayout, x: torch.Tensor, w, **extra) -> tuple[dict, tuple[float, str]]:
+def time_b1(lay: sk.CsrLayout, x: torch.Tensor, w, gather: bool = True,
+            **extra) -> tuple[dict, tuple[float, str]]:
     """B1 at ``lay`` (multiplier ``w``: None or a [nnz] tensor) beside its
     plain version and ``torch.sparse.mm`` on the values pre-multiplied, its
     time with L2 flushed, ``extra`` callables' device times, and its bound
     (the floor: the bound without the multiplier, which the library call
-    does not read)."""
+    does not read).  Under a multiplier, with ``gather``, also
+    ``library_gather_ms``: the library call with ``vals * w[edge_ids]``
+    formed inside it, as a caller of ``torch.sparse.mm`` whose weight
+    changes every call must form it."""
     d = x.shape[1]
     bound = bound_ms(lay, d, "none" if w is None else "mask")
     floor = bound_ms(lay, d)[0]
     vals = lay.vals if w is None else lay.vals * w[lay.edge_ids.long()]
     csr = csr_tensor(lay, vals)
+    if w is not None and gather:
+        extra = {**extra, "library_gather": library_gather(lay, x, w)}
     r = timing(lambda: sk.csr_spmm(lay, x, w), lambda: sk.csr_spmm_plain(lay, x, w),
                lambda: torch.sparse.mm(csr, x), floor, **extra)
     r["cold_ms"] = cold_ms(lambda: sk.csr_spmm(lay, x, w), floor)
@@ -2223,25 +2375,75 @@ def time_b1(lay: sk.CsrLayout, x: torch.Tensor, w, **extra) -> tuple[dict, tuple
     return r, bound
 
 
-def bf16_library_ms(lay: sk.CsrLayout, x: torch.Tensor, w) -> tuple[float | None, str]:
+def library_gather(lay: sk.CsrLayout, x: torch.Tensor, w: torch.Tensor):
+    """``torch.sparse.mm`` of ``lay`` under the multiplier ``w`` (in the
+    original edge order) with the values ``vals * w[edge_ids]`` formed in the
+    call; the ids' int64 copy is made once, outside it."""
+    ids = lay.edge_ids.long()
+    return lambda: torch.sparse.mm(csr_tensor(lay, lay.vals * w[ids]), x)
+
+
+def bf16_library_ms(lay: sk.CsrLayout, x: torch.Tensor, w) -> dict:
     """The bf16 mode's library call: ``torch.sparse.mm`` on a bfloat16 CSR
-    tensor of ``lay`` (values pre-multiplied by ``w``) and bfloat16 ``x``:
-    its device time and what it is, or None and PyTorch's refusal."""
+    tensor of ``lay`` (values pre-multiplied by ``w``) and bfloat16 ``x``,
+    its device time with x cast before it (``library_ms``) and with the cast
+    of the float32 x inside the call (``library_cast_ms``), as the bf16
+    mode's own time holds its cast; None and PyTorch's refusal or the
+    profiler's failure under ``library_call`` where there is no reading."""
     vals = lay.vals if w is None else lay.vals * w[lay.edge_ids.long()]
     csr = torch.sparse_csr_tensor(lay.indptr, lay.cols, vals.to(torch.bfloat16),
                                   size=(lay.n_rows, lay.n_cols))
     xb = x.to(torch.bfloat16)
+    none = {"library_ms": None, "library_cast_ms": None}
     try:
         torch.sparse.mm(csr, xb)
         torch.cuda.synchronize()
     except Exception as e:      # a yardstick only: PyTorch may not take bfloat16 CSR
-        return None, ("torch.sparse.mm refuses a bfloat16 CSR tensor here: "
-                      + str(e).splitlines()[0][:200])
+        return {**none, "library_call": "torch.sparse.mm refuses a bfloat16 CSR tensor here: "
+                                        + str(e).splitlines()[0][:200]}
     what = "torch.sparse.mm on a bfloat16 CSR tensor (values pre-multiplied) and bfloat16 x"
     try:
-        return device_ms(lambda: torch.sparse.mm(csr, xb)), what
+        return {"library_ms": device_ms(lambda: torch.sparse.mm(csr, xb)),
+                "library_cast_ms": device_ms(lambda: torch.sparse.mm(csr, x.to(torch.bfloat16))),
+                "library_call": what}
     except AssertionError as e:     # the profiler's windows did not agree: no reading
-        return None, f"{what}: not measured ({str(e)[:200]})"
+        return {**none, "library_call": f"{what}: not measured ({str(e)[:200]})"}
+
+
+def bf16_timing(cases: dict, bf16_err: dict) -> tuple[dict, dict]:
+    """Phase 26's bf16 rows: at each of ``BF16_TIMED`` (keys of
+    :func:`bf16_cases`) the bf16 mode's device time (its cast of x, if any,
+    included), its cold time and schedule, which rows it gathers, the cast
+    of x alone, the float32 mode's time and ``torch.sparse.mm`` on a
+    bfloat16 CSR tensor (:func:`bf16_library_ms`) and in float32; keyed
+    ``bf16_<case>``, with the bounds."""
+    t, bound = {}, {}
+    for k in BF16_TIMED:
+        lay, x, w = cases[k]
+        floor = bound_ms(lay, x.shape[1])[0]
+        f32_ms = device_ms(lambda: sk.csr_spmm(lay, x, w), floor)
+        f32_cold = cold_ms(lambda: sk.csr_spmm(lay, x, w), floor)
+        set_precision(True)
+        try:
+            key = f"bf16_{k}"
+            # the call's own cast of x to bf16, timed alone beside it
+            t[key], bound[key] = time_b1(lay, x, w, gather=False,
+                                         cast=lambda: x.to(torch.bfloat16))
+        finally:
+            set_precision(False)
+        t[key].update(f32_ms=f32_ms, f32_cold_ms=f32_cold, library_f32_ms=t[key]["library_ms"],
+                      bf16_rows=sk.bf16_rows(lay, x.shape[1]), **bf16_library_ms(lay, x, w),
+                      **bf16_err[k])
+        log_timing(key, t[key], bound[key])
+        lib = t[key]["library_cast_ms"]
+        log(f"    float32 mode: {f32_ms * 1e3:.2f} us device, {f32_cold * 1e3:.2f} cold; bf16 "
+            f"mode {t[key]['cold_ms'] * 1e3:.2f} cold, on "
+            f"{'bf16 rows' if t[key]['bf16_rows'] else 'float32 rows rounded on load'}, lane "
+            f"group {t[key]['lane_group']}, T {t[key]['split_threshold']}; the cast of x alone "
+            f"{t[key]['cast_ms'] * 1e3:.2f}; library: {t[key]['library_call']}, with the cast "
+            f"in the call {'n/a' if lib is None else f'{lib * 1e3:.2f}'}; in float32 "
+            f"{t[key]['library_f32_ms'] * 1e3:.2f}")
+    return t, bound
 
 
 def seq_operands(dm, mm, gen) -> dict:
@@ -2301,7 +2503,7 @@ def seq_phases(errs: ErrTrack, gen, lgcn: sk.CsrGraph, seg_lay: skn.SegmentLayou
     log("== 25. B1's bf16 mode (SSLREC_PALLAS_PRECISION=default)")
     t0 = time.perf_counter()
     cases = bf16_cases(lgcn, seg_lay, mm, gen)
-    bf16_err = bf16_checks(cases)
+    bf16_err, bf16_ties = bf16_checks(cases)
     bf16_path = bf16_lightgcn_path(lgcn_counts)
     log(f"  {time.perf_counter() - t0:.1f} s")
 
@@ -2312,28 +2514,13 @@ def seq_phases(errs: ErrTrack, gen, lgcn: sk.CsrGraph, seg_lay: skn.SegmentLayou
     for k, (lay, x, w) in ops.items():
         t[k], bound[k] = time_b1(lay, x, w)
         log_timing(k, t[k], bound[k])
-    for k in ("lightgcn_hop", "maerec_hop_d64"):
-        lay, x, w = cases[k]
-        f32_r, _ = time_b1(lay, x, w)
-        set_precision(True)
-        try:
-            key = f"bf16_{k}"
-            # the call's own cast of x to bf16, timed alone beside it
-            t[key], bound[key] = time_b1(lay, x, w, cast=lambda: x.to(torch.bfloat16))
-        finally:
-            set_precision(False)
-        lib_ms, lib_call = bf16_library_ms(lay, x, w)
-        t[key].update(f32_ms=f32_r["ms"], f32_cold_ms=f32_r["cold_ms"],
-                      library_f32_ms=t[key]["library_ms"], library_ms=lib_ms,
-                      library_call=lib_call, **bf16_err[k])
-        log_timing(key, t[key], bound[key])
-        log(f"    float32 mode: {f32_r['ms'] * 1e3:.2f} us device, {f32_r['cold_ms'] * 1e3:.2f} "
-            f"cold; bf16 mode {t[key]['cold_ms'] * 1e3:.2f} cold; the cast of x alone "
-            f"{t[key]['cast_ms'] * 1e3:.2f}; library: {lib_call}; in float32 "
-            f"{t[key]['library_f32_ms'] * 1e3:.2f}")
+    bt, bb = bf16_timing(cases, bf16_err)
+    t.update(bt)
+    bound.update(bb)
     log(f"  {time.perf_counter() - t0:.1f} s")
     return {"runs": runs, "errs": seq_errs, "t": t, "bound": bound, "split": split,
-            "sizes": sizes, "bf16_err": bf16_err, "bf16_path": bf16_path,
+            "sizes": sizes, "bf16_err": bf16_err, "bf16_ties": bf16_ties,
+            "bf16_path": bf16_path,
             "shapes": {k: (lay.n_rows, lay.n_cols, lay.cols.shape[0], x.shape[1])
                        for k, (lay, x, _) in {**ops, **cases}.items()}}
 
@@ -4250,9 +4437,9 @@ def main() -> int:
     stress_errs = ErrTrack()
     check_graph(stress_errs, "stress", stress, (1, 2, 3, 4, 32, 64, 65), gen, with_grads=True,
                 ref64=True)
-    set_precision(True)         # the narrow widths in bf16 mode, against the bf16 plain
-    check_graph(stress_errs, "stress.bf16", stress, (1, 2, 3, 4), gen, with_grads=False,
-                ref64=True)
+    set_precision(True)         # every row vector in bf16 mode, against the bf16 plain
+    check_graph(stress_errs, "stress.bf16", stress, (1, 2, 3, 4, 32, 36, 64, 65), gen,
+                with_grads=False, ref64=True)
     set_precision(False)
     for sd in (32, 1):
         splan = sk.layout_plan(stress.fwd, schedule(stress.fwd, sd)[1])
@@ -4747,22 +4934,20 @@ def main() -> int:
             err = ErrTrack()
             be = seq["bf16_err"][k[5:]]
             err.abs, err.rel = be["max_abs_err"], be["max_rel_err"]
-            more = {"precision": "bf16 mode (SSLREC_PALLAS_PRECISION=default): x gathered as "
-                                 "bf16 rows, each product rounded to bf16, summed in float32",
+            rows = ("x cast to bf16 rows in the call" if r["bf16_rows"] else
+                    "float32 rows of x rounded to bf16 as they load")
+            more = {"precision": f"bf16 mode (SSLREC_PALLAS_PRECISION=default): {rows}, each "
+                                 "product a packed bf16 multiply, summed in float32",
                     "max_rel_err_vs_f32_plain": be["max_rel_err_vs_f32"],
                     "bf16_checks": seq["bf16_err"],
                     "f32_ms": r["f32_ms"], "f32_cold_ms": r["f32_cold_ms"],
                     "bound_note": "the function's bound: x read once as float32, out written "
-                                  "once (the cast to bf16 is part of the call)"}
-            if k == "bf16_lightgcn_hop":
-                p = seq["bf16_path"]
-                counts = (p["launches"], p["combine_launches"])
-                more.update(launches_of=["lightgcn (bf16 mode, 2 epochs)"], bf16_path=p)
-            else:
-                more.update(launches_of=["maerec"],
-                            launches_scope="B1's launches in the MAERec run, float32 mode: "
-                                           "the bf16 mode is the same kernel under the "
-                                           "variable, driven on the LightGCN path")
+                                  "once (a cast of x, where the call makes one, is part of it)",
+                    "bf16_tie_case": seq["bf16_ties"]}
+            # the bf16 kernels' launches: the bf16 mode's path, LightGCN
+            p = seq["bf16_path"]
+            counts = (p["launches"], p["combine_launches"])
+            more.update(launches_of=["lightgcn (bf16 mode, 2 epochs)"], bf16_path=p)
         n_r, n_c, nnz_k, d_k = seq["shapes"][k[5:] if k.startswith("bf16_") else k]
         vals = "" if k.endswith("spread_d1") else " whose values already carry the call's values"
         r = dict(r)
@@ -4770,7 +4955,8 @@ def main() -> int:
         rows_b1.append(b1_row(
             f"csr_spmm.{k}", r, seq["bound"][k], counts, err,
             {"n_rows": n_r, "n_cols": n_c, "nnz": nnz_k, "d": d_k,
-             "layout": "transposed" if "_t_" in k or k.endswith("_t") else "forward"},
+             "layout": "segment layout" if "segment" in k else
+                       "transposed" if "_t_" in k or k.endswith("_t") else "forward"},
             library_call=call, **more))
     rows_b1[-1]["sequential"] = {"split": seq["split"], "sizes": seq["sizes"],
                                  "runs": seq["runs"]}

@@ -34,9 +34,9 @@
 //    ~7,250 edges per row keeps the card busy.
 // 2. Lanes over edges and features together (d > 4, spmm_chunks).  A chunk
 //    belongs to a group of G lanes, 32/G chunks to a warp; G comes from d
-//    (spmm_kernel.lane_group: one lane per two float4s of a row, or per two
-//    floats when d % 4, as sweeps on the card chose).  Per batch the group's
-//    lanes load G edges' (col, val, w) at once and hand them round with
+//    (spmm_kernel.lane_group: one lane per two 16-byte vectors of a row, or
+//    per two values when d % 4, as sweeps on the card chose).  Per batch the
+//    group's lanes load G edges' (col, val, w) at once and hand them round with
 //    shuffles; the x loads of up to U edges are issued before their FMAs, so
 //    several independent 16-byte gathers are in flight per lane.
 // 3. Any d > 4 in one pass over the edges: a lane holds NV <= 4 vectors
@@ -87,18 +87,47 @@
 // output.  An empty row writes 0.  A partial that a group of the same launch
 // reads is written and read through L2 (__stcg / __ldcg).
 //
-// bf16 mode (the JAX package's SSLREC_PALLAS_PRECISION=default, which halves
-// the gathered bytes): x arrives as bf16 rows (the host casts it once a
-// call), and each edge's contribution is
+// bf16 mode (the JAX package's SSLREC_PALLAS_PRECISION=default): each
+// edge's contribution is
 //
 //   bf16( bf16(x[col]) * bf16(vals[e] * w(e)) )      accumulated in f32,
 //
-// the product formed in f32 from the two bf16 operands (exact: 8 x 8
-// mantissa bits) and rounded once, which is the JAX package's bf16 multiply.
-// The f32 mode is untouched by it.
+// the JAX package's bf16 multiply, in the same order of sums as the f32 mode.
+// The f32 kernel's lanes would give bf16 rows the f32 mode's load count for
+// half the bytes, and its arithmetic would make each product an f32
+// multiply, a conversion on Hopper's slow F2F pipe and a widening where the
+// f32 mode has one FMA (1.8-2.0x the f32 mode's time, PERF.md), so at d > 4
+// the mode has its own kernel, spmm_chunks_bf16:
 //
-// Later work: TMA / cp.async staging of the edge arrays; the bf16 mode's
-// gathers, slower than torch.sparse.mm on a bf16 CSR tensor at MAERec's hop.
+// a. Lanes by bytes: over bf16 rows a lane's vector is 16 bytes, 8 values (a
+//    4-byte word holds two).  The group is the f32 mode's (one lane per 8
+//    values: spmm_kernel.lane_group), so a lane holds one vector where an
+//    f32 lane holds two, with 4 edges' loads in flight, and chunks are half
+//    as long (spmm_kernel.split_threshold), so a chunk gathers the bytes it
+//    would in f32; both were the fastest of a sweep on the card.  Rows are
+//    cast only where d % 8 == 0 (else as in c, rounded on load).
+// b. Products on the packed pipe: mul.rn.bf16x2 gives the correctly rounded
+//    bf16 products of two bf16 pairs in one instruction.  That is the
+//    rounding of the exact product, and the f32 product of two bf16 values
+//    is exact wherever its bf16 rounding can be non-zero (8 x 8 mantissa
+//    bits; one below 2^-134 in magnitude rounds to +-0 both ways), so it
+//    equals bf16(f32(a * b)) bit for bit, subnormal products included (PTX's
+//    bf16 arithmetic keeps subnormals), and inf, NaN and signed zeros as
+//    IEEE gives them.  Each half widens to f32 by a shift or a mask and is
+//    added with __fadd_rn, in the edge order the f32 mode has.  The edge's
+//    value is rounded to bf16 once, by the lane that loads it.
+// c. Which rows: the host casts x to bf16 rows before the call (a torch
+//    cast, one pass over x) where d % 8 == 0 and the layout gathers each row
+//    of x at least twice on average (spmm_kernel.bf16_rows); else the
+//    kernel gathers the f32 rows with the f32 mode's loads and rounds them
+//    to bf16 pairs as they arrive (cvt.rn.bf16x2.f32).  A segment sum reads
+//    each row once, so there the cast would be a second pass over all of x
+//    (0.039 of 0.058 ms at KGCL's d-64 sum; 0.036 ms rounded on load);
+//    LightGCN's hop reads a row 3.5 times and is faster cast (PERF.md).
+//
+// The f32 mode is untouched by it: spmm_chunks is the f32 kernel alone.
+// At d <= 4 spmm_narrow serves both modes, the bf16 one on cast rows with an
+// f32 multiply and a conversion a product.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -210,9 +239,69 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// The bf16 mode at d > 4 holds bf16 values in pairs, a 4-byte word each,
+// the first value in the low half.  The correctly rounded products of two
+// pairs (sm_90's packed bf16 multiply).
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t prod;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(prod) : "r"(a), "r"(b));
+  return prod;
+}
+
+// bf16(v) in both halves of a word.
+__device__ __forceinline__ uint32_t bf16_pair(float v) {
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  return h | (h << 16);
+}
+
+// Words of a vector of VEC bf16 values.
+template <int VEC>
+constexpr int kWords = (VEC + 1) / 2;
+
+// Two f32 values rounded to a bf16 pair, a in the low half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// A vector of VEC values of a row of x as bf16 words: bf16 rows one 16-byte
+// load (VEC 8); f32 rows one 16-byte load (VEC 4) or one value (VEC 1),
+// rounded to bf16.
+template <typename TX, int VEC>
+__device__ __forceinline__ void load_words(uint32_t (&dst)[kWords<VEC>], const TX* src) {
+  if constexpr (sizeof(TX) == 2) {
+    static_assert(VEC == 8, "bf16 rows load 16-byte vectors");
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+    dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+  } else if constexpr (VEC == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+    dst[0] = pack_bf16x2(v.x, v.y);
+    dst[1] = pack_bf16x2(v.z, v.w);
+  } else {
+    dst[0] = __bfloat16_as_ushort(__float2bfloat16_rn(__ldg(src)));
+  }
+}
+
+// acc[i] += bf16(x_i * v), x_i the VEC values in xw and v both halves of vb:
+// each packed product's halves widened to f32 (a shift, a mask) and added.
+template <int VEC>
+__device__ __forceinline__ void add_products(float (&acc)[VEC],
+                                             const uint32_t (&xw)[kWords<VEC>], uint32_t vb) {
+#pragma unroll
+  for (int w = 0; w < kWords<VEC>; ++w) {
+    const uint32_t prod = mul_bf16x2(xw[w], vb);
+    acc[2 * w] = __fadd_rn(acc[2 * w], __uint_as_float(prod << 16));
+    if constexpr (VEC > 1)
+      acc[2 * w + 1] = __fadd_rn(acc[2 * w + 1], __uint_as_float(prod & 0xffff0000u));
+  }
+}
+
 template <int VEC>
 __device__ __forceinline__ void store_vec(float* dst, const float (&src)[VEC]) {
-  if constexpr (VEC == 4) {
+  if constexpr (VEC == 8) {
+    *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(src[4], src[5], src[6], src[7]);
+  } else if constexpr (VEC == 4) {
     *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
   } else {
     dst[0] = src[0];
@@ -321,10 +410,9 @@ __global__ void __launch_bounds__(kTreeThreads) combine_tree(const Params p, con
 // One group of G = 2^log2g lanes per item.  Items [0, n_chunks) are chunks,
 // the rest empty rows.  A group's lanes share their item, so a group leaves
 // whole and its shuffles (masked to the group) always see all its lanes.
-template <typename T, int VEC, int NV, int MODE>
+template <int VEC, int NV, int MODE>
 __global__ void __launch_bounds__(kThreads) spmm_chunks(const Params p) {
-  constexpr bool kBf16 = sizeof(T) == 2;
-  const T* __restrict__ x = static_cast<const T*>(p.x);
+  const float* __restrict__ x = static_cast<const float*>(p.x);
   constexpr int U = NV >= 8 ? 1 : 8 / NV;     // edges whose x loads are in flight together
   const int G = 1 << p.log2g;
   const int lane = threadIdx.x & 31;
@@ -391,19 +479,107 @@ __global__ void __launch_bounds__(kThreads) spmm_chunks(const Params p) {
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          const float vu = kBf16 ? round_bf16(vj[u]) : vj[u];
+          const float vu = vj[u];
 #pragma unroll
           for (int k = 0; k < NV; ++k) {
             const int f = f0 + (k * G + sub) * VEC;
             if (j0 + u < n && f < d) {
 #pragma unroll
-              for (int i = 0; i < VEC; ++i) {
-                if constexpr (kBf16)
-                  acc[k][i] = __fadd_rn(acc[k][i], round_bf16(__fmul_rn(vu, xv[u][k][i])));
-                else
-                  acc[k][i] = fmaf(vu, xv[u][k][i], acc[k][i]);
-              }
+              for (int i = 0; i < VEC; ++i) acc[k][i] = fmaf(vu, xv[u][k][i], acc[k][i]);
             }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const int f = f0 + (k * G + sub) * VEC;
+      if (f < d) store_vec<VEC>(o + f, acc[k]);
+    }
+  }
+}
+
+// The bf16 mode at d > 4: spmm_chunks' schedule and order of sums over rows
+// of x of type TX (bf16 rows, VEC 8: one 16-byte load; or f32 rows, VEC 4
+// or 1 as in spmm_chunks, rounded to bf16 as they load), each product a
+// packed bf16 multiply (mul_bf16x2) of the row's pairs and the edge's value,
+// rounded to bf16 once by the lane that loads the edge.  A lane of bf16
+// rows has at most 4 edges' loads in flight, so a group of 4 lanes shuffles
+// no edge it does not hold.
+template <typename TX, int VEC, int NV, int MODE>
+__global__ void __launch_bounds__(kThreads) spmm_chunks_bf16(const Params p) {
+  constexpr int W = kWords<VEC>;
+  const TX* __restrict__ x = static_cast<const TX*>(p.x);
+  // edges whose x loads are in flight together
+  constexpr int U = sizeof(TX) == 4 ? (NV >= 8 ? 1 : 8 / NV) : (NV >= 2 ? 8 / NV : 4);
+  const int G = 1 << p.log2g;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (G - 1);
+  const int item = (blockIdx.x * kThreads + threadIdx.x) >> p.log2g;
+  if (item >= p.n_chunks + p.n_empty) return;
+  const int d = p.d;
+  if (item >= p.n_chunks) {
+    float* o = p.out + static_cast<int64_t>(p.empty_rows[item - p.n_chunks]) * d;
+    const float zero[VEC] = {};
+    for (int f = sub * VEC; f < d; f += G * VEC) store_vec<VEC>(o + f, zero);
+    return;
+  }
+  const unsigned gmask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
+  const int start = p.chunk_ptr[item];
+  const int end = p.chunk_ptr[item + 1];
+  float* o = dst_row(p, p.chunk_dst[item]);
+  uint32_t k0 = 0, k1 = 0;
+  if (MODE == kPrf) {
+    k0 = static_cast<uint32_t>(p.key[0]);
+    k1 = static_cast<uint32_t>(p.key[1]);
+  }
+  for (int f0 = 0; f0 < d; f0 += G * VEC * NV) {
+    float acc[NV][VEC] = {};
+    for (int base = start; base < end; base += G) {
+      const int e = base + sub;
+      const bool live = e < end;
+      int c = 0, id = 0;
+      float v = 0.0f;
+      if (live) {
+        c = __ldg(p.cols + e);
+        v = p.vals != nullptr ? __ldg(p.vals + e) : 1.0f;
+        if (MODE != kNone) id = p.edge_ids != nullptr ? __ldg(p.edge_ids + e) : e;
+        if (MODE == kTensor) v = __fmul_rn(v, __ldg(p.ew + id));
+      }
+      uint32_t vb = MODE == kPrf ? 0u : bf16_pair(v);
+      const int n = min(G, end - base);
+      for (int j0 = 0; j0 < n; j0 += U) {
+        int cj[U];
+        uint32_t vj[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          cj[u] = __shfl_sync(gmask, c, j0 + u, G);
+          if constexpr (MODE != kPrf) vj[u] = __shfl_sync(gmask, vb, j0 + u, G);
+        }
+        uint32_t xw[U][NV][W];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            const int f = f0 + (k * G + sub) * VEC;
+            if (j0 + u < n && f < d)
+              load_words<TX, VEC>(xw[u][k], x + static_cast<int64_t>(cj[u]) * d + f);
+          }
+        }
+        if constexpr (MODE == kPrf) {
+          // the PRF runs while the batch's first x loads are in flight
+          if (j0 == 0 && live)
+            vb = bf16_pair(__fmul_rn(v, dropout_keep(k0, k1, static_cast<uint32_t>(id), p.salt,
+                                                     p.keep_rate, p.resize_val)));
+#pragma unroll
+          for (int u = 0; u < U; ++u) vj[u] = __shfl_sync(gmask, vb, j0 + u, G);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            const int f = f0 + (k * G + sub) * VEC;
+            if (j0 + u < n && f < d) add_products<VEC>(acc[k], xw[u][k], vj[u]);
           }
         }
       }
@@ -577,22 +753,31 @@ __global__ void __launch_bounds__(kThreads) spmm_narrow(const Params p, const Tr
   if (dst < 0) climb_narrow<D>(p, tr, -1 - dst, sub, G, gmask);
 }
 
-template <typename T, int VEC, int NV>
+// T: x's rows; BF16: the bf16 mode's arithmetic (on bf16 rows always)
+template <typename T, int VEC, int NV, bool BF16 = sizeof(T) == 2>
 void launch_mode(int mode, int blocks, cudaStream_t s, const Params& p) {
-  switch (mode) {
-    case kNone: spmm_chunks<T, VEC, NV, kNone><<<blocks, kThreads, 0, s>>>(p); break;
-    case kTensor: spmm_chunks<T, VEC, NV, kTensor><<<blocks, kThreads, 0, s>>>(p); break;
-    default: spmm_chunks<T, VEC, NV, kPrf><<<blocks, kThreads, 0, s>>>(p); break;
+  if constexpr (BF16) {
+    switch (mode) {
+      case kNone: spmm_chunks_bf16<T, VEC, NV, kNone><<<blocks, kThreads, 0, s>>>(p); break;
+      case kTensor: spmm_chunks_bf16<T, VEC, NV, kTensor><<<blocks, kThreads, 0, s>>>(p); break;
+      default: spmm_chunks_bf16<T, VEC, NV, kPrf><<<blocks, kThreads, 0, s>>>(p); break;
+    }
+  } else {
+    switch (mode) {
+      case kNone: spmm_chunks<VEC, NV, kNone><<<blocks, kThreads, 0, s>>>(p); break;
+      case kTensor: spmm_chunks<VEC, NV, kTensor><<<blocks, kThreads, 0, s>>>(p); break;
+      default: spmm_chunks<VEC, NV, kPrf><<<blocks, kThreads, 0, s>>>(p); break;
+    }
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool BF16 = sizeof(T) == 2>
 void launch_nv(int nv, int mode, int blocks, cudaStream_t s, const Params& p) {
   switch (nv) {
-    case 1: launch_mode<T, VEC, 1>(mode, blocks, s, p); break;
-    case 2: launch_mode<T, VEC, 2>(mode, blocks, s, p); break;
-    case 3: launch_mode<T, VEC, 3>(mode, blocks, s, p); break;
-    default: launch_mode<T, VEC, kMaxNv>(mode, blocks, s, p); break;
+    case 1: launch_mode<T, VEC, 1, BF16>(mode, blocks, s, p); break;
+    case 2: launch_mode<T, VEC, 2, BF16>(mode, blocks, s, p); break;
+    case 3: launch_mode<T, VEC, 3, BF16>(mode, blocks, s, p); break;
+    default: launch_mode<T, VEC, kMaxNv, BF16>(mode, blocks, s, p); break;
   }
 }
 
@@ -643,9 +828,12 @@ void launch_narrow(int d, int mode, int blocks, cudaStream_t s, const Params& p,
 // layout whose ids are the identity, vals on one whose values are all ones;
 // at most one of ew (a [nnz] multiplier in the original edge order) and key
 // (the dropout PRF's int64 [2] key) is set; partials holds one d-row per
-// partial of the plan; x holds bf16 rows where x_bf16 is set (the bf16
-// mode), else float.  d <= 4 takes spmm_narrow, one launch; d > 4
-// spmm_chunks, then combine_tree where the plan has split rows.  Launches on
+// partial of the plan; bf16 is 0 for the f32 mode, else the bf16 mode with x
+// holding bf16 rows (1; at d > 4 with d % 8 == 0, 16-byte aligned) or f32
+// rows rounded as they load (2, d > 4 only).
+// d <= 4 takes spmm_narrow, one launch; d > 4
+// spmm_chunks (spmm_chunks_bf16 in the bf16 mode), then combine_tree where
+// the plan has split rows.  Launches on
 // `stream` and returns the first cudaGetLastError() that is not 0 (0 on
 // success); it does not synchronise.
 extern "C" int csr_spmm_f32(const void* chunk_ptr, const void* chunk_dst, int n_chunks,
@@ -654,10 +842,14 @@ extern "C" int csr_spmm_f32(const void* chunk_ptr, const void* chunk_dst, int n_
                             int n_first, const void* cols, const void* vals,
                             const void* edge_ids, const void* ew, const void* key,
                             unsigned salt, float keep_rate, int resize_val, const void* x,
-                            void* out, void* partials, int d, int log2g, int x_bf16,
+                            void* out, void* partials, int d, int log2g, int bf16,
                             void* stream) {
   if (d <= 0 || n_chunks + n_empty <= 0) return 0;
-  if (log2g < 0 || log2g > 5) return static_cast<int>(cudaErrorInvalidValue);
+  const bool x_bf16 = bf16 == 1;
+  const bool aligned16 = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  if (log2g < 0 || log2g > 5 || bf16 < 0 || bf16 > 2 || (bf16 == 2 && d <= kNarrowD) ||
+      (x_bf16 && d > kNarrowD && (d % 8 != 0 || !aligned16)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const uintptr_t align = x_bf16 ? 7 : 15;     // a 4-vector's bytes, less one
   const bool vec4 = d % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & align) == 0;
   const Params p{static_cast<const int*>(chunk_ptr), static_cast<const int*>(chunk_dst),
@@ -680,19 +872,23 @@ extern "C" int csr_spmm_f32(const void* chunk_ptr, const void* chunk_dst, int n_
       launch_narrow<float>(d, mode, blocks, s, p, tr, vec4);
     return static_cast<int>(cudaGetLastError());
   }
-  const int vec = vec4 ? 4 : 1;
+  const int vec = vec4 ? 4 : 1;              // f32 rows, and the partials
   const int nvec = (d + vec - 1) / vec;
   const int g = 1 << log2g;
-  const int nv = min(kMaxNv, (nvec + g - 1) / g);
-  if (x_bf16) {
+  if (x_bf16) {                              // bf16 rows: 16-byte vectors of 8 values
+    launch_nv<__nv_bfloat16, 8>(min(kMaxNv, (d / 8 + g - 1) / g), mode, blocks, s, p);
+  } else if (bf16 == 2) {                    // f32 rows rounded to bf16 on load
+    const int nv = min(kMaxNv, (nvec + g - 1) / g);
     if (vec4)
-      launch_nv<__nv_bfloat16, 4>(nv, mode, blocks, s, p);
+      launch_nv<float, 4, true>(nv, mode, blocks, s, p);
     else
-      launch_nv<__nv_bfloat16, 1>(nv, mode, blocks, s, p);
-  } else if (vec4) {
-    launch_nv<float, 4>(nv, mode, blocks, s, p);
+      launch_nv<float, 1, true>(nv, mode, blocks, s, p);
   } else {
-    launch_nv<float, 1>(nv, mode, blocks, s, p);
+    const int nv = min(kMaxNv, (nvec + g - 1) / g);
+    if (vec4)
+      launch_nv<float, 4>(nv, mode, blocks, s, p);
+    else
+      launch_nv<float, 1>(nv, mode, blocks, s, p);
   }
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || n_first <= 0) return err;

@@ -15,7 +15,9 @@ launches the kernel or raises.  Both follow the precision mode
 (:func:`bf16_mode`): exact float32 by default; with
 ``SSLREC_PALLAS_PRECISION=default``, the variable the JAX package reads,
 every contribution is ``bf16(bf16(x[col]) · bf16(vals·w))`` summed in
-float32, and the kernel gathers x as bf16 rows.  The backward pass of every hop is the same
+float32; the kernel gathers x as bf16 rows, cast in the call, where a
+layout reads each row of x often (:func:`bf16_rows`), else rounds the
+float32 rows as they load.  The backward pass of every hop is the same
 kernel on the transposed layout, which is always built: A need not be
 symmetric.  Edge dropout (:class:`PrfMask`) is evaluated inside the kernel
 from each layout's edge ids; :class:`EdgeMask` carries a materialised
@@ -409,16 +411,19 @@ butterfly."""
 
 
 def lane_group(d: int, mean_degree: float = 0.0) -> int:
-    """Lanes per chunk at width ``d``: one per two 16-byte vectors of a row,
-    a power of two from 4 to 32; where ``d % 4`` (4-byte loads), one per two
-    floats and at least 8.  Two vectors a lane keep more gathers in flight
-    than one, and more chunks share a warp; PERF.md has the sweep over
-    widths that chose this.  At ``d <= NARROW_D`` (the narrow mode, where
-    the lanes take edges, four in flight each) a power of two from 4 to 16
-    near a quarter of the layout's mean row length ``mean_degree``: no one
-    width fits both AdaGCL's gate rows (3.5 edges a row, fastest at 2-4
-    lanes) and DCRec_seq's and MAERec's item graphs (17 and 40 a row,
-    fastest at 16 with longer chunks), as PERF.md's sweep
+    """Lanes per chunk at width ``d``: one per 8 values of a row (two
+    16-byte vectors of float32, one of bf16 in the bf16 mode's cast rows), a
+    power of two from 4 to 32; where ``d % 4`` (one value a load), one per
+    two values and at least 8.  Two float32 vectors a lane keep more gathers
+    in flight than one, and more chunks share a warp; a lane of bf16 rows
+    holds one vector and four edges in flight (at half the lanes it is
+    slower: MAERec's hop at d 64 0.0299 ms in 4 lanes, 0.0271 in 8); PERF.md
+    has the sweeps over widths that chose this.  At ``d <= NARROW_D`` (the
+    narrow mode, where the lanes take edges, four in flight each) a power of
+    two from 4 to 16 near a quarter of the layout's mean row length
+    ``mean_degree``: no one width fits both AdaGCL's gate rows (3.5 edges a
+    row, fastest at 2-4 lanes) and DCRec_seq's and MAERec's item graphs (17
+    and 40 a row, fastest at 16 with longer chunks), as PERF.md's sweep
     (``chip_compare.py --sweep``) shows."""
     if d <= NARROW_D:
         want = max(1, int(np.ceil(mean_degree / 4)))
@@ -440,13 +445,17 @@ def resident_threads(device_index: int) -> int:
     return p.multi_processor_count * p.max_threads_per_multi_processor
 
 
-def split_threshold(nnz: int, group: int, resident: int) -> int:
+def split_threshold(nnz: int, group: int, resident: int, row_bytes: int = 4) -> int:
     """T: about twice the edges each lane group gets when the card's
     ``resident`` threads, in groups of ``group``, share ``nnz`` evenly, as a
     power of two from 32 to 1024, so that no chunk outlasts the rest of the
-    grid by much and short rows stay whole."""
+    grid by much and short rows stay whole.  Over bf16 rows (``row_bytes``
+    2) half that, so that a chunk gathers the bytes it would over float32
+    rows: PERF.md's sweep found it fastest at every hop it timed (LightGCN's
+    T 16, MAERec's 32, DCRec_seq's 16)."""
     per_group = 2 * nnz * group / resident
-    return min(1024, max(32, 1 << max(0, int(np.ceil(per_group)) - 1).bit_length()))
+    t = min(1024, max(32, 1 << max(0, int(np.ceil(per_group)) - 1).bit_length()))
+    return t * row_bytes // 4
 
 
 def layout_plan(layout: CsrLayout, t: int) -> SplitPlan:
@@ -534,6 +543,32 @@ def bf16_mode() -> bool:
     return os.environ.get("SSLREC_PALLAS_PRECISION", "highest").lower() == "default"
 
 
+CAST_READS = 2.0
+"""The bf16 mode casts x to bf16 rows before the kernel where a layout
+gathers each row of x at least this often on average (``nnz / n_cols``),
+so the cast's pass over x pays for itself in the halved gathers (from 3.5
+reads a row, LightGCN's hop, on); below it (a segment sum reads each row
+once: there the cast took 0.039 of 0.058 ms) the kernel rounds float32 rows
+as it loads them.  At ``d <= NARROW_D`` the rows are always cast.  PERF.md
+has the sweep (``chip_compare.py --sweep``) that chose it."""
+
+
+def bf16_rows(layout: CsrLayout, d: int) -> bool:
+    """Whether the bf16 mode gathers ``layout``'s x at width ``d`` as bf16
+    rows, cast before the kernel (else float32 rows rounded on load): at
+    ``d <= NARROW_D``, and where ``d % 8 == 0`` (a lane's 16-byte vector of
+    8 values) and each row of x is read ``CAST_READS`` times or more."""
+    return d <= NARROW_D or (d % 8 == 0 and
+                             layout.cols.shape[0] >= CAST_READS * max(layout.n_cols, 1))
+
+
+def row_bytes(layout: CsrLayout, d: int) -> int:
+    """Bytes of a value of the rows the kernel gathers for ``layout`` at
+    width ``d`` in the precision mode (:func:`bf16_mode`): 2 for bf16 rows,
+    else 4."""
+    return 2 if bf16_mode() and bf16_rows(layout, d) else 4
+
+
 def _round_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype)
 
@@ -600,10 +635,11 @@ def csr_spmm(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
     evaluated inside the kernel.
 
     A CPU ``x`` takes :func:`csr_spmm_plain`; a CUDA ``x`` launches the kernel
-    (in bf16 mode on a bf16 copy of ``x``, made here) on the current stream
-    with the lane group and split threshold that
-    :func:`lane_group` and :func:`split_threshold` pick for ``d``, the layout
-    and the card, or raises.  ``csr_spmm.launches`` counts the launches of
+    (in bf16 mode on a bf16 copy of ``x``, made here, where :func:`bf16_rows`
+    says so, else on ``x`` itself, rounded as it loads) on the current
+    stream with the lane group and split threshold that
+    :func:`lane_group` and :func:`split_threshold` pick for ``d``, the layout's
+    rows and the card, or raises.  ``csr_spmm.launches`` counts the launches of
     the chunk kernel, one a call; ``csr_spmm.combine_launches`` those of the
     second kernel that adds the split rows' partials by the plan's tree, one
     a call over a layout with split rows at ``d > NARROW_D`` (at ``d <=
@@ -616,16 +652,26 @@ def csr_spmm(layout: CsrLayout, x: torch.Tensor, ew=None) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmm: no kernel for device {x.device}")
     _check(layout, x, ew)
-    group = lane_group(x.shape[1], mean_degree(layout))
-    t = split_threshold(layout.cols.shape[0], group, resident_threads(x.device.index))
+    group, t = schedule(layout, x.shape[1], resident_threads(x.device.index))
     return csr_spmm_at(layout, x, ew, group, layout_plan(layout, t))
 
 
+def schedule(layout: CsrLayout, d: int, resident: int) -> tuple[int, int]:
+    """The lane group and split threshold of a call over ``layout`` at width
+    ``d`` on a card of ``resident`` threads, in the precision mode in
+    force: :func:`lane_group` and :func:`split_threshold` over the rows the
+    kernel gathers (:func:`row_bytes`)."""
+    group = lane_group(d, mean_degree(layout))
+    return group, split_threshold(layout.cols.shape[0], group, resident, row_bytes(layout, d))
+
+
 def csr_spmm_at(layout: CsrLayout, x: torch.Tensor, ew, group: int,
-                plan: SplitPlan) -> torch.Tensor:
+                plan: SplitPlan, cast: bool | None = None) -> torch.Tensor:
     """The kernel launch of :func:`csr_spmm`, on operands it has checked, at
     lane group ``group`` and split plan ``plan`` (of ``layout``), which a
-    schedule sweep may set; counted as :func:`csr_spmm` counts."""
+    schedule sweep may set, as may ``cast`` in the bf16 mode (bf16 rows cast
+    before the kernel, or float32 rows rounded on load; default
+    :func:`bf16_rows`); counted as :func:`csr_spmm` counts."""
     d = x.shape[1]
     out = torch.empty(layout.n_rows, d, dtype=torch.float32, device=x.device)
     if layout.n_rows == 0 or d == 0:
@@ -633,8 +679,13 @@ def csr_spmm_at(layout: CsrLayout, x: torch.Tensor, ew, group: int,
     partials = torch.empty(plan.n_partials, d, dtype=torch.float32, device=x.device)
     prf = ew if isinstance(ew, PrfMask) else None
     tensor_ew = None if prf is not None else ew
-    bf16 = bf16_mode()
-    xk = x.to(torch.bfloat16) if bf16 else x
+    mode = 0        # the kernel's: float32; bf16 on bf16 rows cast here (1) or on x (2)
+    if bf16_mode():
+        cast = bf16_rows(layout, d) if cast is None else cast or d <= NARROW_D
+        if cast and d > NARROW_D and d % 8:
+            raise ValueError(f"csr_spmm: bf16 rows need d % 8 == 0 at d > {NARROW_D}, got {d}")
+        mode = 1 if cast else 2
+    xk = x.to(torch.bfloat16) if mode == 1 else x
     err = _kernel()(
         plan.chunk_ptr.data_ptr(), plan.chunk_dst.data_ptr(), plan.n_chunks,
         plan.empty_rows.data_ptr(), plan.empty_rows.shape[0],
@@ -648,7 +699,7 @@ def csr_spmm_at(layout: CsrLayout, x: torch.Tensor, ew, group: int,
         1.0 if prf is None else prf.keep_rate,
         int(prf is not None and prf.resize_val),
         xk.data_ptr(), out.data_ptr(), partials.data_ptr(), d, group.bit_length() - 1,
-        int(bf16), torch.cuda.current_stream(x.device).cuda_stream)
+        mode, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"csr_spmm: launch of libcsr_spmm.so's kernel failed: "
                            f"cudaError {err}")

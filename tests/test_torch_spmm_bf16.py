@@ -219,3 +219,70 @@ def test_jax_mode_reads_over_3_8e3_at_the_lightgcn_hop(bf16):
     assert (err <= (3 * 2.0**-8 + 2.0**-15) * mag + 1e-7 * mag.max()).all()
     got = sk.csr_spmm(g.fwd, _t(x)).numpy()
     np.testing.assert_allclose(got, y16, rtol=RTOL, atol=ATOL)
+
+
+def _bf16_bits(rng, n):
+    """``n`` bf16 values as float32, every sign, exponent (subnormals, zeros,
+    inf and NaN included) and mantissa drawn uniformly from the 16 bits."""
+    bits = rng.integers(0, 1 << 16, n, dtype=np.uint32) << 16
+    return bits.view(np.float32)
+
+
+def _round_exact(p: np.ndarray) -> np.ndarray:
+    """The float64 values ``p`` rounded once to bf16, half to even, computed
+    apart from both frameworks: the quantum of ``p``'s binade (2^-133 below
+    bf16's normal range), ``np.round`` (half to even) on the quotient, inf
+    past the largest bf16 value; inf and NaN kept, zeros keep their sign."""
+    out = p.copy()
+    fin = np.isfinite(p) & (p != 0)
+    _, e = np.frexp(p[fin])
+    q = np.exp2(np.maximum(e, -125) - 8.0)
+    r = np.round(p[fin] / q) * q
+    r[np.abs(r) >= 2.0**128] = np.inf * np.sign(r[np.abs(r) >= 2.0**128])
+    out[fin] = r
+    return out
+
+
+def test_native_bf16_multiply_is_the_modes_rounding():
+    """The identity a packed bf16 multiply (``mul.rn.bf16x2`` in B1's bf16
+    kernel) rests on: the correctly rounded bf16 product of two bf16 values,
+    which torch's native bf16 multiply gives, is ``_round_bf16`` of their
+    float32 product, the plain version's contribution, bit for bit: for
+    every sign, exponent and mantissa (random bit patterns), exact halfway
+    products, subnormal products and ones that round to ±0, products that
+    overflow to inf, and signed zeros.  Both equal the exact product
+    rounded once (``_round_exact``, float64)."""
+    rng = np.random.default_rng(2026)
+    a, b = _bf16_bits(rng, 400_000), _bf16_bits(rng, 400_000)
+    # exact halfway products: 1.5 * (1 + 2^-7) = 1 + 65 * 2^-7 + 2^-8, at
+    # every binade, down into bf16's subnormals and up to its overflow
+    e = rng.integers(-130, 128, 20_000)
+    half_a = (np.float32(1.5) * np.exp2(e.clip(-126, 127))).astype(np.float32)
+    half_b = (np.float32(1 + 2.0**-7) * np.exp2((e - e.clip(-126, 127))
+                                               .astype(np.float32))).astype(np.float32)
+    tiny = np.exp2(rng.integers(-75, -55, (2, 20_000)).astype(np.float32))
+    tiny *= rng.choice(np.float32([-1.5, -1.0, 1.0078125, 1.9921875]), (2, 20_000))
+    zeros = np.float32([0.0, -0.0, 0.0, -0.0, 1.0, -np.inf, 2.0**-133, np.nan])
+    a = np.concatenate([a, half_a, tiny[0], zeros]).astype(np.float32)
+    b = np.concatenate([b, half_b, tiny[1], zeros[::-1]]).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    assert torch.allclose(ta.to(torch.bfloat16).float(), ta, rtol=0, atol=0,
+                          equal_nan=True)                       # already bf16 values
+    native = (ta.to(torch.bfloat16) * tb.to(torch.bfloat16)).float()
+    plain = sk._round_bf16(sk._round_bf16(ta) * sk._round_bf16(tb))
+    with np.errstate(invalid="ignore", over="ignore"):     # inf * 0, as IEEE has it
+        exact = torch.from_numpy(_round_exact(a.astype(np.float64) * b.astype(np.float64)))
+    exact = exact.float()
+    for got in (native, plain):
+        nan = torch.isnan(exact)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int32), exact[~nan].view(torch.int32))
+    prod = ta.double() * tb.double()
+    fin = torch.isfinite(prod) & (prod != 0)
+    assert int((fin & (prod.abs() < 2.0**-126) & (exact != 0)).sum()) > 1000   # subnormal
+    assert int((fin & (exact == 0)).sum()) > 1000                               # to ±0
+    assert int((fin & torch.isinf(exact)).sum()) > 100                          # overflow
+    under = fin & (exact == 0)
+    assert bool((torch.signbit(exact[under]) == torch.signbit(prod[under])).all())
+    ties = fin & ((prod.float().view(torch.int32) & 0xFFFF) == 0x8000) & (prod.abs() > 2.0**-126)
+    assert int(ties.sum()) > 10_000

@@ -204,3 +204,100 @@ def test_schedule_in_bf16_mode(long_graph, d, monkeypatch):
     finally:
         monkeypatch.delenv("SSLREC_PALLAS_PRECISION")
         sk.bf16_mode.cache_clear()
+
+
+H100_SXM_THREADS = 132 * 2048
+
+
+@pytest.fixture
+def bf16_mode(monkeypatch):
+    """Both packages' bf16 mode (``SSLREC_PALLAS_PRECISION=default``), their
+    caches of the variable cleared around the test."""
+    from sslrec_tpu.ops import pallas_spmm as jps
+
+    monkeypatch.setenv("SSLREC_PALLAS_PRECISION", "default")
+    jps._mxu_precision.cache_clear()
+    sk.bf16_mode.cache_clear()
+    yield
+    monkeypatch.delenv("SSLREC_PALLAS_PRECISION")
+    jps._mxu_precision.cache_clear()
+    sk.bf16_mode.cache_clear()
+
+
+def _layout(nnz: int, n_rows: int, n_cols: int) -> sk.CsrLayout:
+    """A layout with only the sizes the schedule reads."""
+    z = torch.zeros(nnz, dtype=torch.int32)
+    return sk.CsrLayout(indptr=torch.zeros(n_rows + 1, dtype=torch.int32), rows=z, cols=z,
+                        vals=z.float(), edge_ids=z, n_rows=n_rows, n_cols=n_cols,
+                        ids_identity=True, vals_ones=False, plans=sk.PlanCache())
+
+
+# (name, nnz, n_rows, n_cols, d, cast to bf16 rows, lane group, T over bf16
+# rows in the bf16 mode, T in the float32 mode) on an H100 SXM's threads
+BF16_SCHEDULES = (
+    ("lightgcn_hop", 502_048, 144_777, 144_777, 32, True, 4, 16, 32),
+    ("maerec_hop", 740_336, 18_358, 18_358, 64, True, 8, 32, 64),
+    ("dcrec_seq_hop", 317_224, 18_358, 18_358, 64, True, 8, 16, 32),
+    ("kcgn_ii_hop", 3_439_046, 29_422, 29_422, 128, True, 16, 256, 512),
+    ("kgcl_segment_sum", 297_404, 30_000, 297_404, 64, False, 8, 16, 32),
+    ("lightgcl_rect_t", 251_024, 30_040, 114_737, 32, True, 4, 16, 32),
+    ("degree_sum_d1", 297_404, 30_000, 297_404, 1, True, 4, 16, 32),
+    ("lightgcn_hop_d36", 502_048, 144_777, 144_777, 36, False, 8, 16, 32),
+    ("lightgcn_hop_d65", 502_048, 144_777, 144_777, 65, False, 32, 64, 128))
+
+
+@pytest.mark.parametrize("case", BF16_SCHEDULES, ids=[c[0] for c in BF16_SCHEDULES])
+def test_bf16_schedule_values(case, bf16_mode):
+    """The bf16 mode's rows and schedule, value by value: bf16 rows (cast
+    before the kernel) where ``d % 8 == 0`` and a layout gathers each row of
+    x at least ``CAST_READS`` times, or at d <= 4; the float32 rule's lane group (one
+    lane per 8 values: a 16-byte vector of bf16); over bf16 rows half the
+    float32 split threshold, so a chunk gathers the same bytes."""
+    _, nnz, n_rows, n_cols, d, cast, group, t_bf16, t_f32 = case
+    lay = _layout(nnz, n_rows, n_cols)
+    assert sk.bf16_rows(lay, d) is cast
+    assert sk.row_bytes(lay, d) == (2 if cast else 4)
+    assert sk.lane_group(d, sk.mean_degree(lay)) == group
+    want = t_bf16 if cast else t_f32
+    assert sk.schedule(lay, d, H100_SXM_THREADS) == (group, want)
+    assert sk.split_threshold(nnz, group, H100_SXM_THREADS, 2) == t_bf16
+    assert sk.split_threshold(nnz, group, H100_SXM_THREADS) == t_f32
+
+
+def test_float32_schedule_unchanged_by_the_bf16_rule(monkeypatch):
+    """Outside the bf16 mode every layout gathers float32 rows, at the
+    float32 threshold, whatever its reads a row."""
+    monkeypatch.delenv("SSLREC_PALLAS_PRECISION", raising=False)
+    sk.bf16_mode.cache_clear()
+    for _, nnz, n_rows, n_cols, d, _, group, _, t_f32 in BF16_SCHEDULES:
+        lay = _layout(nnz, n_rows, n_cols)
+        assert sk.row_bytes(lay, d) == 4
+        assert sk.schedule(lay, d, H100_SXM_THREADS) == (group, t_f32)
+
+
+@pytest.mark.parametrize("cast", [True, False], ids=["bf16_rows", "f32_rows"])
+def test_bf16_split_schedule_matches_jax_contrib(mid_graph, bf16_mode, cast):
+    """``csr_spmm_split_plain`` under the bf16 mode's schedule at d 64 (its
+    lane group, and over bf16 rows its halved threshold, on 1,280 resident
+    threads so that T splits the graph's rows: 128 over float32 rows, 64 over
+    bf16 rows) against the JAX package's bf16 ``_contrib`` summed by its
+    kernel in interpret mode: the same bf16 contributions in another order
+    of float32 sums, within 1e-5 of the largest output."""
+    pg, tg, _ = mid_graph
+    d = 64
+    lay = tg.fwd
+    group = sk.lane_group(d, sk.mean_degree(lay))
+    t = sk.split_threshold(lay.cols.shape[0], group, 1280, 2 if cast else 4)
+    assert (group, t) == (8, 64 if cast else 128)
+    plan = sk.split_plan(lay.indptr, t)
+    assert plan.split_rows.numel() > 1
+    x = np.random.default_rng(70).standard_normal((tg.n_cols, d)).astype(np.float32)
+    for name, w, jw in _modes(tg, 71):
+        want = _jax(pg, x, jw)
+        got = sk.csr_spmm_split_plain(lay, plan, torch.from_numpy(x), w, group).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)
+        ev = sk._edge_values(lay, w).double()       # the unrounded sum: the mode rounds
+        exact = torch.zeros(lay.n_rows, d, dtype=torch.float64).index_add_(
+            0, lay.rows.long(), ev[:, None] * torch.from_numpy(x).double()[lay.cols.long()])
+        assert np.abs(got - exact.numpy()).max() > 1e-4 * np.abs(want).max()

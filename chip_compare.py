@@ -18,7 +18,14 @@ the call the models make, so every checkout runs its own version of it:
   call, as each training step builds it;
 - KGCL: B1 as the segment sum at d 65 and d 1 and as the UI hop at d 64 under
   a view's values (both layouts), through ``csr_spmm``; the relation take's
-  forward and backward as the model runs them (``KGCL.rel_take``); and B2.
+  forward and backward as the model runs them (``KGCL.rel_take``);
+- B2 (``segment_max``) at :data:`B2_SHAPES`: KGCL's heads, KGRec's uncapped
+  heads, DiffKG's denoised heads (of a fresh model, and of one trained an
+  epoch through the CLI, as ``chip_smoke.py``'s phase 27 trains it) and its
+  capped heads, and ``chip_smoke.zipf_heads``'s
+  power-law layout beside a uniform one of the same n and segment count;
+  the ids are built once (:func:`build_operands`), and each checkout builds
+  its own layout from them with ``build_segment_layout``.
 
 and :data:`LAYOUT_SHAPES`, B1 layouts that this checkout's models build
 (:func:`build_operands`, once, before any checkout runs; KMCLR's per-item
@@ -52,6 +59,9 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OPERANDS = os.path.join(HERE, "build", "chip_compare_operands.pt")
+B2_OPERANDS = os.path.join(HERE, "build", "chip_compare_b2.pt")
+B2_SHAPES = ("kgcl_heads", "kgrec_heads", "diffkg_dkg_heads", "diffkg_dkg_heads_trained",
+             "diffkg_kg_heads", "zipf", "uniform")
 
 # (name, operand, layout, d, multiplier): operand keys of build_operands;
 # layout "fwd"/"bwd" of a graph or "seg" (a segment layout's csr); the
@@ -103,23 +113,60 @@ def _chip_smoke():
     return mod
 
 
-def build_operands(path: str = OPERANDS) -> None:
-    """The layouts of :data:`LAYOUT_SHAPES` as this checkout's models build
-    them at their published configs (the synthetic KG, yelp_sub, the
-    sports- and Tmall-shaped splits written as ``chip_smoke.py`` writes
-    them; seeded weights and draws, no training), saved to ``path`` as CPU
-    arrays with each multiplier and its bound."""
+def _model(cs, dev, name: str, dataset: str, data_dir: str):
+    """``name`` at its published config on ``dataset``, seeded weights."""
+    cfg = cs.load_config(name, dataset=dataset, overrides={"data.dir": data_dir})
+    m = cs.build_model(cfg, cs.load_data(cfg, dev))
+    m.init_params(cs.generator(7, 2))
+    return m
+
+
+def build_b2_operands(path: str = B2_OPERANDS) -> None:
+    """The ids of :data:`B2_SHAPES` with their segment counts, saved to
+    ``path``: the KG models' heads as :func:`build_operands` builds their
+    layouts, DiffKG's denoised heads also after one epoch through the CLI,
+    the power-law layout and a uniform one."""
+    import numpy as np
     import torch
 
     cs = _chip_smoke()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
+    kg = cs.kgcl_shapes(dev)
+    dk = _model(cs, dev, "diffkg", cs.KG_DATASET, cs.SMOKE_RESULTS)
+    with torch.no_grad():
+        dkg = dk.epoch_state(gen)["dkg"]
+    kgrec = _model(cs, dev, "kgrec", cs.KG_DATASET, cs.SMOKE_RESULTS)
+    trained = cs.port_main.main([
+        "--model", "diffkg", "--data_dir", cs.SMOKE_RESULTS, "--dataset", cs.KG_DATASET,
+        "--epoch", "1", "--device", "cuda", "--set", "train.test_step=1",
+        "--set", f"train.results_dir={cs.SMOKE_RESULTS}", "--set", "tune.enable=false"])
+    b2 = {"kgcl_heads": kg["seg"], "kgrec_heads": kgrec.seg_h.layout, "diffkg_dkg_heads": dkg.h,
+          "diffkg_dkg_heads_trained": trained.model._last_dkg.h, "diffkg_kg_heads": dk.kg.h}
+    b2 = {k: (lay.ids.cpu(), lay.num_segments) for k, lay in b2.items()}
+    b2["zipf"] = (torch.from_numpy(cs.zipf_heads()), 30_000)
+    b2["uniform"] = (torch.from_numpy(np.random.default_rng(24).integers(0, 30_000, 300_000)),
+                     30_000)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({k: b2[k] for k in B2_SHAPES}, path)
+
+
+def build_operands(path: str = OPERANDS) -> None:
+    """The layouts of :data:`LAYOUT_SHAPES` as this checkout's models build
+    them at their published configs (the synthetic KG, yelp_sub, the
+    sports- and Tmall-shaped splits written as ``chip_smoke.py`` writes
+    them; seeded weights and draws, no training), saved to ``path`` as CPU
+    arrays with each multiplier and its bound; and B2's ids
+    (:func:`build_b2_operands`)."""
+    import torch
+
+    build_b2_operands()
+    cs = _chip_smoke()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
 
     def model(name, dataset, data_dir):
-        cfg = cs.load_config(name, dataset=dataset, overrides={"data.dir": data_dir})
-        m = cs.build_model(cfg, cs.load_data(cfg, dev))
-        m.init_params(cs.generator(7, 2))
-        return m
+        return _model(cs, dev, name, dataset, data_dir)
 
     _, data = cs.lightgcn_data(dev)
     bi = data.extras["bi_adj"]
@@ -207,7 +254,6 @@ def run_one(root: str) -> dict:
     x65 = torch.randn(seg.n, 65, generator=gen, device=dev)
     x1 = torch.rand(deg.n, 1, generator=gen, device=dev)
     x64 = torch.randn(ui.n_cols, 64, generator=gen, device=dev)
-    logits = torch.randn(seg.n, generator=gen, device=dev)
     table = torch.randn(model.n_relations, 64, generator=gen, device=dev, requires_grad=True)
     g_rel = torch.randn(seg.n, 64, generator=gen, device=dev)
 
@@ -222,9 +268,20 @@ def run_one(root: str) -> dict:
         "ui_hop_d64": lambda: sk.csr_spmm(ui.fwd, x64, ui_w),
         "ui_hop_d64_bwd": lambda: sk.csr_spmm(ui.bwd, x64, ui_w),
         "relation_take_fwd_bwd": lambda: torch.autograd.grad(
-            model.rel_take.take(table), table, g_rel),
-        "b2": lambda: skn.segment_max(seg, logits)}
-    library, gathered, bound, err = {}, {}, {}, {}
+            model.rel_take.take(table), table, g_rel)}
+    library, gathered, bound, err, b2_equal = {}, {}, {}, {}, {}
+    for shape, (ids, n_seg) in torch.load(B2_OPERANDS).items():
+        name = f"b2_{shape}"
+        lay = skn.build_segment_layout(ids, n_seg, dev)
+        logits = torch.randn(lay.n, generator=gen, device=dev)
+        calls[name] = lambda lay=lay, logits=logits: skn.segment_max(lay, logits)
+        bound[name] = cs.segmax_bound_ms(lay)
+        b2_equal[name] = bool(torch.equal(skn.segment_max(lay, logits),
+                                          skn.segment_max_plain(lay, logits)))
+        amax = torch.full((n_seg,), float("-inf"), device=dev)
+        library[name] = cs.device_ms(
+            lambda amax=amax, ids=lay.ids.long(), logits=logits: amax.scatter_reduce_(
+                0, ids, logits, "amax", include_self=False), bound[name][0])
     layouts = load_operands(sk, dev) if os.path.exists(OPERANDS) else {}
     xs_of = {}
     for name, (lay, w, d, b) in layouts.items():
@@ -239,7 +296,7 @@ def run_one(root: str) -> dict:
         bound[name] = b
     ms = {name: cs.device_ms(fn, bound.get(name, (0.0,))[0]) for name, fn in calls.items()}
     return {"root": root, "ms": ms, "library_ms": library, "library_gather_ms": gathered,
-            "bound_ms": bound, "rel_err": err,
+            "bound_ms": bound, "rel_err": err, "b2_equal_plain": b2_equal,
             "bf16": bf16_pass(sk, cs, layouts, xs_of) if layouts else {}}
 
 

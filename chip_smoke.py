@@ -1091,19 +1091,98 @@ def attn_plain(ids, num_segments, logits, values, mask):
     return plain_seg.segment_sum(values * e[:, None], ids, num_segments)
 
 
-def segments_of_mean(rng, mean: int, n_segments: int = 2000) -> np.ndarray:
-    """Ids of ``n_segments`` segments of about ``mean`` slots, one of them
-    empty and one ten times as long, in random order."""
-    lengths = rng.integers(mean // 2, 3 * mean // 2 + 1, n_segments)
-    lengths[7], lengths[9] = 0, 10 * mean
-    return rng.permutation(np.repeat(np.arange(n_segments), lengths))
+def zipf_heads(n: int = 300_000, n_segments: int = 30_000, seed: int = 24,
+               power: float = 1.1) -> np.ndarray:
+    """B2's stress layout: ``n`` head ids over ``n_segments``, id i drawn
+    with p ∝ 1/(i + 1)^power, then the slots shuffled; a KG whose head
+    degrees follow a power law (at the defaults its longest segment holds
+    42,678 slots and 9,214 are empty)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, n_segments + 1) ** power
+    return rng.permutation(rng.choice(n_segments, n, p=p / p.sum()))
 
 
-def check_segment_ops(errs: ErrTrack, lay: skn.SegmentLayout, gen) -> None:
-    """B2 exactly equal to its plain version at the KGCL shape and on edge
-    cases, which between them make the host pick every group width; B1 as
-    segment sum, gather and fused attention (values and gradients) against
-    their plain versions at the KGCL shape."""
+def b2_shape(lay: skn.SegmentLayout) -> dict:
+    """A B2 layout's shape as the card runs it: its runs, the spread
+    segments (combined across runs), the longest and the empty ones."""
+    lengths = np.diff(lay.csr.indptr.cpu().numpy())
+    spread, _, parts = skn.spread_segments(lay.csr.indptr)
+    return {"n": lay.n, "num_segments": lay.num_segments, "runs": -(-lay.n // skn.RUN_SLOTS),
+            "spread_segments": int(spread.size), "most_parts": int(parts.max(initial=0)),
+            "longest_segment": int(lengths.max(initial=0)),
+            "empty_segments": int((lengths == 0).sum())}
+
+
+def check_bits(what: str, got: torch.Tensor, ref: torch.Tensor) -> None:
+    """``got`` equal to ``ref`` bit for bit (NaN and the sign of 0 included)."""
+    check_exact(what, got.view(torch.int32), ref.view(torch.int32))
+
+
+def b2_cases(rng, kgcl_ids: np.ndarray, n_kgcl: int) -> dict:
+    """(ids, segments) of B2 cases that take every path of its plan: the
+    power-law stress layout and a uniform one of the same n and segment
+    count (both timed in phase 7), segments that end on a run's end, on the
+    end of the next run's first 32 slots and one past it, two spread over
+    thousands of runs, one segment, one slot each, a gap of 1,000 empty
+    segments, a ragged last run, 0 slots, and a power-law layout of more runs
+    than the card holds warps at once."""
+    def of_lengths(lengths, reps=1):
+        lengths = np.tile(lengths, reps)
+        return rng.permutation(np.repeat(np.arange(lengths.size), lengths)), lengths.size
+
+    resident = sk.resident_threads(0)
+    return {"zipf": (zipf_heads(), 30_000),
+            "uniform": (rng.integers(0, 30_000, 300_000), 30_000),
+            "ends_on_run_end": of_lengths([100, 28, 128, 64, 64, 1, 127], 200),
+            "ends_on_window_end": of_lengths([120, 40, 96, 160, 96], 200),
+            "one_past_window": of_lengths([120, 41, 95, 161, 95], 200),
+            "spans_many_runs": of_lengths([3, 100_000, 0, 0, 2, 70_000, 5, 1]),
+            "one_segment": (np.full(50_000, 3), 5),
+            "one_element": (rng.permutation(5000), 6000),
+            "empty_segments": (kgcl_ids[(kgcl_ids < 1000) | (kgcl_ids >= 2000)], n_kgcl),
+            "ragged": (rng.integers(0, 97, 12_345), 97),
+            "n0": (np.zeros(0, np.int64), 100),
+            "more_runs_than_warps": (zipf_heads(4 * resident + 1, seed=25), 30_000)}
+
+
+def signed_zeros(lay: skn.SegmentLayout, gen) -> torch.Tensor:
+    """Data of ±0 and negatives over ``lay``: the zeros of an even segment
+    −0, of an odd one +0, of every fifth one of either sign."""
+    dev = lay.ids.device
+    ids = lay.ids.long()
+    coin = torch.rand(lay.n, generator=gen, device=dev) < 0.5
+    negative = torch.where(ids % 5 == 0, coin, ids % 2 == 0)
+    zeros = torch.where(negative, -0.0, 0.0)
+    low = -torch.rand(lay.n, generator=gen, device=dev) - 1.0
+    return torch.where(torch.rand(lay.n, generator=gen, device=dev) < 0.3, zeros, low)
+
+
+def check_b2_bits(what: str, lay: skn.SegmentLayout, data: torch.Tensor) -> torch.Tensor:
+    """B2 bit for bit against its plain version on ``data`` and against its
+    own second call.  A segment whose max is 0 and that holds both −0 and +0
+    is the one exception: the plain version's answer there depends on the
+    order of its atomics, so the kernel must give +0 and the plain version
+    ±0."""
+    got = skn.segment_max(lay, data)
+    ref = skn.segment_max_plain(lay, data.contiguous())
+    check_bits(f"segmax.{what}.repeat", skn.segment_max(lay, data), got)
+    zero = data.contiguous() == 0
+    signs = [plain_seg.segment_max((zero & (torch.signbit(data) == neg)).float(), lay.ids,
+                                   lay.num_segments) > 0 for neg in (False, True)]
+    mixed = signs[0] & signs[1] & (ref == 0)
+    check_bits(f"segmax.{what}", got[~mixed], ref[~mixed])
+    if not (torch.equal(got[mixed], ref[mixed]) and not torch.signbit(got[mixed]).any()):
+        raise AssertionError(f"segmax.{what}: a max of -0 and +0 is not +0")
+    return got
+
+
+def check_segment_ops(errs: ErrTrack, lay: skn.SegmentLayout, gen) -> dict:
+    """B2 bit for bit against its plain version and its own second call at
+    the KGCL shape and on cases that take every path of its plan (random
+    data; NaN inside the longest segment; ±0; all −1e9);
+    B1 as segment sum, gather and fused attention (values and gradients)
+    against their plain versions at the KGCL shape.  Returns the power-law
+    and uniform layouts, which phase 7 times."""
     dev = lay.ids.device
     n, S = lay.n, lay.num_segments
     logits = torch.randn(n, generator=gen, device=dev) * 5
@@ -1111,32 +1190,36 @@ def check_segment_ops(errs: ErrTrack, lay: skn.SegmentLayout, gen) -> None:
     for tag, data in (("logits", logits),
                       ("masked", torch.where(keep, logits, -1e9)),
                       ("all_masked", torch.full((n,), -1e9, device=dev))):
-        check_exact(f"segmax.kgcl.{tag}", skn.segment_max(lay, data),
-                    skn.segment_max_plain(lay, data))
-    ids = lay.ids.cpu().numpy()
+        check_b2_bits(f"kgcl.{tag}", lay, data)
     rng = np.random.default_rng(11)
-    long = np.concatenate([np.zeros(5000), np.ones(1025), np.full(1024, 2),
-                           rng.integers(3, 50, 3000)]).astype(np.int64)
-    cases = {"empty_segments": (ids[(ids < 1000) | (ids >= 2000)], S),
-             "one_element": (rng.permutation(5000), 6000),
-             "long_segments": (rng.permutation(long), 60),
-             "short_and_long": (rng.permutation(np.concatenate(
-                 [rng.integers(0, 3000, 30000), np.full(5000, 3001)])), 3010),
-             "mean30": (segments_of_mean(rng, 30), 2000),
-             "mean60": (segments_of_mean(rng, 60), 2000),
-             "n0": (np.zeros(0, np.int64), 100)}
-    widths = {lay.group_width}
-    for tag, (ids_c, s_c) in cases.items():
+    spread, stress = set(), {}
+    for tag, (ids_c, s_c) in b2_cases(rng, lay.ids.cpu().numpy(), S).items():
         lay_c = skn.build_segment_layout(ids_c, s_c, dev)
-        widths.add(lay_c.group_width)
+        shape = b2_shape(lay_c)
+        if shape["spread_segments"]:
+            spread.add(tag)
         data = torch.randn(ids_c.size, generator=gen, device=dev)
-        got = skn.segment_max(lay_c, data)
-        check_exact(f"segmax.{tag}", got, skn.segment_max_plain(lay_c, data))
-        log(f"  B2 {tag}: n {ids_c.size}, {s_c} segments, group width {lay_c.group_width}, "
-            f"{lay_c.long_segments.numel()} in the whole-warp bin, "
-            f"{int(torch.isinf(got).sum())} empty (-inf): exact")
-    if widths != {4, 8, 16, 32}:
-        raise AssertionError(f"B2 checked at group widths {sorted(widths)}, want 4, 8, 16, 32")
+        got = check_b2_bits(tag, lay_c, data)
+        check_b2_bits(f"{tag}.all_masked", lay_c, torch.full_like(data, -1e9))
+        if ids_c.size:
+            nan = data.clone()
+            longest = int(np.bincount(ids_c).argmax())
+            occurs = np.flatnonzero(ids_c == longest)
+            nan[int(occurs[occurs.size // 2])] = float("nan")
+            if not torch.isnan(check_b2_bits(f"{tag}.nan", lay_c, nan)[longest]):
+                raise AssertionError(f"segmax.{tag}.nan: the NaN did not win")
+            check_b2_bits(f"{tag}.signed_zeros", lay_c, signed_zeros(lay_c, gen))
+        if tag in ("zipf", "uniform"):
+            stress[tag] = lay_c
+        log(f"  B2 {tag}: {shape}, {int(torch.isinf(got).sum())} -inf; bit for bit (data, "
+            f"all -1e9, NaN in the longest segment, ±0) and twice")
+    want_spread = {"zipf", "one_past_window", "spans_many_runs", "one_segment", "ragged",
+                   "more_runs_than_warps"}
+    if spread != want_spread:
+        raise AssertionError(f"B2's cases with segments combined across runs: {sorted(spread)}, "
+                             f"want {sorted(want_spread)}")
+    column = torch.randn(n, 2, generator=gen, device=dev)[:, 1]
+    check_b2_bits("kgcl.strided_column", lay, column)
     check_segment_b1(errs, "kgcl_heads", lay, (1, 64, 65), gen)
     mask = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
     mask[lay.ids == 0] = 0.0                           # a fully masked head
@@ -1154,6 +1237,7 @@ def check_segment_ops(errs: ErrTrack, lay: skn.SegmentLayout, gen) -> None:
     for tag, a, b in zip(("value", "dlogits", "dvalues"), got, ref):
         errs.check(f"attn.{tag}", a, b)
     torch.cuda.synchronize()
+    return stress
 
 
 def check_relation_take(errs: ErrTrack, rel: skn.OneHotTake, d: int, gen) -> None:
@@ -1180,26 +1264,34 @@ def check_relation_take(errs: ErrTrack, rel: skn.OneHotTake, d: int, gen) -> Non
         f"tolerance and bit for bit twice")
 
 
+def time_b2(lay: skn.SegmentLayout, gen) -> tuple[dict, tuple[float, str]]:
+    """B2's device and event times over ``lay`` on random logits, beside its
+    plain version and ``scatter_reduce_``, and its bound."""
+    logits = torch.randn(lay.n, generator=gen, device=lay.ids.device)
+    ids64 = lay.ids.long()
+    amax = torch.full((lay.num_segments,), float("-inf"), device=lay.ids.device)
+    bound = segmax_bound_ms(lay)
+    return timing(lambda: skn.segment_max(lay, logits), lambda: skn.segment_max_plain(lay, logits),
+                  lambda: amax.scatter_reduce_(0, ids64, logits, "amax", include_self=False),
+                  bound[0]), bound
+
+
 def time_kgcl_shapes(seg_lay: skn.SegmentLayout, deg_lay: skn.SegmentLayout,
                      ui: sk.CsrGraph, ui_w: torch.Tensor, rel_lay: skn.SegmentLayout,
-                     gen) -> tuple[dict[str, dict], dict[str, tuple[float, str]]]:
-    """Device and event times at the KGCL path's shapes, and their bounds: B2;
-    B1 as the RGAT's [n × 65] segment sum, as the [n_bi × 1] degree sum, as
-    the UI hop at d = 64 under a view's values (both layouts), and as the
-    relation take's backward with both yardsticks."""
+                     b2_stress: dict, gen) -> tuple[dict[str, dict], dict[str, tuple[float, str]]]:
+    """Device and event times at the KGCL path's shapes, and their bounds: B2,
+    and B2 at the power-law and uniform layouts of ``b2_stress``; B1 as the
+    RGAT's [n × 65] segment sum, as the [n_bi × 1] degree sum, as the UI hop
+    at d = 64 under a view's values (both layouts), and as the relation
+    take's backward with both yardsticks."""
     dev = seg_lay.ids.device
-    n, S = seg_lay.n, seg_lay.num_segments
+    n = seg_lay.n
     t = {}
-    bounds = {"b2": segmax_bound_ms(seg_lay), "kg_sum_d65": bound_ms(seg_lay.csr, 65),
+    bounds = {"kg_sum_d65": bound_ms(seg_lay.csr, 65),
               "kg_sum_d1": bound_ms(deg_lay.csr, 1), "ui_hop_d64": bound_ms(ui.fwd, 64, "mask"),
               "relation_take": bound_ms(rel_lay.csr, 64)}
-    logits = torch.randn(n, generator=gen, device=dev)
-    ids64 = seg_lay.ids.long()
-    amax = torch.full((S,), float("-inf"), device=dev)
-    t["b2"] = timing(lambda: skn.segment_max(seg_lay, logits),
-                     lambda: skn.segment_max_plain(seg_lay, logits),
-                     lambda: amax.scatter_reduce_(0, ids64, logits, "amax", include_self=False),
-                     bounds["b2"][0])
+    for key, lay in (("b2", seg_lay), *((f"b2_{k}", v) for k, v in b2_stress.items())):
+        t[key], bounds[key] = time_b2(lay, gen)
     x65 = torch.randn(n, 65, generator=gen, device=dev)
     csr_seg = csr_tensor(seg_lay.csr)
     t["kg_sum_d65"] = timing(
@@ -1548,10 +1640,11 @@ def host_graph_layouts(rows, cols, n_rows: int, n_cols: int,
 
 def check_same(what: str, got, want) -> None:
     """Every field of two layouts (NamedTuples) equal, tensors by
-    ``torch.equal`` and dtype; the plan caches are not compared."""
+    ``torch.equal`` and dtype; the plan caches (B1's ``plans``, B2's
+    ``runs``, filled by the calls made so far) are not compared."""
     for f in got._fields:
         a, b = getattr(got, f), getattr(want, f)
-        if f == "plans":
+        if f in ("plans", "runs"):
             continue
         if hasattr(a, "_fields"):
             check_same(f"{what}.{f}", a, b)
@@ -1924,8 +2017,8 @@ def kg_phases(errs: ErrTrack, gen, dev) -> dict:
     kgf = kg_full_operands(trained["kgin"], trained["kgrec"])
     heads = kgf["seg"]["kg_full_heads"]
     shapes = {k: (lay.num_segments, lay.n, lay.n) for k, lay in kgf["seg"].items()}
-    log(f"  {heads.n} uncapped triplets into {heads.num_segments} heads (B2 group width "
-        f"{heads.group_width}, {heads.long_segments.numel()} in the whole-warp bin), "
+    heads_shape = b2_shape(heads)
+    log(f"  {heads.n} uncapped triplets into {heads.num_segments} heads (B2: {heads_shape}), "
         f"{trained['kgin'].im_vals.shape[0]} interact edges")
     kgf_errs = ErrTrack()
     check_b2("kgrec", heads, gen)
@@ -1935,19 +2028,9 @@ def kg_phases(errs: ErrTrack, gen, dev) -> dict:
         check_segment_b1(kgf_errs, k, lay, widths.get(k, (64,)), gen)
     log(f"max abs err {kgf_errs.abs:.3g}, max rel err {kgf_errs.rel:.3g} (tolerance {TOL})")
     t, bound = time_layouts(kgf, KG_SHAPES, gen)
-    logits = torch.randn(heads.n, generator=gen, device=dev) * 5
-    ids64 = heads.ids.long()
-    amax = torch.full((heads.num_segments,), float("-inf"), device=dev)
-    bound["b2_kgrec_heads"] = segmax_bound_ms(heads)
-    t["b2_kgrec_heads"] = timing(
-        lambda: skn.segment_max(heads, logits), lambda: skn.segment_max_plain(heads, logits),
-        lambda: amax.scatter_reduce_(0, ids64, logits, "amax", include_self=False),
-        bound["b2_kgrec_heads"][0])
+    t["b2_kgrec_heads"], bound["b2_kgrec_heads"] = time_b2(heads, gen)
     for k, r in t.items():
         log_timing(k, r, bound[k])
-    heads_shape = {"n": heads.n, "num_segments": heads.num_segments,
-                   "group_width": heads.group_width,
-                   "long_segments": heads.long_segments.numel()}
     return {"runs": runs, "errs": kgf_errs, "t": t, "bound": bound, "shapes": shapes,
             "heads_shape": heads_shape}
 
@@ -2556,7 +2639,7 @@ def kg_new_phases(errs: ErrTrack, gen, dev) -> dict:
     log(f"  KGCL's TransE sub-loop: kg_loss {[round(v, 5) for v in kg_losses]} over "
         f"{max(dm._map_r.numel() // kg_bsz, 1)} steps of {kg_bsz} an epoch; "
         f"DiffKG's denoised KG {dkg.h.n} edges into {dkg.h.num_segments} heads ({valid:.3f} "
-        f"valid; B2 group width {dkg.h.group_width}), the capped KG {dm.kg.h.n} edges, "
+        f"valid; B2: {b2_shape(dkg.h)}), the capped KG {dm.kg.h.n} edges, "
         f"denoiser loss {dm.diff_loss:.5f}")
 
     log("== 28. B2 and B1 against plain, DiffKG's shapes")
@@ -2750,14 +2833,7 @@ def new_shapes_timing(kgn: dict, mbp: dict, gen) -> dict:
     t.update(mb_t)
     bound.update(mb_bound)
     for key, lay in (("b2_diffkg_dkg_heads", dm._last_dkg.h), ("b2_diffkg_kg_heads", dm.kg.h)):
-        logits = torch.randn(lay.n, generator=gen, device=lay.ids.device)
-        ids64 = lay.ids.long()
-        amax = torch.full((lay.num_segments,), float("-inf"), device=lay.ids.device)
-        bound[key] = segmax_bound_ms(lay)
-        t[key] = timing(lambda: skn.segment_max(lay, logits),
-                        lambda: skn.segment_max_plain(lay, logits),
-                        lambda: amax.scatter_reduce_(0, ids64, logits, "amax",
-                                                     include_self=False), bound[key][0])
+        t[key], bound[key] = time_b2(lay, gen)
     for k, r in t.items():
         log_timing(k, r, bound[k])
     log(f"  {time.perf_counter() - t0:.1f} s")
@@ -4551,10 +4627,9 @@ def main() -> int:
         f"{bi.n_nodes} nodes, {bi.graph.nnz} edges")
     seg_lay, deg_lay, ui, ui_w = (kg_ops[k] for k in ("seg", "deg", "ui", "ui_w"))
     seg_errs = ErrTrack()
-    check_segment_ops(seg_errs, seg_lay, gen)
-    log(f"B2 exact in every case (group width {seg_lay.group_width} at the KGCL shape); B1 "
-        f"segment ops max abs err {seg_errs.abs:.3g}, max rel err {seg_errs.rel:.3g} "
-        f"(tolerance {TOL})")
+    b2_stress = check_segment_ops(seg_errs, seg_lay, gen)
+    log(f"B2 bit for bit in every case (KGCL's heads: {b2_shape(seg_lay)}); B1 segment ops "
+        f"max abs err {seg_errs.abs:.3g}, max rel err {seg_errs.rel:.3g} (tolerance {TOL})")
     rel = skn.OneHotTake(ex["kg_rels"], ex["relation_num"], dev)
     rel_errs = ErrTrack()
     check_relation_take(rel_errs, rel, int(kg_cfg.model.embedding_size), gen)
@@ -4562,7 +4637,7 @@ def main() -> int:
     check_graph(ui_errs, "kgcl_ui", ui, (64,), gen, with_grads=True)
 
     log("== 7. KGCL shapes timing")
-    kg, kg_bound = time_kgcl_shapes(seg_lay, deg_lay, ui, ui_w, rel.layout, gen)
+    kg, kg_bound = time_kgcl_shapes(seg_lay, deg_lay, ui, ui_w, rel.layout, b2_stress, gen)
     for k, r in kg.items():
         log_timing(k, r, kg_bound[k])
     rt = kg["relation_take"]
@@ -5214,13 +5289,15 @@ def main() -> int:
     b2_rows = [
         b2_row("segment_max", kg["b2"], kg_bound["b2"],
                kg_b2 + sum(r["b2_launches"] for r in ssl_runs.values()),
-               {**seg_shape, "group_width": seg_lay.group_width,
-                "long_segments": seg_lay.long_segments.numel()},
+               b2_shape(seg_lay),
                launches_by_path={"lightgcn": lgcn_b2, "kgcl": kg_b2,
                                  **{k: r["b2_launches"] for k, r in ssl_runs.items()}},
                launches_per_step={"kgcl": kg_b2 / kg_steps,
                                   "kgrec": ssl_runs["kgrec"]["b2_launches"]
-                                  / ssl_runs["kgrec"]["steps"]}),
+                                  / ssl_runs["kgrec"]["steps"]},
+               stress_layouts={k: {"shape": b2_shape(v), **kg[f"b2_{k}"],
+                                   "bound_ms": kg_bound[f"b2_{k}"][0]}
+                               for k, v in b2_stress.items()}),
         b2_row("segment_max.kgrec_heads", kgp["t"]["b2_kgrec_heads"],
                kgp["bound"]["b2_kgrec_heads"], ssl_runs["kgrec"]["b2_launches"],
                kgp["heads_shape"], launches_of=["kgrec"])]
@@ -5231,15 +5308,13 @@ def main() -> int:
         b2_rows.append(b2_row(
             f"segment_max.{key[3:]}", newt["t"][key], newt["bound"][key],
             ssl_runs["diffkg"]["b2_launches"],
-            {"n": lay.n, "num_segments": lay.num_segments, "group_width": lay.group_width,
-             "long_segments": lay.long_segments.numel(), "what": what},
+            {**b2_shape(lay), "what": what},
             launches_of=["diffkg"]))
     mesh_b2 = sum(sum(r.get("b2", 0) for r in mk["run"][m]["by_layout_by_rank"])
                   for m in MESH_KG_MODELS)
     b2_rows.append(b2_row(
         "segment_max.mesh_kg_whole_kg_heads", kg["b2"], kg_bound["b2"], mesh_b2,
-        {**seg_shape, "group_width": seg_lay.group_width,
-         "long_segments": seg_lay.long_segments.numel(),
+        {**b2_shape(seg_lay),
          "what": "B2 on the whole KG's head layouts inside each rank of the KG models' "
                  "mesh runs (KGCL's capped heads timed here; KGRec's uncapped and DiffKG's "
                  "heads in their rows)"},

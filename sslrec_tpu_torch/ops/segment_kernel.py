@@ -23,6 +23,7 @@ B1: a CPU tensor takes the plain version (:mod:`sslrec_tpu_torch.ops.segment`,
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -31,47 +32,71 @@ import torch
 
 from sslrec_tpu_torch.ops import segment as plain
 from sslrec_tpu_torch.ops.cuda_build import load_kernel
-from sslrec_tpu_torch.ops.spmm_kernel import (CsrLayout, PlanCache, compact, csr_layout,
-                                               csr_spmm, lane_of, stable_order, vmap_lanes)
+from sslrec_tpu_torch.ops.spmm_kernel import (CsrLayout, PlanCache, csr_layout, csr_spmm,
+                                               lane_of, stable_order, vmap_lanes)
 
 
 class SegmentLayout(NamedTuple):
     """Reductions over one constant id array (counterpart of
     ``BlockedSegments``): ``csr`` sums ``data[perm[j]]`` over the slots of each
-    segment, ``perm`` (``csr.cols``) being the stable argsort of the ids;
-    ``ids`` int32 [n] in the original order drives the gathers.  B2 gives
-    each segment ``group_width`` lanes, and a whole warp to each of
-    ``long_segments`` (int32), those of more than ``LONG_STRIDES ·
-    group_width`` slots."""
+    segment, ``perm`` (``csr.cols``) being the stable argsort of the ids and
+    ``csr.rows`` the sorted ids; ``ids`` int32 [n] in the original order
+    drives the gathers.  B2 splits the sorted slots into runs and keeps its
+    scratch in ``runs`` (:func:`segmax_plan`)."""
 
     csr: CsrLayout
     ids: torch.Tensor
     num_segments: int
     n: int
-    group_width: int
-    long_segments: torch.Tensor
+    runs: PlanCache
 
 
-LONG_STRIDES = 4    # a B2 group takes a segment of at most this many strides
+RUN_SLOTS = 128     # sorted slots a B2 warp takes, 4 a lane: csrc/segment_max.cu kRun
+RUN_WINDOW = 32     # slots past its run a B2 warp gathers (one a lane): csrc/segment_max.cu kWindow
 
 
-def segmax_group_width(lengths: np.ndarray) -> int:
-    """B2's lanes per segment: a quarter of the mean segment length rounded
-    up to a power of two, from 4 to 32, so a group strides a typical segment
-    a few times and many segments share a warp (PERF.md has the sweep over
-    widths that chose this)."""
-    return _group_width_of_mean(float(np.mean(lengths)) if lengths.size else 0.0)
+@dataclasses.dataclass
+class SegmaxPlan:
+    """B2's runs of ``RUN_SLOTS`` sorted slots, a warp's each, and the
+    scratch its spread segments combine through: ``partials`` int64
+    [2 · n_runs], each part's max as an order key tagged with its call's
+    ``epoch`` (zero before the first call); ``arrivals`` int32 [n_runs],
+    zero between calls (the last part to count resets its counter)."""
+
+    n_runs: int
+    partials: torch.Tensor
+    arrivals: torch.Tensor
+    epoch: int = 0
+
+    def next_epoch(self) -> int:
+        """A tag for the next call: 1 to 2^32 − 1, then 1 again."""
+        self.epoch = self.epoch % 0xFFFFFFFF + 1
+        return self.epoch
 
 
-def _group_width_of_mean(mean: float) -> int:
-    return min(32, max(4, 1 << max(0, int(np.ceil(mean / 4)) - 1).bit_length()))
+def segmax_plan(lay: SegmentLayout) -> SegmaxPlan:
+    """B2's plan of ``lay``, made once on the layout's device and cached on
+    the layout."""
+    if "plan" not in lay.runs:
+        n_runs = -(-lay.n // RUN_SLOTS)
+        dev = lay.ids.device
+        lay.runs["plan"] = SegmaxPlan(
+            n_runs, torch.zeros(2 * n_runs, dtype=torch.int64, device=dev),
+            torch.zeros(n_runs, dtype=torch.int32, device=dev))
+    return lay.runs["plan"]
 
 
-def long_segments(lengths: np.ndarray, group_width: int, device="cpu") -> torch.Tensor:
-    """The segments B2 gives a whole warp, int32: more than ``LONG_STRIDES``
-    strides of their group."""
-    longs = np.flatnonzero(lengths > LONG_STRIDES * group_width)
-    return torch.from_numpy(longs.astype(np.int32)).to(device)
+def spread_segments(indptr) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The segments that B2 combines across runs: those that end more than
+    ``RUN_WINDOW`` slots past the end of their owner, the run of their first
+    slot.  ``(segments, owner runs, parts)``, a segment's parts being the
+    runs it touches; the kernel finds them itself from the sorted ids."""
+    run = RUN_SLOTS
+    indptr = np.asarray(indptr.cpu() if torch.is_tensor(indptr) else indptr, np.int64)
+    start, end = indptr[:-1], indptr[1:]
+    owner = start // run
+    segs = np.flatnonzero((end > start) & (end > (owner + 1) * run + RUN_WINDOW))
+    return segs, owner[segs], (end[segs] - 1) // run - owner[segs] + 1
 
 
 def build_segment_layout(segment_ids, num_segments: int, device="cpu") -> SegmentLayout:
@@ -84,29 +109,19 @@ def build_segment_layout(segment_ids, num_segments: int, device="cpu") -> Segmen
     order = np.argsort(ids, kind="stable")
     csr = csr_layout(ids[order], order, np.ones(n, np.float32), np.arange(n),
                      num_segments, n, device)
-    lengths = np.bincount(ids, minlength=num_segments)
-    width = segmax_group_width(lengths)
     return SegmentLayout(csr=csr, ids=torch.from_numpy(ids.astype(np.int32)).to(device),
-                         num_segments=int(num_segments), n=int(n), group_width=width,
-                         long_segments=long_segments(lengths, width, device))
+                         num_segments=int(num_segments), n=int(n), runs=PlanCache())
 
 
 def segment_layout_from_ids(ids: torch.Tensor, num_segments: int) -> SegmentLayout:
     """:func:`build_segment_layout` of int ``ids`` (any order) built on their
     own device, field for field equal to the host build: a stable sort, the
-    segment offsets by a search of the sorted ids, the long segments
-    compacted on the device.  One host read: the number of long segments and
-    the ids' range, which is checked."""
+    segment offsets by a search of the sorted ids.  One host read: the ids'
+    range, which is checked."""
     n = ids.shape[0]
     keys, order, indptr = stable_order(ids, num_segments)
-    lengths = indptr[1:] - indptr[:-1]
-    # the host takes the mean of the lengths, which is n / num_segments
-    width = _group_width_of_mean(n / num_segments if num_segments else 0.0)
-    is_long = lengths > LONG_STRIDES * width
-    n_long = 0
     if n:
-        n_long, lo, hi = torch.stack([is_long.sum(), ids.min().long(),
-                                      ids.max().long()]).tolist()
+        lo, hi = torch.stack([ids.min().long(), ids.max().long()]).tolist()
         if lo < 0 or hi >= num_segments:
             raise ValueError(f"segment ids must lie in [0, {num_segments})")
     csr = CsrLayout(indptr=indptr.int(), rows=keys.int(), cols=order.int(),
@@ -114,9 +129,8 @@ def segment_layout_from_ids(ids: torch.Tensor, num_segments: int) -> SegmentLayo
                     edge_ids=torch.arange(n, dtype=torch.int32, device=ids.device),
                     n_rows=int(num_segments), n_cols=int(n), ids_identity=True,
                     vals_ones=True, plans=PlanCache())
-    longs = compact(is_long, torch.arange(num_segments, device=ids.device), n_long)
     return SegmentLayout(csr=csr, ids=ids.int(), num_segments=int(num_segments), n=int(n),
-                         group_width=width, long_segments=longs.int())
+                         runs=PlanCache())
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +141,8 @@ def segment_layout_from_ids(ids: torch.Tensor, num_segments: int) -> SegmentLayo
 def _kernel():
     p = ctypes.c_void_p
     i = ctypes.c_int
-    return load_kernel("segment_max", "segment_max_f32", [p, p, p, p, i, p, i, i, i, p])
+    return load_kernel("segment_max", "segment_max_f32",
+                       [p, p, p, p, i, p, i, i, p, p, ctypes.c_uint, p])
 
 
 def segment_max_plain(lay: SegmentLayout, data: torch.Tensor) -> torch.Tensor:
@@ -137,33 +152,38 @@ def segment_max_plain(lay: SegmentLayout, data: torch.Tensor) -> torch.Tensor:
 
 def segment_max(lay: SegmentLayout, data: torch.Tensor) -> torch.Tensor:
     """``out[s] = max_{i: ids[i]=s} data[i]``, −inf for an empty segment;
-    ``data`` float32 [n].  Its input is detached: the op has no gradient, as
-    ``segment_max_blocked`` (a softmax shift, where a constant is exact); a
-    strided view (one head's column of ``[n, heads]`` logits) is copied.
+    ``data`` float32 [n], at any stride (one head's column of ``[n, heads]``
+    logits is read in place).  Its input is detached: the op has no
+    gradient, as ``segment_max_blocked`` (a softmax shift, where a constant
+    is exact).
 
     A CPU ``data`` takes :func:`segment_max_plain`; a CUDA ``data`` launches
-    the kernel on the current stream with the layout's group width
-    (``segment_max.launches`` counts those launches) or raises.
+    the kernel on the current stream (``segment_max.launches`` counts those
+    launches), or raises.
     """
-    data = data.detach().contiguous()
+    data = data.detach()
     if data.device.type == "cpu":
         return segment_max_plain(lay, data)
     if data.device.type != "cuda":
         raise ValueError(f"segment_max: no kernel for device {data.device}")
-    csr, longs = lay.csr, lay.long_segments
+    csr = lay.csr
     if data.shape != (lay.n,) or data.dtype != torch.float32:
         raise ValueError(f"segment_max: data must be float32 [{lay.n}], "
                          f"got {data.dtype} {tuple(data.shape)}")
-    for name, t in (("indptr", csr.indptr), ("perm", csr.cols), ("long_segments", longs)):
+    if data.stride(0) * max(lay.n - 1, 0) >= 2 ** 31:
+        raise ValueError(f"segment_max: data's stride {data.stride(0)} spans 2^31 elements")
+    for name, t in (("indptr", csr.indptr), ("rows", csr.rows), ("perm", csr.cols)):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != data.device:
             raise ValueError(f"segment_max: {name} must be contiguous int32 on {data.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"segment_max: {name} must be 16-byte aligned")
     out = torch.empty(lay.num_segments, dtype=torch.float32, device=data.device)
     if lay.num_segments == 0:
         return out
-    width = lay.group_width
-    err = _kernel()(csr.indptr.data_ptr(), csr.cols.data_ptr(), data.data_ptr(),
-                    out.data_ptr(), lay.num_segments, longs.data_ptr(), longs.shape[0],
-                    width.bit_length() - 1, LONG_STRIDES * width,
+    plan = segmax_plan(lay)
+    err = _kernel()(csr.indptr.data_ptr(), csr.rows.data_ptr(), csr.cols.data_ptr(),
+                    data.data_ptr(), data.stride(0), out.data_ptr(), lay.n, lay.num_segments,
+                    plan.partials.data_ptr(), plan.arrivals.data_ptr(), plan.next_epoch(),
                     torch.cuda.current_stream(data.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"segment_max: launch of libsegment_max.so's kernel failed: "

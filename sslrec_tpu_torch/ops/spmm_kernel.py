@@ -51,7 +51,8 @@ class CsrLayout(NamedTuple):
     """One propagation direction: destination rows over source columns.
 
     ``indptr`` int32 [n_rows+1]; ``rows`` int32 [nnz] (the destination row
-    of each slot, read only by the plain version); ``cols`` int32 [nnz];
+    of each slot, read by the plain version and, as a segment layout's
+    sorted ids, by B2); ``cols`` int32 [nnz];
     ``vals`` float32 [nnz]; ``edge_ids`` int32 [nnz], the original edge index
     of each slot, through which a per-edge multiplier held in the original
     edge order is read; ``ids_identity`` marks ``edge_ids == arange(nnz)`` and

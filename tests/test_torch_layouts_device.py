@@ -112,17 +112,35 @@ def test_csr_graph_from_edges_rejects_out_of_range_ids():
 
 
 @pytest.mark.parametrize("n,segments", [(1000, 50), (0, 10), (3000, 4000), (500, 1),
-                                        (6000, 60)])
+                                        (6000, 60), (5000, 500)])
 def test_segment_layout_from_ids_equals_host_build(n, segments):
+    """Every field, B2's plan included (its scratch: zero counters, the
+    parts' shape), on uniform ids, on one segment spread over many runs
+    (6000) and on power-law heads (5000: p ∝ 1/rank^1.1, most slots in a few
+    segments, many empty)."""
     rng = np.random.default_rng(n)
     ids = rng.integers(0, segments, n)
-    if n >= 6000:
-        ids[:2000] = 7            # a segment long enough for B2's whole-warp bin
+    if n == 6000:
+        ids[:2000] = 7            # one segment spread over many of B2's runs
+    if n == 5000:
+        p = 1.0 / np.arange(1, segments + 1) ** 1.1
+        ids = rng.permutation(segments)[rng.choice(segments, n, p=p / p.sum())]
     got = skn.segment_layout_from_ids(torch.from_numpy(ids), segments)
     want = skn.build_segment_layout(ids, segments)
     _equal(got, want, "segment layout")
-    if n >= 6000:
-        assert got.long_segments.numel() > 0
+    a, b = skn.segmax_plan(got), skn.segmax_plan(want)
+    assert a.n_runs == b.n_runs == -(-n // skn.RUN_SLOTS)
+    for f in ("partials", "arrivals"):
+        x, y = getattr(a, f), getattr(b, f)
+        assert x.dtype == y.dtype and torch.equal(x, y) and not x.any(), f"plan {f}"
+    assert a.partials.shape == (2 * a.n_runs,) and a.partials.dtype == torch.int64
+    assert a.epoch == b.epoch == 0
+    spread, _, parts = skn.spread_segments(got.csr.indptr)
+    if n == 6000:
+        assert 7 in spread.tolist() and parts.max() >= 15
+    if n == 5000:
+        counts = np.bincount(ids, minlength=segments)
+        assert counts.max() > 700 and (counts == 0).sum() > 50 and len(spread) > 0
     for t in (1, 4, 32):
         _equal(sk.device_split_plan(got.csr.indptr, t), sk.split_plan(want.csr.indptr, t),
                f"plan t={t}")

@@ -10,8 +10,10 @@ held to the plain paths on the card by the last test here and by
 ``chip_smoke.py``.
 
 Also KGCL's relation take (``OneHotTake``, whose backward is a B1 segment
-sum) against a plain index and JAX's ``OneHotTake``, and B2's group-width
-choice.
+sum) against a plain index and JAX's ``OneHotTake``, and B2's plan: a model
+of its kernel, warp by warp and lane by lane, on layouts that take every path
+of the plan (``_b2_model``), its runs and scratch, the host's rule for the
+segments it combines across runs, and its plain version on power-law heads.
 
 Tolerances: segment max is exact (a max has no rounding), −inf empties
 included.  Sums, softmax, attention and their gradients: rtol 1e-5, atol 1e-6,
@@ -255,29 +257,295 @@ def test_relation_take_values_and_grad():
         _close(tt.grad, jgrad)
 
 
-@pytest.mark.parametrize("length", [0, 1, 9, 17, 5000])
-def test_segmax_group_width_and_long_bin(length):
-    """The host's group width follows the mean segment length; segments longer
-    than LONG_STRIDES strides of a group go to the whole-warp bin; the plain
-    max is exact for a segment of ``length`` slots among 9-slot ones."""
-    assert skn.segmax_group_width(np.array([], np.int64)) == 4
-    for mean, want in ((1, 4), (9.9, 4), (16, 4), (17, 8), (33, 16), (65, 32), (5000, 32)):
-        assert skn.segmax_group_width(np.array([mean])) == want
-    rng = np.random.default_rng(length)
-    lengths = np.array([9] * 40 + [length, 0, 9])
-    ids = rng.permutation(np.repeat(np.arange(lengths.size), lengths))
-    lay = skn.build_segment_layout(ids, lengths.size)
-    width = skn.segmax_group_width(lengths)
-    assert lay.group_width == width
-    np.testing.assert_array_equal(lay.long_segments.numpy(),
-                                  np.flatnonzero(lengths > skn.LONG_STRIDES * width))
-    assert (40 in lay.long_segments.tolist()) == (length > skn.LONG_STRIDES * width)
-    data = rng.normal(size=ids.size).astype(np.float32)
-    got = skn.segment_max(lay, _t(data)).numpy()
-    want = np.asarray(jseg.segment_max(jnp.asarray(data), jnp.asarray(ids, jnp.int32),
-                                       lengths.size))
-    np.testing.assert_array_equal(got, want)
-    assert got[41] == -np.inf and (got[40] == -np.inf) == (length == 0)
+NO_SEGMENT = 2 ** 31 - 1      # the kernel's id of a slot past n
+
+
+def _key(x):
+    """The kernel's order key of a float32: −0 below +0, a NaN (its sign
+    cleared) above +inf."""
+    b = np.asarray(x, np.float32).view(np.int32)
+    b = np.where(np.isnan(x), b & 0x7FFFFFFF, b)
+    return int(b ^ ((b >> 31) & 0x7FFFFFFF))
+
+
+def _key_float(k):
+    return np.int32(k ^ ((k >> 31) & 0x7FFFFFFF)).view(np.float32)
+
+
+def _b2_model(lay, data, order_seed=0):
+    """B2's decomposition as ``csrc/segment_max.cu`` runs it, warp by warp and
+    lane by lane, the runs taken in a seeded random order (the card's blocks
+    run in none) and their arrivals counted in another: the run that counts
+    a spread segment's last part combines it, once every part is written (on
+    the card it waits for them).  Returns ``(out, writes, spread)``: the
+    output, how often each segment was written, and ``{segment: parts}`` of
+    the segments whose parts met through ``arrivals``; asserts that every
+    counter is back at 0 and that each part was written before it was
+    read."""
+    rows, perm = lay.csr.rows.numpy(), lay.csr.cols.numpy()
+    indptr, x_all = lay.csr.indptr.numpy(), data.numpy()
+    n, n_seg, run_len, window = lay.n, lay.num_segments, skn.RUN_SLOTS, skn.RUN_WINDOW
+    v = run_len // 32
+    n_runs = -(-n // run_len)
+    low = -2 ** 31                                      # below every key
+    out, writes = np.zeros(n_seg, np.float32), np.zeros(n_seg, np.int64)
+    partials, arrivals, spread = [None] * (2 * n_runs), np.zeros(n_runs, np.int64), {}
+
+    def write(seg, key):
+        out[seg] = _key_float(key)
+        writes[seg] += 1
+
+    pending = []                                        # arrivals, counted after the runs
+
+    def arrive(slot, part, seg, start, end):
+        partials[slot] = part
+        pending.append((slot, seg, start, end))
+
+    def slot(s):
+        return (rows[s], _key(x_all[perm[s]])) if s < n else (NO_SEGMENT, low)
+
+    for run in np.random.default_rng(order_seed).permutation(n_runs):
+        base = run * run_len
+        lanes = [[slot(base + v * lane + k) for k in range(v)] for lane in range(32)]
+        win = [slot(base + run_len + lane) for lane in range(32)]
+        first, last = lanes[0][0][0], lanes[31][v - 1][0]
+        f_start, f_end = indptr[first], indptr[first + 1]
+        l_start, l_end = (indptr[last], indptr[last + 1]) if last != NO_SEGMENT else (0, 0)
+        before = f_start < base
+        first_spread = before and f_end > (f_start // run_len + 1) * run_len + window
+        runs_on = last != NO_SEGMENT and win[0][0] == last
+        # the kernel places them from the ids at a few slots, not from indptr
+
+        def row(s):
+            return rows[s] if 0 <= s < n else NO_SEGMENT
+
+        assert before == (row(base - 1) == first)
+        assert first_spread == (before and (row(base - run_len - 1) == first
+                                            or row(base + window) == first))
+        last_own = runs_on and not (last == first and before)
+        assert (last_own and l_end > base + run_len + window) == (
+            last_own and row(base + run_len + window) == last)
+        fid, lid, head, tail = [], [], [], []
+        for sl in lanes:
+            cur, m, h = sl[0][0], sl[0][1], low
+            for seg, x in sl[1:]:
+                if seg != cur:
+                    if cur == sl[0][0]:
+                        h = m
+                    else:
+                        write(cur, m)
+                    cur, m = seg, x
+                else:
+                    m = max(m, x)
+            fid.append(sl[0][0])
+            lid.append(sl[-1][0])
+            head.append(h)
+            tail.append(m)
+        s = list(tail)
+        flag = [lane == 0 or fid[lane] != lid[lane] or lid[lane - 1] != fid[lane]
+                for lane in range(32)]
+        off = 1
+        while off < 32:                                  # the shuffle scan, step by step
+            s_old, f_old = list(s), list(flag)
+            for lane in range(off, 32):
+                if not f_old[lane]:
+                    s[lane] = max(s_old[lane - off], s_old[lane])
+                flag[lane] = f_old[lane] or f_old[lane - off]
+            off *= 2
+        parts = []
+
+        def finish(seg, val):
+            if seg == NO_SEGMENT:
+                return
+            if seg == first and before:
+                if first_spread:
+                    parts.append(val)
+            else:
+                write(seg, val)
+
+        for lane in range(32):
+            if fid[lane] != lid[lane]:
+                finish(fid[lane], max(s[lane - 1], head[lane])
+                       if lane > 0 and lid[lane - 1] == fid[lane] else head[lane])
+            if (lid[lane] != fid[lane + 1]) if lane < 31 else not runs_on:
+                finish(lid[lane], s[lane])
+        assert len(parts) <= 1
+        if parts:
+            arrive(2 * run, parts[0], first, f_start, f_end)
+        if runs_on:
+            if last == first and before:
+                arrive(2 * run, s[31], first, f_start, f_end)
+            elif l_end > base + run_len + window:
+                arrive(2 * run + 1, s[31], last, l_start, l_end)
+            else:
+                w = low
+                for seg, x in win:
+                    w = max(w, x) if seg == last else w
+                write(last, max(s[31], w))
+    rng = np.random.default_rng(order_seed + 1)
+    for i in rng.permutation(len(pending)):                # the counts, in their own order
+        slot_, seg, start, end = pending[i]
+        owner = start // run_len
+        parts = (end - 1) // run_len - owner + 1
+        arrivals[owner] += 1
+        if arrivals[owner] == parts:                     # the last to count combines
+            m = low
+            for j in range(parts):
+                got = partials[2 * owner + 1 if j == 0 else 2 * (owner + j)]
+                assert got is not None
+                m = max(m, got)
+            write(seg, m)
+            arrivals[owner] = 0
+            spread[seg] = parts
+    for seg in range(n_seg):                  # the threads past the runs, 4 segments each
+        if indptr[seg] == indptr[seg + 1]:
+            write(seg, _key(np.float32(-np.inf)))
+    assert not arrivals.any()
+    return out, writes, spread
+
+
+def _zipf_ids(n, n_seg, seed=24, power=1.1):
+    """``n`` ids over ``n_seg`` segments, id i drawn with p ∝ 1/(i +
+    1)^power, then the slots shuffled (``chip_smoke.zipf_heads``): a KG whose
+    head degrees follow a power law."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, n_seg + 1) ** power
+    return rng.permutation(rng.choice(n_seg, n, p=p / p.sum()))
+
+
+def _b2_cases():
+    """(ids, segments) of every path of the kernel's plan (runs of 128
+    slots): closed in the run, closed in the next run's first 32
+    slots, spread over 2 and over many runs, ending exactly on a run's end
+    and on the window's, a run that is all one segment, a ragged last run,
+    0 slots, 0 segments."""
+    rng = np.random.default_rng(7)
+
+    def of_lengths(lengths):
+        return rng.permutation(np.repeat(np.arange(len(lengths)), lengths)), len(lengths)
+
+    return {
+        "zipf": (_zipf_ids(3000, 300), 300),
+        "uniform": (rng.integers(0, 300, 3000), 300),
+        "ends_on_run_end": of_lengths([100, 28, 128, 64, 64, 1, 127]),
+        "ends_on_window_end": of_lengths([120, 40, 96, 160, 50]),
+        "one_past_window": of_lengths([120, 41, 95, 161, 49]),
+        "spans_many_runs": of_lengths([3, 1000, 0, 0, 2, 700, 5, 1]),
+        "one_segment": (np.full(1000, 2), 4),
+        "singletons": (rng.permutation(700), 750),
+        "exact_runs": (rng.integers(0, 9, 512), 9),
+        "n0": (np.zeros(0, np.int64), 5),
+        "no_segments": (np.zeros(0, np.int64), 0)}
+
+
+# {case: {spread segment: parts}} where the lengths fix it
+B2_SPREAD = {"ends_on_run_end": {}, "ends_on_window_end": {}, "one_past_window": {1: 2, 3: 2},
+             "spans_many_runs": {1: 8, 5: 7}, "one_segment": {2: 8}, "singletons": {},
+             "n0": {}, "no_segments": {}}
+
+
+@pytest.mark.parametrize("order_seed", [0, 2])
+@pytest.mark.parametrize("name", list(_b2_cases()))
+def test_b2_runs_plan(name, order_seed):
+    """The kernel's plan, run through its model: every segment written
+    exactly once (−inf where empty), the spread segments those that
+    ``spread_segments`` lists, each combined from all its parts, the
+    counters back at 0, in any order of the runs; the result bit-equal to
+    the plain version and to JAX's segment max, with a NaN inside the
+    longest segment."""
+    ids, n_seg = _b2_cases()[name]
+    lay = skn.build_segment_layout(ids, n_seg)
+    data = np.random.default_rng(1).normal(size=ids.size).astype(np.float32)
+    if ids.size:
+        longest = np.flatnonzero(ids == np.bincount(ids).argmax())
+        data[longest[len(longest) // 2]] = np.nan
+    got, writes, spread = _b2_model(lay, _t(data), order_seed)
+    again, *_ = _b2_model(lay, _t(data), order_seed + 1)
+    assert (writes == 1).all()
+    segs, owners, parts = skn.spread_segments(lay.csr.indptr)
+    assert spread == dict(zip(segs.tolist(), parts.tolist()))
+    np.testing.assert_array_equal(owners, lay.csr.indptr.numpy()[segs] // skn.RUN_SLOTS)
+    want = skn.segment_max(lay, _t(data)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(again.view(np.int32), got.view(np.int32))
+    jwant = np.asarray(jseg.segment_max(jnp.asarray(data), jnp.asarray(ids, jnp.int32), n_seg))
+    np.testing.assert_array_equal(got, jwant)
+    if name in B2_SPREAD:
+        assert spread == B2_SPREAD[name]
+
+
+def test_b2_signed_zeros():
+    """Of −0 and +0 in one segment the kernel's max is +0 in either order;
+    a segment of −0 alone gives −0."""
+    ids = np.repeat(np.arange(6), [2, 2, 200, 3, 1, 300])
+    data = np.full(ids.size, -1.0, np.float32)
+    data[[0, 3]] = -0.0
+    data[[1, 2]] = 0.0
+    data[4:204] = np.where(np.arange(200) % 2, -0.0, 0.0)
+    data[204:207] = -0.0
+    data[207] = 0.0
+    data[208:] = -0.0
+    lay = skn.build_segment_layout(ids, 6)
+    got, writes, _ = _b2_model(lay, _t(data))
+    assert (writes == 1).all() and (got == 0).all()
+    np.testing.assert_array_equal(np.signbit(got), [False, False, False, True, False, True])
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 1000, 12345, 300000])
+def test_segmax_plan(n):
+    """The plan's runs of 128 slots and its scratch: zero counters, two
+    parts a run, made once a layout; the call's epoch runs from 1 to
+    2^32 − 1, then wraps to 1."""
+    lay = skn.build_segment_layout(np.arange(n) % 7, 7)
+    plan = skn.segmax_plan(lay)
+    assert plan.n_runs == -(-n // 128) and plan.partials.shape == (2 * plan.n_runs,)
+    assert plan.arrivals.shape == (plan.n_runs,)
+    assert plan.arrivals.dtype == torch.int32 and not plan.arrivals.any()
+    assert plan.partials.dtype == torch.int64 and not plan.partials.any()
+    assert skn.segmax_plan(lay) is plan
+    assert [plan.next_epoch() for _ in range(3)] == [1, 2, 3]
+    plan.epoch = 2 ** 32 - 1
+    assert plan.next_epoch() == 1
+
+
+@pytest.mark.parametrize("lengths,want", [
+    ([128, 5], {}),                       # ends on its run's end
+    ([160, 5], {}),                       # ends on the window's end
+    ([161, 5], {0: 2}),                   # one slot past the window
+    ([100, 60, 5], {}),                   # straddles two runs, closed in the window
+    ([100, 61, 5], {1: 2}),               # straddles two runs, past the window
+    ([3, 640, 0, 5], {1: 6})])            # over six runs, an empty one after it
+def test_spread_segments(lengths, want):
+    """The host's rule for the segments the kernel combines across runs:
+    those that end more than ``RUN_WINDOW`` slots past the end of the run of
+    their first slot, each with its owner and the runs it touches."""
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    segs, owners, parts = skn.spread_segments(indptr)
+    assert dict(zip(segs.tolist(), parts.tolist())) == want
+    np.testing.assert_array_equal(owners, indptr[segs] // skn.RUN_SLOTS)
+
+
+def test_segment_max_zipf_against_jax():
+    """B2's plain version on the seeded power-law heads at a small size
+    (6,000 slots into 600 segments, a tenth of them or more empty) against
+    JAX's segment max, bit for bit: −inf for the empty segments, NaN inside
+    the longest, all −1e9; and on a strided column of [n, 2] logits."""
+    ids = _zipf_ids(6000, 600)
+    lay = skn.build_segment_layout(ids, 600)
+    counts = np.bincount(ids, minlength=600)
+    assert counts.max() > 500 and (counts == 0).sum() >= 60
+    rng = np.random.default_rng(3)
+    logits = (rng.normal(size=(ids.size, 2)) * 5).astype(np.float32)
+    nan = logits[:, 0].copy()
+    nan[np.flatnonzero(ids == counts.argmax())[100]] = np.nan
+    for data in (logits[:, 0], nan, np.full(ids.size, -1e9, np.float32), logits[:, 1]):
+        got = skn.segment_max(lay, _t(data)).numpy()
+        want = np.asarray(jseg.segment_max(jnp.asarray(data), jnp.asarray(ids, jnp.int32), 600))
+        np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+        assert (got[counts == 0] == -np.inf).all()
+    column = skn.segment_max(lay, _t(logits)[:, 1])
+    np.testing.assert_array_equal(column.numpy(), skn.segment_max(lay, _t(logits[:, 1])).numpy())
+    assert np.isnan(skn.segment_max(lay, _t(nan)).numpy()[counts.argmax()])
 
 
 def test_kernels_match_plain_on_cuda():
@@ -287,29 +555,24 @@ def test_kernels_match_plain_on_cuda():
     ids = np.concatenate([rng.integers(0, 300, 5000), np.zeros(2000, np.int64)])
     ids = rng.permutation(ids)
     lay = skn.build_segment_layout(ids, 310, "cuda")
-    assert lay.group_width == 8 and lay.long_segments.tolist() == [0]
-    short = rng.permutation(np.concatenate([rng.integers(0, 3000, 30000),
-                                            np.full(5000, 3001)]))   # packed + long bin
-    lay_short = skn.build_segment_layout(short, 3010, "cuda")
-    lengths = np.bincount(short, minlength=3010)
-    assert lay_short.group_width == 4 and 3001 in lay_short.long_segments.tolist()
-    np.testing.assert_array_equal(lay_short.long_segments.cpu().numpy(),
-                                  np.flatnonzero(lengths > skn.LONG_STRIDES * 4))
-    cases = [(lay, ids.size), (lay_short, short.size)]
-    for width, mean in ((16, 60), (32, 200)):     # the host's other two group widths
-        lengths = rng.integers(mean // 2, 3 * mean // 2 + 1, 200)
-        lengths[7], lengths[9] = 0, 10 * mean       # empty, and for the whole-warp bin
-        ids_w = rng.permutation(np.repeat(np.arange(lengths.size), lengths))
-        lay_w = skn.build_segment_layout(ids_w, lengths.size, "cuda")
-        assert lay_w.group_width == width and 9 in lay_w.long_segments.tolist()
-        cases.append((lay_w, ids_w.size))
-    for lay_c, n in cases:
-        for data in (torch.randn(n, device="cuda"), torch.full((n,), -1e9, device="cuda")):
+    cases = [(lay, None), *((skn.build_segment_layout(i, s, "cuda"), None)
+                            for i, s in _b2_cases().values())]
+    more_runs = sk.resident_threads(0) * 4 + 1     # more runs than the card holds warps
+    cases.append((skn.build_segment_layout(_zipf_ids(more_runs, 30000), 30000, "cuda"), None))
+    logits = torch.randn(ids.size, 2, device="cuda")
+    cases.append((lay, logits[:, 1]))                 # a strided column, read in place
+    for lay_c, column in cases:
+        n = lay_c.n
+        for data in ((torch.randn(n, device="cuda"), torch.full((n,), -1e9, device="cuda"))
+                     if column is None else (column,)):
             before = skn.segment_max.launches
             got = skn.segment_max(lay_c, data)
             assert skn.segment_max.launches == before + 1
             torch.cuda.synchronize()
-            assert torch.equal(got, skn.segment_max_plain(lay_c, data))
+            want = skn.segment_max_plain(lay_c, data.contiguous())
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            assert torch.equal(skn.segment_max(lay_c, data).view(torch.int32),
+                               got.view(torch.int32))
     rel = skn.OneHotTake(rng.integers(0, 41, 30000), 41, "cuda")
     g_rel = torch.randn(30000, 64, device="cuda")
     table = torch.randn(41, 64, device="cuda", requires_grad=True)
